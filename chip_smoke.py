@@ -5,14 +5,27 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the served path from ``csrc/``, holds each
-kernel against its plain PyTorch version on the card, then serves
-GPT-2-small (``TransformerLM`` at its published width, random seeded
-weights) through ``ParallelInference``'s batched dispatcher and checks the
-answers. Any failure raises (exit code != 0). The last line of standard
-output is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel with its launches on the served path, its error against the
-plain version and its times (CUDA events) beside its bound.
+It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
+started together) and runs three phases:
+
+1. kernels: each kernel against its plain PyTorch version on the card, at
+   the shapes the main paths give it and a few more, timed (CUDA events)
+   beside its bound, its plain version and a PyTorch library call that
+   computes the same function;
+2. serving: GPT-2-small (``TransformerLM`` at its published width, random
+   seeded weights) answers 16 requests through ``ParallelInference``'s
+   batched dispatcher; the answers are checked;
+3. training: GPT-2-small takes 5 ``ComputationGraph.fit`` steps with Adam
+   through the fused updater helper; the loss must fall, every kernel must
+   launch its expected count per step, and one batch's loss and gradients
+   must agree with the plain attention path's on a twin network. Two more
+   steps run under ``torch.profiler``: their device time by kernel group
+   and the device's busy share are printed.
+
+Any failure raises (exit code != 0). The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it lists every kernel
+with its launches on the main paths, its error against the plain version
+and its times beside its bound.
 
 float32 matrix products run in full float32: TF32 is switched off.
 """
@@ -32,12 +45,39 @@ SERVED_SHAPE = (8, 12, 1024, 64)  # [N, H, T, Dh] of GPT-2-small, batch 8
 KERNEL_SHAPES = [(SERVED_SHAPE, True), ((1, 2, 2048, 64), True),
                  ((2, 4, 256, 128), False), ((2, 2, 128, 256), True)]
 KERNEL_TOL = 1e-4  # f32 both ways; only the summation order differs
+# backward: max |kernel - plain| over each gradient, relative to the
+# gradient's largest entry (sums over up to T products of order 1)
+BWD_TOL = 1e-4
+BWD_SHAPES = [(SERVED_SHAPE, True), ((2, 4, 256, 128), False),
+              ((2, 2, 128, 256), True)]
+# fused updater: max |kernel - plain| over each of p, m, v (and v-hat),
+# relative to that tensor's largest entry; the same float32 coefficients
+# both ways, only the kernel's fused multiply-adds round differently
+ADAM_TOL = 1e-5
 # the served answer against the same row with the plain attention path:
 # |a - b| <= ATOL + RTOL * |b| over softmax probabilities (f32 through 12
 # blocks; attention sums in another order)
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-8
 ROWSUM_TOL = 1e-4
 N_CLIENTS, N_REQUESTS, T = 8, 16, 1024
+TRAIN_N, TRAIN_STEPS, PROFILED_STEPS = 8, 5, 2
+# profile groups: (group, substrings of a kernel's name), first match wins
+KERNEL_GROUPS = (
+    ("K3a flash_attention_fwd", ("flash_attention_fwd_kernel",)),
+    ("K3b flash_attention_bwd_dq", ("flash_attention_bwd_dq_kernel",)),
+    ("K3b flash_attention_bwd_dkv", ("flash_attention_bwd_dkv_kernel",)),
+    ("K2 fused_adam", ("fused_adam_kernel",)),
+    ("matrix products", ("gemm", "cutlass", "xmma", "sm90_", "ampere_")),
+    ("softmax", ("softmax",)),
+    ("gathers and scatters", ("index", "scatter", "gather", "embedding")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+# the kernel path against the plain attention path on one batch: the loss
+# within 1e-6 relative, each parameter's gradient within 1e-5 x its
+# largest entry (f32 through 12 blocks, attention summed in another order;
+# the first run on an H100 measured 0.0 and 7.4e-7)
+LOSS_RTOL, GRAD_TOL = 1e-6, 1e-5
 
 
 def card_peaks(name: str):
@@ -52,15 +92,23 @@ def card_peaks(name: str):
     return 67e12, 3.35e12, "H100 SXM: 67 TFLOP/s f32, 3.35 TB/s"
 
 
-def flash_bound(shape, causal, peaks):
-    """Least time (ms) for the attention forward: each input read once, the
-    output written once, against the multiply-adds this causality needs."""
-    n, h, t, dh = shape
-    pairs = t * (t + 1) // 2 if causal else t * t
-    flops = 4.0 * n * h * dh * pairs  # q.kT and p.v, 2 flops per multiply-add
-    nbytes = 4.0 * 4 * n * h * t * dh
+def bound(flops, nbytes, peaks):
+    """(least time in ms, what bounds it): the larger of the operations
+    over the f32 rate and the bytes over the memory rate."""
     t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_bound(shape, causal, peaks, products=2, heads_io=4, rows_io=0):
+    """Least time (ms) for an attention kernel doing ``products`` [T x T x
+    Dh] matrix products over the pairs this causality needs, reading and
+    writing ``heads_io`` [N,H,T,Dh] and ``rows_io`` [N,H,T] f32 tensors
+    once each. The forward: 2 products (q.kT, p.v), q, k, v in, o out."""
+    n, h, t, dh = shape
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = 2.0 * products * n * h * dh * pairs  # 2 flops per multiply-add
+    nbytes = 4.0 * n * h * t * (heads_io * dh + rows_io)
+    return bound(flops, nbytes, peaks)
 
 
 def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -79,22 +127,29 @@ def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def _randn(rng, shape, scale=1.0):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            * np.float32(scale)).cuda()
+
+
 def kernel_phase(ck, peaks):
     import torch.nn.functional as F
     rng = np.random.default_rng(0)
     rows = {}
     for shape, causal in KERNEL_SHAPES:
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-                   .cuda() for _ in range(3))
-        out = ck.flash_attention_fwd(q, k, v, causal)
+        q, k, v = (_randn(rng, shape) for _ in range(3))
+        out, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
         torch.cuda.synchronize()
-        plain = ck.flash_attention_plain(q, k, v, causal)
+        plain, plain_lse = ck.flash_attention_plain(q, k, v, causal,
+                                                    return_lse=True)
         err = (out - plain).abs().max().item()
-        if not err <= KERNEL_TOL:
+        lse_err = (lse - plain_lse).abs().max().item()
+        if not (err <= KERNEL_TOL and lse_err <= KERNEL_TOL):
             raise RuntimeError(f"flash_attention_fwd {shape} causal={causal}: "
-                               f"max abs err {err} > {KERNEL_TOL}")
+                               f"max abs err {err} (lse {lse_err}) > {KERNEL_TOL}")
         row = {
             "shape": list(shape), "causal": causal, "max_abs_err": err,
+            "lse_max_abs_err": lse_err,
             "ms": median_ms(lambda: ck.flash_attention_fwd(q, k, v, causal)),
             "plain_ms": median_ms(lambda: ck.flash_attention_plain(q, k, v, causal)),
             "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
@@ -103,8 +158,134 @@ def kernel_phase(ck, peaks):
         row["bound_ms"], row["bound_by"] = flash_bound(shape, causal, peaks)
         print("kernel flash_attention_fwd " + json.dumps(row), flush=True)
         rows[(shape, causal)] = row
-        del q, k, v, out, plain
+        del q, k, v, out, lse, plain, plain_lse
     return rows[(SERVED_SHAPE, True)]
+
+
+def backward_phase(ck, peaks):
+    """K3b: the dq and dk/dv kernels against their plain versions on the
+    forward kernel's own o and LSE; library: the backward of
+    ``F.scaled_dot_product_attention`` (dq, dk and dv in one call)."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(1)
+    served = None
+    for shape, causal in BWD_SHAPES:
+        q, k, v, do = (_randn(rng, shape) for _ in range(4))
+        o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+        dq, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+        dk, dv = ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, causal)
+        torch.cuda.synchronize()
+        p_dq, p_d = ck.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+        p_dk, p_dv = ck.flash_attention_bwd_dkv_plain(q, k, v, lse, do, p_d, causal)
+        errs = {}
+        for name, got, ref in (("dq", dq, p_dq), ("d", d, p_d), ("dk", dk, p_dk),
+                               ("dv", dv, p_dv)):
+            err = (got - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            errs[name] = err
+            if not err <= BWD_TOL * scale:
+                raise RuntimeError(f"flash backward {shape} causal={causal}: "
+                                   f"{name} max abs err {err} > {BWD_TOL} x {scale}")
+        ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        lib_ms = median_ms(lambda: torch.autograd.grad(
+            lib_out, (ql, kl, vl), do, retain_graph=True))
+        rows = {
+            "dq": {"max_abs_err": max(errs["dq"], errs["d"]),
+                   "ms": median_ms(lambda: ck.flash_attention_bwd_dq(
+                       q, k, v, o, lse, do, causal)),
+                   "plain_ms": median_ms(lambda: ck.flash_attention_bwd_dq_plain(
+                       q, k, v, o, lse, do, causal)),
+                   "library_ms": lib_ms},
+            "dkv": {"max_abs_err": max(errs["dk"], errs["dv"]),
+                    "ms": median_ms(lambda: ck.flash_attention_bwd_dkv(
+                        q, k, v, lse, do, d, causal)),
+                    "plain_ms": median_ms(lambda: ck.flash_attention_bwd_dkv_plain(
+                        q, k, v, lse, do, p_d, causal)),
+                    "library_ms": lib_ms},
+        }
+        # dq: S, dP, dQ; reads q, k, v, o, dO and LSE, writes dQ and D.
+        # dk/dv: S, dP, dV, dK; reads q, k, v, dO, LSE and D, writes dK, dV.
+        rows["dq"]["bound_ms"], rows["dq"]["bound_by"] = flash_bound(
+            shape, causal, peaks, products=3, heads_io=6, rows_io=2)
+        rows["dkv"]["bound_ms"], rows["dkv"]["bound_by"] = flash_bound(
+            shape, causal, peaks, products=4, heads_io=6, rows_io=2)
+        for name, row in rows.items():
+            row.update(shape=list(shape), causal=causal)
+            print(f"kernel flash_attention_bwd_{name} " + json.dumps(row),
+                  flush=True)
+        if (shape, causal) == (SERVED_SHAPE, True):
+            served = rows
+        del q, k, v, do, o, lse, dq, d, dk, dv, p_dq, p_d, p_dk, p_dv
+        del ql, kl, vl, lib_out
+    return served
+
+
+def adam_phase(ck, peaks):
+    """K2 on GPT-2-small's own parameter shapes (the output matrix, its
+    bias of odd length 50257, the first fused QKV matrix, and the bias as
+    a view one float into its buffer, which takes the kernel's unaligned
+    path) for Adam, AMSGrad and Nadam over steps t = 1..3; timed on the
+    output matrix with Adam. Library: ``torch._fused_adam_`` on the same
+    single tensor."""
+    from deeplearning4j_tpu_torch.nn.updaters import AMSGrad, Adam, Nadam
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    conf = TransformerLM().conf()
+    out_shapes = conf.vertices["out"].obj.param_shapes()
+    tensors = {"out/W": out_shapes["W"], "out/b": out_shapes["b"],
+               "block0-att/Wqkv": conf.vertices["block0-att"].obj.param_shapes()["Wqkv"],
+               "out/b, unaligned": out_shapes["b"]}
+    kinds = ((ck.ADAM, Adam(3e-4)), (ck.AMSGRAD, AMSGrad(3e-4)),
+             (ck.NADAM, Nadam(3e-4)))
+    rng = np.random.default_rng(2)
+    worst, worst_rel = 0.0, 0.0
+    for name, shape in tensors.items():
+        for kind, upd in kinds:
+            n = int(np.prod(shape))
+            if name.endswith("unaligned"):
+                p = _randn(rng, (n + 1,), 0.02)[1:]
+            else:
+                p = _randn(rng, shape, 0.02)
+            m, v = torch.zeros_like(p), torch.zeros_like(p)
+            vh = torch.zeros_like(p) if kind == ck.AMSGRAD else None
+            ref = [t.clone() if t is not None else None for t in (p, m, v, vh)]
+            for t in (1.0, 2.0, 3.0):
+                g = _randn(rng, p.shape, 1e-2)
+                coef = ck.adam_coefficients(upd, 3e-4, t)
+                ck.fused_adam(kind, p, m, v, vh, g, coef)
+                ck.fused_adam_plain(kind, *ref, g, coef)
+                torch.cuda.synchronize()
+                for label, got, want in zip(("p", "m", "v", "v_hat"),
+                                            (p, m, v, vh), ref):
+                    if want is None:
+                        continue
+                    err = (got - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    worst, worst_rel = max(worst, err), max(worst_rel, err / scale)
+                    if not err <= ADAM_TOL * scale:
+                        raise RuntimeError(
+                            f"fused_adam {name} {type(upd).__name__} t={t}: "
+                            f"{label} max abs err {err} > {ADAM_TOL} x {scale}")
+    p, g = _randn(rng, tensors["out/W"], 0.02), _randn(rng, tensors["out/W"], 1e-2)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    coef = ck.adam_coefficients(Adam(3e-4), 3e-4, 1.0)
+    step = torch.ones((), device=p.device)
+    row = {
+        "shape": list(tensors["out/W"]), "updater": "Adam", "max_abs_err": worst,
+        "max_err_rel_to_max": worst_rel,
+        "ms": median_ms(lambda: ck.fused_adam(ck.ADAM, p, m, v, None, g, coef)),
+        "plain_ms": median_ms(lambda: ck.fused_adam_plain(ck.ADAM, p, m, v, None,
+                                                          g, coef)),
+        "library_ms": median_ms(lambda: torch._fused_adam_(
+            [p], [g], [m], [v], [], [step], lr=3e-4, beta1=0.9, beta2=0.999,
+            weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)),
+    }
+    # reads p, m, v, g and writes p, m, v: 28 bytes and ~12 flops an element
+    row["bound_ms"], row["bound_by"] = bound(12.0 * p.numel(), 28.0 * p.numel(),
+                                             peaks)
+    print("kernel fused_adam " + json.dumps(row), flush=True)
+    return row
 
 
 def serving_phase(ck, card, served_ms):
@@ -204,6 +385,168 @@ def serving_phase(ck, card, served_ms):
     return launches
 
 
+def kernel_group(name: str) -> str:
+    low = name.lower()
+    for group, keys in KERNEL_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def profile_steps(net, x, labels):
+    """Device time of PROFILED_STEPS more fit steps under torch.profiler,
+    per step: by kernel group, in all, and as a share of the step's wall
+    time (host clock around steps that end in a synchronize; kernels of
+    one stream do not overlap), with the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            net.fit(x, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    per_kernel = {}
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            per_kernel[e.key] = (per_kernel.get(e.key, 0.0)
+                                 + us / 1e3 / PROFILED_STEPS)
+    if not per_kernel:
+        raise RuntimeError("torch.profiler recorded no device time")
+    groups = {}
+    for name, ms in per_kernel.items():
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+    device_ms = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "steps": PROFILED_STEPS, "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
+        "device_ms_per_step_by_group": dict(sorted(groups.items(),
+                                                   key=lambda kv: -kv[1])),
+        "top_kernels_ms_per_step": [[k[:100], v] for k, v in top],
+    }
+
+
+def training_phase(ck, card):
+    """GPT-2-small takes TRAIN_STEPS fit steps on one seeded batch with the
+    fused updater registered, then PROFILED_STEPS more under the profiler;
+    then the parity check on a twin network."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.util.convert import (export_params,
+                                                       load_reference_params)
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = TransformerLM().init()  # GPT-2-small, f32, seed 123, on cuda
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    n_tensors = sum(len(named) for named in net.params.values())
+    rng = np.random.default_rng(123)
+    ids = torch.from_numpy(rng.integers(0, vocab, (TRAIN_N, T))).cuda()
+    x = ids.float()  # token ids arrive as floats, as in serving
+    # next-token one-hot labels, built on the device
+    labels = F.one_hot(torch.cat([ids[:, 1:], ids[:, -1:]], 1), vocab).float()
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+
+    counters = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+                ck.flash_attention_bwd_dkv, ck.fused_adam)
+    for c in counters:
+        c.launches = 0
+    losses, events = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        net.fit(x, labels)
+        end.record()
+        events.append((start, end))
+        losses.append(net.score_)  # waits for the step
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    # the whole window, first start to last end (host gaps between steps
+    # included), and the same without the first step's warm-up
+    window_ms = events[0][0].elapsed_time(events[-1][1])
+    warm_window_ms = events[1][0].elapsed_time(events[-1][1])
+
+    want = {"flash_attention_fwd": n_layers, "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers, "fused_adam": n_tensors}
+    for name, per_step in want.items():
+        if launches[name] != per_step * TRAIN_STEPS:
+            raise RuntimeError(f"{name}: {launches[name]} launches in "
+                               f"{TRAIN_STEPS} steps, expected {per_step} a step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"training did not progress: losses {losses}")
+    profile = profile_steps(net, x, labels)  # after the counts were read
+
+    # parity on the card: the kernel path against the plain attention path
+    # (and stock autograd) on a twin with the same weights, one batch
+    twin = load_reference_params(TransformerLM().init(), export_params(net))
+    g_k, loss_k = net.compute_gradient_and_score(x, labels)
+    helpers.set_auto_flash_attention(False)
+    try:
+        g_p, loss_p = twin.compute_gradient_and_score(x, labels)
+    finally:
+        helpers.set_auto_flash_attention(True)
+    del twin
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst_name, worst = None, 0.0
+    for v, named in g_p.items():
+        for n, gp in named.items():
+            ratio = ((g_k[v][n] - gp).abs().max() / gp.abs().max().clamp_min(
+                1e-30)).item()
+            if ratio > worst:
+                worst_name, worst = f"{v}/{n}", ratio
+    if not (loss_rel <= LOSS_RTOL and worst <= GRAD_TOL):
+        raise RuntimeError(f"kernel path disagrees with the plain path: loss "
+                           f"{loss_k} vs {loss_p} (rel {loss_rel}), worst "
+                           f"gradient {worst_name} at {worst} x its max")
+
+    # one update of all the tensors: the fused kernel (one launch each)
+    # against the stock updater math and one multi-tensor library call
+    # (these launches come after the counts were read)
+    flat = [(net.params[v][n], g_k[v][n], net.updater_states[v][n])
+            for v in net.params for n in net.params[v]]
+    update_ms = median_ms(lambda: net._apply_updates(g_k), runs=5, warmup=1)
+    helpers.clear_helper("updater")
+    stock_ms = median_ms(lambda: net._apply_updates(g_k), runs=5, warmup=1)
+    step_t = [torch.ones((), device=x.device) for _ in flat]
+    lib_ms = median_ms(lambda: torch._fused_adam_(
+        [p for p, _, _ in flat], [g for _, g, _ in flat],
+        [s["m"] for _, _, s in flat], [s["v"] for _, _, s in flat], [], step_t,
+        lr=3e-4, beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+        amsgrad=False, maximize=False), runs=5, warmup=1)
+    n_elems = sum(p.numel() for p, _, _ in flat)
+    stats = {
+        "card": card, "batch": [TRAIN_N, T], "steps": TRAIN_STEPS,
+        "losses": losses, "step_ms": step_ms,
+        "median_step_ms": float(np.median(step_ms)),
+        "window_ms": window_ms,
+        "tokens_per_s": TRAIN_STEPS * TRAIN_N * T / (window_ms / 1e3),
+        "tokens_per_s_after_first_step":
+            (TRAIN_STEPS - 1) * TRAIN_N * T / (warm_window_ms / 1e3),
+        "launches": launches, "launches_per_step": {
+            k: v // TRAIN_STEPS for k, v in launches.items()},
+        "parity_loss_kernel": loss_k, "parity_loss_plain": loss_p,
+        "parity_loss_rel": loss_rel, "parity_worst_grad": worst_name,
+        "parity_worst_grad_rel_to_max": worst,
+        "update_all_tensors_ms": update_ms, "update_elements": n_elems,
+        "update_stock_ms": stock_ms, "update_library_ms": lib_ms,
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile": profile,
+    }
+    print("train " + json.dumps(stats), flush=True)
+    del net, g_k, g_p, flat, labels
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -227,16 +570,39 @@ def main() -> None:
           f"source(s)", flush=True)
 
     served = kernel_phase(ck, peaks)
-    launches = serving_phase(ck, card, served["ms"])
+    bwd = backward_phase(ck, peaks)
+    adam = adam_phase(ck, peaks)
+    serve_launches = serving_phase(ck, card, served["ms"])
+    train_launches = training_phase(ck, card)
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "deeplearning4j_tpu/nn/pallas_kernels.py:359",
-        "launches": launches, "max_abs_err": served["max_abs_err"],
-        "ms": served["ms"], "plain_ms": served["plain_ms"],
-        "bound_ms": served["bound_ms"], "bound_by": served["bound_by"],
-        "library_ms": served["library_ms"]}]}), flush=True)
+    def entry(name, source, replaces, row, launches, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"deeplearning4j_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                **extra}
+
+    fwd = "flash_attention_fwd"
+    print(json.dumps({"kernels": [
+        entry(fwd, "flash_attention_fwd.cu",
+              "deeplearning4j_tpu/nn/pallas_kernels.py:359", served,
+              serve_launches + train_launches[fwd],
+              launches_by_path={"serve": serve_launches,
+                                "train": train_launches[fwd]}),
+        entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+              "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
+              "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dkv"],
+              train_launches["flash_attention_bwd_dkv"]),
+        entry("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+              "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
+              "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dq"],
+              train_launches["flash_attention_bwd_dq"]),
+        entry("fused_adam", "fused_adam.cu",
+              "deeplearning4j_tpu/nn/pallas_kernels.py:218", adam,
+              train_launches["fused_adam"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,6 +23,10 @@
 //     115 KB and 211 KB of shared memory, so the launch raises the
 //     dynamic shared-memory limit with cudaFuncSetAttribute.
 //   * f32 FMAs on the CUDA cores, no TF32. wgmma and TMA come later.
+//   * optional LSE output for the backward (csrc/flash_attention_bwd.cu):
+//     lse[n*h, T] = m + log(l), the natural-log logsumexp of the SCALED
+//     scores q.k / sqrt(Dh) of each row. A null pointer skips it, so the
+//     inference path writes nothing extra.
 //
 // Bound at the served GPT-2-small shape [N=8, H=12, T=1024, Dh=64], causal:
 //   operations 4*N*H*Dh*T(T+1)/2 = 12.9 GFLOP -> 0.19 ms at the H100 SXM's
@@ -74,7 +78,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_fwd_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ o, int T, float scale_log2) {
+                           float* __restrict__ o, float* __restrict__ lse,
+                           int T, float scale_log2) {
     using S = Tiles<DH>;
     constexpr int DC = DH / 64;  // 64-wide column chunks of O per thread row
     extern __shared__ float4 smem4[];
@@ -218,11 +223,18 @@ flash_attention_fwd_kernel(const float* __restrict__ q,
             *reinterpret_cast<float4*>(oh + (size_t)row * DH + ch * 64 + tx * 4) = out;
         }
     }
+    if (lse != nullptr && tx == 0) {
+        // m is in base-2 units of the scaled scores: ln(sum) = (m + log2 l) ln 2
+        float* lh = lse + (size_t)blockIdx.x * T + (size_t)qt * BM;
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+            lh[ty * 4 + a] = (m[a] + log2f(l[a])) * 0.6931471805599453f;
+    }
 }
 
 template <int DH, bool CAUSAL>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int bh, int t, cudaStream_t stream) {
+                   float* lse, int bh, int t, cudaStream_t stream) {
     auto kernel = flash_attention_fwd_kernel<DH, CAUSAL>;
     const size_t smem = Tiles<DH>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
@@ -230,25 +242,25 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
     if (err != cudaSuccess) return err;
     const float scale_log2 = 1.4426950408889634f / sqrtf((float)DH);
     const dim3 grid(bh, t / BM);
-    kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, t, scale_log2);
+    kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, t, scale_log2);
     return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_dh(const float* q, const float* k, const float* v, float* o,
-                      int bh, int t, int causal, cudaStream_t stream) {
-    return causal ? launch<DH, true>(q, k, v, o, bh, t, stream)
-                  : launch<DH, false>(q, k, v, o, bh, t, stream);
+                      float* lse, int bh, int t, int causal, cudaStream_t stream) {
+    return causal ? launch<DH, true>(q, k, v, o, lse, bh, t, stream)
+                  : launch<DH, false>(q, k, v, o, lse, bh, t, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous [bh, t, dh] f32 on the device; t % 64 == 0,
-// dh in {64, 128, 256}, 0 < t / 64 <= 65535. Returns a cudaError_t
-// (0 = launched).
+// q, k, v, o: contiguous [bh, t, dh] f32 on the device; lse: [bh, t] f32
+// or null; t % 64 == 0, dh in {64, 128, 256}, 0 < t / 64 <= 65535.
+// Returns a cudaError_t (0 = launched).
 extern "C" int dl4j_flash_attention_fwd_f32(const void* q, const void* k,
-                                            const void* v, void* o, int bh,
-                                            int t, int dh, int causal,
+                                            const void* v, void* o, void* lse,
+                                            int bh, int t, int dh, int causal,
                                             void* stream) {
     if (bh <= 0 || t <= 0 || t % BM != 0 || t / BM > 65535)
         return (int)cudaErrorInvalidValue;
@@ -256,11 +268,12 @@ extern "C" int dl4j_flash_attention_fwd_f32(const void* q, const void* k,
     const float* kf = static_cast<const float*>(k);
     const float* vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(o);
+    float* lf = static_cast<float*>(lse);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dh) {
-        case 64: return (int)launch_dh<64>(qf, kf, vf, of, bh, t, causal, s);
-        case 128: return (int)launch_dh<128>(qf, kf, vf, of, bh, t, causal, s);
-        case 256: return (int)launch_dh<256>(qf, kf, vf, of, bh, t, causal, s);
+        case 64: return (int)launch_dh<64>(qf, kf, vf, of, lf, bh, t, causal, s);
+        case 128: return (int)launch_dh<128>(qf, kf, vf, of, lf, bh, t, causal, s);
+        case 256: return (int)launch_dh<256>(qf, kf, vf, of, lf, bh, t, causal, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -3,8 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/network.py``: the global
 defaults that layers inherit, and the fluent builder down to
 ``graph_builder()``. The training-only setters (regularization, dropout,
-constraints, gradient normalization) and ``list()`` come with the training
-slice; ``updater(...)`` is stored as configuration only.
+constraints, gradient normalization) and ``list()`` come with the next
+training slice. ``updater(...)`` and ``bias_updater(...)`` resolve their argument
+(a name, an ``Updater`` or its dict) through ``resolve_updater``, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Any, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.updaters import Updater, resolve_updater
 from deeplearning4j_tpu_torch.nn.weights import Distribution
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -29,8 +32,8 @@ class GlobalConf:
     weight_init: Optional[str] = "xavier"
     distribution: Optional[Distribution] = None
     bias_init: Optional[float] = 0.0
-    # stored, not applied: updaters come with the training slice
-    updater: Optional[Any] = None
+    updater: Optional[Updater] = None
+    bias_updater: Optional[Updater] = None
     dtype: str = "float32"
     # mixed precision (forward cast to this dtype); not supported by the
     # port's forward yet — ComputationGraph raises when it is set
@@ -77,8 +80,11 @@ class Builder:
         return self
 
     def updater(self, u) -> "Builder":
-        """Stored as configuration only (a name, or ``(name, hyperparams)``)."""
-        self._g.updater = u
+        self._g.updater = resolve_updater(u)
+        return self
+
+    def bias_updater(self, u) -> "Builder":
+        self._g.bias_updater = resolve_updater(u)
         return self
 
     def dtype(self, dt: str) -> "Builder":

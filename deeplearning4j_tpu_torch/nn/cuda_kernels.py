@@ -4,15 +4,26 @@ Counterpart of ``deeplearning4j_tpu/nn/pallas_kernels.py``. Ported so far:
 
 - K3a, the causal/bidirectional flash-attention forward
   (``PallasFlashAttentionHelper.attend``, ``pallas_kernels.py:359``):
-  ``csrc/flash_attention_fwd.cu``, wrapped by :func:`flash_attention_fwd`
-  and served through :class:`FlashAttentionHelper`.
+  ``csrc/flash_attention_fwd.cu``, wrapped by :func:`flash_attention_fwd`,
+  which can also return the row LSE the backward needs.
+- K3b, its backward (the bundled kernel's custom VJP): two kernels in
+  ``csrc/flash_attention_bwd.cu``, :func:`flash_attention_bwd_dq` (dQ and
+  D = rowsum(dO * O)) and :func:`flash_attention_bwd_dkv` (dK, dV).
+  :class:`FlashAttentionFunction` ties K3a and K3b into one autograd
+  function; :class:`FlashAttentionHelper` serves it at the "attention"
+  seam.
+- K2, the fused Adam / AMSGrad / Nadam update (``_fused_update_rows``,
+  ``pallas_kernels.py:218``, via ``PallasUpdaterHelper.apply`` :280):
+  ``csrc/fused_adam.cu``, wrapped by :func:`fused_adam` and served at the
+  "updater" seam by :class:`FusedUpdaterHelper`.
 
 Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``build/`` beside ``csrc/``,
 and loaded with ``ctypes``. Importing this module runs no compiler. A
 wrapper launches its kernel for CUDA tensors (or raises: nothing falls
 back) and computes the plain version for CPU tensors, which is what the
-CPU tests run. ``flash_attention_fwd.launches`` counts kernel launches.
+CPU tests run. Each wrapper's ``launches`` attribute counts its kernel
+launches.
 """
 
 from __future__ import annotations
@@ -27,9 +38,17 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.nn.helpers import AttentionHelper
+from deeplearning4j_tpu_torch.nn.helpers import AttentionHelper, UpdaterHelper
+from deeplearning4j_tpu_torch.nn.updaters import (
+    AMSGrad,
+    Adam,
+    Nadam,
+    _adam_alpha,
+    _pow1m,
+)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -38,6 +57,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _build_lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict = {}
 
 
@@ -107,76 +127,211 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-# ------------------------------------------------------------- K3a: flash fwd
-_FLASH_SRC = "flash_attention_fwd.cu"
-SOURCES = (_FLASH_SRC,)
-_FLASH_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_count_lock = threading.Lock()
+def _on_cpu(name: str, *tensors) -> bool:
+    """True when every tensor lies on the CPU (the wrapper then computes
+    the plain version); False when all lie on one CUDA device; raises
+    otherwise."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors must lie on one CUDA device (or all "
+                         f"on the CPU); got {[str(t.device) for t in tensors]}")
+    return False
 
 
-def flash_attention_plain(q, k, v, causal: bool = False):
-    """Plain PyTorch version of the kernel: ``softmax(q kᵀ / √Dh) v`` over
-    [N,H,T,Dh], with the reference einsum path's ``finfo.min`` fill
-    (``deeplearning4j_tpu/nn/layers/attention.py:69-83``) for the causal
-    mask."""
+def _launched(err: int, wrapper, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# --------------------------------------------------- K3: flash attention
+_FWD_SRC = "flash_attention_fwd.cu"
+_BWD_SRC = "flash_attention_bwd.cu"
+_ADAM_SRC = "fused_adam.cu"
+SOURCES = (_FWD_SRC, _BWD_SRC, _ADAM_SRC)
+_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _check_attention(name: str, heads, rows=()) -> None:
+    """Raise unless ``heads`` are contiguous f32 [N,H,T,Dh] tensors of one
+    shape the kernels take and ``rows`` contiguous f32 [N,H,T] ones."""
+    if any(t.dtype != torch.float32 for t in (*heads, *rows)):
+        raise ValueError(f"{name} takes float32; got "
+                         f"{[t.dtype for t in (*heads, *rows)]}")
+    shape = heads[0].shape
+    if heads[0].ndim != 4 or any(t.shape != shape for t in heads):
+        raise ValueError(f"{name}: q, k, v (and o, dO) must share one "
+                         f"[N,H,T,Dh] shape; got {[tuple(t.shape) for t in heads]}")
+    if any(t.shape != shape[:3] for t in rows):
+        raise ValueError(f"{name}: row statistics must be [N,H,T] = "
+                         f"{tuple(shape[:3])}; got {[tuple(t.shape) for t in rows]}")
+    n, h, t, dh = shape
+    if dh not in (64, 128, 256) or t % 64 or t == 0 or t // 64 > 65535:
+        raise ValueError(f"{name} takes T % 64 == 0 and Dh in (64, 128, 256); "
+                         f"got T={t}, Dh={dh}")
+    if not all(x.is_contiguous() for x in (*heads, *rows)):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if n * h > 2 ** 31 - 1:
+        raise ValueError(f"N*H = {n * h} exceeds the kernel's grid")
+
+
+def _scores(q, k, causal):
+    """Scaled scores, with the reference einsum path's ``finfo.min`` fill
+    (``deeplearning4j_tpu/nn/layers/attention.py:69-83``) above the
+    diagonal when causal."""
     scores = torch.einsum("nhqd,nhkd->nhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
     if causal:
         t_q, t_k = q.shape[-2], k.shape[-2]
         tri = torch.ones((t_q, t_k), dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~tri, torch.finfo(scores.dtype).min)
-    return torch.einsum("nhqk,nhkd->nhqd", torch.softmax(scores, dim=-1), v)
+    return scores
 
 
-def flash_attention_fwd(q, k, v, causal: bool = False):
-    """Flash-attention forward over contiguous f32 [N,H,T,Dh] tensors.
+def flash_attention_plain(q, k, v, causal: bool = False,
+                          return_lse: bool = False):
+    """Plain PyTorch version of the forward kernel: ``softmax(q kᵀ / √Dh) v``
+    over [N,H,T,Dh]; with ``return_lse`` also the row logsumexp [N,H,T]
+    of the scaled, masked scores."""
+    scores = _scores(q, k, causal)
+    o = torch.einsum("nhqk,nhkd->nhqd", torch.softmax(scores, dim=-1), v)
+    return (o, torch.logsumexp(scores, dim=-1)) if return_lse else o
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False,
+                        return_lse: bool = False):
+    """Flash-attention forward over contiguous f32 [N,H,T,Dh] tensors;
+    returns ``o``, or ``(o, lse)`` with ``return_lse``.
 
     CUDA tensors launch the kernel (T % 64 == 0, Dh in {64, 128, 256}) and
     anything it does not take raises; CPU tensors get
     :func:`flash_attention_plain`."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    if not all(t.device.type == "cuda" and t.device == q.device for t in (k, v)) \
-            or q.device.type != "cuda":
-        raise ValueError("q, k, v must lie on one CUDA device (or all on the "
-                         f"CPU); got {q.device}, {k.device}, {v.device}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise ValueError(f"flash_attention_fwd takes float32; got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one [N,H,T,Dh] shape; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if _on_cpu("flash_attention_fwd", q, k, v):
+        return flash_attention_plain(q, k, v, causal, return_lse)
+    _check_attention("flash_attention_fwd", (q, k, v))
     n, h, t, dh = q.shape
-    if dh not in (64, 128, 256) or t % 64 or t == 0 or t // 64 > 65535:
-        raise ValueError(f"flash_attention_fwd takes T % 64 == 0 and Dh in "
-                         f"(64, 128, 256); got T={t}, Dh={dh}")
-    if n * h == 0:
-        return torch.empty_like(q)
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd takes contiguous q, k, v")
-    if n * h > 2 ** 31 - 1:
-        raise ValueError(f"N*H = {n * h} exceeds the kernel's grid")
-    fn = _load(_FLASH_SRC, "dl4j_flash_attention_fwd_f32", _FLASH_ARGS)
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 n * h, t, dh, int(bool(causal)), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
-    with _count_lock:
-        flash_attention_fwd.launches += 1
-    return o
+    lse = torch.empty((n, h, t), dtype=q.dtype, device=q.device) if return_lse else None
+    if n * h:
+        fn = _load(_FWD_SRC, "dl4j_flash_attention_fwd_f32", _FWD_ARGS)
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     None if lse is None else lse.data_ptr(),
+                     n * h, t, dh, int(bool(causal)), _stream(q))
+        _launched(err, flash_attention_fwd, "flash_attention_fwd")
+    return (o, lse) if return_lse else o
+
+
+def _p_ds(q, k, v, lse, do, d, causal):
+    """``P = exp(S·scale − LSE)`` (0 above the diagonal when causal: the
+    ``finfo.min`` fill underflows) and ``dS = P ∘ (dO Vᵀ − D)``."""
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    return p, p * (torch.einsum("nhqd,nhkd->nhqk", do, v) - d[..., None])
+
+
+def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = False):
+    """Plain version of the dq kernel: ``(dQ, D)`` with ``D = rowsum(dO·O)``."""
+    d = torch.sum(do * o, dim=-1)
+    _, ds = _p_ds(q, k, v, lse, do, d, causal)
+    return torch.einsum("nhqk,nhkd->nhqd", ds, k) * (1.0 / math.sqrt(q.shape[-1])), d
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal: bool = False):
+    """Plain version of the dk/dv kernel: ``(dK, dV)``."""
+    p, ds = _p_ds(q, k, v, lse, do, d, causal)
+    return (torch.einsum("nhqk,nhqd->nhkd", ds, q) * (1.0 / math.sqrt(q.shape[-1])),
+            torch.einsum("nhqk,nhqd->nhkd", p, do))
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False):
+    """Plain version of the backward: ``(dQ, dK, dV)`` of ``o = attention(q,
+    k, v)`` for the upstream gradient ``do``, recomputing
+    ``P = exp(S·scale − LSE)`` as the kernels do."""
+    dq, d = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    return (dq, *flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal))
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False):
+    """The dq kernel: ``(dQ, D)``, with D = rowsum(dO·O) [N,H,T] for
+    :func:`flash_attention_bwd_dkv`. Runs on CUDA tensors (or raises); CPU
+    tensors get :func:`flash_attention_bwd_dq_plain`."""
+    if _on_cpu("flash_attention_bwd_dq", q, k, v, o, lse, do):
+        return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    _check_attention("flash_attention_bwd_dq", (q, k, v, o, do), (lse,))
+    n, h, t, dh = q.shape
+    dq = torch.empty_like(q)
+    d = torch.empty_like(lse)
+    if n * h:
+        fn = _load(_BWD_SRC, "dl4j_flash_attention_bwd_dq_f32", _BWD_ARGS)
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), do.data_ptr(), dq.data_ptr(), d.data_ptr(),
+                     n * h, t, dh, int(bool(causal)), _stream(q))
+        _launched(err, flash_attention_bwd_dq, "flash_attention_bwd_dq")
+    return dq, d
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, do, d, causal: bool = False):
+    """The dk/dv kernel: ``(dK, dV)`` from the LSE of the forward and the
+    ``D`` that :func:`flash_attention_bwd_dq` returned. Runs on CUDA
+    tensors (or raises); CPU tensors get
+    :func:`flash_attention_bwd_dkv_plain`."""
+    if _on_cpu("flash_attention_bwd_dkv", q, k, v, lse, do, d):
+        return flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal)
+    _check_attention("flash_attention_bwd_dkv", (q, k, v, do), (lse, d))
+    n, h, t, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if n * h:
+        fn = _load(_BWD_SRC, "dl4j_flash_attention_bwd_dkv_f32", _BWD_ARGS)
+        with torch.cuda.device(q.device):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                     do.data_ptr(), d.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     n * h, t, dh, int(bool(causal)), _stream(q))
+        _launched(err, flash_attention_bwd_dkv, "flash_attention_bwd_dkv")
+    return dk, dv
 
 
 flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention over contiguous [N,H,T,Dh] tensors:
+    the forward kernel (with its LSE saved) and the two backward kernels;
+    on CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        # the dq kernel first: it also writes D = rowsum(dO * O) for dk/dv
+        dq, d = flash_attention_bwd_dq(q, k, v, o, lse, do, ctx.causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, d, ctx.causal)
+        return dq, dk, dv, None
 
 
 class FlashAttentionHelper(AttentionHelper):
     """The "attention" seam's flash kernel, counterpart of
     ``PallasFlashAttentionHelper``. ``supports`` is the reference's gate
     (no mask, no attention dropout, the requested causality, T % 128 == 0,
-    Dh in {64, 128, 256}) without its TPU-backend test; ``attend`` calls
-    :func:`flash_attention_fwd`, which runs the kernel on CUDA tensors."""
+    Dh in {64, 128, 256}) without its TPU-backend test. ``attend`` calls
+    the forward kernel alone when no gradient is wanted (no LSE is
+    written), else :class:`FlashAttentionFunction`."""
 
     def __init__(self, causal: bool = False):
         self.causal = causal
@@ -194,5 +349,108 @@ class FlashAttentionHelper(AttentionHelper):
 
     def attend(self, q, k, v):
         # the layer's QKV split leaves q, k, v as strided views
-        return flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=self.causal)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFunction.apply(q, k, v, self.causal)
+        return flash_attention_fwd(q, k, v, causal=self.causal)
+
+
+# ------------------------------------------------------ K2: fused Adam
+ADAM, AMSGRAD, NADAM = 0, 1, 2
+_KINDS = {Adam: ADAM, AMSGrad: AMSGRAD, Nadam: NADAM}
+_ADAM_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int]
+              + [ctypes.c_float] * 8 + [ctypes.c_void_p])
+
+
+def adam_coefficients(updater, lr, t):
+    """The kernel's scalar arguments ``(b1, b2, 1-b1, 1-b2, eps, c, om1,
+    om2)`` in float32, computed on the host in the stock path's order:
+    ``c`` is ``alpha = lr·√(1−b2ᵗ)/(1−b1ᵗ)`` for Adam and AMSGrad and
+    ``lr`` for Nadam; ``om1 = 1−b1ᵗ``, ``om2 = 1−b2ᵗ``."""
+    f32 = np.float32
+    b1, b2 = updater.beta1, updater.beta2
+    c = (f32(lr) if type(updater) is Nadam
+         else _adam_alpha(lr, b1, b2, t))
+    return tuple(float(f32(x)) for x in (b1, b2, 1 - b1, 1 - b2,
+                                         updater.epsilon, c,
+                                         _pow1m(b1, t), _pow1m(b2, t)))
+
+
+def fused_adam_plain(kind: int, p, m, v, v_hat, g, coef) -> None:
+    """Plain version of the kernel, in place on ``p``, ``m``, ``v`` (and
+    ``v_hat``): the stock updaters' math (``nn/updaters.py``) on the
+    kernel's coefficients."""
+    b1, b2, omb1, omb2, eps, c, om1, om2 = coef
+    m_new = b1 * m + omb1 * g
+    v_new = b2 * v + omb2 * g * g
+    if kind == NADAM:
+        m_bar = b1 * (m_new / om1) + omb1 * g / om1
+        p_new = p - c * m_bar / (torch.sqrt(v_new / om2) + eps)
+    else:
+        denom = v_new
+        if kind == AMSGRAD:
+            denom = torch.maximum(v_hat, v_new)
+            v_hat.copy_(denom)
+        p_new = p - c * m_new / (torch.sqrt(denom) + eps)
+    p.copy_(p_new)
+    m.copy_(m_new)
+    v.copy_(v_new)
+
+
+def fused_adam(kind: int, p, m, v, v_hat, g, coef) -> None:
+    """One fused Adam (``kind`` ADAM), AMSGrad or Nadam step, in place on
+    the contiguous f32 tensors ``p``, ``m``, ``v`` (and ``v_hat`` for
+    AMSGrad, else None) with gradient ``g``; ``coef`` from
+    :func:`adam_coefficients`. CUDA tensors launch the kernel (or raise);
+    CPU tensors get :func:`fused_adam_plain`."""
+    if kind not in (ADAM, AMSGRAD, NADAM):
+        raise ValueError(f"fused_adam: unknown kind {kind!r}")
+    if (v_hat is None) != (kind != AMSGRAD):
+        raise ValueError("fused_adam: v_hat is AMSGrad's state, and only its")
+    ts = (p, m, v, g) if v_hat is None else (p, m, v, g, v_hat)
+    if _on_cpu("fused_adam", *ts):
+        return fused_adam_plain(kind, p, m, v, v_hat, g, coef)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError(f"fused_adam takes float32; got {[t.dtype for t in ts]}")
+    if any(t.shape != p.shape for t in ts):
+        raise ValueError(f"fused_adam: tensors must share one shape; got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("fused_adam takes contiguous tensors")
+    if p.numel() == 0:
+        return None
+    fn = _load(_ADAM_SRC, "dl4j_fused_adam_f32", _ADAM_ARGS)
+    with torch.cuda.device(p.device):
+        err = fn(p.data_ptr(), m.data_ptr(), v.data_ptr(),
+                 None if v_hat is None else v_hat.data_ptr(), g.data_ptr(),
+                 p.numel(), kind, *coef, _stream(p))
+    _launched(err, fused_adam, "fused_adam")
+    return None
+
+
+fused_adam.launches = 0
+
+
+class FusedUpdaterHelper(UpdaterHelper):
+    """The "updater" seam's fused kernel, counterpart of
+    ``PallasUpdaterHelper``: one :func:`fused_adam` launch per parameter
+    tensor writes the new parameter and moments in place. ``supports`` is
+    the reference's gate: exact types Adam, Nadam and AMSGrad (a subclass
+    may change the math), float32, ``grad.shape == param.shape``, at least
+    one element. Register it with ``helpers.set_helper("updater",
+    FusedUpdaterHelper())``."""
+
+    def supports(self, updater, param, grad) -> bool:
+        if type(updater) not in _KINDS:
+            return False
+        return (param.dtype == torch.float32
+                and tuple(getattr(grad, "shape", ())) == tuple(param.shape)
+                and param.numel() > 0)
+
+    def apply(self, updater, param, grad, state, lr, t):
+        kind = _KINDS[type(updater)]
+        fused_adam(kind, param, state["m"], state["v"], state.get("v_hat"),
+                   grad.to(param.dtype).contiguous(),
+                   adam_coefficients(updater, lr, t))
+        return param, state

@@ -1,11 +1,28 @@
 """ComputationGraph — DAG network over a ComputationGraphConfiguration.
 
-Counterpart of ``deeplearning4j_tpu/nn/graph.py`` (``init``, the inference
-part of ``_forward_all``, ``output``, ``output_single``). The network is an
-``nn.Module`` whose parameters keep the reference's names and layouts,
-registered as ``<vertex>/<param>``; ``params`` holds the same tensors as
-``{vertex: {param: tensor}}``. The forward runs under
-``torch.inference_mode()``; training comes with a later slice.
+Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``init`` (parameters
+and one updater state per ``<vertex>/<param>``), ``_forward_all``,
+``output``, and standard-backprop training: ``_loss_fn`` (the summed
+losses of the output layers), ``_apply_updates`` (the "updater" helper
+seam consulted per tensor), ``fit`` over arrays, ``DataSet``,
+``MultiDataSet`` or iterators, ``score`` and
+``compute_gradient_and_score``.
+
+The network is an ``nn.Module`` whose parameters keep the reference's
+names and layouts, registered as ``<vertex>/<param>``; ``params`` holds the
+same tensors as ``{vertex: {param: tensor}}``. They never require grad: a
+train step differentiates detached aliases of them with
+``torch.autograd.grad`` and then updates them IN PLACE under
+``torch.no_grad()`` (a helper such as ``FusedUpdaterHelper`` writes into
+their storage), so the serving path (``output``, under
+``torch.inference_mode()``) never meets an autograd graph. The step runs
+eagerly; where the reference jits one fused step, the port launches
+kernels one by one.
+
+Not ported yet (the port's configuration has no setting for them): l1/l2
+regularization, gradient normalization, constraints, weight noise,
+dropout, mixed precision, TBPTT. A network with attention dropout refuses
+to train.
 """
 
 from __future__ import annotations
@@ -17,7 +34,16 @@ import torch
 from torch import nn
 
 from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.datasets.dataset import (
+    DataSet,
+    MultiDataSet,
+    batch_nbytes,
+)
+from deeplearning4j_tpu_torch.nn import helpers as _helpers
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.nn.updaters import Sgd
+
+Grads = Dict[str, Dict[str, torch.Tensor]]
 
 
 class ComputationGraph(nn.Module):
@@ -35,28 +61,63 @@ class ComputationGraph(nn.Module):
         self.device = resolve_device(device)
         self.dtype = conf.global_conf.torch_dtype()
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self.updater_states: Optional[Dict[str, Dict[str, Dict[str, torch.Tensor]]]] = None
+        self._updaters: Dict[str, dict] = {}
+        self.iteration = 0
+        self.epoch = 0
+        self._score: Optional[torch.Tensor] = None
+        self.last_batch_size: Optional[int] = None
+        # cumulative batch payload handed to fit()
+        self.transfer_bytes = 0
+        # vertices whose activation another vertex reads
+        self._consumed = {s for vd in conf.vertices.values() for s in vd.inputs}
 
+    # ---------------------------------------------------------------- score
+    @property
+    def score_(self) -> float:
+        """The last fit step's loss (NaN before the first)."""
+        return float("nan") if self._score is None else float(self._score)
+
+    # ----------------------------------------------------------------- init
     def init(self, seed: Optional[int] = None) -> "ComputationGraph":
         """Random parameters from a ``torch.Generator`` seeded with the
-        conf's seed (or ``seed``): the reference's schemes, not its draws."""
+        conf's seed (or ``seed``): the reference's schemes, not its draws.
+        Each parameter gets its updater (the layer's, else the network's,
+        else ``Sgd(0.1)``; ``b`` takes the bias updater when one is set) and
+        that updater's zero state."""
         g = self.conf.global_conf
         gen = torch.Generator(device=self.device)
         gen.manual_seed(g.seed if seed is None else seed)
-        self.params = {}
+        default_updater = g.updater or Sgd(0.1)
+        self.params, self._updaters, self.updater_states = {}, {}, {}
         for vd in self.conf.layer_vertices():
-            p = vd.obj.init_params(gen, self.dtype, self.device)
-            self.params[vd.name] = {}
+            layer = vd.obj
+            layer_upd = layer.updater or default_updater
+            bias_upd = layer.bias_updater or g.bias_updater or layer_upd
+            p = layer.init_params(gen, self.dtype, self.device)
+            self.params[vd.name], self._updaters[vd.name] = {}, {}
+            self.updater_states[vd.name] = {}
             for n, t in p.items():
                 param = nn.Parameter(t, requires_grad=False)
                 self.register_parameter(f"{vd.name}/{n}", param)
+                u = bias_upd if n == "b" else layer_upd
                 self.params[vd.name][n] = param
+                self._updaters[vd.name][n] = u
+                self.updater_states[vd.name][n] = u.init_state(param.detach())
+        self.iteration = 0
+        self.epoch = 0
         return self
 
     # -------------------------------------------------------------- forward
-    def _forward_all(self, inputs: Dict[str, torch.Tensor],
-                     masks: Optional[Dict[str, Optional[torch.Tensor]]] = None
-                     ) -> Dict[str, torch.Tensor]:
-        """Execute the DAG in topo order; returns every vertex activation."""
+    def _forward_all(self, params, inputs: Dict[str, torch.Tensor],
+                     masks: Optional[Dict[str, Optional[torch.Tensor]]] = None,
+                     loss_inputs: bool = False) -> Dict[str, torch.Tensor]:
+        """Execute the DAG in topo order; returns every vertex activation.
+
+        With ``loss_inputs``, each loss layer also stores its input under
+        ``name + ":in"`` and its mask under ``name + ":mask"``, and a loss
+        layer whose activation no vertex reads is not run (the loss starts
+        from its input)."""
         conf = self.conf
         acts: Dict[str, torch.Tensor] = dict(inputs)
         m: Dict[str, Optional[torch.Tensor]] = dict(masks or {})
@@ -69,7 +130,12 @@ class ComputationGraph(nn.Module):
             if vd.is_layer:
                 h = in_acts[0] if len(in_acts) == 1 else torch.cat(in_acts, -1)
                 cur_mask = in_masks[0]
-                y = vd.obj.forward(self.params[name], h, mask=cur_mask)
+                if loss_inputs and vd.obj.has_loss():
+                    acts[name + ":in"] = h
+                    acts[name + ":mask"] = cur_mask
+                    if name not in self._consumed:
+                        continue
+                y = vd.obj.forward(params[name], h, mask=cur_mask)
                 acts[name] = y
                 # a per-timestep mask collapses when the time dim disappears
                 if (cur_mask is not None and y.ndim == 2
@@ -85,7 +151,7 @@ class ComputationGraph(nn.Module):
     def forward(self, inputs: Dict[str, torch.Tensor],
                 masks: Optional[Dict[str, Optional[torch.Tensor]]] = None
                 ) -> List[torch.Tensor]:
-        acts = self._forward_all(inputs, masks)
+        acts = self._forward_all(self.params, inputs, masks)
         return [acts[n] for n in self.conf.outputs]
 
     def _as_tensor(self, x, cast_float: bool = True) -> torch.Tensor:
@@ -115,3 +181,155 @@ class ComputationGraph(nn.Module):
         """First output as a single tensor (``outputSingle``)."""
         out = self.output(*xs)
         return out[0] if isinstance(out, list) else out
+
+    # ----------------------------------------------------------------- loss
+    def _loss_fn(self, params, inputs, labels, masks, label_masks):
+        """The summed losses of the output layers, each from its INPUT
+        activation (its ``compute_loss``); the label mask is the given one,
+        else the feature mask that reached the layer (per timestep for a
+        sequence output, per example for a 2-d one)."""
+        acts = self._forward_all(params, inputs, masks, loss_inputs=True)
+        loss = 0.0
+        for oi, out_name in enumerate(self.conf.outputs):
+            vd = self.conf.vertices[out_name]
+            layer = vd.obj
+            if not (vd.is_layer and layer.has_loss()):
+                raise ValueError(f"output vertex {out_name!r} is not a loss layer")
+            h = acts[out_name + ":in"]
+            lm = None
+            if label_masks is not None and label_masks[oi] is not None:
+                lm = label_masks[oi]
+            elif h.ndim == 3:
+                lm = acts.get(out_name + ":mask")
+            else:
+                fm = acts.get(out_name + ":mask")
+                if fm is not None and (fm.ndim == 1 or
+                                       (fm.ndim == 2 and fm.shape[-1] == 1)):
+                    # per-example feature mask masks the score
+                    lm = fm.reshape(fm.shape[0])
+            loss = loss + layer.compute_loss(params[out_name], h, labels[oi],
+                                             mask=lm)
+        return loss
+
+    def _batch(self, mds):
+        """(inputs, labels, masks, label masks) of a MultiDataSet as tensors
+        on the network's device (floating features and labels in its dtype;
+        masks keep theirs)."""
+        inputs = {n: self._as_tensor(f) for n, f in zip(self.conf.inputs, mds.features)}
+        labels = [self._as_tensor(l) for l in mds.labels]
+        masks = None
+        if mds.features_masks is not None:
+            masks = {n: (None if mk is None else self._as_tensor(mk, False))
+                     for n, mk in zip(self.conf.inputs, mds.features_masks)}
+        lmasks = None
+        if mds.labels_masks is not None:
+            lmasks = [None if mk is None else self._as_tensor(mk, False)
+                      for mk in mds.labels_masks]
+        return inputs, labels, masks, lmasks
+
+    def _gradients(self, inputs, labels, masks=None, lmasks=None):
+        """``(loss, {vertex: {param: grad}})`` by ``torch.autograd.grad``
+        over detached aliases of the parameters (they share storage; the
+        parameters themselves never require grad)."""
+        if self.params is None:
+            raise RuntimeError("call init() (or load parameters) first")
+        live = {v: {n: t.detach().requires_grad_(True) for n, t in named.items()}
+                for v, named in self.params.items()}
+        leaves = [t for named in live.values() for t in named.values()]
+        with torch.enable_grad():
+            loss = self._loss_fn(live, inputs, labels, masks, lmasks)
+            flat = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                       materialize_grads=True)
+        it = iter(flat)
+        grads = {v: {n: next(it) for n in named} for v, named in live.items()}
+        return loss.detach(), grads
+
+    # ------------------------------------------------------------ train step
+    def _apply_updates(self, grads: Grads) -> None:
+        """One updater step per parameter tensor, in place, at the 1-based
+        step ``iteration + 1``. A registered "updater" helper takes every
+        tensor its ``supports`` admits (the reference's seam); the others
+        take their updater's stock math."""
+        uhelper = _helpers.get_helper("updater")
+        it, ep = np.float32(self.iteration), np.float32(self.epoch)
+        t = float(self.iteration) + 1.0
+        with torch.no_grad():
+            for vd in self.conf.layer_vertices():
+                name = vd.name
+                states = self.updater_states[name]
+                for n, g in grads[name].items():
+                    u = self._updaters[name][n]
+                    p = self.params[name][n]
+                    lr = u.lr_at(it, ep)
+                    if uhelper is not None and uhelper.supports(u, p, g):
+                        p_new, states[n] = uhelper.apply(u, p, g, states[n], lr, t)
+                        if p_new is not p:
+                            p.copy_(p_new)
+                        continue
+                    upd, states[n] = u.update(g, states[n], lr, t)
+                    p.sub_(upd.to(p.dtype))
+
+    def _fit_batch(self, ds) -> None:
+        if any(getattr(vd.obj, "attn_dropout", 0.0) for vd in self.conf.layer_vertices()):
+            raise NotImplementedError(
+                "attention dropout is not ported yet: train with "
+                "attn_dropout=0")
+        inputs, labels, masks, lmasks = self._batch(self._to_mds(ds))
+        loss, grads = self._gradients(inputs, labels, masks, lmasks)
+        self._apply_updates(grads)
+        self._score = loss
+        self.last_batch_size = int(next(iter(inputs.values())).shape[0])
+        self.iteration += 1
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, data, labels=None, *, epochs: int = 1) -> "ComputationGraph":
+        """Train: ``fit(features, labels)`` (arrays, tensors or lists of
+        them, one per input/output), ``fit(DataSet | MultiDataSet)`` or
+        ``fit(iterator)`` (reset before each epoch when it has ``reset``)."""
+        if self.params is None:
+            self.init()
+        if labels is not None:
+            iterator = [self._wrap(data, labels)]
+        elif isinstance(data, (DataSet, MultiDataSet)):
+            iterator = [data]
+        else:
+            iterator = data
+        for _ in range(epochs):
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            for ds in iterator:
+                self.transfer_bytes += batch_nbytes(ds)
+                self._fit_batch(ds)
+            self.epoch += 1
+        return self
+
+    @staticmethod
+    def _to_mds(ds):
+        if isinstance(ds, DataSet):
+            return MultiDataSet(
+                [ds.features], [ds.labels],
+                None if ds.features_mask is None else [ds.features_mask],
+                None if ds.labels_mask is None else [ds.labels_mask])
+        return ds
+
+    @staticmethod
+    def _wrap(features, labels):
+        return MultiDataSet(
+            features if isinstance(features, (list, tuple)) else [features],
+            labels if isinstance(labels, (list, tuple)) else [labels])
+
+    def score(self, ds=None) -> float:
+        """The last fit step's loss, or the loss on ``ds`` (no update)."""
+        if ds is None:
+            return self.score_
+        # as the reference: the score of a DataSet ignores its masks
+        inputs, labels, _, _ = self._batch(self._to_mds(ds))
+        with torch.no_grad():
+            return float(self._loss_fn(self.params, inputs, labels, None, None))
+
+    def compute_gradient_and_score(self, features, labels):
+        """``({vertex: {param: grad}}, loss)`` on one batch, no update
+        (the gradient-check hook)."""
+        inputs, labels_t, _, _ = self._batch(self._wrap(features, labels))
+        loss, grads = self._gradients(inputs, labels_t)
+        return grads, float(loss)

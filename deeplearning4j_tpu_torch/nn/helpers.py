@@ -9,7 +9,9 @@ In the port the seam holds the hand-written CUDA kernels
 (``nn/cuda_kernels.py``). With no attention helper registered and
 auto-flash on, causal attention that ``FlashAttentionHelper.supports``
 admits takes the kernel (``nn/layers/attention.py``); the reference's
-TPU threshold on T is not carried over.
+TPU threshold on T is not carried over. The "updater" kind takes
+``FusedUpdaterHelper`` (the fused Adam/Nadam/AMSGrad kernel) when it is
+registered with ``set_helper("updater", FusedUpdaterHelper())``.
 """
 
 from __future__ import annotations
@@ -66,6 +68,23 @@ def set_auto_flash_attention(enabled: bool) -> None:
 
 def auto_flash_attention_enabled() -> bool:
     return _AUTO_FLASH
+
+
+class UpdaterHelper:
+    """Interface for fused optimizer-update kernels. ``apply`` performs the
+    WHOLE read-modify-write for one parameter tensor (new param AND new
+    updater state). ``ComputationGraph._apply_updates`` consults the seam
+    per parameter tensor; a helper must only accept (``supports``) updaters
+    whose math it reproduces within the stock path's tolerance. In the port
+    ``apply`` may write in place into the parameter and state tensors; it
+    returns ``(param, state)``."""
+
+    def supports(self, updater, param, grad) -> bool:  # pragma: no cover
+        return False
+
+    def apply(self, updater, param, grad, state, lr, t):  # pragma: no cover
+        """Returns ``(new_param, new_state)`` for one parameter tensor."""
+        raise NotImplementedError
 
 
 class AttentionHelper:

@@ -2,8 +2,11 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/attention.py``: one fused,
 head-major QKV projection and scaled dot-product attention over
-``[N, H, T, Dh]``, through the "attention" helper seam. The KV-cache
-``forward_seq`` of the causal layer comes with the decode slice.
+``[N, H, T, Dh]``, through the "attention" helper seam. Both branches are
+differentiable: the flash kernels through ``FlashAttentionFunction`` (the
+forward kernel saves its LSE, the backward is two kernels), the plain math
+through autograd. The KV-cache ``forward_seq`` of the causal layer comes
+with the decode slice.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ def dot_product_attention(q, k, v, mask=None, causal=False):
     on, a causal request the flash kernel admits takes the kernel (no
     threshold on T: the reference's v5e gate is not carried over, and an
     H100 one waits for a measurement); otherwise the plain math below.
-    Inference only: attention dropout comes with the training slice.
+    Attention dropout is not ported: a network with ``attn_dropout > 0``
+    refuses to train (``ComputationGraph``), and inference has none.
     """
     helper = _helpers.get_helper("attention")
     same = q.shape == k.shape == v.shape

@@ -5,7 +5,8 @@ dataclass: hyperparameters (``None`` = inherit the network default), shape
 inference (``set_n_in`` / ``output_type``), ``init_params`` returning a
 dict of named tensors under the reference's names and layouts ("W", "b",
 "gamma", ...), and ``forward(params, x, mask=None)``, a function of its
-parameters and input. This slice serves: forward is inference only.
+parameters and input, differentiable by autograd. Output layers
+(``has_loss()``) also compute the network's loss.
 """
 
 from __future__ import annotations
@@ -40,12 +41,13 @@ class Layer:
     distribution: Optional[Distribution] = None
     bias_init: Optional[float] = None
     updater: Optional[Any] = None
+    bias_updater: Optional[Any] = None
     dtype: Optional[Any] = None
 
     def apply_global_defaults(self, g) -> None:
         """Inherit unset hyperparams from the global configuration."""
         for f in ("activation", "weight_init", "distribution", "bias_init",
-                  "updater", "dtype"):
+                  "updater", "bias_updater", "dtype"):
             if getattr(self, f) is None and getattr(g, f, None) is not None:
                 setattr(self, f, getattr(g, f))
 
@@ -74,6 +76,10 @@ class Layer:
 
     def act_fn(self):
         return act_mod.resolve(self.activation)
+
+    def has_loss(self) -> bool:
+        """Output-style layers compute the network loss."""
+        return False
 
     def _init_w(self, gen, shape, fan_in, fan_out, dtype, device):
         scheme = self.weight_init or "xavier"

@@ -1,9 +1,12 @@
-"""Carry parameters between the JAX reference and the port.
+"""Carry parameters and optimizer state between the JAX reference and the port.
 
 ``load_reference_params(net, params)`` fills a port network from the JAX
 network's parameters as numpy arrays (``{vertex: {name: ndarray}}``, what
 ``tree_map(np.asarray, jax_net.params)`` gives); the layouts are the same,
 so this is a checked copy. ``export_params(net)`` is the inverse.
+``load_reference_updater_state`` / ``export_updater_state`` do the same for
+the updater state (``{vertex: {name: {slot: ndarray}}}``, e.g. Adam's
+``m`` and ``v``), so that both sides can resume from one optimizer state.
 """
 
 from __future__ import annotations
@@ -14,41 +17,77 @@ import numpy as np
 import torch
 
 
+def _mismatches(mine: dict, theirs: dict, path: str, depth: int) -> list:
+    """Every key or shape by which the nested dicts ``theirs`` (numpy
+    leaves) and ``mine`` (tensor leaves, ``depth`` levels down) differ."""
+    problems = []
+    for key in sorted(set(mine) | set(theirs)):
+        where = f"{path}{key}"
+        named = where if path else f"vertex {key!r}"
+        if key not in theirs:
+            problems.append(f"missing {named}")
+        elif key not in mine:
+            problems.append(f"unexpected {named}")
+        elif depth > 1:
+            problems += _mismatches(mine[key], theirs[key], where + "/", depth - 1)
+        elif tuple(np.shape(theirs[key])) != tuple(mine[key].shape):
+            problems.append(f"{where}: shape {tuple(np.shape(theirs[key]))} "
+                            f"!= {tuple(mine[key].shape)}")
+    return problems
+
+
+def _checked_copy(mine: dict, theirs: dict, depth: int, what: str) -> None:
+    problems = _mismatches(mine, theirs, "", depth)
+    if problems:
+        raise ValueError(f"{what} do not match the network: " + "; ".join(problems))
+
+    def copy(m, t, d):
+        for key, val in m.items():
+            if d > 1:
+                copy(val, t[key], d - 1)
+            else:
+                src = torch.from_numpy(np.array(t[key]))  # own copy
+                val.copy_(src.to(dtype=val.dtype))
+
+    with torch.no_grad():
+        copy(mine, theirs, depth)
+
+
+def _export(tree: dict, depth: int) -> dict:
+    if depth == 1:
+        return {k: t.detach().cpu().numpy().copy() for k, t in tree.items()}
+    return {k: _export(v, depth - 1) for k, v in tree.items()}
+
+
 def load_reference_params(net, params: Dict[str, Dict[str, np.ndarray]]):
     """Copy ``params`` into ``net`` (an initialized ComputationGraph).
     Every vertex, name and shape must match; on any mismatch it raises
     and copies nothing. Returns ``net``."""
     if net.params is None:
         raise RuntimeError("net has no parameters yet: call init() first")
-    problems = []
-    for v in sorted(set(net.params) | set(params)):
-        if v not in params:
-            problems.append(f"missing vertex {v!r}")
-            continue
-        if v not in net.params:
-            problems.append(f"unexpected vertex {v!r}")
-            continue
-        mine, theirs = net.params[v], params[v]
-        for n in sorted(set(mine) | set(theirs)):
-            if n not in theirs:
-                problems.append(f"missing {v}/{n}")
-            elif n not in mine:
-                problems.append(f"unexpected {v}/{n}")
-            elif tuple(np.shape(theirs[n])) != tuple(mine[n].shape):
-                problems.append(f"{v}/{n}: shape {tuple(np.shape(theirs[n]))} "
-                                f"!= {tuple(mine[n].shape)}")
-    if problems:
-        raise ValueError("parameters do not match the network: "
-                         + "; ".join(problems))
-    with torch.no_grad():
-        for v, named in net.params.items():
-            for n, t in named.items():
-                src = torch.from_numpy(np.array(params[v][n]))  # own copy
-                t.copy_(src.to(dtype=t.dtype))
+    _checked_copy(net.params, params, 2, "parameters")
     return net
 
 
 def export_params(net) -> Dict[str, Dict[str, np.ndarray]]:
     """The network's parameters as ``{vertex: {name: ndarray}}`` on the host."""
-    return {v: {n: t.detach().cpu().numpy().copy() for n, t in named.items()}
-            for v, named in net.params.items()}
+    return _export(net.params, 2)
+
+
+def load_reference_updater_state(net, upd_states):
+    """Copy the reference's updater state (``{vertex: {param: {slot:
+    ndarray}}}``, what ``tree_map(np.asarray, jax_net.updater_states)``
+    gives) into ``net``'s, in place. Every vertex, parameter, slot and
+    shape must match (so must the updater kinds); on any mismatch it raises
+    and copies nothing. The step count is the caller's: set
+    ``net.iteration`` to the reference's. Returns ``net``."""
+    if net.updater_states is None:
+        raise RuntimeError("net has no updater state yet: call init() first")
+    _checked_copy(net.updater_states, upd_states, 3, "updater states")
+    return net
+
+
+def export_updater_state(net):
+    """The network's updater state as ``{vertex: {param: {slot: ndarray}}}``
+    on the host."""
+    return _export(net.updater_states, 3)

@@ -20,6 +20,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     PositionalEmbeddingLayer,
     RnnOutputLayer,
 )
+from deeplearning4j_tpu_torch.nn.updaters import Adam
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
 
 
@@ -74,7 +75,7 @@ class TransformerLM:
     def conf(self):
         g = (NeuralNetConfiguration.builder().seed(self.seed)
              .weight_init("xavier")
-             .updater(("adam", {"learning_rate": 3e-4})).graph_builder()
+             .updater(Adam(3e-4)).graph_builder()
              .add_inputs("tokens")
              .set_input_types(InputType.recurrent(1, self.max_length)))
         g.add_layer("embed",

@@ -6,7 +6,14 @@ installed; on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance 1e-4 (max abs): float32 both ways, another summation order.
+Tolerances: the forward 1e-4 (max abs): float32 both ways, another
+summation order. The backward 1e-4 relative to the largest entry of each
+reference gradient (its sums run over up to T products of order 1). The
+fused updater 1e-6 absolute on parameters and moments of order 1: the
+same float32 coefficients both ways, only the kernel's fused multiply-adds
+round differently. Training parity (kernel path against the plain path,
+on one small TransformerLM) 2e-5, the twin-net tolerance of the JAX
+package's fused-updater tests.
 """
 
 import numpy as np
@@ -14,26 +21,40 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.nn import cuda_kernels as ck
+from deeplearning4j_tpu_torch.nn import helpers
+from deeplearning4j_tpu_torch.nn.updaters import AMSGrad, Adam, Nadam
+from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
+from deeplearning4j_tpu_torch.zoo.models import TransformerLM
 
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    helpers.clear_all_helpers()
+    yield torch.device("cuda")
+    helpers.clear_all_helpers()
+    helpers.set_auto_flash_attention(True)
 
 
-def _qkv(shape, seed=0):
+def _qkv(shape, seed=0, n=3):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-            for _ in range(3)]
+            for _ in range(n)]
+
+
+def _close_to_max(got, ref, rel=1e-4):
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=rel * max(1.0, ref.abs().max().item()))
+
+
+SHAPES = [((2, 4, 256, 64), True), ((2, 4, 256, 128), False),
+          ((1, 2, 128, 256), True), ((1, 1, 192, 64), False),
+          ((1, 2, 256, 256), False)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,causal", [((2, 4, 256, 64), True),
-                                          ((2, 4, 256, 128), False),
-                                          ((1, 2, 128, 256), True),
-                                          ((1, 1, 192, 64), False)])
+@pytest.mark.parametrize("shape,causal", SHAPES[:4])
 def test_flash_attention_kernel_matches_plain(card, shape, causal):
     q, k, v = (t.to(card) for t in _qkv(shape))
     before = ck.flash_attention_fwd.launches
@@ -42,6 +63,47 @@ def test_flash_attention_kernel_matches_plain(card, shape, causal):
     assert ck.flash_attention_fwd.launches == before + 1
     torch.testing.assert_close(got, ck.flash_attention_plain(q, k, v, causal),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", SHAPES)
+def test_flash_attention_lse_matches_plain(card, shape, causal):
+    q, k, v = (t.to(card) for t in _qkv(shape, seed=1))
+    o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    ref_o, ref_lse = ck.flash_attention_plain(q, k, v, causal, return_lse=True)
+    assert lse.shape == shape[:3]
+    torch.testing.assert_close(o, ref_o, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", SHAPES)
+def test_flash_attention_backward_kernels_match_plain(card, shape, causal):
+    q, k, v, do = (t.to(card) for t in _qkv(shape, seed=2, n=4))
+    o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    ref_dq, ref_d = ck.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    ref_dk, ref_dv = ck.flash_attention_bwd_dkv_plain(q, k, v, lse, do, ref_d, causal)
+    n_dq, n_dkv = ck.flash_attention_bwd_dq.launches, ck.flash_attention_bwd_dkv.launches
+    dq, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+    dk, dv = ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, causal)
+    torch.cuda.synchronize()
+    assert ck.flash_attention_bwd_dq.launches == n_dq + 1
+    assert ck.flash_attention_bwd_dkv.launches == n_dkv + 1
+    _close_to_max(d, ref_d)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        _close_to_max(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_function_gradients_match_plain_autograd(card, causal):
+    q, k, v, do = (t.to(card) for t in _qkv((2, 3, 128, 64), seed=3, n=4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ck.FlashAttentionFunction.apply(*leaves, causal).backward(do)
+    refs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ck.flash_attention_plain(*refs, causal).backward(do)
+    for got, ref in zip(leaves, refs):
+        _close_to_max(got.grad, ref.grad)
 
 
 @pytest.mark.cuda
@@ -59,3 +121,89 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(card):
         ck.flash_attention_fwd(*strided)
     with pytest.raises(ValueError, match="one CUDA device"):
         ck.flash_attention_fwd(q, k.cpu(), v)
+    o, lse = ck.flash_attention_fwd(q, k, v, True, return_lse=True)
+    with pytest.raises(ValueError, match=r"\[N,H,T\]"):
+        ck.flash_attention_bwd_dq(q, k, v, o, lse[:, :, :64].contiguous(), q, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,updater", [(ck.ADAM, Adam(3e-4)),
+                                          (ck.AMSGRAD, AMSGrad(3e-4)),
+                                          (ck.NADAM, Nadam(3e-4))])
+@pytest.mark.parametrize("shape", [(1,), (127,), (129, 3), (1000,), "unaligned"])
+def test_fused_adam_kernel_matches_plain(card, kind, updater, shape):
+    rng = np.random.default_rng(4)
+    n = 1001 if shape == "unaligned" else int(np.prod(shape))
+
+    def state():
+        a = torch.from_numpy(rng.standard_normal(n + 1, dtype=np.float32)).to(card)
+        if shape == "unaligned":
+            return a[1:]  # one float into its buffer: not 16-byte aligned
+        return a[:n].reshape(shape).clone()
+
+    p, g = state(), state()
+    m, v = state().abs() * 0.1, state().abs() * 1e-3
+    vh = v.clone() if kind == ck.AMSGRAD else None
+    ref = [t.clone() if t is not None else None for t in (p, m, v, vh)]
+    for t in (1.0, 2.0, 3.0):
+        coef = ck.adam_coefficients(updater, 3e-4, t)
+        before = ck.fused_adam.launches
+        ck.fused_adam(kind, p, m, v, vh, g, coef)
+        torch.cuda.synchronize()
+        assert ck.fused_adam.launches == before + 1
+        ck.fused_adam_plain(kind, *ref, g, coef)
+        for got, want in zip((p, m, v, vh), ref):
+            if want is not None:
+                torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_adam_refuses_what_it_does_not_take(card):
+    p = torch.zeros(64, device=card)
+    coef = ck.adam_coefficients(Adam(), 1e-3, 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        ck.fused_adam(ck.ADAM, p.double(), p.double(), p.double(), None,
+                      p.double(), coef)
+    with pytest.raises(ValueError, match="contiguous"):
+        s = torch.zeros(64, 2, device=card)[:, 0]
+        ck.fused_adam(ck.ADAM, s, s, s, None, s, coef)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ck.fused_adam(ck.ADAM, p, p, p, None, p.cpu(), coef)
+    with pytest.raises(ValueError, match="v_hat"):
+        ck.fused_adam(ck.AMSGRAD, p, p, p, None, p, coef)
+
+
+SMALL = dict(vocab_size=100, max_length=256, n_layers=2, d_model=128,
+             n_heads=2, d_ff=256, seed=1)
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_matches_the_plain_path(card):
+    """Two small TransformerLMs from one set of weights: the kernels
+    (flash forward + backward, fused Adam) against the plain attention and
+    the stock Adam, over 3 fit steps."""
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 100, (2, 128))).to(card)
+    labels = torch.nn.functional.one_hot(
+        torch.cat([ids[:, 1:], ids[:, -1:]], 1), 100).float()
+    kern = TransformerLM(**SMALL).init()
+    plain = load_reference_params(TransformerLM(**SMALL).init(),
+                                  export_params(kern))
+    counts = [ck.flash_attention_fwd.launches, ck.flash_attention_bwd_dq.launches,
+              ck.flash_attention_bwd_dkv.launches, ck.fused_adam.launches]
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    for _ in range(3):
+        kern.fit(ids.float(), labels)
+    helpers.clear_helper("updater")
+    assert [ck.flash_attention_fwd.launches - counts[0],
+            ck.flash_attention_bwd_dq.launches - counts[1],
+            ck.flash_attention_bwd_dkv.launches - counts[2],
+            ck.fused_adam.launches - counts[3]] == [6, 6, 6, 3 * 30]
+    helpers.set_auto_flash_attention(False)
+    for _ in range(3):
+        plain.fit(ids.float(), labels)
+    helpers.set_auto_flash_attention(True)
+    assert abs(kern.score_ - plain.score_) <= 2e-5
+    for v, named in plain.params.items():
+        for n, t in named.items():
+            torch.testing.assert_close(kern.params[v][n], t, rtol=0, atol=2e-5)

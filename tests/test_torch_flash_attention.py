@@ -156,3 +156,77 @@ def test_import_needs_no_nvcc():
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# ---------------------------------------------- K3b: the backward, on the CPU
+@pytest.mark.parametrize("shape,causal", [((2, 2, 128, 64), True),
+                                          ((1, 2, 256, 128), False)])
+def test_autograd_function_matches_jax_vjp(shape, causal, rng):
+    """dq, dk, dv of FlashAttentionFunction (the plain versions of the
+    forward with LSE and of both backward kernels, on CPU tensors) against
+    jax.vjp of the reference's einsum path."""
+    q, k, v, do = _qkv(rng, shape) + [rng.normal(size=shape).astype(np.float32)]
+    _, vjp = jax.vjp(lambda a, b, c: j_dpa(a, b, c, causal=causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    ck.FlashAttentionFunction.apply(*leaves, causal).backward(torch.from_numpy(do))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o, lse = ck.flash_attention_fwd(*t, causal, return_lse=True)
+    whole = ck.flash_attention_bwd_plain(*t, o, lse, torch.from_numpy(do), causal)
+    for name, got, plain, ref in zip("qkv", leaves, whole, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+                                   rtol=TOL, atol=TOL, err_msg=f"d{name}")
+        np.testing.assert_allclose(plain.numpy(), np.asarray(ref),
+                                   rtol=TOL, atol=TOL, err_msg=f"plain d{name}")
+    assert ck.flash_attention_bwd_dq.launches == 0
+    assert ck.flash_attention_bwd_dkv.launches == 0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_lse_matches_torch_logsumexp(causal, rng):
+    q, k, v = map(torch.from_numpy, _qkv(rng, (2, 2, 128, 64)))
+    o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    s = q @ k.transpose(-1, -2) / 8.0
+    if causal:
+        s = s.masked_fill(~torch.ones(128, 128, dtype=torch.bool).tril(),
+                          float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1), rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(o, ck.flash_attention_plain(q, k, v, causal),
+                               rtol=0, atol=0)
+
+
+def test_attend_writes_lse_only_when_a_gradient_is_wanted(rng, monkeypatch):
+    seen = []
+    real = ck.flash_attention_fwd
+
+    def spy(q, k, v, causal=False, return_lse=False):
+        seen.append(return_lse)
+        return real(q, k, v, causal, return_lse)
+
+    monkeypatch.setattr(ck, "flash_attention_fwd", spy)
+    h = ck.FlashAttentionHelper(causal=True)
+    q, k, v = map(torch.from_numpy, _qkv(rng, (1, 2, 128, 64)))
+    with torch.no_grad():
+        h.attend(q, k, v)
+    h.attend(q, k, v)  # nothing requires grad
+    qg = q.clone().requires_grad_(True)
+    h.attend(qg, k, v).sum().backward()
+    assert seen == [False, False, True] and qg.grad is not None
+
+
+def test_seam_gradients_flash_path_equal_plain_path(rng):
+    """Through the layer-level dot_product_attention: auto-flash (the
+    autograd Function) and the plain autograd math give one gradient."""
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _qkv(rng, (2, 2, 128, 64)) + [rng.normal(size=(2, 2, 128, 64))
+                                                 .astype(np.float32)])
+    grads = []
+    for auto in (True, False):
+        thelpers.set_auto_flash_attention(auto)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        t_dpa(*leaves, causal=True).backward(do)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)

@@ -95,3 +95,20 @@ def test_chip_smoke_refuses_without_a_card():
                          capture_output=True, text=True, timeout=120, cwd=REPO)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_training_modules_leave_jax_unloaded():
+    """The training slice's modules (updaters, losses, datasets, the
+    kernels' module, the optimizer-state converters) import no jax."""
+    code = ("import sys, deeplearning4j_tpu_torch.nn.updaters, "
+            "deeplearning4j_tpu_torch.nn.losses, "
+            "deeplearning4j_tpu_torch.datasets.dataset, "
+            "deeplearning4j_tpu_torch.nn.cuda_kernels, "
+            "deeplearning4j_tpu_torch.nn.layers.output, "
+            "deeplearning4j_tpu_torch.util.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
