@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
-started together) and runs three phases:
+started together) and runs five phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -20,7 +20,19 @@ started together) and runs three phases:
    launch its expected count per step, and one batch's loss and gradients
    must agree with the plain attention path's on a twin network. Two more
    steps run under ``torch.profiler``: their device time by kernel group
-   and the device's busy share are printed.
+   and the device's busy share are printed;
+4. LSTM kernel: the fused LSTM sequence kernel against its plain version at
+   the character model's shapes and two wider ones, timed beside its
+   bound, its plain version and cuDNN's LSTM (``torch.nn.LSTM``, a
+   yardstick the port never calls);
+5. character LSTM: DL4J's ``LSTMCharModellingExample`` configuration (2 x
+   LSTM(200), 77 characters, Adam(0.005), l2 1e-4, TBPTT 50) built with
+   ``list()`` as a ``MultiLayerNetwork`` trains on 2 minibatches of 32 x
+   1000 characters of this repository's own text (40 TBPTT chunks; the
+   loss must fall; 2 LSTM-kernel and 8 fused-Adam launches a chunk), one
+   chunk's loss and gradients are checked against a twin on the plain
+   recurrence, it answers ``output`` over a [32, 1000, 77] batch and
+   samples 4 x 300 characters through ``rnn_time_step``.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -33,6 +45,7 @@ float32 matrix products run in full float32: TF32 is switched off.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -67,6 +80,7 @@ KERNEL_GROUPS = (
     ("K3b flash_attention_bwd_dq", ("flash_attention_bwd_dq_kernel",)),
     ("K3b flash_attention_bwd_dkv", ("flash_attention_bwd_dkv_kernel",)),
     ("K2 fused_adam", ("fused_adam_kernel",)),
+    ("K1 lstm_sequence", ("lstm_sequence_kernel",)),
     ("matrix products", ("gemm", "cutlass", "xmma", "sm90_", "ampere_")),
     ("softmax", ("softmax",)),
     ("gathers and scatters", ("index", "scatter", "gather", "embedding")),
@@ -78,6 +92,26 @@ KERNEL_GROUPS = (
 # largest entry (f32 through 12 blocks, attention summed in another order;
 # the first run on an H100 measured 0.0 and 7.4e-7)
 LOSS_RTOL, GRAD_TOL = 1e-6, 1e-5
+# K1 against its plain version: max |kernel - plain| over each of ys, hN,
+# cN, relative to max(1, that output's largest entry): f32 both ways, the
+# recurrent dot products summed in another order, each step's rounding
+# carried into the next (the first H100 runs measured at most 7.1e-7, at
+# H = 1500, and 1.8e-7 at the character model's shapes)
+LSTM_TOL = 1e-5
+LSTM_SHAPES = [(50, 32, 200), (1000, 32, 200), (1, 4, 200), (128, 64, 512),
+               (35, 20, 1500)]  # [T, N, H]
+# the character model (LSTMCharModellingExample): its 77-character set
+# (CharacterIterator.getMinimalCharacterSet), widths, batch and TBPTT length
+CHARS = ("abcdefghijklmnopqrstuvwxyz" "ABCDEFGHIJKLMNOPQRSTUVWXYZ" "0123456789"
+         "!&()?-'\",.:; \n\t")
+CHAR_WIDTH, CHAR_BATCH, CHAR_LEN, CHAR_TBPTT, CHAR_BATCHES = 200, 32, 1000, 50, 2
+CORPUS = ("ARCHITECTURE.md", "SURVEY.md")  # the repository's own text
+N_SAMPLES, SAMPLE_LEN, PRIME = 4, 300, "The network "
+# the kernel path against the plain recurrence on a twin: one chunk's loss
+# relative, each gradient relative to its tensor's largest entry; output
+# probabilities absolute (the first H100 runs measured 0.0, 3.8e-7 and
+# 2.1e-7: the backward is the same plain recomputation on both sides)
+CHAR_LOSS_RTOL, CHAR_GRAD_TOL, CHAR_OUT_ATOL = 1e-6, 1e-5, 1e-5
 
 
 def card_peaks(name: str):
@@ -385,6 +419,19 @@ def serving_phase(ck, card, served_ms):
     return launches
 
 
+def worst_gradient(got, ref):
+    """``(name, ratio)`` of the gradient tensor whose largest difference
+    from ``ref`` is the largest share of ``ref``'s largest entry."""
+    worst_name, worst = None, 0.0
+    for key, named in ref.items():
+        for n, r in named.items():
+            ratio = ((got[key][n] - r).abs().max()
+                     / r.abs().max().clamp_min(1e-30)).item()
+            if ratio > worst:
+                worst_name, worst = f"{key}/{n}", ratio
+    return worst_name, worst
+
+
 def kernel_group(name: str) -> str:
     low = name.lower()
     for group, keys in KERNEL_GROUPS:
@@ -393,20 +440,22 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_steps(net, x, labels):
-    """Device time of PROFILED_STEPS more fit steps under torch.profiler,
-    per step: by kernel group, in all, and as a share of the step's wall
-    time (host clock around steps that end in a synchronize; kernels of
-    one stream do not overlap), with the kernels that take the most."""
+def profile_steps(net, x, labels, fits=PROFILED_STEPS, steps_per_fit=1):
+    """Device time of ``fits`` more fit calls (``steps_per_fit`` steps
+    each) under torch.profiler, per step: by kernel group, in all, and as a
+    share of the step's wall time (host clock around steps that end in a
+    synchronize; kernels of one stream do not overlap), with the kernels
+    that take the most."""
     from torch.profiler import ProfilerActivity, profile
 
+    steps = fits * steps_per_fit
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
+        for _ in range(fits):
             net.fit(x, labels)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     per_kernel = {}
     for e in prof.key_averages():
         if "cuda" not in str(getattr(e, "device_type", "")).lower():
@@ -415,8 +464,7 @@ def profile_steps(net, x, labels):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
-            per_kernel[e.key] = (per_kernel.get(e.key, 0.0)
-                                 + us / 1e3 / PROFILED_STEPS)
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3 / steps
     if not per_kernel:
         raise RuntimeError("torch.profiler recorded no device time")
     groups = {}
@@ -425,7 +473,7 @@ def profile_steps(net, x, labels):
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
-        "steps": PROFILED_STEPS, "wall_ms_per_step": wall_ms,
+        "steps": steps, "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
         "device_ms_per_step_by_group": dict(sorted(groups.items(),
                                                    key=lambda kv: -kv[1])),
@@ -497,13 +545,7 @@ def training_phase(ck, card):
         helpers.set_auto_flash_attention(True)
     del twin
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    worst_name, worst = None, 0.0
-    for v, named in g_p.items():
-        for n, gp in named.items():
-            ratio = ((g_k[v][n] - gp).abs().max() / gp.abs().max().clamp_min(
-                1e-30)).item()
-            if ratio > worst:
-                worst_name, worst = f"{v}/{n}", ratio
+    worst_name, worst = worst_gradient(g_k, g_p)
     if not (loss_rel <= LOSS_RTOL and worst <= GRAD_TOL):
         raise RuntimeError(f"kernel path disagrees with the plain path: loss "
                            f"{loss_k} vs {loss_p} (rel {loss_rel}), worst "
@@ -547,6 +589,260 @@ def training_phase(ck, card):
     return launches
 
 
+def lstm_bound(shape, peaks):
+    """Least time (ms) for the LSTM sequence at [T, N, H]: the recurrent
+    products (2 T N H 4H flops) and the xw additions on the f32 rate, or
+    reading xw, rw, h0, c0 and writing ys, hN, cN once each."""
+    t, n, h = shape
+    flops = 2.0 * t * n * h * 4 * h + t * n * 4 * h
+    nbytes = 4.0 * (t * n * 4 * h + h * 4 * h + 2 * n * h + t * n * h + 2 * n * h)
+    return bound(flops, nbytes, peaks)
+
+
+def ifgo(w, h):
+    """IFOG column blocks of ``w`` (..., 4H) in torch.nn.LSTM's IFGO order."""
+    return torch.cat([w[..., :2 * h], w[..., 3 * h:], w[..., 2 * h:3 * h]], -1)
+
+
+def lstm_kernel_phase(ck, peaks):
+    """K1 against its plain version at LSTM_SHAPES, on a layer's own
+    inputs: x [T,N,H] and W, b give the hoisted xw = x W + b, with a
+    Xavier-scale rw and non-zero h0, c0. Timed: the kernel alone, the
+    kernel after the hoisted product (what FusedLSTMHelper launches), the
+    plain recurrence, and the yardstick: a one-layer torch.nn.LSTM (cuDNN)
+    with the same weights, which computes the product itself."""
+    rng = np.random.default_rng(3)
+    rows = {}
+    for shape in LSTM_SHAPES:
+        t, n, h = shape
+        x = _randn(rng, (t, n, h))
+        w = _randn(rng, (h, 4 * h), np.sqrt(2.0 / (5 * h)))
+        rw = _randn(rng, (h, 4 * h), np.sqrt(2.0 / (5 * h)))
+        b = _randn(rng, (4 * h,), 0.1)
+        h0, c0 = _randn(rng, (n, h), 0.5), _randn(rng, (n, h))
+        xw = x @ w + b
+        got = ck.lstm_sequence(xw, rw, h0, c0)
+        torch.cuda.synchronize()
+        plain = ck.lstm_sequence_plain(xw, rw, h0, c0)
+        errs = {}
+        for name, g, ref in zip(("ys", "hN", "cN"), got, plain):
+            errs[name] = (g - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            if not errs[name] <= LSTM_TOL * scale:
+                raise RuntimeError(f"lstm_sequence {shape}: {name} max abs err "
+                                   f"{errs[name]} > {LSTM_TOL} x {scale}")
+        lib = torch.nn.LSTM(h, h).cuda()
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(ifgo(w, h).t())
+            lib.weight_hh_l0.copy_(ifgo(rw, h).t())
+            lib.bias_ih_l0.copy_(ifgo(b, h))
+            lib.bias_hh_l0.zero_()
+        state = (h0[None].contiguous(), c0[None].contiguous())
+        with torch.no_grad():
+            lib_ys = lib(x, state)[0]
+            row = {
+                "shape": list(shape), "max_abs_err": max(errs.values()),
+                "max_abs_err_by_output": errs,
+                "library_max_abs_diff_vs_plain": (lib_ys - plain[0]).abs().max().item(),
+                "ms": median_ms(lambda: ck.lstm_sequence(xw, rw, h0, c0)),
+                "ms_with_input_product": median_ms(lambda: ck.lstm_sequence(
+                    (x @ w + b), rw, h0, c0)),
+                "plain_ms": median_ms(lambda: ck.lstm_sequence_plain(xw, rw, h0, c0),
+                                      runs=5 if t >= 1000 else 25),
+                "library_ms": median_ms(lambda: lib(x, state)),
+                "library": "torch.nn.LSTM on cuDNN, with its input product; "
+                           "compare with ms_with_input_product",
+            }
+        row["bound_ms"], row["bound_by"] = lstm_bound(shape, peaks)
+        print("kernel lstm_sequence " + json.dumps(row), flush=True)
+        rows[shape] = row
+        del x, w, rw, b, h0, c0, xw, got, plain, lib, lib_ys
+    return rows[LSTM_SHAPES[0]]
+
+
+def char_corpus(n_examples):
+    """``n_examples`` non-overlapping character sequences of CHAR_LEN + 1
+    from the repository's own text, with every character outside CHARS
+    dropped (as the example's CharacterIterator drops them), as indices
+    into CHARS (a [n_examples, CHAR_LEN + 1] int64 array)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    text = "".join(open(os.path.join(root, f), encoding="utf-8").read()
+                   for f in CORPUS)
+    index = {c: i for i, c in enumerate(CHARS)}
+    ids = np.fromiter((index[c] for c in text if c in index), dtype=np.int64)
+    need = n_examples * (CHAR_LEN + 1)
+    if ids.size < need:
+        raise RuntimeError(f"corpus has {ids.size} characters, {need} needed")
+    return ids[:need].reshape(n_examples, CHAR_LEN + 1)
+
+
+def char_lstm_conf():
+    """LSTMCharModellingExample's configuration, through ``list()``."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import LSTMLayer, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    v = len(CHARS)
+    return (NeuralNetConfiguration.builder().seed(12345).l2(1e-4)
+            .weight_init("xavier").updater(Adam(0.005)).list()
+            .layer(LSTMLayer(n_in=v, n_out=CHAR_WIDTH, activation="tanh"))
+            .layer(LSTMLayer(n_in=CHAR_WIDTH, n_out=CHAR_WIDTH, activation="tanh"))
+            .layer(RnnOutputLayer(n_in=CHAR_WIDTH, n_out=v, loss="mcxent",
+                                  activation="softmax"))
+            .set_input_type(InputType.recurrent(v))
+            .backprop_type("TruncatedBPTT").t_bptt_length(CHAR_TBPTT).build())
+
+
+def sample_from(probs, rng):
+    """The example's sampleFromDistribution: the first index whose
+    cumulative probability reaches a uniform draw."""
+    return int(min(np.searchsorted(np.cumsum(probs, dtype=np.float64), rng.random()),
+                   len(probs) - 1))
+
+
+def char_lstm_phase(ck, card):
+    """Train, serve and sample DL4J's character model (see the module
+    docstring). Returns K1's launches by path and K2's in training."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import (export_params,
+                                                       load_reference_params)
+
+    v = len(CHARS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ids = torch.from_numpy(char_corpus((CHAR_BATCHES + 1) * CHAR_BATCH)).cuda()
+    onehot = F.one_hot(ids, v).float()  # [examples, CHAR_LEN + 1, 77]
+    batches = [(onehot[i * CHAR_BATCH:(i + 1) * CHAR_BATCH, :-1],
+                onehot[i * CHAR_BATCH:(i + 1) * CHAR_BATCH, 1:])
+               for i in range(CHAR_BATCHES + 1)]
+    net = MultiLayerNetwork(char_lstm_conf()).init()  # on cuda
+    n_tensors = sum(len(named) for named in net.params.values())
+    n_lstm = sum(1 for l in net.layers if type(l).__name__ == "LSTMLayer")
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    chunk_losses = []
+    apply = net._apply_updates
+
+    def record_and_apply(grads):  # each chunk's loss, a device scalar
+        chunk_losses.append(net._score)
+        apply(grads)
+
+    net._apply_updates = record_and_apply
+    chunks = CHAR_BATCHES * CHAR_LEN // CHAR_TBPTT
+    ck.lstm_sequence.launches = ck.fused_adam.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for x, y in batches[:CHAR_BATCHES]:
+        net.fit(x, y)
+    end.record()
+    torch.cuda.synchronize()
+    del net._apply_updates
+    window_ms = start.elapsed_time(end)
+    train = {"lstm_sequence": ck.lstm_sequence.launches,
+             "fused_adam": ck.fused_adam.launches}
+    losses = [float(l) for l in chunk_losses]
+    print("char-lstm chunk losses " + json.dumps(losses), flush=True)
+    if train != {"lstm_sequence": n_lstm * chunks, "fused_adam": n_tensors * chunks}:
+        raise RuntimeError(f"launches {train} in {chunks} chunks, expected "
+                           f"{n_lstm} and {n_tensors} a chunk")
+    if not (len(losses) == chunks and np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise RuntimeError(f"training did not progress: {losses}")
+    peak_train_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_steps(net, *batches[0], fits=1,
+                            steps_per_fit=CHAR_LEN // CHAR_TBPTT)
+
+    # one chunk on a twin that takes the plain recurrence
+    twin = load_reference_params(MultiLayerNetwork(char_lstm_conf()).init(),
+                                 export_params(net))
+    xc, yc = batches[0][0][:, :CHAR_TBPTT], batches[0][1][:, :CHAR_TBPTT]
+    g_k, loss_k = net.compute_gradient_and_score(xc, yc)
+    helpers.set_auto_fused_lstm(False)
+    try:
+        g_p, loss_p = twin.compute_gradient_and_score(xc, yc)
+        x_out = batches[CHAR_BATCHES][0]
+        ref_out = twin.output(x_out)
+    finally:
+        helpers.set_auto_fused_lstm(True)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst_name, worst = worst_gradient(g_k, g_p)
+    if not (loss_rel <= CHAR_LOSS_RTOL and worst <= CHAR_GRAD_TOL):
+        raise RuntimeError(f"char LSTM kernel path disagrees with the plain "
+                           f"recurrence: loss {loss_k} vs {loss_p} (rel "
+                           f"{loss_rel}), worst gradient {worst_name} at {worst}")
+    del twin, g_k, g_p
+
+    # serving: output over one unseen [32, 1000, 77] batch
+    ck.lstm_sequence.launches = 0
+    start.record()
+    out = net.output(x_out)
+    end.record()
+    torch.cuda.synchronize()
+    output_launches = ck.lstm_sequence.launches
+    output_ms = start.elapsed_time(end)
+    if output_launches != n_lstm or out.shape != (CHAR_BATCH, CHAR_LEN, v):
+        raise RuntimeError(f"output: {output_launches} launches, shape "
+                           f"{tuple(out.shape)}")
+    rowsum_dev = (out.double().sum(-1) - 1.0).abs().max().item()
+    out_diff = (out - ref_out).abs().max().item()
+    if not (rowsum_dev <= ROWSUM_TOL and out_diff <= CHAR_OUT_ATOL):
+        raise RuntimeError(f"output: rows sum off by {rowsum_dev}, "
+                           f"{out_diff} from the plain recurrence")
+    del out, ref_out
+
+    # sampling: prime with PRIME, then N_SAMPLES x SAMPLE_LEN characters
+    rng = np.random.default_rng(12345)
+    index = {c: i for i, c in enumerate(CHARS)}
+    prime = F.one_hot(torch.tensor([index[c] for c in PRIME]), v).float()
+    net.rnn_clear_previous_state()
+    ck.lstm_sequence.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs = net.rnn_time_step(prime[None].repeat(N_SAMPLES, 1, 1).cuda())[:, -1]
+    samples = [[] for _ in range(N_SAMPLES)]
+    for _ in range(SAMPLE_LEN):
+        p = probs.cpu().numpy().astype(np.float64)
+        nxt = [sample_from(p[k], rng) for k in range(N_SAMPLES)]
+        for k, c in enumerate(nxt):
+            samples[k].append(CHARS[c])
+        probs = net.rnn_time_step(F.one_hot(torch.tensor(nxt), v).float().cuda())
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    sample_launches = ck.lstm_sequence.launches
+    if sample_launches != n_lstm * (1 + SAMPLE_LEN) or probs.shape != (N_SAMPLES, v):
+        raise RuntimeError(f"sampling: {sample_launches} launches for "
+                           f"{1 + SAMPLE_LEN} steps")
+    texts = ["".join(t) for t in samples]
+    print("char-lstm sample 0: " + json.dumps(PRIME + texts[0][:80]), flush=True)
+    stats = {
+        "card": card, "params": net.conf.num_params(), "chunks": chunks,
+        "batch": [CHAR_BATCH, CHAR_LEN], "tbptt": CHAR_TBPTT,
+        "first_5_mean_loss": float(np.mean(losses[:5])),
+        "last_5_mean_loss": float(np.mean(losses[-5:])),
+        "window_ms": window_ms,
+        "trained_chars_per_s": CHAR_BATCHES * CHAR_BATCH * CHAR_LEN / (window_ms / 1e3),
+        "ms_per_chunk": window_ms / chunks,
+        "launches": train, "launches_per_chunk": {k: n // chunks for k, n in train.items()},
+        "peak_device_mem_gb_train": peak_train_gb,
+        "parity_loss_kernel": loss_k, "parity_loss_plain": loss_p,
+        "parity_loss_rel": loss_rel, "parity_worst_grad": worst_name,
+        "parity_worst_grad_rel_to_max": worst,
+        "output_ms": output_ms, "output_chars_per_s": CHAR_BATCH * CHAR_LEN / (output_ms / 1e3),
+        "output_launches": output_launches, "output_rowsum_dev": rowsum_dev,
+        "output_max_abs_diff_vs_plain": out_diff,
+        "sample_s": sample_s, "sampled_chars_per_s": N_SAMPLES * SAMPLE_LEN / sample_s,
+        "sample_launches": sample_launches,
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile_per_chunk": profile,
+    }
+    print("char-lstm " + json.dumps(stats), flush=True)
+    helpers.clear_helper("updater")
+    del net, batches, onehot
+    return ({"train": train["lstm_sequence"], "output": output_launches,
+             "sample": sample_launches}, train["fused_adam"])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -574,6 +870,8 @@ def main() -> None:
     adam = adam_phase(ck, peaks)
     serve_launches = serving_phase(ck, card, served["ms"])
     train_launches = training_phase(ck, card)
+    lstm = lstm_kernel_phase(ck, peaks)
+    char_launches, char_adam_launches = char_lstm_phase(ck, card)
 
     def entry(name, source, replaces, row, launches, **extra):
         return {"name": name, "route": "cuda",
@@ -601,7 +899,15 @@ def main() -> None:
               train_launches["flash_attention_bwd_dq"]),
         entry("fused_adam", "fused_adam.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:218", adam,
-              train_launches["fused_adam"]),
+              train_launches["fused_adam"] + char_adam_launches,
+              launches_by_path={"train": train_launches["fused_adam"],
+                                "char_lstm_train": char_adam_launches}),
+        entry("lstm_sequence", "lstm_sequence.cu",
+              "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
+              sum(char_launches.values()), launches_by_path=char_launches,
+              library="torch.nn.LSTM (cuDNN) with its input product: "
+                      "compare with ms_with_input_product",
+              ms_with_input_product=lstm["ms_with_input_product"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

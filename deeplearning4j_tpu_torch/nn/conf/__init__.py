@@ -3,5 +3,7 @@
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType  # noqa: F401
 from deeplearning4j_tpu_torch.nn.conf.network import (  # noqa: F401
     GlobalConf,
+    ListBuilder,
+    MultiLayerConfiguration,
     NeuralNetConfiguration,
 )

@@ -16,6 +16,13 @@ Counterpart of ``deeplearning4j_tpu/nn/pallas_kernels.py``. Ported so far:
   ``pallas_kernels.py:218``, via ``PallasUpdaterHelper.apply`` :280):
   ``csrc/fused_adam.cu``, wrapped by :func:`fused_adam` and served at the
   "updater" seam by :class:`FusedUpdaterHelper`.
+- K1, the fused LSTM sequence forward (``_lstm_pallas_fwd``,
+  ``pallas_kernels.py:66``, via ``PallasLSTMHelper.forward_seq`` :153):
+  ``csrc/lstm_sequence.cu``, wrapped by :func:`lstm_sequence`;
+  :class:`LSTMSequenceFunction` differentiates it by recomputing the plain
+  recurrence (the reference's ``_fused_bwd`` takes the VJP of its plain
+  scan: no backward kernel exists in either package), and
+  :class:`FusedLSTMHelper` serves it at the "lstm" seam.
 
 Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, into ``build/`` beside ``csrc/``,
@@ -41,7 +48,11 @@ import time
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.nn.helpers import AttentionHelper, UpdaterHelper
+from deeplearning4j_tpu_torch.nn.helpers import (
+    AttentionHelper,
+    LSTMHelper,
+    UpdaterHelper,
+)
 from deeplearning4j_tpu_torch.nn.updaters import (
     AMSGrad,
     Adam,
@@ -155,7 +166,8 @@ def _stream(t: torch.Tensor) -> int:
 _FWD_SRC = "flash_attention_fwd.cu"
 _BWD_SRC = "flash_attention_bwd.cu"
 _ADAM_SRC = "fused_adam.cu"
-SOURCES = (_FWD_SRC, _BWD_SRC, _ADAM_SRC)
+_LSTM_SRC = "lstm_sequence.cu"
+SOURCES = (_FWD_SRC, _BWD_SRC, _ADAM_SRC, _LSTM_SRC)
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -454,3 +466,136 @@ class FusedUpdaterHelper(UpdaterHelper):
                    grad.to(param.dtype).contiguous(),
                    adam_coefficients(updater, lr, t))
         return param, state
+
+
+# --------------------------------------------------- K1: fused LSTM sequence
+_LSTM_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_COOPERATIVE_LAUNCH_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge (CUDA >= 10.1)
+
+
+def lstm_sequence_plain(xw, rw, h0, c0):
+    """Plain PyTorch version of the kernel, the counterpart of
+    ``_lstm_ref_scan`` (``pallas_kernels.py:98``): over ``xw`` [T,N,4H]
+    (``x@W+b``, IFOG blocks), ``rw`` [H,4H] and the carry ``h0``, ``c0``
+    [N,H], each step ``z = xw_t + h@rw``, sigmoid i/f/o, tanh g,
+    ``c = f·c + i·g``, ``h = o·tanh(c)``. Returns ``(ys [T,N,H], hN, cN)``."""
+    hidden = rw.shape[0]
+    h, c = h0, c0
+    ys = []
+    for xw_t in xw:
+        z = xw_t + h @ rw
+        i = torch.sigmoid(z[:, :hidden])
+        f = torch.sigmoid(z[:, hidden:2 * hidden])
+        o = torch.sigmoid(z[:, 2 * hidden:3 * hidden])
+        g = torch.tanh(z[:, 3 * hidden:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+    if not ys:
+        return xw.new_zeros((0,) + tuple(h0.shape)), h, c
+    return torch.stack(ys), h, c
+
+
+def lstm_sequence(xw, rw, h0, c0, units_per_block: int = 0):
+    """The whole LSTM recurrence in one launch: ``(ys [T,N,H], hN, cN)``
+    from f32 ``xw`` [T,N,4H], ``rw`` [H,4H], ``h0``, ``c0`` [N,H].
+
+    CUDA tensors launch the kernel (a cooperative launch: all blocks
+    resident at once; ``units_per_block`` hidden units per block, 0 to
+    spread H over the SMs) and raise on what it does not take; inputs that
+    are views (a carry sliced from a sequence, an ``RW`` slice) are copied
+    to contiguous memory first. CPU tensors get
+    :func:`lstm_sequence_plain`."""
+    if _on_cpu("lstm_sequence", xw, rw, h0, c0):
+        return lstm_sequence_plain(xw, rw, h0, c0)
+    ts = (xw, rw, h0, c0)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError(f"lstm_sequence takes float32; got {[t.dtype for t in ts]}")
+    if xw.ndim != 3 or xw.shape[2] % 4:
+        raise ValueError(f"lstm_sequence: xw must be [T,N,4H]; got {tuple(xw.shape)}")
+    t, n, h4 = xw.shape
+    hidden = h4 // 4
+    if (tuple(rw.shape) != (hidden, h4) or tuple(h0.shape) != (n, hidden)
+            or tuple(c0.shape) != (n, hidden)):
+        raise ValueError(f"lstm_sequence: with xw {tuple(xw.shape)}, rw must be "
+                         f"[{hidden},{h4}] and h0, c0 [{n},{hidden}]; got "
+                         f"{tuple(rw.shape)}, {tuple(h0.shape)}, {tuple(c0.shape)}")
+    if units_per_block < 0:
+        raise ValueError("lstm_sequence: units_per_block must be >= 0")
+    if max(t, n, hidden) > 2 ** 31 - 1:
+        raise ValueError("lstm_sequence: T, N and H must fit the kernel's int arguments")
+    xw, rw, h0, c0 = (x.contiguous() for x in ts)
+    ys = torch.empty((t, n, hidden), dtype=xw.dtype, device=xw.device)
+    if t == 0 or n == 0 or hidden == 0:
+        return ys, h0.clone(), c0.clone()
+    hn, cn = torch.empty_like(h0), torch.empty_like(c0)
+    fn = _load(_LSTM_SRC, "dl4j_lstm_sequence_f32", _LSTM_ARGS)
+    with torch.cuda.device(xw.device):
+        err = fn(xw.data_ptr(), rw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                 ys.data_ptr(), hn.data_ptr(), cn.data_ptr(), t, n, hidden,
+                 int(units_per_block), _stream(xw))
+    if err == _COOPERATIVE_LAUNCH_TOO_LARGE:
+        raise RuntimeError(
+            f"lstm_sequence: the grid for H={hidden} at {units_per_block or 'the default'} "
+            f"units per block cannot be resident at once "
+            f"(cudaErrorCooperativeLaunchTooLarge)")
+    _launched(err, lstm_sequence, "lstm_sequence")
+    return ys, hn, cn
+
+
+lstm_sequence.launches = 0
+
+
+class LSTMSequenceFunction(torch.autograd.Function):
+    """Differentiable :func:`lstm_sequence`: the kernel forward; the
+    backward recomputes :func:`lstm_sequence_plain` from the saved inputs
+    and differentiates it, as the reference's ``_fused_bwd`` takes the VJP
+    of ``_lstm_ref_scan`` (``pallas_kernels.py:128-131``)."""
+
+    @staticmethod
+    def forward(ctx, xw, rw, h0, c0):
+        ys, hn, cn = lstm_sequence(xw, rw, h0, c0)
+        ctx.save_for_backward(xw, rw, h0, c0)
+        return ys, hn, cn
+
+    @staticmethod
+    def backward(ctx, dys, dhn, dcn):
+        saved = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        wanted = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad():
+            outs = lstm_sequence_plain(*leaves)
+            got = iter(torch.autograd.grad(outs, wanted, (dys, dhn, dcn),
+                                           allow_unused=True,
+                                           materialize_grads=True))
+        return tuple(next(got) if t.requires_grad else None for t in leaves)
+
+
+class FusedLSTMHelper(LSTMHelper):
+    """The "lstm" seam's fused kernel, counterpart of ``PallasLSTMHelper``.
+    ``supports`` is the reference's gate (:147-151): no mask, no peepholes,
+    sigmoid gates, tanh cell. ``forward_seq`` hoists ``x@W+b`` into one
+    product, runs the recurrence through :func:`lstm_sequence` (through
+    :class:`LSTMSequenceFunction` when a gradient is wanted) and returns
+    ``(ys [N,T,H], (hN, cN))``."""
+
+    def supports(self, layer, mask) -> bool:
+        return (mask is None
+                and not getattr(layer, "peephole", False)
+                and layer.gate_activation == "sigmoid"
+                and layer.activation in ("tanh",))
+
+    def forward_seq(self, layer, params, x, carry):
+        n = x.shape[0]
+        if carry is None:
+            carry = layer.init_carry(n, x.dtype, x.device)
+        h0, c0 = carry
+        xw = (x @ params["W"] + params["b"]).transpose(0, 1)  # [T,N,4H]
+        rw = params["RW"][:, :4 * layer.n_out]
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (xw, rw, h0, c0)):
+            ys, hn, cn = LSTMSequenceFunction.apply(xw, rw, h0, c0)
+        else:
+            ys, hn, cn = lstm_sequence(xw, rw, h0, c0)
+        return ys.transpose(0, 1), (hn, cn)

@@ -3,33 +3,31 @@
 Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``init`` (parameters
 and one updater state per ``<vertex>/<param>``), ``_forward_all``,
 ``output``, and standard-backprop training: ``_loss_fn`` (the summed
-losses of the output layers), ``_apply_updates`` (the "updater" helper
-seam consulted per tensor), ``fit`` over arrays, ``DataSet``,
-``MultiDataSet`` or iterators, ``score`` and
+losses of the output layers plus the l1/l2 penalty), ``_apply_updates``
+(the "updater" helper seam consulted per tensor), ``fit`` over arrays,
+``DataSet``, ``MultiDataSet`` or iterators, ``score`` and
 ``compute_gradient_and_score``.
 
 The network is an ``nn.Module`` whose parameters keep the reference's
 names and layouts, registered as ``<vertex>/<param>``; ``params`` holds the
-same tensors as ``{vertex: {param: tensor}}``. They never require grad: a
-train step differentiates detached aliases of them with
-``torch.autograd.grad`` and then updates them IN PLACE under
-``torch.no_grad()`` (a helper such as ``FusedUpdaterHelper`` writes into
-their storage), so the serving path (``output``, under
+same tensors as ``{vertex: {param: tensor}}``. The step's pieces are the
+ones ``MultiLayerNetwork`` uses too (``nn/train_step.py``): the parameters
+never require grad, a step differentiates detached aliases of them and
+updates them in place, so the serving path (``output``, under
 ``torch.inference_mode()``) never meets an autograd graph. The step runs
 eagerly; where the reference jits one fused step, the port launches
 kernels one by one.
 
-Not ported yet (the port's configuration has no setting for them): l1/l2
-regularization, gradient normalization, constraints, weight noise,
-dropout, mixed precision, TBPTT. A network with attention dropout refuses
-to train.
+Not ported yet (the port's configuration has no setting for them):
+gradient normalization, constraints, weight noise, dropout, mixed
+precision, TBPTT, ``rnn_time_step``. A network with attention dropout
+refuses to train.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Union
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -39,9 +37,14 @@ from deeplearning4j_tpu_torch.datasets.dataset import (
     MultiDataSet,
     batch_nbytes,
 )
-from deeplearning4j_tpu_torch.nn import helpers as _helpers
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ComputationGraphConfiguration
-from deeplearning4j_tpu_torch.nn.updaters import Sgd
+from deeplearning4j_tpu_torch.nn.train_step import (
+    apply_updates,
+    as_tensor,
+    gradients,
+    init_parameters,
+    regularization,
+)
 
 Grads = Dict[str, Dict[str, torch.Tensor]]
 
@@ -88,25 +91,14 @@ class ComputationGraph(nn.Module):
         g = self.conf.global_conf
         gen = torch.Generator(device=self.device)
         gen.manual_seed(g.seed if seed is None else seed)
-        default_updater = g.updater or Sgd(0.1)
-        self.params, self._updaters, self.updater_states = {}, {}, {}
-        for vd in self.conf.layer_vertices():
-            layer = vd.obj
-            layer_upd = layer.updater or default_updater
-            bias_upd = layer.bias_updater or g.bias_updater or layer_upd
-            p = layer.init_params(gen, self.dtype, self.device)
-            self.params[vd.name], self._updaters[vd.name] = {}, {}
-            self.updater_states[vd.name] = {}
-            for n, t in p.items():
-                param = nn.Parameter(t, requires_grad=False)
-                self.register_parameter(f"{vd.name}/{n}", param)
-                u = bias_upd if n == "b" else layer_upd
-                self.params[vd.name][n] = param
-                self._updaters[vd.name][n] = u
-                self.updater_states[vd.name][n] = u.init_state(param.detach())
+        self.params, self._updaters, self.updater_states = init_parameters(
+            self, self._named_layers(), g, gen, self.dtype, self.device)
         self.iteration = 0
         self.epoch = 0
         return self
+
+    def _named_layers(self):
+        return [(vd.name, vd.obj) for vd in self.conf.layer_vertices()]
 
     # -------------------------------------------------------------- forward
     def _forward_all(self, params, inputs: Dict[str, torch.Tensor],
@@ -155,10 +147,7 @@ class ComputationGraph(nn.Module):
         return [acts[n] for n in self.conf.outputs]
 
     def _as_tensor(self, x, cast_float: bool = True) -> torch.Tensor:
-        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
-        if cast_float and t.is_floating_point() and t.dtype != self.dtype:
-            t = t.to(self.dtype)
-        return t.to(self.device)
+        return as_tensor(x, self.dtype, self.device, cast_float)
 
     def output(self, *xs, masks=None) -> Union[torch.Tensor, List[torch.Tensor]]:
         """Inference over numpy arrays or tensors (floating inputs are cast
@@ -185,9 +174,9 @@ class ComputationGraph(nn.Module):
     # ----------------------------------------------------------------- loss
     def _loss_fn(self, params, inputs, labels, masks, label_masks):
         """The summed losses of the output layers, each from its INPUT
-        activation (its ``compute_loss``); the label mask is the given one,
-        else the feature mask that reached the layer (per timestep for a
-        sequence output, per example for a 2-d one)."""
+        activation (its ``compute_loss``), plus the l1/l2 penalty; the label
+        mask is the given one, else the feature mask that reached the layer
+        (per timestep for a sequence output, per example for a 2-d one)."""
         acts = self._forward_all(params, inputs, masks, loss_inputs=True)
         loss = 0.0
         for oi, out_name in enumerate(self.conf.outputs):
@@ -209,7 +198,7 @@ class ComputationGraph(nn.Module):
                     lm = fm.reshape(fm.shape[0])
             loss = loss + layer.compute_loss(params[out_name], h, labels[oi],
                                              mask=lm)
-        return loss
+        return loss + regularization(self._named_layers(), params)
 
     def _batch(self, mds):
         """(inputs, labels, masks, label masks) of a MultiDataSet as tensors
@@ -228,46 +217,20 @@ class ComputationGraph(nn.Module):
         return inputs, labels, masks, lmasks
 
     def _gradients(self, inputs, labels, masks=None, lmasks=None):
-        """``(loss, {vertex: {param: grad}})`` by ``torch.autograd.grad``
-        over detached aliases of the parameters (they share storage; the
-        parameters themselves never require grad)."""
+        """``(loss, {vertex: {param: grad}})``, by :func:`gradients`."""
         if self.params is None:
             raise RuntimeError("call init() (or load parameters) first")
-        live = {v: {n: t.detach().requires_grad_(True) for n, t in named.items()}
-                for v, named in self.params.items()}
-        leaves = [t for named in live.values() for t in named.values()]
-        with torch.enable_grad():
-            loss = self._loss_fn(live, inputs, labels, masks, lmasks)
-            flat = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                       materialize_grads=True)
-        it = iter(flat)
-        grads = {v: {n: next(it) for n in named} for v, named in live.items()}
-        return loss.detach(), grads
+        loss, grads, _ = gradients(
+            lambda live: (self._loss_fn(live, inputs, labels, masks, lmasks), None),
+            self.params)
+        return loss, grads
 
     # ------------------------------------------------------------ train step
     def _apply_updates(self, grads: Grads) -> None:
-        """One updater step per parameter tensor, in place, at the 1-based
-        step ``iteration + 1``. A registered "updater" helper takes every
-        tensor its ``supports`` admits (the reference's seam); the others
-        take their updater's stock math."""
-        uhelper = _helpers.get_helper("updater")
-        it, ep = np.float32(self.iteration), np.float32(self.epoch)
-        t = float(self.iteration) + 1.0
-        with torch.no_grad():
-            for vd in self.conf.layer_vertices():
-                name = vd.name
-                states = self.updater_states[name]
-                for n, g in grads[name].items():
-                    u = self._updaters[name][n]
-                    p = self.params[name][n]
-                    lr = u.lr_at(it, ep)
-                    if uhelper is not None and uhelper.supports(u, p, g):
-                        p_new, states[n] = uhelper.apply(u, p, g, states[n], lr, t)
-                        if p_new is not p:
-                            p.copy_(p_new)
-                        continue
-                    upd, states[n] = u.update(g, states[n], lr, t)
-                    p.sub_(upd.to(p.dtype))
+        """One updater step per parameter tensor, in place, through the
+        "updater" helper seam (:func:`apply_updates`)."""
+        apply_updates(self.params, grads, self._updaters, self.updater_states,
+                      self.iteration, self.epoch)
 
     def _fit_batch(self, ds) -> None:
         if any(getattr(vd.obj, "attn_dropout", 0.0) for vd in self.conf.layer_vertices()):

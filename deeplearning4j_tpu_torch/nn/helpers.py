@@ -9,7 +9,12 @@ In the port the seam holds the hand-written CUDA kernels
 (``nn/cuda_kernels.py``). With no attention helper registered and
 auto-flash on, causal attention that ``FlashAttentionHelper.supports``
 admits takes the kernel (``nn/layers/attention.py``); the reference's
-TPU threshold on T is not carried over. The "updater" kind takes
+TPU threshold on T is not carried over. Likewise, with no lstm helper
+registered and auto-fused-LSTM on, a standard LSTM that
+``FusedLSTMHelper.supports`` admits takes the fused sequence kernel
+(``nn/layers/recurrent.py``) at any T and any H: the reference's TPU win
+region (``_AUTO_LSTM_MIN_T``, ``_AUTO_LSTM_MAX_H``) is not carried over,
+and an H100 threshold waits for a measurement. The "updater" kind takes
 ``FusedUpdaterHelper`` (the fused Adam/Nadam/AMSGrad kernel) when it is
 registered with ``set_helper("updater", FusedUpdaterHelper())``.
 """
@@ -26,7 +31,8 @@ KINDS = ("lstm", "convolution", "subsampling", "batch_norm", "lrn",
 
 
 def version() -> int:
-    """Registry generation: bumped on every set/clear and auto-flash change."""
+    """Registry generation: bumped on every set/clear and on every change
+    of an auto switch."""
     return _VERSION
 
 
@@ -68,6 +74,33 @@ def set_auto_flash_attention(enabled: bool) -> None:
 
 def auto_flash_attention_enabled() -> bool:
     return _AUTO_FLASH
+
+
+_AUTO_LSTM = True
+
+
+def set_auto_fused_lstm(enabled: bool) -> None:
+    """Opt out of (or back into) the automatic fused-LSTM kernel."""
+    global _AUTO_LSTM, _VERSION
+    if _AUTO_LSTM != bool(enabled):
+        _AUTO_LSTM = bool(enabled)
+        _VERSION += 1
+
+
+def auto_fused_lstm_enabled() -> bool:
+    return _AUTO_LSTM
+
+
+class LSTMHelper:
+    """Interface (``LSTMHelper.java:34``): accelerate the LSTM sequence
+    pass. ``forward_seq(layer, params, x, carry)`` returns ``(ys [N,T,H],
+    (hN, cN))`` for the configurations ``supports(layer, mask)`` admits."""
+
+    def supports(self, layer, mask) -> bool:  # pragma: no cover - interface
+        return False
+
+    def forward_seq(self, layer, params, x, carry):  # pragma: no cover
+        raise NotImplementedError
 
 
 class UpdaterHelper:

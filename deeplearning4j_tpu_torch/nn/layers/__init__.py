@@ -19,4 +19,8 @@ from deeplearning4j_tpu_torch.nn.layers.output import (  # noqa: F401
     OutputLayer,
     RnnOutputLayer,
 )
-from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
+    BaseRecurrentLayer,
+    GravesLSTMLayer,
+    LSTMLayer,
+)

@@ -42,12 +42,17 @@ class Layer:
     bias_init: Optional[float] = None
     updater: Optional[Any] = None
     bias_updater: Optional[Any] = None
+    l1: Optional[float] = None
+    l2: Optional[float] = None
+    l1_bias: Optional[float] = None
+    l2_bias: Optional[float] = None
     dtype: Optional[Any] = None
 
     def apply_global_defaults(self, g) -> None:
         """Inherit unset hyperparams from the global configuration."""
         for f in ("activation", "weight_init", "distribution", "bias_init",
-                  "updater", "bias_updater", "dtype"):
+                  "updater", "bias_updater", "l1", "l2", "l1_bias", "l2_bias",
+                  "dtype"):
             if getattr(self, f) is None and getattr(g, f, None) is not None:
                 setattr(self, f, getattr(g, f))
 
@@ -57,6 +62,12 @@ class Layer:
 
     def output_type(self, input_type: InputType) -> InputType:
         return input_type
+
+    def input_preprocessor(self, input_type: InputType):
+        """A ``(fn, new_input_type)`` reshape this layer needs in front of
+        it, else None. The port's input kinds (ff, rnn) need none; the
+        convolutional kinds come with the conv layers."""
+        return None
 
     # ---- params ------------------------------------------------------------
     def init_params(self, gen: torch.Generator, dtype=torch.float32,

@@ -1,0 +1,355 @@
+"""MultiLayerNetwork — a sequential network over a MultiLayerConfiguration.
+
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``
+(parameters and one updater state per tensor), ``_forward_all`` with
+recurrent carries, ``_regularization``, ``_loss_fn``, ``_apply_updates``
+(the "updater" helper seam consulted per tensor), ``fit`` over arrays,
+``DataSet`` or iterators with standard backprop or truncated BPTT,
+``output``, ``predict``, ``score``, ``compute_gradient_and_score`` and the
+stateful RNN API (``rnn_time_step`` and the stored-state accessors).
+
+The network is an ``nn.Module`` whose parameters keep the reference's
+names and layouts, registered as ``<layer index>/<param>``; ``params`` holds
+the same tensors as ``{index: {param: tensor}}`` (the reference keeps a
+list of per-layer dicts; ``util/convert.py`` carries them across). The
+step's pieces are the ones ``ComputationGraph`` uses too
+(``nn/train_step.py``): parameters never require grad, a step
+differentiates detached aliases of them and updates them in place.
+
+Truncated BPTT cuts each sequence into chunks of ``tbptt_fwd_length``
+steps; each chunk is one iteration (one update, one Adam step count) and
+hands its final recurrent carry, detached, to the next chunk.
+
+Not ported yet: gradient normalization, constraints, weight noise,
+dropout, mixed precision, gradient checkpointing, listeners,
+``fit_batches_on_device``, evaluation, pretraining and the model zip.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, batch_nbytes
+from deeplearning4j_tpu_torch.nn.conf.network import (
+    MultiLayerConfiguration,
+    normalize_backprop_type,
+)
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    BaseRecurrentLayer,
+    check_carry_capacity,
+)
+from deeplearning4j_tpu_torch.nn.train_step import (
+    apply_updates,
+    as_tensor,
+    gradients,
+    init_parameters,
+    regularization,
+)
+
+
+def _detach(carry):
+    if carry is None:
+        return None
+    if isinstance(carry, torch.Tensor):
+        return carry.detach()
+    return type(carry)(_detach(c) for c in carry)
+
+
+class MultiLayerNetwork(nn.Module):
+    """Sequential network. ``device=None`` places it on ``cuda`` and raises
+    when there is none; ``device="cpu"`` runs it on the CPU."""
+
+    def __init__(self, conf: MultiLayerConfiguration, device=None):
+        super().__init__()
+        conf.finalize()
+        if conf.global_conf.compute_dtype is not None:
+            raise NotImplementedError(
+                "compute_dtype (mixed precision) is not supported by the "
+                "PyTorch port yet")
+        self.conf = conf
+        self.layers = conf.layers
+        self.device = resolve_device(device)
+        self.dtype = conf.global_conf.torch_dtype()
+        self.params: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
+        self.updater_states: Optional[Dict[int, Dict[str, Dict[str, torch.Tensor]]]] = None
+        self._updaters: Dict[int, dict] = {}
+        self.iteration = 0
+        self.epoch = 0
+        self._score: Optional[torch.Tensor] = None
+        self.last_batch_size: Optional[int] = None
+        # cumulative batch payload handed to fit()
+        self.transfer_bytes = 0
+        self._rnn_carries: Optional[List] = None
+        self._rnn_pos = 0
+
+    @property
+    def score_(self) -> float:
+        """The last fit iteration's loss (NaN before the first)."""
+        return float("nan") if self._score is None else float(self._score)
+
+    # ----------------------------------------------------------------- init
+    def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
+        """Random parameters from a ``torch.Generator`` seeded with the
+        conf's seed (or ``seed``): the reference's schemes, not its draws;
+        each tensor gets its updater and that updater's zero state."""
+        g = self.conf.global_conf
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(g.seed if seed is None else seed)
+        self.params, self._updaters, self.updater_states = init_parameters(
+            self, self._named_layers(), g, gen, self.dtype, self.device)
+        self.iteration = 0
+        self.epoch = 0
+        return self
+
+    def _named_layers(self):
+        return list(enumerate(self.layers))
+
+    def _as_tensor(self, x, cast_float: bool = True) -> torch.Tensor:
+        return as_tensor(x, self.dtype, self.device, cast_float)
+
+    def _require_params(self) -> None:
+        if self.params is None:
+            raise RuntimeError("call init() (or load parameters) first")
+
+    # -------------------------------------------------------------- forward
+    def _forward_all(self, params, x, mask=None, carries=None,
+                     upto: Optional[int] = None):
+        """Run layers [0, upto); returns ``(activation, new_carries)``.
+        With ``carries`` (one per layer, None for the non-recurrent ones),
+        recurrent layers start from them and report their final carry."""
+        n_layers = len(self.layers) if upto is None else upto
+        h, cur_mask, new_carries = x, mask, []
+        for i, layer in enumerate(self.layers):
+            if i >= n_layers:
+                new_carries.append(None if carries is None else carries[i])
+                continue
+            if i in self.conf.preprocessors:
+                h = self.conf.preprocessors[i](h)
+            if carries is not None and isinstance(layer, BaseRecurrentLayer):
+                h, c = layer.forward_seq(params[i], h, carry=carries[i],
+                                         mask=cur_mask)
+                new_carries.append(c)
+            else:
+                h = layer.forward(params[i], h, mask=cur_mask)
+                new_carries.append(None)
+            # per-timestep masks collapse when the time dimension disappears;
+            # a per-example [N]/[N,1] mask stays valid on 2-d activations
+            if (cur_mask is not None and h.ndim == 2 and cur_mask.ndim == 2
+                    and cur_mask.shape[1] > 1):
+                cur_mask = None
+        return h, new_carries
+
+    def _regularization(self, params):
+        return regularization(self._named_layers(), params)
+
+    def _loss_fn(self, params, x, y, mask, label_mask, carries=None):
+        """``(loss, new_carries)``: the output layer's loss from its INPUT
+        activation plus the l1/l2 penalty. The label mask is the given one,
+        else the feature mask (per timestep for a sequence output, per
+        example for a 2-d one)."""
+        out_layer = self.layers[-1]
+        if not out_layer.has_loss():
+            raise ValueError("Last layer must be an output/loss layer for fit()")
+        last = len(self.layers) - 1
+        h, new_carries = self._forward_all(params, x, mask, carries, upto=last)
+        if last in self.conf.preprocessors:
+            h = self.conf.preprocessors[last](h)
+        if label_mask is not None:
+            lm = label_mask
+        elif mask is None:
+            lm = None
+        elif h.ndim == 3:
+            lm = mask
+        elif mask.ndim == 1 or (mask.ndim == 2 and mask.shape[-1] == 1):
+            lm = mask.reshape(mask.shape[0])
+        else:
+            lm = None
+        loss = out_layer.compute_loss(params[last], h, y, mask=lm)
+        return loss + self._regularization(params), new_carries
+
+    # ------------------------------------------------------------ train step
+    def _apply_updates(self, grads) -> None:
+        """One updater step per parameter tensor, in place, through the
+        "updater" helper seam (:func:`apply_updates`)."""
+        apply_updates(self.params, grads, self._updaters, self.updater_states,
+                      self.iteration, self.epoch)
+
+    def _batch(self, ds):
+        """(features, labels, mask, label mask) of a DataSet as tensors on
+        the network's device (masks keep their dtype)."""
+        x, y = self._as_tensor(ds.features), self._as_tensor(ds.labels)
+        mask = None if ds.features_mask is None else self._as_tensor(ds.features_mask, False)
+        lmask = None if ds.labels_mask is None else self._as_tensor(ds.labels_mask, False)
+        return x, y, mask, lmask
+
+    def _fit_batch(self, ds) -> None:
+        x, y, mask, lmask = self._batch(ds)
+        if (normalize_backprop_type(self.conf.backprop_type) == "truncated_bptt"
+                and x.ndim == 3):
+            self._fit_tbptt(x, y, mask, lmask)
+            return
+        loss, grads, _ = gradients(
+            lambda live: self._loss_fn(live, x, y, mask, lmask), self.params)
+        self._score = loss
+        self._apply_updates(grads)
+        self.last_batch_size = int(x.shape[0])
+        self.iteration += 1
+
+    def _fit_tbptt(self, x, y, mask, lmask) -> None:
+        """Truncated BPTT (``doTruncatedBPTT``): chunks of
+        ``tbptt_fwd_length`` steps, one update each, the recurrent carries
+        handed on detached."""
+        t_total = x.shape[1]
+        check_carry_capacity(
+            ((f"layer {i} ({type(l).__name__})", l)
+             for i, l in enumerate(self.layers)), t_total, "TBPTT")
+        length = self.conf.tbptt_fwd_length
+        batch = x.shape[0]
+        self.last_batch_size = int(batch)
+        carries = [l.init_carry(batch, x.dtype, x.device)
+                   if isinstance(l, BaseRecurrentLayer) else None
+                   for l in self.layers]
+        for c in range(max(1, math.ceil(t_total / length))):
+            s, e = c * length, min((c + 1) * length, t_total)
+            xc = x[:, s:e]
+            yc = y[:, s:e] if y.ndim == 3 else y
+            mc = None if mask is None else mask[:, s:e]
+            lc = None if lmask is None else lmask[:, s:e]
+            loss, grads, carries = gradients(
+                lambda live, _c=carries: self._loss_fn(live, xc, yc, mc, lc, _c),
+                self.params)
+            carries = [_detach(cr) for cr in carries]
+            self._score = loss
+            self._apply_updates(grads)
+            self.iteration += 1
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, data, labels=None, *, epochs: int = 1, features_mask=None,
+            labels_mask=None) -> "MultiLayerNetwork":
+        """Train: ``fit(features, labels)`` (arrays or tensors, with optional
+        masks), ``fit(DataSet)`` or ``fit(iterator)`` (reset before each
+        epoch when it has ``reset``)."""
+        if self.params is None:
+            self.init()
+        if labels is not None:
+            iterator = [DataSet(data, labels, features_mask, labels_mask)]
+        elif isinstance(data, DataSet):
+            iterator = [data]
+        else:
+            iterator = data
+        for _ in range(epochs):
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            for ds in iterator:
+                self.transfer_bytes += batch_nbytes(ds)
+                self._fit_batch(ds)
+            self.epoch += 1
+        return self
+
+    # ------------------------------------------------------------- inference
+    def output(self, x, mask=None) -> torch.Tensor:
+        """Inference forward over an array or tensor (or a DataSet, or an
+        iterator of them: the batch outputs are concatenated), under
+        ``torch.inference_mode()``. Returns a tensor on the network's
+        device."""
+        self._require_params()
+        if hasattr(x, "features") or (hasattr(x, "__iter__")
+                                      and not hasattr(x, "shape")
+                                      and not isinstance(x, (list, tuple))):
+            it = [x] if hasattr(x, "features") else x
+            if hasattr(it, "reset"):
+                it.reset()
+            return torch.cat([self.output(ds.features, mask=ds.features_mask)
+                              for ds in it], dim=0)
+        with torch.inference_mode():
+            x = self._as_tensor(x)
+            mask = None if mask is None else self._as_tensor(mask, False)
+            h, _ = self._forward_all(self.params, x, mask)
+        return h
+
+    def predict(self, x) -> np.ndarray:
+        return self.output(x).argmax(dim=-1).cpu().numpy()
+
+    def score(self, ds=None) -> float:
+        """The last fit iteration's loss, or the loss on ``ds`` (no update,
+        masks honoured)."""
+        if ds is None:
+            return self.score_
+        self._require_params()
+        x, y, mask, lmask = self._batch(ds)
+        with torch.no_grad():
+            loss, _ = self._loss_fn(self.params, x, y, mask, lmask)
+        return float(loss)
+
+    def compute_gradient_and_score(self, x, y, features_mask=None,
+                                   labels_mask=None):
+        """``({index: {param: grad}}, loss)`` on one batch over the whole
+        sequence, no update (the gradient-check hook)."""
+        self._require_params()
+        x, y, mask, lmask = self._batch(DataSet(x, y, features_mask, labels_mask))
+        loss, grads, _ = gradients(
+            lambda live: self._loss_fn(live, x, y, mask, lmask), self.params)
+        return grads, float(loss)
+
+    # ------------------------------------------------------ stateful RNN API
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_carries = None
+        self._rnn_pos = 0
+
+    def rnn_get_previous_state(self, layer: int):
+        """Stored carry of a recurrent layer (``rnnGetPreviousState``), or
+        None before any ``rnn_time_step`` call."""
+        if self._rnn_carries is None:
+            return None
+        return self._rnn_carries[layer]
+
+    def rnn_set_previous_state(self, layer: int, state,
+                               position: Optional[int] = None) -> None:
+        """Overwrite a recurrent layer's stored carry
+        (``rnnSetPreviousState``); needs a prior ``rnn_time_step``.
+        ``position`` (the timesteps ``state`` has absorbed) is mandatory
+        when a layer's carry has a finite capacity."""
+        if self._rnn_carries is None:
+            raise ValueError(
+                "no stored rnn state to overwrite; call rnn_time_step "
+                "first to initialize the carries")
+        if position is not None:
+            self._rnn_pos = int(position)
+        elif any(isinstance(l, BaseRecurrentLayer)
+                 and l.carry_capacity() is not None for l in self.layers):
+            raise ValueError(
+                "rnn_set_previous_state needs position= when a layer has "
+                "a finite carry capacity")
+        self._rnn_carries[layer] = state
+
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Stateful inference (``rnnTimeStep``): ``x`` [N,T,C], or [N,C]
+        for one step (the answer is then [N,out]); each recurrent layer
+        starts from its stored carry and stores its final one."""
+        self._require_params()
+        with torch.inference_mode():
+            x = self._as_tensor(x)
+            squeeze = x.ndim == 2
+            if squeeze:
+                x = x[:, None, :]
+            if self._rnn_carries is None:
+                self._rnn_pos = 0
+                self._rnn_carries = [
+                    l.init_carry(x.shape[0], x.dtype, x.device)
+                    if isinstance(l, BaseRecurrentLayer) else None
+                    for l in self.layers]
+            t_new = x.shape[1]
+            check_carry_capacity(
+                ((f"layer {i}", l) for i, l in enumerate(self.layers)),
+                self._rnn_pos + t_new,
+                f"rnn_time_step at position {self._rnn_pos}+{t_new}")
+            h, self._rnn_carries = self._forward_all(
+                self.params, x, carries=self._rnn_carries)
+            self._rnn_pos += t_new
+        return h[:, -1, :] if squeeze and h.ndim == 3 else h

@@ -1,0 +1,119 @@
+"""The pieces of an eager train step that both networks share.
+
+``ComputationGraph`` (``nn/graph.py``) and ``MultiLayerNetwork``
+(``nn/multilayer.py``) keep their parameters as ``{key: {param: tensor}}``
+(the key is a vertex name or a layer index), registered on the module as
+``<key>/<param>``, with one updater and one updater state per tensor. The
+parameters never require grad: :func:`gradients` differentiates detached
+aliases of them (they share storage) with ``torch.autograd.grad``, and
+:func:`apply_updates` then writes the new values IN PLACE under
+``torch.no_grad()`` (a helper such as ``FusedUpdaterHelper`` writes into
+their storage), so an inference pass never meets an autograd graph.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from deeplearning4j_tpu_torch.nn import helpers as _helpers
+from deeplearning4j_tpu_torch.nn.updaters import Sgd
+
+Tree = Dict[object, Dict[str, torch.Tensor]]
+
+
+def as_tensor(x, dtype: torch.dtype, device, cast_float: bool = True) -> torch.Tensor:
+    """A numpy array or tensor on ``device``; floating data in ``dtype``
+    when ``cast_float`` (token ids arrive as floats, as in the reference)."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    if cast_float and t.is_floating_point() and t.dtype != dtype:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def init_parameters(module: nn.Module, layers: Iterable[Tuple[object, object]],
+                    global_conf, gen: torch.Generator, dtype, device):
+    """Random parameters for each ``(key, layer)``, registered on
+    ``module`` as ``<key>/<param>`` (never requiring grad). Each tensor
+    gets its updater (the layer's, else the network's, else ``Sgd(0.1)``;
+    ``b`` takes the bias updater when one is set) and that updater's zero
+    state. Returns ``(params, updaters, updater_states)``."""
+    default_updater = global_conf.updater or Sgd(0.1)
+    params, updaters, states = {}, {}, {}
+    for key, layer in layers:
+        layer_upd = layer.updater or default_updater
+        bias_upd = layer.bias_updater or global_conf.bias_updater or layer_upd
+        params[key], updaters[key], states[key] = {}, {}, {}
+        for n, t in layer.init_params(gen, dtype, device).items():
+            param = nn.Parameter(t, requires_grad=False)
+            module.register_parameter(f"{key}/{n}", param)
+            u = bias_upd if n == "b" else layer_upd
+            params[key][n] = param
+            updaters[key][n] = u
+            states[key][n] = u.init_state(param.detach())
+    return params, updaters, states
+
+
+def regularization(layers: Iterable[Tuple[object, object]], params: Tree):
+    """The l1/l2 penalty of every ``(key, layer)``'s parameters: ``b``
+    takes ``l1_bias``/``l2_bias``, every other tensor ``l1``/``l2``;
+    ``l1·Σ|v| + ½·l2·Σv²``. 0.0 when nothing is regularized."""
+    reg = 0.0
+    for key, layer in layers:
+        for n, v in params[key].items():
+            is_bias = n == "b"
+            l1 = (layer.l1_bias if is_bias else layer.l1) or 0.0
+            l2 = (layer.l2_bias if is_bias else layer.l2) or 0.0
+            if l1:
+                # |v| as v·s with s = +1 where v >= 0 (else -1), held constant:
+                # the subgradient at 0 is +1, as jax.grad of jnp.abs gives
+                # (torch.abs gives 0), so biases that start at 0 move alike
+                s = torch.where(v >= 0, 1.0, -1.0).to(v.dtype)
+                reg = reg + l1 * torch.sum(v * s)
+            if l2:
+                reg = reg + 0.5 * l2 * torch.sum(v * v)
+    return reg
+
+
+def gradients(loss_fn: Callable, params: Tree):
+    """``(loss, grads, aux)`` of ``loss_fn(live) -> (loss, aux)``, where
+    ``live`` holds detached aliases of ``params`` that require grad; the
+    loss comes back detached and ``grads`` shaped as ``params``."""
+    live = {k: {n: t.detach().requires_grad_(True) for n, t in named.items()}
+            for k, named in params.items()}
+    leaves = [t for named in live.values() for t in named.values()]
+    with torch.enable_grad():
+        loss, aux = loss_fn(live)
+        flat = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                   materialize_grads=True)
+    it = iter(flat)
+    grads = {k: {n: next(it) for n in named} for k, named in live.items()}
+    return loss.detach(), grads, aux
+
+
+def apply_updates(params: Tree, grads: Tree, updaters, states,
+                  iteration: int, epoch: int) -> None:
+    """One updater step per parameter tensor, in place, at the 1-based step
+    ``iteration + 1``. A registered "updater" helper takes every tensor its
+    ``supports`` admits (the reference's seam); the others take their
+    updater's stock math."""
+    uhelper = _helpers.get_helper("updater")
+    it, ep = np.float32(iteration), np.float32(epoch)
+    t = float(iteration) + 1.0
+    with torch.no_grad():
+        for key, named in grads.items():
+            for n, g in named.items():
+                u = updaters[key][n]
+                p = params[key][n]
+                lr = u.lr_at(it, ep)
+                if uhelper is not None and uhelper.supports(u, p, g):
+                    p_new, states[key][n] = uhelper.apply(u, p, g, states[key][n],
+                                                          lr, t)
+                    if p_new is not p:
+                        p.copy_(p_new)
+                    continue
+                upd, states[key][n] = u.update(g, states[key][n], lr, t)
+                p.sub_(upd.to(p.dtype))

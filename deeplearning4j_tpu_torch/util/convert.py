@@ -1,17 +1,20 @@
 """Carry parameters and optimizer state between the JAX reference and the port.
 
 ``load_reference_params(net, params)`` fills a port network from the JAX
-network's parameters as numpy arrays (``{vertex: {name: ndarray}}``, what
-``tree_map(np.asarray, jax_net.params)`` gives); the layouts are the same,
-so this is a checked copy. ``export_params(net)`` is the inverse.
+network's parameters as numpy arrays (what ``tree_map(np.asarray,
+jax_net.params)`` gives); the layouts are the same, so this is a checked
+copy. ``export_params(net)`` is the inverse.
 ``load_reference_updater_state`` / ``export_updater_state`` do the same for
-the updater state (``{vertex: {name: {slot: ndarray}}}``, e.g. Adam's
-``m`` and ``v``), so that both sides can resume from one optimizer state.
+the updater state (e.g. Adam's ``m`` and ``v``), so that both sides can
+resume from one optimizer state.
+
+A ``ComputationGraph`` is carried as ``{vertex: {name: ...}}`` on both
+sides. The reference's ``MultiLayerNetwork`` keeps a list of per-layer
+dicts, the port's ``{index: {name: ...}}``: the list is read by position
+and exported again as a list.
 """
 
 from __future__ import annotations
-
-from typing import Dict
 
 import numpy as np
 import torch
@@ -23,7 +26,8 @@ def _mismatches(mine: dict, theirs: dict, path: str, depth: int) -> list:
     problems = []
     for key in sorted(set(mine) | set(theirs)):
         where = f"{path}{key}"
-        named = where if path else f"vertex {key!r}"
+        named = where if path else (f"layer {key}" if isinstance(key, int)
+                                    else f"vertex {key!r}")
         if key not in theirs:
             problems.append(f"missing {named}")
         elif key not in mine:
@@ -36,7 +40,13 @@ def _mismatches(mine: dict, theirs: dict, path: str, depth: int) -> list:
     return problems
 
 
-def _checked_copy(mine: dict, theirs: dict, depth: int, what: str) -> None:
+def _keyed(theirs):
+    """The reference's per-layer list as ``{index: layer dict}``."""
+    return dict(enumerate(theirs)) if isinstance(theirs, (list, tuple)) else theirs
+
+
+def _checked_copy(mine: dict, theirs, depth: int, what: str) -> None:
+    theirs = _keyed(theirs)
     problems = _mismatches(mine, theirs, "", depth)
     if problems:
         raise ValueError(f"{what} do not match the network: " + "; ".join(problems))
@@ -59,25 +69,34 @@ def _export(tree: dict, depth: int) -> dict:
     return {k: _export(v, depth - 1) for k, v in tree.items()}
 
 
-def load_reference_params(net, params: Dict[str, Dict[str, np.ndarray]]):
-    """Copy ``params`` into ``net`` (an initialized ComputationGraph).
-    Every vertex, name and shape must match; on any mismatch it raises
-    and copies nothing. Returns ``net``."""
+def _export_net(tree: dict, depth: int):
+    out = _export(tree, depth)
+    if all(isinstance(k, int) for k in out):  # a MultiLayerNetwork's layers
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+def load_reference_params(net, params):
+    """Copy ``params`` into ``net`` (an initialized ComputationGraph or
+    MultiLayerNetwork). Every vertex or layer, name and shape must match;
+    on any mismatch it raises and copies nothing. Returns ``net``."""
     if net.params is None:
         raise RuntimeError("net has no parameters yet: call init() first")
     _checked_copy(net.params, params, 2, "parameters")
     return net
 
 
-def export_params(net) -> Dict[str, Dict[str, np.ndarray]]:
-    """The network's parameters as ``{vertex: {name: ndarray}}`` on the host."""
-    return _export(net.params, 2)
+def export_params(net):
+    """The network's parameters on the host: ``{vertex: {name: ndarray}}``
+    for a graph, a list of ``{name: ndarray}`` for a MultiLayerNetwork."""
+    return _export_net(net.params, 2)
 
 
 def load_reference_updater_state(net, upd_states):
     """Copy the reference's updater state (``{vertex: {param: {slot:
-    ndarray}}}``, what ``tree_map(np.asarray, jax_net.updater_states)``
-    gives) into ``net``'s, in place. Every vertex, parameter, slot and
+    ndarray}}}``, or a list of per-layer ``{param: {slot: ndarray}}``,
+    what ``tree_map(np.asarray, jax_net.updater_states)`` gives) into
+    ``net``'s, in place. Every vertex, parameter, slot and
     shape must match (so must the updater kinds); on any mismatch it raises
     and copies nothing. The step count is the caller's: set
     ``net.iteration`` to the reference's. Returns ``net``."""
@@ -88,6 +107,6 @@ def load_reference_updater_state(net, upd_states):
 
 
 def export_updater_state(net):
-    """The network's updater state as ``{vertex: {param: {slot: ndarray}}}``
-    on the host."""
-    return _export(net.updater_states, 3)
+    """The network's updater state on the host, shaped as
+    :func:`export_params` shapes the parameters."""
+    return _export_net(net.updater_states, 3)

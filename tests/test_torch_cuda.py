@@ -7,7 +7,9 @@ installed; on the card:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the forward 1e-4 (max abs): float32 both ways, another
-summation order. The backward 1e-4 relative to the largest entry of each
+summation order. The fused LSTM sequence 1e-4 relative to the largest
+entry of each output (h in [-1, 1]; the recurrence carries each step's
+rounding into the next). The backward 1e-4 relative to the largest entry of each
 reference gradient (its sums run over up to T products of order 1). The
 fused updater 1e-6 absolute on parameters and moments of order 1: the
 same float32 coefficients both ways, only the kernel's fused multiply-adds
@@ -22,6 +24,9 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import cuda_kernels as ck
 from deeplearning4j_tpu_torch.nn import helpers
+from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+from deeplearning4j_tpu_torch.nn.layers import LSTMLayer, RnnOutputLayer
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.updaters import AMSGrad, Adam, Nadam
 from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
 from deeplearning4j_tpu_torch.zoo.models import TransformerLM
@@ -35,6 +40,7 @@ def card():
     yield torch.device("cuda")
     helpers.clear_all_helpers()
     helpers.set_auto_flash_attention(True)
+    helpers.set_auto_fused_lstm(True)
 
 
 def _qkv(shape, seed=0, n=3):
@@ -207,3 +213,125 @@ def test_training_on_the_card_matches_the_plain_path(card):
     for v, named in plain.params.items():
         for n, t in named.items():
             torch.testing.assert_close(kern.params[v][n], t, rtol=0, atol=2e-5)
+
+
+# ------------------------------------------------------ K1: LSTM sequence
+def _lstm_inputs(shape, device, seed=6):
+    """xw [T,N,4H], rw [H,4H] at a Xavier scale, non-zero h0 and c0."""
+    t, n, h = shape
+    rng = np.random.default_rng(seed)
+    xw = rng.standard_normal((t, n, 4 * h), dtype=np.float32)
+    rw = rng.standard_normal((h, 4 * h), dtype=np.float32) * np.float32(np.sqrt(0.4 / h))
+    h0 = rng.standard_normal((n, h), dtype=np.float32) * np.float32(0.5)
+    c0 = rng.standard_normal((n, h), dtype=np.float32)
+    return [torch.from_numpy(a).to(device) for a in (xw, rw, h0, c0)]
+
+
+# the chip smoke's shapes: the TBPTT chunk, a whole example, one sampled
+# character, the repo's char-RNN width, and a width whose rw does not fit
+# in the SMs' shared memory together
+LSTM_SHAPES = [(50, 32, 200), (1000, 32, 200), (1, 4, 200), (128, 64, 512),
+               (35, 20, 1500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_lstm_sequence_kernel_matches_plain(card, shape):
+    args = _lstm_inputs(shape, card)
+    before = ck.lstm_sequence.launches
+    got = ck.lstm_sequence(*args)
+    torch.cuda.synchronize()
+    assert ck.lstm_sequence.launches == before + 1
+    for g, ref in zip(got, ck.lstm_sequence_plain(*args)):
+        _close_to_max(g, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,units", [((9, 5, 37), 1), ((9, 5, 37), 3),
+                                         ((6, 3, 512), 128), ((3, 200, 300), 0)])
+def test_lstm_sequence_kernel_block_plans(card, shape, units):
+    """One unit a block; a ragged last block; a slice of rw too large for
+    shared memory (read through L2); more rows than one chunk of h."""
+    args = _lstm_inputs(shape, card, seed=7)
+    got = ck.lstm_sequence(*args, units_per_block=units)
+    for g, ref in zip(got, ck.lstm_sequence_plain(*args)):
+        _close_to_max(g, ref)
+
+
+@pytest.mark.cuda
+def test_lstm_sequence_takes_views_and_refuses_the_rest(card):
+    xw, rw, h0, c0 = _lstm_inputs((5, 4, 16), card, seed=8)
+    ref = ck.lstm_sequence_plain(xw, rw, h0, c0)
+    wide = torch.cat([h0, h0], 1)[:, :16]  # a strided carry
+    got = ck.lstm_sequence(xw.transpose(0, 1).contiguous().transpose(0, 1),
+                           rw, wide, c0)
+    for g, r in zip(got, ref):
+        _close_to_max(g, r)
+    with pytest.raises(ValueError, match="float32"):
+        ck.lstm_sequence(xw.double(), rw.double(), h0.double(), c0.double())
+    with pytest.raises(ValueError, match="rw must be"):
+        ck.lstm_sequence(xw, rw[:8], h0, c0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ck.lstm_sequence(xw, rw, h0.cpu(), c0)
+
+
+@pytest.mark.cuda
+def test_lstm_sequence_refuses_a_grid_that_cannot_be_resident(card):
+    args = _lstm_inputs((2, 1, 4096), card, seed=9)
+    before = ck.lstm_sequence.launches
+    with pytest.raises(RuntimeError, match="cannot be resident"):
+        ck.lstm_sequence(*args, units_per_block=1)  # 4096 blocks
+    assert ck.lstm_sequence.launches == before
+    got = ck.lstm_sequence(*args)  # the default plan still runs
+    torch.cuda.synchronize()
+    for g, ref in zip(got, ck.lstm_sequence_plain(*args)):
+        _close_to_max(g, ref)
+
+
+@pytest.mark.cuda
+def test_lstm_function_gradients_match_plain_autograd(card):
+    args = _lstm_inputs((20, 6, 64), card, seed=10)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    refs = [t.clone().requires_grad_(True) for t in args]
+    outs = ck.LSTMSequenceFunction.apply(*leaves)
+    plain = ck.lstm_sequence_plain(*refs)
+    cts = [torch.randn_like(o) for o in outs]
+    for got, ref in zip(torch.autograd.grad(outs, leaves, cts),
+                        torch.autograd.grad(plain, refs, cts)):
+        _close_to_max(got, ref)
+
+
+@pytest.mark.cuda
+def test_char_lstm_on_the_card_matches_the_plain_path(card):
+    """Two small char LSTMs from one set of weights: K1 (auto) against the
+    layers' own loop, over 2 TBPTT fits (8 chunks), with the fused Adam."""
+    def net():
+        conf = (NeuralNetConfiguration.builder().seed(12345).l2(1e-4)
+                .updater(Adam(0.005)).list()
+                .layer(LSTMLayer(n_out=32)).layer(LSTMLayer(n_out=32))
+                .layer(RnnOutputLayer(n_out=12))
+                .set_input_type(InputType.recurrent(12)).t_bptt_length(5).build())
+        return MultiLayerNetwork(conf).init()
+
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, 12, (4, 21))
+    eye = np.eye(12, dtype=np.float32)
+    x, y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+    kern = net()
+    plain = load_reference_params(net(), export_params(kern))
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    before = ck.lstm_sequence.launches
+    for _ in range(2):
+        kern.fit(x, y)
+    assert ck.lstm_sequence.launches - before == 2 * 8  # two layers, forward only
+    helpers.set_auto_fused_lstm(False)
+    for _ in range(2):
+        plain.fit(x, y)
+    assert ck.lstm_sequence.launches - before == 16
+    helpers.set_auto_fused_lstm(True)
+    assert abs(kern.score_ - plain.score_) <= 2e-5
+    for i, named in plain.params.items():
+        for n, t in named.items():
+            torch.testing.assert_close(kern.params[i][n], t, rtol=0, atol=2e-5)
+    out = kern.rnn_time_step(x[:, 0])
+    assert out.shape == (4, 12) and ck.lstm_sequence.launches - before == 18

@@ -57,6 +57,9 @@ def test_no_forbidden_imports():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, deeplearning4j_tpu_torch, "
             "deeplearning4j_tpu_torch.nn.graph, "
+            "deeplearning4j_tpu_torch.nn.multilayer, "
+            "deeplearning4j_tpu_torch.nn.layers.recurrent, "
+            "deeplearning4j_tpu_torch.nn.conf.network, "
             "deeplearning4j_tpu_torch.zoo.models, "
             "deeplearning4j_tpu_torch.parallel.inference, "
             "deeplearning4j_tpu_torch.util.convert; "
@@ -70,7 +73,10 @@ def test_import_leaves_jax_unloaded():
 
 def test_entry_points_need_an_explicit_cpu():
     from deeplearning4j_tpu_torch import resolve_device
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import LSTMLayer, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.zoo.models import TransformerLM
 
     if torch.cuda.is_available():
@@ -88,6 +94,15 @@ def test_entry_points_need_an_explicit_cpu():
     assert all(p.device.type == "cpu" for p in net.parameters())
     out = net.output(np.zeros((1, 8), np.float32))
     assert out.shape == (1, 8, 10)
+
+    lstm_conf = (NeuralNetConfiguration.builder().list()
+                 .layer(LSTMLayer(n_out=4)).layer(RnnOutputLayer(n_out=3))
+                 .set_input_type(InputType.recurrent(3)).build())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiLayerNetwork(lstm_conf)
+    mln = MultiLayerNetwork(lstm_conf, device="cpu").init()
+    assert all(p.device.type == "cpu" for p in mln.parameters())
+    assert mln.output(np.zeros((1, 5, 3), np.float32)).shape == (1, 5, 3)
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -1,0 +1,239 @@
+"""The fused LSTM sequence (K1) and the LSTM layers of the port, on the CPU,
+against the JAX package.
+
+On CPU tensors ``lstm_sequence`` computes its plain version
+(``lstm_sequence_plain``), which is what the kernel is held to on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``); here that arithmetic is
+held to the JAX package's Pallas kernel run in interpret mode
+(``_lstm_pallas_fwd(..., interpret=True)``) and to its plain scan
+(``_lstm_ref_scan``), and the gradients of ``LSTMSequenceFunction`` to
+``jax.vjp`` of ``lstm_fused``.
+
+Tolerances, those of the JAX package's own helper tests
+(``tests/test_helpers.py``): outputs rtol 2e-5 / atol 2e-6 (:79);
+gradients rtol 1e-4 / atol 1e-6 (:97). Float32 both ways; XLA and ATen
+sum the recurrent products in other orders.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.nn import helpers as jhelpers
+from deeplearning4j_tpu.nn.layers import GravesLSTMLayer as JGraves
+from deeplearning4j_tpu.nn.layers import LSTMLayer as JLSTM
+from deeplearning4j_tpu.nn.pallas_kernels import (
+    _lstm_pallas_fwd,
+    _lstm_ref_scan,
+    lstm_fused,
+)
+from deeplearning4j_tpu_torch.nn import cuda_kernels as ck
+from deeplearning4j_tpu_torch.nn import helpers as thelpers
+from deeplearning4j_tpu_torch.nn.layers import GravesLSTMLayer, LSTMLayer
+from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
+
+RTOL, ATOL = 2e-5, 2e-6
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+SHAPES = [(12, 8, 24), (1, 4, 16), (7, 3, 20)]  # [T, N, H]
+
+
+@pytest.fixture(autouse=True)
+def _clean_seams():
+    jhelpers.clear_all_helpers()
+    thelpers.clear_all_helpers()
+    yield
+    jhelpers.clear_all_helpers()
+    thelpers.clear_all_helpers()
+    thelpers.set_auto_fused_lstm(True)
+
+
+def _inputs(shape, seed=0):
+    """xw [T,N,4H], rw [H,4H] (scaled as a Xavier init), non-zero h0, c0."""
+    t, n, h = shape
+    rng = np.random.default_rng(seed)
+    xw = rng.normal(size=(t, n, 4 * h)).astype(np.float32)
+    rw = (rng.normal(size=(h, 4 * h)) * np.sqrt(2.0 / (5 * h))).astype(np.float32)
+    h0 = (0.5 * rng.normal(size=(n, h))).astype(np.float32)
+    c0 = rng.normal(size=(n, h)).astype(np.float32)
+    return xw, rw, h0, c0
+
+
+def _torch(*arrays, grad=False):
+    return [torch.from_numpy(a.copy()).requires_grad_(grad) for a in arrays]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_recurrence_matches_the_pallas_kernel_and_scan(shape):
+    args = _inputs(shape)
+    kernel = _lstm_pallas_fwd(*map(jnp.asarray, args), interpret=True)
+    scan = _lstm_ref_scan(*map(jnp.asarray, args))
+    plain = ck.lstm_sequence_plain(*_torch(*args))
+    wrapped = ck.lstm_sequence(*_torch(*args))  # CPU tensors: the plain version
+    assert ck.lstm_sequence.launches == 0
+    for want in (kernel, scan):
+        for got, ref, name in zip(plain, want, ("ys", "hN", "cN")):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
+                                       atol=ATOL, err_msg=name)
+    for got, ref in zip(wrapped, plain):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert plain[0].shape == shape
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_function_gradients_match_the_fused_vjp(shape):
+    args = _inputs(shape, seed=1)
+    rng = np.random.default_rng(2)
+    t, n, h = shape
+    cts = [rng.normal(size=s).astype(np.float32) for s in ((t, n, h), (n, h), (n, h))]
+    _, vjp = jax.vjp(lambda *a: lstm_fused(*a, True), *map(jnp.asarray, args))
+    want = vjp(tuple(map(jnp.asarray, cts)))
+    leaves = _torch(*args, grad=True)
+    outs = ck.LSTMSequenceFunction.apply(*leaves)
+    got = torch.autograd.grad(outs, leaves, [torch.from_numpy(c) for c in cts])
+    for g, w, name in zip(got, want, ("xw", "rw", "h0", "c0")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=name)
+
+
+def test_function_skips_gradients_nobody_wants():
+    xw, rw, h0, c0 = _inputs((4, 2, 8), seed=3)
+    leaves = _torch(xw, rw, grad=True) + _torch(h0, c0)
+    ys, _, _ = ck.LSTMSequenceFunction.apply(*leaves)
+    ys.sum().backward()
+    assert leaves[0].grad is not None and leaves[1].grad is not None
+    assert leaves[2].grad is None and leaves[3].grad is None
+
+
+# ------------------------------------------------------------------ layers
+def _layer_pair(cls_j, cls_t, n_in=5, n_out=8, seed=4):
+    """The same LSTM in both packages, with the JAX layer's initial
+    parameters (forget-gate bias included) carried to the port."""
+    jl, tl = cls_j(n_in=n_in, n_out=n_out), cls_t(n_in=n_in, n_out=n_out)
+    jp = jl.init_params(jax.random.PRNGKey(seed))
+    tp = {k: torch.from_numpy(np.asarray(v).copy()) for k, v in jp.items()}
+    assert {k: tuple(v.shape) for k, v in tp.items()} == tl.param_shapes()
+    return jl, jp, tl, tp
+
+
+def _seq(n=3, t=6, c=5, seed=5):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, t, c)).astype(np.float32)
+    carry = tuple((0.5 * rng.normal(size=(n, 8))).astype(np.float32) for _ in range(2))
+    mask = np.ones((n, t), np.float32)
+    mask[1, 4:] = 0.0  # a shorter sequence
+    mask[2, 2] = 0.0   # and a gap
+    return x, carry, mask
+
+
+@pytest.mark.parametrize("cls_j,cls_t", [(JLSTM, LSTMLayer), (JGraves, GravesLSTMLayer)],
+                         ids=["lstm", "graves"])
+@pytest.mark.parametrize("with_carry", [False, True], ids=["zero-carry", "carry"])
+@pytest.mark.parametrize("with_mask", [False, True], ids=["no-mask", "mask"])
+def test_forward_seq_matches_reference(cls_j, cls_t, with_carry, with_mask):
+    jl, jp, tl, tp = _layer_pair(cls_j, cls_t)
+    x, carry, mask = _seq()
+    c_j = tuple(map(jnp.asarray, carry)) if with_carry else None
+    c_t = tuple(torch.from_numpy(c) for c in carry) if with_carry else None
+    m = mask if with_mask else None
+    y_j, (h_j, cc_j) = jl.forward_seq(jp, jnp.asarray(x), carry=c_j,
+                                      mask=None if m is None else jnp.asarray(m))
+    y_t, (h_t, cc_t) = tl.forward_seq(tp, torch.from_numpy(x), carry=c_t,
+                                      mask=None if m is None else torch.from_numpy(m))
+    for got, want in ((y_t, y_j), (h_t, h_j), (cc_t, cc_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    # forward() is the sequence pass from a zero carry
+    y_f, _ = jl.forward(jp, jnp.asarray(x))
+    np.testing.assert_allclose(tl.forward(tp, torch.from_numpy(x)).numpy(),
+                               np.asarray(y_f), rtol=RTOL, atol=ATOL)
+
+
+def test_init_params_match_reference_layouts():
+    jl, jp, tl, _ = _layer_pair(JGraves, GravesLSTMLayer, n_in=3, n_out=4)
+    gen = torch.Generator().manual_seed(0)
+    tp = tl.init_params(gen)
+    for k, v in jp.items():
+        assert tuple(tp[k].shape) == v.shape
+    np.testing.assert_array_equal(tp["b"].numpy(), np.asarray(jp["b"]))  # IFOG forget bias
+    assert tp["b"][4:8].tolist() == [1.0] * 4 and float(tp["b"].abs().sum()) == 4.0
+    h, c = tl.init_carry(2)
+    assert h.shape == c.shape == (2, 4) and not h.any() and not c.any()
+
+
+def test_supports_gating():
+    h = ck.FusedLSTMHelper()
+    std = LSTMLayer(n_in=4, n_out=8)
+    assert h.supports(std, None)
+    assert not h.supports(std, torch.ones(2, 3))  # masked: the built-in path
+    assert not h.supports(GravesLSTMLayer(n_in=4, n_out=8), None)  # peepholes
+    assert not h.supports(LSTMLayer(n_in=4, n_out=8, gate_activation="tanh"), None)
+    assert not h.supports(LSTMLayer(n_in=4, n_out=8, activation="relu"), None)
+
+
+class _Spy(ck.FusedLSTMHelper):
+    def __init__(self):
+        self.calls = 0
+
+    def forward_seq(self, layer, params, x, carry):
+        self.calls += 1
+        return super().forward_seq(layer, params, x, carry)
+
+
+def test_auto_gate_on_off_and_version(monkeypatch):
+    spy = _Spy()
+    monkeypatch.setattr(trec, "_AUTO_LSTM", spy)
+    _, _, tl, tp = _layer_pair(JLSTM, LSTMLayer)
+    x, carry, mask = _seq()
+    xt = torch.from_numpy(x)
+    assert thelpers.auto_fused_lstm_enabled()
+    fused, _ = tl.forward_seq(tp, xt)
+    assert spy.calls == 1  # auto on, no helper: the fused path
+    tl.forward_seq(tp, xt, mask=torch.from_numpy(mask))
+    assert spy.calls == 1  # a mask: the built-in loop
+    _, _, gl, gp = _layer_pair(JGraves, GravesLSTMLayer)
+    gl.forward_seq(gp, xt)
+    assert spy.calls == 1  # peepholes: the built-in loop
+    v0 = thelpers.version()
+    thelpers.set_auto_fused_lstm(False)
+    assert thelpers.version() == v0 + 1 and not thelpers.auto_fused_lstm_enabled()
+    thelpers.set_auto_fused_lstm(False)
+    assert thelpers.version() == v0 + 1  # no change, no bump
+    plain, _ = tl.forward_seq(tp, xt)
+    assert spy.calls == 1  # auto off: the built-in loop
+    torch.testing.assert_close(fused, plain, rtol=RTOL, atol=ATOL)
+    thelpers.set_auto_fused_lstm(True)
+    assert thelpers.version() == v0 + 2
+
+
+def test_registered_helper_takes_precedence_and_clears(monkeypatch):
+    auto = _Spy()
+    monkeypatch.setattr(trec, "_AUTO_LSTM", auto)
+    reg = _Spy()
+    _, _, tl, tp = _layer_pair(JLSTM, LSTMLayer)
+    xt = torch.from_numpy(_seq()[0])
+    thelpers.set_helper("lstm", reg)
+    tl.forward_seq(tp, xt)
+    assert (reg.calls, auto.calls) == (1, 0)
+    thelpers.clear_helper("lstm")
+    tl.forward_seq(tp, xt)
+    assert (reg.calls, auto.calls) == (1, 1)
+
+
+def test_fused_layer_gradients_match_the_loop():
+    """The layer's gradient through the seam (the kernel's autograd
+    function, its backward the plain recurrence) equals the gradient
+    through the built-in loop."""
+    _, _, tl, tp = _layer_pair(JLSTM, LSTMLayer)
+    x, carry, _ = _seq()
+    grads = []
+    for auto in (True, False):
+        thelpers.set_auto_fused_lstm(auto)
+        live = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+        y, (h, c) = tl.forward_seq(live, torch.from_numpy(x),
+                                   carry=tuple(torch.from_numpy(a) for a in carry))
+        (y.square().sum() + h.sum() + 2 * c.sum()).backward()
+        grads.append({k: v.grad for k, v in live.items()})
+    for k in tp:
+        torch.testing.assert_close(grads[0][k], grads[1][k], rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
