@@ -6,12 +6,16 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
-started together) and runs five phases:
+started together), prints the compiler's report (registers, spills) of the
+flash-attention backward kernels, and runs five phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
    beside its bound, its plain version and a PyTorch library call that
-   computes the same function;
+   computes the same function (with the names of the kernels that call
+   runs, for the attention backward). A kernel whose work is f32 matrix
+   products is bound at the 3xTF32 rate (three TF32 tensor-core products
+   for each f32-accurate one), with the CUDA cores' f32 bound beside it;
 2. serving: GPT-2-small (``TransformerLM`` at its published width, random
    seeded weights) answers 16 requests through ``ParallelInference``'s
    batched dispatcher; the answers are checked;
@@ -46,6 +50,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -115,34 +120,54 @@ CHAR_LOSS_RTOL, CHAR_GRAD_TOL, CHAR_OUT_ATOL = 1e-6, 1e-5, 1e-5
 
 
 def card_peaks(name: str):
-    """(f32 non-tensor FLOP/s, memory bytes/s, label) from NVIDIA's data
-    sheets, for the card ``name`` names (dense, at the full power limit)."""
+    """The card's peaks from NVIDIA's data sheets (dense, at the full power
+    limit): ``f32`` (non-tensor FLOP/s), ``tf32`` (tensor-core FLOP/s),
+    ``mem`` (bytes/s) and a ``label``."""
     if "H100" in name and "PCIe" in name:
-        return 51e12, 2.0e12, "H100 PCIe: 51 TFLOP/s f32, 2.0 TB/s"
-    if "H100" in name and "NVL" in name:
-        return 60e12, 3.9e12, "H100 NVL: 60 TFLOP/s f32, 3.9 TB/s"
-    if "H200" in name:
-        return 67e12, 4.8e12, "H200 SXM: 67 TFLOP/s f32, 4.8 TB/s"
-    return 67e12, 3.35e12, "H100 SXM: 67 TFLOP/s f32, 3.35 TB/s"
+        f32, tf32, mem, label = 51e12, 378e12, 2.0e12, "H100 PCIe"
+    elif "H100" in name and "NVL" in name:
+        f32, tf32, mem, label = 60e12, 417e12, 3.9e12, "H100 NVL"
+    elif "H200" in name:
+        f32, tf32, mem, label = 67e12, 495e12, 4.8e12, "H200 SXM"
+    else:
+        f32, tf32, mem, label = 67e12, 495e12, 3.35e12, "H100 SXM"
+    return {"f32": f32, "tf32": tf32, "mem": mem,
+            "label": f"{label}: {f32 / 1e12:g} TFLOP/s f32, {tf32 / 1e12:g} "
+                     f"TFLOP/s TF32, {mem / 1e12:g} TB/s"}
 
 
-def bound(flops, nbytes, peaks):
+def bound(flops, nbytes, peaks, rate="f32"):
     """(least time in ms, what bounds it): the larger of the operations
-    over the f32 rate and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    over the compute rate and the bytes over the memory rate. ``rate``
+    "f32" is the CUDA cores' f32 rate; "3xtf32" counts each f32-accurate
+    product as three TF32 products on the tensor cores."""
+    if rate == "f32":
+        t_ops = flops / peaks["f32"] * 1e3
+    else:
+        t_ops = 3.0 * flops / peaks["tf32"] * 1e3
+    t_bytes = nbytes / peaks["mem"] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def product_bound(flops, nbytes, peaks):
+    """The bound of a kernel whose work is f32 matrix products: ``bound_ms``
+    at the 3xTF32 rate (the least time for the same f32-accurate work) and
+    ``bound_simt_ms`` at the CUDA cores' f32 rate, as earlier rows had it."""
+    ms, by = bound(flops, nbytes, peaks, "3xtf32")
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_simt_ms": bound(flops, nbytes, peaks)[0]}
+
+
 def flash_bound(shape, causal, peaks, products=2, heads_io=4, rows_io=0):
-    """Least time (ms) for an attention kernel doing ``products`` [T x T x
-    Dh] matrix products over the pairs this causality needs, reading and
-    writing ``heads_io`` [N,H,T,Dh] and ``rows_io`` [N,H,T] f32 tensors
+    """:func:`product_bound` of an attention kernel doing ``products`` [T x
+    T x Dh] matrix products over the pairs this causality needs, reading
+    and writing ``heads_io`` [N,H,T,Dh] and ``rows_io`` [N,H,T] f32 tensors
     once each. The forward: 2 products (q.kT, p.v), q, k, v in, o out."""
     n, h, t, dh = shape
     pairs = t * (t + 1) // 2 if causal else t * t
     flops = 2.0 * products * n * h * dh * pairs  # 2 flops per multiply-add
     nbytes = 4.0 * n * h * t * (heads_io * dh + rows_io)
-    return bound(flops, nbytes, peaks)
+    return product_bound(flops, nbytes, peaks)
 
 
 def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -189,7 +214,7 @@ def kernel_phase(ck, peaks):
             "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal)),
         }
-        row["bound_ms"], row["bound_by"] = flash_bound(shape, causal, peaks)
+        row.update(flash_bound(shape, causal, peaks))
         print("kernel flash_attention_fwd " + json.dumps(row), flush=True)
         rows[(shape, causal)] = row
         del q, k, v, out, lse, plain, plain_lse
@@ -222,8 +247,14 @@ def backward_phase(ck, peaks):
                                    f"{name} max abs err {err} > {BWD_TOL} x {scale}")
         ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
-        lib_ms = median_ms(lambda: torch.autograd.grad(
-            lib_out, (ql, kl, vl), do, retain_graph=True))
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+
+        lib_ms = median_ms(lib_bwd)
+        if (shape, causal) == (SERVED_SHAPE, True):
+            print("library kernels of SDPA's f32 backward "
+                  + json.dumps(library_kernels(lib_bwd)), flush=True)
         rows = {
             "dq": {"max_abs_err": max(errs["dq"], errs["d"]),
                    "ms": median_ms(lambda: ck.flash_attention_bwd_dq(
@@ -240,12 +271,13 @@ def backward_phase(ck, peaks):
         }
         # dq: S, dP, dQ; reads q, k, v, o, dO and LSE, writes dQ and D.
         # dk/dv: S, dP, dV, dK; reads q, k, v, dO, LSE and D, writes dK, dV.
-        rows["dq"]["bound_ms"], rows["dq"]["bound_by"] = flash_bound(
-            shape, causal, peaks, products=3, heads_io=6, rows_io=2)
-        rows["dkv"]["bound_ms"], rows["dkv"]["bound_by"] = flash_bound(
-            shape, causal, peaks, products=4, heads_io=6, rows_io=2)
+        rows["dq"].update(flash_bound(shape, causal, peaks, products=3,
+                                      heads_io=6, rows_io=2))
+        rows["dkv"].update(flash_bound(shape, causal, peaks, products=4,
+                                       heads_io=6, rows_io=2))
+        total = rows["dq"]["ms"] + rows["dkv"]["ms"]
         for name, row in rows.items():
-            row.update(shape=list(shape), causal=causal)
+            row.update(shape=list(shape), causal=causal, k3b_total_ms=total)
             print(f"kernel flash_attention_bwd_{name} " + json.dumps(row),
                   flush=True)
         if (shape, causal) == (SERVED_SHAPE, True):
@@ -317,7 +349,7 @@ def adam_phase(ck, peaks):
     }
     # reads p, m, v, g and writes p, m, v: 28 bytes and ~12 flops an element
     row["bound_ms"], row["bound_by"] = bound(12.0 * p.numel(), 28.0 * p.numel(),
-                                             peaks)
+                                             peaks)  # bytes, at either rate
     print("kernel fused_adam " + json.dumps(row), flush=True)
     return row
 
@@ -440,6 +472,55 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
+def device_ms_by_kernel(prof):
+    """Device time (ms) by kernel name in a finished ``torch.profiler``
+    run; raises when it recorded none."""
+    per_kernel = {}
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
+    if not per_kernel:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return per_kernel
+
+
+def library_kernels(fn):
+    """The device kernels one call of ``fn`` runs, with their ms, from
+    one ``torch.profiler`` pass (names cut to 120 characters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {k[:120]: ms for k, ms in sorted(device_ms_by_kernel(prof).items(),
+                                              key=lambda kv: -kv[1])}
+
+
+def ptxas_report(ck, source, key):
+    """The ``-Xptxas -v`` lines (registers, spills, stack) of the kernels
+    in the build log of ``csrc/<source>`` whose names contain ``key``, by
+    kernel and template arguments (Dh, causal)."""
+    with open(ck.build(source) + ".log") as f:
+        lines = f.read().splitlines()
+    report, cur = {}, None
+    for line in lines:
+        text = line.split(":", 1)[-1].strip() if line.startswith("ptxas") else line.strip()
+        if "Compiling entry function" in line:
+            m = re.search(r"(" + key + r"_[a-z]+_kernel)ILi(\d+)ELb(\d)E", line)
+            cur = f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else None
+            if cur:
+                report[cur] = []
+        elif cur and ("spill" in text or text.startswith("Used")):
+            report[cur].append(text)
+    return report
+
+
 def profile_steps(net, x, labels, fits=PROFILED_STEPS, steps_per_fit=1):
     """Device time of ``fits`` more fit calls (``steps_per_fit`` steps
     each) under torch.profiler, per step: by kernel group, in all, and as a
@@ -456,17 +537,7 @@ def profile_steps(net, x, labels, fits=PROFILED_STEPS, steps_per_fit=1):
             net.fit(x, labels)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    per_kernel = {}
-    for e in prof.key_averages():
-        if "cuda" not in str(getattr(e, "device_type", "")).lower():
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3 / steps
-    if not per_kernel:
-        raise RuntimeError("torch.profiler recorded no device time")
+    per_kernel = {k: ms / steps for k, ms in device_ms_by_kernel(prof).items()}
     groups = {}
     for name, ms in per_kernel.items():
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
@@ -590,13 +661,13 @@ def training_phase(ck, card):
 
 
 def lstm_bound(shape, peaks):
-    """Least time (ms) for the LSTM sequence at [T, N, H]: the recurrent
-    products (2 T N H 4H flops) and the xw additions on the f32 rate, or
-    reading xw, rw, h0, c0 and writing ys, hN, cN once each."""
+    """:func:`product_bound` of the LSTM sequence at [T, N, H]: the
+    recurrent products (2 T N H 4H flops) and the xw additions, or reading
+    xw, rw, h0, c0 and writing ys, hN, cN once each."""
     t, n, h = shape
     flops = 2.0 * t * n * h * 4 * h + t * n * 4 * h
     nbytes = 4.0 * (t * n * 4 * h + h * 4 * h + 2 * n * h + t * n * h + 2 * n * h)
-    return bound(flops, nbytes, peaks)
+    return product_bound(flops, nbytes, peaks)
 
 
 def ifgo(w, h):
@@ -653,7 +724,7 @@ def lstm_kernel_phase(ck, peaks):
                 "library": "torch.nn.LSTM on cuDNN, with its input product; "
                            "compare with ms_with_input_product",
             }
-        row["bound_ms"], row["bound_by"] = lstm_bound(shape, peaks)
+        row.update(lstm_bound(shape, peaks))
         print("kernel lstm_sequence " + json.dumps(row), flush=True)
         rows[shape] = row
         del x, w, rw, b, h0, c0, xw, got, plain, lib, lib_ys
@@ -860,10 +931,12 @@ def main() -> None:
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
-    print(f"peaks: {peaks[2]}; torch {torch.__version__}, "
+    print(f"peaks: {peaks['label']}; torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
     print(f"build: {ck.build_all():.3f} s for {len(ck.SOURCES)} kernel "
           f"source(s)", flush=True)
+    print("ptxas flash_attention_bwd.cu " + json.dumps(
+        ptxas_report(ck, "flash_attention_bwd.cu", "flash_attention_bwd")), flush=True)
 
     served = kernel_phase(ck, peaks)
     bwd = backward_phase(ck, peaks)
@@ -880,6 +953,7 @@ def main() -> None:
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                **{k: row[k] for k in ("bound_simt_ms", "k3b_total_ms") if k in row},
                 **extra}
 
     fwd = "flash_attention_fwd"

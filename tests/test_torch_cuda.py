@@ -10,7 +10,9 @@ Tolerances: the forward 1e-4 (max abs): float32 both ways, another
 summation order. The fused LSTM sequence 1e-4 relative to the largest
 entry of each output (h in [-1, 1]; the recurrence carries each step's
 rounding into the next). The backward 1e-4 relative to the largest entry of each
-reference gradient (its sums run over up to T products of order 1). The
+reference gradient (its sums run over up to T products of order 1; the
+kernels' 3xTF32 products keep f32 accuracy, as
+tests/test_torch_flash_attention.py's emulation of the split shows). The
 fused updater 1e-6 absolute on parameters and moments of order 1: the
 same float32 coefficients both ways, only the kernel's fused multiply-adds
 round differently. Training parity (kernel path against the plain path,
@@ -82,11 +84,25 @@ def test_flash_attention_lse_matches_plain(card, shape, causal):
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,causal", SHAPES)
-def test_flash_attention_backward_kernels_match_plain(card, shape, causal):
-    q, k, v, do = (t.to(card) for t in _qkv(shape, seed=2, n=4))
+# the backward kernels' tile plans (128 resident rows at Dh 64 and 128, 64
+# at Dh 256): one tile (T = 64), a last block half past T (T = 192), every
+# Dh, causal and not, and more blocks than the H100's 132 SMs (N*H = 144)
+BWD_SHAPES = SHAPES + [((1, 1, 64, 64), True), ((1, 1, 64, 256), False),
+                       ((1, 1, 192, 64), True), ((1, 2, 192, 128), True),
+                       ((1, 2, 192, 128), False), ((4, 36, 128, 64), True),
+                       ((2, 72, 256, 64), False)]
+
+
+def _backward_inputs(shape, causal, device, seed=2):
+    q, k, v, do = (t.to(device) for t in _qkv(shape, seed=seed, n=4))
     o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", BWD_SHAPES)
+def test_flash_attention_backward_kernels_match_plain(card, shape, causal):
+    q, k, v, o, lse, do = _backward_inputs(shape, causal, card)
     ref_dq, ref_d = ck.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
     ref_dk, ref_dv = ck.flash_attention_bwd_dkv_plain(q, k, v, lse, do, ref_d, causal)
     n_dq, n_dkv = ck.flash_attention_bwd_dq.launches, ck.flash_attention_bwd_dkv.launches
@@ -98,6 +114,23 @@ def test_flash_attention_backward_kernels_match_plain(card, shape, causal):
     _close_to_max(d, ref_d)
     for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         _close_to_max(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((2, 4, 256, 64), True),
+                                          ((1, 2, 192, 128), False),
+                                          ((1, 2, 128, 256), True)])
+def test_flash_attention_backward_kernels_are_deterministic(card, shape, causal):
+    """No atomics: each output element has one owner block, so two launches
+    on the same inputs give the same bits."""
+    q, k, v, o, lse, do = _backward_inputs(shape, causal, card, seed=12)
+    runs = []
+    for _ in range(2):
+        dq, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+        runs.append((dq, d, *ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, causal)))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -230,3 +230,75 @@ def test_seam_gradients_flash_path_equal_plain_path(rng):
         grads.append([t.grad for t in leaves])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+# ------------------------------- K3b's 3xTF32 products, emulated on the CPU
+# The backward kernels multiply on the tensor cores in TF32 (a 10-bit
+# mantissa) and keep f32 accuracy by splitting every operand x into
+# big = cvt.rna.tf32.f32(x) and small = cvt.rna.tf32.f32(x - big), and
+# summing small.big + big.small + big.big in f32 (small.small dropped).
+# These tests emulate that arithmetic to show why it meets the card's
+# tolerance (BWD_TOL = 1e-4 x the largest entry in chip_smoke.py).
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 on the int32 view of f32: round to a 10-bit
+    mantissa, to nearest, ties away from zero; the low 13 bits are 0."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    big = _tf32_rna(x)
+    return big, _tf32_rna(x - big)
+
+
+def _product_3xtf32(a, b):
+    """a @ b in f32 as the kernels form it: small terms first."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    acc = as_ @ bb
+    acc += ab @ bs
+    acc += ab @ bb
+    return acc
+
+
+def test_tf32_split_reconstructs_f32(rng):
+    x = (rng.standard_normal(100_000)
+         * 10.0 ** rng.uniform(-6, 6, 100_000)).astype(np.float32)
+    big, small = _split(x)
+    for part in (big, small):
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    err = np.abs(x.astype(np.float64) - big.astype(np.float64) - small.astype(np.float64))
+    assert (err <= 2.0 ** -21 * np.abs(x.astype(np.float64))).all()
+    # to nearest, ties away from zero, in both signs
+    tie = np.array([0x3F801000, 0xBF801000, 0x3F800FFF], dtype=np.uint32).view(np.float32)
+    assert _tf32_rna(tie).view(np.uint32).tolist() == [0x3F802000, 0xBF802000, 0x3F800000]
+
+
+def test_backward_products_at_3xtf32_keep_f32_accuracy():
+    """The five products of the backward (S = Q K^T, dP = dO V^T,
+    dV = P^T dO, dK = dS^T Q, dQ = dS K) at 2x2x128x64, causal, as
+    three-term split sums in f32: within 1e-5 (a tenth of the card's
+    tolerance) of the f64 result, relative to its largest entry. One TF32
+    pass alone (big.big) misses that bound."""
+    rng = np.random.default_rng(7)
+    n, h, t, dh = 2, 2, 128, 64
+    q, k, v, do = (rng.standard_normal((n, h, t, dh)).astype(np.float32)
+                   for _ in range(4))
+    f64 = [a.astype(np.float64) for a in (q, k, v, do)]
+    s = f64[0] @ f64[1].swapaxes(-1, -2) / np.sqrt(dh)
+    s = np.where(np.tri(t, dtype=bool), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    d = ((p @ f64[2]) * f64[3]).sum(-1, keepdims=True)
+    ds = p * (f64[3] @ f64[2].swapaxes(-1, -2) - d)
+    p32, ds32 = p.astype(np.float32), ds.astype(np.float32)
+    products = {"S": (q, k.swapaxes(-1, -2)), "dP": (do, v.swapaxes(-1, -2)),
+                "dV": (p32.swapaxes(-1, -2), do), "dK": (ds32.swapaxes(-1, -2), q),
+                "dQ": (ds32, k)}
+    for name, (a, b) in products.items():
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+        ref = a.astype(np.float64) @ b.astype(np.float64)
+        bound = 1e-5 * np.abs(ref).max()
+        got = _product_3xtf32(a, b)
+        assert np.abs(got - ref).max() <= bound, name
+        one_pass = _tf32_rna(a) @ _tf32_rna(b)
+        assert np.abs(one_pass - ref).max() > bound, name
