@@ -6,8 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
-started together), prints the compiler's report (registers, spills) of the
-flash-attention backward kernels, and runs five phases:
+started together), prints the compiler's report (registers, spills) of
+every kernel, and runs five phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -25,15 +25,21 @@ flash-attention backward kernels, and runs five phases:
    must agree with the plain attention path's on a twin network. Two more
    steps run under ``torch.profiler``: their device time by kernel group
    and the device's busy share are printed;
-4. LSTM kernel: the fused LSTM sequence kernel against its plain version at
-   the character model's shapes and two wider ones, timed beside its
-   bound, its plain version and cuDNN's LSTM (``torch.nn.LSTM``, a
-   yardstick the port never calls);
+4. LSTM kernel: the fused LSTM sequence kernel, each plan it takes
+   (cluster and grid), against its plain version at the character model's
+   shapes (a training chunk, ``output``'s whole example, the sampling
+   prime and one sampled step) and two wider ones, timed beside its bound,
+   its chain floor (the cluster plan's hand-over of h and barrier alone,
+   no arithmetic), its plain version and cuDNN's LSTM (``torch.nn.LSTM``,
+   a yardstick the port never calls), with the host time of one call at
+   the sampling shape;
 5. character LSTM: DL4J's ``LSTMCharModellingExample`` configuration (2 x
    LSTM(200), 77 characters, Adam(0.005), l2 1e-4, TBPTT 50) built with
    ``list()`` as a ``MultiLayerNetwork`` trains on 2 minibatches of 32 x
    1000 characters of this repository's own text (40 TBPTT chunks; the
-   loss must fall; 2 LSTM-kernel and 8 fused-Adam launches a chunk), one
+   loss must fall; 2 LSTM-kernel and 8 fused-Adam launches a chunk, every
+   LSTM-kernel launch of training, ``output`` and sampling on the cluster
+   plan), one
    chunk's loss and gradients are checked against a twin on the plain
    recurrence, it answers ``output`` over a [32, 1000, 77] batch and
    samples 4 x 300 characters through ``rnn_time_step``.
@@ -85,7 +91,7 @@ KERNEL_GROUPS = (
     ("K3b flash_attention_bwd_dq", ("flash_attention_bwd_dq_kernel",)),
     ("K3b flash_attention_bwd_dkv", ("flash_attention_bwd_dkv_kernel",)),
     ("K2 fused_adam", ("fused_adam_kernel",)),
-    ("K1 lstm_sequence", ("lstm_sequence_kernel",)),
+    ("K1 lstm_sequence", ("lstm_sequence_kernel", "lstm_sequence_cluster_kernel")),
     ("matrix products", ("gemm", "cutlass", "xmma", "sm90_", "ampere_")),
     ("softmax", ("softmax",)),
     ("gathers and scatters", ("index", "scatter", "gather", "embedding")),
@@ -103,8 +109,13 @@ LOSS_RTOL, GRAD_TOL = 1e-6, 1e-5
 # carried into the next (the first H100 runs measured at most 7.1e-7, at
 # H = 1500, and 1.8e-7 at the character model's shapes)
 LSTM_TOL = 1e-5
-LSTM_SHAPES = [(50, 32, 200), (1000, 32, 200), (1, 4, 200), (128, 64, 512),
-               (35, 20, 1500)]  # [T, N, H]
+# [T, N, H] of the character model's paths: a TBPTT chunk, output over a
+# whole example, the sampling prime ("The network ", 12 characters) and one
+# sampled character; then two wider shapes that take the grid plan
+LSTM_PATHS = {"train": (50, 32, 200), "output": (1000, 32, 200),
+              "sample_prime": (12, 4, 200), "sample": (1, 4, 200)}
+LSTM_SHAPES = list(LSTM_PATHS.values()) + [(128, 64, 512), (35, 20, 1500)]
+HOST_CALLS = 1000  # back-to-back calls timed on the host clock at the sampling shape
 # the character model (LSTMCharModellingExample): its 77-character set
 # (CharacterIterator.getMinimalCharacterSet), widths, batch and TBPTT length
 CHARS = ("abcdefghijklmnopqrstuvwxyz" "ABCDEFGHIJKLMNOPQRSTUVWXYZ" "0123456789"
@@ -502,18 +513,37 @@ def library_kernels(fn):
                                               key=lambda kv: -kv[1])}
 
 
-def ptxas_report(ck, source, key):
-    """The ``-Xptxas -v`` lines (registers, spills, stack) of the kernels
-    in the build log of ``csrc/<source>`` whose names contain ``key``, by
-    kernel and template arguments (Dh, causal)."""
+def kernel_label(mangled: str):
+    """``name<template args>`` of a mangled kernel name: the length-prefixed
+    identifier ending in ``_kernel`` and the integer and bool template
+    arguments after it; None for anything else."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        ident, i = mangled[j:j + n], j + n
+        if ident.endswith("_kernel"):
+            tail = mangled[i:]
+            args = re.findall(r"L[ib](\d+)E", tail[:tail.find("EEv") + 1]
+                              if tail.startswith("I") else "")
+            return f"{ident}<{','.join(args)}>"
+    return None
+
+
+def ptxas_report(ck, source):
+    """The ``-Xptxas -v`` lines (registers, spills, stack) of every kernel
+    in the build log of ``csrc/<source>``, by kernel and template
+    arguments (e.g. Dh and causal, or rows and registers of rw)."""
     with open(ck.build(source) + ".log") as f:
         lines = f.read().splitlines()
     report, cur = {}, None
     for line in lines:
         text = line.split(":", 1)[-1].strip() if line.startswith("ptxas") else line.strip()
         if "Compiling entry function" in line:
-            m = re.search(r"(" + key + r"_[a-z]+_kernel)ILi(\d+)ELb(\d)E", line)
-            cur = f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else None
+            m = re.search(r"'(_Z\w+)'", line)
+            cur = kernel_label(m.group(1)) if m else None
             if cur:
                 report[cur] = []
         elif cur and ("spill" in text or text.startswith("Used")):
@@ -675,13 +705,37 @@ def ifgo(w, h):
     return torch.cat([w[..., :2 * h], w[..., 3 * h:], w[..., 2 * h:3 * h]], -1)
 
 
+def device_ms_per_launch(fn, key: str, launches: int = 20) -> float:
+    """Device time (ms) of the kernel whose name contains ``key`` that one
+    call of ``fn`` launches, averaged over ``launches`` calls under
+    torch.profiler: at T = 1 a kernel is shorter than its host call, so
+    CUDA events around back-to-back calls would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ms for k, ms in device_ms_by_kernel(prof).items() if key in k)
+    if total == 0:
+        raise RuntimeError(f"torch.profiler recorded no {key} kernel")
+    return total / launches  # one such kernel a call
+
+
 def lstm_kernel_phase(ck, peaks):
     """K1 against its plain version at LSTM_SHAPES, on a layer's own
     inputs: x [T,N,H] and W, b give the hoisted xw = x W + b, with a
-    Xavier-scale rw and non-zero h0, c0. Timed: the kernel alone, the
-    kernel after the hoisted product (what FusedLSTMHelper launches), the
-    plain recurrence, and the yardstick: a one-layer torch.nn.LSTM (cuDNN)
-    with the same weights, which computes the product itself."""
+    Xavier-scale rw and non-zero h0, c0; each plan the shape can take (the
+    cluster plan where rw fits one cluster, and the grid plan), its plan
+    (S, R, C, shared memory), its time by CUDA events and its device time
+    a launch by the profiler, per step, and for the cluster plan its chain
+    floor. Timed for the plan "auto" takes: the kernel after the hoisted
+    product (what FusedLSTMHelper launches), the plain recurrence, and the
+    yardstick: a one-layer torch.nn.LSTM (cuDNN) with the same weights,
+    which computes the product itself. At the sampling shape, the host
+    time of one call, both plans. Returns the rows by shape."""
     rng = np.random.default_rng(3)
     rows = {}
     for shape in LSTM_SHAPES:
@@ -692,16 +746,45 @@ def lstm_kernel_phase(ck, peaks):
         b = _randn(rng, (4 * h,), 0.1)
         h0, c0 = _randn(rng, (n, h), 0.5), _randn(rng, (n, h))
         xw = x @ w + b
-        got = ck.lstm_sequence(xw, rw, h0, c0)
-        torch.cuda.synchronize()
+        auto = ck.lstm_plan_for(xw)
         plain = ck.lstm_sequence_plain(xw, rw, h0, c0)
-        errs = {}
-        for name, g, ref in zip(("ys", "hN", "cN"), got, plain):
-            errs[name] = (g - ref).abs().max().item()
-            scale = max(1.0, ref.abs().max().item())
-            if not errs[name] <= LSTM_TOL * scale:
-                raise RuntimeError(f"lstm_sequence {shape}: {name} max abs err "
-                                   f"{errs[name]} > {LSTM_TOL} x {scale}")
+        runs = 5 if t >= 1000 else 25
+        by_plan = {}
+        for plan in ("cluster", "grid") if auto["plan"] == "cluster" else ("grid",):
+            got = ck.lstm_sequence(xw, rw, h0, c0, plan=plan)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, ref in zip(("ys", "hN", "cN"), got, plain):
+                errs[name] = (g - ref).abs().max().item()
+                scale = max(1.0, ref.abs().max().item())
+                if not errs[name] <= LSTM_TOL * scale:
+                    raise RuntimeError(f"lstm_sequence {shape} {plan} plan: {name} max "
+                                       f"abs err {errs[name]} > {LSTM_TOL} x {scale}")
+            row = {"max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+                   "ms": median_ms(lambda: ck.lstm_sequence(xw, rw, h0, c0, plan=plan),
+                                   runs=runs),
+                   "device_ms": device_ms_per_launch(
+                       lambda: ck.lstm_sequence(xw, rw, h0, c0, plan=plan),
+                       "lstm_sequence", launches=5 if t >= 1000 else 20)}
+            row["device_ms_per_step"] = row["device_ms"] / t
+            if plan == "cluster":
+                row.update({k: auto[k] for k in ("S", "U", "R", "C", "smem")})
+                row["resident_clusters"] = ck.cluster_occupancy(auto, h)
+                row["chain_floor_ms"] = device_ms_per_launch(
+                    lambda: ck.lstm_chain_floor(t, auto, n, h), "lstm_chain_floor",
+                    launches=5 if t >= 1000 else 20)
+                row["chain_floor_ms_per_step"] = row["chain_floor_ms"] / t
+            if shape == LSTM_PATHS["sample"]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    ck.lstm_sequence(xw, rw, h0, c0, plan=plan)
+                row["host_us_per_call"] = (time.perf_counter() - t0) * 1e6 / HOST_CALLS
+                torch.cuda.synchronize()
+            by_plan[plan] = row
+            print(f"kernel lstm_sequence {plan} plan " + json.dumps(
+                {"shape": list(shape), **row}), flush=True)
+        mine = by_plan[auto["plan"]]
         lib = torch.nn.LSTM(h, h).cuda()
         with torch.no_grad():
             lib.weight_ih_l0.copy_(ifgo(w, h).t())
@@ -712,23 +795,24 @@ def lstm_kernel_phase(ck, peaks):
         with torch.no_grad():
             lib_ys = lib(x, state)[0]
             row = {
-                "shape": list(shape), "max_abs_err": max(errs.values()),
-                "max_abs_err_by_output": errs,
+                "shape": list(shape), "plan": auto["plan"],
+                "max_abs_err": max(r["max_abs_err"] for r in by_plan.values()),
+                "ms": mine["ms"], "device_ms": mine["device_ms"],
+                "chain_floor_ms": mine.get("chain_floor_ms"),
                 "library_max_abs_diff_vs_plain": (lib_ys - plain[0]).abs().max().item(),
-                "ms": median_ms(lambda: ck.lstm_sequence(xw, rw, h0, c0)),
                 "ms_with_input_product": median_ms(lambda: ck.lstm_sequence(
-                    (x @ w + b), rw, h0, c0)),
+                    (x @ w + b), rw, h0, c0), runs=runs),
                 "plain_ms": median_ms(lambda: ck.lstm_sequence_plain(xw, rw, h0, c0),
                                       runs=5 if t >= 1000 else 25),
-                "library_ms": median_ms(lambda: lib(x, state)),
+                "library_ms": median_ms(lambda: lib(x, state), runs=runs),
                 "library": "torch.nn.LSTM on cuDNN, with its input product; "
                            "compare with ms_with_input_product",
             }
         row.update(lstm_bound(shape, peaks))
         print("kernel lstm_sequence " + json.dumps(row), flush=True)
         rows[shape] = row
-        del x, w, rw, b, h0, c0, xw, got, plain, lib, lib_ys
-    return rows[LSTM_SHAPES[0]]
+        del x, w, rw, b, h0, c0, xw, plain, lib, lib_ys
+    return rows
 
 
 def char_corpus(n_examples):
@@ -801,7 +885,14 @@ def char_lstm_phase(ck, card):
 
     net._apply_updates = record_and_apply
     chunks = CHAR_BATCHES * CHAR_LEN // CHAR_TBPTT
-    ck.lstm_sequence.launches = ck.fused_adam.launches = 0
+    by_plan = {}  # the LSTM kernel's launches on each path, by plan
+
+    def reset_counts():
+        ck.lstm_sequence.launches = 0
+        ck.lstm_sequence.launches_by_plan = {"cluster": 0, "grid": 0}
+
+    reset_counts()
+    ck.fused_adam.launches = 0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for x, y in batches[:CHAR_BATCHES]:
@@ -812,6 +903,7 @@ def char_lstm_phase(ck, card):
     window_ms = start.elapsed_time(end)
     train = {"lstm_sequence": ck.lstm_sequence.launches,
              "fused_adam": ck.fused_adam.launches}
+    by_plan["train"] = dict(ck.lstm_sequence.launches_by_plan)
     losses = [float(l) for l in chunk_losses]
     print("char-lstm chunk losses " + json.dumps(losses), flush=True)
     if train != {"lstm_sequence": n_lstm * chunks, "fused_adam": n_tensors * chunks}:
@@ -845,12 +937,13 @@ def char_lstm_phase(ck, card):
     del twin, g_k, g_p
 
     # serving: output over one unseen [32, 1000, 77] batch
-    ck.lstm_sequence.launches = 0
+    reset_counts()
     start.record()
     out = net.output(x_out)
     end.record()
     torch.cuda.synchronize()
     output_launches = ck.lstm_sequence.launches
+    by_plan["output"] = dict(ck.lstm_sequence.launches_by_plan)
     output_ms = start.elapsed_time(end)
     if output_launches != n_lstm or out.shape != (CHAR_BATCH, CHAR_LEN, v):
         raise RuntimeError(f"output: {output_launches} launches, shape "
@@ -867,7 +960,7 @@ def char_lstm_phase(ck, card):
     index = {c: i for i, c in enumerate(CHARS)}
     prime = F.one_hot(torch.tensor([index[c] for c in PRIME]), v).float()
     net.rnn_clear_previous_state()
-    ck.lstm_sequence.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     probs = net.rnn_time_step(prime[None].repeat(N_SAMPLES, 1, 1).cuda())[:, -1]
@@ -881,9 +974,17 @@ def char_lstm_phase(ck, card):
     torch.cuda.synchronize()
     sample_s = time.perf_counter() - t0
     sample_launches = ck.lstm_sequence.launches
+    by_plan["sample"] = dict(ck.lstm_sequence.launches_by_plan)
     if sample_launches != n_lstm * (1 + SAMPLE_LEN) or probs.shape != (N_SAMPLES, v):
         raise RuntimeError(f"sampling: {sample_launches} launches for "
                            f"{1 + SAMPLE_LEN} steps")
+    # every main-path launch of the LSTM kernel took the cluster plan
+    launched = {"train": train["lstm_sequence"], "output": output_launches,
+                "sample": sample_launches}
+    for path, counts in by_plan.items():
+        if counts != {"cluster": launched[path], "grid": 0}:
+            raise RuntimeError(f"{path}: LSTM kernel launches by plan {counts}, "
+                               f"expected all {launched[path]} on the cluster plan")
     texts = ["".join(t) for t in samples]
     print("char-lstm sample 0: " + json.dumps(PRIME + texts[0][:80]), flush=True)
     stats = {
@@ -903,15 +1004,14 @@ def char_lstm_phase(ck, card):
         "output_launches": output_launches, "output_rowsum_dev": rowsum_dev,
         "output_max_abs_diff_vs_plain": out_diff,
         "sample_s": sample_s, "sampled_chars_per_s": N_SAMPLES * SAMPLE_LEN / sample_s,
-        "sample_launches": sample_launches,
+        "sample_launches": sample_launches, "lstm_launches_by_plan": by_plan,
         "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profile_per_chunk": profile,
     }
     print("char-lstm " + json.dumps(stats), flush=True)
     helpers.clear_helper("updater")
     del net, batches, onehot
-    return ({"train": train["lstm_sequence"], "output": output_launches,
-             "sample": sample_launches}, train["fused_adam"])
+    return launched, by_plan, train["fused_adam"]
 
 
 def main() -> None:
@@ -935,16 +1035,17 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
     print(f"build: {ck.build_all():.3f} s for {len(ck.SOURCES)} kernel "
           f"source(s)", flush=True)
-    print("ptxas flash_attention_bwd.cu " + json.dumps(
-        ptxas_report(ck, "flash_attention_bwd.cu", "flash_attention_bwd")), flush=True)
+    for source in ck.SOURCES:
+        print(f"ptxas {source} " + json.dumps(ptxas_report(ck, source)), flush=True)
 
     served = kernel_phase(ck, peaks)
     bwd = backward_phase(ck, peaks)
     adam = adam_phase(ck, peaks)
     serve_launches = serving_phase(ck, card, served["ms"])
     train_launches = training_phase(ck, card)
-    lstm = lstm_kernel_phase(ck, peaks)
-    char_launches, char_adam_launches = char_lstm_phase(ck, card)
+    lstm_rows = lstm_kernel_phase(ck, peaks)
+    char_launches, char_by_plan, char_adam_launches = char_lstm_phase(ck, card)
+    lstm = lstm_rows[LSTM_PATHS["train"]]
 
     def entry(name, source, replaces, row, launches, **extra):
         return {"name": name, "route": "cuda",
@@ -979,9 +1080,17 @@ def main() -> None:
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
               sum(char_launches.values()), launches_by_path=char_launches,
+              launches_by_plan=char_by_plan,
               library="torch.nn.LSTM (cuDNN) with its input product: "
                       "compare with ms_with_input_product",
-              ms_with_input_product=lstm["ms_with_input_product"]),
+              ms_with_input_product=lstm["ms_with_input_product"],
+              # device time a launch (profiler) at each path's shape; the
+              # sample path's launches are [1,4,200] but for 2 at [12,4,200]
+              shape_by_path={p: list(sh) for p, sh in LSTM_PATHS.items()},
+              ms_by_path={p: lstm_rows[sh]["device_ms"] for p, sh in LSTM_PATHS.items()},
+              bound_by_path={p: lstm_rows[sh]["bound_ms"] for p, sh in LSTM_PATHS.items()},
+              chain_floor_by_path={p: lstm_rows[sh]["chain_floor_ms"]
+                                   for p, sh in LSTM_PATHS.items()}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -99,9 +99,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps
+using namespace dl4j_tf32;
+
+constexpr int THREADS = kThreads;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int PAD = 4;        // keeps rows 16-byte aligned, spreads banks
 constexpr int STAGES = 2;     // ring of streamed tiles
@@ -128,97 +132,6 @@ struct Cfg {
     static_assert(BYTES <= 232448, "a block may have 227 KB");
 };
 
-// ------------------------------------------------------------ primitives
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// every group this thread committed has landed (its own copies)
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// cvt.rna.tf32.f32 (to nearest, ties away from zero, on a 10-bit
-// mantissa; the low 13 bits 0) for every finite x, on the int32 view:
-// two integer instructions, where ptxas expands the PTX instruction into
-// about five (its NaN handling included)
-__device__ __forceinline__ unsigned to_tf32(float x) {
-    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small (+ a rounding of order 2^-22 x)
-__device__ __forceinline__ void split(float x, unsigned& big, unsigned& small) {
-    big = to_tf32(x);
-    small = to_tf32(x - __uint_as_float(big));
-}
-
-template <int N>
-__device__ __forceinline__ void split_n(const float (&x)[N], unsigned (&big)[N],
-                                        unsigned (&small)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) split(x[i], big[i], small[i]);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b at f32 accuracy: small terms first, small.small dropped
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ab)[4],
-                                           const unsigned (&as)[4],
-                                           const unsigned (&bb)[2],
-                                           const unsigned (&bs)[2]) {
-    mma_tf32(d, as, bb);
-    mma_tf32(d, ab, bs);
-    mma_tf32(d, ab, bb);
-}
-
-// Copies rows [0, rows) of a [*, DH] head slice into dst[.][LD], 16 bytes a
-// thread per step, asynchronously (part of the caller's next commit group).
-template <int DH>
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
-                                           int rows) {
-    constexpr int V4 = DH / 4;
-    for (int i = threadIdx.x; i < rows * V4; i += THREADS) {
-        const int r = i / V4, c = (i % V4) * 4;
-        cp_async16(dst + r * Cfg<DH>::LD + c, src + (size_t)r * DH + c);
-    }
-}
-
-__device__ __forceinline__ void stage_vec(float* dst, const float* __restrict__ src,
-                                          int n) {
-    for (int i = threadIdx.x; i < n / 4; i += THREADS) cp_async16(dst + 4 * i, src + 4 * i);
-}
-
-// Splits a streamed [BC][LD] tile in place into its big plane and the small
-// plane PLANE floats on. Each thread splits exactly the 16-byte pieces that
-// stage_rows had it copy, so its own cp.async wait suffices before this; a
-// __syncthreads then publishes the planes to every warp.
-template <int DH>
-__device__ __forceinline__ void split_rows(float* tile) {
-    using C = Cfg<DH>;
-    constexpr int V4 = DH / 4;
-    for (int i = threadIdx.x; i < C::BC * V4; i += THREADS) {
-        float* p = tile + (i / V4) * C::LD + (i % V4) * 4;
-        const float4 x = *reinterpret_cast<const float4*>(p);
-        unsigned b[4], sm[4];
-        split(x.x, b[0], sm[0]);
-        split(x.y, b[1], sm[1]);
-        split(x.z, b[2], sm[2]);
-        split(x.w, b[3], sm[3]);
-        *reinterpret_cast<uint4*>(p) = make_uint4(b[0], b[1], b[2], b[3]);
-        *reinterpret_cast<uint4*>(p + C::PLANE) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
-    }
-}
-
 // acc[j] (16 resident rows x NS*8 streamed rows) = X Y^T over DH, with X the
 // warp's 16 rows of a resident tile (split here) and Y a streamed tile
 // (split into planes). xp = X + g*LD + t, yp = Y + g*LD + t.
@@ -244,41 +157,6 @@ __device__ __forceinline__ void scores(float (&acc)[Cfg<DH>::NS][4], const float
             mma_3xtf32(acc[j], ab, as, bb, bs);
         }
     }
-}
-
-// out[n] (16 rows x DW columns) += A Z, where A (16 x NS*8) is the score
-// tile held in C fragments and Z a streamed tile (split into planes); the
-// contraction runs over Z's rows in the permuted order (see the header).
-// The tile's share is summed in the tensor core from zero and then added to
-// out in f32 (see the header on truncation). zp = Z + 2t*LD + column0 + g.
-template <int DH>
-__device__ __forceinline__ void accumulate(float (&out)[Cfg<DH>::ND][4],
-                                           const float (&a)[Cfg<DH>::NS][4],
-                                           const float* zp) {
-    using C = Cfg<DH>;
-    float part[C::ND][4];
-#pragma unroll
-    for (int n = 0; n < C::ND; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < C::NS; ++kk) {
-        // A fragment (row g, cols t, t+4) <- C fragment (row g, cols 2t, 2t+1)
-        const float av[4] = {a[kk][0], a[kk][2], a[kk][1], a[kk][3]};
-        unsigned ab[4], as[4];
-        split_n(av, ab, as);
-        const unsigned* z = reinterpret_cast<const unsigned*>(zp) + kk * 8 * C::LD;
-#pragma unroll
-        for (int n = 0; n < C::ND; ++n) {
-            const unsigned bb[2] = {z[n * 8], z[C::LD + n * 8]};
-            const unsigned bs[2] = {z[C::PLANE + n * 8], z[C::PLANE + C::LD + n * 8]};
-            mma_3xtf32(part[n], ab, as, bb, bs);
-        }
-    }
-#pragma unroll
-    for (int n = 0; n < C::ND; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) out[n][e] += part[n][e];
 }
 
 // rows g, g+8 of a warp's 16 output rows (C fragments) <- acc * mul
@@ -329,16 +207,16 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ q,
     const int n_tiles = CAUSAL ? (q0 + rows) / BC : T / BC;
     auto stage = [&](int kt) {
         float* dst = KVs + (kt % STAGES) * C::STAGE;
-        stage_rows<DH>(dst, k + head + (size_t)kt * BC * DH, BC);
-        stage_rows<DH>(dst + 2 * C::PLANE, v + head + (size_t)kt * BC * DH, BC);
+        stage_rows<DH, C::LD>(dst, k + head + (size_t)kt * BC * DH, BC);
+        stage_rows<DH, C::LD>(dst + 2 * C::PLANE, v + head + (size_t)kt * BC * DH, BC);
     };
     auto split_stage = [&](int kt) {
         float* dst = KVs + (kt % STAGES) * C::STAGE;
-        split_rows<DH>(dst);
-        split_rows<DH>(dst + 2 * C::PLANE);
+        split_rows<DH, C::LD>(dst, C::BC, C::PLANE);
+        split_rows<DH, C::LD>(dst + 2 * C::PLANE, C::BC, C::PLANE);
     };
-    stage_rows<DH>(Qs, q + head + (size_t)q0 * DH, rows);
-    stage_rows<DH>(dOs, dout + head + (size_t)q0 * DH, rows);
+    stage_rows<DH, C::LD>(Qs, q + head + (size_t)q0 * DH, rows);
+    stage_rows<DH, C::LD>(dOs, dout + head + (size_t)q0 * DH, rows);
     stage(0);
     cp_async_commit();
 
@@ -402,7 +280,7 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ q,
                         ? 0.f : exp2f(fmaf(s[j][e], scale_log2, -lse2[h]));
                     s[j][e] = p * (dp[j][e] - drow[h]);  // dS
                 }
-            accumulate<DH>(acc, s, Ks + 2 * t * LD + col0 + g);  // dQ += dS K
+            accumulate<NS, ND, LD, C::PLANE>(acc, s, Ks + 2 * t * LD + col0 + g);  // dQ += dS K
         }
         if (kt + 1 < n_tiles) {  // split this thread's part of the next tile
             cp_async_wait_all();
@@ -447,18 +325,18 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
     const int qt_end = T / BC;
     auto stage = [&](int qt) {
         float* dst = QDs + ((qt - qt0) % STAGES) * C::STAGE;
-        stage_rows<DH>(dst, q + head + (size_t)qt * BC * DH, BC);
-        stage_rows<DH>(dst + 2 * C::PLANE, dout + head + (size_t)qt * BC * DH, BC);
+        stage_rows<DH, C::LD>(dst, q + head + (size_t)qt * BC * DH, BC);
+        stage_rows<DH, C::LD>(dst + 2 * C::PLANE, dout + head + (size_t)qt * BC * DH, BC);
         stage_vec(dst + 4 * C::PLANE, lse + vec + (size_t)qt * BC, BC);
         stage_vec(dst + 4 * C::PLANE + BC, dvec + vec + (size_t)qt * BC, BC);
     };
     auto split_stage = [&](int qt) {
         float* dst = QDs + ((qt - qt0) % STAGES) * C::STAGE;
-        split_rows<DH>(dst);
-        split_rows<DH>(dst + 2 * C::PLANE);
+        split_rows<DH, C::LD>(dst, C::BC, C::PLANE);
+        split_rows<DH, C::LD>(dst + 2 * C::PLANE, C::BC, C::PLANE);
     };
-    stage_rows<DH>(Ks, k + head + (size_t)k0 * DH, rows);
-    stage_rows<DH>(Vs, v + head + (size_t)k0 * DH, rows);
+    stage_rows<DH, C::LD>(Ks, k + head + (size_t)k0 * DH, rows);
+    stage_rows<DH, C::LD>(Vs, v + head + (size_t)k0 * DH, rows);
     stage(qt0);
     cp_async_commit();
     cp_async_wait_all();  // K, V and the first Q, dO tile
@@ -505,8 +383,8 @@ flash_attention_bwd_dkv_kernel(const float* __restrict__ q,
                     dp[j][e] = p * (dp[j][e] - dq_);  // dS^T
                 }
             }
-            accumulate<DH>(dv_acc, s, dOs + 2 * t * LD + col0 + g);  // dV += P^T dO
-            accumulate<DH>(dk_acc, dp, Qs + 2 * t * LD + col0 + g);  // dK += dS^T Q
+            accumulate<NS, ND, LD, C::PLANE>(dv_acc, s, dOs + 2 * t * LD + col0 + g);  // dV += P^T dO
+            accumulate<NS, ND, LD, C::PLANE>(dk_acc, dp, Qs + 2 * t * LD + col0 + g);  // dK += dS^T Q
         }
         if (qt + 1 < qt_end) {  // split this thread's part of the next tile
             cp_async_wait_all();

@@ -1,234 +1,254 @@
-// Flash-attention forward, f32, for Hopper (sm_90a), on the CUDA cores.
+// Flash-attention forward, f32, for Hopper (sm_90a), on the tensor cores
+// at f32 accuracy (3xTF32).
 //
 // Replaces the forward of PallasFlashAttentionHelper.attend
 // (deeplearning4j_tpu/nn/pallas_kernels.py:359), which calls jax's bundled
 // TPU kernel jax.experimental.pallas.ops.tpu.flash_attention:
-//     o = softmax(q k^T / sqrt(Dh) [causal]) v,   q, k, v, o: [N, H, T, Dh] f32.
+//     o = softmax(q k^T / sqrt(Dh) [causal]) v,   q, k, v, o: [N, H, T, Dh] f32,
+// with an optional LSE output for the backward (csrc/flash_attention_bwd.cu):
+// lse[n*h, T] = the natural-log logsumexp of the SCALED scores q.k / sqrt(Dh)
+// of each row. A null pointer skips it, so the inference path writes
+// nothing extra.
 //
-// Design for this card (not the TPU kernel carried over block by block):
-//   * one thread block per (n*h, 64-row query tile); the TPU's sequential
-//     k grid becomes a loop inside the block over 64-row k/v tiles staged in
-//     shared memory;
-//   * the running max, the running sum and the O accumulator stay in
-//     registers (online softmax); O / l is written once;
-//   * causal: the loop stops at the diagonal tile and masks inside it, and
-//     the heaviest query tiles are scheduled first;
-//   * 256 threads = 16 row groups x 16 lanes. A thread owns 4 query rows
-//     (so its softmax statistics live in its own registers) and, per k tile,
-//     4 key columns of S = q k^T, strided by 16 so that shared-memory reads
-//     are free of bank conflicts; a row's max and sum are reduced across
-//     its 16 lanes with warp shuffles. For P v it owns 4 rows x Dh/16
-//     columns of O.
-//   * Dh is a template parameter (64, 128, 256). The tiles take 67 KB,
-//     115 KB and 211 KB of shared memory, so the launch raises the
-//     dynamic shared-memory limit with cudaFuncSetAttribute.
-//   * f32 FMAs on the CUDA cores, no TF32. wgmma and TMA come later.
-//   * optional LSE output for the backward (csrc/flash_attention_bwd.cu):
-//     lse[n*h, T] = m + log(l), the natural-log logsumexp of the SCALED
-//     scores q.k / sqrt(Dh) of each row. A null pointer skips it, so the
-//     inference path writes nothing extra.
+// What bounds it. At the served and trained GPT-2-small shape [N=8, H=12,
+// T=1024, Dh=64], causal, the two [T x T x Dh] products over the causal
+// pairs T(T+1)/2 of each head are 12.9 GFLOP. As 3xTF32 (three TF32
+// products for one f32-accurate one) at the H100 SXM's 495 TFLOP/s dense
+// TF32 that is 0.078 ms; the bytes (q, k, v read once, o written once,
+// 4 x 25.2 MB) take 0.030 ms at 3.35 TB/s. So it is bound by operations.
+// chip_smoke.py re-derives both for the card it runs on.
 //
-// Bound at the served GPT-2-small shape [N=8, H=12, T=1024, Dh=64], causal:
-//   operations 4*N*H*Dh*T(T+1)/2 = 12.9 GFLOP -> 0.19 ms at the H100 SXM's
-//   67 TFLOP/s f32 (non-tensor) rate; bytes 4 x 25.2 MB (q, k, v read once,
-//   o written once) -> 0.03 ms at 3.35 TB/s. The kernel is bound by
-//   operations; chip_smoke.py re-derives both for the card it runs on.
-//   Each inner step reads two 16-byte shared-memory vectors per 16 FMAs,
-//   so shared-memory bandwidth, not the FMA pipe, is the first limit of
-//   this simple version.
+// Measured there (NVIDIA H100 80GB HBM3, 700 W, median of 25 launches):
+// 0.295 ms, 27% of the 3xTF32 bound, against 0.493 ms for
+// F.scaled_dot_product_attention and 0.443 ms for this kernel's earlier
+// CUDA-core version. ptxas: 177 to 203 registers, no spills.
+//
+// Design (the backward's, csrc/flash_attention_bwd.cu, with two products):
+//   * one block of 8 warps per (n*h, BR query rows); warp w owns 16 query
+//     rows (row group w / WN) and Dh / WN columns of O (column part w % WN).
+//     Dh 64 and 128: BR = 128, WN = 1. Dh 256: BR = 64, WN = 2 (the two
+//     warps of a row group both compute its scores; each keeps half of O,
+//     64 accumulator registers).
+//   * Q is staged once and split in place into a big and a small plane, so
+//     its A fragments cost 8 shared-memory loads and no arithmetic. K and V
+//     tiles of BC rows (Dh 64: 64, Dh 128: 16, Dh 256: 8) stream through a
+//     ring of 2 shared-memory stages filled by cp.async.cg (16 bytes a
+//     thread); each tile is split once per block into planes by the threads
+//     that copied it, as soon as their copies land, while the other stage
+//     is multiplied. One __syncthreads per tile. Shared memory: 204 KB,
+//     198 KB and 195 KB; one block per SM.
+//   * Products: S = Q K^T and the tile's share of P V as 3xTF32
+//     mma.sync.m16n8k8 (tf32_mma.cuh).
+//   * Online softmax on the C fragments, in base 2: a row's running max is
+//     reduced over its quad (the 4 lanes that hold the row) with two
+//     shuffles; the running sum stays a per-lane partial (the max, and so
+//     the rescale factor, is the quad's) and is reduced once at the end.
+//   * P goes from the accumulators straight into the P V product's A
+//     fragment by the permuted contraction order (tf32_mma.cuh): no shared
+//     memory, no shuffle.
+//   * Accumulation in f32: each K/V tile's share of P V is summed in the
+//     tensor core from zero, then O <- alpha O + share by f32 operations.
+//     The tensor core truncates when it adds into its accumulator, and
+//     chained over T = 1024 keys that drift broke the twin-net gradient
+//     check for the backward.
+//   * Causal: the key loop stops at the diagonal tile, a warp whose rows
+//     all lie before a tile skips its products, masking is applied only in
+//     tiles that cross the diagonal, and the heaviest query blocks are
+//     scheduled first. Every processed tile holds an unmasked key for each
+//     of the warp's rows at Dh 64 and 128; at Dh 256 (BC 8) the first tile
+//     does, so the running max is finite from the first tile on.
+//   * A last block of 64 rows (T % 128 == 64) leaves the warps of the
+//     missing rows idle; they still stage, split and reach every barrier.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // query rows per block
-constexpr int BN = 64;        // key rows per tile
-constexpr int THREADS = 256;  // 16 row groups x 16 lanes
-constexpr int PAD = 4;        // keeps rows 16-byte aligned, skews banks
+using namespace dl4j_tf32;
+
+constexpr int THREADS = kThreads;  // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int PAD = 4;        // keeps rows 16-byte aligned, spreads banks
+constexpr int STAGES = 2;     // ring of streamed K/V tiles
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int DH>
-struct Tiles {
-    static constexpr int Q_LD = DH + PAD;  // Qs[BM][Q_LD]
-    static constexpr int K_LD = DH + PAD;  // Ks[BN][K_LD]
-    static constexpr int V_LD = DH;        // Vs[BN][V_LD]
-    static constexpr int P_LD = BN + PAD;  // Ps[BM][P_LD]
-    static constexpr int FLOATS = BM * Q_LD + BN * K_LD + BN * V_LD + BM * P_LD;
-    static constexpr size_t BYTES = FLOATS * sizeof(float);
+struct Cfg {
+    static constexpr int BR = DH == 256 ? 64 : 128;                // query rows
+    static constexpr int BC = DH == 64 ? 64 : (DH == 128 ? 16 : 8);  // K/V rows a tile
+    static constexpr int WN = WARPS / (BR / 16);  // warps sharing a row group
+    static constexpr int DW = DH / WN;            // O columns of a warp
+    static constexpr int LD = DH + PAD;           // row stride of a tile
+    static constexpr int QPLANE = BR * LD;        // Q's big -> small plane
+    static constexpr int PLANE = BC * LD;         // a streamed tile's big -> small
+    static constexpr int NS = BC / 8;             // 8-wide blocks of a score row
+    static constexpr int ND = DW / 8;             // 8-wide blocks of an O row
+    static constexpr int STAGE = 4 * PLANE;       // K big, K small, V big, V small
+    static constexpr size_t BYTES = (size_t)(2 * QPLANE + STAGES * STAGE) * sizeof(float);
+    static_assert(WN * (BR / 16) == WARPS, "8 warps cover the query rows");
+    static_assert(64 % BC == 0 && BR % 64 == 0, "tiles divide T % 64 == 0");
+    static_assert(BYTES <= 232448, "a block may have 227 KB");
 };
 
-__device__ __forceinline__ float f4_at(const float4& v, int i) {
-    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// rows [row0, row0 + BM) of a [T, DH] head slice -> dst[BM][ld]
+// acc[j] (16 query rows x NS*8 keys) = Q K^T over DH, both operands split
+// into planes. qp = Q big + g*LD + t, kp = K big + g*LD + t.
 template <int DH>
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const float* __restrict__ src) {
-    constexpr int V4 = DH / 4;  // float4 per row
-    for (int i = threadIdx.x; i < BM * V4; i += THREADS) {
-        const int r = i / V4, c4 = i % V4;
-        const float4 val = reinterpret_cast<const float4*>(src + (size_t)r * DH)[c4];
-        *reinterpret_cast<float4*>(dst + r * ld + c4 * 4) = val;
+__device__ __forceinline__ void scores(float (&acc)[Cfg<DH>::NS][4], const float* qp,
+                                       const float* kp) {
+    using C = Cfg<DH>;
+#pragma unroll
+    for (int j = 0; j < C::NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DH / 8; ++ks) {
+        const unsigned* x = reinterpret_cast<const unsigned*>(qp) + ks * 8;
+        const unsigned ab[4] = {x[0], x[8 * C::LD], x[4], x[8 * C::LD + 4]};
+        const unsigned as[4] = {x[C::QPLANE], x[C::QPLANE + 8 * C::LD], x[C::QPLANE + 4],
+                                x[C::QPLANE + 8 * C::LD + 4]};
+#pragma unroll
+        for (int j = 0; j < C::NS; ++j) {
+            const unsigned* y = reinterpret_cast<const unsigned*>(kp) + j * 8 * C::LD + ks * 8;
+            const unsigned bb[2] = {y[0], y[4]};
+            const unsigned bs[2] = {y[C::PLANE], y[C::PLANE + 4]};
+            mma_3xtf32(acc[j], ab, as, bb, bs);
+        }
     }
 }
 
 template <int DH, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_attention_fwd_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ o, float* __restrict__ lse,
                            int T, float scale_log2) {
-    using S = Tiles<DH>;
-    constexpr int DC = DH / 64;  // 64-wide column chunks of O per thread row
+    using C = Cfg<DH>;
+    constexpr int BR = C::BR, BC = C::BC, LD = C::LD, NS = C::NS, ND = C::ND;
     extern __shared__ float4 smem4[];
-    float* Qs = reinterpret_cast<float*>(smem4);
-    float* Ks = Qs + BM * S::Q_LD;
-    float* Vs = Ks + BN * S::K_LD;
-    float* Ps = Vs + BN * S::V_LD;
+    float* Qs = reinterpret_cast<float*>(smem4);  // big plane, then small
+    float* KVs = Qs + 2 * C::QPLANE;              // STAGES x (K b, K s, V b, V s)
 
-    const int n_tiles = T / BM;
-    // causal: the last query tiles do the most work; start them first
-    const int qt = CAUSAL ? (n_tiles - 1 - (int)blockIdx.y) : (int)blockIdx.y;
+    const int n_blocks = (T + BR - 1) / BR;
+    // causal: the last query blocks do the most work; start them first
+    const int qb = CAUSAL ? (n_blocks - 1 - (int)blockIdx.y) : (int)blockIdx.y;
+    const int q0 = qb * BR;
+    const int rows = min(BR, T - q0);
     const size_t head = (size_t)blockIdx.x * T * DH;
-    const int ty = threadIdx.x >> 4;  // row group: rows ty*4 .. ty*4+3
-    const int tx = threadIdx.x & 15;  // lane: key columns tx + 16*b
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = (warp / C::WN) * 16;      // the warp's rows in the block
+    const int col0 = (warp % C::WN) * C::DW;  // and its O columns
+    const bool active = r0 < rows;
+    const int qw = q0 + r0;                  // the warp's first query row
 
-    load_tile<DH>(Qs, S::Q_LD, q + head + (size_t)qt * BM * DH);
+    const int n_tiles = CAUSAL ? (q0 + rows) / BC : T / BC;
+    auto stage = [&](int kt) {
+        float* dst = KVs + (kt % STAGES) * C::STAGE;
+        stage_rows<DH, C::LD>(dst, k + head + (size_t)kt * BC * DH, BC);
+        stage_rows<DH, C::LD>(dst + 2 * C::PLANE, v + head + (size_t)kt * BC * DH, BC);
+    };
+    auto split_stage = [&](int kt) {
+        float* dst = KVs + (kt % STAGES) * C::STAGE;
+        split_rows<DH, C::LD>(dst, C::BC, C::PLANE);
+        split_rows<DH, C::LD>(dst + 2 * C::PLANE, C::BC, C::PLANE);
+    };
+    stage_rows<DH, C::LD>(Qs, q + head + (size_t)q0 * DH, rows);
+    stage(0);
+    cp_async_commit();
+    cp_async_wait_all();  // Q and the first K, V tile (this thread's copies)
+    split_rows<DH, C::LD>(Qs, rows, C::QPLANE);
+    split_stage(0);
+    __syncthreads();
 
-    float acc[4][4 * DC];
-    float m[4], l[4];
+    float acc[ND][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-        m[a] = -INFINITY;
-        l[a] = 0.f;
+    for (int n = 0; n < ND; ++n)
 #pragma unroll
-        for (int c = 0; c < 4 * DC; ++c) acc[a][c] = 0.f;
-    }
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    // rows g and g + 8: running max (base 2, scaled), this lane's share of
+    // the running sum
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    const int kv_end = CAUSAL ? qt + 1 : n_tiles;
-    for (int kt = 0; kt < kv_end; ++kt) {
-        __syncthreads();  // the previous tile's Ks/Vs are consumed
-        load_tile<DH>(Ks, S::K_LD, k + head + (size_t)kt * BN * DH);
-        load_tile<DH>(Vs, S::V_LD, v + head + (size_t)kt * BN * DH);
-        __syncthreads();
-
-        // S = Q K^T for this thread's 4 rows x 4 columns
-        float s[4][4];
+    const float* qp = Qs + (r0 + g) * LD + t;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+        // tile kt is split (by every thread) and tile kt - 1 is consumed (by
+        // every warp), so its stage may take tile kt + 1
+        if (kt > 0) __syncthreads();
+        if (kt + 1 < n_tiles) stage(kt + 1);
+        cp_async_commit();
+        const float* Ks = KVs + (kt % STAGES) * C::STAGE;
+        const float* Vs = Ks + 2 * C::PLANE;
+        const int k0 = kt * BC;
+        // causal: skip a tile whose keys all lie after the warp's rows
+        if (active && !(CAUSAL && k0 > qw + 15)) {
+            float s[NS][4];
+            scores<DH>(s, qp, Ks + g * LD + t);
+            const bool mask = CAUSAL && k0 + BC - 1 > qw;
+            float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+            for (int j = 0; j < NS; ++j)
 #pragma unroll
-            for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < DH; d += 4) {
-            float4 qa[4], kb[4];
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-                qa[a] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + a) * S::Q_LD + d);
-#pragma unroll
-            for (int b = 0; b < 4; ++b)
-                kb[b] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * b) * S::K_LD + d);
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-                for (int b = 0; b < 4; ++b) {
-                    float t = s[a][b];
-                    t = fmaf(qa[a].x, kb[b].x, t);
-                    t = fmaf(qa[a].y, kb[b].y, t);
-                    t = fmaf(qa[a].z, kb[b].z, t);
-                    t = fmaf(qa[a].w, kb[b].w, t);
-                    s[a][b] = t;
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;
+                    const int key = k0 + j * 8 + 2 * t + (e & 1);
+                    const float val = (mask && key > qw + g + 8 * h)
+                        ? -INFINITY : s[j][e] * scale_log2;
+                    s[j][e] = val;
+                    mx[h] = fmaxf(mx[h], val);
                 }
-        }
-
-        // online softmax in base 2 (scale_log2 = log2(e) / sqrt(Dh))
-        const bool diag = CAUSAL && kt == qt;
+            float alpha[2];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-            const int row = ty * 4 + a;
-            float mx = -INFINITY;
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-                float val = s[a][b] * scale_log2;
-                if (diag && tx + 16 * b > row) val = -INFINITY;
-                s[a][b] = val;
-                mx = fmaxf(mx, val);
+            for (int h = 0; h < 2; ++h) {
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+                const float m_new = fmaxf(m[h], mx[h]);  // finite (see the header)
+                alpha[h] = exp2f(m[h] - m_new);          // 0 on the first tile
+                m[h] = m_new;
+                l[h] *= alpha[h];
             }
 #pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            // finite: every row has at least one unmasked key in a tile
-            const float m_new = fmaxf(m[a], mx);
-            const float alpha = exp2f(m[a] - m_new);  // 0 on the first tile
-            float rs = 0.f;
+            for (int j = 0; j < NS; ++j)
 #pragma unroll
-            for (int b = 0; b < 4; ++b) {
-                const float p = exp2f(s[a][b] - m_new);
-                s[a][b] = p;
-                rs += p;
-            }
-#pragma unroll
-            for (int off = 8; off > 0; off >>= 1)
-                rs += __shfl_xor_sync(0xffffffffu, rs, off);
-            l[a] = l[a] * alpha + rs;
-            m[a] = m_new;
-#pragma unroll
-            for (int c = 0; c < 4 * DC; ++c) acc[a][c] *= alpha;
-#pragma unroll
-            for (int b = 0; b < 4; ++b) Ps[row * S::P_LD + tx + 16 * b] = s[a][b];
-        }
-        // a row group's 16 lanes share one warp: it alone writes and reads
-        // its rows of Ps
-        __syncwarp();
-
-        // O += P V for this thread's 4 rows x (DC chunks of 4 columns)
-#pragma unroll 2
-        for (int j = 0; j < BN; j += 4) {
-            float4 pa[4];
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-                pa[a] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + a) * S::P_LD + j);
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-                for (int ch = 0; ch < DC; ++ch) {
-                    const float4 vv = *reinterpret_cast<const float4*>(
-                        Vs + (j + jj) * S::V_LD + ch * 64 + tx * 4);
-#pragma unroll
-                    for (int a = 0; a < 4; ++a) {
-                        const float p = f4_at(pa[a], jj);
-                        acc[a][ch * 4 + 0] = fmaf(p, vv.x, acc[a][ch * 4 + 0]);
-                        acc[a][ch * 4 + 1] = fmaf(p, vv.y, acc[a][ch * 4 + 1]);
-                        acc[a][ch * 4 + 2] = fmaf(p, vv.z, acc[a][ch * 4 + 2]);
-                        acc[a][ch * 4 + 3] = fmaf(p, vv.w, acc[a][ch * 4 + 3]);
-                    }
+                for (int e = 0; e < 4; ++e) {
+                    const float p = exp2f(s[j][e] - m[e >> 1]);
+                    s[j][e] = p;
+                    l[e >> 1] += p;
                 }
-            }
+#pragma unroll
+            for (int n = 0; n < ND; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+            // O += P V, the tile's share summed from zero, added in f32
+            accumulate<NS, ND, LD, C::PLANE>(acc, s, Vs + 2 * t * LD + col0 + g);
+        }
+        if (kt + 1 < n_tiles) {  // split this thread's part of the next tile
+            cp_async_wait_all();
+            split_stage(kt + 1);
         }
     }
-
-    float* oh = o + head + (size_t)qt * BM * DH;
+    if (!active) return;  // after the last barrier
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-        const float inv = 1.f / l[a];
-        const int row = ty * 4 + a;
-#pragma unroll
-        for (int ch = 0; ch < DC; ++ch) {
-            float4 out;
-            out.x = acc[a][ch * 4 + 0] * inv;
-            out.y = acc[a][ch * 4 + 1] * inv;
-            out.z = acc[a][ch * 4 + 2] * inv;
-            out.w = acc[a][ch * 4 + 3] * inv;
-            *reinterpret_cast<float4*>(oh + (size_t)row * DH + ch * 64 + tx * 4) = out;
-        }
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
-    if (lse != nullptr && tx == 0) {
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    float* out = o + head + (size_t)qw * DH + col0;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(out + (size_t)(g + 8 * h) * DH + n * 8 + 2 * t) =
+                make_float2(acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
+    if (lse != nullptr && col0 == 0 && t == 0) {
         // m is in base-2 units of the scaled scores: ln(sum) = (m + log2 l) ln 2
-        float* lh = lse + (size_t)blockIdx.x * T + (size_t)qt * BM;
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-            lh[ty * 4 + a] = (m[a] + log2f(l[a])) * 0.6931471805599453f;
+        float* lh = lse + (size_t)blockIdx.x * T + qw + g;
+        lh[0] = (m[0] + log2f(l[0])) * LN2;
+        lh[8] = (m[1] + log2f(l[1])) * LN2;
     }
 }
 
@@ -236,12 +256,12 @@ template <int DH, bool CAUSAL>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    float* lse, int bh, int t, cudaStream_t stream) {
     auto kernel = flash_attention_fwd_kernel<DH, CAUSAL>;
-    const size_t smem = Tiles<DH>::BYTES;
+    const size_t smem = Cfg<DH>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const float scale_log2 = 1.4426950408889634f / sqrtf((float)DH);
-    const dim3 grid(bh, t / BM);
+    const dim3 grid(bh, (t + Cfg<DH>::BR - 1) / Cfg<DH>::BR);
     kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, t, scale_log2);
     return cudaGetLastError();
 }
@@ -262,7 +282,7 @@ extern "C" int dl4j_flash_attention_fwd_f32(const void* q, const void* k,
                                             const void* v, void* o, void* lse,
                                             int bh, int t, int dh, int causal,
                                             void* stream) {
-    if (bh <= 0 || t <= 0 || t % BM != 0 || t / BM > 65535)
+    if (bh <= 0 || t <= 0 || t % 64 != 0 || t / 64 > 65535)
         return (int)cudaErrorInvalidValue;
     const float* qf = static_cast<const float*>(q);
     const float* kf = static_cast<const float*>(k);

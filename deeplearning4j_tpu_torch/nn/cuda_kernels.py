@@ -5,7 +5,9 @@ Counterpart of ``deeplearning4j_tpu/nn/pallas_kernels.py``. Ported so far:
 - K3a, the causal/bidirectional flash-attention forward
   (``PallasFlashAttentionHelper.attend``, ``pallas_kernels.py:359``):
   ``csrc/flash_attention_fwd.cu``, wrapped by :func:`flash_attention_fwd`,
-  which can also return the row LSE the backward needs.
+  which can also return the row LSE the backward needs. Like K3b it
+  multiplies on the tensor cores at f32 accuracy (3xTF32, the helpers of
+  ``csrc/tf32_mma.cuh``).
 - K3b, its backward (the bundled kernel's custom VJP): two kernels in
   ``csrc/flash_attention_bwd.cu``, :func:`flash_attention_bwd_dq` (dQ and
   D = rowsum(dO * O)) and :func:`flash_attention_bwd_dkv` (dK, dV).
@@ -18,14 +20,17 @@ Counterpart of ``deeplearning4j_tpu/nn/pallas_kernels.py``. Ported so far:
   "updater" seam by :class:`FusedUpdaterHelper`.
 - K1, the fused LSTM sequence forward (``_lstm_pallas_fwd``,
   ``pallas_kernels.py:66``, via ``PallasLSTMHelper.forward_seq`` :153):
-  ``csrc/lstm_sequence.cu``, wrapped by :func:`lstm_sequence`;
+  ``csrc/lstm_sequence.cu``, wrapped by :func:`lstm_sequence`, in one of
+  two plans that :func:`lstm_plan` chooses (thread-block clusters where rw
+  fits one cluster's shared memory, else one cooperative grid);
   :class:`LSTMSequenceFunction` differentiates it by recomputing the plain
   recurrence (the reference's ``_fused_bwd`` takes the VJP of its plain
   scan: no backward kernel exists in either package), and
   :class:`FusedLSTMHelper` serves it at the "lstm" seam.
 
 Each kernel is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``build/`` beside ``csrc/``,
+with a plain C interface, at first use, into ``build/`` beside ``csrc/``
+(named by a hash of the source, the headers it includes and the flags),
 and loaded with ``ctypes``. Importing this module runs no compiler. A
 wrapper launches its kernel for CUDA tensors (or raises: nothing falls
 back) and computes the plain version for CPU tensors, which is what the
@@ -35,10 +40,12 @@ launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -82,9 +89,27 @@ def _nvcc() -> str:
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_bytes(source: str, csrc_dir: str, seen: set) -> bytes:
+    """The bytes of ``csrc_dir/source`` followed by those of every header it
+    includes with quotes (found beside it), recursively, each once."""
+    if source in seen:
+        return b""
+    seen.add(source)
+    with open(os.path.join(csrc_dir, source), "rb") as f:
+        text = f.read()
+    return text + b"".join(_source_bytes(h.decode(), csrc_dir, seen)
+                           for h in _INCLUDE.findall(text))
+
+
+def _lib_path(source: str, csrc_dir: str = CSRC_DIR) -> str:
+    """``build/lib<stem>-<hash>.so``: the hash covers the source, every
+    header it includes from ``csrc/`` and the compiler flags, so an edit of
+    any of them builds a new library."""
+    digest = hashlib.sha256(_source_bytes(source, csrc_dir, set())
+                            + " ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
@@ -160,6 +185,15 @@ def _launched(err: int, wrapper, name: str) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_device(index: int):
+    """``torch.cuda.device(index)``, or nothing to enter when ``index`` is
+    already the current device (the common case, and a T = 1 launch's
+    host time counts)."""
+    if torch.cuda.current_device() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
 
 
 # --------------------------------------------------- K3: flash attention
@@ -470,7 +504,61 @@ class FusedUpdaterHelper(UpdaterHelper):
 
 # --------------------------------------------------- K1: fused LSTM sequence
 _LSTM_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_LSTM_CLUSTER_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_CHAIN_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_INT_P = ctypes.POINTER(ctypes.c_int)
 _COOPERATIVE_LAUNCH_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge (CUDA >= 10.1)
+LSTM_PLANS = ("auto", "cluster", "grid")
+CLUSTER_THREADS = 512  # threads of a CTA of the cluster plan (CTHREADS in the .cu)
+PORTABLE_CLUSTER = 8   # the largest cluster every sm_90 launch may take
+
+
+def _cluster_floats(h: int, s: int, r: int) -> int:
+    """Floats of shared memory a CTA of the cluster plan uses (the
+    ``ClusterLayout`` of ``csrc/lstm_sequence.cu``, whose launcher refuses
+    a plan that gives it fewer bytes): its slice of rw [hs, 4U]; two h buffers [rp, hs]; the
+    P partial sums [P, rp, 4U]; two xw buffers [R, 4U]; c and h_t [R, U].
+    ``hs`` is H rounded up to 4, ``rp`` R rounded up to its register block
+    (R up to 4 rows, else 4) and P the slices of the H products (threads /
+    4U)."""
+    u = -(-h // s)
+    cols = 4 * u
+    hs = -(-h // 4) * 4
+    rb = min(r, 4)
+    rp = -(-r // rb) * rb
+    p = 1 if cols >= CLUSTER_THREADS else CLUSTER_THREADS // cols
+    return hs * cols + 2 * rp * hs + p * rp * cols + 2 * r * cols + 2 * r * u
+
+
+def lstm_plan(n: int, h: int, sms: int, smem_per_block: int,
+              max_cluster: int = PORTABLE_CLUSTER, cluster_size: int = 0,
+              clusters: int = 0) -> dict:
+    """The plan of the LSTM sequence kernel for ``n`` batch rows at width
+    ``h`` on a device with ``sms`` SMs and ``smem_per_block`` bytes of
+    opt-in shared memory a block; the single place the choice is made, from
+    the shapes and the device's limits alone.
+
+    The cluster plan when one cluster's shared memory holds all of rw: S
+    CTAs a cluster (8, or 16 when 8 cannot hold it and ``max_cluster``
+    allows; ``cluster_size`` forces one), CTA s owning hidden units [sU,
+    sU+U), U = ceil(h/S), and R batch rows a cluster, R = ceil(n / C0) for
+    C0 = ``clusters`` (the clusters that can be resident at once, when
+    known) or ``sms // S``, shrunk until the CTA's bytes fit. Returns
+    ``{"plan": "cluster", "S", "U", "R", "C", "smem"}`` with C = ceil(n/R)
+    clusters and ``smem`` bytes a CTA; else ``{"plan": "grid"}`` (the
+    cooperative grid plan, which sizes itself in the kernel)."""
+    sizes = (cluster_size,) if cluster_size else (8, 16)
+    for s in sizes:
+        if s < 1 or s > max_cluster or s > 16:
+            continue
+        resident = clusters or max(1, sms // s)
+        r = -(-n // resident)
+        while r >= 1 and 4 * _cluster_floats(h, s, r) > smem_per_block:
+            r -= 1
+        if r >= 1:
+            return {"plan": "cluster", "S": s, "U": -(-h // s), "R": r,
+                    "C": -(-n // r), "smem": 4 * _cluster_floats(h, s, r)}
+    return {"plan": "grid"}
 
 
 def lstm_sequence_plain(xw, rw, h0, c0):
@@ -496,54 +584,161 @@ def lstm_sequence_plain(xw, rw, h0, c0):
     return torch.stack(ys), h, c
 
 
-def lstm_sequence(xw, rw, h0, c0, units_per_block: int = 0):
+_lstm_limits: dict = {}  # device index -> (sms, smem per block, max cluster)
+_lstm_plans: dict = {}   # (device index, n, h, plan, cluster size) -> plan
+
+
+def _device_lstm_limits(index: int):
+    lim = _lstm_limits.get(index)
+    if lim is None:
+        fn = _load(_LSTM_SRC, "dl4j_lstm_device_limits", [_INT_P] * 3)
+        vals = [ctypes.c_int() for _ in range(3)]
+        with torch.cuda.device(index):
+            err = fn(*(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"lstm_sequence: device limits: cudaError {err}")
+        lim = _lstm_limits[index] = tuple(v.value for v in vals)
+    return lim
+
+
+def cluster_occupancy(plan: dict, h: int, device=None) -> int:
+    """How many clusters of a cluster ``plan`` at width ``h`` can be
+    resident at once on ``device`` (``cudaOccupancyMaxActiveClusters``);
+    raises when none can."""
+    dev = torch.device(device if device is not None else "cuda")
+    fn = _load(_LSTM_SRC, "dl4j_lstm_cluster_occupancy",
+               [ctypes.c_int] * 4 + [_INT_P])
+    out = ctypes.c_int()
+    with torch.cuda.device(dev):
+        err = fn(h, plan["S"], plan["R"], plan["smem"], ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(f"lstm_sequence: no cluster of {plan['S']} CTAs with "
+                           f"{plan['smem']} bytes of shared memory can be scheduled "
+                           f"(cudaError {err}, {out.value} clusters)")
+    return out.value
+
+
+def _plan_for(index: int, n: int, h: int, plan: str, cluster_size: int) -> dict:
+    key = (index, n, h, plan, cluster_size)
+    got = _lstm_plans.get(key)
+    if got is not None:
+        return got
+    sms, smem, max_cluster = _device_lstm_limits(index)
+    got = ({"plan": "grid"} if plan == "grid" else
+           lstm_plan(n, h, sms, smem, max_cluster, cluster_size))
+    if got["plan"] == "cluster":
+        # R from the clusters the card can really hold at once
+        resident = cluster_occupancy(got, h, index)
+        if resident < got["C"] and got["R"] < n:
+            got = lstm_plan(n, h, sms, smem, max_cluster, got["S"], resident)
+            cluster_occupancy(got, h, index)
+    elif plan == "cluster":
+        raise ValueError(f"lstm_sequence: rw [{h},{4 * h}] does not fit the shared "
+                         f"memory of one cluster ({smem} bytes a CTA, clusters of "
+                         f"{cluster_size or 'up to ' + str(max_cluster)}): take "
+                         f"plan='grid'")
+    _lstm_plans[key] = got
+    return got
+
+
+def lstm_sequence(xw, rw, h0, c0, units_per_block: int = 0, plan: str = "auto",
+                  cluster_size: int = 0):
     """The whole LSTM recurrence in one launch: ``(ys [T,N,H], hN, cN)``
     from f32 ``xw`` [T,N,4H], ``rw`` [H,4H], ``h0``, ``c0`` [N,H].
 
-    CUDA tensors launch the kernel (a cooperative launch: all blocks
-    resident at once; ``units_per_block`` hidden units per block, 0 to
-    spread H over the SMs) and raise on what it does not take; inputs that
-    are views (a carry sliced from a sequence, an ``RW`` slice) are copied
-    to contiguous memory first. CPU tensors get
-    :func:`lstm_sequence_plain`."""
+    CUDA tensors launch the kernel and raise on what it does not take.
+    ``plan``: "cluster" (thread-block clusters, rw resident in their shared
+    memory, h handed over through distributed shared memory; raises where
+    rw does not fit), "grid" (one cooperative launch, one grid barrier a
+    step; ``units_per_block`` hidden units a block, 0 to spread H over the
+    SMs) or "auto" (:func:`lstm_plan`'s choice; the grid plan whenever
+    ``units_per_block`` is set). ``cluster_size`` forces S. A refused
+    launch raises; nothing retries with the other plan. Inputs that are
+    views (a carry sliced from a sequence, an ``RW`` slice) are copied to
+    contiguous memory first. CPU tensors get :func:`lstm_sequence_plain`.
+    ``lstm_sequence.launches`` counts launches,
+    ``lstm_sequence.launches_by_plan`` the same by plan."""
     if _on_cpu("lstm_sequence", xw, rw, h0, c0):
         return lstm_sequence_plain(xw, rw, h0, c0)
-    ts = (xw, rw, h0, c0)
-    if any(t.dtype != torch.float32 for t in ts):
-        raise ValueError(f"lstm_sequence takes float32; got {[t.dtype for t in ts]}")
+    # checks that cost little: a sampling step launches this for T = 1
+    f32 = torch.float32
+    if not (xw.dtype == rw.dtype == h0.dtype == c0.dtype == f32):
+        raise ValueError(f"lstm_sequence takes float32; got "
+                         f"{[x.dtype for x in (xw, rw, h0, c0)]}")
     if xw.ndim != 3 or xw.shape[2] % 4:
         raise ValueError(f"lstm_sequence: xw must be [T,N,4H]; got {tuple(xw.shape)}")
     t, n, h4 = xw.shape
     hidden = h4 // 4
-    if (tuple(rw.shape) != (hidden, h4) or tuple(h0.shape) != (n, hidden)
-            or tuple(c0.shape) != (n, hidden)):
+    if rw.shape != (hidden, h4) or h0.shape != (n, hidden) or c0.shape != (n, hidden):
         raise ValueError(f"lstm_sequence: with xw {tuple(xw.shape)}, rw must be "
                          f"[{hidden},{h4}] and h0, c0 [{n},{hidden}]; got "
                          f"{tuple(rw.shape)}, {tuple(h0.shape)}, {tuple(c0.shape)}")
-    if units_per_block < 0:
-        raise ValueError("lstm_sequence: units_per_block must be >= 0")
+    if plan not in LSTM_PLANS:
+        raise ValueError(f"lstm_sequence: plan must be one of {LSTM_PLANS}; got {plan!r}")
+    if units_per_block < 0 or cluster_size < 0:
+        raise ValueError("lstm_sequence: units_per_block and cluster_size must be >= 0")
+    if units_per_block and plan == "cluster":
+        raise ValueError("lstm_sequence: units_per_block drives the grid plan")
     if max(t, n, hidden) > 2 ** 31 - 1:
         raise ValueError("lstm_sequence: T, N and H must fit the kernel's int arguments")
-    xw, rw, h0, c0 = (x.contiguous() for x in ts)
-    ys = torch.empty((t, n, hidden), dtype=xw.dtype, device=xw.device)
+    xw, rw, h0, c0 = xw.contiguous(), rw.contiguous(), h0.contiguous(), c0.contiguous()
+    ys = torch.empty((t, n, hidden), dtype=f32, device=xw.device)
     if t == 0 or n == 0 or hidden == 0:
         return ys, h0.clone(), c0.clone()
     hn, cn = torch.empty_like(h0), torch.empty_like(c0)
-    fn = _load(_LSTM_SRC, "dl4j_lstm_sequence_f32", _LSTM_ARGS)
-    with torch.cuda.device(xw.device):
-        err = fn(xw.data_ptr(), rw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-                 ys.data_ptr(), hn.data_ptr(), cn.data_ptr(), t, n, hidden,
-                 int(units_per_block), _stream(xw))
+    index = xw.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    chosen = _plan_for(index, n, hidden, "grid" if units_per_block else plan, cluster_size)
+    ptrs = (xw.data_ptr(), rw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            ys.data_ptr(), hn.data_ptr(), cn.data_ptr())
+    with _on_device(index):
+        stream = torch.cuda.current_stream().cuda_stream
+        if chosen["plan"] == "cluster":
+            fn = _load(_LSTM_SRC, "dl4j_lstm_sequence_cluster_f32", _LSTM_CLUSTER_ARGS)
+            err = fn(*ptrs, t, n, hidden, chosen["S"], chosen["R"], chosen["smem"], stream)
+        else:
+            fn = _load(_LSTM_SRC, "dl4j_lstm_sequence_f32", _LSTM_ARGS)
+            err = fn(*ptrs, t, n, hidden, int(units_per_block), stream)
     if err == _COOPERATIVE_LAUNCH_TOO_LARGE:
         raise RuntimeError(
             f"lstm_sequence: the grid for H={hidden} at {units_per_block or 'the default'} "
             f"units per block cannot be resident at once "
             f"(cudaErrorCooperativeLaunchTooLarge)")
-    _launched(err, lstm_sequence, "lstm_sequence")
+    _launched(err, lstm_sequence, f"lstm_sequence ({chosen['plan']} plan)")
+    with _count_lock:
+        lstm_sequence.launches_by_plan[chosen["plan"]] += 1
     return ys, hn, cn
 
 
 lstm_sequence.launches = 0
+lstm_sequence.launches_by_plan = {"cluster": 0, "grid": 0}
+
+
+def lstm_plan_for(xw, cluster_size: int = 0) -> dict:
+    """The plan ``lstm_sequence(xw, ...)`` takes with ``plan="auto"`` on
+    ``xw``'s CUDA device (with the card's resident-cluster count)."""
+    t, n, h4 = xw.shape
+    index = xw.device.index if xw.device.index is not None else torch.cuda.current_device()
+    return dict(_plan_for(index, n, h4 // 4, "auto", cluster_size))
+
+
+def lstm_chain_floor(t: int, plan: dict, n: int, h: int, device=None) -> torch.Tensor:
+    """Launches the chain-floor kernel of a cluster ``plan``: ``t`` steps of
+    the hand-over of h through distributed shared memory and the cluster
+    barrier, no products and no cell (the least time ``t`` recurrent steps
+    can take on that geometry). Returns its [n, h] output."""
+    if plan.get("plan") != "cluster":
+        raise ValueError("lstm_chain_floor times the cluster plan")
+    dev = torch.device(device if device is not None else "cuda")
+    out = torch.empty((n, h), dtype=torch.float32, device=dev)
+    fn = _load(_LSTM_SRC, "dl4j_lstm_chain_floor_f32", _CHAIN_ARGS)
+    with torch.cuda.device(dev):
+        err = fn(out.data_ptr(), t, n, h, plan["S"], plan["R"], plan["smem"],
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_chain_floor launch failed: cudaError {err}")
+    return out
 
 
 class LSTMSequenceFunction(torch.autograd.Function):

@@ -368,3 +368,131 @@ def test_char_lstm_on_the_card_matches_the_plain_path(card):
             torch.testing.assert_close(kern.params[i][n], t, rtol=0, atol=2e-5)
     out = kern.rnn_time_step(x[:, 0])
     assert out.shape == (4, 12) and ck.lstm_sequence.launches - before == 18
+
+
+# ------------------------------------------- K3a on the tensor cores (3xTF32)
+# 128-row query blocks (64 at Dh 256): one 64-row tile (T = 64, a half
+# block), a last block half past T (T = 192), every Dh, causal and not
+K3A_EDGES = [((1, 1, 64, 64), True), ((1, 1, 64, 64), False),
+             ((1, 1, 192, 64), True), ((1, 2, 192, 128), True),
+             ((1, 2, 192, 128), False), ((1, 1, 192, 256), True),
+             ((1, 2, 64, 256), False), ((2, 3, 320, 256), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", K3A_EDGES)
+def test_flash_attention_forward_tile_edges_match_plain(card, shape, causal):
+    q, k, v = (t.to(card) for t in _qkv(shape, seed=13))
+    o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    ref_o, ref_lse = ck.flash_attention_plain(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(o, ref_o, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((2, 4, 256, 64), True),
+                                          ((1, 2, 192, 128), False),
+                                          ((1, 2, 128, 256), True)])
+def test_flash_attention_forward_is_deterministic(card, shape, causal):
+    """One owner block per output row: the same bits run to run."""
+    q, k, v = (t.to(card) for t in _qkv(shape, seed=14))
+    first = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    second = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((2, 4, 256, 64), True),
+                                          ((1, 2, 192, 128), False),
+                                          ((1, 2, 128, 256), True)])
+def test_flash_attention_forward_lse_feeds_the_backward(card, shape, causal):
+    """K3b on the forward kernel's o and LSE against the plain backward on
+    the plain forward's."""
+    q, k, v, o, lse, do = _backward_inputs(shape, causal, card, seed=15)
+    p_o, p_lse = ck.flash_attention_plain(q, k, v, causal, return_lse=True)
+    refs = ck.flash_attention_bwd_plain(q, k, v, p_o, p_lse, do, causal)
+    dq, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+    dk, dv = ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, causal)
+    for got, ref in zip((dq, dk, dv), refs):
+        _close_to_max(got, ref)
+
+
+# --------------------------------------------------- K1: the two plans
+LSTM_MAIN_SHAPES = [(50, 32, 200), (1000, 32, 200), (12, 4, 200), (1, 4, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["cluster", "grid"])
+@pytest.mark.parametrize("shape", LSTM_MAIN_SHAPES)
+def test_lstm_sequence_both_plans_at_main_path_shapes(card, shape, plan):
+    args = _lstm_inputs(shape, card, seed=16)
+    before = dict(ck.lstm_sequence.launches_by_plan)
+    got = ck.lstm_sequence(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert ck.lstm_sequence.launches_by_plan[plan] == before[plan] + 1
+    for g, ref in zip(got, ck.lstm_sequence_plain(*args)):
+        _close_to_max(g, ref)
+
+
+@pytest.mark.cuda
+def test_lstm_main_path_widths_take_the_cluster_plan(card):
+    for t, n, h in LSTM_MAIN_SHAPES:
+        xw = torch.empty((t, n, 4 * h), device=card)
+        plan = ck.lstm_plan_for(xw)
+        assert plan["plan"] == "cluster" and plan["S"] == 8, plan
+        assert ck.cluster_occupancy(plan, h) >= plan["C"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size", [((50, 32, 200), 16), ((9, 5, 37), 16),
+                                        ((9, 5, 37), 8), ((7, 3, 9), 8),
+                                        ((6, 33, 64), 8), ((5, 3, 440), 16)])
+def test_lstm_sequence_cluster_sizes_and_ragged_slices(card, shape, size):
+    """A forced cluster of 16 CTAs (a non-portable size); units past H
+    (H = 37 and 9: CTAs with a partial slice or none) and rows past N in
+    the last cluster; the widest H that 16 CTAs hold."""
+    args = _lstm_inputs(shape, card, seed=17)
+    got = ck.lstm_sequence(*args, plan="cluster", cluster_size=size)
+    torch.cuda.synchronize()
+    for g, ref in zip(got, ck.lstm_sequence_plain(*args)):
+        _close_to_max(g, ref)
+
+
+@pytest.mark.cuda
+def test_lstm_sequence_cluster_plan_refuses_what_one_cluster_cannot_hold(card):
+    args = _lstm_inputs((2, 3, 512), card, seed=18)
+    before = ck.lstm_sequence.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        ck.lstm_sequence(*args, plan="cluster")
+    with pytest.raises(ValueError, match="grid plan"):
+        ck.lstm_sequence(*args, plan="cluster", units_per_block=4)
+    assert ck.lstm_sequence.launches == before
+    got = ck.lstm_sequence(*args)  # auto: the grid plan
+    for g, ref in zip(got, ck.lstm_sequence_plain(*args)):
+        _close_to_max(g, ref)
+
+
+@pytest.mark.cuda
+def test_lstm_sequence_counts_launches_by_plan(card):
+    args = _lstm_inputs((5, 32, 200), card, seed=19)
+    runs = [({}, "cluster"), ({"units_per_block": 13}, "grid"),
+            ({"plan": "grid"}, "grid"), ({"plan": "cluster"}, "cluster")]
+    for kw, plan in runs:
+        total = ck.lstm_sequence.launches
+        before = dict(ck.lstm_sequence.launches_by_plan)
+        ck.lstm_sequence(*args, **kw)
+        after = ck.lstm_sequence.launches_by_plan
+        assert ck.lstm_sequence.launches == total + 1
+        assert {p: after[p] - before[p] for p in after} == {
+            p: int(p == plan) for p in after}
+
+
+@pytest.mark.cuda
+def test_lstm_chain_floor_runs_the_hand_over(card):
+    xw = torch.empty((50, 32, 800), device=card)
+    plan = ck.lstm_plan_for(xw)
+    out = ck.lstm_chain_floor(50, plan, 32, 200)
+    torch.cuda.synchronize()
+    assert out.shape == (32, 200) and torch.isfinite(out).all()

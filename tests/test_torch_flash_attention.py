@@ -9,6 +9,7 @@ tolerance BASELINE.md records for flash vs einsum attention.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -302,3 +303,63 @@ def test_backward_products_at_3xtf32_keep_f32_accuracy():
         assert np.abs(got - ref).max() <= bound, name
         one_pass = _tf32_rna(a) @ _tf32_rna(b)
         assert np.abs(one_pass - ref).max() > bound, name
+
+
+def _forward_tiles(q, k, v, causal, product, bc=64):
+    """K3a's forward in its tile order, in f32: over K/V tiles of ``bc``
+    keys, S = product(Q, K_tileᵀ) in base-2 units, the causal mask, the
+    online softmax (running max, rescaled running sum), and each tile's
+    share of P·V computed from zero by ``product`` and added to the
+    rescaled O in f32. Returns (O, LSE) of one head [T, Dh]."""
+    t, dh = q.shape
+    scale_log2 = np.float32(np.log2(np.e) / np.sqrt(dh))
+    m = np.full(t, -np.inf, np.float32)
+    l = np.zeros(t, np.float32)
+    o = np.zeros((t, dh), np.float32)
+    rows = np.arange(t)[:, None]
+    for k0 in range(0, t, bc):
+        s = product(q, np.ascontiguousarray(k[k0:k0 + bc].T)) * scale_log2
+        if causal:
+            s = np.where(k0 + np.arange(bc)[None, :] > rows, np.float32(-np.inf), s)
+        m_new = np.maximum(m, s.max(1))
+        alpha = np.exp2(m - m_new)
+        p = np.exp2(s - m_new[:, None]).astype(np.float32)
+        l = l * alpha + p.sum(1, dtype=np.float32)
+        o = o * alpha[:, None] + product(p, np.ascontiguousarray(v[k0:k0 + bc]))
+        m = m_new
+    return o / l[:, None], (m + np.log2(l)) * np.float32(np.log(2.0))
+
+
+def test_forward_at_3xtf32_keeps_f32_accuracy():
+    """K3a's products as 3xTF32 in its tile order, at T = 1024, Dh = 64,
+    causal (the served shape's head): O and LSE within 1e-5 of float64,
+    where one TF32 pass (big.big) misses."""
+    rng = np.random.default_rng(8)
+    t, dh = 1024, 64
+    q, k, v = (rng.standard_normal((t, dh)).astype(np.float32) for _ in range(3))
+    s = (q.astype(np.float64) @ k.astype(np.float64).T) / np.sqrt(dh)
+    s = np.where(np.tri(t, dtype=bool), s, -np.inf)
+    lse64 = np.log(np.exp(s - s.max(1, keepdims=True)).sum(1)) + s.max(1)
+    o64 = np.exp(s - lse64[:, None]) @ v.astype(np.float64)
+    o, lse = _forward_tiles(q, k, v, True, _product_3xtf32)
+    assert np.abs(o - o64).max() <= 1e-5
+    assert np.abs(lse - lse64).max() <= 1e-5
+    one_pass = _forward_tiles(q, k, v, True, lambda a, b: _tf32_rna(a) @ _tf32_rna(b))
+    assert np.abs(one_pass[0] - o64).max() > 1e-5
+
+
+def test_library_path_hashes_the_headers_a_source_includes(tmp_path):
+    """An edit of csrc/tf32_mma.cuh builds new attention libraries (both
+    sources include it) and leaves the others' paths alone."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(ck.CSRC_DIR, csrc)
+    before = {s: ck._lib_path(s, str(csrc)) for s in ck.SOURCES}
+    assert before == {s: ck._lib_path(s) for s in ck.SOURCES}
+    with open(csrc / "tf32_mma.cuh", "a") as f:
+        f.write("// an edit\n")
+    after = {s: ck._lib_path(s, str(csrc)) for s in ck.SOURCES}
+    changed = {s for s in ck.SOURCES if before[s] != after[s]}
+    assert changed == {"flash_attention_fwd.cu", "flash_attention_bwd.cu"}
+    with open(csrc / "lstm_sequence.cu", "a") as f:
+        f.write("// an edit\n")
+    assert ck._lib_path("lstm_sequence.cu", str(csrc)) != after["lstm_sequence.cu"]

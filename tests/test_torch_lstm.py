@@ -9,6 +9,12 @@ held to the JAX package's Pallas kernel run in interpret mode
 (``_lstm_ref_scan``), and the gradients of ``LSTMSequenceFunction`` to
 ``jax.vjp`` of ``lstm_fused``.
 
+The kernel's cluster plan is checked here where the CPU can check it: the
+choice of plan (``lstm_plan``, from the shapes and the device's limits),
+its ownership of rows and units, its shared-memory bytes, and a torch
+emulation of its partition and parity-buffered hand-over of h, held to
+the plain recurrence and to the JAX package within 1e-5.
+
 Tolerances, those of the JAX package's own helper tests
 (``tests/test_helpers.py``): outputs rtol 2e-5 / atol 2e-6 (:79);
 gradients rtol 1e-4 / atol 1e-6 (:97). Float32 both ways; XLA and ATen
@@ -237,3 +243,133 @@ def test_fused_layer_gradients_match_the_loop():
     for k in tp:
         torch.testing.assert_close(grads[0][k], grads[1][k], rtol=GRAD_RTOL,
                                    atol=GRAD_ATOL)
+
+
+# ------------------------------------- K1's cluster plan, checked on the CPU
+# lstm_plan chooses the kernel's plan from the shapes and the device's
+# limits alone, so its choice is tested here; the H100's: 132 SMs, 227 KB
+# of opt-in shared memory a block, clusters of up to 16 CTAs.
+H100 = dict(sms=132, smem_per_block=232448, max_cluster=16)
+
+
+@pytest.mark.parametrize("t,n,h", [(50, 32, 200), (1000, 32, 200), (12, 4, 200),
+                                   (1, 4, 200)])
+def test_main_path_shapes_take_the_cluster_plan(t, n, h):
+    plan = ck.lstm_plan(n, h, **H100)
+    assert plan["plan"] == "cluster" and plan["S"] == 8 and plan["U"] == 25
+    assert plan["C"] <= H100["sms"] // plan["S"]  # every cluster resident at once
+    assert plan["R"] == (2 if n == 32 else 1)
+
+
+@pytest.mark.parametrize("n,h", [(64, 512), (20, 1500)])
+def test_widths_whose_rw_does_not_fit_a_cluster_take_the_grid_plan(n, h):
+    assert ck.lstm_plan(n, h, **H100) == {"plan": "grid"}
+    # 16 CTAs of 227 KB hold rw up to H of about 450; 8 up to about 330
+    assert ck.lstm_plan(n, 440, **H100)["S"] == 16
+    assert ck.lstm_plan(n, 320, **H100)["S"] == 8
+    assert ck.lstm_plan(n, 440, **dict(H100, max_cluster=8)) == {"plan": "grid"}
+
+
+@pytest.mark.parametrize("n,h,kw", [(5, 37, {}), (5, 37, {"cluster_size": 16}),
+                                    (5, 37, {"sms": 16}), (32, 200, {}),
+                                    (32, 200, {"cluster_size": 16}), (1, 9, {}),
+                                    (300, 200, {}), (7, 450, {"cluster_size": 16}),
+                                    (33, 64, {"clusters": 5})])
+def test_cluster_plan_owns_every_row_and_unit_once(n, h, kw):
+    limits = dict(H100, **{k: v for k, v in kw.items() if k in H100})
+    plan = ck.lstm_plan(n, h, limits["sms"], limits["smem_per_block"],
+                        limits["max_cluster"], kw.get("cluster_size", 0),
+                        kw.get("clusters", 0))
+    assert plan["plan"] == "cluster"
+    s, u, r, c = plan["S"], plan["U"], plan["R"], plan["C"]
+    rows = np.zeros(n, int)
+    for cl in range(c):
+        rows[cl * r:min(n, cl * r + r)] += 1
+    units = np.zeros(h, int)
+    for rank in range(s):
+        units[rank * u:min(h, rank * u + u)] += 1
+    assert (rows == 1).all() and (units == 1).all()
+    assert (c - 1) * r < n  # no cluster without a row
+
+
+@pytest.mark.parametrize("smem", [232448, 100_000, 48 * 1024, 20_000])
+@pytest.mark.parametrize("n,h", [(32, 200), (4, 200), (300, 128), (5, 37)])
+def test_cluster_plan_fits_the_shared_memory_it_is_given(smem, n, h):
+    plan = ck.lstm_plan(n, h, 132, smem, 16)
+    if plan["plan"] == "grid":  # only when rw alone overflows 16 CTAs
+        assert 4 * h * 4 * -(-h // 16) > smem
+        return
+    assert plan["smem"] <= smem
+    assert plan["smem"] == 4 * ck._cluster_floats(h, plan["S"], plan["R"])
+    # the largest R that fits: one more row would not
+    if plan["R"] < -(-n // (132 // plan["S"])):
+        assert 4 * ck._cluster_floats(h, plan["S"], plan["R"] + 1) > smem
+
+
+def _cluster_emulation(xw, rw, h0, c0, plan):
+    """The cluster plan's partition and hand-over in torch: one cluster per
+    slice of R rows, CTA s computing the gate columns of units [sU, sU+U)
+    (each a sum of the P slices of the H products, as the kernel's threads
+    split them) from ITS OWN copy of h_{t-1}, then writing its units of h_t
+    into buffer (t+1)&1 of every CTA of the cluster. Buffer t&1 is never
+    written during step t (asserted), which is what one barrier a step
+    relies on."""
+    t_len, n, h4 = xw.shape
+    h = h4 // 4
+    s, u, r = plan["S"], plan["U"], plan["R"]
+    cols = 4 * u
+    p = 1 if cols >= ck.CLUSTER_THREADS else ck.CLUSTER_THREADS // cols
+    hs = -(-h // 4) * 4
+    ks = -(-(-(-hs // p)) // 4) * 4
+    ys = torch.zeros(t_len, n, h)
+    hn, cn = torch.zeros(n, h), torch.zeros(n, h)
+    for row0 in range(0, n, r):
+        rows = slice(row0, min(n, row0 + r))
+        hbuf = [[h0[rows].clone(), torch.zeros_like(h0[rows])] for _ in range(s)]
+        cst = [c0[rows, rank * u:min(h, rank * u + u)].clone() for rank in range(s)]
+        for t in range(t_len):
+            reading = [hbuf[rank][t & 1].clone() for rank in range(s)]
+            for rank in range(s):
+                u0, uc = rank * u, max(0, min(u, h - rank * u))
+                if uc == 0:
+                    continue
+                idx = torch.tensor([g * h + u0 + k for g in range(4) for k in range(uc)])
+                hb = hbuf[rank][t & 1]
+                z = xw[t, rows][:, idx].clone()
+                for part in range(p):
+                    k0, k1 = part * ks, min(h, part * ks + ks)
+                    if k0 < k1:
+                        z += hb[:, k0:k1] @ rw[k0:k1][:, idx]
+                i, f, o, g = (z[:, j * uc:(j + 1) * uc] for j in range(4))
+                c = torch.sigmoid(f) * cst[rank] + torch.sigmoid(i) * torch.tanh(g)
+                hv = torch.sigmoid(o) * torch.tanh(c)
+                cst[rank] = c
+                ys[t, rows, u0:u0 + uc] = hv
+                for peer in range(s):  # distributed shared memory
+                    hbuf[peer][(t + 1) & 1][:, u0:u0 + uc] = hv
+            for rank in range(s):
+                assert torch.equal(hbuf[rank][t & 1], reading[rank])
+        for rank in range(s):
+            u0, uc = rank * u, max(0, min(u, h - rank * u))
+            hn[rows, u0:u0 + uc] = ys[-1, rows, u0:u0 + uc]
+            cn[rows, u0:u0 + uc] = cst[rank]
+    return ys, hn, cn
+
+
+@pytest.mark.parametrize("shape,kw", [((12, 5, 37), {"sms": 16}),
+                                      ((12, 5, 37), {"cluster_size": 16}),
+                                      ((9, 4, 40), {}), ((6, 3, 9), {})])
+def test_cluster_partition_emulation_matches_plain_and_reference(shape, kw):
+    t, n, h = shape
+    plan = ck.lstm_plan(n, h, kw.get("sms", 132), 232448, 16, kw.get("cluster_size", 0))
+    assert plan["plan"] == "cluster"
+    args = _inputs(shape, seed=11)
+    got = _cluster_emulation(*_torch(*args), plan)
+    plain = ck.lstm_sequence_plain(*_torch(*args))
+    scan = _lstm_ref_scan(*map(jnp.asarray, args))
+    fused = lstm_fused(*map(jnp.asarray, args), True)  # the Pallas kernel, interpreted
+    for ref in (plain, scan, fused):
+        for g, want, name in zip(got, ref, ("ys", "hN", "cN")):
+            want = np.asarray(want)
+            bound = 1e-5 * max(1.0, float(np.abs(want).max()))
+            assert np.abs(g.numpy() - want).max() <= bound, name
