@@ -88,6 +88,7 @@ TRAIN_N, TRAIN_STEPS, PROFILED_STEPS = 8, 5, 2
 # profile groups: (group, substrings of a kernel's name), first match wins
 KERNEL_GROUPS = (
     ("K3a flash_attention_fwd", ("flash_attention_fwd_kernel",)),
+    ("convolutions and pooling", ("conv", "fprop", "dgrad", "wgrad", "pool")),
     ("K3b flash_attention_bwd_dq", ("flash_attention_bwd_dq_kernel",)),
     ("K3b flash_attention_bwd_dkv", ("flash_attention_bwd_dkv_kernel",)),
     ("K2 fused_adam", ("fused_adam_kernel",)),
@@ -123,6 +124,17 @@ CHARS = ("abcdefghijklmnopqrstuvwxyz" "ABCDEFGHIJKLMNOPQRSTUVWXYZ" "0123456789"
 CHAR_WIDTH, CHAR_BATCH, CHAR_LEN, CHAR_TBPTT, CHAR_BATCHES = 200, 32, 1000, 50, 2
 CORPUS = ("ARCHITECTURE.md", "SURVEY.md")  # the repository's own text
 N_SAMPLES, SAMPLE_LEN, PRIME = 4, 300, "The network "
+# LeNet (__graft_entry__._lenet through the port's DSL) on the verify
+# skill's data: 1024 seeded 28x28x1 images with a planted row signal, 5
+# epochs of batch 128, then a timed window of LENET_TIMED steps after
+# LENET_WARMUP, and output at batch LENET_OUT_BATCH
+LENET_N, LENET_BATCH, LENET_EPOCHS, LENET_TENSORS = 1024, 128, 5, 8
+LENET_WARMUP, LENET_TIMED, LENET_OUT_BATCH, LENET_MIN_ACCURACY = 2, 64, 256, 0.95
+# the fused updater against stock Adam on a twin over 3 steps (cuDNN
+# deterministic on both): each parameter within 1e-5 x its largest entry,
+# the loss within 1e-6 relative; the zip's reload (card and CPU) within
+# 1e-5 of the saved net's output
+LENET_TWIN_STEPS, LENET_PARAM_TOL, LENET_LOSS_RTOL, LENET_ZIP_ATOL = 3, 1e-5, 1e-6, 1e-5
 # the kernel path against the plain recurrence on a twin: one chunk's loss
 # relative, each gradient relative to its tensor's largest entry; output
 # probabilities absolute (the first H100 runs measured 0.0, 3.8e-7 and
@@ -313,6 +325,10 @@ def adam_phase(ck, peaks):
     tensors = {"out/W": out_shapes["W"], "out/b": out_shapes["b"],
                "block0-att/Wqkv": conf.vertices["block0-att"].obj.param_shapes()["Wqkv"],
                "out/b, unaligned": out_shapes["b"]}
+    # and LeNet's eight tensors, the shapes its fit path gives the kernel
+    for i, layer in enumerate(lenet_conf().layers):
+        tensors.update({f"lenet {i}/{n}": shape
+                        for n, shape in layer.param_shapes().items()})
     kinds = ((ck.ADAM, Adam(3e-4)), (ck.AMSGRAD, AMSGrad(3e-4)),
              (ck.NADAM, Nadam(3e-4)))
     rng = np.random.default_rng(2)
@@ -1014,6 +1030,202 @@ def char_lstm_phase(ck, card):
     return launched, by_plan, train["fused_adam"]
 
 
+def lenet_conf():
+    """``__graft_entry__._lenet``'s LeNet, through the port's DSL: conv 5x5
+    20, max pool 2x2, conv 5x5 50, max pool 2x2, dense 500, output 10;
+    Adam(1e-3), seed 42, f32, 28x28x1."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
+                                                    OutputLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    return (NeuralNetConfiguration.builder().seed(42).updater(Adam(1e-3)).list()
+            .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5), stride=(1, 1),
+                                    padding=(0, 0), activation="relu"))
+            .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2),
+                                    pooling_type="max"))
+            .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5), stride=(1, 1),
+                                    padding=(0, 0), activation="relu"))
+            .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2),
+                                    pooling_type="max"))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="negativeloglikelihood"))
+            .set_input_type(InputType.convolutional(28, 28, 1)).build())
+
+
+def lenet_data():
+    """The verify skill's data: seeded Gaussian images with row 2 + class
+    raised by 2, and one-hot labels."""
+    rng = np.random.default_rng(0)
+    y_idx = rng.integers(0, 10, LENET_N)
+    x = rng.normal(0, 0.3, size=(LENET_N, 28, 28, 1)).astype(np.float32)
+    x[np.arange(LENET_N), 2 + y_idx, :, 0] += 2.0
+    return x, np.eye(10, dtype=np.float32)[y_idx]
+
+
+def lenet_phase(ck, card):
+    """LeNet through ``MultiLayerNetwork`` on the card: 5 epochs of
+    ``fit(ListDataSetIterator)`` with the fused updater, ``evaluate``, a
+    timed window of fit steps, 2 profiled steps, ``output`` at batch 256,
+    a twin on stock Adam, and the model zip reloaded on the card and on
+    the CPU. Returns K2's launches on its fit path."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import (
+        export_params, export_updater_state, load_reference_params,
+        load_reference_updater_state)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, y = lenet_data()
+    data = DataSet(x, y)
+    steps_per_epoch = LENET_N // LENET_BATCH
+    net = MultiLayerNetwork(lenet_conf()).init()  # on cuda
+    n_tensors = sum(len(named) for named in net.params.values())
+    if n_tensors != LENET_TENSORS:
+        raise RuntimeError(f"LeNet has {n_tensors} parameter tensors")
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+
+    # 5 epochs through the entry point, counted
+    ck.fused_adam.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    net.fit(ListDataSetIterator(data, LENET_BATCH, shuffle=True), epochs=LENET_EPOCHS)
+    end.record()
+    torch.cuda.synchronize()
+    fit_launches = ck.fused_adam.launches
+    fit_steps = LENET_EPOCHS * steps_per_epoch
+    if fit_launches != LENET_TENSORS * fit_steps or net.iteration != fit_steps:
+        raise RuntimeError(f"LeNet fit: {fit_launches} fused_adam launches in "
+                           f"{net.iteration} steps, expected {LENET_TENSORS} a step")
+    epochs_ms = start.elapsed_time(end)
+    ev = net.evaluate(ListDataSetIterator(data, LENET_OUT_BATCH))
+    accuracy = ev.accuracy()
+    if not accuracy >= LENET_MIN_ACCURACY:
+        raise RuntimeError(f"LeNet evaluate: accuracy {accuracy} after "
+                           f"{LENET_EPOCHS} epochs\n{ev.stats()}")
+
+    # the timed window: fit steps of batch 128 from the iterator, each
+    # between CUDA events, after the warm-up steps
+    it = ListDataSetIterator(data, LENET_BATCH, shuffle=True, seed=1)
+    batches = []
+    while len(batches) < LENET_WARMUP + LENET_TIMED:
+        it.reset()
+        batches += list(it)
+    ck.fused_adam.launches = 0
+    events = []
+    for i, ds in enumerate(batches[:LENET_WARMUP + LENET_TIMED]):
+        if i == LENET_WARMUP:
+            torch.cuda.synchronize()
+        s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s_.record()
+        net.fit(ds)
+        e_.record()
+        if i >= LENET_WARMUP:
+            events.append((s_, e_))
+    torch.cuda.synchronize()
+    window_launches = ck.fused_adam.launches
+    steps = LENET_WARMUP + LENET_TIMED
+    if window_launches != LENET_TENSORS * steps:
+        raise RuntimeError(f"LeNet window: {window_launches} fused_adam launches "
+                           f"in {steps} steps")
+    step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+    window_ms = events[0][0].elapsed_time(events[-1][1])
+    xb = torch.from_numpy(x[:LENET_BATCH]).cuda()
+    yb = torch.from_numpy(y[:LENET_BATCH]).cuda()
+    profile = profile_steps(net, xb, yb)
+
+    # output at batch 256 from host images, as a caller hands them over
+    x_out = x[:LENET_OUT_BATCH]
+    out_ms = median_ms(lambda: net.output(x_out), runs=25, warmup=3)
+    out = net.output(x_out)
+    rowsum_dev = (out.double().sum(-1) - 1.0).abs().max().item()
+    if not (out.shape == (LENET_OUT_BATCH, 10) and rowsum_dev <= ROWSUM_TOL):
+        raise RuntimeError(f"LeNet output: shape {tuple(out.shape)}, rows sum "
+                           f"off by {rowsum_dev}")
+
+    # twin on stock Adam from the same weights and Adam state
+    twin = load_reference_updater_state(
+        load_reference_params(MultiLayerNetwork(lenet_conf()).init(),
+                              export_params(net)), export_updater_state(net))
+    twin.iteration, twin.epoch = net.iteration, net.epoch
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(LENET_TWIN_STEPS):
+            net.fit(xb, yb)
+        helpers.clear_helper("updater")
+        for _ in range(LENET_TWIN_STEPS):
+            twin.fit(xb, yb)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        helpers.clear_helper("updater")
+    loss_rel = abs(net.score_ - twin.score_) / abs(twin.score_)
+    worst_name, worst = "", 0.0
+    for i, named in twin.params.items():
+        for n, t in named.items():
+            rel = ((net.params[i][n] - t).abs().max() / t.abs().max()).item()
+            if rel >= worst:
+                worst_name, worst = f"{i}/{n}", rel
+    if not (loss_rel <= LENET_LOSS_RTOL and worst <= LENET_PARAM_TOL):
+        raise RuntimeError(f"LeNet fused updater disagrees with stock Adam: loss "
+                           f"rel {loss_rel}, worst parameter {worst_name} {worst}")
+    del twin
+
+    # the model zip: saved on the card, loaded on the card and on the CPU
+    ref = net.output(x_out)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lenet.zip")
+        net.save(path)
+        zip_bytes = os.path.getsize(path)
+        on_card = MultiLayerNetwork.load(path)
+        on_cpu = MultiLayerNetwork.load(path, device="cpu")
+    zip_err = {"card": (on_card.output(x_out) - ref).abs().max().item(),
+               "cpu": (on_cpu.output(x_out) - ref.cpu()).abs().max().item()}
+    if not (on_card.params[0]["W"].is_cuda and not on_cpu.params[0]["W"].is_cuda
+            and on_card.iteration == net.iteration
+            and max(zip_err.values()) <= LENET_ZIP_ATOL):
+        raise RuntimeError(f"LeNet zip round trip: {zip_err}")
+
+    stats = {
+        "card": card, "params": net.conf.num_params(), "images": LENET_N,
+        "batch": LENET_BATCH, "epochs": LENET_EPOCHS,
+        "fit_5_epochs_ms": epochs_ms,
+        "fit_5_epochs_images_per_s": LENET_EPOCHS * LENET_N / (epochs_ms / 1e3),
+        "evaluate_accuracy": accuracy, "evaluate_f1": ev.f1(),
+        "fused_adam_launches": {"fit": fit_launches, "window": window_launches},
+        "fused_adam_launches_per_step": fit_launches // fit_steps,
+        "window_steps": LENET_TIMED, "window_ms": window_ms,
+        "train_images_per_s": LENET_TIMED * LENET_BATCH / (window_ms / 1e3),
+        "median_step_ms": float(np.median(step_ms)),
+        "train_images_per_s_at_median_step":
+            LENET_BATCH / (float(np.median(step_ms)) / 1e3),
+        "mean_step_ms": float(np.mean(step_ms)),
+        "step_ms_p10_p90": [float(np.percentile(step_ms, 10)),
+                            float(np.percentile(step_ms, 90))],
+        # the slowest steps of the window, [index, ms]: where its mean
+        # leaves its median
+        "slowest_steps_ms": [[int(i), step_ms[i]]
+                             for i in np.argsort(step_ms)[::-1][:5]],
+        "device_busy_share_of_median_step":
+            profile["device_ms_per_step"] / float(np.median(step_ms)),
+        "output_batch": LENET_OUT_BATCH, "output_ms": out_ms,
+        "output_images_per_s": LENET_OUT_BATCH / (out_ms / 1e3),
+        "output_rowsum_dev": rowsum_dev,
+        "twin_loss_rel": loss_rel, "twin_worst_param": worst_name,
+        "twin_worst_param_rel_to_max": worst,
+        "zip_bytes": zip_bytes, "zip_reload_max_abs_diff": zip_err,
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile_per_step": profile,
+    }
+    print("lenet " + json.dumps(stats), flush=True)
+    del net, on_card, on_cpu
+    return fit_launches + window_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1045,6 +1257,7 @@ def main() -> None:
     train_launches = training_phase(ck, card)
     lstm_rows = lstm_kernel_phase(ck, peaks)
     char_launches, char_by_plan, char_adam_launches = char_lstm_phase(ck, card)
+    lenet_adam_launches = lenet_phase(ck, card)
     lstm = lstm_rows[LSTM_PATHS["train"]]
 
     def entry(name, source, replaces, row, launches, **extra):
@@ -1074,9 +1287,11 @@ def main() -> None:
               train_launches["flash_attention_bwd_dq"]),
         entry("fused_adam", "fused_adam.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:218", adam,
-              train_launches["fused_adam"] + char_adam_launches,
+              train_launches["fused_adam"] + char_adam_launches
+              + lenet_adam_launches,
               launches_by_path={"train": train_launches["fused_adam"],
-                                "char_lstm_train": char_adam_launches}),
+                                "char_lstm_train": char_adam_launches,
+                                "lenet_train": lenet_adam_launches}),
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
               sum(char_launches.values()), launches_by_path=char_launches,

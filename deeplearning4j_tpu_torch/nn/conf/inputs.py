@@ -1,21 +1,40 @@
-"""Input type inference — the DL4J ``InputType`` system (the feed-forward
-and recurrent kinds; the convolutional kinds come with the conv layers).
+"""Input type inference — the DL4J ``InputType`` system: the feed-forward,
+recurrent and convolutional (``cnn``, ``cnn_flat``) kinds.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/inputs.py``. Recurrent
-activations are ``[batch, time, size]``, as in the reference.
+Counterpart of ``deeplearning4j_tpu/nn/conf/inputs.py``, with the same
+fields, so that a configuration's JSON reads back in both packages.
+Convolutional activations are NHWC (channels last) and recurrent ones
+``[batch, time, size]``, as in the reference. Not ported yet: the
+``cnn3d`` and ``cnn_seq`` kinds (``convolutional3d``,
+``recurrent_convolutional``), which raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
+
+KINDS = ("ff", "rnn", "cnn", "cnn_flat")
+_NOT_PORTED = ("cnn3d", "cnn_seq", "cnn1d")
 
 
 @dataclasses.dataclass(frozen=True)
 class InputType:
-    kind: str  # "ff" | "rnn"
-    size: int = 0
+    kind: str  # "ff" | "rnn" | "cnn" | "cnn_flat"
+    size: int = 0                    # ff / rnn feature size (cnn_flat: H*W*C)
     timesteps: Optional[int] = None  # rnn (None = variable)
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+    depth: int = 0                   # the reference's cnn3d; always 0 here
+
+    def __post_init__(self):
+        if self.kind in _NOT_PORTED:
+            raise NotImplementedError(
+                f"InputType kind {self.kind!r} is not ported yet "
+                f"(the port has {KINDS})")
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown InputType kind {self.kind!r}")
 
     @staticmethod
     def feed_forward(size: int) -> "InputType":
@@ -25,7 +44,48 @@ class InputType:
     def recurrent(size: int, timesteps: Optional[int] = None) -> "InputType":
         return InputType(kind="rnn", size=int(size), timesteps=timesteps)
 
+    @staticmethod
+    def convolutional(height: int, width: int, channels: int) -> "InputType":
+        return InputType(kind="cnn", height=int(height), width=int(width),
+                         channels=int(channels))
+
+    @staticmethod
+    def convolutional_flat(height: int, width: int,
+                           channels: int) -> "InputType":
+        """Images that arrive flattened, ``[batch, H*W*C]`` in H, W, C order."""
+        return InputType(kind="cnn_flat", height=int(height), width=int(width),
+                         channels=int(channels),
+                         size=int(height * width * channels))
+
+    @staticmethod
+    def convolutional3d(depth: int, height: int, width: int,
+                        channels: int) -> "InputType":
+        return InputType(kind="cnn3d", depth=int(depth), height=int(height),
+                         width=int(width), channels=int(channels))
+
+    @staticmethod
+    def recurrent_convolutional(height: int, width: int, channels: int,
+                                timesteps: Optional[int] = None) -> "InputType":
+        return InputType(kind="cnn_seq", height=int(height), width=int(width),
+                         channels=int(channels), timesteps=timesteps)
+
     def flat_size(self) -> int:
         if self.kind in ("ff", "rnn"):
             return self.size
-        raise ValueError(self.kind)
+        return self.height * self.width * self.channels
+
+    def batch_shape(self, batch: int = 1) -> Tuple[int, ...]:
+        """Example array shape for one batch of this type (NHWC / NTC)."""
+        if self.kind in ("ff", "cnn_flat"):
+            return (batch, self.flat_size())
+        if self.kind == "rnn":
+            t = self.timesteps if self.timesteps is not None else 1
+            return (batch, t, self.size)
+        return (batch, self.height, self.width, self.channels)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "InputType":
+        return InputType(**d)

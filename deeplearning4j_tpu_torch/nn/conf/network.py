@@ -7,22 +7,38 @@ defaults that layers inherit (l1/l2 included), the fluent builder,
 ``set_n_in``, the preprocessors the layers ask for; standard or truncated
 BPTT). ``updater(...)`` and ``bias_updater(...)`` resolve their argument
 (a name, an ``Updater`` or its dict) through ``resolve_updater``, as the
-reference does. Not ported yet: the dropout, constraint and
-gradient-normalization setters, and explicit preprocessor specs
-(``input_pre_processor``, with the LeNet slice), which raise.
+reference does. ``ListBuilder.input_pre_processor(idx, spec)`` places a
+``nn/conf/preprocessors.py`` spec in front of a layer.
+
+Serde is the reference's (``global_conf_to_dict``/``global_conf_from_dict``,
+``MultiLayerConfiguration.to_dict``/``to_json``/``from_dict``/``from_json``):
+the same keys, tags and ``format`` string, so a configuration written by
+either package reads back in the other. Not ported yet: the dropout,
+weight-noise, constraint, gradient-normalization, checkpointing and
+optimization-algorithm settings; they are written at the reference's
+defaults, and a configuration that sets one raises when it is read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, List, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf import preprocessors as pp
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    Layer,
+    activation_from_config,
+    layer_from_dict,
+    refuse_unported,
+)
 from deeplearning4j_tpu_torch.nn.updaters import Updater, resolve_updater
 from deeplearning4j_tpu_torch.nn.weights import Distribution
+
+MLN_FORMAT = "deeplearning4j_tpu.MultiLayerConfiguration"  # data, not an import
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -50,6 +66,38 @@ class GlobalConf:
 
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+
+#: the reference's global settings the port has not ported, at their defaults
+UNPORTED_GLOBAL_FIELDS = {
+    "dropout": None, "weight_noise": None, "all_constraints": None,
+    "weight_constraints": None, "bias_constraints": None,
+    "gradient_normalization": None, "gradient_normalization_threshold": 1.0,
+    "mini_batch": True, "gradient_checkpointing": False,
+    "optimization_algo": "stochastic_gradient_descent",
+    "max_num_line_search_iterations": 5}
+
+
+def global_conf_to_dict(gc: GlobalConf) -> dict:
+    """A GlobalConf as the reference writes one: every field (the unported
+    ones at their defaults), updaters and the distribution tagged."""
+    g = dataclasses.asdict(gc)
+    for key in ("updater", "bias_updater", "distribution"):
+        if getattr(gc, key) is not None:
+            g[key] = getattr(gc, key).to_dict()
+    g.update(UNPORTED_GLOBAL_FIELDS)
+    return g
+
+
+def global_conf_from_dict(d: dict) -> GlobalConf:
+    g = refuse_unported(d, UNPORTED_GLOBAL_FIELDS, "global configuration")
+    for key in ("updater", "bias_updater"):
+        if isinstance(g.get(key), dict):
+            g[key] = Updater.from_dict(g[key])
+    if isinstance(g.get("distribution"), dict):
+        g["distribution"] = Distribution.from_dict(g["distribution"])
+    g["activation"] = activation_from_config(g.get("activation"))
+    return GlobalConf(**g)
 
 
 class NeuralNetConfiguration:
@@ -141,8 +189,9 @@ class ListBuilder:
         self._input_pre_processors: dict = {}
 
     def input_pre_processor(self, index: int, spec: str) -> "ListBuilder":
-        """Explicit preprocessor before layer ``index``; the spec strings
-        are not ported yet, so a configuration with one refuses to build."""
+        """Explicit preprocessor before layer ``index`` (a
+        ``nn/conf/preprocessors.py`` spec string), overriding the automatic
+        InputType inference (``ListBuilder.inputPreProcessor``)."""
         self._input_pre_processors[int(index)] = spec
         return self
 
@@ -215,24 +264,27 @@ class MultiLayerConfiguration:
     def finalize(self) -> None:
         """Propagate global defaults and infer shapes: each layer inherits
         the unset hyperparameters, gets its ``n_in`` from the InputType
-        reaching it, and the preprocessor it asks for."""
+        reaching it, and the preprocessor it asks for (an explicit spec
+        overrides the one it asks for)."""
         if self._finalized:
             return
         if not self.layers:
             raise ValueError("Configuration has no layers")
-        if self.input_pre_processors:
-            raise NotImplementedError(
-                "explicit input_pre_processor specs are not ported yet "
-                f"(layers {sorted(self.input_pre_processors)})")
         for layer in self.layers:
             layer.apply_global_defaults(self.global_conf)
         it = self.input_type
         self.layer_input_types = []
         for i, layer in enumerate(self.layers):
-            if it is not None:
+            if i in self.input_pre_processors:
+                spec = self.input_pre_processors[i]
+                self.preprocessors[i] = lambda x, _s=spec: pp.apply(_s, x)
+                if it is not None:
+                    it = pp.output_type(spec, it)
+            elif it is not None:
                 pre = layer.input_preprocessor(it)
                 if pre is not None:
                     self.preprocessors[i], it = pre
+            if it is not None:
                 layer.set_n_in(it)
             self.layer_input_types.append(it)
             if it is not None:
@@ -246,3 +298,45 @@ class MultiLayerConfiguration:
 
     def num_params(self) -> int:
         return sum(layer.num_params() for layer in self.layers)
+
+    # -- serde ---------------------------------------------------------------
+    def to_dict(self) -> dict:
+        return {
+            "format": MLN_FORMAT,
+            "version": 1,
+            "global": global_conf_to_dict(self.global_conf),
+            "layers": [layer.to_dict() for layer in self.layers],
+            "input_type": (None if self.input_type is None
+                           else self.input_type.to_dict()),
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_bwd_length": self.tbptt_bwd_length,
+            "input_pre_processors": {str(k): v for k, v
+                                     in self.input_pre_processors.items()},
+        }
+
+    def to_json(self, **kw) -> str:
+        return json.dumps(self.to_dict(), **kw)
+
+    @staticmethod
+    def from_dict(d: dict) -> "MultiLayerConfiguration":
+        if d.get("format", MLN_FORMAT) != MLN_FORMAT:
+            raise ValueError(f"not a MultiLayerConfiguration: format "
+                             f"{d.get('format')!r}")
+        conf = MultiLayerConfiguration(
+            global_conf=global_conf_from_dict(d["global"]),
+            layers=[layer_from_dict(ld) for ld in d["layers"]],
+            input_type=(None if d.get("input_type") is None
+                        else InputType.from_dict(d["input_type"])),
+            backprop_type=d.get("backprop_type", "standard"),
+            tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
+            tbptt_bwd_length=d.get("tbptt_bwd_length", 20),
+            input_pre_processors={int(k): v for k, v in
+                                  d.get("input_pre_processors", {}).items()},
+        )
+        conf.finalize()
+        return conf
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration.from_dict(json.loads(s))

@@ -770,13 +770,15 @@ class LSTMSequenceFunction(torch.autograd.Function):
 class FusedLSTMHelper(LSTMHelper):
     """The "lstm" seam's fused kernel, counterpart of ``PallasLSTMHelper``.
     ``supports`` is the reference's gate (:147-151): no mask, no peepholes,
-    sigmoid gates, tanh cell. ``forward_seq`` hoists ``x@W+b`` into one
+    sigmoid gates, tanh cell; and a float32 layer (the kernel's only
+    type). ``forward_seq`` hoists ``x@W+b`` into one
     product, runs the recurrence through :func:`lstm_sequence` (through
     :class:`LSTMSequenceFunction` when a gradient is wanted) and returns
     ``(ys [N,T,H], (hN, cN))``."""
 
     def supports(self, layer, mask) -> bool:
         return (mask is None
+                and getattr(layer, "dtype", None) in (None, "float32")
                 and not getattr(layer, "peephole", False)
                 and layer.gate_activation == "sigmoid"
                 and layer.activation in ("tanh",))

@@ -7,10 +7,11 @@ the same numbers as the built-in path.
 
 In the port the seam holds the hand-written CUDA kernels
 (``nn/cuda_kernels.py``). With no attention helper registered and
-auto-flash on, causal attention that ``FlashAttentionHelper.supports``
-admits takes the kernel (``nn/layers/attention.py``); the reference's
-TPU threshold on T is not carried over. Likewise, with no lstm helper
-registered and auto-fused-LSTM on, a standard LSTM that
+auto-flash on, float32 causal attention that
+``FlashAttentionHelper.supports`` admits takes the kernel
+(``nn/layers/attention.py``); the reference's TPU threshold on T is not
+carried over. Likewise, with no lstm helper registered and
+auto-fused-LSTM on, a float32 standard LSTM that
 ``FusedLSTMHelper.supports`` admits takes the fused sequence kernel
 (``nn/layers/recurrent.py``) at any T and any H: the reference's TPU win
 region (``_AUTO_LSTM_MIN_T``, ``_AUTO_LSTM_MAX_H``) is not carried over,

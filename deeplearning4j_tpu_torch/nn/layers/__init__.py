@@ -9,6 +9,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     Layer,
     register_layer,
 )
+from deeplearning4j_tpu_torch.nn.layers.conv import ConvolutionLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
     DenseLayer,
     EmbeddingSequenceLayer,
@@ -19,6 +20,7 @@ from deeplearning4j_tpu_torch.nn.layers.output import (  # noqa: F401
     OutputLayer,
     RnnOutputLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.pooling import SubsamplingLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     BaseRecurrentLayer,
     GravesLSTMLayer,

@@ -32,9 +32,11 @@ def dot_product_attention(q, k, v, mask=None, causal=False):
 
     The seam in the reference's order: a registered helper takes the
     requests its ``supports`` admits; with none registered and auto-flash
-    on, a causal request the flash kernel admits takes the kernel (no
-    threshold on T: the reference's v5e gate is not carried over, and an
-    H100 one waits for a measurement); otherwise the plain math below.
+    on, a float32 causal request the flash kernel admits takes the kernel
+    (no threshold on T: the reference's v5e gate is not carried over, and
+    an H100 one waits for a measurement); otherwise the plain math below.
+    The kernel takes float32 only, so a float64, bf16 or f16 network takes
+    the plain math, as the reference's does off the TPU.
     Attention dropout is not ported: a network with ``attn_dropout > 0``
     refuses to train (``ComputationGraph``), and inference has none.
     """
@@ -44,7 +46,7 @@ def dot_product_attention(q, k, v, mask=None, causal=False):
             and helper.supports(None, tuple(q.shape), mask, False,
                                 causal=causal)):
         return helper.attend(q, k, v)
-    if (helper is None and causal and same
+    if (helper is None and causal and same and q.dtype == torch.float32
             and _helpers.auto_flash_attention_enabled()
             and _AUTO_FLASH.supports(None, tuple(q.shape), mask, False,
                                      causal=True)):
@@ -138,3 +140,42 @@ class CausalSelfAttentionLayer(SelfAttentionLayer, BaseRecurrentLayer):
 
     def carry_capacity(self):
         return self.max_cache
+
+
+#: the column order of the fused QKV projection that the model zip stamps
+#: into ``meta.json``; a zip without the stamp holds the older block-major
+#: order ([3, H, Dh] columns)
+QKV_LAYOUT = "head_major"
+
+#: updater slots that are elementwise per-parameter accumulators, so they
+#: share the parameter's column order (every slot of ``nn/updaters.py``)
+_COLUMN_INDEXED_SLOTS = frozenset({"v", "m", "u", "h", "v_hat", "eg2", "edx2", "g2"})
+
+
+def repack_legacy_fused_qkv(model) -> int:
+    """Counterpart of the reference's ``repack_legacy_fused_qkv``: move a
+    model's fused ``Wqkv``/``bqkv`` (and their same-shaped updater slots)
+    from the block-major [3, H, Dh] column order to the head-major
+    [H, 3, Dh] one, in place. The zip restorer calls it when ``meta.json``
+    has no ``qkv_layout`` stamp. Returns the number of tensors repacked."""
+
+    def repack(t, h, dh):
+        if t.ndim == 1:
+            return t.reshape(3, h, dh).transpose(0, 1).reshape(-1)
+        return t.reshape(t.shape[0], 3, h, dh).transpose(1, 2).reshape(t.shape[0], -1)
+
+    n = 0
+    with torch.no_grad():
+        for key, layer in enumerate(model.layers):
+            if not isinstance(layer, SelfAttentionLayer) or layer.n_heads <= 1:
+                continue
+            h, dh = layer.n_heads, layer._dh()
+            for pn in ("Wqkv", "bqkv"):
+                p = model.params[key][pn]
+                p.copy_(repack(p, h, dh))
+                n += 1
+                for slot, arr in model.updater_states[key][pn].items():
+                    if slot in _COLUMN_INDEXED_SLOTS and arr.shape == p.shape:
+                        arr.copy_(repack(arr, h, dh))
+                        n += 1
+    return n

@@ -7,6 +7,12 @@ dict of named tensors under the reference's names and layouts ("W", "b",
 "gamma", ...), and ``forward(params, x, mask=None)``, a function of its
 parameters and input, differentiable by autograd. Output layers
 (``has_loss()``) also compute the network's loss.
+
+``to_dict`` / ``layer_from_dict`` are the reference's serde: the same keys
+and ``@layer`` tag, so a configuration's JSON reads back in both
+packages. The reference's layer fields that the port has not ported
+(dropout, weight noise, constraints, gradient normalization) are read
+only at their defaults: a configuration that sets one raises.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import activations as act_mod
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.updaters import Schedule, Updater
 from deeplearning4j_tpu_torch.nn.weights import Distribution, init_weight
 
 Params = Dict[str, torch.Tensor]
@@ -65,8 +72,7 @@ class Layer:
 
     def input_preprocessor(self, input_type: InputType):
         """A ``(fn, new_input_type)`` reshape this layer needs in front of
-        it, else None. The port's input kinds (ff, rnn) need none; the
-        convolutional kinds come with the conv layers."""
+        it (DL4J's automatic CnnToFeedForward etc.), else None."""
         return None
 
     # ---- params ------------------------------------------------------------
@@ -100,3 +106,69 @@ class Layer:
     def _init_b(self, shape, dtype, device):
         return torch.full(shape, float(self.bias_init or 0.0), dtype=dtype,
                           device=device)
+
+    # ---- serde --------------------------------------------------------------
+    def to_dict(self) -> dict:
+        d = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v is None:
+                continue
+            if isinstance(v, (Updater, Schedule, Distribution)):
+                v = v.to_dict()
+            d[f.name] = v
+        d.update({k: v for k, v in UNPORTED_LAYER_FIELDS.items()
+                  if v is not None})
+        d["@layer"] = type(self).__name__
+        return d
+
+
+#: the reference's layer fields the port has not ported, at their defaults
+#: (``to_dict`` writes the ones that are not None, as the reference does)
+UNPORTED_LAYER_FIELDS = {"dropout": None, "weight_noise": None,
+                         "constraints": None, "gradient_normalization": None,
+                         "gradient_normalization_threshold": 1.0}
+
+
+def refuse_unported(d: dict, defaults: dict, what: str) -> dict:
+    """``d`` without the ``defaults`` keys, each of which must hold its
+    default: a configuration that sets one needs what is not ported."""
+    d = dict(d)
+    for k, default in defaults.items():
+        v = d.pop(k, default)
+        if v != default:
+            raise NotImplementedError(
+                f"{what}: {k}={v!r} is not ported yet (the port reads "
+                f"only {default!r})")
+    return d
+
+
+def activation_from_config(v):
+    """Parameterized activations (``("leakyrelu", {"alpha": ...})``) are
+    tuples in memory but JSON lists on disk."""
+    if (isinstance(v, list) and len(v) == 2 and isinstance(v[0], str)
+            and isinstance(v[1], dict)):
+        return (v[0], dict(v[1]))
+    return v
+
+
+def layer_from_dict(d: dict) -> Layer:
+    """The layer a :meth:`Layer.to_dict` (or the reference's) describes."""
+    d = dict(d)
+    name = d.pop("@layer")
+    if name not in LAYER_REGISTRY:
+        raise NotImplementedError(f"layer {name!r} is not ported yet")
+    kw = refuse_unported(d, UNPORTED_LAYER_FIELDS, f"layer {name}")
+    for k, v in kw.items():
+        if isinstance(v, dict) and "@updater" in v:
+            kw[k] = Updater.from_dict(v)
+        elif isinstance(v, dict) and "@schedule" in v:
+            kw[k] = Schedule.from_dict(v)
+        elif k == "distribution" and isinstance(v, dict):
+            kw[k] = Distribution.from_dict(v)
+        elif k == "activation":
+            kw[k] = activation_from_config(v)
+        elif isinstance(v, list) and k in ("kernel_size", "stride", "padding",
+                                           "dilation"):
+            kw[k] = tuple(v)
+    return LAYER_REGISTRY[name](**kw)

@@ -34,6 +34,15 @@ class DenseLayer(Layer):
     def output_type(self, input_type: InputType) -> InputType:
         return InputType.feed_forward(self.n_out)
 
+    def input_preprocessor(self, input_type: InputType):
+        """DL4J's automatic CnnToFeedForward: NHWC images (or flat ones)
+        become ``[N, H*W*C]`` rows in H, W, C order, the order of ``W``'s
+        rows in the reference."""
+        if input_type.kind in ("cnn", "cnn_flat"):
+            return (lambda x: x.reshape(x.shape[0], -1),
+                    InputType.feed_forward(input_type.flat_size()))
+        return None
+
     def param_shapes(self):
         shapes = {"W": (self.n_in, self.n_out)}
         if self.has_bias:

@@ -1,0 +1,68 @@
+"""2-D pooling over NHWC activations.
+
+Counterpart of ``SubsamplingLayer`` in
+``deeplearning4j_tpu/nn/layers/pooling.py`` (max, avg, sum, pnorm). The
+reference pools with ``lax.reduce_window``: ``max`` pads with -inf,
+``avg`` and ``sum`` with 0, and ``avg`` divides by kh·kw, padding
+included. Here every pad (the XLA "same" one, or ``padding`` on both
+sides, which ``F.max_pool2d`` refuses above half the kernel) is an
+explicit ``F.pad``, and the pool then runs with no padding: ``avg`` and
+``sum`` are ``F.avg_pool2d`` with the divisor kh·kw and 1; ``pnorm`` is
+(Σ|x|^p)^(1/p) over the window.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.conv import _pair, conv_out_size, nchw_pad
+
+
+@register_layer
+@dataclasses.dataclass
+class SubsamplingLayer(Layer):
+    """2-D pooling over NHWC (DL4J SubsamplingLayer)."""
+
+    pooling_type: str = "max"  # "max" | "avg" | "sum" | "pnorm"
+    kernel_size: Tuple[int, int] = (2, 2)
+    stride: Tuple[int, int] = (2, 2)
+    padding: Tuple[int, int] = (0, 0)
+    convolution_mode: str = "truncate"
+    pnorm: int = 2
+
+    def __post_init__(self):
+        self.kernel_size = _pair(self.kernel_size)
+        self.stride = _pair(self.stride)
+        self.padding = _pair(self.padding)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        kh, kw = self.kernel_size
+        sh, sw = self.stride
+        ph, pw = self.padding
+        h = conv_out_size(input_type.height, kh, sh, ph, 1, self.convolution_mode)
+        w = conv_out_size(input_type.width, kw, sw, pw, 1, self.convolution_mode)
+        return InputType.convolutional(h, w, input_type.channels)
+
+    def forward(self, params, x, *, mask=None):
+        pt = self.pooling_type.lower()
+        if pt not in ("max", "avg", "sum", "pnorm"):
+            raise ValueError(f"Unknown pooling type {self.pooling_type!r}")
+        k, s = self.kernel_size, self.stride
+        xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC input
+        if pt == "pnorm":
+            xc = xc.abs() ** float(self.pnorm)
+        xc = nchw_pad(xc, k, s, (1, 1), self.padding, self.convolution_mode,
+                      value=float("-inf") if pt == "max" else 0.0)
+        if pt == "max":
+            y = F.max_pool2d(xc, k, s)
+        else:
+            y = F.avg_pool2d(xc, k, s, divisor_override=(
+                k[0] * k[1] if pt == "avg" else 1))
+        if pt == "pnorm":
+            y = y ** (1.0 / float(self.pnorm))
+        return y.permute(0, 2, 3, 1)  # back to NHWC

@@ -161,7 +161,10 @@ class LSTMLayer(BaseRecurrentLayer):
         helper = _helpers.get_helper("lstm")
         if helper is not None and helper.supports(self, mask):
             return helper.forward_seq(self, params, x, carry)
-        if (helper is None and _helpers.auto_fused_lstm_enabled()
+        # the kernel takes float32 only: any other dtype takes the plain
+        # loop, as the reference's auto helper declines off the TPU
+        if (helper is None and x.dtype == torch.float32
+                and _helpers.auto_fused_lstm_enabled()
                 and _AUTO_LSTM.supports(self, mask)):
             return _AUTO_LSTM.forward_seq(self, params, x, carry)
         if carry is None:

@@ -5,8 +5,12 @@ Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``
 recurrent carries, ``_regularization``, ``_loss_fn``, ``_apply_updates``
 (the "updater" helper seam consulted per tensor), ``fit`` over arrays,
 ``DataSet`` or iterators with standard backprop or truncated BPTT,
-``output``, ``predict``, ``score``, ``compute_gradient_and_score`` and the
-stateful RNN API (``rnn_time_step`` and the stored-state accessors).
+``output``, ``predict``, ``score``, ``compute_gradient_and_score``, the
+stateful RNN API (``rnn_time_step`` and the stored-state accessors),
+``feed_forward``/``feed_forward_to_layer``, ``evaluate``, ``f1_score``,
+``label_probabilities``, the parameter accessors (``param_table``,
+``get_param``, ``set_param``, ``num_labels``) and the model zip (``save``,
+``MultiLayerNetwork.load``, through ``util/model_serializer.py``).
 
 The network is an ``nn.Module`` whose parameters keep the reference's
 names and layouts, registered as ``<layer index>/<param>``; ``params`` holds
@@ -22,7 +26,7 @@ hands its final recurrent carry, detached, to the next chunk.
 
 Not ported yet: gradient normalization, constraints, weight noise,
 dropout, mixed precision, gradient checkpointing, listeners,
-``fit_batches_on_device``, evaluation, pretraining and the model zip.
+``fit_batches_on_device``, ROC and regression evaluation, and pretraining.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from torch import nn
 
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, batch_nbytes
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn.conf.network import (
     MultiLayerConfiguration,
     normalize_backprop_type,
@@ -51,6 +56,12 @@ from deeplearning4j_tpu_torch.nn.train_step import (
     init_parameters,
     regularization,
 )
+from deeplearning4j_tpu_torch.util import model_serializer
+
+
+def _host(a) -> np.ndarray:
+    """A numpy array of ``a`` (a numpy array or a tensor on any device)."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _detach(carry):
@@ -275,6 +286,95 @@ class MultiLayerNetwork(nn.Module):
 
     def predict(self, x) -> np.ndarray:
         return self.output(x).argmax(dim=-1).cpu().numpy()
+
+    def feed_forward(self, x) -> List[torch.Tensor]:
+        """The input and every layer's activation (``feedForward``)."""
+        return self.feed_forward_to_layer(len(self.layers) - 1, x)
+
+    def feed_forward_to_layer(self, layer_num: int, x) -> List[torch.Tensor]:
+        """The input and the activations of layers 0..``layer_num``
+        inclusive (``feedForwardToLayer``), under inference mode."""
+        if not 0 <= layer_num < len(self.layers):
+            raise ValueError(f"layer_num {layer_num} out of range "
+                             f"[0, {len(self.layers)})")
+        self._require_params()
+        with torch.inference_mode():
+            h = self._as_tensor(x)
+            acts = [h]
+            for i in range(layer_num + 1):
+                if i in self.conf.preprocessors:
+                    h = self.conf.preprocessors[i](h)
+                h = self.layers[i].forward(self.params[i], h)
+                acts.append(h)
+        return acts
+
+    def evaluate(self, iterator, top_n: int = 1) -> Evaluation:
+        """Classification metrics of ``output`` over an iterator (or one
+        DataSet), label masks honoured (``MultiLayerNetwork.evaluate``)."""
+        e = Evaluation(top_n=top_n)
+        it = [iterator] if isinstance(iterator, DataSet) else iterator
+        if hasattr(it, "reset"):
+            it.reset()
+        for ds in it:
+            out = self.output(ds.features, mask=ds.features_mask)
+            e.eval(_host(ds.labels), out.cpu().numpy(),
+                   mask=None if ds.labels_mask is None else _host(ds.labels_mask),
+                   record_meta_data=getattr(ds, "example_meta_data", None))
+        return e
+
+    def f1_score(self, features, labels) -> float:
+        """Macro F1 on one batch (``f1Score``)."""
+        e = Evaluation()
+        e.eval(_host(labels), self.output(features).cpu().numpy())
+        return float(e.f1())
+
+    def label_probabilities(self, x) -> torch.Tensor:
+        """Per-class probabilities (``labelProbabilities``): the output
+        activations of a softmax or sigmoid head."""
+        return self.output(x)
+
+    # ------------------------------------------------ parameter accessors
+    def param_table(self) -> Dict[str, torch.Tensor]:
+        """Every parameter keyed ``"<layer index>_<name>"`` (``paramTable``)."""
+        self._require_params()
+        return {f"{i}_{n}": t for i, named in self.params.items()
+                for n, t in named.items()}
+
+    def get_param(self, key: str) -> torch.Tensor:
+        """One parameter by its ``"<layer index>_<name>"`` key."""
+        idx, name = key.split("_", 1)
+        return self.params[int(idx)][name]
+
+    def set_param(self, key: str, value) -> None:
+        """Overwrite one parameter in place (``setParam``); the shape must
+        match."""
+        old = self.get_param(key)
+        new = self._as_tensor(value)
+        if tuple(new.shape) != tuple(old.shape):
+            raise ValueError(f"shape mismatch for {key}: {tuple(new.shape)} "
+                             f"vs {tuple(old.shape)}")
+        with torch.no_grad():
+            old.copy_(new)
+
+    def num_labels(self) -> int:
+        """Output width of the final layer (``numLabels``)."""
+        out = getattr(self.layers[-1], "n_out", None)
+        if not out:
+            raise ValueError("output layer has no n_out")
+        return int(out)
+
+    # ------------------------------------------------------------ model zip
+    def save(self, path, save_updater: bool = True) -> None:
+        """Write this network's model zip (``MultiLayerNetwork.save``)."""
+        model_serializer.write_model(self, path, save_updater=save_updater)
+
+    @staticmethod
+    def load(path, load_updater: bool = True,
+             device=None) -> "MultiLayerNetwork":
+        """The network a model zip holds (``MultiLayerNetwork.load``), on
+        ``device``: ``cuda`` unless the caller passes ``"cpu"``."""
+        return model_serializer.restore_multi_layer_network(
+            path, load_updater=load_updater, device=device)
 
     def score(self, ds=None) -> float:
         """The last fit iteration's loss, or the loss on ``ds`` (no update,

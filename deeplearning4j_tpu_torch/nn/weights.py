@@ -34,6 +34,13 @@ class Distribution:
     n: int = 1
     p: float = 0.5
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "Distribution":
+        return Distribution(**d)
+
 
 def _normal(gen, shape, std, dtype, device):
     return torch.randn(shape, generator=gen, dtype=dtype, device=device) * std

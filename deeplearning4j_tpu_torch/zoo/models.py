@@ -1,9 +1,11 @@
-"""Model zoo: the GPT-style TransformerLM.
+"""Model zoo: LeNet and the GPT-style TransformerLM.
 
-Counterpart of ``transformer_decoder_block``, ``TransformerLM`` and
-``lm_labels`` in ``deeplearning4j_tpu/zoo/models.py``. The same graph,
-vertex names and parameter shapes; ``init(device=None)`` builds the
-network on ``cuda`` (``device="cpu"`` for the CPU).
+Counterpart of ``LeNet``, ``transformer_decoder_block``, ``TransformerLM``
+and ``lm_labels`` in ``deeplearning4j_tpu/zoo/models.py``. The same
+layers, vertex names and parameter shapes; ``init(device=None)`` builds
+the network on ``cuda`` (``device="cpu"`` for the CPU). No pretrained
+weights are fetched: the zoo's pretrained LeNet zip is not in the
+repository.
 """
 
 from __future__ import annotations
@@ -14,14 +16,51 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.layers import (
     CausalSelfAttentionLayer,
+    ConvolutionLayer,
     DenseLayer,
     EmbeddingSequenceLayer,
     LayerNormalizationLayer,
+    OutputLayer,
     PositionalEmbeddingLayer,
     RnnOutputLayer,
+    SubsamplingLayer,
 )
-from deeplearning4j_tpu_torch.nn.updaters import Adam
+from deeplearning4j_tpu_torch.nn.updaters import AdaDelta, Adam
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
+
+
+class LeNet:
+    """LeNet-5-style CNN (``zoo/model/LeNet.java``): two 5x5 "same"
+    convolutions of 20 and 50 channels, each followed by a 2x2 max pool,
+    a dense 500 and a softmax output, trained with AdaDelta.
+    ``input_shape`` is (channels, height, width), as in the reference."""
+
+    def __init__(self, num_labels: int = 10, seed: int = 123,
+                 input_shape=(1, 28, 28)):
+        self.num_labels = num_labels
+        self.seed = seed
+        self.input_shape = tuple(input_shape)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        return (NeuralNetConfiguration.builder().seed(self.seed)
+                .activation("identity").weight_init("xavier")
+                .updater(AdaDelta()).list()
+                .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5), stride=(1, 1),
+                                        convolution_mode="same", activation="identity"))
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5), stride=(1, 1),
+                                        convolution_mode="same", activation="identity"))
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+                .layer(DenseLayer(n_out=500, activation="relu"))
+                .layer(OutputLayer(n_out=self.num_labels, loss="mcxent",
+                                   activation="softmax"))
+                .set_input_type(InputType.convolutional(h, w, c)).build())
+
+    def init(self, device=None):
+        """The initialized network (seeded with this model's seed)."""
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+        return MultiLayerNetwork(self.conf(), device=device).init(seed=self.seed)
 
 
 def transformer_decoder_block(g, name: str, src: str, d_model: int,

@@ -16,8 +16,12 @@ tests/test_torch_flash_attention.py's emulation of the split shows). The
 fused updater 1e-6 absolute on parameters and moments of order 1: the
 same float32 coefficients both ways, only the kernel's fused multiply-adds
 round differently. Training parity (kernel path against the plain path,
-on one small TransformerLM) 2e-5, the twin-net tolerance of the JAX
-package's fused-updater tests.
+on one small TransformerLM, and on LeNet through the fused updater) 2e-5,
+the twin-net tolerance of the JAX package's fused-updater tests. A
+float64 network on the card takes the plain path at the kernel seams
+(the kernels take float32 only) and gives its CPU output within 1e-10
+relative; ``tests/test_torch_dtypes.py`` holds that CPU output to the JAX
+package's float64 one within 1e-10.
 """
 
 import numpy as np
@@ -27,7 +31,13 @@ import torch
 from deeplearning4j_tpu_torch.nn import cuda_kernels as ck
 from deeplearning4j_tpu_torch.nn import helpers
 from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
-from deeplearning4j_tpu_torch.nn.layers import LSTMLayer, RnnOutputLayer
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.layers import (
+    CausalSelfAttentionLayer,
+    EmbeddingSequenceLayer,
+    LSTMLayer,
+    RnnOutputLayer,
+)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.updaters import AMSGrad, Adam, Nadam
 from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
@@ -496,3 +506,86 @@ def test_lstm_chain_floor_runs_the_hand_over(card):
     out = ck.lstm_chain_floor(50, plan, 32, 200)
     torch.cuda.synchronize()
     assert out.shape == (32, 200) and torch.isfinite(out).all()
+
+
+# ------------------------------------------- float64 networks (fault C1)
+def _f64_char_lstm(device):
+    conf = (NeuralNetConfiguration.builder().seed(7).dtype("float64").list()
+            .layer(LSTMLayer(n_out=16, activation="tanh"))
+            .layer(LSTMLayer(n_out=16, activation="tanh"))
+            .layer(RnnOutputLayer(n_out=12, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(12)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def _f64_causal_graph(device):
+    g = (NeuralNetConfiguration.builder().seed(8).dtype("float64")
+         .graph_builder().add_inputs("tokens")
+         .set_input_types(InputType.recurrent(1, 128)))
+    g.add_layer("embed", EmbeddingSequenceLayer(n_in=20, n_out=128), "tokens")
+    g.add_layer("att", CausalSelfAttentionLayer(n_in=128, n_out=128, n_heads=2,
+                                                head_size=64, max_cache=128), "embed")
+    g.add_layer("out", RnnOutputLayer(n_in=128, n_out=20), "att")
+    g.set_outputs("out")
+    return ComputationGraph(g.build(), device=device).init()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build,kind", [(_f64_char_lstm, "chars"),
+                                        (_f64_causal_graph, "tokens")])
+def test_float64_network_takes_the_plain_path_on_the_card(card, build, kind):
+    rng = np.random.default_rng(9)
+    x = (np.eye(12)[rng.integers(0, 12, (3, 40))] if kind == "chars"
+         else rng.integers(0, 20, (2, 128)).astype(np.float64))
+    cpu = build("cpu")
+    gpu = load_reference_params(build(card), export_params(cpu))
+    launches = (ck.flash_attention_fwd.launches, ck.lstm_sequence.launches)
+    got = gpu.output(x)
+    torch.cuda.synchronize()
+    assert (ck.flash_attention_fwd.launches, ck.lstm_sequence.launches) == launches
+    ref = cpu.output(x)
+    assert got.dtype == ref.dtype == torch.float64
+    rel = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 1e-10
+
+
+@pytest.mark.cuda
+def test_lenet_fit_on_the_card_matches_the_stock_updater(card):
+    """LeNet (28x28x1, conv 20 and 50, dense 500): 3 fit steps through the
+    fused updater (8 launches a step) against a twin on stock Adam."""
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
+                                                    OutputLayer, SubsamplingLayer)
+
+    def lenet():
+        conf = (NeuralNetConfiguration.builder().seed(42).updater(Adam(1e-3)).list()
+                .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5), activation="relu"))
+                .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5), activation="relu"))
+                .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+                .layer(DenseLayer(n_out=500, activation="relu"))
+                .layer(OutputLayer(n_out=10, loss="negativeloglikelihood"))
+                .set_input_type(InputType.convolutional(28, 28, 1)).build())
+        return MultiLayerNetwork(conf).init()
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(0, 0.3, (32, 28, 28, 1)).astype(np.float32)).to(card)
+    y = torch.nn.functional.one_hot(torch.from_numpy(rng.integers(0, 10, 32)), 10)
+    y = y.float().to(card)
+    kern = lenet()
+    twin = load_reference_params(lenet(), export_params(kern))
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = ck.fused_adam.launches
+        helpers.set_helper("updater", ck.FusedUpdaterHelper())
+        for _ in range(3):
+            kern.fit(x, y)
+        helpers.clear_helper("updater")
+        assert ck.fused_adam.launches - before == 3 * 8
+        for _ in range(3):
+            twin.fit(x, y)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert abs(kern.score_ - twin.score_) <= 2e-5
+    for i, named in twin.params.items():
+        for n, t in named.items():
+            torch.testing.assert_close(kern.params[i][n], t, rtol=0, atol=2e-5)

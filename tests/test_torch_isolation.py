@@ -62,7 +62,12 @@ def test_import_leaves_jax_unloaded():
             "deeplearning4j_tpu_torch.nn.conf.network, "
             "deeplearning4j_tpu_torch.zoo.models, "
             "deeplearning4j_tpu_torch.parallel.inference, "
-            "deeplearning4j_tpu_torch.util.convert; "
+            "deeplearning4j_tpu_torch.util.convert, "
+            "deeplearning4j_tpu_torch.util.model_serializer, "
+            "deeplearning4j_tpu_torch.eval.evaluation, "
+            "deeplearning4j_tpu_torch.nn.conf.preprocessors, "
+            "deeplearning4j_tpu_torch.nn.layers.conv, "
+            "deeplearning4j_tpu_torch.nn.layers.pooling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -71,13 +76,16 @@ def test_import_leaves_jax_unloaded():
     assert out.stdout.strip() == "[]"
 
 
-def test_entry_points_need_an_explicit_cpu():
+def test_entry_points_need_an_explicit_cpu(tmp_path):
     from deeplearning4j_tpu_torch import resolve_device
     from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.layers import LSTMLayer, RnnOutputLayer
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_multi_layer_network,
+    )
+    from deeplearning4j_tpu_torch.zoo.models import LeNet, TransformerLM
 
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without a CUDA device")
@@ -103,6 +111,19 @@ def test_entry_points_need_an_explicit_cpu():
     mln = MultiLayerNetwork(lstm_conf, device="cpu").init()
     assert all(p.device.type == "cpu" for p in mln.parameters())
     assert mln.output(np.zeros((1, 5, 3), np.float32)).shape == (1, 5, 3)
+
+    # the model zip: restoring picks cuda unless the caller asks for the CPU
+    path = os.path.join(str(tmp_path), "m.zip")
+    mln.save(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiLayerNetwork.load(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restore_multi_layer_network(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LeNet().init()
+    back = MultiLayerNetwork.load(path, device="cpu")
+    assert all(p.device.type == "cpu" for p in back.parameters())
+    assert restore_multi_layer_network(path, device="cpu").iteration == 0
 
 
 def test_chip_smoke_refuses_without_a_card():

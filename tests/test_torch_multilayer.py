@@ -160,8 +160,9 @@ def test_builder_options():
     lb = NeuralNetConfiguration.builder().list().layer(DenseLayer(n_in=3, n_out=2))
     with pytest.raises(ValueError, match="in order"):
         lb.layer(DenseLayer(n_out=2), index=5)
-    with pytest.raises(NotImplementedError, match="input_pre_processor"):
-        lb.input_pre_processor(0, "cnn_to_ff").build()
+    conf = lb.input_pre_processor(0, "cnn_to_ff").build()
+    assert sorted(conf.preprocessors) == [0]
+    assert conf.input_pre_processors == {0: "cnn_to_ff"}
     with pytest.raises(ValueError, match="no layers"):
         NeuralNetConfiguration.builder().list().build()
 
