@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs five phases:
+every kernel, and runs eight phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -42,7 +42,29 @@ every kernel, and runs five phases:
    plan), one
    chunk's loss and gradients are checked against a twin on the plain
    recurrence, it answers ``output`` over a [32, 1000, 77] batch and
-   samples 4 x 300 characters through ``rnn_time_step``.
+   samples 4 x 300 characters through ``rnn_time_step``;
+6. LeNet (``__graft_entry__._lenet``) through ``MultiLayerNetwork``: 5
+   epochs with the fused updater, ``evaluate``, a timed window, a twin on
+   stock Adam and the model zip on the card and the CPU;
+7. regularizers: every dropout and weight-noise variant draws on the card
+   at [4096, 4096] (SpatialDropout at [64, 32, 32, 64]) from a CUDA
+   generator, and its statistics, its scaling and its determinism under a
+   seed are checked; then example 17's regularization family (AlphaDropout,
+   MaxNorm, NonNegative, DropConnect) trains 15 epochs with the fused
+   updater, its constraints must hold and its accuracy match the JAX
+   package's; then LeNet again with dropout 0.5 on the dense layer and
+   per-layer L2 gradient renormalization, fed through a fitted
+   ``NormalizerStandardize`` and the default prefetch, beside a twin fed
+   with ``prefetch_depth=0``: both must evaluate >= 0.95; the step times
+   of both ways, and of both ways fed batches made before the window
+   (which leaves the producer only the pin and the copy), are printed
+   with the device's busy share, and the prefetched batches must come
+   from pinned memory on a side stream;
+8. GPT-2-small with attention dropout 0.1: 5 ``ComputationGraph.fit``
+   steps through a prefetching iterator (150 fused-Adam launches a step,
+   no flash launch: the seam declines a dropout-active request), one
+   ``output`` (12 flash-forward launches), and a step repeated from the
+   dropout generator's saved state must give the same loss.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -55,6 +77,7 @@ float32 matrix products run in full float32: TF32 is switched off.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -93,6 +116,7 @@ KERNEL_GROUPS = (
     ("K3b flash_attention_bwd_dkv", ("flash_attention_bwd_dkv_kernel",)),
     ("K2 fused_adam", ("fused_adam_kernel",)),
     ("K1 lstm_sequence", ("lstm_sequence_kernel", "lstm_sequence_cluster_kernel")),
+    ("random draws", ("distribution", "philox", "bernoulli")),
     ("matrix products", ("gemm", "cutlass", "xmma", "sm90_", "ampere_")),
     ("softmax", ("softmax",)),
     ("gathers and scatters", ("index", "scatter", "gather", "embedding")),
@@ -140,6 +164,23 @@ LENET_TWIN_STEPS, LENET_PARAM_TOL, LENET_LOSS_RTOL, LENET_ZIP_ATOL = 3, 1e-5, 1e
 # probabilities absolute (the first H100 runs measured 0.0, 3.8e-7 and
 # 2.1e-7: the backward is the same plain recomputation on both sides)
 CHAR_LOSS_RTOL, CHAR_GRAD_TOL, CHAR_OUT_ATOL = 1e-6, 1e-5, 1e-5
+# regularizer draws: a keep fraction within 5 standard errors of p; the
+# noise's mean and variance within 1e-2 (AlphaDropout on N(0,1)) and 1%
+# (GaussianDropout, the noise of GaussianNoise and WeightNoise)
+DRAW_SHAPE, SPATIAL_SHAPE, KEEP_SIGMAS = (4096, 4096), (64, 32, 32, 64), 5.0
+ALPHA_TOL, NOISE_RTOL = 1e-2, 1e-2
+# example 17's regularization family at its own settings; its accuracy on
+# the JAX package on the CPU (``examples/17_...py``'s regularization_family
+# run alone) is 1.0, and the port's must lie within 0.05 of it
+EX17_N, EX17_BATCH, EX17_EPOCHS, EX17_TENSORS = 512, 128, 15, 4
+EX17_JAX_ACCURACY, EX17_ACCURACY_TOL, EX17_MAX_NORM = 1.0, 0.05, 2.0
+# the regularized LeNet: 5 epochs each way, then LENET_REG_WINDOW_EPOCHS // 2
+# timed epochs of each of four ways in turns (after a warm-up round); a
+# step is the interval between two step starts of one epoch (the wait for
+# the batch included)
+LENET_REG_WINDOW_EPOCHS = 8
+# GPT-2-small with attention dropout: 5 fit steps, a repeat within 1e-6
+GPT2_DROPOUT, GPT2_REPEAT_RTOL = 0.1, 1e-6
 
 
 def card_peaks(name: str):
@@ -1030,16 +1071,20 @@ def char_lstm_phase(ck, card):
     return launched, by_plan, train["fused_adam"]
 
 
-def lenet_conf():
+def lenet_conf(regularized=False):
     """``__graft_entry__._lenet``'s LeNet, through the port's DSL: conv 5x5
     20, max pool 2x2, conv 5x5 50, max pool 2x2, dense 500, output 10;
-    Adam(1e-3), seed 42, f32, 28x28x1."""
+    Adam(1e-3), seed 42, f32, 28x28x1. ``regularized``: dropout 0.5 on the
+    dense layer's input and per-layer L2 gradient renormalization."""
     from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
                                                     OutputLayer, SubsamplingLayer)
     from deeplearning4j_tpu_torch.nn.updaters import Adam
 
-    return (NeuralNetConfiguration.builder().seed(42).updater(Adam(1e-3)).list()
+    b = NeuralNetConfiguration.builder().seed(42).updater(Adam(1e-3))
+    if regularized:
+        b = b.gradient_normalization("renormalize_l2_per_layer")
+    return (b.list()
             .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5), stride=(1, 1),
                                     padding=(0, 0), activation="relu"))
             .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2),
@@ -1048,7 +1093,8 @@ def lenet_conf():
                                     padding=(0, 0), activation="relu"))
             .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2),
                                     pooling_type="max"))
-            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(DenseLayer(n_out=500, activation="relu",
+                              dropout=0.5 if regularized else None))
             .layer(OutputLayer(n_out=10, activation="softmax",
                                loss="negativeloglikelihood"))
             .set_input_type(InputType.convolutional(28, 28, 1)).build())
@@ -1226,6 +1272,487 @@ def lenet_phase(ck, card):
     return fit_launches + window_launches
 
 
+def keep_stats(keep, p):
+    """The keep fraction of a boolean mask and its distance from ``p`` in
+    standard errors; raises beyond KEEP_SIGMAS."""
+    n = keep.numel()
+    frac = keep.float().mean().item()
+    sigmas = (frac - p) / math.sqrt(p * (1.0 - p) / n)
+    if not abs(sigmas) <= KEEP_SIGMAS:
+        raise RuntimeError(f"keep fraction {frac} over {n} draws is "
+                           f"{sigmas:.2f} standard errors from p = {p}")
+    return {"p": p, "keep_fraction": frac, "sigmas": sigmas, "draws": n}
+
+
+def moments(t):
+    t = t.double()
+    return t.mean().item(), t.var().item()
+
+
+def draws_phase(card):
+    """Every dropout and weight-noise variant draws on the card from a
+    CUDA generator; keep fractions, scaling, moments and determinism."""
+    from deeplearning4j_tpu_torch.nn.dropout import (AlphaDropout, Dropout,
+                                                     GaussianDropout,
+                                                     GaussianNoise,
+                                                     SpatialDropout)
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer
+    from deeplearning4j_tpu_torch.nn.train_step import dropout_generator
+    from deeplearning4j_tpu_torch.nn.weightnoise import DropConnect, WeightNoise
+    from deeplearning4j_tpu_torch.nn.weights import Distribution
+
+    gen = dropout_generator(7, "cuda")
+    src = torch.Generator(device="cuda").manual_seed(8)
+    # positive inputs: an output of 0 means dropped
+    pos = torch.rand(DRAW_SHAPE, device="cuda", generator=src) + 0.5
+    out = {}
+
+    y = Dropout(0.9).apply(pos, gen, True)
+    keep = y != 0
+    out["Dropout"] = keep_stats(keep, 0.9)
+    out["Dropout"]["scaling_exact"] = torch.equal(y[keep], pos[keep] / 0.9)
+
+    xs = torch.rand(SPATIAL_SHAPE, device="cuda", generator=src) + 0.5
+    ys = SpatialDropout(0.8).apply(xs, gen, True)
+    ks = ys != 0
+    out["SpatialDropout"] = keep_stats(ks[:, 0, 0, :], 0.8)
+    out["SpatialDropout"].update(
+        constant_over_hw=torch.equal(ks.all(dim=2).all(dim=1), ks.any(dim=2).any(dim=1)),
+        scaling_exact=torch.equal(ys[ks], xs[ks] / 0.8))
+
+    z = torch.randn(DRAW_SHAPE, device="cuda", generator=src)
+    ad = AlphaDropout(0.9)
+    ya = ad.apply(z, gen, True)
+    f32 = np.float32
+    ap = ad.alpha_prime
+    a = f32(1.0) / np.sqrt(f32(0.9 + ap * ap * 0.9 * 0.1))
+    b = -a * f32(0.1) * f32(ap)
+    out["AlphaDropout"] = keep_stats(ya == float(a) * z + float(b), 0.9)
+    mean, var = moments(ya)
+    out["AlphaDropout"].update(mean=mean, var=var)
+    if not (abs(mean) <= ALPHA_TOL and abs(var - 1.0) <= ALPHA_TOL):
+        raise RuntimeError(f"AlphaDropout on N(0,1): mean {mean}, var {var}")
+
+    ones = torch.ones(DRAW_SHAPE, device="cuda")
+    mean, var = moments(GaussianDropout(0.3).apply(ones, gen, True))
+    want = 0.3 / 0.7
+    out["GaussianDropout"] = {"mean": mean, "var": var, "var_expected": want}
+    if not (abs(mean - 1.0) <= NOISE_RTOL and abs(var / want - 1.0) <= NOISE_RTOL):
+        raise RuntimeError(f"GaussianDropout(0.3) noise: {out['GaussianDropout']}")
+
+    zeros = torch.zeros(DRAW_SHAPE, device="cuda")
+    mean, var = moments(GaussianNoise(0.1).apply(zeros, gen, True))
+    out["GaussianNoise"] = {"mean": mean, "std": math.sqrt(var)}
+    if not (abs(mean) <= NOISE_RTOL * 0.1 and abs(math.sqrt(var) / 0.1 - 1.0) <= NOISE_RTOL):
+        raise RuntimeError(f"GaussianNoise(0.1) noise: {out['GaussianNoise']}")
+
+    layer = DenseLayer(n_in=DRAW_SHAPE[0], n_out=DRAW_SHAPE[1])
+    params = {"W": pos, "b": torch.zeros(DRAW_SHAPE[1], device="cuda")}
+    dc = DropConnect(p=0.95).apply(layer, params, gen, True)
+    kw = dc["W"] != 0
+    out["DropConnect"] = keep_stats(kw, 0.95)
+    out["DropConnect"].update(kept_unscaled=torch.equal(dc["W"][kw], pos[kw]),
+                              bias_untouched=dc["b"] is params["b"])
+    for name, wn, noise_of, want_mean, want_std in (
+            ("WeightNoise additive", WeightNoise(),
+             lambda w: w - pos, 0.0, 0.01),
+            ("WeightNoise multiplicative",
+             WeightNoise(distribution=Distribution(kind="normal", mean=1.0, std=0.1),
+                         additive=False),
+             lambda w: w / pos, 1.0, 0.1)):
+        mean, var = moments(noise_of(wn.apply(layer, params, gen, True)["W"]))
+        out[name] = {"mean": mean, "std": math.sqrt(var)}
+        if not (abs(mean - want_mean) <= NOISE_RTOL * max(want_mean, want_std)
+                and abs(math.sqrt(var) / want_std - 1.0) <= NOISE_RTOL):
+            raise RuntimeError(f"{name}: {out[name]}")
+    for name in ("Dropout", "SpatialDropout"):
+        for k in ("scaling_exact", "constant_over_hw"):
+            if out[name].get(k) is False:
+                raise RuntimeError(f"{name}: {k} fails")
+    if not (out["DropConnect"]["kept_unscaled"] and out["DropConnect"]["bias_untouched"]):
+        raise RuntimeError(f"DropConnect: {out['DropConnect']}")
+
+    # determinism: the same seed draws the same masks and noise, another
+    # seed others
+    def draw(seed):
+        g = dropout_generator(seed, "cuda")
+        return (Dropout(0.9).apply(pos, g, True) != 0,
+                GaussianNoise(0.1).apply(zeros, g, True))
+    (m1, n1), (m2, n2), (m3, n3) = draw(11), draw(11), draw(12)
+    out["same_seed_identical"] = torch.equal(m1, m2) and torch.equal(n1, n2)
+    out["other_seed_differs"] = not torch.equal(m1, m3) and not torch.equal(n1, n3)
+    if not (out["same_seed_identical"] and out["other_seed_differs"]):
+        raise RuntimeError(f"draws under a seed: {out}")
+    # a CPU generator never draws for a CUDA tensor
+    try:
+        Dropout(0.9).apply(pos, torch.Generator(), True)
+    except ValueError:
+        out["cpu_generator_refused"] = True
+    else:
+        raise RuntimeError("a CPU generator drew for a CUDA tensor")
+    out["dropout_ms"] = median_ms(lambda: Dropout(0.9).apply(pos, gen, True))
+    out.update(card=card, shape=list(DRAW_SHAPE), spatial_shape=list(SPATIAL_SHAPE))
+    print("regularizers " + json.dumps(out), flush=True)
+    del pos, xs, z, ones, zeros, params
+
+
+def ex17_conf():
+    """Example 17's regularization family through the port's DSL: Dense 32
+    selu with AlphaDropout(0.9), MaxNorm(2.0) on every layer's weights,
+    NonNegative on the biases, DropConnect(0.95), Adam(5e-3), seed 1."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.constraints import (MaxNormConstraint,
+                                                         NonNegativeConstraint)
+    from deeplearning4j_tpu_torch.nn.dropout import AlphaDropout
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.weightnoise import DropConnect
+
+    return (NeuralNetConfiguration.builder().seed(1).updater(Adam(5e-3))
+            .constrain_weights(MaxNormConstraint(max_norm=EX17_MAX_NORM))
+            .constrain_bias(NonNegativeConstraint())
+            .weight_noise(DropConnect(p=0.95))
+            .list()
+            .layer(DenseLayer(n_out=32, activation="selu",
+                              dropout=AlphaDropout(p=0.9)))
+            .layer(OutputLayer(n_out=3))
+            .set_input_type(InputType.feed_forward(10)).build())
+
+
+def ex17_phase(ck, card):
+    """Example 17's regularization family on the card at its own settings
+    (512 seeded examples, 15 epochs of batch 128) with the fused updater;
+    the constraints must hold after the last step and the accuracy lie
+    within EX17_ACCURACY_TOL of the JAX package's. Returns K2's launches."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    rng = np.random.default_rng(0)
+    cls = rng.integers(0, 3, EX17_N)
+    x = rng.normal(0, 0.3, size=(EX17_N, 10)).astype(np.float32)
+    x[np.arange(EX17_N), cls] += 2.0
+    y = np.eye(3, dtype=np.float32)[cls]
+    net = MultiLayerNetwork(ex17_conf()).init()
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    ck.fused_adam.launches = 0
+    try:
+        net.fit(ListDataSetIterator(DataSet(x, y), EX17_BATCH, shuffle=True),
+                epochs=EX17_EPOCHS)
+        torch.cuda.synchronize()
+    finally:
+        helpers.clear_helper("updater")
+    launches = ck.fused_adam.launches
+    steps = EX17_EPOCHS * EX17_N // EX17_BATCH
+    if launches != EX17_TENSORS * steps or net.iteration != steps:
+        raise RuntimeError(f"example 17: {launches} fused_adam launches in "
+                           f"{net.iteration} steps")
+    col_norm = max(torch.sqrt((net.params[i]["W"] ** 2).sum(0)).max().item()
+                   for i in net.params)
+    min_bias = min(net.params[i]["b"].min().item() for i in net.params)
+    accuracy = net.evaluate(ListDataSetIterator(DataSet(x, y), 256)).accuracy()
+    stats = {"card": card, "steps": steps, "fused_adam_launches": launches,
+             "max_column_norm": col_norm, "min_bias": min_bias,
+             "accuracy": accuracy, "jax_cpu_accuracy": EX17_JAX_ACCURACY}
+    print("ex17 " + json.dumps(stats), flush=True)
+    if not (col_norm <= EX17_MAX_NORM + 1e-5 and min_bias >= 0.0
+            and abs(accuracy - EX17_JAX_ACCURACY) <= EX17_ACCURACY_TOL):
+        raise RuntimeError(f"example 17's family: {stats}")
+    return launches
+
+
+def profile_device_ms(run, steps):
+    """Device ms a step of ``run()`` (``steps`` steps) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(device_ms_by_kernel(prof).values()) / steps
+
+
+def lenet_regularized_phase(ck, card):
+    """LeNet with dropout 0.5 on the dense input and per-layer L2 gradient
+    renormalization, fed through ``NormalizerStandardize`` (fitted on the
+    verify skill's data): one net with the default prefetch, a twin from
+    the same seed with ``prefetch_depth=0``, 5 epochs each (8 K2 launches
+    a step), ``evaluate`` >= 0.95 each; then the producer's host cost a
+    batch, and timed epochs of four ways on the first net. Returns K2's
+    launches on the two 5-epoch fits."""
+    from deeplearning4j_tpu_torch.datasets import (DataSet, ListDataSetIterator,
+                                                   NormalizerStandardize,
+                                                   NormalizingIterator)
+    from deeplearning4j_tpu_torch.datasets import iterators
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    torch.cuda.empty_cache()
+    x, y = lenet_data()
+    norm = NormalizerStandardize().fit(DataSet(x, y))
+    steps_per_epoch = LENET_N // LENET_BATCH
+
+    def batches(seed):
+        return NormalizingIterator(
+            ListDataSetIterator(DataSet(x, y), LENET_BATCH, shuffle=True, seed=seed), norm)
+
+    ways = {"prefetch": None, "prefetch_depth_0": 0}
+    nets, stats = {}, {"card": card, "normalizer": {"mean": norm.mean.tolist(),
+                                                    "std": norm.std.tolist()}}
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    launches = 0
+    try:
+        for way, depth in ways.items():
+            net = MultiLayerNetwork(lenet_conf(regularized=True)).init()
+            ck.fused_adam.launches = 0
+            iterators.COPY_STATS.update(batches=0, pinned=0, side_stream=0)
+            net.fit(batches(0), epochs=LENET_EPOCHS, prefetch_depth=depth)
+            torch.cuda.synchronize()
+            fit_steps = LENET_EPOCHS * steps_per_epoch
+            copies = dict(iterators.COPY_STATS)
+            want_copies = fit_steps if depth is None else 0
+            if (ck.fused_adam.launches != LENET_TENSORS * fit_steps
+                    or net.iteration != fit_steps
+                    or copies != {"batches": want_copies, "pinned": want_copies,
+                                  "side_stream": want_copies}):
+                raise RuntimeError(f"regularized LeNet ({way}): "
+                                   f"{ck.fused_adam.launches} fused_adam launches "
+                                   f"in {net.iteration} steps; copies {copies}")
+            launches += ck.fused_adam.launches
+            ev = net.evaluate(NormalizingIterator(
+                ListDataSetIterator(DataSet(x, y), LENET_OUT_BATCH), norm))
+            stats[way] = {"evaluate_accuracy": ev.accuracy(), "copies": copies,
+                          "fused_adam_launches_per_step":
+                              ck.fused_adam.launches // fit_steps}
+            if not ev.accuracy() >= LENET_MIN_ACCURACY:
+                raise RuntimeError(f"regularized LeNet ({way}): accuracy "
+                                   f"{ev.accuracy()}\n{ev.stats()}")
+            nets[way] = net
+        # the same seeds, batches and draws both ways
+        stats["params_max_abs_diff_between_ways"] = max(
+            (nets["prefetch"].params[i][n] - t).abs().max().item()
+            for i, named in nets["prefetch_depth_0"].params.items()
+            for n, t in named.items())
+
+        # the producer's host work a batch, alone on this thread: the
+        # gather and the normalizer, then the pin and the copy's launch
+        # (the second pass, on pinned blocks the allocator has cached)
+        t0 = time.perf_counter()
+        prepared = list(batches(7))
+        t1 = time.perf_counter()
+        for _ in range(2):
+            t2 = time.perf_counter()
+            moved = [iterators.device_put_batch(ds, "cuda") for ds in prepared]
+            t3 = time.perf_counter()
+            for ds in moved:
+                iterators.finish_device_put(ds)
+            torch.cuda.synchronize()
+            del moved
+        stats["producer_host_ms_per_batch"] = {
+            "gather_and_normalize": (t1 - t0) * 1e3 / len(prepared),
+            "pin_and_copy": (t3 - t2) * 1e3 / len(prepared)}
+
+        # timed epochs on one net, the ways in turn, round after round:
+        # both ways from the iterator, and both from batches made (gathered
+        # and normalized) before the window, which leaves the producer
+        # only the pin and the copy; each step start is an event, and each
+        # epoch is bracketed by two
+        net = nets["prefetch"]
+        timed_ways = {
+            "prefetch": (None, batches), "prefetch_depth_0": (0, batches),
+            "made_before_prefetch": (
+                None, lambda seed: iterators.ExistingDataSetIterator(prepared)),
+            "made_before_prefetch_depth_0": (
+                0, lambda seed: iterators.ExistingDataSetIterator(prepared))}
+        starts = {w: [] for w in timed_ways}
+        epochs_ms = {w: [] for w in timed_ways}
+        fit_batch = net._fit_batch
+
+        def timed_fit_batch(ds):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            current.append(e)
+            fit_batch(ds)
+
+        net._fit_batch = timed_fit_batch
+        iterators.COPY_STATS.update(batches=0, pinned=0, side_stream=0)
+        rounds = LENET_REG_WINDOW_EPOCHS // 2 + 1
+        for rnd in range(rounds):
+            for way, (depth, source) in timed_ways.items():
+                current = []
+                s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s_.record()
+                net.fit(source(100 + rnd), epochs=1, prefetch_depth=depth)
+                e_.record()
+                if rnd > 0:  # the first round warms up
+                    starts[way].append(current)
+                    epochs_ms[way].append((s_, e_))
+        torch.cuda.synchronize()
+        del net._fit_batch
+        copies = dict(iterators.COPY_STATS)
+        want = 2 * rounds * steps_per_epoch  # the two prefetching ways
+        if copies != {"batches": want, "pinned": want, "side_stream": want}:
+            raise RuntimeError(f"prefetched batches of the timed epochs: {copies}")
+        for way, (depth, source) in timed_ways.items():
+            step_ms = [a.elapsed_time(b) for ep in starts[way]
+                       for a, b in zip(ep[:-1], ep[1:])]
+            ep_ms = [a.elapsed_time(b) for a, b in epochs_ms[way]]
+            median = float(np.median(step_ms))
+            busy_ms = profile_device_ms(
+                lambda: net.fit(source(999), epochs=1, prefetch_depth=depth),
+                steps_per_epoch)
+            stats.setdefault(way, {}).update({
+                "timed_epochs": len(ep_ms), "steps": len(step_ms),
+                "median_step_ms": median,
+                "step_ms_p10_p90": [float(np.percentile(step_ms, 10)),
+                                    float(np.percentile(step_ms, 90))],
+                "mean_step_ms": float(np.mean(step_ms)),
+                "window_images_per_s": len(ep_ms) * LENET_N / (sum(ep_ms) / 1e3),
+                "epoch_ms": ep_ms,
+                "device_ms_per_step": busy_ms,
+                "device_busy_share_of_median_step": busy_ms / median,
+            })
+        stats["timed_copies"] = copies
+    finally:
+        helpers.clear_helper("updater")
+    print("lenet_regularized " + json.dumps(stats), flush=True)
+    del nets
+    return launches
+
+
+def gpt2_attn_dropout_phase(ck, card):
+    """GPT-2-small with attention dropout: TRAIN_STEPS fit steps through a
+    prefetching iterator with the fused updater (150 K2, no flash launch a
+    step), one ``output`` (12 K3a), a step repeated from the dropout
+    generator's saved state, 2 profiled steps. Returns the launches."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets import iterators
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = TransformerLM(attn_dropout=GPT2_DROPOUT).init()
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    n_tensors = sum(len(named) for named in net.params.values())
+    rng = np.random.default_rng(123)
+    ids = rng.integers(0, vocab, (TRAIN_N, T))
+    x_host = ids.astype(np.float32)  # token ids from the host, as floats
+    ids_dev = torch.from_numpy(ids).cuda()
+    labels = F.one_hot(torch.cat([ids_dev[:, 1:], ids_dev[:, -1:]], 1), vocab).float()
+    batches = iterators.ExistingDataSetIterator(
+        [DataSet(x_host, labels) for _ in range(TRAIN_STEPS)])
+    counters = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+                ck.flash_attention_bwd_dkv, ck.fused_adam)
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        events, losses = [], []
+        fit_batch = net._fit_batch
+
+        def timed_fit_batch(ds):
+            s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s_.record()
+            fit_batch(ds)
+            e_.record()
+            events.append((s_, e_))
+            losses.append(net._score)
+
+        net._fit_batch = timed_fit_batch
+        for c in counters:
+            c.launches = 0
+        iterators.COPY_STATS.update(batches=0, pinned=0, side_stream=0)
+        net.fit(batches)  # the default prefetch
+        torch.cuda.synchronize()
+        del net._fit_batch
+        launches = {c.__name__: c.launches for c in counters}
+        copies = dict(iterators.COPY_STATS)
+        losses = [float(l) for l in losses]
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        warm_window_ms = events[1][0].elapsed_time(events[-1][1])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0, "fused_adam": n_tensors * TRAIN_STEPS}
+        if launches != want:
+            raise RuntimeError(f"attention-dropout fit launches {launches}, "
+                               f"expected {want}")
+        if copies != {"batches": TRAIN_STEPS, "pinned": TRAIN_STEPS,
+                      "side_stream": TRAIN_STEPS}:
+            raise RuntimeError(f"prefetched batches: {copies}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"attention-dropout training did not progress: "
+                               f"losses {losses}")
+
+        # one output: the seam takes the flash forward again (no dropout)
+        for c in counters:
+            c.launches = 0
+        out = net.output(x_host)
+        torch.cuda.synchronize()
+        output_launches = ck.flash_attention_fwd.launches
+        rowsum_dev = (out[:, ::64].double().sum(-1) - 1.0).abs().max().item()
+        if not (output_launches == n_layers and ck.flash_attention_bwd_dq.launches == 0
+                and out.shape == (TRAIN_N, T, vocab) and rowsum_dev <= ROWSUM_TOL):
+            raise RuntimeError(f"output: {output_launches} flash launches, shape "
+                               f"{tuple(out.shape)}, rows off by {rowsum_dev}")
+        del out
+
+        # a step repeated from the saved generator state gives the same
+        # loss; a step from the state after it draws other masks
+        with torch.no_grad():
+            saved_p = {k: {n: t.clone() for n, t in d.items()} for k, d in net.params.items()}
+            saved_s = {k: {n: {s: t.clone() for s, t in st.items()} for n, st in d.items()}
+                       for k, d in net.updater_states.items()}
+        gen_state, it = net.dropout_generator.get_state(), net.iteration
+
+        def restore():
+            with torch.no_grad():
+                for k, d in saved_p.items():
+                    for n, t in d.items():
+                        net.params[k][n].copy_(t)
+                for k, d in saved_s.items():
+                    for n, st in d.items():
+                        for s_name, t in st.items():
+                            net.updater_states[k][n][s_name].copy_(t)
+            net.iteration = it
+
+        xb = torch.from_numpy(x_host).cuda()
+        net.fit(xb, labels)
+        loss_a = net.score_
+        restore()
+        net.dropout_generator.set_state(gen_state)
+        net.fit(xb, labels)
+        loss_b = net.score_
+        restore()
+        net.fit(xb, labels)  # the generator has moved on
+        loss_c = net.score_
+        del saved_p, saved_s
+        repeat_rel = abs(loss_a - loss_b) / abs(loss_a)
+        if not (repeat_rel <= GPT2_REPEAT_RTOL and loss_c != loss_a):
+            raise RuntimeError(f"repeated step: losses {loss_a}, {loss_b} (rel "
+                               f"{repeat_rel}); from the next state {loss_c}")
+        profile = profile_steps(net, xb, labels)
+    finally:
+        helpers.clear_helper("updater")
+    stats = {
+        "card": card, "batch": [TRAIN_N, T], "attn_dropout": GPT2_DROPOUT,
+        "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": float(np.median(step_ms)),
+        "tokens_per_s_after_first_step":
+            (TRAIN_STEPS - 1) * TRAIN_N * T / (warm_window_ms / 1e3),
+        "launches": launches, "launches_per_step": {
+            k: v // TRAIN_STEPS for k, v in launches.items()},
+        "prefetched_copies": copies,
+        "output_flash_fwd_launches": output_launches,
+        "repeat_losses": [loss_a, loss_b], "repeat_rel": repeat_rel,
+        "next_state_loss": loss_c, "peak_device_mem_gb": peak_gb,
+        "profile": profile,
+    }
+    print("gpt2_attn_dropout " + json.dumps(stats), flush=True)
+    del net, labels, xb
+    return {"fused_adam": launches["fused_adam"], "output_fwd": output_launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1258,6 +1785,10 @@ def main() -> None:
     lstm_rows = lstm_kernel_phase(ck, peaks)
     char_launches, char_by_plan, char_adam_launches = char_lstm_phase(ck, card)
     lenet_adam_launches = lenet_phase(ck, card)
+    draws_phase(card)
+    ex17_adam_launches = ex17_phase(ck, card)
+    lenet_reg_adam_launches = lenet_regularized_phase(ck, card)
+    gpt2_drop = gpt2_attn_dropout_phase(ck, card)
     lstm = lstm_rows[LSTM_PATHS["train"]]
 
     def entry(name, source, replaces, row, launches, **extra):
@@ -1274,24 +1805,34 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry(fwd, "flash_attention_fwd.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:359", served,
-              serve_launches + train_launches[fwd],
+              serve_launches + train_launches[fwd] + gpt2_drop["output_fwd"],
               launches_by_path={"serve": serve_launches,
-                                "train": train_launches[fwd]}),
+                                "train": train_launches[fwd],
+                                "gpt2_attn_dropout_train": 0,
+                                "gpt2_attn_dropout_output": gpt2_drop["output_fwd"]}),
         entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dkv"],
-              train_launches["flash_attention_bwd_dkv"]),
+              train_launches["flash_attention_bwd_dkv"],
+              launches_by_path={"train": train_launches["flash_attention_bwd_dkv"],
+                                "gpt2_attn_dropout_train": 0}),
         entry("flash_attention_bwd_dq", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dq"],
-              train_launches["flash_attention_bwd_dq"]),
+              train_launches["flash_attention_bwd_dq"],
+              launches_by_path={"train": train_launches["flash_attention_bwd_dq"],
+                                "gpt2_attn_dropout_train": 0}),
         entry("fused_adam", "fused_adam.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:218", adam,
               train_launches["fused_adam"] + char_adam_launches
-              + lenet_adam_launches,
+              + lenet_adam_launches + ex17_adam_launches
+              + lenet_reg_adam_launches + gpt2_drop["fused_adam"],
               launches_by_path={"train": train_launches["fused_adam"],
                                 "char_lstm_train": char_adam_launches,
-                                "lenet_train": lenet_adam_launches}),
+                                "lenet_train": lenet_adam_launches,
+                                "ex17_train": ex17_adam_launches,
+                                "lenet_regularized_train": lenet_reg_adam_launches,
+                                "gpt2_attn_dropout_train": gpt2_drop["fused_adam"]}),
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
               sum(char_launches.values()), launches_by_path=char_launches,

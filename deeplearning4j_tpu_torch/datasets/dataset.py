@@ -68,6 +68,21 @@ class DataSet:
         return DataSet(f, l, fm, lm)
 
 
+def apply_preprocessor(pre, ds):
+    """A DataSet pre-processor or normalizer applied, whichever face it
+    has: a mutating ``preprocess``/``pre_process`` or a returning
+    ``transform``; a returned copy keeps ``example_meta_data``."""
+    fn = (getattr(pre, "preprocess", None)
+          or getattr(pre, "pre_process", None)
+          or getattr(pre, "transform", None))
+    out = fn(ds)
+    if out is not None:
+        if getattr(out, "example_meta_data", None) is None:
+            out.example_meta_data = getattr(ds, "example_meta_data", None)
+        ds = out
+    return ds
+
+
 class MultiDataSet:
     """Multiple features/labels arrays (ComputationGraph input/output sets)."""
 

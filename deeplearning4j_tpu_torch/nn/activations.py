@@ -16,6 +16,9 @@ import torch.nn.functional as F
 
 ActivationFn = Callable[[torch.Tensor], torch.Tensor]
 
+_SELU_ALPHA = 1.6732632423543772
+_SELU_LAMBDA = 1.0507009873554805
+
 
 def identity(x: torch.Tensor) -> torch.Tensor:
     return x
@@ -31,6 +34,13 @@ def tanh(x: torch.Tensor) -> torch.Tensor:
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x)
+
+
+def selu(x: torch.Tensor) -> torch.Tensor:
+    # exp of the non-positive part only, so the unused branch stays finite
+    safe = torch.where(x > 0, torch.zeros_like(x), x)
+    return _SELU_LAMBDA * torch.where(x > 0, x,
+                                      _SELU_ALPHA * (torch.exp(safe) - 1.0))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -54,6 +64,7 @@ _REGISTRY: dict = {
     "relu": relu,
     "tanh": tanh,
     "sigmoid": sigmoid,
+    "selu": selu,
     "gelu": gelu,
     "gelu_tanh": gelu_tanh,
     "softmax": softmax,

@@ -13,10 +13,13 @@ reference does. ``ListBuilder.input_pre_processor(idx, spec)`` places a
 Serde is the reference's (``global_conf_to_dict``/``global_conf_from_dict``,
 ``MultiLayerConfiguration.to_dict``/``to_json``/``from_dict``/``from_json``):
 the same keys, tags and ``format`` string, so a configuration written by
-either package reads back in the other. Not ported yet: the dropout,
-weight-noise, constraint, gradient-normalization, checkpointing and
-optimization-algorithm settings; they are written at the reference's
-defaults, and a configuration that sets one raises when it is read.
+either package reads back in the other. The regularizer settings
+(``dropout``, ``weight_noise``, ``constrain_*``,
+``gradient_normalization``) are the reference's and flow into every
+layer that leaves them unset. Not ported yet: the mini-batch,
+checkpointing and optimization-algorithm settings; they are written at
+the reference's defaults, and a configuration that sets one raises when
+it is read.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as pp
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.constraints import LayerConstraint
+from deeplearning4j_tpu_torch.nn.dropout import IDropout
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer,
     activation_from_config,
@@ -36,6 +41,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
     refuse_unported,
 )
 from deeplearning4j_tpu_torch.nn.updaters import Updater, resolve_updater
+from deeplearning4j_tpu_torch.nn.weightnoise import IWeightNoise
 from deeplearning4j_tpu_torch.nn.weights import Distribution
 
 MLN_FORMAT = "deeplearning4j_tpu.MultiLayerConfiguration"  # data, not an import
@@ -59,6 +65,14 @@ class GlobalConf:
     l2: Optional[float] = None
     l1_bias: Optional[float] = None
     l2_bias: Optional[float] = None
+    dropout: Optional[Any] = None  # float keep probability or IDropout
+    weight_noise: Optional[Any] = None  # IWeightNoise
+    # the builder's constraints, attached to every layer at finalize()
+    all_constraints: Optional[List[Any]] = None
+    weight_constraints: Optional[List[Any]] = None
+    bias_constraints: Optional[List[Any]] = None
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
     dtype: str = "float32"
     # mixed precision (forward cast to this dtype); not supported by the
     # port's forward yet — ComputationGraph raises when it is set
@@ -70,9 +84,6 @@ class GlobalConf:
 
 #: the reference's global settings the port has not ported, at their defaults
 UNPORTED_GLOBAL_FIELDS = {
-    "dropout": None, "weight_noise": None, "all_constraints": None,
-    "weight_constraints": None, "bias_constraints": None,
-    "gradient_normalization": None, "gradient_normalization_threshold": 1.0,
     "mini_batch": True, "gradient_checkpointing": False,
     "optimization_algo": "stochastic_gradient_descent",
     "max_num_line_search_iterations": 5}
@@ -80,11 +91,17 @@ UNPORTED_GLOBAL_FIELDS = {
 
 def global_conf_to_dict(gc: GlobalConf) -> dict:
     """A GlobalConf as the reference writes one: every field (the unported
-    ones at their defaults), updaters and the distribution tagged."""
+    ones at their defaults), updaters, the distribution, dropout, weight
+    noise and constraints tagged."""
     g = dataclasses.asdict(gc)
-    for key in ("updater", "bias_updater", "distribution"):
+    for key in ("updater", "bias_updater", "distribution", "weight_noise"):
         if getattr(gc, key) is not None:
             g[key] = getattr(gc, key).to_dict()
+    if isinstance(gc.dropout, IDropout):
+        g["dropout"] = gc.dropout.to_dict()
+    for key in ("all_constraints", "weight_constraints", "bias_constraints"):
+        if getattr(gc, key):
+            g[key] = [c.to_dict() for c in getattr(gc, key)]
     g.update(UNPORTED_GLOBAL_FIELDS)
     return g
 
@@ -96,7 +113,15 @@ def global_conf_from_dict(d: dict) -> GlobalConf:
             g[key] = Updater.from_dict(g[key])
     if isinstance(g.get("distribution"), dict):
         g["distribution"] = Distribution.from_dict(g["distribution"])
+    if isinstance(g.get("dropout"), dict):
+        g["dropout"] = IDropout.from_dict(g["dropout"])
+    if isinstance(g.get("weight_noise"), dict):
+        g["weight_noise"] = IWeightNoise.from_dict(g["weight_noise"])
     g["activation"] = activation_from_config(g.get("activation"))
+    for key in ("all_constraints", "weight_constraints", "bias_constraints"):
+        if g.get(key):
+            g[key] = [LayerConstraint.from_dict(c) if isinstance(c, dict)
+                      else c for c in g[key]]
     return GlobalConf(**g)
 
 
@@ -158,6 +183,38 @@ class Builder:
 
     def l2_bias(self, v: float) -> "Builder":
         self._g.l2_bias = v
+        return self
+
+    def dropout(self, keep_prob) -> "Builder":
+        """A float keep probability (DL4J's shorthand) or an IDropout
+        (AlphaDropout, GaussianDropout, GaussianNoise, SpatialDropout)."""
+        self._g.dropout = keep_prob
+        return self
+
+    def weight_noise(self, wn) -> "Builder":
+        """An IWeightNoise for every layer's weights at train-time forward
+        (``DropConnect(0.5)``, ``WeightNoise(Distribution(...))``)."""
+        self._g.weight_noise = wn
+        return self
+
+    def constrain_all_parameters(self, *constraints) -> "Builder":
+        """Constraints on ALL parameters of every layer after each update."""
+        self._g.all_constraints = (self._g.all_constraints or []) + list(constraints)
+        return self
+
+    def constrain_bias(self, *constraints) -> "Builder":
+        """Constraints on every layer's biases after each update."""
+        self._g.bias_constraints = (self._g.bias_constraints or []) + list(constraints)
+        return self
+
+    def constrain_weights(self, *constraints) -> "Builder":
+        """Constraints on every layer's weights after each update."""
+        self._g.weight_constraints = (self._g.weight_constraints or []) + list(constraints)
+        return self
+
+    def gradient_normalization(self, mode: str, threshold: float = 1.0) -> "Builder":
+        self._g.gradient_normalization = mode
+        self._g.gradient_normalization_threshold = threshold
         return self
 
     def dtype(self, dt: str) -> "Builder":

@@ -18,10 +18,15 @@ updates them in place, so the serving path (``output``, under
 eagerly; where the reference jits one fused step, the port launches
 kernels one by one.
 
-Not ported yet (the port's configuration has no setting for them):
-gradient normalization, constraints, weight noise, dropout, mixed
-precision, TBPTT, ``rnn_time_step``. A network with attention dropout
-refuses to train.
+Regularizers as in ``MultiLayerNetwork``: each step runs inside
+``schedule_tick`` and draws from the network's dropout generator, vertex
+by vertex in topological order (a layer's weight noise before its
+forward, then its dropout and attention dropout); a loss layer's loss
+sees the same noised weights as its forward. Gradient normalization and
+constraints run per layer around the updater seam. ``output`` never
+draws. ``fit`` prefetches iterators as ``MultiLayerNetwork.fit`` does.
+
+Not ported yet: mixed precision, TBPTT, ``rnn_time_step``.
 """
 
 from __future__ import annotations
@@ -37,10 +42,13 @@ from deeplearning4j_tpu_torch.datasets.dataset import (
     MultiDataSet,
     batch_nbytes,
 )
+from deeplearning4j_tpu_torch.datasets.iterators import wrap_for_prefetch
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
     apply_updates,
     as_tensor,
+    dropout_generator,
     gradients,
     init_parameters,
     regularization,
@@ -74,6 +82,8 @@ class ComputationGraph(nn.Module):
         self.transfer_bytes = 0
         # vertices whose activation another vertex reads
         self._consumed = {s for vd in conf.vertices.values() for s in vd.inputs}
+        # every train-time draw (dropout, weight noise); made by init()
+        self.dropout_generator: Optional[torch.Generator] = None
 
     # ---------------------------------------------------------------- score
     @property
@@ -87,12 +97,15 @@ class ComputationGraph(nn.Module):
         conf's seed (or ``seed``): the reference's schemes, not its draws.
         Each parameter gets its updater (the layer's, else the network's,
         else ``Sgd(0.1)``; ``b`` takes the bias updater when one is set) and
-        that updater's zero state."""
+        that updater's zero state. The dropout generator starts from the
+        same seed."""
         g = self.conf.global_conf
+        seed = g.seed if seed is None else seed
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(g.seed if seed is None else seed)
+        gen.manual_seed(seed)
         self.params, self._updaters, self.updater_states = init_parameters(
             self, self._named_layers(), g, gen, self.dtype, self.device)
+        self.dropout_generator = dropout_generator(seed, self.device)
         self.iteration = 0
         self.epoch = 0
         return self
@@ -103,13 +116,17 @@ class ComputationGraph(nn.Module):
     # -------------------------------------------------------------- forward
     def _forward_all(self, params, inputs: Dict[str, torch.Tensor],
                      masks: Optional[Dict[str, Optional[torch.Tensor]]] = None,
-                     loss_inputs: bool = False) -> Dict[str, torch.Tensor]:
+                     loss_inputs: bool = False, train: bool = False,
+                     gen: Optional[torch.Generator] = None) -> Dict:
         """Execute the DAG in topo order; returns every vertex activation.
 
         With ``loss_inputs``, each loss layer also stores its input under
-        ``name + ":in"`` and its mask under ``name + ":mask"``, and a loss
-        layer whose activation no vertex reads is not run (the loss starts
-        from its input)."""
+        ``name + ":in"``, its mask under ``name + ":mask"`` and the
+        parameters its loss uses (weight noise applied) under
+        ``name + ":params"``, and a loss layer whose activation no vertex
+        reads is not run (the loss starts from its input). ``train`` with
+        ``gen`` draws each layer's weight noise before its forward and its
+        dropout in it."""
         conf = self.conf
         acts: Dict[str, torch.Tensor] = dict(inputs)
         m: Dict[str, Optional[torch.Tensor]] = dict(masks or {})
@@ -120,14 +137,19 @@ class ComputationGraph(nn.Module):
             in_acts = [acts[s] for s in vd.inputs]
             in_masks = [m.get(s) for s in vd.inputs]
             if vd.is_layer:
+                layer = vd.obj
+                p_v = params[name]
+                if train and gen is not None and layer.weight_noise is not None:
+                    p_v = layer.weight_noise.apply(layer, p_v, gen, train)
                 h = in_acts[0] if len(in_acts) == 1 else torch.cat(in_acts, -1)
                 cur_mask = in_masks[0]
-                if loss_inputs and vd.obj.has_loss():
+                if loss_inputs and layer.has_loss():
                     acts[name + ":in"] = h
                     acts[name + ":mask"] = cur_mask
+                    acts[name + ":params"] = p_v
                     if name not in self._consumed:
                         continue
-                y = vd.obj.forward(params[name], h, mask=cur_mask)
+                y = layer.forward(p_v, h, mask=cur_mask, train=train, gen=gen)
                 acts[name] = y
                 # a per-timestep mask collapses when the time dim disappears
                 if (cur_mask is not None and y.ndim == 2
@@ -172,12 +194,15 @@ class ComputationGraph(nn.Module):
         return out[0] if isinstance(out, list) else out
 
     # ----------------------------------------------------------------- loss
-    def _loss_fn(self, params, inputs, labels, masks, label_masks):
+    def _loss_fn(self, params, inputs, labels, masks, label_masks,
+                 train: bool = False, gen: Optional[torch.Generator] = None):
         """The summed losses of the output layers, each from its INPUT
         activation (its ``compute_loss``), plus the l1/l2 penalty; the label
         mask is the given one, else the feature mask that reached the layer
-        (per timestep for a sequence output, per example for a 2-d one)."""
-        acts = self._forward_all(params, inputs, masks, loss_inputs=True)
+        (per timestep for a sequence output, per example for a 2-d one).
+        ``train`` with ``gen`` draws the train-time noise."""
+        acts = self._forward_all(params, inputs, masks, loss_inputs=True,
+                                 train=train, gen=gen)
         loss = 0.0
         for oi, out_name in enumerate(self.conf.outputs):
             vd = self.conf.vertices[out_name]
@@ -196,8 +221,8 @@ class ComputationGraph(nn.Module):
                                        (fm.ndim == 2 and fm.shape[-1] == 1)):
                     # per-example feature mask masks the score
                     lm = fm.reshape(fm.shape[0])
-            loss = loss + layer.compute_loss(params[out_name], h, labels[oi],
-                                             mask=lm)
+            loss = loss + layer.compute_loss(acts[out_name + ":params"], h,
+                                             labels[oi], mask=lm)
         return loss + regularization(self._named_layers(), params)
 
     def _batch(self, mds):
@@ -216,12 +241,16 @@ class ComputationGraph(nn.Module):
                       for mk in mds.labels_masks]
         return inputs, labels, masks, lmasks
 
-    def _gradients(self, inputs, labels, masks=None, lmasks=None):
-        """``(loss, {vertex: {param: grad}})``, by :func:`gradients`."""
+    def _gradients(self, inputs, labels, masks=None, lmasks=None,
+                   train: bool = False):
+        """``(loss, {vertex: {param: grad}})``, by :func:`gradients`; with
+        ``train`` the train-time noise is drawn."""
         if self.params is None:
             raise RuntimeError("call init() (or load parameters) first")
+        gen = self.dropout_generator if train else None
         loss, grads, _ = gradients(
-            lambda live: (self._loss_fn(live, inputs, labels, masks, lmasks), None),
+            lambda live: (self._loss_fn(live, inputs, labels, masks, lmasks,
+                                        train=train, gen=gen), None),
             self.params)
         return loss, grads
 
@@ -230,25 +259,26 @@ class ComputationGraph(nn.Module):
         """One updater step per parameter tensor, in place, through the
         "updater" helper seam (:func:`apply_updates`)."""
         apply_updates(self.params, grads, self._updaters, self.updater_states,
-                      self.iteration, self.epoch)
+                      self.iteration, self.epoch, dict(self._named_layers()))
 
     def _fit_batch(self, ds) -> None:
-        if any(getattr(vd.obj, "attn_dropout", 0.0) for vd in self.conf.layer_vertices()):
-            raise NotImplementedError(
-                "attention dropout is not ported yet: train with "
-                "attn_dropout=0")
         inputs, labels, masks, lmasks = self._batch(self._to_mds(ds))
-        loss, grads = self._gradients(inputs, labels, masks, lmasks)
+        with schedule_tick(self.iteration, self.epoch):
+            loss, grads = self._gradients(inputs, labels, masks, lmasks,
+                                          train=True)
         self._apply_updates(grads)
         self._score = loss
         self.last_batch_size = int(next(iter(inputs.values())).shape[0])
         self.iteration += 1
 
     # ------------------------------------------------------------------- fit
-    def fit(self, data, labels=None, *, epochs: int = 1) -> "ComputationGraph":
+    def fit(self, data, labels=None, *, epochs: int = 1,
+            prefetch_depth: Optional[int] = None) -> "ComputationGraph":
         """Train: ``fit(features, labels)`` (arrays, tensors or lists of
         them, one per input/output), ``fit(DataSet | MultiDataSet)`` or
-        ``fit(iterator)`` (reset before each epoch when it has ``reset``)."""
+        ``fit(iterator)`` (reset before each epoch when it has ``reset``).
+        An iterator is prefetched as in ``MultiLayerNetwork.fit``
+        (``prefetch_depth`` batches, default 2, 0 off)."""
         if self.params is None:
             self.init()
         if labels is not None:
@@ -257,6 +287,7 @@ class ComputationGraph(nn.Module):
             iterator = [data]
         else:
             iterator = data
+        iterator = wrap_for_prefetch(iterator, prefetch_depth, self.device)
         for _ in range(epochs):
             if hasattr(iterator, "reset"):
                 iterator.reset()

@@ -12,6 +12,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.conv import ConvolutionLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
     DenseLayer,
+    DropoutLayer,
     EmbeddingSequenceLayer,
     PositionalEmbeddingLayer,
 )

@@ -5,8 +5,12 @@ head-major QKV projection and scaled dot-product attention over
 ``[N, H, T, Dh]``, through the "attention" helper seam. Both branches are
 differentiable: the flash kernels through ``FlashAttentionFunction`` (the
 forward kernel saves its LSE, the backward is two kernels), the plain math
-through autograd. The KV-cache ``forward_seq`` of the causal layer comes
-with the decode slice.
+through autograd. A train forward with ``attn_dropout > 0`` drops
+attention weights after the softmax (``nn/dropout.py``'s
+:func:`bernoulli`, kept weights scaled by ``1/(1-rate)``): the flash
+kernels have no dropout, so the seam declines such a request, as the
+reference's does, and the plain math runs. The KV-cache ``forward_seq``
+of the causal layer comes with the decode slice.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import dropout as _dropout
 from deeplearning4j_tpu_torch.nn import helpers as _helpers
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.cuda_kernels import FlashAttentionHelper
@@ -26,30 +31,33 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
 _AUTO_FLASH = FlashAttentionHelper(causal=True)
 
 
-def dot_product_attention(q, k, v, mask=None, causal=False):
+def dot_product_attention(q, k, v, mask=None, dropout_rate=0.0, gen=None,
+                          train=False, causal=False):
     """q,k,v: [N, H, T, Dh]; mask: [N, T] (1=valid) or [N, 1, Tq, Tk];
-    ``causal=True`` additionally lower-triangular-masks the scores.
+    ``causal=True`` additionally lower-triangular-masks the scores;
+    ``dropout_rate`` drops attention weights in a train forward that has
+    a generator ``gen``.
 
     The seam in the reference's order: a registered helper takes the
     requests its ``supports`` admits; with none registered and auto-flash
     on, a float32 causal request the flash kernel admits takes the kernel
     (no threshold on T: the reference's v5e gate is not carried over, and
     an H100 one waits for a measurement); otherwise the plain math below.
-    The kernel takes float32 only, so a float64, bf16 or f16 network takes
+    A dropout-active request is one that no flash kernel admits. The
+    kernel takes float32 only, so a float64, bf16 or f16 network takes
     the plain math, as the reference's does off the TPU.
-    Attention dropout is not ported: a network with ``attn_dropout > 0``
-    refuses to train (``ComputationGraph``), and inference has none.
     """
     helper = _helpers.get_helper("attention")
     same = q.shape == k.shape == v.shape
+    dropout_active = bool(train and dropout_rate > 0 and gen is not None)
     if (helper is not None and same
-            and helper.supports(None, tuple(q.shape), mask, False,
+            and helper.supports(None, tuple(q.shape), mask, dropout_active,
                                 causal=causal)):
         return helper.attend(q, k, v)
     if (helper is None and causal and same and q.dtype == torch.float32
             and _helpers.auto_flash_attention_enabled()
-            and _AUTO_FLASH.supports(None, tuple(q.shape), mask, False,
-                                     causal=True)):
+            and _AUTO_FLASH.supports(None, tuple(q.shape), mask,
+                                     dropout_active, causal=True)):
         return _AUTO_FLASH.attend(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("nhqd,nhkd->nhqk", q, k) * scale
@@ -62,7 +70,12 @@ def dot_product_attention(q, k, v, mask=None, causal=False):
         m = tri if m is None else torch.logical_and(m, tri)
     if m is not None:
         scores = scores.masked_fill(~m, torch.finfo(scores.dtype).min)
-    return torch.einsum("nhqk,nhkd->nhqd", torch.softmax(scores, dim=-1), v)
+    w = torch.softmax(scores, dim=-1)
+    if dropout_active:
+        keep = _dropout.bernoulli(1.0 - dropout_rate, w.shape, gen, w.device,
+                                  w.dtype)
+        w = torch.where(keep, w / (1.0 - dropout_rate), w.new_zeros(()))
+    return torch.einsum("nhqk,nhkd->nhqd", w, v)
 
 
 @register_layer
@@ -115,13 +128,15 @@ class SelfAttentionLayer(Layer):
             p["bo"] = torch.zeros((self.n_out,), **kw)
         return p
 
-    def forward(self, params, x, *, mask=None):
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
         n, t, _ = x.shape
         h, dh = self.n_heads, self._dh()
         qkv = x @ params["Wqkv"] + params["bqkv"]                  # [N,T,H*3*Dh]
         qkv = qkv.reshape(n, t, h, 3, dh).permute(3, 0, 2, 1, 4)  # [3,N,H,T,Dh]
         out = dot_product_attention(qkv[0], qkv[1], qkv[2], mask=mask,
-                                    causal=self.causal)
+                                    causal=self.causal,
+                                    dropout_rate=self.attn_dropout, gen=gen,
+                                    train=train)
         y = out.transpose(1, 2).reshape(n, t, h * dh)
         if self.project_input:
             y = y @ params["Wo"] + params["bo"]

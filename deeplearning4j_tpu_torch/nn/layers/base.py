@@ -8,11 +8,18 @@ dict of named tensors under the reference's names and layouts ("W", "b",
 parameters and input, differentiable by autograd. Output layers
 (``has_loss()``) also compute the network's loss.
 
+The regularizer fields are the reference's: ``dropout`` (a float keep
+probability or an ``IDropout``, ``nn/dropout.py``) applied by
+:meth:`Layer._dropout` to a layer's input when its forward runs with
+``train=True`` and a generator; ``weight_noise`` (``nn/weightnoise.py``)
+and ``constraints`` (``nn/constraints.py``), which the networks apply
+around a layer's forward and after its update; ``gradient_normalization``
+and its threshold (``nn/updaters.py`` ``normalize_gradients``). Each is
+inherited from the network's defaults when unset.
+
 ``to_dict`` / ``layer_from_dict`` are the reference's serde: the same keys
-and ``@layer`` tag, so a configuration's JSON reads back in both
-packages. The reference's layer fields that the port has not ported
-(dropout, weight noise, constraints, gradient normalization) are read
-only at their defaults: a configuration that sets one raises.
+and ``@layer``, ``@dropout``, ``@weight_noise`` and ``@constraint`` tags,
+so a configuration's JSON reads back in both packages.
 """
 
 from __future__ import annotations
@@ -25,7 +32,13 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import activations as act_mod
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.constraints import (
+    LayerConstraint,
+    constraints_from_config,
+)
+from deeplearning4j_tpu_torch.nn.dropout import IDropout, resolve_dropout
 from deeplearning4j_tpu_torch.nn.updaters import Schedule, Updater
+from deeplearning4j_tpu_torch.nn.weightnoise import IWeightNoise
 from deeplearning4j_tpu_torch.nn.weights import Distribution, init_weight
 
 Params = Dict[str, torch.Tensor]
@@ -53,15 +66,30 @@ class Layer:
     l2: Optional[float] = None
     l1_bias: Optional[float] = None
     l2_bias: Optional[float] = None
+    dropout: Optional[Any] = None  # float keep probability or IDropout
+    weight_noise: Optional[Any] = None  # IWeightNoise
+    constraints: Optional[list] = None  # LayerConstraint list
+    gradient_normalization: Optional[str] = None
+    gradient_normalization_threshold: float = 1.0
     dtype: Optional[Any] = None
 
     def apply_global_defaults(self, g) -> None:
-        """Inherit unset hyperparams from the global configuration."""
+        """Inherit unset hyperparams from the global configuration; the
+        builder's constraints become scoped copies on the layer."""
         for f in ("activation", "weight_init", "distribution", "bias_init",
                   "updater", "bias_updater", "l1", "l2", "l1_bias", "l2_bias",
-                  "dtype"):
+                  "dropout", "weight_noise", "gradient_normalization", "dtype"):
             if getattr(self, f) is None and getattr(g, f, None) is not None:
                 setattr(self, f, getattr(g, f))
+        if self.gradient_normalization_threshold == 1.0 and \
+                getattr(g, "gradient_normalization_threshold", 1.0) != 1.0:
+            self.gradient_normalization_threshold = g.gradient_normalization_threshold
+        if self.constraints is None:
+            cs = ([c.scoped("all") for c in getattr(g, "all_constraints", None) or ()]
+                  + [c.scoped("weights") for c in getattr(g, "weight_constraints", None) or ()]
+                  + [c.scoped("bias") for c in getattr(g, "bias_constraints", None) or ()])
+            if cs:
+                self.constraints = cs
 
     # ---- shape inference --------------------------------------------------
     def set_n_in(self, input_type: InputType) -> None:
@@ -88,11 +116,32 @@ class Layer:
 
     # ---- forward -----------------------------------------------------------
     def forward(self, params: Params, x: torch.Tensor, *,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train`` with a generator ``gen`` turns on the layer's
+        train-time noise; inference passes neither."""
         raise NotImplementedError
 
     def act_fn(self):
         return act_mod.resolve(self.activation)
+
+    def _dropout(self, x: torch.Tensor, train: bool,
+                 gen: Optional[torch.Generator]) -> torch.Tensor:
+        """DL4J's input dropout: a float is the keep probability (inverted
+        dropout); an IDropout applies itself."""
+        if not train or self.dropout is None or gen is None:
+            return x
+        d = resolve_dropout(self.dropout)
+        return x if d is None else d.apply(x, gen, train)
+
+    def weight_param_names(self) -> Tuple[str, ...]:
+        """The parameters that count as weights (weight noise, the
+        "weights" constraint scope)."""
+        return tuple(n for n in self.param_shapes()
+                     if n not in ("b", "beta", "gamma", "mean", "var"))
+
+    def bias_param_names(self) -> Tuple[str, ...]:
+        return tuple(n for n in self.param_shapes() if n == "b")
 
     def has_loss(self) -> bool:
         """Output-style layers compute the network loss."""
@@ -114,20 +163,15 @@ class Layer:
             v = getattr(self, f.name)
             if v is None:
                 continue
-            if isinstance(v, (Updater, Schedule, Distribution)):
+            if isinstance(v, (Updater, Schedule, Distribution, IDropout,
+                              IWeightNoise)):
                 v = v.to_dict()
+            elif (isinstance(v, list) and v
+                  and all(isinstance(c, LayerConstraint) for c in v)):
+                v = [c.to_dict() for c in v]
             d[f.name] = v
-        d.update({k: v for k, v in UNPORTED_LAYER_FIELDS.items()
-                  if v is not None})
         d["@layer"] = type(self).__name__
         return d
-
-
-#: the reference's layer fields the port has not ported, at their defaults
-#: (``to_dict`` writes the ones that are not None, as the reference does)
-UNPORTED_LAYER_FIELDS = {"dropout": None, "weight_noise": None,
-                         "constraints": None, "gradient_normalization": None,
-                         "gradient_normalization_threshold": 1.0}
 
 
 def refuse_unported(d: dict, defaults: dict, what: str) -> dict:
@@ -158,12 +202,19 @@ def layer_from_dict(d: dict) -> Layer:
     name = d.pop("@layer")
     if name not in LAYER_REGISTRY:
         raise NotImplementedError(f"layer {name!r} is not ported yet")
-    kw = refuse_unported(d, UNPORTED_LAYER_FIELDS, f"layer {name}")
+    kw = d
     for k, v in kw.items():
         if isinstance(v, dict) and "@updater" in v:
             kw[k] = Updater.from_dict(v)
         elif isinstance(v, dict) and "@schedule" in v:
             kw[k] = Schedule.from_dict(v)
+        elif isinstance(v, dict) and "@dropout" in v:
+            kw[k] = IDropout.from_dict(v)
+        elif isinstance(v, dict) and "@weight_noise" in v:
+            kw[k] = IWeightNoise.from_dict(v)
+        elif (isinstance(v, list) and v
+              and all(isinstance(c, dict) and "@constraint" in c for c in v)):
+            kw[k] = constraints_from_config(v)
         elif k == "distribution" and isinstance(v, dict):
             kw[k] = Distribution.from_dict(v)
         elif k == "activation":

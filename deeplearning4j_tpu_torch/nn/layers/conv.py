@@ -15,8 +15,9 @@ the rest on the bottom and right. ``F.conv2d(padding="same")`` refuses a
 stride above 1, so the pad is an explicit ``F.pad``. ``"truncate"`` and
 ``"strict"`` pad ``padding`` on both sides and size the output by floor.
 
-Not ported yet: layer dropout (ROADMAP A2), which raises when set (see
-``nn/layers/base.py``), and the conv layers other than ``ConvolutionLayer``.
+Input dropout runs on the NHWC input, before the NCHW view, so a
+``SpatialDropout`` mask is ``[N, 1, 1, C]`` over the channels as in the
+reference. Not ported yet: the conv layers other than ``ConvolutionLayer``.
 """
 
 from __future__ import annotations
@@ -121,7 +122,8 @@ class ConvolutionLayer(Layer):
             p["b"] = self._init_b((self.n_out,), dtype, device)
         return p
 
-    def forward(self, params, x, *, mask=None):
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        x = self._dropout(x, train, gen)  # on NHWC, before the view
         xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC input
         pad = 0
         if self.convolution_mode == "same":

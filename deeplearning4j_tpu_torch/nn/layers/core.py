@@ -1,8 +1,9 @@
-"""Core layers: Dense, EmbeddingSequence, PositionalEmbedding.
+"""Core layers: Dense, Dropout, EmbeddingSequence, PositionalEmbedding.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/core.py``. Parameters keep
 the reference's names and layouts: Dense ``W`` is ``[n_in, n_out]`` and is
-used as ``x @ W + b``.
+used as ``x @ W + b``. Dense (and so the output layers) applies its input
+dropout in a train forward; ``DropoutLayer`` is dropout alone.
 """
 
 from __future__ import annotations
@@ -62,8 +63,25 @@ class DenseLayer(Layer):
             y = y + params["b"]
         return y
 
-    def forward(self, params, x, *, mask=None):
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        x = self._dropout(x, train, gen)
         return self.act_fn()(self._preact(params, x))
+
+
+@register_layer
+@dataclasses.dataclass
+class DropoutLayer(Layer):
+    """Dropout alone; ``dropout`` is the KEEP probability, DL4J-style. Unset
+    here and on the network, it is 0.5 (the network's default still flows
+    in first, through ``apply_global_defaults``)."""
+
+    def apply_global_defaults(self, g):
+        super().apply_global_defaults(g)
+        if self.dropout is None:
+            self.dropout = 0.5
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        return self._dropout(x, train, gen)
 
 
 @register_layer
@@ -99,7 +117,7 @@ class EmbeddingSequenceLayer(Layer):
             p["b"] = self._init_b((self.n_out,), dtype, device)
         return p
 
-    def forward(self, params, x, *, mask=None):
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
         idx = x.to(torch.int64)
         if idx.ndim == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]
@@ -141,7 +159,7 @@ class PositionalEmbeddingLayer(BaseRecurrentLayer):
                                         generator=gen, dtype=dtype,
                                         device=device)}
 
-    def forward(self, params, x, *, mask=None):
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
         t = x.shape[1]
         if t > self.max_len:
             raise ValueError(f"sequence length {t} exceeds max_len "

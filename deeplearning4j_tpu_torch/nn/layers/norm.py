@@ -38,7 +38,7 @@ class LayerNormalizationLayer(Layer):
         return {"gamma": torch.ones((self.n_in,), dtype=dtype, device=device),
                 "beta": torch.zeros((self.n_in,), dtype=dtype, device=device)}
 
-    def forward(self, params, x, *, mask=None):
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
         mean = x.mean(dim=-1, keepdim=True)
         var = x.var(dim=-1, unbiased=False, keepdim=True)
         xhat = (x - mean) / torch.sqrt(var + self.eps)

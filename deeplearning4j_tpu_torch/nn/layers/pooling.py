@@ -48,7 +48,7 @@ class SubsamplingLayer(Layer):
         w = conv_out_size(input_type.width, kw, sw, pw, 1, self.convolution_mode)
         return InputType.convolutional(h, w, input_type.channels)
 
-    def forward(self, params, x, *, mask=None):
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
         pt = self.pooling_type.lower()
         if pt not in ("max", "avg", "sum", "pnorm"):
             raise ValueError(f"Unknown pooling type {self.pooling_type!r}")

@@ -65,7 +65,7 @@ class BaseRecurrentLayer(Layer):
         """[N,T,C] → ([N,T,H], final_carry)."""
         raise NotImplementedError
 
-    def forward(self, params, x, *, mask=None):
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
         y, _ = self.forward_seq(params, x, carry=None, mask=mask)
         return y
 

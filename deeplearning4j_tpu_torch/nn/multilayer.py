@@ -24,8 +24,19 @@ Truncated BPTT cuts each sequence into chunks of ``tbptt_fwd_length``
 steps; each chunk is one iteration (one update, one Adam step count) and
 hands its final recurrent carry, detached, to the next chunk.
 
-Not ported yet: gradient normalization, constraints, weight noise,
-dropout, mixed precision, gradient checkpointing, listeners,
+Regularizers: a train step runs inside ``schedule_tick(iteration,
+epoch)`` and draws from the network's own dropout generator
+(``dropout_generator``, on its device, apart from the init generator), in
+layer order: each layer's weight noise before its forward, its input
+dropout in the forward, the output layer's weight noise after all the
+others; each TBPTT chunk draws anew. ``output``, ``evaluate``,
+``feed_forward``, ``score`` and ``compute_gradient_and_score`` never draw.
+Gradient normalization and constraints run per layer around the updater
+seam (``nn/train_step.py``). ``fit`` wraps an iterator in asynchronous
+prefetch (``datasets/iterators.py``, ``prefetch_depth``), whose batches
+reach the step already on the device.
+
+Not ported yet: mixed precision, gradient checkpointing, listeners,
 ``fit_batches_on_device``, ROC and regression evaluation, and pretraining.
 """
 
@@ -40,6 +51,7 @@ from torch import nn
 
 from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, batch_nbytes
+from deeplearning4j_tpu_torch.datasets.iterators import wrap_for_prefetch
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn.conf.network import (
     MultiLayerConfiguration,
@@ -49,9 +61,11 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer,
     check_carry_capacity,
 )
+from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
     apply_updates,
     as_tensor,
+    dropout_generator,
     gradients,
     init_parameters,
     regularization,
@@ -98,6 +112,8 @@ class MultiLayerNetwork(nn.Module):
         self.transfer_bytes = 0
         self._rnn_carries: Optional[List] = None
         self._rnn_pos = 0
+        # every train-time draw (dropout, weight noise); made by init()
+        self.dropout_generator: Optional[torch.Generator] = None
 
     @property
     def score_(self) -> float:
@@ -108,12 +124,15 @@ class MultiLayerNetwork(nn.Module):
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
         """Random parameters from a ``torch.Generator`` seeded with the
         conf's seed (or ``seed``): the reference's schemes, not its draws;
-        each tensor gets its updater and that updater's zero state."""
+        each tensor gets its updater and that updater's zero state. The
+        dropout generator starts from the same seed."""
         g = self.conf.global_conf
+        seed = g.seed if seed is None else seed
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(g.seed if seed is None else seed)
+        gen.manual_seed(seed)
         self.params, self._updaters, self.updater_states = init_parameters(
             self, self._named_layers(), g, gen, self.dtype, self.device)
+        self.dropout_generator = dropout_generator(seed, self.device)
         self.iteration = 0
         self.epoch = 0
         return self
@@ -130,10 +149,13 @@ class MultiLayerNetwork(nn.Module):
 
     # -------------------------------------------------------------- forward
     def _forward_all(self, params, x, mask=None, carries=None,
-                     upto: Optional[int] = None):
+                     upto: Optional[int] = None, train: bool = False,
+                     gen: Optional[torch.Generator] = None):
         """Run layers [0, upto); returns ``(activation, new_carries)``.
         With ``carries`` (one per layer, None for the non-recurrent ones),
-        recurrent layers start from them and report their final carry."""
+        recurrent layers start from them and report their final carry.
+        ``train`` with ``gen`` draws each layer's weight noise before its
+        forward and its dropout in it."""
         n_layers = len(self.layers) if upto is None else upto
         h, cur_mask, new_carries = x, mask, []
         for i, layer in enumerate(self.layers):
@@ -142,12 +164,15 @@ class MultiLayerNetwork(nn.Module):
                 continue
             if i in self.conf.preprocessors:
                 h = self.conf.preprocessors[i](h)
+            p_i = params[i]
+            if train and gen is not None and layer.weight_noise is not None:
+                p_i = layer.weight_noise.apply(layer, p_i, gen, train)
             if carries is not None and isinstance(layer, BaseRecurrentLayer):
-                h, c = layer.forward_seq(params[i], h, carry=carries[i],
+                h, c = layer.forward_seq(p_i, h, carry=carries[i],
                                          mask=cur_mask)
                 new_carries.append(c)
             else:
-                h = layer.forward(params[i], h, mask=cur_mask)
+                h = layer.forward(p_i, h, mask=cur_mask, train=train, gen=gen)
                 new_carries.append(None)
             # per-timestep masks collapse when the time dimension disappears;
             # a per-example [N]/[N,1] mask stays valid on 2-d activations
@@ -159,16 +184,19 @@ class MultiLayerNetwork(nn.Module):
     def _regularization(self, params):
         return regularization(self._named_layers(), params)
 
-    def _loss_fn(self, params, x, y, mask, label_mask, carries=None):
+    def _loss_fn(self, params, x, y, mask, label_mask, carries=None,
+                 train: bool = False, gen: Optional[torch.Generator] = None):
         """``(loss, new_carries)``: the output layer's loss from its INPUT
         activation plus the l1/l2 penalty. The label mask is the given one,
         else the feature mask (per timestep for a sequence output, per
-        example for a 2-d one)."""
+        example for a 2-d one). ``train`` with ``gen`` draws the
+        train-time noise, the output layer's weight noise last."""
         out_layer = self.layers[-1]
         if not out_layer.has_loss():
             raise ValueError("Last layer must be an output/loss layer for fit()")
         last = len(self.layers) - 1
-        h, new_carries = self._forward_all(params, x, mask, carries, upto=last)
+        h, new_carries = self._forward_all(params, x, mask, carries, upto=last,
+                                           train=train, gen=gen)
         if last in self.conf.preprocessors:
             h = self.conf.preprocessors[last](h)
         if label_mask is not None:
@@ -181,7 +209,10 @@ class MultiLayerNetwork(nn.Module):
             lm = mask.reshape(mask.shape[0])
         else:
             lm = None
-        loss = out_layer.compute_loss(params[last], h, y, mask=lm)
+        p_out = params[last]
+        if train and gen is not None and out_layer.weight_noise is not None:
+            p_out = out_layer.weight_noise.apply(out_layer, p_out, gen, train)
+        loss = out_layer.compute_loss(p_out, h, y, mask=lm)
         return loss + self._regularization(params), new_carries
 
     # ------------------------------------------------------------ train step
@@ -189,7 +220,7 @@ class MultiLayerNetwork(nn.Module):
         """One updater step per parameter tensor, in place, through the
         "updater" helper seam (:func:`apply_updates`)."""
         apply_updates(self.params, grads, self._updaters, self.updater_states,
-                      self.iteration, self.epoch)
+                      self.iteration, self.epoch, dict(self._named_layers()))
 
     def _batch(self, ds):
         """(features, labels, mask, label mask) of a DataSet as tensors on
@@ -205,8 +236,11 @@ class MultiLayerNetwork(nn.Module):
                 and x.ndim == 3):
             self._fit_tbptt(x, y, mask, lmask)
             return
-        loss, grads, _ = gradients(
-            lambda live: self._loss_fn(live, x, y, mask, lmask), self.params)
+        gen = self.dropout_generator
+        with schedule_tick(self.iteration, self.epoch):
+            loss, grads, _ = gradients(
+                lambda live: self._loss_fn(live, x, y, mask, lmask, train=True,
+                                           gen=gen), self.params)
         self._score = loss
         self._apply_updates(grads)
         self.last_batch_size = int(x.shape[0])
@@ -232,9 +266,11 @@ class MultiLayerNetwork(nn.Module):
             yc = y[:, s:e] if y.ndim == 3 else y
             mc = None if mask is None else mask[:, s:e]
             lc = None if lmask is None else lmask[:, s:e]
-            loss, grads, carries = gradients(
-                lambda live, _c=carries: self._loss_fn(live, xc, yc, mc, lc, _c),
-                self.params)
+            with schedule_tick(self.iteration, self.epoch):
+                loss, grads, carries = gradients(
+                    lambda live, _c=carries: self._loss_fn(
+                        live, xc, yc, mc, lc, _c, train=True,
+                        gen=self.dropout_generator), self.params)
             carries = [_detach(cr) for cr in carries]
             self._score = loss
             self._apply_updates(grads)
@@ -242,10 +278,14 @@ class MultiLayerNetwork(nn.Module):
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, *, epochs: int = 1, features_mask=None,
-            labels_mask=None) -> "MultiLayerNetwork":
+            labels_mask=None, prefetch_depth: Optional[int] = None
+            ) -> "MultiLayerNetwork":
         """Train: ``fit(features, labels)`` (arrays or tensors, with optional
         masks), ``fit(DataSet)`` or ``fit(iterator)`` (reset before each
-        epoch when it has ``reset``)."""
+        epoch when it has ``reset``). An iterator is wrapped in
+        asynchronous host-to-device prefetch of ``prefetch_depth`` batches
+        (default 2; 0 turns it off; see ``wrap_for_prefetch`` for what is
+        never wrapped)."""
         if self.params is None:
             self.init()
         if labels is not None:
@@ -254,6 +294,7 @@ class MultiLayerNetwork(nn.Module):
             iterator = [data]
         else:
             iterator = data
+        iterator = wrap_for_prefetch(iterator, prefetch_depth, self.device)
         for _ in range(epochs):
             if hasattr(iterator, "reset"):
                 iterator.reset()

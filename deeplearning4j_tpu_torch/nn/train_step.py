@@ -9,6 +9,13 @@ aliases of them (they share storage) with ``torch.autograd.grad``, and
 :func:`apply_updates` then writes the new values IN PLACE under
 ``torch.no_grad()`` (a helper such as ``FusedUpdaterHelper`` writes into
 their storage), so an inference pass never meets an autograd graph.
+
+Per layer, :func:`apply_updates` normalizes the gradients (the layer's
+``gradient_normalization``) before the updater seam, so a fused updater
+kernel sees the normalized gradient, and runs the layer's constraints
+after its update, writing them into the same tensors. The train-time
+noise (dropout, weight noise, attention dropout) draws from a network's
+own generator, :func:`dropout_generator`, on the network's device.
 """
 
 from __future__ import annotations
@@ -20,7 +27,8 @@ import torch
 from torch import nn
 
 from deeplearning4j_tpu_torch.nn import helpers as _helpers
-from deeplearning4j_tpu_torch.nn.updaters import Sgd
+from deeplearning4j_tpu_torch.nn.constraints import apply_constraints
+from deeplearning4j_tpu_torch.nn.updaters import Sgd, normalize_gradients
 
 Tree = Dict[object, Dict[str, torch.Tensor]]
 
@@ -94,17 +102,38 @@ def gradients(loss_fn: Callable, params: Tree):
     return loss.detach(), grads, aux
 
 
+#: the dropout generator's seed is the network's seed plus this, so its
+#: stream stays apart from the one that initialized the parameters
+DROPOUT_SEED_OFFSET = 0x9E3779B9
+
+
+def dropout_generator(seed: int, device) -> torch.Generator:
+    """The generator every train-time draw of a network comes from, on the
+    network's device, seeded from the network's seed."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(seed) + DROPOUT_SEED_OFFSET) % 2 ** 63)
+    return gen
+
+
 def apply_updates(params: Tree, grads: Tree, updaters, states,
-                  iteration: int, epoch: int) -> None:
+                  iteration: int, epoch: int, layers=None) -> None:
     """One updater step per parameter tensor, in place, at the 1-based step
     ``iteration + 1``. A registered "updater" helper takes every tensor its
     ``supports`` admits (the reference's seam); the others take their
-    updater's stock math."""
+    updater's stock math. ``layers`` (``{key: layer}``) brings each
+    layer's gradient normalization, before its update, and its
+    constraints, after it."""
     uhelper = _helpers.get_helper("updater")
     it, ep = np.float32(iteration), np.float32(epoch)
     t = float(iteration) + 1.0
+    layers = layers or {}
     with torch.no_grad():
         for key, named in grads.items():
+            layer = layers.get(key)
+            if layer is not None and layer.gradient_normalization:
+                named = normalize_gradients(
+                    named, layer.gradient_normalization,
+                    layer.gradient_normalization_threshold)
             for n, g in named.items():
                 u = updaters[key][n]
                 p = params[key][n]
@@ -117,3 +146,9 @@ def apply_updates(params: Tree, grads: Tree, updaters, states,
                     continue
                 upd, states[key][n] = u.update(g, states[key][n], lr, t)
                 p.sub_(upd.to(p.dtype))
+            if layer is not None:
+                # written into the same tensors: the updater state and a
+                # fused kernel keep pointing at them
+                for n, v in apply_constraints(layer, params[key]).items():
+                    if v is not params[key][n]:
+                        params[key][n].copy_(v)

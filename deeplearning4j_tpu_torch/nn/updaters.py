@@ -1,8 +1,7 @@
 """Updaters (optimizers) and learning-rate schedules with ND4J semantics.
 
 Counterpart of ``deeplearning4j_tpu/nn/updaters.py`` (the schedules, the
-ten updater classes and ``resolve_updater``; gradient normalization comes
-with a later slice). ``Updater.update(grad, state, lr, t)`` returns the
+ten updater classes, ``resolve_updater`` and ``normalize_gradients``). ``Updater.update(grad, state, lr, t)`` returns the
 value to SUBTRACT from the parameter and the new state; ``t`` is the
 1-based step (``iteration + 1``).
 
@@ -392,3 +391,45 @@ def resolve_updater(spec: Union[str, Updater, dict, None]) -> Updater:
     if key not in aliases:
         raise ValueError(f"Unknown updater {spec!r}")
     return aliases[key]()
+
+
+# ---------------------------------------------------------------------------
+# Gradient normalization (DL4J GradientNormalization enum)
+# ---------------------------------------------------------------------------
+
+def normalize_gradients(grads: Dict[str, torch.Tensor], mode,
+                        threshold: float = 1.0) -> Dict[str, torch.Tensor]:
+    """DL4J's GradientNormalization over one layer's gradient dict.
+
+    Modes: None | "renormalize_l2_per_layer" | "renormalize_l2_per_param_type"
+    | "clip_elementwise_absolute_value" | "clip_l2_per_layer"
+    | "clip_l2_per_param_type". The norms stay on the device (no sync)."""
+    if not mode or mode == "none":
+        return grads
+    mode = mode.lower()
+
+    def norm(g):
+        return torch.sqrt(torch.sum(g * g))
+
+    if mode == "renormalize_l2_per_param_type":
+        return {k: g / torch.clamp_min(norm(g), 1e-8) for k, g in grads.items()}
+    if mode == "clip_elementwise_absolute_value":
+        return {k: torch.clamp(g, -threshold, threshold) for k, g in grads.items()}
+    if mode == "clip_l2_per_param_type":
+        out = {}
+        for k, g in grads.items():
+            n = norm(g)
+            out[k] = torch.where(n > threshold,
+                                 g * (threshold / torch.clamp_min(n, 1e-8)), g)
+        return out
+    # the layer-wide modes need the joint norm
+    total = sum(torch.sum(g * g) for g in grads.values())
+    joint = torch.sqrt(torch.as_tensor(total))
+    if mode == "renormalize_l2_per_layer":
+        return {k: g / torch.clamp_min(joint, 1e-8) for k, g in grads.items()}
+    if mode == "clip_l2_per_layer":
+        scale = torch.where(joint > threshold,
+                            threshold / torch.clamp_min(joint, 1e-8),
+                            torch.ones_like(joint))
+        return {k: g * scale for k, g in grads.items()}
+    raise ValueError(f"Unknown gradient normalization mode {mode!r}")

@@ -10,6 +10,9 @@ zip, so that a model saved by either package restores in the other:
   (``m``, ``v``, and ``v_hat`` for AMSGrad);
 - ``states.npz``: layer state (BatchNorm's running statistics), which no
   layer of the port has yet, so the port writes none and refuses one;
+- ``normalizer.json`` (optional): a fitted normalizer's JSON
+  (``datasets/normalizers.py``), written by ``write_model(normalizer=)``
+  or ``add_normalizer_to_model`` and read by ``restore_normalizer``;
 - ``meta.json``: ``iteration``, ``epoch``, ``framework`` and the
   ``qkv_layout`` stamp (a zip without it holds the older fused-QKV column
   order, repacked on restore).
@@ -17,7 +20,7 @@ zip, so that a model saved by either package restores in the other:
 Arrays are written in the model's dtype from the host. Restore builds the
 network on ``device`` (``cuda`` unless the caller passes ``"cpu"``, as
 every entry point of the port). Not ported yet (ROADMAP A9): the
-``ComputationGraph`` zip, which raises, and the normalizer entry.
+``ComputationGraph`` zip, which raises.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ CONFIG_NAME = "configuration.json"
 PARAMS_NAME = "params.npz"
 UPDATER_NAME = "updater.npz"
 STATES_NAME = "states.npz"
+NORMALIZER_NAME = "normalizer.json"
 META_NAME = "meta.json"
 
 
@@ -77,8 +81,9 @@ def replace_zip_entry(path, entry_name: str, payload: bytes) -> None:
 
 
 def write_model(model, path: Union[str, Path], *,
-                save_updater: bool = True) -> None:
-    """``ModelSerializer.writeModel``: ``model``'s zip at ``path``."""
+                save_updater: bool = True, normalizer=None) -> None:
+    """``ModelSerializer.writeModel``: ``model``'s zip at ``path``, with
+    ``normalizer``'s JSON when one is given."""
     from deeplearning4j_tpu_torch.nn.layers.attention import QKV_LAYOUT
 
     if model.params is None:
@@ -97,6 +102,8 @@ def write_model(model, path: Union[str, Path], *,
         z.writestr(PARAMS_NAME, _npz_bytes(params))
         if upd:
             z.writestr(UPDATER_NAME, _npz_bytes(upd))
+        if normalizer is not None:
+            z.writestr(NORMALIZER_NAME, normalizer.to_json())
         z.writestr(META_NAME, json.dumps(
             {"iteration": model.iteration, "epoch": model.epoch,
              "framework": "deeplearning4j_tpu_torch",
@@ -213,3 +220,20 @@ def restore_model(path, *, load_updater: bool = True, device=None):
     only (a ``ComputationGraph`` zip raises)."""
     return restore_multi_layer_network(path, load_updater=load_updater,
                                        device=device)
+
+
+def add_normalizer_to_model(path, normalizer) -> None:
+    """``ModelSerializer.addNormalizerToModel``: rewrites the zip at
+    ``path`` with ``normalizer``'s JSON."""
+    replace_zip_entry(path, NORMALIZER_NAME,
+                      normalizer.to_json().encode("utf-8"))
+
+
+def restore_normalizer(path):
+    """The normalizer a model zip holds, or None."""
+    from deeplearning4j_tpu_torch.datasets.normalizers import Normalizer
+
+    with zipfile.ZipFile(path, "r") as z:
+        if NORMALIZER_NAME not in z.namelist():
+            return None
+        return Normalizer.from_json(z.read(NORMALIZER_NAME).decode())

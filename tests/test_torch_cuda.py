@@ -589,3 +589,115 @@ def test_lenet_fit_on_the_card_matches_the_stock_updater(card):
     for i, named in twin.params.items():
         for n, t in named.items():
             torch.testing.assert_close(kern.params[i][n], t, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_dropout_draws_on_the_network_device_from_its_own_generator(card):
+    """A CUDA net's dropout generator lives on the card; every draw of a
+    fit happens there; a CPU generator never draws for a CUDA tensor."""
+    from deeplearning4j_tpu_torch.nn import dropout as PD
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+
+    conf = (NeuralNetConfiguration.builder().seed(3).updater(Adam(1e-2)).dropout(0.7)
+            .list().layer(DenseLayer(n_out=16, activation="relu"))
+            .layer(OutputLayer(n_out=4)).set_input_type(InputType.feed_forward(8))
+            .build())
+    net = MultiLayerNetwork(conf).init()
+    assert net.dropout_generator.device.type == "cuda"
+    devices = []
+    bernoulli = PD.bernoulli
+
+    def spy(p, shape, gen, device, dtype=torch.float32):
+        devices.append((torch.device(device).type, gen.device.type))
+        return bernoulli(p, shape, gen, device, dtype)
+
+    PD.bernoulli = spy
+    try:
+        x = torch.randn(6, 8, device=card)
+        y = torch.nn.functional.one_hot(torch.arange(6) % 4, 4).float().to(card)
+        state = net.dropout_generator.get_state()
+        net.fit(x, y)
+        first = net.score_
+        net.dropout_generator.set_state(state)
+        net.fit(x, y)
+    finally:
+        PD.bernoulli = bernoulli
+    # one draw a step, the dense layer's input: the output layer's loss
+    # starts from its input and draws nothing, as in the reference
+    assert devices == [("cuda", "cuda")] * 2
+    assert np.isfinite(first) and np.isfinite(net.score_)
+    with pytest.raises(ValueError, match="cannot draw"):
+        PD.Dropout(0.5).apply(x, torch.Generator(), True)
+
+
+@pytest.mark.cuda
+def test_prefetch_pins_and_copies_on_a_side_stream(card):
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator, MultiDataSet
+    from deeplearning4j_tpu_torch.datasets import iterators as PI
+
+    rng = np.random.default_rng(4)
+    f = rng.standard_normal((64, 8)).astype(np.float32)
+    l = rng.standard_normal((64, 3)).astype(np.float32)
+    ds = PI.device_put_batch(DataSet(f, l, np.ones(64, np.float32)), card)
+    dc = ds.device_copy
+    assert all(h.is_pinned() for h in dc.host) and len(dc.host) == 3
+    assert dc.stream.cuda_stream != torch.cuda.default_stream().cuda_stream
+    before = dict(PI.COPY_STATS)
+    PI.finish_device_put(ds)
+    PI.finish_device_put(ds)  # a second finish changes nothing
+    assert {k: PI.COPY_STATS[k] - before[k] for k in before} == \
+        {"batches": 1, "pinned": 1, "side_stream": 1}
+    assert ds.features.is_cuda and torch.equal(ds.features.cpu(), torch.from_numpy(f))
+    on_card = torch.zeros(2, device=card)
+    mds = PI.device_put_batch(MultiDataSet([f], [on_card]), card)
+    assert mds.labels[0] is on_card and len(mds.device_copy.host) == 1
+    batches = list(PI.wrap_for_prefetch(ListDataSetIterator(DataSet(f, l), 16), None))
+    assert len(batches) == 4 and all(b.features.is_cuda for b in batches)
+    assert torch.equal(torch.cat([b.labels for b in batches]).cpu(), torch.from_numpy(l))
+
+
+@pytest.mark.cuda
+def test_fit_with_prefetch_equals_fit_without_on_the_card(card):
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+
+    rng = np.random.default_rng(5)
+    f = rng.standard_normal((48, 8)).astype(np.float32)
+    l = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 48)]
+    nets = []
+    for depth in (None, 0):
+        conf = (NeuralNetConfiguration.builder().seed(3).updater(Adam(1e-2))
+                .dropout(0.8).gradient_normalization("clip_l2_per_layer", 0.5)
+                .list().layer(DenseLayer(n_out=16, activation="relu"))
+                .layer(OutputLayer(n_out=4)).set_input_type(InputType.feed_forward(8))
+                .build())
+        net = MultiLayerNetwork(conf).init()
+        net.fit(ListDataSetIterator(DataSet(f, l), 8, shuffle=True), epochs=3,
+                prefetch_depth=depth)
+        nets.append(net)
+    torch.cuda.synchronize()
+    assert nets[0].iteration == nets[1].iteration == 18
+    assert nets[0].transfer_bytes == nets[1].transfer_bytes
+    for i, named in nets[1].params.items():
+        for n, t in named.items():
+            torch.testing.assert_close(nets[0].params[i][n], t, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_flash_seam_declines_dropout_on_the_card(card):
+    """With attention dropout, fit runs the plain attention (no flash
+    launch) and ``output`` the flash forward, one launch a layer."""
+    net = TransformerLM(vocab_size=64, max_length=128, n_layers=2, d_model=128,
+                        n_heads=2, d_ff=256, attn_dropout=0.1).init()
+    ids = np.random.default_rng(6).integers(0, 64, (2, 128))
+    labels = torch.nn.functional.one_hot(torch.from_numpy(ids), 64).float().to(card)
+    x = torch.from_numpy(ids.astype(np.float32)).to(card)
+    counters = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+                ck.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    net.fit(x, labels)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before and np.isfinite(net.score_)
+    net.output(x)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0, 0]

@@ -148,3 +148,28 @@ def test_training_modules_leave_jax_unloaded():
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_regularizer_and_pipeline_modules_leave_jax_unloaded():
+    """The regularizers and the input pipeline (dropout, weight noise,
+    constraints, the tick, iterators, normalizers) import no jax."""
+    code = ("import sys, deeplearning4j_tpu_torch.nn.dropout, "
+            "deeplearning4j_tpu_torch.nn.weightnoise, "
+            "deeplearning4j_tpu_torch.nn.constraints, "
+            "deeplearning4j_tpu_torch.nn.tick, "
+            "deeplearning4j_tpu_torch.datasets.iterators, "
+            "deeplearning4j_tpu_torch.datasets.normalizers, "
+            "deeplearning4j_tpu_torch.datasets; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    names = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"deeplearning4j_tpu_torch/nn/dropout.py",
+            "deeplearning4j_tpu_torch/nn/weightnoise.py",
+            "deeplearning4j_tpu_torch/nn/constraints.py",
+            "deeplearning4j_tpu_torch/nn/tick.py",
+            "deeplearning4j_tpu_torch/datasets/iterators.py",
+            "deeplearning4j_tpu_torch/datasets/normalizers.py"} <= names

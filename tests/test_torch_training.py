@@ -233,11 +233,29 @@ def test_training_leaves_the_serving_path_without_autograd(reference, batch):
 
 
 def test_attention_dropout_refuses_to_train(batch):
+    """The flash seam refuses a dropout-active request: ``fit`` with
+    attention dropout trains on the plain math (the flash helper is never
+    asked to attend), while the gradient hook and inference, which draw no
+    dropout, take the flash path."""
+    attended = []
+
+    class Spy(ck.FlashAttentionHelper):
+        def attend(self, q, k, v):
+            attended.append(tuple(q.shape))
+            return super().attend(q, k, v)
+
     net = TorchLM(**dict(SMALL, attn_dropout=0.1)).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="attention dropout"):
+    thelpers.set_helper("attention", Spy(causal=True))
+    try:
         net.fit(*batch)
-    grads, loss = net.compute_gradient_and_score(*batch)  # no dropout here
-    assert np.isfinite(loss) and "embed" in grads
+        assert attended == [] and np.isfinite(net.score_)
+        grads, loss = net.compute_gradient_and_score(*batch)  # no dropout here
+        assert np.isfinite(loss) and "embed" in grads
+        assert len(attended) == SMALL["n_layers"]
+        net.output(batch[0])
+        assert len(attended) == 2 * SMALL["n_layers"]
+    finally:
+        thelpers.clear_helper("attention")
 
 
 def test_updater_seam_consulted_per_tensor(reference, batch):
