@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs eight phases:
+every kernel, and runs ten phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -64,7 +64,25 @@ every kernel, and runs eight phases:
    steps through a prefetching iterator (150 fused-Adam launches a step,
    no flash launch: the seam declines a dropout-active request), one
    ``output`` (12 flash-forward launches), and a step repeated from the
-   dropout generator's saved state must give the same loss.
+   dropout generator's saved state must give the same loss;
+9. decode: GPT-2-small prefills 8 x 240 seeded ids through
+   ``rnn_time_step`` and takes 16 single-token steps through the KV
+   caches (no flash launch), each step's probabilities within 1e-4 of
+   ``output`` over the same 256 ids (12 flash-forward launches); then
+   ``generate`` (the host loop) and ``generate_on_device`` (greedy: the
+   same tokens; sampled at temperature 0.8, top_k 40, top_p 0.95: in the
+   vocabulary, decided by the seed, and no synchronising call between
+   the prefill and the read) from 8 prompts of 128 ids, and
+   ``beam_search`` (2 prompts x beam 4, length penalty 1; beam 1 equals
+   greedy); each is timed (ms a token from CUDA events at each step,
+   tokens/s), profiled (device busy share, launches a step) and set
+   beside the bytes bound of its step;
+10. GPT-2-small trained by truncated BPTT (chunks of 256 through the
+   carried KV caches) with the fused updater: 2 fit calls on one 8 x 1024
+   batch (4 chunks and 4 iterations a fit, 150 fused-Adam launches and no
+   flash launch a chunk, the mean loss falling), its model zip without
+   the updater state restored on the card (the same output) and the CPU
+   (within 1e-5), and example 11's TBPTT net's zip with its Adam state.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -181,6 +199,21 @@ EX17_JAX_ACCURACY, EX17_ACCURACY_TOL, EX17_MAX_NORM = 1.0, 0.05, 2.0
 LENET_REG_WINDOW_EPOCHS = 8
 # GPT-2-small with attention dropout: 5 fit steps, a repeat within 1e-6
 GPT2_DROPOUT, GPT2_REPEAT_RTOL = 0.1, 1e-6
+# decode at GPT-2-small width: 8 x 240 seeded ids prefilled through
+# rnn_time_step, then 16 single-token steps, each step's probabilities
+# within 1e-4 absolute of output over the same 256 ids (the served-answer
+# limit: the flash kernel sums in another order); generate, greedy, and
+# generate_on_device from 8 prompts of 128 ids; sampling at temperature
+# 0.8, top_k 40, top_p 0.95; beam_search on 2 prompts x beam 4
+DECODE_N, DECODE_PREFILL, DECODE_STEPS, DECODE_ATOL = 8, 240, 16, 1e-4
+GEN_PROMPT, GEN_TOKENS, GEN_PROFILED = 128, 64, 32
+SAMPLE_KW = dict(temperature=0.8, top_k=40, top_p=0.95)
+BEAM_N, BEAM_SIZE, BEAM_TOKENS, BEAM_PENALTY = 2, 4, 32, 1.0
+# GPT-2-small trained by truncated BPTT: chunks of 256 of one 8 x 1024
+# batch (the last label column masked, as in example 11), two fit calls;
+# the zip of the trained net without its updater state restored on the
+# card (output on 2 x 128 ids exact) and the CPU (within 1e-5)
+TBPTT_LEN, TBPTT_FITS, ZIP_CPU_ATOL, ZIP_IDS = 256, 2, 1e-5, (2, 128)
 
 
 def card_peaks(name: str):
@@ -557,6 +590,32 @@ def device_ms_by_kernel(prof):
     return per_kernel
 
 
+def profiled(fn, cpu=True, attempts=3):
+    """``(profile, wall_ms, device ms by kernel)`` of one synchronised run
+    of ``fn()`` under torch.profiler. The profiler on the card has been
+    seen to hand back a profile with no device events now and then (the
+    same command recorded them in another run); such a profile is run
+    again, up to ``attempts`` times, and the last one's error raises.
+    ``fn`` must be safe to repeat."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = ([ProfilerActivity.CPU] if cpu else []) + [ProfilerActivity.CUDA]
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        try:
+            return prof, wall, device_ms_by_kernel(prof)
+        except RuntimeError:
+            if attempt == attempts - 1:
+                raise
+            print(f"profiler: no device time recorded, attempt {attempt + 1} "
+                  f"of {attempts}", flush=True)
+
+
 def library_kernels(fn):
     """The device kernels one call of ``fn`` runs, with their ms, from
     one ``torch.profiler`` pass (names cut to 120 characters)."""
@@ -767,15 +826,14 @@ def device_ms_per_launch(fn, key: str, launches: int = 20) -> float:
     call of ``fn`` launches, averaged over ``launches`` calls under
     torch.profiler: at T = 1 a kernel is shorter than its host call, so
     CUDA events around back-to-back calls would time the host."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(launches):
             fn()
-        torch.cuda.synchronize()
-    total = sum(ms for k, ms in device_ms_by_kernel(prof).items() if key in k)
+
+    _, _, per_kernel = profiled(calls, cpu=False)
+    total = sum(ms for k, ms in per_kernel.items() if key in k)
     if total == 0:
         raise RuntimeError(f"torch.profiler recorded no {key} kernel")
     return total / launches  # one such kernel a call
@@ -1753,6 +1811,347 @@ def gpt2_attn_dropout_phase(ck, card):
     return {"fused_adam": launches["fused_adam"], "output_fwd": output_launches}
 
 
+def gpt2_block_and_head_bytes(net):
+    """The f32 bytes a decode step reads of the weights: every parameter
+    but the embedding table and the positions (a step gathers one row of
+    each)."""
+    return 4.0 * sum(t.numel() for v, named in net.params.items()
+                     if v not in ("embed", "pos") for t in named.values())
+
+
+def kv_cache_bytes(net, batch):
+    """The f32 bytes of every attention layer's full-capacity K and V
+    caches at ``batch`` rows."""
+    total = 0
+    for vd in net.conf.layer_vertices():
+        layer = vd.obj
+        if hasattr(layer, "max_cache"):
+            total += 2 * batch * layer.n_heads * layer.max_cache * layer._dh()
+    return 4.0 * total
+
+
+def profile_call(fn):
+    """``(wall_ms, device ms by kernel group, kernel launches)`` of one
+    call of ``fn`` under torch.profiler (the host clock around a
+    synchronised call)."""
+    prof, wall, per_kernel = profiled(fn)
+    launches = sum(e.count for e in prof.key_averages()
+                   if "cuda" in str(getattr(e, "device_type", "")).lower())
+    groups = {}
+    for name, ms in per_kernel.items():
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+    return wall, groups, launches
+
+
+class StepEvents:
+    """Records a CUDA event as each decode step of ``models._step`` (the
+    on-device paths) or each ``rnn_time_step`` call of ``net`` (the host
+    loop) starts; ``ms()`` is the median interval between consecutive
+    starts, one token's period."""
+
+    def __init__(self, models, net, host_loop):
+        self.events, self.host_loop = [], host_loop
+        self.target = (net, "rnn_time_step") if host_loop else (models, "_step")
+        self.orig = getattr(*self.target)
+
+    def __enter__(self):
+        def recorded(*a, **kw):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.events.append(e)
+            return self.orig(*a, **kw)
+        setattr(*self.target, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        if self.host_loop:
+            delattr(*self.target)  # the instance attribute hid the method
+        else:
+            setattr(*self.target, self.orig)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        gaps = [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+        return float(np.median(gaps))
+
+
+def decode_phase(ck, card, peaks):
+    """GPT-2-small decoding: the KV-cache steps against ``output``, then
+    ``generate``, ``generate_on_device`` (greedy and sampled, the loop
+    checked for synchronisation) and ``beam_search``, each timed and
+    profiled beside the bytes bound of its step. Returns the launches."""
+    from deeplearning4j_tpu_torch.zoo import models
+    from deeplearning4j_tpu_torch.zoo.models import (TransformerLM, beam_search,
+                                                     generate, generate_on_device)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = TransformerLM().init()  # GPT-2-small, f32, seed 123, on cuda
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    rng = np.random.default_rng(123)
+    ids = rng.integers(0, vocab, (DECODE_N, DECODE_PREFILL + DECODE_STEPS))
+    x = ids.astype(np.float32)
+    counters = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+                ck.flash_attention_bwd_dkv)
+
+    # the KV-cache path against the whole sequence
+    for c in counters:
+        c.launches = 0
+    net.rnn_clear_previous_state()
+    probs = [net.rnn_time_step(x[:, :DECODE_PREFILL, None])]
+    for j in range(DECODE_PREFILL, x.shape[1]):
+        probs.append(net.rnn_time_step(x[:, j:j + 1]))
+    torch.cuda.synchronize()
+    decode_launches = {c.__name__: c.launches for c in counters}
+    full = net.output(x)
+    torch.cuda.synchronize()
+    output_launches = ck.flash_attention_fwd.launches - decode_launches["flash_attention_fwd"]
+    err = max((probs[0] - full[:, :DECODE_PREFILL]).abs().max().item(),
+              max((p - full[:, DECODE_PREFILL + i]).abs().max().item()
+                  for i, p in enumerate(probs[1:])))
+    del probs, full
+    if any(decode_launches.values()) or output_launches != n_layers:
+        raise RuntimeError(f"decode launched {decode_launches} (expected none); "
+                           f"output {output_launches} flash launches, expected "
+                           f"{n_layers}")
+    if not err <= DECODE_ATOL:
+        raise RuntimeError(f"decode disagrees with output: max |a-b| {err}")
+
+    prompts = x[:, :GEN_PROMPT]
+    weights_b = gpt2_block_and_head_bytes(net)
+
+    def run(fn, rows, new_tokens, host_loop=False, beams=1, cache_passes=1):
+        """fn() once after a short warm-up call, timed (CUDA events at each
+        step's start, host wall), then profiled at GEN_PROFILED tokens and
+        at 1 (prefill only). ``rows`` sequences come back, each decoded as
+        ``beams`` hypotheses (the step's batch is rows x beams)."""
+        fn(2)
+        torch.cuda.synchronize()
+        with StepEvents(models, net, host_loop) as ev:
+            t0 = time.perf_counter()
+            out = fn(new_tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        wall_1, groups_1, k_1 = profile_call(lambda: fn(1))
+        wall_p, groups_p, k_p = profile_call(lambda: fn(GEN_PROFILED + 1))
+        dev_1, dev_p = sum(groups_1.values()), sum(groups_p.values())
+        steps = GEN_PROFILED
+        by_group = {g: (ms - groups_1.get(g, 0.0)) / steps
+                    for g, ms in sorted(groups_p.items(), key=lambda kv: -kv[1])}
+        nbytes = weights_b + cache_passes * kv_cache_bytes(net, rows * beams)
+        bound_ms = nbytes / peaks["mem"] * 1e3
+        ms_tok = ev.ms()
+        return out, {
+            "rows": rows, "beams": beams, "new_tokens": new_tokens,
+            "ms_per_token": ms_tok, "tokens_per_s": rows * new_tokens / wall,
+            "wall_s": wall,
+            "profiled_tokens": steps, "busy_share": dev_p / wall_p,
+            "busy_share_steps_only": (dev_p - dev_1) / (wall_p - wall_1),
+            "launches_per_step": (k_p - k_1) / steps,
+            "device_ms_per_step": (dev_p - dev_1) / steps,
+            "device_ms_per_step_by_group": by_group,
+            "step_bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / ms_tok}
+
+    for c in counters:
+        c.launches = 0
+    host, host_stats = run(lambda n: generate(net, prompts, n), DECODE_N,
+                           GEN_TOKENS, host_loop=True)
+    dev, dev_stats = run(lambda n: generate_on_device(net, prompts, n),
+                         DECODE_N, GEN_TOKENS)
+    if not np.array_equal(host, dev):
+        raise RuntimeError("generate_on_device (greedy) differs from generate: "
+                           f"{(host != dev).sum()} of {host.size} tokens")
+    sampled = generate_on_device(net, prompts, GEN_TOKENS, seed=1,
+                                 check_no_sync=True, **SAMPLE_KW)
+    again = generate_on_device(net, prompts, GEN_TOKENS, seed=1,
+                               check_no_sync=True, **SAMPLE_KW)
+    other = generate_on_device(net, prompts, GEN_TOKENS, seed=2,
+                               check_no_sync=True, **SAMPLE_KW)
+    if not (sampled.shape == (DECODE_N, GEN_TOKENS)
+            and ((sampled >= 0) & (sampled < vocab)).all()
+            and np.array_equal(sampled, again) and not np.array_equal(sampled, other)):
+        raise RuntimeError("sampled decode: ids out of the vocabulary, or the "
+                           "seed does not decide the draws")
+    _, sample_stats = run(
+        lambda n: generate_on_device(net, prompts, n, seed=1, **SAMPLE_KW),
+        DECODE_N, GEN_TOKENS)
+    beam_prompts = prompts[:BEAM_N]
+    (beam_toks, beam_scores), beam_stats = run(
+        lambda n: beam_search(net, beam_prompts, n, beam_size=BEAM_SIZE,
+                              length_penalty=BEAM_PENALTY),
+        BEAM_N, BEAM_TOKENS, beams=BEAM_SIZE, cache_passes=3)
+    greedy_beam, _ = beam_search(net, beam_prompts, BEAM_TOKENS, beam_size=1)
+    if not (np.array_equal(greedy_beam, dev[:BEAM_N, :BEAM_TOKENS])
+            and beam_toks.shape == (BEAM_N, BEAM_TOKENS)
+            and np.isfinite(beam_scores).all()):
+        raise RuntimeError("beam_search: beam 1 differs from greedy, or bad beams")
+    gen_launches = {c.__name__: c.launches for c in counters}
+    if any(gen_launches.values()):
+        raise RuntimeError(f"generation launched flash kernels: {gen_launches}")
+    stats = {
+        "card": card, "prefill": [DECODE_N, DECODE_PREFILL],
+        "steps": DECODE_STEPS, "max_abs_err_vs_output": err,
+        "decode_flash_launches": decode_launches,
+        "output_flash_fwd_launches": output_launches,
+        "generation_flash_launches": gen_launches,
+        "generate": host_stats, "generate_on_device": dev_stats,
+        "generate_on_device_sampled": dict(sample_stats, **SAMPLE_KW),
+        "beam_search": dict(beam_stats, length_penalty=BEAM_PENALTY,
+                            scores=beam_scores.tolist(),
+                            note="step bytes count the cache gather's read and write"),
+        "greedy_equal": True, "sampled_ids": sampled[0, :16].tolist(),
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("decode " + json.dumps(stats), flush=True)
+    del net
+    return {"output_fwd": output_launches}
+
+
+def gpt2_tbptt_phase(ck, card):
+    """GPT-2-small trained by truncated BPTT (chunks of TBPTT_LEN through
+    the carried caches) with the fused updater: TBPTT_FITS fit calls on one
+    batch (150 K2 and no flash launch a chunk; the mean loss falls); then
+    the model zip without its updater state on the card and the CPU, and
+    example 11's TBPTT net with its updater state. Returns the launches."""
+    import tempfile
+
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM, lm_labels
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conf = TransformerLM().conf()
+    conf.backprop_type, conf.tbptt_fwd_length = "truncated_bptt", TBPTT_LEN
+    net = ComputationGraph(conf).init()
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_tensors = sum(len(named) for named in net.params.values())
+    rng = np.random.default_rng(123)
+    ids = torch.from_numpy(rng.integers(0, vocab, (TRAIN_N, T))).cuda()
+    x = ids.float()
+    labels = F.one_hot(torch.cat([ids[:, 1:], ids[:, -1:]], 1), vocab).float()
+    lmask = torch.ones((TRAIN_N, T), device=x.device)
+    lmask[:, -1] = 0.0  # the last step has no next token
+    counters = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+                ck.flash_attention_bwd_dkv, ck.fused_adam)
+    chunks_per_fit = -(-T // TBPTT_LEN)
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        events, losses = [], []
+        apply = net._apply_updates
+
+        def timed_apply(grads):
+            apply(grads)
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append(e)
+            losses.append(net._score)
+
+        net._apply_updates = timed_apply
+        for c in counters:
+            c.launches = 0
+        iterations = [net.iteration]
+        for _ in range(TBPTT_FITS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            events.append(e0)
+            net.fit(DataSet(x, labels, labels_mask=lmask))
+            iterations.append(net.iteration)
+        torch.cuda.synchronize()
+        del net._apply_updates
+    finally:
+        helpers.clear_helper("updater")
+    launches = {c.__name__: c.launches for c in counters}
+    per_fit = chunks_per_fit + 1
+    chunk_ms = [events[f * per_fit + i].elapsed_time(events[f * per_fit + i + 1])
+                for f in range(TBPTT_FITS) for i in range(chunks_per_fit)]
+    losses = [float(l) for l in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    chunks = TBPTT_FITS * chunks_per_fit
+    want = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "fused_adam": n_tensors * chunks}
+    if launches != want:
+        raise RuntimeError(f"TBPTT fit launches {launches}, expected {want}")
+    if np.diff(iterations).tolist() != [chunks_per_fit] * TBPTT_FITS:
+        raise RuntimeError(f"iterations {iterations}: expected "
+                           f"{chunks_per_fit} a fit")
+    fit_means = [float(np.mean(losses[f * chunks_per_fit:(f + 1) * chunks_per_fit]))
+                 for f in range(TBPTT_FITS)]
+    if not (np.isfinite(losses).all() and fit_means[-1] < fit_means[0]):
+        raise RuntimeError(f"TBPTT did not progress: losses {losses}")
+    del labels, lmask
+
+    # the zip of the trained net without its updater state
+    probe = np.random.default_rng(7).integers(0, vocab, ZIP_IDS).astype(np.float32)
+    want_out = net.output(probe)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gpt2.zip")
+        t0 = time.perf_counter()
+        net.save(path, save_updater=False)
+        write_s = time.perf_counter() - t0
+        zip_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = ComputationGraph.load(path)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        card_diff = (back.output(probe) - want_out).abs().max().item()
+        del back
+        t0 = time.perf_counter()
+        cpu = ComputationGraph.load(path, device="cpu")
+        read_cpu_s = time.perf_counter() - t0
+        cpu_diff = (cpu.output(probe) - want_out.cpu()).abs().max().item()
+        del cpu
+    if not (card_diff == 0.0 and cpu_diff <= ZIP_CPU_ATOL):
+        raise RuntimeError(f"GPT-2 zip: card output off by {card_diff}, CPU by "
+                           f"{cpu_diff}")
+    del net, want_out
+
+    # example 11's TBPTT net, with its updater state, on the card
+    ex = TransformerLM(vocab_size=11, max_length=32, n_layers=1, d_model=16,
+                       n_heads=2, d_ff=32, seed=5).conf()
+    ex.backprop_type, ex.tbptt_fwd_length = "truncated_bptt", 8
+    small = ComputationGraph(ex).init()
+    start = np.random.default_rng(0).integers(0, 11, (64, 1))
+    xs = ((start + 3 * np.arange(32)[None, :]) % 11).astype(np.float32)
+    small_mask = np.ones(xs.shape, np.float32)
+    small_mask[:, -1] = 0.0
+    for _ in range(3):
+        small.fit(DataSet(xs, lm_labels(xs, 11), labels_mask=small_mask))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ex11.zip")
+        small.save(path)
+        again = ComputationGraph.load(path)
+    same = all(torch.equal(again.params[v][n], t)
+               for v, named in small.params.items() for n, t in named.items())
+    same_state = all(torch.equal(again.updater_states[v][n][s], t)
+                     for v, named in small.updater_states.items()
+                     for n, slots in named.items() for s, t in slots.items())
+    if not (same and same_state and again.iteration == small.iteration == 12):
+        raise RuntimeError("example 11's zip: parameters or Adam state differ")
+    stats = {
+        "card": card, "batch": [TRAIN_N, T], "tbptt_length": TBPTT_LEN,
+        "fits": TBPTT_FITS, "chunks_per_fit": chunks_per_fit,
+        "iterations": iterations, "chunk_losses": losses,
+        "fit_mean_losses": fit_means, "chunk_ms": chunk_ms,
+        "median_chunk_ms": float(np.median(chunk_ms)),
+        "tokens_per_s_median_chunk": TRAIN_N * TBPTT_LEN / (np.median(chunk_ms) / 1e3),
+        "launches": launches, "launches_per_chunk": {
+            k: v // chunks for k, v in launches.items()},
+        "peak_device_mem_gb": peak_gb,
+        "zip": {"bytes": zip_bytes, "write_s": write_s, "read_card_s": read_s,
+                "read_cpu_s": read_cpu_s, "card_max_abs_diff": card_diff,
+                "cpu_max_abs_diff": cpu_diff},
+        "ex11_zip_with_updater": {"params_equal": same, "adam_state_equal": same_state,
+                                  "iteration": again.iteration},
+    }
+    print("gpt2_tbptt " + json.dumps(stats), flush=True)
+    return {"fused_adam": launches["fused_adam"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1789,6 +2188,8 @@ def main() -> None:
     ex17_adam_launches = ex17_phase(ck, card)
     lenet_reg_adam_launches = lenet_regularized_phase(ck, card)
     gpt2_drop = gpt2_attn_dropout_phase(ck, card)
+    decode = decode_phase(ck, card, peaks)
+    tbptt = gpt2_tbptt_phase(ck, card)
     lstm = lstm_rows[LSTM_PATHS["train"]]
 
     def entry(name, source, replaces, row, launches, **extra):
@@ -1805,34 +2206,42 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry(fwd, "flash_attention_fwd.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:359", served,
-              serve_launches + train_launches[fwd] + gpt2_drop["output_fwd"],
+              serve_launches + train_launches[fwd] + gpt2_drop["output_fwd"]
+              + decode["output_fwd"],
               launches_by_path={"serve": serve_launches,
                                 "train": train_launches[fwd],
                                 "gpt2_attn_dropout_train": 0,
-                                "gpt2_attn_dropout_output": gpt2_drop["output_fwd"]}),
+                                "gpt2_attn_dropout_output": gpt2_drop["output_fwd"],
+                                "decode": 0,
+                                "decode_check_output": decode["output_fwd"],
+                                "gpt2_tbptt_train": 0}),
         entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dkv"],
               train_launches["flash_attention_bwd_dkv"],
               launches_by_path={"train": train_launches["flash_attention_bwd_dkv"],
-                                "gpt2_attn_dropout_train": 0}),
+                                "gpt2_attn_dropout_train": 0, "decode": 0,
+                                "gpt2_tbptt_train": 0}),
         entry("flash_attention_bwd_dq", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dq"],
               train_launches["flash_attention_bwd_dq"],
               launches_by_path={"train": train_launches["flash_attention_bwd_dq"],
-                                "gpt2_attn_dropout_train": 0}),
+                                "gpt2_attn_dropout_train": 0, "decode": 0,
+                                "gpt2_tbptt_train": 0}),
         entry("fused_adam", "fused_adam.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:218", adam,
               train_launches["fused_adam"] + char_adam_launches
               + lenet_adam_launches + ex17_adam_launches
-              + lenet_reg_adam_launches + gpt2_drop["fused_adam"],
+              + lenet_reg_adam_launches + gpt2_drop["fused_adam"]
+              + tbptt["fused_adam"],
               launches_by_path={"train": train_launches["fused_adam"],
                                 "char_lstm_train": char_adam_launches,
                                 "lenet_train": lenet_adam_launches,
                                 "ex17_train": ex17_adam_launches,
                                 "lenet_regularized_train": lenet_reg_adam_launches,
-                                "gpt2_attn_dropout_train": gpt2_drop["fused_adam"]}),
+                                "gpt2_attn_dropout_train": gpt2_drop["fused_adam"],
+                                "gpt2_tbptt_train": tbptt["fused_adam"]}),
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
               sum(char_launches.values()), launches_by_path=char_launches,

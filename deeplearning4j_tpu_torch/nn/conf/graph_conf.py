@@ -2,19 +2,32 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/graph_conf.py``: named inputs,
 layer and vertex nodes with named input edges, named outputs, a
-topological order computed once at build time, and InputType propagation
-through the DAG (which sets every layer's ``n_in``).
+topological order computed once at build time, InputType propagation
+through the DAG (which sets every layer's ``n_in``), standard or truncated
+BPTT (``backprop_type``, ``t_bptt_length``), and the reference's serde
+(``to_dict``/``to_json``/``to_yaml`` and back, the same keys and
+``format`` string), so a configuration written by either package reads
+back in the other. A layer or vertex kind the port has not ported raises
+``NotImplementedError`` naming it when read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, List, Optional, Union
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.network import GlobalConf
-from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.conf.network import (
+    GlobalConf,
+    global_conf_from_dict,
+    global_conf_to_dict,
+    normalize_backprop_type,
+)
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
 from deeplearning4j_tpu_torch.nn.vertices import GraphVertex
+
+GRAPH_FORMAT = "deeplearning4j_tpu.ComputationGraphConfiguration"  # data, not an import
 
 
 @dataclasses.dataclass
@@ -39,6 +52,9 @@ class GraphBuilder:
         self._outputs: List[str] = []
         self._vertices: Dict[str, VertexDef] = {}
         self._input_types: List[Optional[InputType]] = []
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_bwd = 20
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
         self._inputs.extend(names)
@@ -66,6 +82,18 @@ class GraphBuilder:
         self._input_types = list(types)
         return self
 
+    def backprop_type(self, t: str) -> "GraphBuilder":
+        self._backprop_type = normalize_backprop_type(t)
+        return self
+
+    def t_bptt_length(self, fwd: int, bwd: Optional[int] = None) -> "GraphBuilder":
+        """Truncated BPTT in chunks of ``fwd`` steps (sets the backprop
+        type too, as the reference does)."""
+        self._tbptt_fwd = fwd
+        self._tbptt_bwd = bwd if bwd is not None else fwd
+        self._backprop_type = "truncated_bptt"
+        return self
+
     def build(self) -> "ComputationGraphConfiguration":
         conf = ComputationGraphConfiguration(
             global_conf=self._g,
@@ -73,6 +101,9 @@ class GraphBuilder:
             outputs=list(self._outputs),
             vertices=dict(self._vertices),
             input_types=list(self._input_types),
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_bwd_length=self._tbptt_bwd,
         )
         conf.finalize()
         return conf
@@ -85,11 +116,17 @@ class ComputationGraphConfiguration:
     outputs: List[str]
     vertices: Dict[str, VertexDef]
     input_types: List[Optional[InputType]] = dataclasses.field(default_factory=list)
+    backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
+    tbptt_bwd_length: int = 20
     # computed by finalize():
     topo_order: List[str] = dataclasses.field(default_factory=list)
     vertex_input_types: Dict[str, List[InputType]] = dataclasses.field(
         default_factory=dict)
     _finalized: bool = False
+
+    def __post_init__(self):
+        self.backprop_type = normalize_backprop_type(self.backprop_type)
 
     def finalize(self) -> None:
         if self._finalized:
@@ -157,3 +194,64 @@ class ComputationGraphConfiguration:
 
     def num_params(self) -> int:
         return sum(vd.obj.num_params() for vd in self.layer_vertices())
+
+    # ---------------------------------------------------------------- serde
+    def to_dict(self) -> dict:
+        return {
+            "format": GRAPH_FORMAT,
+            "version": 1,
+            "global": global_conf_to_dict(self.global_conf),
+            "inputs": list(self.inputs),
+            "outputs": list(self.outputs),
+            "vertices": [
+                {"name": vd.name, "inputs": list(vd.inputs),
+                 "def": vd.obj.to_dict()}
+                for vd in (self.vertices[n] for n in self.topo_order)],
+            "input_types": [None if t is None else t.to_dict()
+                            for t in self.input_types],
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_bwd_length": self.tbptt_bwd_length,
+        }
+
+    def to_json(self, **kw) -> str:
+        return json.dumps(self.to_dict(), **kw)
+
+    @staticmethod
+    def from_dict(d: dict) -> "ComputationGraphConfiguration":
+        if d.get("format", GRAPH_FORMAT) != GRAPH_FORMAT:
+            raise ValueError(f"not a ComputationGraphConfiguration: format "
+                             f"{d.get('format')!r}")
+        vertices: Dict[str, VertexDef] = {}
+        for vd in d["vertices"]:
+            obj_d = vd["def"]
+            obj = (layer_from_dict(obj_d) if "@layer" in obj_d
+                   else GraphVertex.from_dict(obj_d))
+            vertices[vd["name"]] = VertexDef(vd["name"], obj, list(vd["inputs"]))
+        conf = ComputationGraphConfiguration(
+            global_conf=global_conf_from_dict(d["global"]),
+            inputs=list(d["inputs"]),
+            outputs=list(d["outputs"]),
+            vertices=vertices,
+            input_types=[None if t is None else InputType.from_dict(t)
+                         for t in d.get("input_types", [])],
+            backprop_type=d.get("backprop_type", "standard"),
+            tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
+            tbptt_bwd_length=d.get("tbptt_bwd_length", 20),
+        )
+        conf.finalize()
+        return conf
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        return ComputationGraphConfiguration.from_dict(json.loads(s))
+
+    def to_yaml(self, **kw) -> str:
+        """The serde dict as YAML (``toYaml``; needs PyYAML)."""
+        import yaml
+        return yaml.safe_dump(json.loads(self.to_json()), sort_keys=False, **kw)
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        import yaml
+        return ComputationGraphConfiguration.from_dict(yaml.safe_load(s))

@@ -2,11 +2,24 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``init`` (parameters
 and one updater state per ``<vertex>/<param>``), ``_forward_all``,
-``output``, and standard-backprop training: ``_loss_fn`` (the summed
-losses of the output layers plus the l1/l2 penalty), ``_apply_updates``
-(the "updater" helper seam consulted per tensor), ``fit`` over arrays,
-``DataSet``, ``MultiDataSet`` or iterators, ``score`` and
-``compute_gradient_and_score``.
+``output``, training with standard backprop or truncated BPTT:
+``_loss_fn`` (the summed losses of the output layers plus the l1/l2
+penalty), ``_apply_updates`` (the "updater" helper seam consulted per
+tensor), ``fit`` over arrays, ``DataSet``, ``MultiDataSet`` or
+iterators, ``score`` and ``compute_gradient_and_score``; the stateful RNN
+API (``rnn_time_step``, ``rnn_clear_previous_state`` and the stored-state
+accessors) and the model zip (``save``, ``ComputationGraph.load``).
+
+Carries: with ``carries`` (one per recurrent layer vertex, by name),
+``_forward_all`` runs each such layer's ``forward_seq`` and reports its
+final carry (KV caches and write positions, positional offsets, LSTM
+states). Truncated BPTT cuts the temporal inputs (and per-timestep labels
+and masks) into ``tbptt_fwd_length`` chunks; each chunk is one update and
+one iteration, and hands its carries on detached, so a chunk attends over
+the cached keys of the chunks before it (Transformer-XL style).
+``rnn_time_step`` keeps the carries between calls; the stored-state
+accessors hand out and take copies, since decoding writes the caches in
+place.
 
 The network is an ``nn.Module`` whose parameters keep the reference's
 names and layouts, registered as ``<vertex>/<param>``; ``params`` holds the
@@ -26,11 +39,13 @@ sees the same noised weights as its forward. Gradient normalization and
 constraints run per layer around the updater seam. ``output`` never
 draws. ``fit`` prefetches iterators as ``MultiLayerNetwork.fit`` does.
 
-Not ported yet: mixed precision, TBPTT, ``rnn_time_step``.
+Not ported yet: mixed precision, ``fit_batches_on_device``, the
+``evaluate`` family, listeners and pretraining.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Union
 
 import torch
@@ -44,6 +59,13 @@ from deeplearning4j_tpu_torch.datasets.dataset import (
 )
 from deeplearning4j_tpu_torch.datasets.iterators import wrap_for_prefetch
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.nn.conf.network import normalize_backprop_type
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    BaseRecurrentLayer,
+    check_carry_capacity,
+    map_carry,
+    own_carry,
+)
 from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
     apply_updates,
@@ -53,6 +75,7 @@ from deeplearning4j_tpu_torch.nn.train_step import (
     init_parameters,
     regularization,
 )
+from deeplearning4j_tpu_torch.util import model_serializer
 
 Grads = Dict[str, Dict[str, torch.Tensor]]
 
@@ -84,6 +107,9 @@ class ComputationGraph(nn.Module):
         self._consumed = {s for vd in conf.vertices.values() for s in vd.inputs}
         # every train-time draw (dropout, weight noise); made by init()
         self.dropout_generator: Optional[torch.Generator] = None
+        # the stateful RNN API's carries and the timesteps they absorbed
+        self._rnn_carries: Optional[Dict[str, object]] = None
+        self._rnn_pos = 0
 
     # ---------------------------------------------------------------- score
     @property
@@ -114,11 +140,24 @@ class ComputationGraph(nn.Module):
         return [(vd.name, vd.obj) for vd in self.conf.layer_vertices()]
 
     # -------------------------------------------------------------- forward
+    def _recurrent_layers(self):
+        return [(vd.name, vd.obj) for vd in self.conf.layer_vertices()
+                if isinstance(vd.obj, BaseRecurrentLayer)]
+
+    def init_carries(self, batch: int) -> Dict[str, object]:
+        """Fresh carries of every recurrent layer vertex for ``batch``
+        sequences, on the network's device."""
+        return {name: layer.init_carry(batch, self.dtype, self.device)
+                for name, layer in self._recurrent_layers()}
+
     def _forward_all(self, params, inputs: Dict[str, torch.Tensor],
                      masks: Optional[Dict[str, Optional[torch.Tensor]]] = None,
                      loss_inputs: bool = False, train: bool = False,
-                     gen: Optional[torch.Generator] = None) -> Dict:
-        """Execute the DAG in topo order; returns every vertex activation.
+                     gen: Optional[torch.Generator] = None,
+                     carries: Optional[Dict[str, object]] = None):
+        """Execute the DAG in topo order; returns ``(activations,
+        new_carries)``: every vertex activation, and with ``carries`` each
+        recurrent layer's final carry (None without).
 
         With ``loss_inputs``, each loss layer also stores its input under
         ``name + ":in"``, its mask under ``name + ":mask"`` and the
@@ -126,8 +165,10 @@ class ComputationGraph(nn.Module):
         ``name + ":params"``, and a loss layer whose activation no vertex
         reads is not run (the loss starts from its input). ``train`` with
         ``gen`` draws each layer's weight noise before its forward and its
-        dropout in it."""
+        dropout in it. With ``carries`` (by vertex name) each recurrent
+        layer runs ``forward_seq`` from its carry."""
         conf = self.conf
+        new_carries = None if carries is None else {}
         acts: Dict[str, torch.Tensor] = dict(inputs)
         m: Dict[str, Optional[torch.Tensor]] = dict(masks or {})
         for name in conf.inputs:
@@ -149,7 +190,13 @@ class ComputationGraph(nn.Module):
                     acts[name + ":params"] = p_v
                     if name not in self._consumed:
                         continue
-                y = layer.forward(p_v, h, mask=cur_mask, train=train, gen=gen)
+                if carries is not None and isinstance(layer, BaseRecurrentLayer):
+                    y, new_carries[name] = layer.forward_seq(
+                        p_v, h, carry=carries.get(name), mask=cur_mask,
+                        train=train, gen=gen)
+                else:
+                    y = layer.forward(p_v, h, mask=cur_mask, train=train,
+                                      gen=gen)
                 acts[name] = y
                 # a per-timestep mask collapses when the time dim disappears
                 if (cur_mask is not None and y.ndim == 2
@@ -160,12 +207,12 @@ class ComputationGraph(nn.Module):
             else:
                 acts[name] = vd.obj.forward(in_acts, in_masks)
                 m[name] = vd.obj.output_mask(in_masks)
-        return acts
+        return acts, new_carries
 
     def forward(self, inputs: Dict[str, torch.Tensor],
                 masks: Optional[Dict[str, Optional[torch.Tensor]]] = None
                 ) -> List[torch.Tensor]:
-        acts = self._forward_all(self.params, inputs, masks)
+        acts, _ = self._forward_all(self.params, inputs, masks)
         return [acts[n] for n in self.conf.outputs]
 
     def _as_tensor(self, x, cast_float: bool = True) -> torch.Tensor:
@@ -201,8 +248,17 @@ class ComputationGraph(nn.Module):
         mask is the given one, else the feature mask that reached the layer
         (per timestep for a sequence output, per example for a 2-d one).
         ``train`` with ``gen`` draws the train-time noise."""
-        acts = self._forward_all(params, inputs, masks, loss_inputs=True,
-                                 train=train, gen=gen)
+        return self._loss_and_carries(params, inputs, labels, masks,
+                                      label_masks, train=train, gen=gen)[0]
+
+    def _loss_and_carries(self, params, inputs, labels, masks, label_masks,
+                          carries=None, train: bool = False,
+                          gen: Optional[torch.Generator] = None):
+        """``(loss, new_carries)``: :meth:`_loss_fn`'s loss, the recurrent
+        layers starting from ``carries`` when given."""
+        acts, new_carries = self._forward_all(
+            params, inputs, masks, loss_inputs=True, train=train, gen=gen,
+            carries=carries)
         loss = 0.0
         for oi, out_name in enumerate(self.conf.outputs):
             vd = self.conf.vertices[out_name]
@@ -223,7 +279,7 @@ class ComputationGraph(nn.Module):
                     lm = fm.reshape(fm.shape[0])
             loss = loss + layer.compute_loss(acts[out_name + ":params"], h,
                                              labels[oi], mask=lm)
-        return loss + regularization(self._named_layers(), params)
+        return loss + regularization(self._named_layers(), params), new_carries
 
     def _batch(self, mds):
         """(inputs, labels, masks, label masks) of a MultiDataSet as tensors
@@ -263,6 +319,11 @@ class ComputationGraph(nn.Module):
 
     def _fit_batch(self, ds) -> None:
         inputs, labels, masks, lmasks = self._batch(self._to_mds(ds))
+        if normalize_backprop_type(self.conf.backprop_type) == "truncated_bptt":
+            t_total = self._temporal_length(inputs)
+            if t_total is not None:
+                self._fit_tbptt(inputs, labels, masks, lmasks, t_total)
+                return
         with schedule_tick(self.iteration, self.epoch):
             loss, grads = self._gradients(inputs, labels, masks, lmasks,
                                           train=True)
@@ -270,6 +331,58 @@ class ComputationGraph(nn.Module):
         self._score = loss
         self.last_batch_size = int(next(iter(inputs.values())).shape[0])
         self.iteration += 1
+
+    def _temporal_inputs(self, inputs) -> set:
+        """The inputs with a time axis: by the declared input types when
+        every input has one (``rnn``, ``cnn_seq``), else by rank 3."""
+        types = self.conf.input_types
+        if (types and len(types) == len(self.conf.inputs)
+                and all(t is not None for t in types)):
+            return {n for n, t in zip(self.conf.inputs, types)
+                    if t.kind in ("rnn", "cnn_seq")}
+        return {n for n, a in inputs.items() if a.ndim == 3}
+
+    def _temporal_length(self, inputs) -> Optional[int]:
+        ts = {inputs[n].shape[1] for n in self._temporal_inputs(inputs)}
+        if len(ts) > 1:
+            raise ValueError(f"temporal inputs disagree on sequence length: {ts}")
+        return ts.pop() if ts else None
+
+    def _fit_tbptt(self, inputs, labels, masks, lmasks, t_total: int) -> None:
+        """Truncated BPTT over the DAG: chunks of ``tbptt_fwd_length`` steps
+        of the temporal inputs and of the per-timestep labels and masks
+        (a per-sequence label goes whole to every chunk), one update each,
+        the carries handed on detached."""
+        check_carry_capacity(self._named_layers(), t_total, "TBPTT")
+        temporal = self._temporal_inputs(inputs)
+        length = self.conf.tbptt_fwd_length
+        batch = next(iter(inputs.values())).shape[0]
+        self.last_batch_size = int(batch)
+        carries = self.init_carries(batch)
+
+        def cut(a, s, e, per_step):
+            return a[:, s:e] if per_step and a.shape[1] == t_total else a
+
+        for c in range(max(1, math.ceil(t_total / length))):
+            s, e = c * length, min((c + 1) * length, t_total)
+            ic = {n: cut(a, s, e, n in temporal) for n, a in inputs.items()}
+            lc = [cut(a, s, e, a.ndim == 3) for a in labels]
+            mc = None if masks is None else {
+                n: None if a is None else cut(a, s, e, n in temporal)
+                for n, a in masks.items()}
+            lmc = None if lmasks is None else [
+                None if a is None else cut(a, s, e, labels[i].ndim == 3)
+                for i, a in enumerate(lmasks)]
+            with schedule_tick(self.iteration, self.epoch):
+                loss, grads, carries = gradients(
+                    lambda live, _c=carries: self._loss_and_carries(
+                        live, ic, lc, mc, lmc, _c, train=True,
+                        gen=self.dropout_generator), self.params)
+            carries = {n: map_carry(torch.Tensor.detach, cr)
+                       for n, cr in carries.items()}
+            self._score = loss
+            self._apply_updates(grads)
+            self.iteration += 1
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, *, epochs: int = 1,
@@ -327,3 +440,91 @@ class ComputationGraph(nn.Module):
         inputs, labels_t, _, _ = self._batch(self._wrap(features, labels))
         loss, grads = self._gradients(inputs, labels_t)
         return grads, float(loss)
+
+    # ------------------------------------------------------ stateful RNN API
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_carries = None
+        self._rnn_pos = 0
+
+    def rnn_time_step(self, *xs) -> Union[torch.Tensor, List[torch.Tensor]]:
+        """Stateful inference (``rnnTimeStep``), one array per input:
+        [N,T,C], or [N,C] for one step (each sequence output is then
+        [N,out]). Each recurrent layer starts from its stored carry and
+        stores its final one; a step that would overflow a finite carry
+        (a KV cache, a positional table) is refused before it runs."""
+        if self.params is None:
+            raise RuntimeError("call init() (or load parameters) first")
+        if len(xs) == 1 and isinstance(xs[0], (list, tuple)):
+            xs = tuple(xs[0])
+        with torch.inference_mode():
+            xs = [self._as_tensor(x) for x in xs]
+            squeeze = xs[0].ndim == 2
+            if squeeze:
+                xs = [x[:, None, :] for x in xs]
+            if self._rnn_carries is None:
+                self._rnn_pos = 0
+                self._rnn_carries = self.init_carries(xs[0].shape[0])
+            t_new = xs[0].shape[1]
+            check_carry_capacity(
+                self._named_layers(), self._rnn_pos + t_new,
+                f"rnn_time_step at position {self._rnn_pos}+{t_new}")
+            acts, self._rnn_carries = self._forward_all(
+                self.params, dict(zip(self.conf.inputs, xs)),
+                carries=self._rnn_carries)
+            self._rnn_pos += t_new
+            outs = [acts[n] for n in self.conf.outputs]
+        if squeeze:
+            outs = [o[:, -1, :] if o.ndim == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_get_previous_state(self, name: str):
+        """A copy of the stored carry of a recurrent layer vertex
+        (``rnnGetPreviousState``), or None before any ``rnn_time_step``."""
+        if self._rnn_carries is None or name not in self._rnn_carries:
+            return None
+        return map_carry(torch.clone, self._rnn_carries[name])
+
+    def rnn_get_previous_states(self) -> dict:
+        """Copies of every stored carry by vertex name
+        (``rnnGetPreviousStates``)."""
+        return {n: self.rnn_get_previous_state(n)
+                for n in (self._rnn_carries or {})}
+
+    def rnn_set_previous_state(self, name: str, state,
+                               position: Optional[int] = None) -> None:
+        """Overwrite a recurrent vertex's stored carry with a copy of
+        ``state`` on the network's device (``rnnSetPreviousState``); needs
+        a prior ``rnn_time_step``. ``position`` (the timesteps ``state`` has
+        absorbed) is mandatory when a layer's carry has a finite capacity."""
+        if self._rnn_carries is None:
+            raise ValueError(
+                "no stored rnn state to overwrite; call rnn_time_step "
+                "first to initialize the carries")
+        if position is not None:
+            self._rnn_pos = int(position)
+        elif any(l.carry_capacity() is not None
+                 for _, l in self._recurrent_layers()):
+            raise ValueError(
+                "rnn_set_previous_state needs position= when a layer "
+                "has a finite carry capacity (KV cache)")
+        with torch.inference_mode():
+            self._rnn_carries[name] = own_carry(state, self.device)
+
+    def rnn_set_previous_states(self, states: dict,
+                                position: Optional[int] = None) -> None:
+        """Overwrite several carries at once (``rnnSetPreviousStates``)."""
+        for name, state in states.items():
+            self.rnn_set_previous_state(name, state, position=position)
+
+    # ------------------------------------------------------------ model zip
+    def save(self, path, save_updater: bool = True) -> None:
+        """Write this network's model zip (``ComputationGraph.save``)."""
+        model_serializer.write_model(self, path, save_updater=save_updater)
+
+    @staticmethod
+    def load(path, load_updater: bool = True,
+             device=None) -> "ComputationGraph":
+        """The network a model zip holds (``ComputationGraph.load``), on
+        ``device``: ``cuda`` unless the caller passes ``"cpu"``."""
+        return model_serializer.restore_computation_graph(
+            path, load_updater=load_updater, device=device)

@@ -9,8 +9,9 @@ through autograd. A train forward with ``attn_dropout > 0`` drops
 attention weights after the softmax (``nn/dropout.py``'s
 :func:`bernoulli`, kept weights scaled by ``1/(1-rate)``): the flash
 kernels have no dropout, so the seam declines such a request, as the
-reference's does, and the plain math runs. The KV-cache ``forward_seq``
-of the causal layer comes with the decode slice.
+reference's does, and the plain math runs. The causal layer's
+``forward_seq`` attends through a fixed-capacity KV cache (stateful
+decoding, TBPTT); it never reaches the attention seam.
 """
 
 from __future__ import annotations
@@ -147,14 +148,75 @@ class SelfAttentionLayer(Layer):
 @dataclasses.dataclass
 class CausalSelfAttentionLayer(SelfAttentionLayer, BaseRecurrentLayer):
     """Causal (autoregressive) multi-head self-attention: the full-sequence
-    forward of :class:`SelfAttentionLayer` with the causal mask. Its KV
-    cache (``max_cache``) serves the decode slice's ``forward_seq``."""
+    forward of :class:`SelfAttentionLayer` with the causal mask, and a
+    stateful ``forward_seq`` over a fixed-capacity KV cache.
+
+    The carry is the reference's ``(k_cache [N,H,Tc,Dh], v_cache,
+    key_validity [N,Tc], position)``, ``Tc = max_cache``; the position is
+    a Python int, so the overflow check and the write's start never wait
+    for the device. Each query row (absolute position ``pos+i``) attends
+    over all ``Tc`` slots, masked to the slots ``<= pos+i`` that hold valid
+    keys; a masked score is ``finfo.min`` (as in the reference), so a row
+    that sees no valid slot weighs every slot alike instead of giving
+    NaN. New keys and values are written into the caches in place when
+    nothing differentiates them (decoding); when they require grad (TBPTT),
+    into a copy, so their gradient reaches ``Wqkv``."""
 
     max_cache: int = 512
     causal: bool = True
 
     def carry_capacity(self):
         return self.max_cache
+
+    def init_carry(self, batch: int, dtype=torch.float32, device=None):
+        h, dh, tc = self.n_heads, self._dh(), self.max_cache
+        kw = dict(dtype=dtype, device=device)
+        return (torch.zeros((batch, h, tc, dh), **kw),   # K cache
+                torch.zeros((batch, h, tc, dh), **kw),   # V cache
+                torch.zeros((batch, tc), **kw),          # key validity
+                0)                                       # write position
+
+    def forward_seq(self, params, x, carry=None, mask=None, train=False,
+                    gen=None):
+        if carry is None:
+            return self.forward(params, x, mask=mask, train=train, gen=gen), None
+        n, t, _ = x.shape
+        h, dh, tc = self.n_heads, self._dh(), self.max_cache
+        kc, vc, valid, pos = carry
+        pos = int(pos)
+        if pos + t > tc:
+            raise ValueError(
+                f"KV cache overflow: writing {t} token(s) at position "
+                f"{pos} exceeds max_cache={tc}; raise max_cache or "
+                f"rnn_clear_previous_state() first")
+        qkv = x @ params["Wqkv"] + params["bqkv"]
+        qkv = qkv.reshape(n, t, h, 3, dh).permute(3, 0, 2, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        if k.requires_grad:
+            kc, vc, valid = kc.clone(), vc.clone(), valid.clone()
+        kc[:, :, pos:pos + t] = k.to(kc.dtype)
+        vc[:, :, pos:pos + t] = v.to(vc.dtype)
+        valid[:, pos:pos + t] = (1.0 if mask is None
+                                 else (mask[:, :t] > 0).to(valid.dtype))
+        # query i (absolute position pos+i) may see the slots <= pos+i
+        # that hold valid keys
+        slots = torch.arange(tc, device=x.device)
+        causal = slots[None, :] <= (pos + torch.arange(t, device=x.device))[:, None]
+        m = torch.logical_and(causal[None, None], (valid > 0)[:, None, None, :])
+        scale = 1.0 / math.sqrt(dh)
+        scores = torch.einsum("nhqd,nhkd->nhqk", q, kc.to(q.dtype)) * scale
+        scores = scores.masked_fill(~m, torch.finfo(scores.dtype).min)
+        w = torch.softmax(scores, dim=-1)
+        if train and self.attn_dropout > 0 and gen is not None:
+            # TBPTT through the cache regularizes as the full sequence does
+            keep = _dropout.bernoulli(1.0 - self.attn_dropout, w.shape, gen,
+                                      w.device, w.dtype)
+            w = torch.where(keep, w / (1.0 - self.attn_dropout), w.new_zeros(()))
+        out = torch.einsum("nhqk,nhkd->nhqd", w, vc.to(q.dtype))
+        y = out.transpose(1, 2).reshape(n, t, h * dh)
+        if self.project_input:
+            y = y @ params["Wo"] + params["bo"]
+        return self.act_fn()(y), (kc, vc, valid, pos + t)
 
 
 #: the column order of the fused QKV projection that the model zip stamps
@@ -179,9 +241,13 @@ def repack_legacy_fused_qkv(model) -> int:
             return t.reshape(3, h, dh).transpose(0, 1).reshape(-1)
         return t.reshape(t.shape[0], 3, h, dh).transpose(1, 2).reshape(t.shape[0], -1)
 
+    if hasattr(model.conf, "vertices"):  # a ComputationGraph
+        items = [(vd.name, vd.obj) for vd in model.conf.layer_vertices()]
+    else:
+        items = list(enumerate(model.layers))
     n = 0
     with torch.no_grad():
-        for key, layer in enumerate(model.layers):
+        for key, layer in items:
             if not isinstance(layer, SelfAttentionLayer) or layer.n_heads <= 1:
                 continue
             h, dh = layer.n_heads, layer._dh()

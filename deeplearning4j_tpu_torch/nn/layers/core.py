@@ -4,11 +4,16 @@ Counterpart of ``deeplearning4j_tpu/nn/layers/core.py``. Parameters keep
 the reference's names and layouts: Dense ``W`` is ``[n_in, n_out]`` and is
 used as ``x @ W + b``. Dense (and so the output layers) applies its input
 dropout in a train forward; ``DropoutLayer`` is dropout alone.
+``PositionalEmbeddingLayer`` carries its absolute offset (a Python int,
+so reading it never waits for the device) through ``forward_seq`` for
+stateful decoding and TBPTT.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Optional
 
 import torch
@@ -16,6 +21,22 @@ import torch
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
+
+_ID_CHECK = threading.local()
+
+
+@contextlib.contextmanager
+def unchecked_token_ids():
+    """Inside (on this thread), :class:`EmbeddingSequenceLayer` skips its
+    range check of the token ids, which reads them on the host and so
+    waits for the device. For ids the caller has made in range, such as
+    the tokens an on-device decode loop samples."""
+    prev = getattr(_ID_CHECK, "off", False)
+    _ID_CHECK.off = True
+    try:
+        yield
+    finally:
+        _ID_CHECK.off = prev
 
 
 @register_layer
@@ -121,7 +142,7 @@ class EmbeddingSequenceLayer(Layer):
         idx = x.to(torch.int64)
         if idx.ndim == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]
-        if idx.numel():
+        if idx.numel() and not getattr(_ID_CHECK, "off", False):
             # an out-of-range id would fault the device (a CUDA gather
             # asserts and poisons the context); refuse it here instead
             lo, hi = torch.aminmax(idx)
@@ -138,8 +159,8 @@ class EmbeddingSequenceLayer(Layer):
 @dataclasses.dataclass
 class PositionalEmbeddingLayer(BaseRecurrentLayer):
     """Adds a learned position embedding to a sequence: [N,T,C] →
-    x + P[:T] with P [max_len, C]. The position-offset carry for stateful
-    decoding comes with the decode slice."""
+    x + P[:T] with P [max_len, C]. Its carry is the absolute offset of the
+    next step: ``forward_seq`` adds ``P[offset:offset+T]``."""
 
     n_in: int = 0
     max_len: int = 512
@@ -168,3 +189,18 @@ class PositionalEmbeddingLayer(BaseRecurrentLayer):
 
     def carry_capacity(self):
         return self.max_len
+
+    def init_carry(self, batch: int, dtype=torch.float32, device=None):
+        return 0  # the absolute position offset
+
+    def forward_seq(self, params, x, carry=None, mask=None, train=False,
+                    gen=None):
+        if carry is None:
+            return self.forward(params, x, mask=mask, train=train, gen=gen), None
+        t, offset = x.shape[1], int(carry)
+        if offset + t > self.max_len:
+            raise ValueError(
+                f"position overflow: step at offset {offset}+{t} exceeds "
+                f"max_len={self.max_len}; raise max_len or "
+                f"rnn_clear_previous_state() first")
+        return x + params["P"][offset:offset + t], offset + t

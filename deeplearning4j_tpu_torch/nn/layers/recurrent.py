@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations as act_mod
@@ -51,6 +52,32 @@ def check_carry_capacity(named_layers, t_total: int, context: str) -> None:
                     f"shorten the sequence, or rnn_clear_previous_state()")
 
 
+def map_carry(fn, carry):
+    """``carry`` with ``fn`` applied to every tensor leaf (a carry is a
+    tensor, a tuple of tensors and ints, or None; ints pass through)."""
+    if isinstance(carry, torch.Tensor):
+        return fn(carry)
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(map_carry(fn, c) for c in carry)
+    return carry
+
+
+def own_carry(carry, device):
+    """A copy of ``carry`` on ``device``: arrays and tensors become tensors
+    there, and a 0-d integer (a position or offset, e.g. the reference's
+    int32 scalar) becomes a Python int, so reading it never waits for the
+    device."""
+    if isinstance(carry, (tuple, list)):
+        return type(carry)(own_carry(c, device) for c in carry)
+    if isinstance(carry, (np.ndarray, np.generic)):
+        carry = torch.from_numpy(np.array(carry))
+    if isinstance(carry, torch.Tensor):
+        if carry.ndim == 0 and not carry.is_floating_point():
+            return int(carry)
+        return carry.to(device, copy=True)
+    return carry
+
+
 class BaseRecurrentLayer(Layer):
     """Mixin API for layers that carry recurrent state."""
 
@@ -61,12 +88,15 @@ class BaseRecurrentLayer(Layer):
         """Max total timesteps the carry can absorb, or None if unbounded."""
         return None
 
-    def forward_seq(self, params, x, carry=None, mask=None):
-        """[N,T,C] → ([N,T,H], final_carry)."""
+    def forward_seq(self, params, x, carry=None, mask=None, train=False,
+                    gen=None):
+        """[N,T,C] → ([N,T,H], final_carry); ``train`` with ``gen`` draws
+        the layer's train-time noise."""
         raise NotImplementedError
 
     def forward(self, params, x, *, mask=None, train=False, gen=None):
-        y, _ = self.forward_seq(params, x, carry=None, mask=mask)
+        y, _ = self.forward_seq(params, x, carry=None, mask=mask, train=train,
+                                gen=gen)
         return y
 
     def _scan_seq(self, params, xws, carry, ms):
@@ -157,7 +187,8 @@ class LSTMLayer(BaseRecurrentLayer):
         h = o * cell_act(c)
         return h, (h, c)
 
-    def forward_seq(self, params, x, carry=None, mask=None):
+    def forward_seq(self, params, x, carry=None, mask=None, train=False,
+                    gen=None):
         helper = _helpers.get_helper("lstm")
         if helper is not None and helper.supports(self, mask):
             return helper.forward_seq(self, params, x, carry)

@@ -60,6 +60,8 @@ from deeplearning4j_tpu_torch.nn.conf.network import (
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer,
     check_carry_capacity,
+    map_carry,
+    own_carry,
 )
 from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
@@ -77,13 +79,6 @@ def _host(a) -> np.ndarray:
     """A numpy array of ``a`` (a numpy array or a tensor on any device)."""
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
-
-def _detach(carry):
-    if carry is None:
-        return None
-    if isinstance(carry, torch.Tensor):
-        return carry.detach()
-    return type(carry)(_detach(c) for c in carry)
 
 
 class MultiLayerNetwork(nn.Module):
@@ -169,7 +164,7 @@ class MultiLayerNetwork(nn.Module):
                 p_i = layer.weight_noise.apply(layer, p_i, gen, train)
             if carries is not None and isinstance(layer, BaseRecurrentLayer):
                 h, c = layer.forward_seq(p_i, h, carry=carries[i],
-                                         mask=cur_mask)
+                                         mask=cur_mask, train=train, gen=gen)
                 new_carries.append(c)
             else:
                 h = layer.forward(p_i, h, mask=cur_mask, train=train, gen=gen)
@@ -271,7 +266,7 @@ class MultiLayerNetwork(nn.Module):
                     lambda live, _c=carries: self._loss_fn(
                         live, xc, yc, mc, lc, _c, train=True,
                         gen=self.dropout_generator), self.params)
-            carries = [_detach(cr) for cr in carries]
+            carries = [map_carry(torch.Tensor.detach, cr) for cr in carries]
             self._score = loss
             self._apply_updates(grads)
             self.iteration += 1
@@ -444,16 +439,18 @@ class MultiLayerNetwork(nn.Module):
         self._rnn_pos = 0
 
     def rnn_get_previous_state(self, layer: int):
-        """Stored carry of a recurrent layer (``rnnGetPreviousState``), or
+        """A copy of the stored carry of a recurrent layer
+        (``rnnGetPreviousState``; decoding writes KV caches in place), or
         None before any ``rnn_time_step`` call."""
         if self._rnn_carries is None:
             return None
-        return self._rnn_carries[layer]
+        return map_carry(torch.clone, self._rnn_carries[layer])
 
     def rnn_set_previous_state(self, layer: int, state,
                                position: Optional[int] = None) -> None:
-        """Overwrite a recurrent layer's stored carry
-        (``rnnSetPreviousState``); needs a prior ``rnn_time_step``.
+        """Overwrite a recurrent layer's stored carry with a copy of
+        ``state`` on the network's device (``rnnSetPreviousState``); needs
+        a prior ``rnn_time_step``.
         ``position`` (the timesteps ``state`` has absorbed) is mandatory
         when a layer's carry has a finite capacity."""
         if self._rnn_carries is None:
@@ -467,7 +464,8 @@ class MultiLayerNetwork(nn.Module):
             raise ValueError(
                 "rnn_set_previous_state needs position= when a layer has "
                 "a finite carry capacity")
-        self._rnn_carries[layer] = state
+        with torch.inference_mode():
+            self._rnn_carries[layer] = own_carry(state, self.device)
 
     def rnn_time_step(self, x) -> torch.Tensor:
         """Stateful inference (``rnnTimeStep``): ``x`` [N,T,C], or [N,C]

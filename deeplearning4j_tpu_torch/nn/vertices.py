@@ -1,18 +1,26 @@
 """Graph vertices — the non-layer nodes of a ComputationGraph DAG.
 
 Counterpart of ``GraphVertex`` and ``ElementWiseVertex`` in
-``deeplearning4j_tpu/nn/vertices.py``; the other vertices come with the
-models that use them.
+``deeplearning4j_tpu/nn/vertices.py``, with the reference's serde (the
+fields and an ``@vertex`` tag); the other vertices come with the models
+that use them, and reading one raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+
+VERTEX_REGISTRY: Dict[str, type] = {}
+
+
+def register_vertex(cls):
+    VERTEX_REGISTRY[cls.__name__] = cls
+    return cls
 
 
 @dataclasses.dataclass
@@ -34,7 +42,22 @@ class GraphVertex:
                 return m
         return None
 
+    def to_dict(self) -> dict:
+        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        d["@vertex"] = type(self).__name__
+        return d
 
+    @staticmethod
+    def from_dict(d: dict) -> "GraphVertex":
+        d = dict(d)
+        name = d.pop("@vertex")
+        if name not in VERTEX_REGISTRY:
+            raise NotImplementedError(f"vertex {name!r} is not ported yet")
+        return VERTEX_REGISTRY[name](**{k: tuple(v) if isinstance(v, list) else v
+                                        for k, v in d.items()})
+
+
+@register_vertex
 @dataclasses.dataclass
 class ElementWiseVertex(GraphVertex):
     """add | average | subtract | product | max (ElementWiseVertex.java)."""

@@ -17,10 +17,11 @@ zip, so that a model saved by either package restores in the other:
   ``qkv_layout`` stamp (a zip without it holds the older fused-QKV column
   order, repacked on restore).
 
+Both kinds of network are written and read: a ``MultiLayerNetwork``
+keys its arrays by layer index, a ``ComputationGraph`` by vertex name.
 Arrays are written in the model's dtype from the host. Restore builds the
 network on ``device`` (``cuda`` unless the caller passes ``"cpu"``, as
-every entry point of the port). Not ported yet (ROADMAP A9): the
-``ComputationGraph`` zip, which raises.
+every entry point of the port).
 """
 
 from __future__ import annotations
@@ -150,18 +151,23 @@ def _copy_in(path, where: str, target: torch.Tensor, arr: np.ndarray) -> None:
     target.copy_(torch.from_numpy(np.array(arr)).to(target.dtype))
 
 
-def _layer(container: dict, path, key: str, where: str) -> dict:
-    if not key.isdigit() or int(key) not in container:
+def _entry(container: dict, path, key: str, where: str) -> dict:
+    """The per-layer dict of ``container`` that the zip key ``key`` names:
+    a layer index of a MultiLayerNetwork, a vertex name of a graph."""
+    k = key if key in container or not key.isdigit() else int(key)
+    if k not in container:
         raise ValueError(f"checkpoint {path}: array {where} names no layer "
                          f"of the configuration")
-    return container[int(key)]
+    return container[k]
 
 
-def restore_multi_layer_network(path, *, load_updater: bool = True,
-                                device=None):
-    """``ModelSerializer.restoreMultiLayerNetwork``: the network the zip
-    at ``path`` holds, on ``device`` (``cuda`` unless ``"cpu"``)."""
+def _restore(path, *, load_updater: bool = True, device=None):
+    """The network (either kind) that the zip at ``path`` holds."""
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+        ComputationGraphConfiguration,
+    )
     from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.layers.attention import (
         QKV_LAYOUT,
         repack_legacy_fused_qkv,
@@ -184,26 +190,27 @@ def restore_multi_layer_network(path, *, load_updater: bool = True,
             f"checkpoint {path} failed integrity validation: "
             + ("; ".join(problems) if problems else str(e))
             + " — the file is truncated/corrupt or not a model zip") from e
-    if "ComputationGraph" in conf_d.get("format", ""):
-        raise NotImplementedError(
-            f"{path} holds a ComputationGraph; its zip is not ported yet")
     if states:
         raise NotImplementedError(
             f"{path} holds layer state ({sorted(states)}); no stateful layer "
             f"is ported yet")
-    model = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf_d),
-                              device=device).init()
+    if "ComputationGraph" in conf_d.get("format", ""):
+        model = ComputationGraph(ComputationGraphConfiguration.from_dict(conf_d),
+                                 device=device).init()
+    else:
+        model = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf_d),
+                                  device=device).init()
     with torch.no_grad():
         for full, arr in params.items():
             key, pn = full.split("/", 1)
-            layer = _layer(model.params, path, key, full)
+            layer = _entry(model.params, path, key, full)
             if pn not in layer:
                 raise ValueError(f"checkpoint {path}: array {full} is not a "
                                  f"parameter of the configuration")
             _copy_in(path, full, layer[pn], arr)
         for full, arr in (upd or {}).items():
             key, pn, slot = full.split("/", 2)
-            slots = _layer(model.updater_states, path, key, full).get(pn)
+            slots = _entry(model.updater_states, path, key, full).get(pn)
             if slots is None or slot not in slots:
                 raise ValueError(f"checkpoint {path}: updater state {full} "
                                  f"is not one of the configuration's updaters")
@@ -215,11 +222,36 @@ def restore_multi_layer_network(path, *, load_updater: bool = True,
     return model
 
 
+def restore_multi_layer_network(path, *, load_updater: bool = True,
+                                device=None):
+    """``ModelSerializer.restoreMultiLayerNetwork``: the network the zip
+    at ``path`` holds, on ``device`` (``cuda`` unless ``"cpu"``)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    model = _restore(path, load_updater=load_updater, device=device)
+    if not isinstance(model, MultiLayerNetwork):
+        raise ValueError(f"{path} holds a ComputationGraph, not a "
+                         f"MultiLayerNetwork")
+    return model
+
+
+def restore_computation_graph(path, *, load_updater: bool = True,
+                              device=None):
+    """``ModelSerializer.restoreComputationGraph``: the graph the zip at
+    ``path`` holds, on ``device`` (``cuda`` unless ``"cpu"``)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    model = _restore(path, load_updater=load_updater, device=device)
+    if not isinstance(model, ComputationGraph):
+        raise ValueError(f"{path} holds a MultiLayerNetwork, not a "
+                         f"ComputationGraph")
+    return model
+
+
 def restore_model(path, *, load_updater: bool = True, device=None):
-    """Type-agnostic restore; the port restores ``MultiLayerNetwork`` zips
-    only (a ``ComputationGraph`` zip raises)."""
-    return restore_multi_layer_network(path, load_updater=load_updater,
-                                       device=device)
+    """Type-agnostic restore: the ``MultiLayerNetwork`` or
+    ``ComputationGraph`` the zip holds."""
+    return _restore(path, load_updater=load_updater, device=device)
 
 
 def add_normalizer_to_model(path, normalizer) -> None:

@@ -3,6 +3,12 @@
 from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
     LeNet,
     TransformerLM,
+    beam_search,
+    generate,
+    generate_on_device,
     lm_labels,
     transformer_decoder_block,
 )
+
+__all__ = ["LeNet", "TransformerLM", "beam_search", "generate",
+           "generate_on_device", "lm_labels", "transformer_decoder_block"]

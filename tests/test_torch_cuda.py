@@ -21,7 +21,13 @@ the twin-net tolerance of the JAX package's fused-updater tests. A
 float64 network on the card takes the plain path at the kernel seams
 (the kernels take float32 only) and gives its CPU output within 1e-10
 relative; ``tests/test_torch_dtypes.py`` holds that CPU output to the JAX
-package's float64 one within 1e-10.
+package's float64 one within 1e-10. Decoding on the card: greedy
+``generate_on_device`` and beam 1 give ``generate``'s tokens, the sampled
+loop makes no synchronising call (``torch.cuda.set_sync_debug_mode``),
+``rnn_time_step`` launches no flash kernel (``output`` does, and the
+prefill agrees with it within 1e-5), TBPTT fit launches the fused updater
+only, and a graph zip restores on the card bit for bit (on the CPU within
+1e-5).
 """
 
 import numpy as np
@@ -701,3 +707,102 @@ def test_flash_seam_declines_dropout_on_the_card(card):
     net.output(x)
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counters, before)] == [2, 0, 0]
+
+
+# ------------------------------------------------------- decode and TBPTT
+DECODE_LM = dict(vocab_size=100, max_length=256, n_layers=2, d_model=128,
+                 n_heads=2, d_ff=256, seed=1)
+
+
+def _decode_net(card, **extra):
+    return TransformerLM(**dict(DECODE_LM, **extra)).init(device=card)
+
+
+def _flash_counts():
+    return (ck.flash_attention_fwd.launches, ck.flash_attention_bwd_dq.launches,
+            ck.flash_attention_bwd_dkv.launches)
+
+
+@pytest.mark.cuda
+def test_generate_on_device_greedy_equals_generate_on_the_card(card):
+    from deeplearning4j_tpu_torch.zoo import beam_search, generate, generate_on_device
+
+    net = _decode_net(card)
+    prompt = np.random.default_rng(0).integers(0, 100, (3, 128)).astype(np.float32)
+    host = generate(net, prompt, 16)
+    np.testing.assert_array_equal(generate_on_device(net, prompt, 16), host)
+    np.testing.assert_array_equal(beam_search(net, prompt, 16, beam_size=1)[0], host)
+
+
+@pytest.mark.cuda
+def test_decode_loop_makes_no_host_synchronisation(card):
+    from deeplearning4j_tpu_torch.zoo import generate_on_device, models
+
+    with pytest.raises(RuntimeError):  # the check catches a synchronising call
+        with models._sync_check(True, card):
+            torch.ones(1, device=card).item()
+    net = _decode_net(card)
+    prompt = np.random.default_rng(1).integers(0, 100, (2, 40)).astype(np.float32)
+    kw = dict(temperature=0.8, top_k=40, top_p=0.95)
+    a = generate_on_device(net, prompt, 24, seed=3, check_no_sync=True, **kw)
+    b = generate_on_device(net, prompt, 24, seed=3, check_no_sync=True, **kw)
+    np.testing.assert_array_equal(a, b)
+    assert ((a >= 0) & (a < 100)).all()
+    np.testing.assert_array_equal(
+        generate_on_device(net, prompt, 8, check_no_sync=True),
+        generate_on_device(net, prompt, 8))
+
+
+@pytest.mark.cuda
+def test_decode_launches_no_flash_kernel_and_output_does(card):
+    net = _decode_net(card)
+    ids = np.random.default_rng(2).integers(0, 100, (2, 136)).astype(np.float32)
+    before = _flash_counts()
+    net.rnn_clear_previous_state()
+    steps = [net.rnn_time_step(ids[:, :128, None])]
+    for j in range(128, 136):
+        steps.append(net.rnn_time_step(ids[:, j:j + 1]))
+    torch.cuda.synchronize()
+    assert _flash_counts() == before
+    full = net.output(ids[:, :128])
+    torch.cuda.synchronize()
+    assert ck.flash_attention_fwd.launches == before[0] + 2
+    torch.testing.assert_close(steps[0], full, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_tbptt_fit_launches_the_fused_updater_only(card):
+    net = _decode_net(card)
+    conf_net = net.conf
+    conf_net.backprop_type, conf_net.tbptt_fwd_length = "truncated_bptt", 64
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    ids = np.random.default_rng(3).integers(0, 100, (2, 256))
+    x = ids.astype(np.float32)
+    y = np.eye(100, dtype=np.float32)[np.concatenate([ids[:, 1:], ids[:, -1:]], 1)]
+    n_tensors = sum(len(named) for named in net.params.values())
+    before, k2 = _flash_counts(), ck.fused_adam.launches
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    assert net.iteration == 4 and np.isfinite(net.score_)
+    assert _flash_counts() == before
+    assert ck.fused_adam.launches - k2 == 4 * n_tensors
+
+
+@pytest.mark.cuda
+def test_graph_zip_restores_on_the_card(card, tmp_path):
+    net = _decode_net(card)
+    x = np.random.default_rng(4).integers(0, 100, (2, 128)).astype(np.float32)
+    net.fit(x, np.eye(100, dtype=np.float32)[x.astype(np.int64)])
+    path = tmp_path / "lm.zip"
+    net.save(path)
+    back = ComputationGraph.load(path)
+    assert back.device.type == "cuda" and back.iteration == 1
+    torch.testing.assert_close(back.output(x), net.output(x), rtol=0, atol=0)
+    for v, named in net.updater_states.items():
+        for n, slots in named.items():
+            for s, t in slots.items():
+                torch.testing.assert_close(back.updater_states[v][n][s], t,
+                                           rtol=0, atol=0)
+    cpu = ComputationGraph.load(path, device="cpu")
+    torch.testing.assert_close(cpu.output(x), net.output(x).cpu(), rtol=0,
+                               atol=1e-5)

@@ -173,3 +173,46 @@ def test_regularizer_and_pipeline_modules_leave_jax_unloaded():
             "deeplearning4j_tpu_torch/nn/tick.py",
             "deeplearning4j_tpu_torch/datasets/iterators.py",
             "deeplearning4j_tpu_torch/datasets/normalizers.py"} <= names
+
+
+def test_decode_and_graph_persistence_modules_leave_jax_unloaded(tmp_path):
+    """The decode slice's modules (the KV-cache and positional carries,
+    the graph with carries and TBPTT, graph configuration serde and
+    vertices, the graph zip, generation) import no jax, and a graph zip
+    restores on the CPU only when the caller asks for it."""
+    code = ("import sys, deeplearning4j_tpu_torch.nn.layers.attention, "
+            "deeplearning4j_tpu_torch.nn.layers.core, "
+            "deeplearning4j_tpu_torch.nn.layers.recurrent, "
+            "deeplearning4j_tpu_torch.nn.graph, "
+            "deeplearning4j_tpu_torch.nn.conf.graph_conf, "
+            "deeplearning4j_tpu_torch.nn.vertices, "
+            "deeplearning4j_tpu_torch.util.model_serializer, "
+            "deeplearning4j_tpu_torch.zoo; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_computation_graph,
+        restore_model,
+    )
+    from deeplearning4j_tpu_torch.zoo import TransformerLM, generate_on_device
+
+    net = TransformerLM(vocab_size=10, max_length=8, n_layers=1, d_model=16,
+                        n_heads=2, d_ff=32).init(device="cpu")
+    path = os.path.join(str(tmp_path), "g.zip")
+    net.save(path)
+    for restore in (ComputationGraph.load, restore_computation_graph,
+                    restore_model):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            restore(path)
+    back = ComputationGraph.load(path, device="cpu")
+    assert all(p.device.type == "cpu" for p in back.parameters())
+    toks = generate_on_device(back, np.zeros((1, 3), np.float32), 4,
+                              check_no_sync=True)
+    assert toks.shape == (1, 4)

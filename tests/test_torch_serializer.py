@@ -13,8 +13,9 @@ the JAX package's: the same entries and keys, read both ways.
   same ``output`` within 1e-5 and the same ``params.npz`` and
   ``updater.npz`` keys and shapes (AMSGrad's ``v_hat`` included).
 - A zip whose arrays disagree with its configuration is refused with the
-  reference's message; so are a graph zip (not ported), a damaged one,
-  and layer state.
+  reference's message; so are a damaged one and layer state; a graph zip
+  restores as a graph, and is refused as a MultiLayerNetwork with the
+  reference's message.
 - A zip without the ``qkv_layout`` stamp has its fused attention columns
   repacked as the reference repacks them.
 """
@@ -189,9 +190,18 @@ def test_shape_mismatch_is_refused_with_the_reference_message(tmp_path):
 
 
 def test_damaged_graph_and_stateful_zips_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ComputationGraph"):
-        ms.restore_model(os.path.join(FIXTURES, "regression_graph_v1.zip"),
-                         device="cpu")
+    # a graph zip restores as a graph (test_torch_graph_serde.py holds it
+    # to its expected output); asked for as a MultiLayerNetwork it is
+    # refused with the reference's message
+    graph_zip = os.path.join(FIXTURES, "regression_graph_v1.zip")
+    graph = ms.restore_model(graph_zip, device="cpu")
+    assert type(graph).__name__ == "ComputationGraph"
+    assert sorted(graph.params) == sorted(jms.restore_model(graph_zip).params)
+    with pytest.raises(ValueError) as port_err:
+        ms.restore_multi_layer_network(graph_zip, device="cpu")
+    with pytest.raises(ValueError) as jax_err:
+        jms.restore_multi_layer_network(graph_zip)
+    assert str(port_err.value) == str(jax_err.value)
     torn = tmp_path / "torn.zip"
     with open(V1_ZIP, "rb") as f:
         torn.write_bytes(f.read()[:300])
