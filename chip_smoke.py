@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs ten phases:
+every kernel, and runs twelve phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -82,7 +82,28 @@ every kernel, and runs ten phases:
    batch (4 chunks and 4 iterations a fit, 150 fused-Adam launches and no
    flash launch a chunk, the mean loss falling), its model zip without
    the updater state restored on the card (the same output) and the CPU
-   (within 1e-5), and example 11's TBPTT net's zip with its Adam state.
+   (within 1e-5), and example 11's TBPTT net's zip with its Adam state;
+11. ResNet-50 (the zoo's ``ResNet50``, 1000 labels, seed 1) trained through
+   ``ComputationGraph.fit`` at 224x224x3, batch 256 (halved until it
+   fits, each batch tried printed with its peak), f32, with the zoo's
+   Nesterovs updater: 3 warm-up and 10 timed steps on seeded images
+   (images/s, median step, peak memory; finite losses; every running mean
+   and variance moved; no launch of K1, K2, K3a or K3b: the reference's
+   path has no kernel either), 2 steps under the profiler (busy share,
+   kernel groups; the Nesterovs update profiled alone), the step's FLOP
+   bound at the f32 CUDA-core peak, ``output`` images/s at batch 256;
+   then one step at batch 2 on the card against the same step in the
+   port on the CPU (in f64, where the step is well-conditioned: loss,
+   parameters and states; in f32: the loss, the Nesterovs update of the
+   same gradients, and the gradients no farther from the CPU's f64 ones
+   than the CPU's f32 ones are, a few times at most: RESNET_F32_FACTOR;
+   the output after the step printed beside the CPU's) and the zip with its layer states restored on the card
+   (``output`` equal bit for bit); the Nesterovs update timed alone last,
+   so that its extra steps move no weight another check reads;
+12. DL4J checkpoints: the four DL4J-format fixtures in ``tests/fixtures``
+   restored with ``device="cuda"`` reproduce their recorded outputs, and
+   the convnet one fits 3 more steps from its restored Adam state on the
+   fused updater (8 K2 launches a step).
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -214,6 +235,38 @@ BEAM_N, BEAM_SIZE, BEAM_TOKENS, BEAM_PENALTY = 2, 4, 32, 1.0
 # the zip of the trained net without its updater state restored on the
 # card (output on 2 x 128 ids exact) and the CPU (within 1e-5)
 TBPTT_LEN, TBPTT_FITS, ZIP_CPU_ATOL, ZIP_IDS = 256, 2, 1e-5, (2, 128)
+# ResNet-50 at ImageNet shape: the batch tried first (halved until a step
+# fits), warm-up and timed fit steps, profiled steps; the card's step
+# against the CPU's at batch 2: the loss within 1e-5 relative in f32 and
+# f64, and in f64 each parameter within 1e-4 x its largest entry and each
+# running statistic within 1e-5. A randomly initialized ResNet-50's f32
+# step is ill-conditioned (a few ReLU inputs within f32 rounding of zero
+# flip sign between two summation orders, and each flip moves whole
+# gradient entries), so in f32 the card's parameters after a step are
+# printed, not held; held are the Nesterovs update of the same gradients
+# (each parameter and its momentum within 2e-5 x the largest entry) and
+# the card's f32 gradients against the CPU's f64 ones: the L2 norm of the
+# error within RESNET_F32_FACTOR x the CPU's own f32 error, for the whole
+# gradient and for each tensor (or within 1% of the tensor's gradient,
+# where the CPU's f32 error happens to be smaller than that). The largest
+# error of the output after the step is printed beside the CPU's, not
+# held: their ratio ranged from 0.20 to 5.6 over three runs
+RESNET_BATCH, RESNET_WARMUP, RESNET_TIMED, RESNET_PROFILED = 256, 3, 10, 2
+RESNET_SIDE, RESNET_LABELS, RESNET_TWIN_BATCH = 224, 1000, 2
+RESNET_LOSS_RTOL, RESNET_PARAM_TOL, RESNET_STATE_TOL = 1e-5, 1e-4, 1e-5
+RESNET_UPDATE_TOL, RESNET_F32_FACTOR = 2e-5, 4.0
+RESNET_GROUPS = (
+    ("pooling", ("pool",)),
+    ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
+                      "xmma", "cudnn", "gemm", "sm90_", "sm80_", "cutlass")),
+    ("BN reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+# the DL4J-format fixtures (tests/fixtures): output within rtol 1e-5 / atol
+# 1e-6 of the recorded one (the CPU tests' limit); the convnet's 3 more
+# fit steps on the fused updater, 8 K2 launches a step
+DL4J_FIXTURES = ("convnet", "lstm", "graph", "branchy_graph")
+DL4J_RTOL, DL4J_ATOL, DL4J_FIT_STEPS, DL4J_CONVNET_TENSORS = 1e-5, 1e-6, 3, 8
 
 
 def card_peaks(name: str):
@@ -565,9 +618,9 @@ def worst_gradient(got, ref):
     return worst_name, worst
 
 
-def kernel_group(name: str) -> str:
+def kernel_group(name: str, groups=KERNEL_GROUPS) -> str:
     low = name.lower()
-    for group, keys in KERNEL_GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
@@ -667,7 +720,8 @@ def ptxas_report(ck, source):
     return report
 
 
-def profile_steps(net, x, labels, fits=PROFILED_STEPS, steps_per_fit=1):
+def profile_steps(net, x, labels, fits=PROFILED_STEPS, steps_per_fit=1,
+                  groups=KERNEL_GROUPS):
     """Device time of ``fits`` more fit calls (``steps_per_fit`` steps
     each) under torch.profiler, per step: by kernel group, in all, and as a
     share of the step's wall time (host clock around steps that end in a
@@ -684,15 +738,16 @@ def profile_steps(net, x, labels, fits=PROFILED_STEPS, steps_per_fit=1):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     per_kernel = {k: ms / steps for k, ms in device_ms_by_kernel(prof).items()}
-    groups = {}
+    by_group = {}
     for name, ms in per_kernel.items():
-        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+        g = kernel_group(name, groups)
+        by_group[g] = by_group.get(g, 0.0) + ms
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
         "steps": steps, "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
-        "device_ms_per_step_by_group": dict(sorted(groups.items(),
+        "device_ms_per_step_by_group": dict(sorted(by_group.items(),
                                                    key=lambda kv: -kv[1])),
         "top_kernels_ms_per_step": [[k[:100], v] for k, v in top],
     }
@@ -1808,7 +1863,8 @@ def gpt2_attn_dropout_phase(ck, card):
     }
     print("gpt2_attn_dropout " + json.dumps(stats), flush=True)
     del net, labels, xb
-    return {"fused_adam": launches["fused_adam"], "output_fwd": output_launches}
+    return {"train": launches, "fused_adam": launches["fused_adam"],
+            "output_fwd": output_launches}
 
 
 def gpt2_block_and_head_bytes(net):
@@ -2006,7 +2062,7 @@ def decode_phase(ck, card, peaks):
     }
     print("decode " + json.dumps(stats), flush=True)
     del net
-    return {"output_fwd": output_launches}
+    return {"decode": decode_launches, "output_fwd": output_launches}
 
 
 def gpt2_tbptt_phase(ck, card):
@@ -2149,7 +2205,370 @@ def gpt2_tbptt_phase(ck, card):
                                   "iteration": again.iteration},
     }
     print("gpt2_tbptt " + json.dumps(stats), flush=True)
-    return {"fused_adam": launches["fused_adam"]}
+    return {"train": launches, "fused_adam": launches["fused_adam"]}
+
+
+def resnet_train_flops(conf, batch):
+    """The multiply-add FLOPs of one training step of a CNN graph, from
+    its layer shapes: each convolution and dense product forward, its
+    weight gradient, and its data gradient where autograd needs one (its
+    input depends on a parameter: not the stem, behind the zero padding
+    of the network's input)."""
+    from deeplearning4j_tpu_torch.nn.layers import ConvolutionLayer, DenseLayer
+
+    total, has_grad = 0.0, set()
+    for name in conf.topo_order:
+        vd = conf.vertices[name]
+        needs_dgrad = any(s in has_grad for s in vd.inputs)
+        if needs_dgrad or (vd.is_layer and vd.obj.param_shapes()):
+            has_grad.add(name)
+        if not vd.is_layer:
+            continue
+        layer, it = vd.obj, conf.vertex_input_types[name][0]
+        if isinstance(layer, ConvolutionLayer):
+            ot = layer.output_type(it)
+            kh, kw = layer.kernel_size
+            fwd = 2.0 * ot.height * ot.width * ot.channels * kh * kw * layer.n_in
+        elif isinstance(layer, DenseLayer):  # the output layer too
+            fwd = 2.0 * layer.n_in * layer.n_out
+        else:
+            continue
+        total += fwd * (3 if needs_dgrad else 2)
+    return total * batch
+
+
+def resnet_images(batch, seed):
+    """Seeded normal NHWC images and one-hot labels, made on the card."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((batch, RESNET_SIDE, RESNET_SIDE, 3), generator=gen,
+                    device="cuda")
+    idx = torch.randint(0, RESNET_LABELS, (batch,), generator=gen, device="cuda")
+    return x, F.one_hot(idx, RESNET_LABELS).float()
+
+
+def _worst_rel(got, want):
+    """``(name, difference)`` of the tensor whose largest difference is the
+    largest relative to its own largest entry, over two trees of tensors."""
+    worst_name, worst = "", 0.0
+    for v, named in want.items():
+        for n, t in named.items():
+            diff = (got[v][n].cpu().double() - t.cpu().double()).abs().max().item()
+            rel = diff / max(t.abs().max().item(), 1e-30)
+            if rel >= worst:
+                worst_name, worst = f"{v}/{n}", rel
+    return worst_name, worst
+
+
+def resnet_twins(net_card):
+    """One step at RESNET_TWIN_BATCH on the card and on the CPU from
+    ``net_card``'s weights and states, in f64 and in f32 (see
+    RESNET_F32_FACTOR). Returns the f64 and f32 comparisons; raises when
+    one misses its limit."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.convert import (
+        export_params, export_states, load_reference_params,
+        load_reference_states)
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    params, states = export_params(net_card), export_states(net_card)
+    x, y = resnet_images(RESNET_TWIN_BATCH, seed=5)
+    probe, _ = resnet_images(RESNET_TWIN_BATCH, seed=6)
+    x, y, probe = x.cpu().numpy(), y.cpu().numpy(), probe.cpu().numpy()
+
+    def twin(device, dtype):
+        conf = ResNet50(num_labels=RESNET_LABELS, seed=1).conf()
+        conf.global_conf.dtype = dtype
+        net = ComputationGraph(conf, device=device).init()
+        return load_reference_states(load_reference_params(net, params), states)
+
+    def grads(net):
+        _, g, _ = net._gradients({"input": net._as_tensor(x)},
+                                 [net._as_tensor(y)], train=True)
+        return g
+
+    def stepped(net):
+        net.fit(x, y)
+        return net, net.output(probe).cpu().double()
+
+    out = {}
+    cpu64, ref_out = stepped(twin("cpu", "float64"))
+    card64, _ = stepped(twin("cuda", "float64"))
+    ref_grads = grads(twin("cpu", "float64"))
+    name, rel = _worst_rel(card64.params, cpu64.params)
+    out["f64"] = {
+        "loss_rel": abs(card64.score_ - cpu64.score_) / abs(cpu64.score_),
+        "worst_param": name, "worst_param_rel_to_max": rel,
+        "worst_state_abs": max(
+            (card64.states[v][n].cpu() - t).abs().max().item()
+            for v, named in cpu64.states.items() for n, t in named.items())}
+    del card64, cpu64
+
+    # f32: the gradients against the CPU's f64 ones, then the step
+    card32, cpu32 = twin("cuda", "float32"), twin("cpu", "float32")
+    g_card, g_cpu = grads(card32), grads(cpu32)
+    ratios, card_sq, cpu_sq = [], 0.0, 0.0
+    for v, named in ref_grads.items():
+        for n, w in named.items():
+            e_card = (g_card[v][n].cpu().double() - w).norm().item()
+            e_cpu = (g_cpu[v][n].double() - w).norm().item()
+            ratios.append((e_card / max(e_cpu, 1e-30), f"{v}/{n}",
+                           e_card <= max(RESNET_F32_FACTOR * e_cpu,
+                                         1e-2 * w.norm().item())))
+            card_sq, cpu_sq = card_sq + e_card ** 2, cpu_sq + e_cpu ** 2
+    del g_card
+    (card32, card_out), (cpu32, cpu_out) = stepped(card32), stepped(cpu32)
+    name, rel = _worst_rel(card32.params, cpu32.params)
+    out["f32"] = {
+        "loss_rel": abs(card32.score_ - cpu32.score_) / abs(cpu32.score_),
+        "worst_param": name, "worst_param_rel_to_max": rel,
+        "grad_l2_ratio_worst": list(max(ratios)[:2]),
+        "grad_l2_ratio_whole": math.sqrt(card_sq / cpu_sq),
+        "grad_tensors_within": sum(r[2] for r in ratios),
+        "grad_tensors": len(ratios),
+        "output_after_step_err": (card_out - ref_out).abs().max().item(),
+        "cpu_output_after_step_err": (cpu_out - ref_out).abs().max().item()}
+    del card32, cpu32
+
+    # f32: the Nesterovs update of the CPU's gradients on both
+    card32, cpu32 = twin("cuda", "float32"), twin("cpu", "float32")
+    card32._apply_updates({v: {n: t.cuda() for n, t in named.items()}
+                           for v, named in g_cpu.items()})
+    cpu32._apply_updates(g_cpu)
+    p_name, p_rel = _worst_rel(card32.params, cpu32.params)
+    v_name, v_rel = _worst_rel(
+        {k: {n: st["v"] for n, st in named.items()}
+         for k, named in card32.updater_states.items()},
+        {k: {n: st["v"] for n, st in named.items()}
+         for k, named in cpu32.updater_states.items()})
+    out["f32"].update(update_worst_param=p_name, update_param_rel_to_max=p_rel,
+                      update_worst_momentum=v_name,
+                      update_momentum_rel_to_max=v_rel)
+    del card32, cpu32, g_cpu, ref_grads
+
+    f32, f64 = out["f32"], out["f64"]
+    if not (f64["loss_rel"] <= RESNET_LOSS_RTOL
+            and f64["worst_param_rel_to_max"] <= RESNET_PARAM_TOL
+            and f64["worst_state_abs"] <= RESNET_STATE_TOL
+            and f32["loss_rel"] <= RESNET_LOSS_RTOL
+            and f32["update_param_rel_to_max"] <= RESNET_UPDATE_TOL
+            and f32["update_momentum_rel_to_max"] <= RESNET_UPDATE_TOL
+            and f32["grad_tensors_within"] == f32["grad_tensors"]
+            and f32["grad_l2_ratio_whole"] <= RESNET_F32_FACTOR):
+        raise RuntimeError(f"ResNet-50 card step disagrees with the CPU's: {out}")
+    return out
+
+
+def resnet50_phase(ck, card, peaks):
+    """The zoo's ResNet-50 trained at ImageNet shape on the card (see the
+    module docstring, phase 11). Returns the launches of the four kernels
+    in its timed fit steps (all 0)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    counters = (ck.lstm_sequence, ck.fused_adam, ck.flash_attention_fwd,
+                ck.flash_attention_bwd_dq, ck.flash_attention_bwd_dkv)
+    tried, batch, net = [], RESNET_BATCH, None
+    while batch >= 1:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            net = ResNet50(num_labels=RESNET_LABELS, seed=1).init()
+            x, labels = resnet_images(batch, seed=1)
+            for c in counters:
+                c.launches = 0
+            net.fit(x, labels)  # the first warm-up step
+            torch.cuda.synchronize()
+            tried.append({"batch": batch, "fits": True,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            break
+        except torch.OutOfMemoryError:
+            tried.append({"batch": batch, "fits": False,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            net = x = labels = None
+            batch //= 2
+    print("resnet50_batches " + json.dumps(tried), flush=True)
+    if net is None:
+        raise RuntimeError("ResNet-50: no batch fits on the card")
+    n_bn = sum(1 for st in net.states.values() if st)
+    before = {v: {n: t.clone() for n, t in st.items()}
+              for v, st in net.states.items() if st}
+    for _ in range(RESNET_WARMUP - 1):
+        net.fit(x, labels)
+    events, losses = [], []
+    for _ in range(RESNET_TIMED):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        net.fit(x, labels)
+        end.record()
+        events.append((start, end))
+        losses.append(net._score)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l) for l in losses]
+    step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+    window_ms = events[0][0].elapsed_time(events[-1][1])
+    if any(launches.values()):
+        raise RuntimeError(f"ResNet-50 fit launched a kernel: {launches}")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"ResNet-50 losses not finite: {losses}")
+    unmoved = [f"{v}/{n}" for v, st in before.items() for n, t in st.items()
+               if torch.equal(net.states[v][n], t)]
+    if n_bn != 53 or unmoved:
+        raise RuntimeError(f"ResNet-50 running statistics: {n_bn} BatchNorm "
+                           f"layers, unmoved {unmoved[:5]}")
+    profile = profile_steps(net, x, labels, fits=RESNET_PROFILED,
+                            groups=RESNET_GROUPS)
+    flops = resnet_train_flops(net.conf, batch)
+    bound_ms = flops / peaks["f32"] * 1e3
+    median_step = float(np.median(step_ms))
+
+    # inference: output at the same batch, under inference mode
+    out_ms = median_ms(lambda: net.output(x), runs=5, warmup=1)
+    out = net.output(x)
+    rowsum_dev = (out.double().sum(-1) - 1.0).abs().max().item()
+    if not (out.shape == (batch, RESNET_LABELS) and rowsum_dev <= ROWSUM_TOL):
+        raise RuntimeError(f"ResNet-50 output: shape {tuple(out.shape)}, rows "
+                           f"sum off by {rowsum_dev}")
+    del out, x, labels
+    torch.cuda.empty_cache()
+
+    # the card's step against the CPU's at batch 2
+    twins = resnet_twins(net)
+
+    # the zip with its layer states, restored on the card
+    probe, _ = resnet_images(4, seed=7)
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = net.output(probe)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "resnet50.zip")
+            t0 = time.perf_counter()
+            net.save(path, save_updater=False)
+            write_s = time.perf_counter() - t0
+            zip_bytes = os.path.getsize(path)
+            back = ComputationGraph.load(path)
+        got = back.output(probe)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    states_equal = all(torch.equal(back.states[v][n], t)
+                       for v, st in net.states.items() for n, t in st.items())
+    if not (torch.equal(got, want) and states_equal):
+        raise RuntimeError(f"ResNet-50 zip: output off by "
+                           f"{(got - want).abs().max().item()}, states equal "
+                           f"{states_equal}")
+    del back, got, want
+    torch.cuda.empty_cache()
+
+    # the Nesterovs update of every tensor, profiled alone on one batch's
+    # gradients; last, as its extra steps move the weights
+    x, labels = resnet_images(batch, seed=1)
+    grads, _ = net.compute_gradient_and_score(x, labels)
+    del x, labels
+    _, update_wall_ms, update_kernels = profiled(lambda: net._apply_updates(grads))
+    update_ms = median_ms(lambda: net._apply_updates(grads), runs=5, warmup=1)
+    del grads
+    stats = {
+        "card": card, "params": net.conf.num_params(), "batch": batch,
+        "image": [RESNET_SIDE, RESNET_SIDE, 3], "labels": RESNET_LABELS,
+        "batches_tried": tried, "timed_steps": RESNET_TIMED,
+        "losses": losses, "step_ms": step_ms, "median_step_ms": median_step,
+        "window_ms": window_ms,
+        "train_images_per_s": RESNET_TIMED * batch / (window_ms / 1e3),
+        "train_images_per_s_at_median_step": batch / (median_step / 1e3),
+        "peak_device_mem_gb": peak_gb,
+        "launches": launches,
+        "flops_per_step": flops, "flop_bound_ms_f32": bound_ms,
+        "bound_share_of_median_step": bound_ms / median_step,
+        "device_busy_share_of_median_step":
+            profile["device_ms_per_step"] / median_step,
+        "profile_per_step": profile,
+        "nesterovs_update_ms": update_ms,
+        "nesterovs_update_profiled_device_ms": sum(update_kernels.values()),
+        "nesterovs_update_profiled_kernels": len(update_kernels),
+        "nesterovs_update_profiled_wall_ms": update_wall_ms,
+        "output_batch": batch, "output_ms": out_ms,
+        "output_images_per_s": batch / (out_ms / 1e3),
+        "twin_batch": RESNET_TWIN_BATCH,
+        "twin_f32": twins["f32"], "twin_f64": twins["f64"],
+        "zip": {"bytes": zip_bytes, "write_s": write_s, "output_equal": True,
+                "states_equal": states_equal},
+    }
+    print("resnet50 " + json.dumps(stats), flush=True)
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dl4j_import_phase(ck, card):
+    """The DL4J-format fixtures restored on the card; the convnet one fits
+    DL4J_FIT_STEPS more steps from its restored Adam state on the fused
+    updater. Returns the five kernels' launches in that fit."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.modelimport.dl4j import (
+        restore_computation_graph, restore_multi_layer_network)
+    from deeplearning4j_tpu_torch.nn import helpers
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    errors, restore_s = {}, {}
+    for name in DL4J_FIXTURES:
+        path = os.path.join(fixtures, f"dl4j_checkpoint_{name}.zip")
+        exp = np.load(os.path.join(fixtures, f"dl4j_checkpoint_{name}_expected.npz"))
+        restore = (restore_computation_graph if "graph" in name
+                   else restore_multi_layer_network)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # no order warning for these
+            net = restore(path, device="cuda")
+        restore_s[name] = time.perf_counter() - t0
+        out = net.output(exp["x"])
+        if not out.is_cuda:
+            raise RuntimeError(f"DL4J {name}: output not on the card")
+        got = out.cpu().numpy()
+        errors[name] = float(np.abs(got - exp["out"]).max())
+        np.testing.assert_allclose(got, exp["out"], rtol=DL4J_RTOL,
+                                   atol=DL4J_ATOL, err_msg=f"DL4J {name}")
+        if name == "convnet":
+            convnet = net
+    n_tensors = sum(len(named) for named in convnet.params.values())
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(16, 8, 8, 1)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 16)]
+    counters = (ck.lstm_sequence, ck.fused_adam, ck.flash_attention_fwd,
+                ck.flash_attention_bwd_dq, ck.flash_attention_bwd_dkv)
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        it0 = convnet.iteration
+        losses = []
+        for c in counters:
+            c.launches = 0
+        for _ in range(DL4J_FIT_STEPS):
+            convnet.fit(x, y)
+            losses.append(convnet.score_)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        helpers.clear_helper("updater")
+    want = {c.__name__: 0 for c in counters}
+    want["fused_adam"] = DL4J_CONVNET_TENSORS * DL4J_FIT_STEPS
+    if not (n_tensors == DL4J_CONVNET_TENSORS and launches == want
+            and convnet.iteration == it0 + DL4J_FIT_STEPS
+            and np.isfinite(losses).all()):
+        raise RuntimeError(f"DL4J convnet fit: launches {launches} for "
+                           f"{n_tensors} tensors, losses {losses}")
+    stats = {"card": card, "max_abs_err": errors, "restore_s": restore_s,
+             "convnet_fit_steps": DL4J_FIT_STEPS, "convnet_fit_losses": losses,
+             "convnet_launches": launches,
+             "convnet_k2_launches_per_step": launches["fused_adam"] // DL4J_FIT_STEPS,
+             "convnet_running_mean": convnet.states[1]["mean"].tolist()}
+    print("dl4j_import " + json.dumps(stats), flush=True)
+    return launches
 
 
 def main() -> None:
@@ -2190,6 +2609,8 @@ def main() -> None:
     gpt2_drop = gpt2_attn_dropout_phase(ck, card)
     decode = decode_phase(ck, card, peaks)
     tbptt = gpt2_tbptt_phase(ck, card)
+    resnet = resnet50_phase(ck, card, peaks)
+    dl4j = dl4j_import_phase(ck, card)
     lstm = lstm_rows[LSTM_PATHS["train"]]
 
     def entry(name, source, replaces, row, launches, **extra):
@@ -2203,48 +2624,61 @@ def main() -> None:
                 **extra}
 
     fwd = "flash_attention_fwd"
+
+    def later_paths(kernel):
+        """The kernel's launches in each path after the char LSTM's, as
+        each phase counted them."""
+        return {"gpt2_attn_dropout_train": gpt2_drop["train"].get(kernel),
+                "decode": decode["decode"].get(kernel),
+                "gpt2_tbptt_train": tbptt["train"].get(kernel),
+                "resnet50_train": resnet[kernel],
+                "dl4j_import_train": dl4j[kernel]}
+
+    def measured(by_path):
+        return {p: n for p, n in by_path.items() if n is not None}
+
     print(json.dumps({"kernels": [
         entry(fwd, "flash_attention_fwd.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:359", served,
               serve_launches + train_launches[fwd] + gpt2_drop["output_fwd"]
               + decode["output_fwd"],
-              launches_by_path={"serve": serve_launches,
-                                "train": train_launches[fwd],
-                                "gpt2_attn_dropout_train": 0,
-                                "gpt2_attn_dropout_output": gpt2_drop["output_fwd"],
-                                "decode": 0,
-                                "decode_check_output": decode["output_fwd"],
-                                "gpt2_tbptt_train": 0}),
+              launches_by_path=measured({
+                  "serve": serve_launches, "train": train_launches[fwd],
+                  **later_paths(fwd),
+                  "gpt2_attn_dropout_output": gpt2_drop["output_fwd"],
+                  "decode_check_output": decode["output_fwd"]})),
         entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dkv"],
               train_launches["flash_attention_bwd_dkv"],
-              launches_by_path={"train": train_launches["flash_attention_bwd_dkv"],
-                                "gpt2_attn_dropout_train": 0, "decode": 0,
-                                "gpt2_tbptt_train": 0}),
+              launches_by_path=measured({
+                  "train": train_launches["flash_attention_bwd_dkv"],
+                  **later_paths("flash_attention_bwd_dkv")})),
         entry("flash_attention_bwd_dq", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dq"],
               train_launches["flash_attention_bwd_dq"],
-              launches_by_path={"train": train_launches["flash_attention_bwd_dq"],
-                                "gpt2_attn_dropout_train": 0, "decode": 0,
-                                "gpt2_tbptt_train": 0}),
+              launches_by_path=measured({
+                  "train": train_launches["flash_attention_bwd_dq"],
+                  **later_paths("flash_attention_bwd_dq")})),
         entry("fused_adam", "fused_adam.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:218", adam,
               train_launches["fused_adam"] + char_adam_launches
               + lenet_adam_launches + ex17_adam_launches
               + lenet_reg_adam_launches + gpt2_drop["fused_adam"]
-              + tbptt["fused_adam"],
-              launches_by_path={"train": train_launches["fused_adam"],
-                                "char_lstm_train": char_adam_launches,
-                                "lenet_train": lenet_adam_launches,
-                                "ex17_train": ex17_adam_launches,
-                                "lenet_regularized_train": lenet_reg_adam_launches,
-                                "gpt2_attn_dropout_train": gpt2_drop["fused_adam"],
-                                "gpt2_tbptt_train": tbptt["fused_adam"]}),
+              + tbptt["fused_adam"] + dl4j["fused_adam"],
+              launches_by_path=measured({
+                  "train": train_launches["fused_adam"],
+                  "char_lstm_train": char_adam_launches,
+                  "lenet_train": lenet_adam_launches,
+                  "ex17_train": ex17_adam_launches,
+                  "lenet_regularized_train": lenet_reg_adam_launches,
+                  **later_paths("fused_adam")})),
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
-              sum(char_launches.values()), launches_by_path=char_launches,
+              sum(char_launches.values()),
+              launches_by_path=measured({**char_launches,
+                                         **later_paths("lstm_sequence")}),
               launches_by_plan=char_by_plan,
               library="torch.nn.LSTM (cuDNN) with its input product: "
                       "compare with ms_with_input_product",

@@ -3,8 +3,11 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/graph_conf.py``: named inputs,
 layer and vertex nodes with named input edges, named outputs, a
 topological order computed once at build time, InputType propagation
-through the DAG (which sets every layer's ``n_in``), standard or truncated
-BPTT (``backprop_type``, ``t_bptt_length``), and the reference's serde
+through the DAG (which sets every layer's ``n_in`` and gives a layer the
+reshape it asks for, as ``MultiLayerConfiguration`` does), explicit
+per-vertex preprocessor specs (``input_pre_processors``, written to the
+JSON only when there are any; the DL4J reader sets them), standard or
+truncated BPTT (``backprop_type``, ``t_bptt_length``), and the reference's serde
 (``to_dict``/``to_json``/``to_yaml`` and back, the same keys and
 ``format`` string), so a configuration written by either package reads
 back in the other. A layer or vertex kind the port has not ported raises
@@ -17,6 +20,7 @@ import dataclasses
 import json
 from typing import Dict, List, Optional, Union
 
+from deeplearning4j_tpu_torch.nn.conf import preprocessors as pp
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.network import (
     GlobalConf,
@@ -55,6 +59,7 @@ class GraphBuilder:
         self._backprop_type = "standard"
         self._tbptt_fwd = 20
         self._tbptt_bwd = 20
+        self._input_pre_processors: Dict[str, str] = {}
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
         self._inputs.extend(names)
@@ -72,6 +77,13 @@ class GraphBuilder:
         if name in self._vertices or name in self._inputs:
             raise ValueError(f"duplicate vertex name {name!r}")
         self._vertices[name] = VertexDef(name, vertex, list(inputs))
+        return self
+
+    def input_pre_processor(self, name: str, spec: str) -> "GraphBuilder":
+        """An explicit preprocessor (a ``nn/conf/preprocessors.py`` spec)
+        in front of layer vertex ``name`` (``GraphBuilder.inputPreProcessor``),
+        overriding the one its input type would give it."""
+        self._input_pre_processors[name] = spec
         return self
 
     def set_outputs(self, *names: str) -> "GraphBuilder":
@@ -104,6 +116,7 @@ class GraphBuilder:
             backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_bwd_length=self._tbptt_bwd,
+            input_pre_processors=dict(self._input_pre_processors),
         )
         conf.finalize()
         return conf
@@ -119,8 +132,11 @@ class ComputationGraphConfiguration:
     backprop_type: str = "standard"
     tbptt_fwd_length: int = 20
     tbptt_bwd_length: int = 20
+    # explicit preprocessor specs (nn/conf/preprocessors.py) by layer vertex
+    input_pre_processors: Dict[str, str] = dataclasses.field(default_factory=dict)
     # computed by finalize():
     topo_order: List[str] = dataclasses.field(default_factory=list)
+    preprocessors: Dict[str, object] = dataclasses.field(default_factory=dict)
     vertex_input_types: Dict[str, List[InputType]] = dataclasses.field(
         default_factory=dict)
     _finalized: bool = False
@@ -147,6 +163,11 @@ class ComputationGraphConfiguration:
         for vd in self.vertices.values():
             if vd.is_layer:
                 vd.obj.apply_global_defaults(self.global_conf)
+        for name, spec in self.input_pre_processors.items():
+            if name not in self.vertices or not self.vertices[name].is_layer:
+                raise ValueError(f"preprocessor for {name!r}, which is not a "
+                                 f"layer vertex")
+            self.preprocessors[name] = lambda x, _s=spec: pp.apply(_s, x)
         if self.input_types and all(t is not None for t in self.input_types):
             self._infer_types()
         self._finalized = True
@@ -183,8 +204,15 @@ class ComputationGraphConfiguration:
             in_types = [types[src] for src in vd.inputs]
             self.vertex_input_types[name] = in_types
             if vd.is_layer:
-                vd.obj.set_n_in(in_types[0])
-                types[name] = vd.obj.output_type(in_types[0])
+                it = in_types[0]
+                if name in self.input_pre_processors:
+                    it = pp.output_type(self.input_pre_processors[name], it)
+                else:
+                    pre = vd.obj.input_preprocessor(it)
+                    if pre is not None:
+                        self.preprocessors[name], it = pre
+                vd.obj.set_n_in(it)
+                types[name] = vd.obj.output_type(it)
             else:
                 types[name] = vd.obj.output_type(in_types)
 
@@ -197,7 +225,7 @@ class ComputationGraphConfiguration:
 
     # ---------------------------------------------------------------- serde
     def to_dict(self) -> dict:
-        return {
+        d = {
             "format": GRAPH_FORMAT,
             "version": 1,
             "global": global_conf_to_dict(self.global_conf),
@@ -213,6 +241,9 @@ class ComputationGraphConfiguration:
             "tbptt_fwd_length": self.tbptt_fwd_length,
             "tbptt_bwd_length": self.tbptt_bwd_length,
         }
+        if self.input_pre_processors:
+            d["input_pre_processors"] = dict(self.input_pre_processors)
+        return d
 
     def to_json(self, **kw) -> str:
         return json.dumps(self.to_dict(), **kw)
@@ -238,6 +269,7 @@ class ComputationGraphConfiguration:
             backprop_type=d.get("backprop_type", "standard"),
             tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
             tbptt_bwd_length=d.get("tbptt_bwd_length", 20),
+            input_pre_processors=dict(d.get("input_pre_processors") or {}),
         )
         conf.finalize()
         return conf

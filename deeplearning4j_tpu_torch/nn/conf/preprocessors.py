@@ -17,6 +17,14 @@ draws one fixed mask per seed, as the reference does, from a
 only), with a straight-through gradient. A spec whose output would be a
 kind the port has not ported (a rank-4 ``reshape``: an image sequence)
 raises.
+
+The ``*_nchw`` specs are DL4J's own preprocessors for imported
+checkpoints (``modelimport/dl4j.py``): DL4J flattens an image in C, H, W
+order, so the dense weights after a convolution index its features as
+``c·H·W + h·W + w``. ``cnn_to_ff_nchw`` flattens NHWC activations in
+that order and ``ff_to_cnn_nchw:h,w,c`` inverts it. The reference builds
+these as closures; here they are specs, so an imported configuration
+stays serializable.
 """
 
 from __future__ import annotations
@@ -78,6 +86,11 @@ def apply(spec: str, x):
     if name == "rnn_to_cnn":         # [N,T,H'*W'*C'] -> [N*T,H',W',C']
         h, w, c = args
         return x.reshape(-1, h, w, c)
+    if name == "cnn_to_ff_nchw":     # DL4J CnnToFeedForward: C, H, W order
+        return x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+    if name == "ff_to_cnn_nchw":     # DL4J FeedForwardToCnn
+        h, w, c = args
+        return x.reshape(x.shape[0], c, h, w).permute(0, 2, 3, 1)
     if name == "reshape":            # ReshapePreprocessor (Keras Reshape)
         return x.reshape((x.shape[0],) + args)
     raise ValueError(f"unknown preprocessor {spec!r}")
@@ -92,9 +105,9 @@ def output_type(spec: str, it: InputType) -> InputType:
     if name in ("identity", "zero_mean", "unit_variance", "standardize",
                 "binomial_sampling"):
         return it
-    if name == "cnn_to_ff":
+    if name in ("cnn_to_ff", "cnn_to_ff_nchw"):
         return InputType.feed_forward(it.height * it.width * it.channels)
-    if name in ("ff_to_cnn", "rnn_to_cnn"):
+    if name in ("ff_to_cnn", "rnn_to_cnn", "ff_to_cnn_nchw"):
         h, w, c = args
         return InputType.convolutional(h, w, c)
     if name == "rnn_to_ff":

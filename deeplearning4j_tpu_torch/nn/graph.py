@@ -31,6 +31,11 @@ updates them in place, so the serving path (``output``, under
 eagerly; where the reference jits one fused step, the port launches
 kernels one by one.
 
+Layer state (BatchNorm's running statistics) sits in ``states``, keyed
+by vertex name, and is replaced as in ``MultiLayerNetwork``: once per
+step or TBPTT chunk from a train forward; inference reads it.
+``evaluate`` scores the first output on the port's ``eval/evaluation.py``.
+
 Regularizers as in ``MultiLayerNetwork``: each step runs inside
 ``schedule_tick`` and draws from the network's dropout generator, vertex
 by vertex in topological order (a layer's weight noise before its
@@ -39,8 +44,9 @@ sees the same noised weights as its forward. Gradient normalization and
 constraints run per layer around the updater seam. ``output`` never
 draws. ``fit`` prefetches iterators as ``MultiLayerNetwork.fit`` does.
 
-Not ported yet: mixed precision, ``fit_batches_on_device``, the
-``evaluate`` family, listeners and pretraining.
+Not ported yet: mixed precision, ``fit_batches_on_device``, ROC,
+regression, binary and calibration evaluation, listeners, multi-input
+layers and pretraining.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from deeplearning4j_tpu_torch.datasets.dataset import (
     batch_nbytes,
 )
 from deeplearning4j_tpu_torch.datasets.iterators import wrap_for_prefetch
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.network import normalize_backprop_type
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
@@ -70,10 +77,13 @@ from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
     apply_updates,
     as_tensor,
+    commit_states,
     dropout_generator,
     gradients,
     init_parameters,
+    init_states,
     regularization,
+    to_host,
 )
 from deeplearning4j_tpu_torch.util import model_serializer
 
@@ -95,6 +105,8 @@ class ComputationGraph(nn.Module):
         self.device = resolve_device(device)
         self.dtype = conf.global_conf.torch_dtype()
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        # non-trainable layer state (BatchNorm's running statistics)
+        self.states: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.updater_states: Optional[Dict[str, Dict[str, Dict[str, torch.Tensor]]]] = None
         self._updaters: Dict[str, dict] = {}
         self.iteration = 0
@@ -123,14 +135,15 @@ class ComputationGraph(nn.Module):
         conf's seed (or ``seed``): the reference's schemes, not its draws.
         Each parameter gets its updater (the layer's, else the network's,
         else ``Sgd(0.1)``; ``b`` takes the bias updater when one is set) and
-        that updater's zero state. The dropout generator starts from the
-        same seed."""
+        that updater's zero state; each layer its initial state. The
+        dropout generator starts from the same seed."""
         g = self.conf.global_conf
         seed = g.seed if seed is None else seed
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         self.params, self._updaters, self.updater_states = init_parameters(
             self, self._named_layers(), g, gen, self.dtype, self.device)
+        self.states = init_states(self, self._named_layers(), self.device)
         self.dropout_generator = dropout_generator(seed, self.device)
         self.iteration = 0
         self.epoch = 0
@@ -156,8 +169,10 @@ class ComputationGraph(nn.Module):
                      gen: Optional[torch.Generator] = None,
                      carries: Optional[Dict[str, object]] = None):
         """Execute the DAG in topo order; returns ``(activations,
-        new_carries)``: every vertex activation, and with ``carries`` each
-        recurrent layer's final carry (None without).
+        new_carries, new_states)``: every vertex activation, with
+        ``carries`` each recurrent layer's final carry (None without), and
+        in a train forward each stateful layer's new state by name (empty
+        otherwise).
 
         With ``loss_inputs``, each loss layer also stores its input under
         ``name + ":in"``, its mask under ``name + ":mask"`` and the
@@ -166,9 +181,11 @@ class ComputationGraph(nn.Module):
         reads is not run (the loss starts from its input). ``train`` with
         ``gen`` draws each layer's weight noise before its forward and its
         dropout in it. With ``carries`` (by vertex name) each recurrent
-        layer runs ``forward_seq`` from its carry."""
+        layer runs ``forward_seq`` from its carry. Each other layer reads
+        its state."""
         conf = self.conf
         new_carries = None if carries is None else {}
+        new_states = {}
         acts: Dict[str, torch.Tensor] = dict(inputs)
         m: Dict[str, Optional[torch.Tensor]] = dict(masks or {})
         for name in conf.inputs:
@@ -183,6 +200,8 @@ class ComputationGraph(nn.Module):
                 if train and gen is not None and layer.weight_noise is not None:
                     p_v = layer.weight_noise.apply(layer, p_v, gen, train)
                 h = in_acts[0] if len(in_acts) == 1 else torch.cat(in_acts, -1)
+                if name in conf.preprocessors:
+                    h = conf.preprocessors[name](h)
                 cur_mask = in_masks[0]
                 if loss_inputs and layer.has_loss():
                     acts[name + ":in"] = h
@@ -195,8 +214,11 @@ class ComputationGraph(nn.Module):
                         p_v, h, carry=carries.get(name), mask=cur_mask,
                         train=train, gen=gen)
                 else:
-                    y = layer.forward(p_v, h, mask=cur_mask, train=train,
-                                      gen=gen)
+                    y, st = layer.forward_state(p_v, self.states[name], h,
+                                                mask=cur_mask, train=train,
+                                                gen=gen)
+                    if train and st:
+                        new_states[name] = st
                 acts[name] = y
                 # a per-timestep mask collapses when the time dim disappears
                 if (cur_mask is not None and y.ndim == 2
@@ -207,12 +229,12 @@ class ComputationGraph(nn.Module):
             else:
                 acts[name] = vd.obj.forward(in_acts, in_masks)
                 m[name] = vd.obj.output_mask(in_masks)
-        return acts, new_carries
+        return acts, new_carries, new_states
 
     def forward(self, inputs: Dict[str, torch.Tensor],
                 masks: Optional[Dict[str, Optional[torch.Tensor]]] = None
                 ) -> List[torch.Tensor]:
-        acts, _ = self._forward_all(self.params, inputs, masks)
+        acts, _, _ = self._forward_all(self.params, inputs, masks)
         return [acts[n] for n in self.conf.outputs]
 
     def _as_tensor(self, x, cast_float: bool = True) -> torch.Tensor:
@@ -248,15 +270,16 @@ class ComputationGraph(nn.Module):
         mask is the given one, else the feature mask that reached the layer
         (per timestep for a sequence output, per example for a 2-d one).
         ``train`` with ``gen`` draws the train-time noise."""
-        return self._loss_and_carries(params, inputs, labels, masks,
-                                      label_masks, train=train, gen=gen)[0]
+        return self._loss_and_aux(params, inputs, labels, masks,
+                                  label_masks, train=train, gen=gen)[0]
 
-    def _loss_and_carries(self, params, inputs, labels, masks, label_masks,
-                          carries=None, train: bool = False,
-                          gen: Optional[torch.Generator] = None):
-        """``(loss, new_carries)``: :meth:`_loss_fn`'s loss, the recurrent
-        layers starting from ``carries`` when given."""
-        acts, new_carries = self._forward_all(
+    def _loss_and_aux(self, params, inputs, labels, masks, label_masks,
+                      carries=None, train: bool = False,
+                      gen: Optional[torch.Generator] = None):
+        """``(loss, (new_carries, new_states))``: :meth:`_loss_fn`'s loss,
+        the recurrent layers starting from ``carries`` when given, and the
+        train forward's new layer states."""
+        acts, new_carries, new_states = self._forward_all(
             params, inputs, masks, loss_inputs=True, train=train, gen=gen,
             carries=carries)
         loss = 0.0
@@ -279,7 +302,8 @@ class ComputationGraph(nn.Module):
                     lm = fm.reshape(fm.shape[0])
             loss = loss + layer.compute_loss(acts[out_name + ":params"], h,
                                              labels[oi], mask=lm)
-        return loss + regularization(self._named_layers(), params), new_carries
+        return (loss + regularization(self._named_layers(), params),
+                (new_carries, new_states))
 
     def _batch(self, mds):
         """(inputs, labels, masks, label masks) of a MultiDataSet as tensors
@@ -299,16 +323,17 @@ class ComputationGraph(nn.Module):
 
     def _gradients(self, inputs, labels, masks=None, lmasks=None,
                    train: bool = False):
-        """``(loss, {vertex: {param: grad}})``, by :func:`gradients`; with
-        ``train`` the train-time noise is drawn."""
+        """``(loss, {vertex: {param: grad}}, new_states)``, by
+        :func:`gradients`; with ``train`` the train-time noise is drawn and
+        the batch statistics used, whose new layer states come back."""
         if self.params is None:
             raise RuntimeError("call init() (or load parameters) first")
         gen = self.dropout_generator if train else None
-        loss, grads, _ = gradients(
-            lambda live: (self._loss_fn(live, inputs, labels, masks, lmasks,
-                                        train=train, gen=gen), None),
+        loss, grads, (_, new_states) = gradients(
+            lambda live: self._loss_and_aux(live, inputs, labels, masks,
+                                            lmasks, train=train, gen=gen),
             self.params)
-        return loss, grads
+        return loss, grads, new_states
 
     # ------------------------------------------------------------ train step
     def _apply_updates(self, grads: Grads) -> None:
@@ -325,8 +350,9 @@ class ComputationGraph(nn.Module):
                 self._fit_tbptt(inputs, labels, masks, lmasks, t_total)
                 return
         with schedule_tick(self.iteration, self.epoch):
-            loss, grads = self._gradients(inputs, labels, masks, lmasks,
-                                          train=True)
+            loss, grads, new_states = self._gradients(
+                inputs, labels, masks, lmasks, train=True)
+        commit_states(self.states, new_states)
         self._apply_updates(grads)
         self._score = loss
         self.last_batch_size = int(next(iter(inputs.values())).shape[0])
@@ -374,13 +400,15 @@ class ComputationGraph(nn.Module):
                 None if a is None else cut(a, s, e, labels[i].ndim == 3)
                 for i, a in enumerate(lmasks)]
             with schedule_tick(self.iteration, self.epoch):
-                loss, grads, carries = gradients(
-                    lambda live, _c=carries: self._loss_and_carries(
+                loss, grads, (carries, new_states) = gradients(
+                    lambda live, _c=carries: self._loss_and_aux(
                         live, ic, lc, mc, lmc, _c, train=True,
-                        gen=self.dropout_generator), self.params)
+                        gen=self.dropout_generator),
+                    self.params)
             carries = {n: map_carry(torch.Tensor.detach, cr)
                        for n, cr in carries.items()}
             self._score = loss
+            commit_states(self.states, new_states)
             self._apply_updates(grads)
             self.iteration += 1
 
@@ -438,8 +466,27 @@ class ComputationGraph(nn.Module):
         """``({vertex: {param: grad}}, loss)`` on one batch, no update
         (the gradient-check hook)."""
         inputs, labels_t, _, _ = self._batch(self._wrap(features, labels))
-        loss, grads = self._gradients(inputs, labels_t)
+        loss, grads, _ = self._gradients(inputs, labels_t)
         return grads, float(loss)
+
+    def evaluate(self, iterator, top_n: int = 1) -> Evaluation:
+        """Classification metrics of the first output over an iterator (or
+        one DataSet / MultiDataSet), feature and label masks honoured
+        (``ComputationGraph.evaluate``)."""
+        e = Evaluation(top_n=top_n)
+        it = [iterator] if isinstance(iterator, (DataSet, MultiDataSet)) else iterator
+        if hasattr(it, "reset"):
+            it.reset()
+        for ds in it:
+            mds = self._to_mds(ds)
+            out = self.output(*mds.features, masks=mds.features_masks)
+            if isinstance(out, list):
+                out = out[0]
+            lm = None if mds.labels_masks is None else mds.labels_masks[0]
+            e.eval(to_host(mds.labels[0]), out.cpu().numpy(),
+                   mask=None if lm is None else to_host(lm),
+                   record_meta_data=getattr(ds, "example_meta_data", None))
+        return e
 
     # ------------------------------------------------------ stateful RNN API
     def rnn_clear_previous_state(self) -> None:
@@ -468,7 +515,7 @@ class ComputationGraph(nn.Module):
             check_carry_capacity(
                 self._named_layers(), self._rnn_pos + t_new,
                 f"rnn_time_step at position {self._rnn_pos}+{t_new}")
-            acts, self._rnn_carries = self._forward_all(
+            acts, self._rnn_carries, _ = self._forward_all(
                 self.params, dict(zip(self.conf.inputs, xs)),
                 carries=self._rnn_carries)
             self._rnn_pos += t_new

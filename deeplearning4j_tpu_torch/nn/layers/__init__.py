@@ -9,19 +9,30 @@ from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     Layer,
     register_layer,
 )
-from deeplearning4j_tpu_torch.nn.layers.conv import ConvolutionLayer  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.conv import (  # noqa: F401
+    ConvolutionLayer,
+    ZeroPaddingLayer,
+)
 from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
+    ActivationLayer,
     DenseLayer,
     DropoutLayer,
     EmbeddingSequenceLayer,
     PositionalEmbeddingLayer,
 )
-from deeplearning4j_tpu_torch.nn.layers.norm import LayerNormalizationLayer  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.norm import (  # noqa: F401
+    BatchNormalizationLayer,
+    LayerNormalizationLayer,
+    LocalResponseNormalizationLayer,
+)
 from deeplearning4j_tpu_torch.nn.layers.output import (  # noqa: F401
     OutputLayer,
     RnnOutputLayer,
 )
-from deeplearning4j_tpu_torch.nn.layers.pooling import SubsamplingLayer  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.pooling import (  # noqa: F401
+    GlobalPoolingLayer,
+    SubsamplingLayer,
+)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     BaseRecurrentLayer,
     GravesLSTMLayer,

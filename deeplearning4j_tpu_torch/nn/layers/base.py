@@ -8,6 +8,14 @@ dict of named tensors under the reference's names and layouts ("W", "b",
 parameters and input, differentiable by autograd. Output layers
 (``has_loss()``) also compute the network's loss.
 
+Layer state: a layer may also keep non-trainable tensors
+(``init_state``; BatchNorm's running mean and variance, empty for every
+other layer). The networks run each layer through
+``forward_state(params, state, x)``, which returns ``(y, new_state)``: a
+stateless layer's is its ``forward`` and its state unchanged; a stateful
+one's train forward returns the new state, which the network writes over
+the old once per update. States take no gradient and no updater.
+
 The regularizer fields are the reference's: ``dropout`` (a float keep
 probability or an ``IDropout``, ``nn/dropout.py``) applied by
 :meth:`Layer._dropout` to a layer's input when its forward runs with
@@ -114,7 +122,19 @@ class Layer:
     def num_params(self) -> int:
         return sum(int(math.prod(s)) for s in self.param_shapes().values())
 
+    def init_state(self, device=None) -> Params:
+        """Non-trainable tensors of the layer, by name (float32, as the
+        reference keeps them); empty for a stateless layer."""
+        return {}
+
     # ---- forward -----------------------------------------------------------
+    def forward_state(self, params: Params, state: Params, x: torch.Tensor, *,
+                      mask: Optional[torch.Tensor] = None, train: bool = False,
+                      gen: Optional[torch.Generator] = None):
+        """``(y, new_state)``. A stateless layer returns :meth:`forward`'s
+        output and ``state`` as it is."""
+        return self.forward(params, x, mask=mask, train=train, gen=gen), state
+
     def forward(self, params: Params, x: torch.Tensor, *,
                 mask: Optional[torch.Tensor] = None, train: bool = False,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:

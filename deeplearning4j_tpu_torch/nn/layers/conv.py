@@ -17,7 +17,9 @@ stride above 1, so the pad is an explicit ``F.pad``. ``"truncate"`` and
 
 Input dropout runs on the NHWC input, before the NCHW view, so a
 ``SpatialDropout`` mask is ``[N, 1, 1, C]`` over the channels as in the
-reference. Not ported yet: the conv layers other than ``ConvolutionLayer``.
+reference. ``ZeroPaddingLayer`` pads H and W with zeros. Not ported yet:
+the other conv layers (1-D, separable, depthwise, deconvolution,
+space-to-depth, upsampling, cropping).
 """
 
 from __future__ import annotations
@@ -137,3 +139,26 @@ class ConvolutionLayer(Layer):
         if self.has_bias:
             y = y + params["b"]
         return self.act_fn()(y)
+
+
+@register_layer
+@dataclasses.dataclass
+class ZeroPaddingLayer(Layer):
+    """Zero padding of NHWC images (DL4J ZeroPaddingLayer): ``padding`` is
+    (top, bottom, left, right), or (h, w) for both sides."""
+
+    padding: Tuple[int, ...] = (0, 0)
+
+    def _pads(self):
+        p = tuple(int(v) for v in self.padding)
+        return (p[0], p[0], p[1], p[1]) if len(p) == 2 else p
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t, b, l, r = self._pads()
+        return InputType.convolutional(input_type.height + t + b,
+                                       input_type.width + l + r,
+                                       input_type.channels)
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        t, b, l, r = self._pads()
+        return F.pad(x, (0, 0, l, r, t, b))

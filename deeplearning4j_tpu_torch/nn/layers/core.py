@@ -1,4 +1,5 @@
-"""Core layers: Dense, Dropout, EmbeddingSequence, PositionalEmbedding.
+"""Core layers: Dense, Activation, Dropout, EmbeddingSequence,
+PositionalEmbedding.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/core.py``. Parameters keep
 the reference's names and layouts: Dense ``W`` is ``[n_in, n_out]`` and is
@@ -87,6 +88,15 @@ class DenseLayer(Layer):
     def forward(self, params, x, *, mask=None, train=False, gen=None):
         x = self._dropout(x, train, gen)
         return self.act_fn()(self._preact(params, x))
+
+
+@register_layer
+@dataclasses.dataclass
+class ActivationLayer(Layer):
+    """The activation alone (DL4J ActivationLayer)."""
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        return self.act_fn()(x)
 
 
 @register_layer

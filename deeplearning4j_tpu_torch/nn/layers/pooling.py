@@ -9,13 +9,22 @@ sides, which ``F.max_pool2d`` refuses above half the kernel) is an
 explicit ``F.pad``, and the pool then runs with no padding: ``avg`` and
 ``sum`` are ``F.avg_pool2d`` with the divisor kh·kw and 1; ``pnorm`` is
 (Σ|x|^p)^(1/p) over the window.
+
+``GlobalPoolingLayer`` pools NHWC images over H and W and ``[N, T, C]``
+sequences over T (max, avg, sum, pnorm). A sequence's ``[N, T]`` mask
+leaves the masked steps out as ``MaskedReductionUtil`` does: max over
+the unmasked steps, sum and pnorm of the masked values, avg divided by
+the count of unmasked steps (at least 1). An image's mask is ignored, as
+in the reference, and so are ``pooling_dimensions`` and
+``collapse_dimensions`` (carried for the configuration's serde).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
+import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -66,3 +75,51 @@ class SubsamplingLayer(Layer):
         if pt == "pnorm":
             y = y ** (1.0 / float(self.pnorm))
         return y.permute(0, 2, 3, 1)  # back to NHWC
+
+
+@register_layer
+@dataclasses.dataclass
+class GlobalPoolingLayer(Layer):
+    """Global pooling over time (rnn) or space (cnn) (DL4J
+    GlobalPoolingLayer)."""
+
+    pooling_type: str = "max"
+    pooling_dimensions: Optional[Tuple[int, ...]] = None
+    collapse_dimensions: bool = True
+    pnorm: int = 2
+
+    def output_type(self, input_type: InputType) -> InputType:
+        if input_type.kind == "rnn":
+            return InputType.feed_forward(input_type.size)
+        if input_type.kind == "cnn":
+            return InputType.feed_forward(input_type.channels)
+        return input_type
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        pt = self.pooling_type.lower()
+        if pt not in ("max", "avg", "sum", "pnorm"):
+            raise ValueError(f"Unknown pooling type {self.pooling_type!r}")
+        if x.ndim == 3:
+            axes = (1,)
+        elif x.ndim == 4:
+            axes = (1, 2)
+        else:
+            raise ValueError(f"GlobalPooling expects 3-D or 4-D input, got "
+                             f"{tuple(x.shape)}")
+        p = float(self.pnorm)
+        if mask is not None and x.ndim == 3:
+            m = mask.to(x.dtype)[:, :, None]
+            if pt == "max":
+                return torch.where(m > 0, x, float("-inf")).amax(dim=1)
+            if pt == "sum":
+                return (x * m).sum(dim=1)
+            if pt == "avg":
+                return (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
+            return ((x.abs() * m) ** p).sum(dim=1) ** (1.0 / p)
+        if pt == "max":
+            return x.amax(dim=axes)
+        if pt == "sum":
+            return x.sum(dim=axes)
+        if pt == "avg":
+            return x.mean(dim=axes)
+        return (x.abs() ** p).sum(dim=axes) ** (1.0 / p)

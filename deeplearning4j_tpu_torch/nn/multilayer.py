@@ -20,6 +20,13 @@ step's pieces are the ones ``ComputationGraph`` uses too
 (``nn/train_step.py``): parameters never require grad, a step
 differentiates detached aliases of them and updates them in place.
 
+Layer state (BatchNorm's running statistics) sits in ``states``, keyed
+by layer index like ``params``: a train forward returns each stateful
+layer's new state and the step writes it over the old one, once per
+``fit`` step or TBPTT chunk; ``output``, ``feed_forward``, ``evaluate``,
+``score`` and ``compute_gradient_and_score`` read it (inference
+statistics).
+
 Truncated BPTT cuts each sequence into chunks of ``tbptt_fwd_length``
 steps; each chunk is one iteration (one update, one Adam step count) and
 hands its final recurrent carry, detached, to the next chunk.
@@ -67,18 +74,15 @@ from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
     apply_updates,
     as_tensor,
+    commit_states,
     dropout_generator,
     gradients,
     init_parameters,
+    init_states,
     regularization,
+    to_host,
 )
 from deeplearning4j_tpu_torch.util import model_serializer
-
-
-def _host(a) -> np.ndarray:
-    """A numpy array of ``a`` (a numpy array or a tensor on any device)."""
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
 
 
 class MultiLayerNetwork(nn.Module):
@@ -97,6 +101,8 @@ class MultiLayerNetwork(nn.Module):
         self.device = resolve_device(device)
         self.dtype = conf.global_conf.torch_dtype()
         self.params: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
+        # non-trainable layer state (BatchNorm's running statistics)
+        self.states: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
         self.updater_states: Optional[Dict[int, Dict[str, Dict[str, torch.Tensor]]]] = None
         self._updaters: Dict[int, dict] = {}
         self.iteration = 0
@@ -119,14 +125,16 @@ class MultiLayerNetwork(nn.Module):
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
         """Random parameters from a ``torch.Generator`` seeded with the
         conf's seed (or ``seed``): the reference's schemes, not its draws;
-        each tensor gets its updater and that updater's zero state. The
-        dropout generator starts from the same seed."""
+        each tensor gets its updater and that updater's zero state; each
+        layer its initial state. The dropout generator starts from the
+        same seed."""
         g = self.conf.global_conf
         seed = g.seed if seed is None else seed
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         self.params, self._updaters, self.updater_states = init_parameters(
             self, self._named_layers(), g, gen, self.dtype, self.device)
+        self.states = init_states(self, self._named_layers(), self.device)
         self.dropout_generator = dropout_generator(seed, self.device)
         self.iteration = 0
         self.epoch = 0
@@ -146,13 +154,15 @@ class MultiLayerNetwork(nn.Module):
     def _forward_all(self, params, x, mask=None, carries=None,
                      upto: Optional[int] = None, train: bool = False,
                      gen: Optional[torch.Generator] = None):
-        """Run layers [0, upto); returns ``(activation, new_carries)``.
-        With ``carries`` (one per layer, None for the non-recurrent ones),
-        recurrent layers start from them and report their final carry.
-        ``train`` with ``gen`` draws each layer's weight noise before its
-        forward and its dropout in it."""
+        """Run layers [0, upto); returns ``(activation, new_carries,
+        new_states)``. With ``carries`` (one per layer, None for the
+        non-recurrent ones), recurrent layers start from them and report
+        their final carry. ``train`` with ``gen`` draws each layer's weight
+        noise before its forward and its dropout in it. Each layer reads
+        its state; a train forward returns each stateful layer's new state
+        by index (empty otherwise)."""
         n_layers = len(self.layers) if upto is None else upto
-        h, cur_mask, new_carries = x, mask, []
+        h, cur_mask, new_carries, new_states = x, mask, [], {}
         for i, layer in enumerate(self.layers):
             if i >= n_layers:
                 new_carries.append(None if carries is None else carries[i])
@@ -167,31 +177,36 @@ class MultiLayerNetwork(nn.Module):
                                          mask=cur_mask, train=train, gen=gen)
                 new_carries.append(c)
             else:
-                h = layer.forward(p_i, h, mask=cur_mask, train=train, gen=gen)
+                h, st = layer.forward_state(p_i, self.states[i], h, mask=cur_mask,
+                                            train=train, gen=gen)
+                if train and st:
+                    new_states[i] = st
                 new_carries.append(None)
             # per-timestep masks collapse when the time dimension disappears;
             # a per-example [N]/[N,1] mask stays valid on 2-d activations
             if (cur_mask is not None and h.ndim == 2 and cur_mask.ndim == 2
                     and cur_mask.shape[1] > 1):
                 cur_mask = None
-        return h, new_carries
+        return h, new_carries, new_states
 
     def _regularization(self, params):
         return regularization(self._named_layers(), params)
 
     def _loss_fn(self, params, x, y, mask, label_mask, carries=None,
                  train: bool = False, gen: Optional[torch.Generator] = None):
-        """``(loss, new_carries)``: the output layer's loss from its INPUT
-        activation plus the l1/l2 penalty. The label mask is the given one,
-        else the feature mask (per timestep for a sequence output, per
-        example for a 2-d one). ``train`` with ``gen`` draws the
-        train-time noise, the output layer's weight noise last."""
+        """``(loss, (new_carries, new_states))``: the output layer's loss
+        from its INPUT activation plus the l1/l2 penalty, and what
+        :meth:`_forward_all` returns beside the activation. The label mask
+        is the given one, else the feature mask (per timestep for a
+        sequence output, per example for a 2-d one). ``train`` with ``gen``
+        draws the train-time noise, the output layer's weight noise
+        last."""
         out_layer = self.layers[-1]
         if not out_layer.has_loss():
             raise ValueError("Last layer must be an output/loss layer for fit()")
         last = len(self.layers) - 1
-        h, new_carries = self._forward_all(params, x, mask, carries, upto=last,
-                                           train=train, gen=gen)
+        h, new_carries, new_states = self._forward_all(
+            params, x, mask, carries, upto=last, train=train, gen=gen)
         if last in self.conf.preprocessors:
             h = self.conf.preprocessors[last](h)
         if label_mask is not None:
@@ -208,7 +223,7 @@ class MultiLayerNetwork(nn.Module):
         if train and gen is not None and out_layer.weight_noise is not None:
             p_out = out_layer.weight_noise.apply(out_layer, p_out, gen, train)
         loss = out_layer.compute_loss(p_out, h, y, mask=lm)
-        return loss + self._regularization(params), new_carries
+        return loss + self._regularization(params), (new_carries, new_states)
 
     # ------------------------------------------------------------ train step
     def _apply_updates(self, grads) -> None:
@@ -233,10 +248,12 @@ class MultiLayerNetwork(nn.Module):
             return
         gen = self.dropout_generator
         with schedule_tick(self.iteration, self.epoch):
-            loss, grads, _ = gradients(
+            loss, grads, (_, new_states) = gradients(
                 lambda live: self._loss_fn(live, x, y, mask, lmask, train=True,
-                                           gen=gen), self.params)
+                                           gen=gen),
+                self.params)
         self._score = loss
+        commit_states(self.states, new_states)
         self._apply_updates(grads)
         self.last_batch_size = int(x.shape[0])
         self.iteration += 1
@@ -262,12 +279,14 @@ class MultiLayerNetwork(nn.Module):
             mc = None if mask is None else mask[:, s:e]
             lc = None if lmask is None else lmask[:, s:e]
             with schedule_tick(self.iteration, self.epoch):
-                loss, grads, carries = gradients(
+                loss, grads, (carries, new_states) = gradients(
                     lambda live, _c=carries: self._loss_fn(
                         live, xc, yc, mc, lc, _c, train=True,
-                        gen=self.dropout_generator), self.params)
+                        gen=self.dropout_generator),
+                    self.params)
             carries = [map_carry(torch.Tensor.detach, cr) for cr in carries]
             self._score = loss
+            commit_states(self.states, new_states)
             self._apply_updates(grads)
             self.iteration += 1
 
@@ -317,7 +336,7 @@ class MultiLayerNetwork(nn.Module):
         with torch.inference_mode():
             x = self._as_tensor(x)
             mask = None if mask is None else self._as_tensor(mask, False)
-            h, _ = self._forward_all(self.params, x, mask)
+            h, _, _ = self._forward_all(self.params, x, mask)
         return h
 
     def predict(self, x) -> np.ndarray:
@@ -340,7 +359,8 @@ class MultiLayerNetwork(nn.Module):
             for i in range(layer_num + 1):
                 if i in self.conf.preprocessors:
                     h = self.conf.preprocessors[i](h)
-                h = self.layers[i].forward(self.params[i], h)
+                h, _ = self.layers[i].forward_state(self.params[i],
+                                                    self.states[i], h)
                 acts.append(h)
         return acts
 
@@ -353,15 +373,15 @@ class MultiLayerNetwork(nn.Module):
             it.reset()
         for ds in it:
             out = self.output(ds.features, mask=ds.features_mask)
-            e.eval(_host(ds.labels), out.cpu().numpy(),
-                   mask=None if ds.labels_mask is None else _host(ds.labels_mask),
+            e.eval(to_host(ds.labels), out.cpu().numpy(),
+                   mask=None if ds.labels_mask is None else to_host(ds.labels_mask),
                    record_meta_data=getattr(ds, "example_meta_data", None))
         return e
 
     def f1_score(self, features, labels) -> float:
         """Macro F1 on one batch (``f1Score``)."""
         e = Evaluation()
-        e.eval(_host(labels), self.output(features).cpu().numpy())
+        e.eval(to_host(labels), self.output(features).cpu().numpy())
         return float(e.f1())
 
     def label_probabilities(self, x) -> torch.Tensor:
@@ -488,7 +508,7 @@ class MultiLayerNetwork(nn.Module):
                 ((f"layer {i}", l) for i, l in enumerate(self.layers)),
                 self._rnn_pos + t_new,
                 f"rnn_time_step at position {self._rnn_pos}+{t_new}")
-            h, self._rnn_carries = self._forward_all(
+            h, self._rnn_carries, _ = self._forward_all(
                 self.params, x, carries=self._rnn_carries)
             self._rnn_pos += t_new
         return h[:, -1, :] if squeeze and h.ndim == 3 else h

@@ -10,6 +10,13 @@ aliases of them (they share storage) with ``torch.autograd.grad``, and
 ``torch.no_grad()`` (a helper such as ``FusedUpdaterHelper`` writes into
 their storage), so an inference pass never meets an autograd graph.
 
+Layer state (BatchNorm's running statistics; ``Layer.init_state``) lives
+beside the parameters as ``{key: {name: tensor}}``, registered on the
+module as buffers ``<key>/<name>``. It takes no gradient and no updater:
+a train forward returns each stateful layer's new state, and
+:func:`commit_states` copies it over the old one, in place, once per
+update.
+
 Per layer, :func:`apply_updates` normalizes the gradients (the layer's
 ``gradient_normalization``) before the updater seam, so a fused updater
 kernel sees the normalized gradient, and runs the layer's constraints
@@ -42,6 +49,11 @@ def as_tensor(x, dtype: torch.dtype, device, cast_float: bool = True) -> torch.T
     return t.to(device)
 
 
+def to_host(a) -> np.ndarray:
+    """A numpy array of ``a`` (a numpy array or a tensor on any device)."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def init_parameters(module: nn.Module, layers: Iterable[Tuple[object, object]],
                     global_conf, gen: torch.Generator, dtype, device):
     """Random parameters for each ``(key, layer)``, registered on
@@ -63,6 +75,28 @@ def init_parameters(module: nn.Module, layers: Iterable[Tuple[object, object]],
             updaters[key][n] = u
             states[key][n] = u.init_state(param.detach())
     return params, updaters, states
+
+
+def init_states(module: nn.Module, layers: Iterable[Tuple[object, object]],
+                device) -> Tree:
+    """Each ``(key, layer)``'s initial state (empty for a stateless
+    layer), registered on ``module`` as buffers ``<key>/<name>``."""
+    states = {}
+    for key, layer in layers:
+        states[key] = layer.init_state(device)
+        for n, t in states[key].items():
+            module.register_buffer(f"{key}/{n}", t)
+    return states
+
+
+def commit_states(states: Tree, new_states: Tree) -> None:
+    """Copy each new state (detached) over the old, in place, so that the
+    buffers keep their identity."""
+    with torch.no_grad():
+        for key, named in new_states.items():
+            for n, t in named.items():
+                if t is not states[key][n]:
+                    states[key][n].copy_(t)
 
 
 def regularization(layers: Iterable[Tuple[object, object]], params: Tree):

@@ -6,7 +6,9 @@ jax_net.params)`` gives); the layouts are the same, so this is a checked
 copy. ``export_params(net)`` is the inverse.
 ``load_reference_updater_state`` / ``export_updater_state`` do the same for
 the updater state (e.g. Adam's ``m`` and ``v``), so that both sides can
-resume from one optimizer state.
+resume from one optimizer state, and ``load_reference_states`` /
+``export_states`` for the layer state (BatchNorm's running statistics,
+the reference's ``net.states``).
 
 A ``ComputationGraph`` is carried as ``{vertex: {name: ...}}`` on both
 sides. The reference's ``MultiLayerNetwork`` keeps a list of per-layer
@@ -84,6 +86,23 @@ def load_reference_params(net, params):
         raise RuntimeError("net has no parameters yet: call init() first")
     _checked_copy(net.params, params, 2, "parameters")
     return net
+
+
+def load_reference_states(net, states):
+    """Copy the reference's layer states (``tree_map(np.asarray,
+    jax_net.states)``: ``{vertex: {name: ndarray}}``, or a list of
+    per-layer dicts, empty for a stateless layer) into ``net``'s, in place,
+    checked as :func:`load_reference_params` checks. Returns ``net``."""
+    if net.states is None:
+        raise RuntimeError("net has no layer state yet: call init() first")
+    _checked_copy(net.states, states, 2, "layer states")
+    return net
+
+
+def export_states(net):
+    """The network's layer states on the host, shaped as
+    :func:`export_params` shapes the parameters."""
+    return _export_net(net.states, 2)
 
 
 def export_params(net):

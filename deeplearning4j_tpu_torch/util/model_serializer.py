@@ -8,8 +8,8 @@ zip, so that a model saved by either package restores in the other:
 - ``params.npz``: the parameters, keyed ``<layer>/<param>``;
 - ``updater.npz``: the updater state, keyed ``<layer>/<param>/<slot>``
   (``m``, ``v``, and ``v_hat`` for AMSGrad);
-- ``states.npz``: layer state (BatchNorm's running statistics), which no
-  layer of the port has yet, so the port writes none and refuses one;
+- ``states.npz``: layer state (BatchNorm's running statistics), keyed
+  ``<layer>/<name>``, written when a layer has any;
 - ``normalizer.json`` (optional): a fitted normalizer's JSON
   (``datasets/normalizers.py``), written by ``write_model(normalizer=)``
   or ``add_normalizer_to_model`` and read by ``restore_normalizer``;
@@ -93,6 +93,9 @@ def write_model(model, path: Union[str, Path], *,
     path.parent.mkdir(parents=True, exist_ok=True)
     params = {f"{k}/{n}": _host(v)
               for k, named in model.params.items() for n, v in named.items()}
+    states = {f"{k}/{n}": _host(v)
+              for k, named in (model.states or {}).items()
+              for n, v in named.items()}
     upd = {}
     if save_updater and model.updater_states is not None:
         upd = {f"{k}/{n}/{s}": _host(v)
@@ -103,6 +106,8 @@ def write_model(model, path: Union[str, Path], *,
         z.writestr(PARAMS_NAME, _npz_bytes(params))
         if upd:
             z.writestr(UPDATER_NAME, _npz_bytes(upd))
+        if states:
+            z.writestr(STATES_NAME, _npz_bytes(states))
         if normalizer is not None:
             z.writestr(NORMALIZER_NAME, normalizer.to_json())
         z.writestr(META_NAME, json.dumps(
@@ -190,10 +195,6 @@ def _restore(path, *, load_updater: bool = True, device=None):
             f"checkpoint {path} failed integrity validation: "
             + ("; ".join(problems) if problems else str(e))
             + " — the file is truncated/corrupt or not a model zip") from e
-    if states:
-        raise NotImplementedError(
-            f"{path} holds layer state ({sorted(states)}); no stateful layer "
-            f"is ported yet")
     if "ComputationGraph" in conf_d.get("format", ""):
         model = ComputationGraph(ComputationGraphConfiguration.from_dict(conf_d),
                                  device=device).init()
@@ -208,6 +209,13 @@ def _restore(path, *, load_updater: bool = True, device=None):
                 raise ValueError(f"checkpoint {path}: array {full} is not a "
                                  f"parameter of the configuration")
             _copy_in(path, full, layer[pn], arr)
+        for full, arr in (states or {}).items():
+            key, sn = full.split("/", 1)
+            layer = _entry(model.states, path, key, full)
+            if sn not in layer:
+                raise ValueError(f"checkpoint {path}: array {full} is not a "
+                                 f"layer state of the configuration")
+            _copy_in(path, full, layer[sn], arr)
         for full, arr in (upd or {}).items():
             key, pn, slot = full.split("/", 2)
             slots = _entry(model.updater_states, path, key, full).get(pn)

@@ -1,0 +1,91 @@
+"""Block builders for the zoo's CNNs.
+
+Counterpart of ``conv_bn_act``, ``resnet_identity_block`` and
+``resnet_conv_block`` in ``deeplearning4j_tpu/zoo/helpers.py`` (DL4J's
+``ResNet50.java`` ``identityBlock``/``convBlock``). Each appends named
+vertices to a :class:`GraphBuilder` and returns the name of the block's
+output vertex; the names are the reference's, so parameters carry across
+by name. Every convolution here feeds a BatchNorm and has no bias: the
+norm's mean subtraction cancels one and its beta replaces it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphBuilder
+from deeplearning4j_tpu_torch.nn.layers import (
+    ActivationLayer,
+    BatchNormalizationLayer,
+    ConvolutionLayer,
+)
+from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
+
+
+def conv_bn_act(g: GraphBuilder, name: str, inp: str, n_out: int,
+                kernel: Tuple[int, int] = (3, 3), stride: Tuple[int, int] = (1, 1),
+                mode: str = "same", activation: str = "relu",
+                eps: float = 1e-5, decay: float = 0.9) -> str:
+    """conv → batchnorm → activation."""
+    g.add_layer(name + "_conv",
+                ConvolutionLayer(n_out=n_out, kernel_size=kernel, stride=stride,
+                                 convolution_mode=mode, activation="identity",
+                                 has_bias=False),
+                inp)
+    g.add_layer(name + "_bn", BatchNormalizationLayer(eps=eps, decay=decay,
+                                                      activation="identity"),
+                name + "_conv")
+    g.add_layer(name + "_act", ActivationLayer(activation=activation), name + "_bn")
+    return name + "_act"
+
+
+def _bottleneck(g: GraphBuilder, kernel, filters, stage: str, block: str,
+                inp: str, stride) -> Tuple[str, str]:
+    """The 1x1 → kxk → 1x1 main branch of a bottleneck block; returns the
+    name prefix of its convolutions and its last BatchNorm."""
+    f1, f2, f3 = filters
+    cn, bn, an = (f"res{stage}{block}_branch", f"bn{stage}{block}_branch",
+                  f"act{stage}{block}_branch")
+    g.add_layer(cn + "2a", ConvolutionLayer(n_out=f1, kernel_size=(1, 1),
+                                            stride=stride, activation="identity",
+                                            has_bias=False), inp)
+    g.add_layer(bn + "2a", BatchNormalizationLayer(activation="identity"), cn + "2a")
+    g.add_layer(an + "2a", ActivationLayer(activation="relu"), bn + "2a")
+    g.add_layer(cn + "2b", ConvolutionLayer(n_out=f2, kernel_size=kernel,
+                                            convolution_mode="same",
+                                            activation="identity",
+                                            has_bias=False), an + "2a")
+    g.add_layer(bn + "2b", BatchNormalizationLayer(activation="identity"), cn + "2b")
+    g.add_layer(an + "2b", ActivationLayer(activation="relu"), bn + "2b")
+    g.add_layer(cn + "2c", ConvolutionLayer(n_out=f3, kernel_size=(1, 1),
+                                            activation="identity",
+                                            has_bias=False), an + "2b")
+    g.add_layer(bn + "2c", BatchNormalizationLayer(activation="identity"), cn + "2c")
+    return cn, bn + "2c"
+
+
+def resnet_identity_block(g: GraphBuilder, kernel: Tuple[int, int],
+                          filters: Sequence[int], stage: str, block: str,
+                          inp: str) -> str:
+    """Bottleneck residual block whose shortcut is the input itself."""
+    cn, main = _bottleneck(g, kernel, filters, stage, block, inp, (1, 1))
+    g.add_vertex(f"short{stage}{block}_branch", ElementWiseVertex(op="add"),
+                 main, inp)
+    g.add_layer(cn, ActivationLayer(activation="relu"), f"short{stage}{block}_branch")
+    return cn
+
+
+def resnet_conv_block(g: GraphBuilder, kernel: Tuple[int, int],
+                      filters: Sequence[int], stage: str, block: str, inp: str,
+                      stride: Tuple[int, int] = (2, 2)) -> str:
+    """Bottleneck residual block with a strided 1x1 projection shortcut."""
+    cn, main = _bottleneck(g, kernel, filters, stage, block, inp, stride)
+    bn = f"bn{stage}{block}_branch"
+    g.add_layer(cn + "1", ConvolutionLayer(n_out=filters[2], kernel_size=(1, 1),
+                                           stride=stride, activation="identity",
+                                           has_bias=False), inp)
+    g.add_layer(bn + "1", BatchNormalizationLayer(activation="identity"), cn + "1")
+    g.add_vertex(f"short{stage}{block}_branch", ElementWiseVertex(op="add"),
+                 main, bn + "1")
+    g.add_layer(cn, ActivationLayer(activation="relu"), f"short{stage}{block}_branch")
+    return cn

@@ -1,11 +1,13 @@
-"""Model zoo: LeNet and the GPT-style TransformerLM, and text generation.
+"""Model zoo: LeNet, ResNet-50, the GPT-style TransformerLM, and text
+generation.
 
-Counterpart of ``LeNet``, ``transformer_decoder_block``, ``TransformerLM``,
+Counterpart of ``LeNet``, ``ResNet50``, ``transformer_decoder_block``,
+``TransformerLM``,
 ``lm_labels``, ``generate``, ``generate_on_device`` and ``beam_search`` in
 ``deeplearning4j_tpu/zoo/models.py``. The same layers, vertex names and
 parameter shapes; ``init(device=None)`` builds the network on ``cuda``
 (``device="cpu"`` for the CPU). No pretrained weights are fetched: the
-zoo's pretrained LeNet zip is not in the repository.
+zoo's pretrained LeNet and ResNet-50 zips are not in the repository.
 
 Generation runs the network's stateful path: every causal attention layer
 carries a fixed-capacity KV cache, so each new token is one single-token
@@ -31,20 +33,28 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.layers import (
     BaseRecurrentLayer,
+    ActivationLayer,
+    BatchNormalizationLayer,
     CausalSelfAttentionLayer,
     ConvolutionLayer,
     DenseLayer,
     EmbeddingSequenceLayer,
+    GlobalPoolingLayer,
     LayerNormalizationLayer,
     OutputLayer,
     PositionalEmbeddingLayer,
     RnnOutputLayer,
     SubsamplingLayer,
+    ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.core import unchecked_token_ids
 from deeplearning4j_tpu_torch.nn.layers.recurrent import map_carry
-from deeplearning4j_tpu_torch.nn.updaters import AdaDelta, Adam
+from deeplearning4j_tpu_torch.nn.updaters import AdaDelta, Adam, Nesterovs
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
+from deeplearning4j_tpu_torch.zoo.helpers import (
+    resnet_conv_block,
+    resnet_identity_block,
+)
 
 
 class LeNet:
@@ -79,6 +89,63 @@ class LeNet:
         """The initialized network (seeded with this model's seed)."""
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
         return MultiLayerNetwork(self.conf(), device=device).init(seed=self.seed)
+
+
+class ResNet50:
+    """ResNet-50 (``zoo/model/ResNet50.java``): a 7x7/2 stem (zero padding
+    3, convolution, BatchNorm, relu, 3x3/2 max pool), then [3, 4, 6, 3]
+    bottleneck blocks of 256, 512, 1024 and 2048 channels, a 3x3 "same"
+    average pool, global average pooling and a softmax output; Nesterovs
+    (1e-2, 0.9), l1 1e-7, l2 5e-5. Stage 2's projection has stride 1, as
+    in the reference (canonical ResNet-50; DL4J's passes 2). The stem
+    convolution carries ``space_to_depth_stem`` and runs the plain
+    convolution. ``input_shape`` is (channels, height, width)."""
+
+    def __init__(self, num_labels: int = 1000, seed: int = 123,
+                 input_shape=(3, 224, 224)):
+        self.num_labels = num_labels
+        self.seed = seed
+        self.input_shape = tuple(input_shape)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .activation("identity").weight_init("xavier")
+             .updater(Nesterovs(1e-2, 0.9)).l1(1e-7).l2(5e-5).graph_builder()
+             .add_inputs("input").set_input_types(InputType.convolutional(h, w, c)))
+        g.add_layer("stem-zero", ZeroPaddingLayer(padding=(3, 3)), "input")
+        g.add_layer("stem-cnn1",
+                    ConvolutionLayer(n_out=64, kernel_size=(7, 7), stride=(2, 2),
+                                     activation="identity", has_bias=False,
+                                     space_to_depth_stem=True), "stem-zero")
+        g.add_layer("stem-batch1", BatchNormalizationLayer(activation="identity"),
+                    "stem-cnn1")
+        g.add_layer("stem-act1", ActivationLayer(activation="relu"), "stem-batch1")
+        g.add_layer("stem-maxpool1",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                     stride=(2, 2)), "stem-act1")
+        x = resnet_conv_block(g, (3, 3), (64, 64, 256), "2", "a", "stem-maxpool1",
+                              stride=(1, 1))
+        for blk in "bc":
+            x = resnet_identity_block(g, (3, 3), (64, 64, 256), "2", blk, x)
+        for stage, width, blocks in (("3", 128, "bcd"), ("4", 256, "bcdef"),
+                                     ("5", 512, "bc")):
+            filters = (width, width, 4 * width)
+            x = resnet_conv_block(g, (3, 3), filters, stage, "a", x)
+            for blk in blocks:
+                x = resnet_identity_block(g, (3, 3), filters, stage, blk, x)
+        g.add_layer("avgpool",
+                    SubsamplingLayer(pooling_type="avg", kernel_size=(3, 3),
+                                     stride=(1, 1), convolution_mode="same"), x)
+        g.add_layer("globalpool", GlobalPoolingLayer(pooling_type="avg"), "avgpool")
+        g.add_layer("fc1000", OutputLayer(n_out=self.num_labels, loss="mcxent",
+                                          activation="softmax"), "globalpool")
+        return g.set_outputs("fc1000").build()
+
+    def init(self, device=None):
+        """The initialized graph (seeded with this model's seed)."""
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+        return ComputationGraph(self.conf(), device=device).init(seed=self.seed)
 
 
 def transformer_decoder_block(g, name: str, src: str, d_model: int,
@@ -241,8 +308,8 @@ def _prefill(net, ids):
     ``(last step's probabilities [N,V], carries)``."""
     prompt = torch.as_tensor(ids, dtype=net.dtype).to(net.device)
     carries = net.init_carries(prompt.shape[0])
-    acts, carries = net._forward_all(net.params, {net.conf.inputs[0]: prompt},
-                                     carries=carries)
+    acts, carries, _ = net._forward_all(net.params, {net.conf.inputs[0]: prompt},
+                                        carries=carries)
     return acts[net.conf.outputs[0]][:, -1], carries
 
 
@@ -252,8 +319,8 @@ def _step(net, tok, carries):
     ``(probabilities [N,V], carries)``."""
     x = tok[:, None, None].to(net.dtype)
     with unchecked_token_ids():
-        acts, carries = net._forward_all(net.params, {net.conf.inputs[0]: x},
-                                         carries=carries)
+        acts, carries, _ = net._forward_all(net.params, {net.conf.inputs[0]: x},
+                                            carries=carries)
     return acts[net.conf.outputs[0]][:, -1], carries
 
 

@@ -27,7 +27,11 @@ loop makes no synchronising call (``torch.cuda.set_sync_debug_mode``),
 ``rnn_time_step`` launches no flash kernel (``output`` does, and the
 prefill agrees with it within 1e-5), TBPTT fit launches the fused updater
 only, and a graph zip restores on the card bit for bit (on the CPU within
-1e-5).
+1e-5). A narrow ResNet (the zoo's blocks, BatchNorm with its running
+statistics) takes one float64 step on the card within 1e-10 relative of
+the same step on the CPU and launches no kernel of the port; the DL4J
+convnet fixture restored on the card gives its recorded output within
+1e-5 and fits on the fused updater (8 launches a step).
 """
 
 import numpy as np
@@ -806,3 +810,73 @@ def test_graph_zip_restores_on_the_card(card, tmp_path):
     cpu = ComputationGraph.load(path, device="cpu")
     torch.testing.assert_close(cpu.output(x), net.output(x).cpu(), rtol=0,
                                atol=1e-5)
+
+
+def _narrow_resnet(device):
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalizationLayer, ConvolutionLayer, GlobalPoolingLayer,
+        OutputLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.zoo.helpers import (
+        resnet_conv_block, resnet_identity_block)
+
+    g = (NeuralNetConfiguration.builder().seed(2).dtype("float64")
+         .updater(Nesterovs(1e-2, 0.9)).l2(5e-5).graph_builder()
+         .add_inputs("in").set_input_types(InputType.convolutional(12, 12, 3)))
+    g.add_layer("stem", ConvolutionLayer(n_out=8, kernel_size=(3, 3),
+                                         has_bias=False), "in")
+    g.add_layer("stem_bn", BatchNormalizationLayer(activation="relu"), "stem")
+    x = resnet_conv_block(g, (3, 3), (4, 4, 16), "2", "a", "stem_bn")
+    x = resnet_identity_block(g, (3, 3), (4, 4, 16), "2", "b", x)
+    g.add_layer("pool", GlobalPoolingLayer(pooling_type="avg"), x)
+    g.add_layer("out", OutputLayer(n_out=3, activation="softmax"), "pool")
+    return ComputationGraph(g.set_outputs("out").build(), device=device).init()
+
+
+@pytest.mark.cuda
+def test_narrow_resnet_step_on_the_card_matches_the_cpu(card):
+    from deeplearning4j_tpu_torch.util.convert import export_states, load_reference_states
+
+    gpu, cpu = _narrow_resnet(card), _narrow_resnet("cpu")
+    load_reference_states(load_reference_params(cpu, export_params(gpu)),
+                          export_states(gpu))
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(6, 12, 12, 3))
+    y = np.eye(3)[rng.integers(0, 3, 6)]
+    counters = (ck.fused_adam, ck.lstm_sequence, ck.flash_attention_fwd,
+                ck.flash_attention_bwd_dq, ck.flash_attention_bwd_dkv)
+    for c in counters:
+        c.launches = 0
+    gpu.fit(x, y)
+    cpu.fit(x, y)
+    assert all(c.launches == 0 for c in counters)
+    assert abs(gpu.score_ - cpu.score_) <= 1e-10 * abs(cpu.score_)
+    for v, named in cpu.params.items():
+        for n, t in named.items():
+            err = (gpu.params[v][n].cpu() - t).abs().max().item()
+            assert err <= 1e-10 * t.abs().max().item(), f"{v}/{n}"
+    for v, named in cpu.states.items():
+        for n, t in named.items():
+            np.testing.assert_allclose(gpu.states[v][n].cpu().numpy(), t.numpy(),
+                                       rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_dl4j_convnet_restores_and_fits_on_the_card(card):
+    import os
+
+    from deeplearning4j_tpu_torch.modelimport.dl4j import restore_multi_layer_network
+
+    fixtures = os.path.join(os.path.dirname(__file__), "fixtures")
+    exp = np.load(os.path.join(fixtures, "dl4j_checkpoint_convnet_expected.npz"))
+    net = restore_multi_layer_network(
+        os.path.join(fixtures, "dl4j_checkpoint_convnet.zip"), device="cuda")
+    np.testing.assert_allclose(net.output(exp["x"]).cpu().numpy(), exp["out"],
+                               rtol=1e-5, atol=1e-6)
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    ck.fused_adam.launches = 0
+    rng = np.random.default_rng(0)
+    net.fit(rng.normal(size=(4, 8, 8, 1)).astype(np.float32),
+            np.eye(3, dtype=np.float32)[[0, 1, 2, 0]])
+    assert ck.fused_adam.launches == 8
+    assert np.isfinite(net.score_)

@@ -134,7 +134,7 @@ def test_padded_prompt_matches_reference(pair, prompt):
         train=False, rng=None, masks={"tokens": jax.numpy.asarray(mask)},
         carries=jcarries)
     with torch.inference_mode():
-        acts, new = tnet._forward_all(
+        acts, new, _ = tnet._forward_all(
             tnet.params, {"tokens": torch.from_numpy(prompt)},
             {"tokens": torch.from_numpy(mask)}, carries=tnet.init_carries(2))
     got = acts["out"].numpy()

@@ -133,12 +133,20 @@ def test_tbptt_builder_settings():
 
 
 def test_unported_vertex_is_refused_by_name():
+    """Every vertex of the JAX package reads back (MergeVertex here); a
+    vertex tag the port does not know is refused by name."""
     jconf = (JNNC.builder().graph_builder().add_inputs("a", "b")
              .add_vertex("merge", JMerge(), "a", "b")
              .add_layer("out", JRnnOut(n_in=6, n_out=2), "merge")
              .set_outputs("out").build())
-    with pytest.raises(NotImplementedError, match="'MergeVertex' is not ported"):
-        ComputationGraphConfiguration.from_json(jconf.to_json())
+    conf = ComputationGraphConfiguration.from_json(jconf.to_json())
+    assert conf.to_dict() == jconf.to_dict()
+    d = jconf.to_dict()
+    for vd in d["vertices"]:
+        if vd["name"] == "merge":
+            vd["def"]["@vertex"] = "WarpVertex"
+    with pytest.raises(NotImplementedError, match="'WarpVertex' is not ported"):
+        ComputationGraphConfiguration.from_dict(d)
 
 
 def _graph_batch():

@@ -216,3 +216,52 @@ def test_decode_and_graph_persistence_modules_leave_jax_unloaded(tmp_path):
     toks = generate_on_device(back, np.zeros((1, 3), np.float32), 4,
                               check_no_sync=True)
     assert toks.shape == (1, 4)
+
+
+def test_normalization_zoo_and_import_modules_leave_jax_unloaded(tmp_path):
+    """The ResNet and DL4J-import slice's modules (the norm, conv, pooling
+    and core layers, every vertex, layer state in both networks and the
+    train step, the zoo's helpers, the zip and converters with states, the
+    DL4J reader, its ND4J and normalizer streams) import no jax, and the
+    DL4J ``restore_*`` functions refuse to guess a device."""
+    modules = ("nn.layers.norm", "nn.layers.conv", "nn.layers.pooling",
+               "nn.layers.core", "nn.layers.base", "nn.vertices",
+               "nn.conf.graph_conf", "nn.conf.preprocessors", "nn.graph",
+               "nn.multilayer", "nn.train_step", "zoo.helpers", "zoo.models",
+               "util.convert", "util.model_serializer", "modelimport",
+               "modelimport.dl4j", "modelimport.nd4j_binary",
+               "modelimport.normalizer_serde")
+    code = ("import sys, " + ", ".join(f"deeplearning4j_tpu_torch.{m}"
+                                       for m in modules)
+            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    names = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {f"deeplearning4j_tpu_torch/{m.replace('.', '/')}.py"
+            for m in modules if m != "modelimport"} <= names
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    from deeplearning4j_tpu_torch.modelimport.dl4j import (
+        restore_computation_graph,
+        restore_multi_layer_network,
+        restore_multi_layer_network_configuration,
+    )
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    mln = os.path.join(fixtures, "dl4j_checkpoint_convnet.zip")
+    graph = os.path.join(fixtures, "dl4j_checkpoint_graph.zip")
+    for restore, path in ((restore_multi_layer_network, mln),
+                          (restore_multi_layer_network_configuration, mln),
+                          (restore_computation_graph, graph)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            restore(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResNet50(num_labels=10, input_shape=(3, 32, 32)).init()
+    net = restore_multi_layer_network(mln, device="cpu")
+    assert all(t.device.type == "cpu" for s in net.states.values()
+               for t in s.values())
+    assert restore_computation_graph(graph, device="cpu").params["a"]["W"].device.type == "cpu"
