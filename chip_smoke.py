@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs twelve phases:
+every kernel, and runs fifteen phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -103,7 +103,24 @@ every kernel, and runs twelve phases:
 12. DL4J checkpoints: the four DL4J-format fixtures in ``tests/fixtures``
    restored with ``device="cuda"`` reproduce their recorded outputs, and
    the convnet one fits 3 more steps from its restored Adam state on the
-   fused updater (8 K2 launches a step).
+   fused updater (8 K2 launches a step);
+13. bf16 kernels (run second, after the f32 kernels): the bf16 flash
+   forward and backward kernels against their plain versions (the TPU
+   kernel's rounding points; the largest error, each entry's and the
+   relative Frobenius error) at GPT-2-small's shape, causal and full, and
+   at Dh 128 and 256, timed beside their bound at the tensor cores' bf16
+   rate, their plain versions and SDPA in bf16;
+14. GPT-2-small in mixed precision (``compute_dtype = "bfloat16"``, f32
+   masters): 5 fit steps on integer ids with the fused updater (12 / 12 /
+   12 bf16 flash launches, no f32 flash launch and 150 fused-Adam
+   launches a step), profiled, one bf16 ``output``, and one batch's loss
+   and gradients against an f32 twin no farther than a bf16 twin on the
+   plain attention is (BF16_WHOLE_RATIO);
+15. ResNet-50 in mixed precision as ``bench.py`` runs its headline (batch
+   256, 224x224x3): timed, profiled, the FLOP bound at the bf16 rate, the
+   running statistics f32 and moved, no kernel launch, the zip restored
+   bit for bit, and the card's bf16 gradients at batch 2 against the
+   CPU's f64 ones no farther than the CPU's bf16 ones are.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -136,6 +153,29 @@ KERNEL_TOL = 1e-4  # f32 both ways; only the summation order differs
 BWD_TOL = 1e-4
 BWD_SHAPES = [(SERVED_SHAPE, True), ((2, 4, 256, 128), False),
               ((2, 2, 128, 256), True)]
+# the bf16 flash kernels against their plain versions (the TPU kernel's
+# rounding points): o, dq, dk, dv within BF16_TOL x max(1, largest entry)
+# (one bf16 ulp is 3.9e-3 relative: the kernel rounds P against its
+# running row max, the plain version against the final one, and sums in
+# another order), the f32 LSE and D within BF16_ROW_TOL absolute. That
+# limit follows the largest entry, which under a causal mask is row 0
+# (o[0] = v[0]), so it cannot see a fault in the small late rows. So each
+# entry x = sum_j term_j is also held to BF16_ELEM_TOL x (|plain| + A),
+# A = sum_j |term_j| (P·|V| for o, |dS|·|K| for dq, |dS|ᵀ·|Q| for dk, Pᵀ·|dO|
+# for dv): each version rounds each bf16 term (P or dS) once and the
+# result once, at unit roundoff 2^-8, so two right versions differ by at
+# most 2^-7 of that, and rows whose terms cancel keep their slack (the
+# kernel's exp differs from torch's in the last f32 bits, which flips a
+# rare P across a bf16 rounding boundary). dS = P ∘ (dO·Vᵀ − D) is itself
+# an f32 difference that cancels (to 0 in row 0 of a causal head), so its
+# magnitude in A carries 2^-7 of its own terms, P ∘ (|dO|·|V|ᵀ + |D|), far
+# above any f32 evaluation error of it. The whole tensor is held to
+# BF16_FROB_TOL in relative Frobenius norm, ||kernel - plain|| / ||plain||
+BF16_TOL, BF16_ROW_TOL = 1e-2, 1e-4
+BF16_ELEM_TOL, BF16_FROB_TOL = 2 ** -7, 4e-3
+FLASH_BF16_SHAPES = [(SERVED_SHAPE, True), (SERVED_SHAPE, False),
+                     ((2, 4, 256, 128), True), ((2, 4, 256, 128), False),
+                     ((2, 2, 256, 256), True), ((2, 2, 256, 256), False)]
 # fused updater: max |kernel - plain| over each of p, m, v (and v-hat),
 # relative to that tensor's largest entry; the same float32 coefficients
 # both ways, only the kernel's fused multiply-adds round differently
@@ -262,6 +302,41 @@ RESNET_GROUPS = (
     ("BN reductions", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
+# the bf16 paths (mixed precision, compute_dtype "bfloat16", f32 masters):
+# GPT-2-small trained as the training phase trains it, on integer ids; its
+# one-batch parity in the ratio form: the distance of the kernel path's
+# loss and gradients from an f32 twin's (f32 kernels, the same weights)
+# over the distance of a bf16 twin on the plain attention (auto-flash
+# off) from it: the whole gradient within 2x, each tensor within 3x or
+# within 2% of its f32 gradient's norm, the loss within 3x or 1e-3
+# relative (bf16 rounds in other places on the two paths, so neither is
+# the other's oracle; tests/test_torch_mixed_precision.py holds the same
+# form against the JAX package on the CPU)
+BF16_WHOLE_RATIO, BF16_TENSOR_RATIO, BF16_TENSOR_FLOOR = 2.0, 3.0, 2e-2
+BF16_LOSS_RATIO, BF16_LOSS_FLOOR = 3.0, 1e-3
+GPT2_BF16_GROUPS = (
+    ("K3a-bf16", ("flash_attention_fwd_bf16_kernel",)),
+    ("K3b-dq-bf16", ("flash_attention_bwd_dq_bf16_kernel",)),
+    ("K3b-dkv-bf16", ("flash_attention_bwd_dkv_bf16_kernel",)),
+    ("K3 f32", ("flash_attention_fwd_kernel", "flash_attention_bwd_dq_kernel",
+                "flash_attention_bwd_dkv_kernel")),
+    ("K2 fused_adam", ("fused_adam_kernel",)),
+    ("softmax", ("softmax",)),
+    ("gathers and scatters", ("index", "scatter", "gather", "embedding")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+# GEMM kernels by their names; f32 ones among them by these markers (on
+# the bf16 path the f32 products are the loss head's)
+GEMM_MARKS = ("gemm", "cutlass", "xmma", "sm90_", "ampere_", "nvjet")
+F32_GEMM_MARKS = ("sgemm", "f32f32_f32", "tf32", "nvjet_sss", "_s1688", "simt")
+# ResNet-50 in bf16 as bench.py runs it (its headline): the same batch,
+# steps and twin batch as the f32 phase; the card's bf16 gradients at
+# batch 2 against the CPU's f64 ones, over the CPU's own bf16 distance
+# from them, in the same ratio form (per tensor within 3x or 5% of its
+# f64 gradient's norm: a random ResNet-50's step is ill-conditioned, and
+# bf16 flips more ReLU inputs than f32 does)
+RESNET_BF16_TENSOR_FLOOR = 5e-2
 # the DL4J-format fixtures (tests/fixtures): output within rtol 1e-5 / atol
 # 1e-6 of the recorded one (the CPU tests' limit); the convnet's 3 more
 # fit steps on the fused updater, 8 K2 launches a step
@@ -271,28 +346,32 @@ DL4J_RTOL, DL4J_ATOL, DL4J_FIT_STEPS, DL4J_CONVNET_TENSORS = 1e-5, 1e-6, 3, 8
 
 def card_peaks(name: str):
     """The card's peaks from NVIDIA's data sheets (dense, at the full power
-    limit): ``f32`` (non-tensor FLOP/s), ``tf32`` (tensor-core FLOP/s),
-    ``mem`` (bytes/s) and a ``label``."""
+    limit): ``f32`` (non-tensor FLOP/s), ``tf32`` and ``bf16`` (tensor-core
+    FLOP/s), ``mem`` (bytes/s) and a ``label``."""
     if "H100" in name and "PCIe" in name:
-        f32, tf32, mem, label = 51e12, 378e12, 2.0e12, "H100 PCIe"
+        f32, tf32, bf16, mem, label = 51e12, 378e12, 756e12, 2.0e12, "H100 PCIe"
     elif "H100" in name and "NVL" in name:
-        f32, tf32, mem, label = 60e12, 417e12, 3.9e12, "H100 NVL"
+        f32, tf32, bf16, mem, label = 60e12, 417e12, 835e12, 3.9e12, "H100 NVL"
     elif "H200" in name:
-        f32, tf32, mem, label = 67e12, 495e12, 4.8e12, "H200 SXM"
+        f32, tf32, bf16, mem, label = 67e12, 495e12, 989e12, 4.8e12, "H200 SXM"
     else:
-        f32, tf32, mem, label = 67e12, 495e12, 3.35e12, "H100 SXM"
-    return {"f32": f32, "tf32": tf32, "mem": mem,
+        f32, tf32, bf16, mem, label = 67e12, 495e12, 989e12, 3.35e12, "H100 SXM"
+    return {"f32": f32, "tf32": tf32, "bf16": bf16, "mem": mem,
             "label": f"{label}: {f32 / 1e12:g} TFLOP/s f32, {tf32 / 1e12:g} "
-                     f"TFLOP/s TF32, {mem / 1e12:g} TB/s"}
+                     f"TFLOP/s TF32, {bf16 / 1e12:g} TFLOP/s bf16, "
+                     f"{mem / 1e12:g} TB/s"}
 
 
 def bound(flops, nbytes, peaks, rate="f32"):
     """(least time in ms, what bounds it): the larger of the operations
     over the compute rate and the bytes over the memory rate. ``rate``
     "f32" is the CUDA cores' f32 rate; "3xtf32" counts each f32-accurate
-    product as three TF32 products on the tensor cores."""
+    product as three TF32 products on the tensor cores; "bf16" is the
+    tensor cores' dense bf16 rate."""
     if rate == "f32":
         t_ops = flops / peaks["f32"] * 1e3
+    elif rate == "bf16":
+        t_ops = flops / peaks["bf16"] * 1e3
     else:
         t_ops = 3.0 * flops / peaks["tf32"] * 1e3
     t_bytes = nbytes / peaks["mem"] * 1e3
@@ -318,6 +397,19 @@ def flash_bound(shape, causal, peaks, products=2, heads_io=4, rows_io=0):
     flops = 2.0 * products * n * h * dh * pairs  # 2 flops per multiply-add
     nbytes = 4.0 * n * h * t * (heads_io * dh + rows_io)
     return product_bound(flops, nbytes, peaks)
+
+
+def flash_bound_bf16(shape, causal, peaks, products=2, heads_io=4, rows_io=0):
+    """The bound of a bf16 attention kernel: ``products`` [T x T x Dh] bf16
+    matrix products over the pairs this causality needs at the tensor
+    cores' bf16 rate, against ``heads_io`` bf16 [N,H,T,Dh] and ``rows_io``
+    f32 [N,H,T] tensors read or written once each."""
+    n, h, t, dh = shape
+    pairs = t * (t + 1) // 2 if causal else t * t
+    flops = 2.0 * products * n * h * dh * pairs
+    nbytes = n * h * t * (2.0 * heads_io * dh + 4.0 * rows_io)
+    ms, by = bound(flops, nbytes, peaks, "bf16")
+    return {"bound_ms": ms, "bound_by": by}
 
 
 def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -433,6 +525,138 @@ def backward_phase(ck, peaks):
         if (shape, causal) == (SERVED_SHAPE, True):
             served = rows
         del q, k, v, do, o, lse, dq, d, dk, dv, p_dq, p_d, p_dk, p_dv
+        del ql, kl, vl, lib_out
+    return served
+
+
+def bf16_term_sums(ck, q, k, v, lse, do, d, causal):
+    """Each bf16 output's sum of absolute terms A, from the plain version's
+    f32 P and scaled dS: ``{"o": P·|V|, "dq": |dS|·|K|, "dk": |dS|ᵀ·|Q|,
+    "dv": Pᵀ·|dO|}``, with |dS| = |bf16(dS)| + BF16_ELEM_TOL x P ∘ (|dO|·|V|ᵀ
+    + |D|)·scale (dS's own terms)."""
+    p, ds = ck._p_ds_bf16(q, k, v, lse, do, d, causal)
+    own = torch.einsum("nhqd,nhkd->nhqk", do.float().abs(), v.float().abs())
+    own = p * (own + d.abs()[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+    ds = ds.to(torch.bfloat16).float().abs() + BF16_ELEM_TOL * own
+    del own
+    out = {"o": torch.einsum("nhqk,nhkd->nhqd", p, v.float().abs()),
+           "dq": torch.einsum("nhqk,nhkd->nhqd", ds, k.float().abs()),
+           "dk": torch.einsum("nhqk,nhqd->nhkd", ds, q.float().abs()),
+           "dv": torch.einsum("nhqk,nhqd->nhkd", p, do.float().abs())}
+    del p, ds
+    return out
+
+
+def bf16_readings(got, ref, terms):
+    """A bf16 kernel output against its plain version: the max abs error,
+    the largest |got - ref| / (BF16_ELEM_TOL (|ref| + terms)) (at most 1
+    passes; ``terms`` is the entry's sum of absolute terms) and the
+    relative Frobenius error."""
+    g, r = got.double(), ref.double()
+    diff = (g - r).abs()
+    scale = BF16_ELEM_TOL * (r.abs() + terms.double())
+    return {"max_abs_err": diff.max().item(),
+            "elem_ratio": (diff / scale.clamp_min(1e-30)).max().item(),
+            "frob_rel_err": (diff.norm() / r.norm().clamp_min(1e-30)).item()}
+
+
+def flash_bf16_phase(ck, peaks):
+    """The bf16 flash kernels (K3a-bf16, K3b-dq-bf16, K3b-dkv-bf16) against
+    their plain versions (the TPU kernel's rounding points) on the card,
+    causal and full, Dh 64/128/256: o, dq, dk, dv within BF16_TOL x max(1,
+    largest entry), each entry within BF16_ELEM_TOL x (|plain| + its sum
+    of absolute terms) and the whole within BF16_FROB_TOL relative
+    Frobenius error, the f32 LSE and D within BF16_ROW_TOL; the backward
+    kernels take the forward kernel's own o and LSE. Timed (CUDA-event
+    medians of 25) beside their bf16 bound, their plain versions and SDPA
+    in bf16 (forward; its backward for dq + dk/dv in one call). Returns the
+    rows at GPT-2-small's training shape, causal."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(2)
+    bf = torch.bfloat16
+    served = None
+    for shape, causal in FLASH_BF16_SHAPES:
+        q, k, v, do = (_randn(rng, shape).to(bf) for _ in range(4))
+        o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+        dq, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+        dk, dv = ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, causal)
+        torch.cuda.synchronize()
+        p_o, p_lse = ck.flash_attention_plain(q, k, v, causal, return_lse=True)
+        p_dq, p_d = ck.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+        p_dk, p_dv = ck.flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal)
+        if not all(t.dtype == bf for t in (o, dq, dk, dv)) or not all(
+                t.dtype == torch.float32 for t in (lse, d)):
+            raise RuntimeError("bf16 flash kernels: o, dq, dk, dv must be bf16 "
+                               "and the LSE and D f32")
+        terms = bf16_term_sums(ck, q, k, v, lse, do, d, causal)
+        errs, readings = {}, {}
+        for name, got, ref, row_stat in (
+                ("o", o, p_o, False), ("lse", lse, p_lse, True),
+                ("dq", dq, p_dq, False), ("d", d, p_d, True),
+                ("dk", dk, p_dk, False), ("dv", dv, p_dv, False)):
+            if row_stat:
+                err = (got - ref).abs().max().item()
+                ok = err <= BF16_ROW_TOL
+                reading = {"max_abs_err": err, "limit": BF16_ROW_TOL}
+            else:
+                reading = bf16_readings(got, ref, terms[name])
+                err = reading["max_abs_err"]
+                reading.update(limit=BF16_TOL * max(1.0, ref.float().abs().max().item()),
+                               elem_limit=1.0, frob_limit=BF16_FROB_TOL)
+                ok = (err <= reading["limit"] and reading["elem_ratio"] <= 1.0
+                      and reading["frob_rel_err"] <= BF16_FROB_TOL)
+            errs[name], readings[name] = err, reading
+            if not ok:
+                raise RuntimeError(f"bf16 flash {shape} causal={causal}: {name} "
+                                   f"outside its limits: {json.dumps(reading)}")
+        del terms
+        print(f"flash_bf16 agreement {list(shape)} causal={causal} "
+              + json.dumps(readings), flush=True)
+        ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+
+        lib_bwd_ms = median_ms(lib_bwd)
+        lib_fwd = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        if (shape, causal) == (SERVED_SHAPE, True):
+            print("library kernels of SDPA's bf16 forward and backward "
+                  + json.dumps({"forward": library_kernels(lib_fwd),
+                                "backward": library_kernels(lib_bwd)}), flush=True)
+        rows = {
+            "fwd": {"max_abs_err": errs["o"], "lse_max_abs_err": errs["lse"],
+                    "ms": median_ms(lambda: ck.flash_attention_fwd(q, k, v, causal)),
+                    "plain_ms": median_ms(lambda: ck.flash_attention_plain(
+                        q, k, v, causal)),
+                    "library_ms": median_ms(lib_fwd),
+                    **flash_bound_bf16(shape, causal, peaks)},
+            "dq": {"max_abs_err": errs["dq"], "d_max_abs_err": errs["d"],
+                   "ms": median_ms(lambda: ck.flash_attention_bwd_dq(
+                       q, k, v, o, lse, do, causal)),
+                   "plain_ms": median_ms(lambda: ck.flash_attention_bwd_dq_plain(
+                       q, k, v, o, lse, do, causal)),
+                   "library_ms": lib_bwd_ms,
+                   **flash_bound_bf16(shape, causal, peaks, products=3,
+                                      heads_io=6, rows_io=2)},
+            "dkv": {"max_abs_err": max(errs["dk"], errs["dv"]),
+                    "ms": median_ms(lambda: ck.flash_attention_bwd_dkv(
+                        q, k, v, lse, do, d, causal)),
+                    "plain_ms": median_ms(lambda: ck.flash_attention_bwd_dkv_plain(
+                        q, k, v, lse, do, d, causal)),
+                    "library_ms": lib_bwd_ms,
+                    **flash_bound_bf16(shape, causal, peaks, products=4,
+                                       heads_io=6, rows_io=2)},
+        }
+        total = rows["dq"]["ms"] + rows["dkv"]["ms"]
+        for name, row in rows.items():
+            row.update(shape=list(shape), causal=causal)
+            if name != "fwd":
+                row["k3b_total_ms"] = total
+            print(f"kernel flash_bf16_{name} " + json.dumps(row), flush=True)
+        if (shape, causal) == (SERVED_SHAPE, True):
+            served = rows
+        del q, k, v, do, o, lse, dq, d, dk, dv, p_o, p_lse, p_dq, p_d, p_dk, p_dv
         del ql, kl, vl, lib_out
     return served
 
@@ -721,12 +945,12 @@ def ptxas_report(ck, source):
 
 
 def profile_steps(net, x, labels, fits=PROFILED_STEPS, steps_per_fit=1,
-                  groups=KERNEL_GROUPS):
+                  groups=KERNEL_GROUPS, classify=kernel_group):
     """Device time of ``fits`` more fit calls (``steps_per_fit`` steps
-    each) under torch.profiler, per step: by kernel group, in all, and as a
-    share of the step's wall time (host clock around steps that end in a
-    synchronize; kernels of one stream do not overlap), with the kernels
-    that take the most."""
+    each) under torch.profiler, per step: by kernel group (``classify(name,
+    groups)``), in all, and as a share of the step's wall time (host clock
+    around steps that end in a synchronize; kernels of one stream do not
+    overlap), with the kernels that take the most."""
     from torch.profiler import ProfilerActivity, profile
 
     steps = fits * steps_per_fit
@@ -740,7 +964,7 @@ def profile_steps(net, x, labels, fits=PROFILED_STEPS, steps_per_fit=1,
     per_kernel = {k: ms / steps for k, ms in device_ms_by_kernel(prof).items()}
     by_group = {}
     for name, ms in per_kernel.items():
-        g = kernel_group(name, groups)
+        g = classify(name, groups)
         by_group[g] = by_group.get(g, 0.0) + ms
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
@@ -751,6 +975,46 @@ def profile_steps(net, x, labels, fits=PROFILED_STEPS, steps_per_fit=1,
                                                    key=lambda kv: -kv[1])),
         "top_kernels_ms_per_step": [[k[:100], v] for k, v in top],
     }
+
+
+def gemm_group(name: str, groups):
+    """:func:`kernel_group`, with matrix products split into bf16 and f32
+    ones by the kernel's name."""
+    low = name.lower()
+    group = kernel_group(name, groups)
+    if group == "other" and any(k in low for k in GEMM_MARKS):
+        return ("f32 matrix products (the loss head)"
+                if any(k in low for k in F32_GEMM_MARKS) else "bf16 matrix products")
+    return group
+
+
+def ratio_form(port, yard, ref, loss_port, loss_yard, loss_ref, tensor_floor):
+    """The distance of ``port``'s gradients (``{key: {name: tensor}}``) and
+    loss from ``ref``'s over the distance of ``yard``'s from them: the
+    whole gradient (L2), each tensor (with its distance over ``ref``'s
+    norm) and the loss; ``ok`` when within BF16_WHOLE_RATIO, each tensor
+    within BF16_TENSOR_RATIO or ``tensor_floor`` of its norm, the loss
+    within BF16_LOSS_RATIO or BF16_LOSS_FLOOR relative."""
+    rows, p_sq, y_sq = [], 0.0, 0.0
+    for v, named in ref.items():
+        for n, w in named.items():
+            w = w.double()
+            e_p = (port[v][n].double().to(w.device) - w).norm().item()
+            e_y = (yard[v][n].double().to(w.device) - w).norm().item()
+            rel = e_p / max(w.norm().item(), 1e-30)
+            rows.append((e_p / max(e_y, 1e-30), f"{v}/{n}", rel,
+                         e_p <= BF16_TENSOR_RATIO * e_y or rel <= tensor_floor))
+            p_sq, y_sq = p_sq + e_p ** 2, y_sq + e_y ** 2
+    whole = math.sqrt(p_sq / max(y_sq, 1e-60))
+    lp, ly = abs(loss_port - loss_ref), abs(loss_yard - loss_ref)
+    worst = max(rows)
+    out = {"grad_l2_ratio_whole": whole,
+           "grad_l2_ratio_worst": [worst[0], worst[1], worst[2]],
+           "grad_tensors_within": sum(r[3] for r in rows),
+           "grad_tensors": len(rows), "loss_err": lp, "yardstick_loss_err": ly}
+    out["ok"] = (whole <= BF16_WHOLE_RATIO and out["grad_tensors_within"] == len(rows)
+                 and lp <= max(BF16_LOSS_RATIO * ly, BF16_LOSS_FLOOR * abs(loss_ref)))
+    return out
 
 
 def training_phase(ck, card):
@@ -859,6 +1123,148 @@ def training_phase(ck, card):
     print("train " + json.dumps(stats), flush=True)
     del net, g_k, g_p, flat, labels
     return launches
+
+
+def gpt2_bf16_phase(ck, card):
+    """GPT-2-small in bf16 (``compute_dtype``, f32 masters): TRAIN_STEPS fit
+    steps at TRAIN_N x T on integer ids with the fused updater (each step
+    12 K3a-bf16, 12 K3b-dq-bf16, 12 K3b-dkv-bf16 and 150 K2 launches, no
+    f32 flash launch), PROFILED_STEPS more under the profiler (bf16 and f32
+    matrix products apart, the f32 loss head's three products timed alone
+    beside them), one ``output`` (12 K3a-bf16), then one batch's loss and
+    gradients in the ratio form (BF16_WHOLE_RATIO). Returns the launch
+    counts of the steps and of the ``output``."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.convert import (export_params,
+                                                       load_reference_params)
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    def bf16_net():
+        conf = TransformerLM().conf()  # GPT-2-small, seed 123
+        conf.global_conf.compute_dtype = "bfloat16"
+        return ComputationGraph(conf).init()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = bf16_net()
+    vocab = net.conf.vertices["embed"].obj.n_in
+    d_model = net.conf.vertices["embed"].obj.n_out
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    n_tensors = sum(len(named) for named in net.params.values())
+    rng = np.random.default_rng(123)
+    ids = torch.from_numpy(rng.integers(0, vocab, (TRAIN_N, T))).cuda()  # integer ids
+    labels = F.one_hot(torch.cat([ids[:, 1:], ids[:, -1:]], 1), vocab).float()
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    flash = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+             ck.flash_attention_bwd_dkv)
+
+    def zero():
+        for c in (*flash, ck.fused_adam):
+            c.launches = 0
+        for c in flash:
+            c.launches_bf16 = 0
+
+    def read():
+        got = {f"{c.__name__}_bf16": c.launches_bf16 for c in flash}
+        got.update({c.__name__: c.launches - c.launches_bf16 for c in flash})
+        got["fused_adam"] = ck.fused_adam.launches
+        return got
+
+    zero()
+    losses, events = [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        net.fit(ids, labels)
+        end.record()
+        events.append((start, end))
+        losses.append(net.score_)
+    torch.cuda.synchronize()
+    launches = read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+    window_ms = events[0][0].elapsed_time(events[-1][1])
+    warm_window_ms = events[1][0].elapsed_time(events[-1][1])
+    want = {"flash_attention_fwd_bf16": n_layers, "flash_attention_bwd_dq_bf16": n_layers,
+            "flash_attention_bwd_dkv_bf16": n_layers, "flash_attention_fwd": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "fused_adam": n_tensors}
+    bad_counts = {k: launches[k] for k, per in want.items()
+                  if launches[k] != per * TRAIN_STEPS}
+    profile = profile_steps(net, ids, labels, groups=GPT2_BF16_GROUPS,
+                            classify=gemm_group)
+    # the three f32 products of the loss head alone: logits, their data and
+    # weight gradients ([8192, 768] x [768, 50257] and its transposes)
+    h32 = torch.randn((TRAIN_N * T, d_model), device="cuda")
+    w32 = torch.randn((d_model, vocab), device="cuda") * 0.02
+    g32 = torch.randn((TRAIN_N * T, vocab), device="cuda")
+    head_ms = median_ms(lambda: (h32 @ w32, g32 @ w32.T, h32.T @ g32),
+                        runs=5, warmup=1)
+    del h32, w32, g32
+
+    # one bf16 output: 12 K3a-bf16 launches
+    zero()
+    out = net.output(ids[:2])
+    torch.cuda.synchronize()
+    out_launches = read()
+    out_ok = (out.dtype == torch.bfloat16 and tuple(out.shape) == (2, T, vocab)
+              and bool(torch.isfinite(out.float()).all()))
+    del out
+
+    # parity: the kernel path, a bf16 twin on the plain attention and an
+    # f32 twin (the f32 kernels), one batch, the same weights
+    weights = export_params(net)
+    g_k, loss_k = net.compute_gradient_and_score(ids, labels)
+    plain = load_reference_params(bf16_net(), weights)
+    helpers.set_auto_flash_attention(False)
+    try:
+        g_p, loss_p = plain.compute_gradient_and_score(ids, labels)
+    finally:
+        helpers.set_auto_flash_attention(True)
+    del plain
+    ref = load_reference_params(TransformerLM().init(), weights)
+    g_r, loss_r = ref.compute_gradient_and_score(ids, labels)
+    del ref
+    parity = ratio_form(g_k, g_p, g_r, loss_k, loss_p, loss_r, BF16_TENSOR_FLOOR)
+    grads_f32 = all(t.dtype == torch.float32 for named in g_k.values()
+                    for t in named.values())
+    masters_f32 = all(t.dtype == torch.float32 for named in net.params.values()
+                      for t in named.values())
+    helpers.clear_helper("updater")
+    stats = {
+        "card": card, "batch": [TRAIN_N, T], "steps": TRAIN_STEPS,
+        "compute_dtype": "bfloat16", "ids": "int64",
+        "losses": losses, "step_ms": step_ms,
+        "median_step_ms": float(np.median(step_ms)), "window_ms": window_ms,
+        "tokens_per_s_after_first_step":
+            (TRAIN_STEPS - 1) * TRAIN_N * T / (warm_window_ms / 1e3),
+        "launches": launches,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "output_launches": out_launches,
+        "peak_device_mem_gb": peak_gb,
+        "loss_head_f32_products_ms": head_ms,
+        "profile": profile,
+        "parity": {"loss_kernel": loss_k, "loss_plain_bf16": loss_p,
+                   "loss_f32": loss_r, **parity},
+        "grads_f32": grads_f32, "masters_f32": masters_f32,
+    }
+    print("gpt2_bf16 " + json.dumps(stats), flush=True)
+    if bad_counts:
+        raise RuntimeError(f"gpt2_bf16: launches {bad_counts} in {TRAIN_STEPS} "
+                           f"steps, expected {want} a step")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"gpt2_bf16 training did not progress: {losses}")
+    if not (out_ok and out_launches["flash_attention_fwd_bf16"] == n_layers
+            and out_launches["flash_attention_fwd"] == 0):
+        raise RuntimeError(f"gpt2_bf16 output: {out_launches}, ok {out_ok}")
+    if not (parity["ok"] and grads_f32 and masters_f32):
+        raise RuntimeError(f"gpt2_bf16 parity: {parity}, f32 gradients "
+                           f"{grads_f32}, f32 masters {masters_f32}")
+    del net, g_k, g_p, g_r, labels, weights
+    torch.cuda.empty_cache()
+    return {"train": launches, "output": out_launches}
 
 
 def lstm_bound(shape, peaks):
@@ -2504,6 +2910,153 @@ def resnet50_phase(ck, card, peaks):
     return launches
 
 
+def resnet_bf16_twins(net_card):
+    """One batch of RESNET_TWIN_BATCH from ``net_card``'s weights and
+    states: the card's bf16 gradients (train mode) against the CPU's f64
+    ones, over the CPU's own bf16 distance from them (:func:`ratio_form`,
+    RESNET_BF16_TENSOR_FLOOR)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.convert import (
+        export_params, export_states, load_reference_params,
+        load_reference_states)
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    params, states = export_params(net_card), export_states(net_card)
+    x, y = resnet_images(RESNET_TWIN_BATCH, seed=5)
+    x, y = x.cpu().numpy(), y.cpu().numpy()
+
+    def twin(device, dtype, compute_dtype):
+        conf = ResNet50(num_labels=RESNET_LABELS, seed=1).conf()
+        conf.global_conf.dtype = dtype
+        conf.global_conf.compute_dtype = compute_dtype
+        net = ComputationGraph(conf, device=device).init()
+        return load_reference_states(load_reference_params(net, params), states)
+
+    def grads(net):
+        loss, g, _ = net._gradients({"input": net._as_tensor(x)},
+                                    [net._as_tensor(y)], train=True)
+        return g, float(loss)
+
+    g64, l64 = grads(twin("cpu", "float64", None))
+    g_cpu, l_cpu = grads(twin("cpu", "float32", "bfloat16"))
+    g_card, l_card = grads(twin("cuda", "float32", "bfloat16"))
+    return ratio_form(g_card, g_cpu, g64, l_card, l_cpu, l64,
+                      RESNET_BF16_TENSOR_FLOOR)
+
+
+def resnet50_bf16_phase(ck, card, peaks):
+    """bench.py's headline in bf16: the zoo's ResNet-50 (1000 labels, seed
+    1) with ``compute_dtype = "bfloat16"`` trained at RESNET_BATCH x
+    224x224x3 through ``ComputationGraph.fit``: images/s over RESNET_TIMED
+    steps, median step, peak memory, busy share and the FLOP bound share at
+    the tensor cores' bf16 rate; every running statistic f32 and moved; no
+    launch of the port's kernels (cuDNN's bf16 convolutions and the eager
+    BatchNorm, as the reference has no Pallas kernel there); the zip
+    restored with ``output`` equal bit for bit; the card's bf16 step at
+    batch 2 against the CPU's in the ratio form. Returns the launches."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo.models import ResNet50
+
+    counters = (ck.lstm_sequence, ck.fused_adam, ck.flash_attention_fwd,
+                ck.flash_attention_bwd_dq, ck.flash_attention_bwd_dkv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conf = ResNet50(num_labels=RESNET_LABELS, seed=1).conf()
+    conf.global_conf.compute_dtype = "bfloat16"  # as bench.py sets it
+    net = ComputationGraph(conf).init()
+    batch = RESNET_BATCH
+    x, labels = resnet_images(batch, seed=1)
+    for c in counters:
+        c.launches = 0
+    before = {v: {n: t.clone() for n, t in st.items()}
+              for v, st in net.states.items() if st}
+    for _ in range(RESNET_WARMUP):
+        net.fit(x, labels)
+    events, losses = [], []
+    for _ in range(RESNET_TIMED):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        net.fit(x, labels)
+        end.record()
+        events.append((start, end))
+        losses.append(net._score)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l) for l in losses]
+    step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+    window_ms = events[0][0].elapsed_time(events[-1][1])
+    unmoved = [f"{v}/{n}" for v, st in before.items() for n, t in st.items()
+               if torch.equal(net.states[v][n], t)]
+    states_f32 = all(t.dtype == torch.float32 for st in net.states.values()
+                     for t in st.values())
+    masters_f32 = all(t.dtype == torch.float32 for named in net.params.values()
+                      for t in named.values())
+    profile = profile_steps(net, x, labels, fits=RESNET_PROFILED,
+                            groups=RESNET_GROUPS)
+    flops = resnet_train_flops(net.conf, batch)
+    bound_ms = flops / peaks["bf16"] * 1e3
+    median_step = float(np.median(step_ms))
+    out_ms = median_ms(lambda: net.output(x), runs=5, warmup=1)
+    out = net.output(x)
+    out_ok = (out.dtype == torch.bfloat16 and tuple(out.shape) == (batch, RESNET_LABELS)
+              and bool(torch.isfinite(out.float()).all()))
+    del out, x, labels
+    torch.cuda.empty_cache()
+
+    # the zip (f32 params.npz and states.npz, compute_dtype in the
+    # configuration), restored on the card
+    probe, _ = resnet_images(4, seed=7)
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = net.output(probe)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "resnet50_bf16.zip")
+            net.save(path, save_updater=False)
+            back = ComputationGraph.load(path)
+        got = back.output(probe)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    zip_ok = (back.compute_dtype == torch.bfloat16 and torch.equal(got, want)
+              and all(torch.equal(back.states[v][n], t)
+                      for v, st in net.states.items() for n, t in st.items()))
+    del back, got, want
+    torch.cuda.empty_cache()
+    twins = resnet_bf16_twins(net)
+    stats = {
+        "card": card, "compute_dtype": "bfloat16", "batch": batch,
+        "image": [RESNET_SIDE, RESNET_SIDE, 3], "labels": RESNET_LABELS,
+        "timed_steps": RESNET_TIMED, "losses": losses, "step_ms": step_ms,
+        "median_step_ms": median_step, "window_ms": window_ms,
+        "train_images_per_s": RESNET_TIMED * batch / (window_ms / 1e3),
+        "train_images_per_s_at_median_step": batch / (median_step / 1e3),
+        "peak_device_mem_gb": peak_gb, "launches": launches,
+        "flops_per_step": flops, "flop_bound_ms_bf16": bound_ms,
+        "bound_share_of_median_step": bound_ms / median_step,
+        "device_busy_share_of_median_step":
+            profile["device_ms_per_step"] / median_step,
+        "profile_per_step": profile,
+        "output_ms": out_ms, "output_images_per_s": batch / (out_ms / 1e3),
+        "running_stats_f32": states_f32, "masters_f32": masters_f32,
+        "unmoved_stats": unmoved[:5], "zip_output_equal": zip_ok,
+        "twin_batch": RESNET_TWIN_BATCH, "twin": twins,
+    }
+    print("resnet50_bf16 " + json.dumps(stats), flush=True)
+    if any(launches.values()):
+        raise RuntimeError(f"ResNet-50 bf16 fit launched a kernel: {launches}")
+    if not (np.isfinite(losses).all() and out_ok and states_f32 and masters_f32
+            and not unmoved and zip_ok and twins["ok"]):
+        raise RuntimeError("ResNet-50 bf16: losses finite "
+                           f"{np.isfinite(losses).all()}, output {out_ok}, "
+                           f"stats f32 {states_f32}, masters f32 {masters_f32}, "
+                           f"unmoved {unmoved[:5]}, zip {zip_ok}, twins {twins}")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
 def dl4j_import_phase(ck, card):
     """The DL4J-format fixtures restored on the card; the convnet one fits
     DL4J_FIT_STEPS more steps from its restored Adam state on the fused
@@ -2597,6 +3150,7 @@ def main() -> None:
 
     served = kernel_phase(ck, peaks)
     bwd = backward_phase(ck, peaks)
+    bf16 = flash_bf16_phase(ck, peaks)
     adam = adam_phase(ck, peaks)
     serve_launches = serving_phase(ck, card, served["ms"])
     train_launches = training_phase(ck, card)
@@ -2611,6 +3165,8 @@ def main() -> None:
     tbptt = gpt2_tbptt_phase(ck, card)
     resnet = resnet50_phase(ck, card, peaks)
     dl4j = dl4j_import_phase(ck, card)
+    gpt2_bf16 = gpt2_bf16_phase(ck, card)
+    resnet_bf16 = resnet50_bf16_phase(ck, card, peaks)
     lstm = lstm_rows[LSTM_PATHS["train"]]
 
     def entry(name, source, replaces, row, launches, **extra):
@@ -2632,7 +3188,9 @@ def main() -> None:
                 "decode": decode["decode"].get(kernel),
                 "gpt2_tbptt_train": tbptt["train"].get(kernel),
                 "resnet50_train": resnet[kernel],
-                "dl4j_import_train": dl4j[kernel]}
+                "dl4j_import_train": dl4j[kernel],
+                "gpt2_bf16_train": gpt2_bf16["train"].get(kernel),
+                "resnet50_bf16_train": resnet_bf16.get(kernel)}
 
     def measured(by_path):
         return {p: n for p, n in by_path.items() if n is not None}
@@ -2641,12 +3199,13 @@ def main() -> None:
         entry(fwd, "flash_attention_fwd.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:359", served,
               serve_launches + train_launches[fwd] + gpt2_drop["output_fwd"]
-              + decode["output_fwd"],
+              + decode["output_fwd"] + gpt2_bf16["output"][fwd],
               launches_by_path=measured({
                   "serve": serve_launches, "train": train_launches[fwd],
                   **later_paths(fwd),
                   "gpt2_attn_dropout_output": gpt2_drop["output_fwd"],
-                  "decode_check_output": decode["output_fwd"]})),
+                  "decode_check_output": decode["output_fwd"],
+                  "gpt2_bf16_output": gpt2_bf16["output"][fwd]})),
         entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dkv"],
@@ -2666,7 +3225,8 @@ def main() -> None:
               train_launches["fused_adam"] + char_adam_launches
               + lenet_adam_launches + ex17_adam_launches
               + lenet_reg_adam_launches + gpt2_drop["fused_adam"]
-              + tbptt["fused_adam"] + dl4j["fused_adam"],
+              + tbptt["fused_adam"] + dl4j["fused_adam"]
+              + gpt2_bf16["train"]["fused_adam"],
               launches_by_path=measured({
                   "train": train_launches["fused_adam"],
                   "char_lstm_train": char_adam_launches,
@@ -2690,6 +3250,25 @@ def main() -> None:
               bound_by_path={p: lstm_rows[sh]["bound_ms"] for p, sh in LSTM_PATHS.items()},
               chain_floor_by_path={p: lstm_rows[sh]["chain_floor_ms"]
                                    for p, sh in LSTM_PATHS.items()}),
+        entry(f"{fwd}_bf16", "flash_attention_fwd.cu",
+              "jax/experimental/pallas/ops/tpu/flash_attention.py:758 on bf16 "
+              "q, k, v (via deeplearning4j_tpu/nn/pallas_kernels.py:359)",
+              bf16["fwd"], gpt2_bf16["train"][f"{fwd}_bf16"]
+              + gpt2_bf16["output"][f"{fwd}_bf16"],
+              launches_by_path={"gpt2_bf16_train": gpt2_bf16["train"][f"{fwd}_bf16"],
+                                "gpt2_bf16_output": gpt2_bf16["output"][f"{fwd}_bf16"]}),
+        entry("flash_attention_bwd_dkv_bf16", "flash_attention_bwd.cu",
+              "jax/experimental/pallas/ops/tpu/flash_attention.py:941 on bf16 "
+              "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bf16["dkv"],
+              gpt2_bf16["train"]["flash_attention_bwd_dkv_bf16"],
+              launches_by_path={"gpt2_bf16_train":
+                                gpt2_bf16["train"]["flash_attention_bwd_dkv_bf16"]}),
+        entry("flash_attention_bwd_dq_bf16", "flash_attention_bwd.cu",
+              "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 on bf16 "
+              "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bf16["dq"],
+              gpt2_bf16["train"]["flash_attention_bwd_dq_bf16"],
+              launches_by_path={"gpt2_bf16_train":
+                                gpt2_bf16["train"]["flash_attention_bwd_dq_bf16"]}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
-// Flash-attention backward, f32, for Hopper (sm_90a), on the tensor cores
-// at f32 accuracy (3xTF32).
+// Flash-attention backward for Hopper (sm_90a): f32 on the tensor cores at
+// f32 accuracy (3xTF32), described here, and bf16 (the mixed-precision
+// path), described at its kernels further down.
 //
 // Replaces the backward of PallasFlashAttentionHelper.attend
 // (deeplearning4j_tpu/nn/pallas_kernels.py:359): the custom VJP of jax's
@@ -99,6 +100,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -493,4 +495,322 @@ extern "C" int dl4j_flash_attention_bwd_dkv_f32(const void* q, const void* k,
         default: return (int)cudaErrorInvalidValue;
     }
 #undef DL4J_DKV
+}
+
+// ======================================================================
+// Flash-attention backward, bf16 (the mixed-precision path).
+//
+// Replaces the TPU kernels' bf16 path: every product takes bf16 operands
+// with f32 accumulation (flash_attention.py :845, :900, :918, :1188,
+// :1258); P = exp(S * scale - LSE) and dS = P o (dP - D) * scale are f32
+// and rounded to bf16 only as operands of dV = P^T dO, dK = dS^T Q and
+// dQ = dS K; D = rowsum(f32(dO) o f32(O)) and the LSE are f32; dQ, dK and
+// dV are accumulated in f32 and written in bf16 (:1095-1098, :1436).
+//
+// What bounds it. At GPT-2-small's [8, 12, 1024, 64], causal, the dq kernel
+// runs 3 products over the causal pairs (S, dP, dQ), 19.35 GFLOP, and the
+// dk/dv kernel 4 (S, dP, dV, dK), 25.80 GFLOP: 0.020 and 0.026 ms at
+// 989 TFLOP/s dense bf16; their bytes (5 and 6 bf16 [N,H,T,Dh] tensors of
+// 12.6 MB, 2 f32 [N,H,T] of 0.4 MB) take about 0.019 and 0.023 ms.
+//
+// Design: the f32 kernels' split (the dq kernel first, writing D; then the
+// dk/dv kernel; every output element has one owner block, no atomics) on
+// bf16_mma.cuh's geometry: blocks of 64 resident rows in 4 row groups of
+// 16 (two warps a group at Dh 256), streamed tiles of BC rows through a
+// 2-stage cp.async ring, bf16 mma.sync m16n8k16, P and dS rounded into the
+// next product's A fragment in registers.
+
+namespace {
+
+namespace bf = dl4j_bf16;
+
+template <int DH, bool CAUSAL>
+__global__ void __launch_bounds__(bf::Cfg<DH>::THREADS)
+flash_attention_bwd_dq_bf16_kernel(const bf::bf16* __restrict__ q,
+                                   const bf::bf16* __restrict__ k,
+                                   const bf::bf16* __restrict__ v,
+                                   const bf::bf16* __restrict__ o,
+                                   const float* __restrict__ lse,
+                                   const bf::bf16* __restrict__ dout,
+                                   bf::bf16* __restrict__ dq,
+                                   float* __restrict__ dvec,
+                                   int T, float scale, float scale_log2) {
+    using C = bf::Cfg<DH>;
+    constexpr int BR = C::BR, BC = C::BC, LD = C::LD, NS = C::NS, ND = C::ND;
+    extern __shared__ float4 smem4[];
+    bf::bf16* Qs = reinterpret_cast<bf::bf16*>(smem4);
+    bf::bf16* dOs = Qs + C::RES;
+    bf::bf16* KVs = dOs + C::RES;  // 2 stages x (K, V)
+
+    const int n_blocks = T / BR;
+    const int qb = CAUSAL ? (n_blocks - 1 - (int)blockIdx.y) : (int)blockIdx.y;
+    const int q0 = qb * BR;
+    const size_t head = (size_t)blockIdx.x * T * DH;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = (warp / C::WN) * 16;
+    const int col0 = (warp % C::WN) * C::DW;
+    const int qw = q0 + r0;
+
+    const int n_tiles = CAUSAL ? (q0 + BR) / BC : T / BC;
+    auto stage = [&](int kt) {
+        bf::bf16* dst = KVs + (kt & 1) * 2 * C::TILE;
+        bf::stage_rows<DH, C::THREADS>(dst, k + head + (size_t)kt * BC * DH, BC);
+        bf::stage_rows<DH, C::THREADS>(dst + C::TILE, v + head + (size_t)kt * BC * DH, BC);
+    };
+    bf::stage_rows<DH, C::THREADS>(Qs, q + head + (size_t)q0 * DH, BR);
+    bf::stage_rows<DH, C::THREADS>(dOs, dout + head + (size_t)q0 * DH, BR);
+    stage(0);
+    bf::cp_async_commit();
+
+    // LSE (base 2) of rows g and g+8
+    const float lse2[2] = {lse[(size_t)blockIdx.x * T + qw + g] * LOG2E,
+                           lse[(size_t)blockIdx.x * T + qw + g + 8] * LOG2E};
+    bf::cp_async_wait<0>();  // Q, dO and the first K, V tile
+    __syncthreads();
+
+    // D = rowsum(f32(dO) o f32(O)) of the warp's 16 rows, reduced over the warp
+    float drow[2] = {0.f, 0.f};
+    for (int r = 0; r < 16; ++r) {
+        const bf::bf16* orow = o + head + (size_t)(qw + r) * DH;
+        const bf::bf16* grow = dOs + (r0 + r) * LD;
+        float sum = 0.f;
+#pragma unroll
+        for (int d = lane; d < DH; d += 32)
+            sum = fmaf(__bfloat162float(orow[d]), __bfloat162float(grow[d]), sum);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (r == g) drow[0] = sum;
+        if (r == g + 8) drow[1] = sum;
+        if (lane == 0 && col0 == 0) dvec[(size_t)blockIdx.x * T + qw + r] = sum;
+    }
+
+    float acc[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    const bf::bf16* qp = Qs + (r0 + g) * LD + 2 * t;
+    const bf::bf16* dop = dOs + (r0 + g) * LD + 2 * t;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+        if (kt + 1 < n_tiles) stage(kt + 1);
+        bf::cp_async_commit();
+        bf::cp_async_wait<1>();
+        __syncthreads();
+        const bf::bf16* Ks = KVs + (kt & 1) * 2 * C::TILE;
+        const bf::bf16* Vs = Ks + C::TILE;
+        const int k0 = kt * BC;
+        if (!(CAUSAL && k0 > qw + 15)) {
+            float s[NS][4], dp[NS][4];
+            bf::scores<DH, NS>(s, qp, Ks + g * LD + 2 * t);
+            bf::scores<DH, NS>(dp, dop, Vs + g * LD + 2 * t);
+            const bool mask = CAUSAL && k0 + BC - 1 > qw;
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;
+                    const int key = k0 + j * 8 + 2 * t + (e & 1);
+                    const float p = (mask && key > qw + g + 8 * h)
+                        ? 0.f : exp2f(fmaf(s[j][e], scale_log2, -lse2[h]));
+                    s[j][e] = p * (dp[j][e] - drow[h]) * scale;  // dS
+                }
+            bf::accumulate<DH, NS, ND>(acc, s, Ks + col0);  // dQ += bf16(dS) K
+        }
+        __syncthreads();
+    }
+    const float one[2] = {1.f, 1.f};
+    bf::store_frags<DH, ND>(dq + head + (size_t)qw * DH + col0, acc, one, g, t);
+}
+
+template <int DH, bool CAUSAL>
+__global__ void __launch_bounds__(bf::Cfg<DH>::THREADS)
+flash_attention_bwd_dkv_bf16_kernel(const bf::bf16* __restrict__ q,
+                                    const bf::bf16* __restrict__ k,
+                                    const bf::bf16* __restrict__ v,
+                                    const float* __restrict__ lse,
+                                    const bf::bf16* __restrict__ dout,
+                                    const float* __restrict__ dvec,
+                                    bf::bf16* __restrict__ dk,
+                                    bf::bf16* __restrict__ dv,
+                                    int T, float scale, float scale_log2) {
+    using C = bf::Cfg<DH>;
+    constexpr int BR = C::BR, BC = C::BC, LD = C::LD, NS = C::NS, ND = C::ND;
+    // one stage: Q and dO tiles, then the LSE and D of their rows (f32)
+    constexpr int STAGE_BYTES = 2 * C::TILE * (int)sizeof(bf::bf16) + 2 * BC * (int)sizeof(float);
+    extern __shared__ float4 smem4[];
+    bf::bf16* Ks = reinterpret_cast<bf::bf16*>(smem4);
+    bf::bf16* Vs = Ks + C::RES;
+    char* stages = reinterpret_cast<char*>(Vs + C::RES);
+
+    const int k0 = (int)blockIdx.y * BR;
+    const size_t head = (size_t)blockIdx.x * T * DH;
+    const size_t vec = (size_t)blockIdx.x * T;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = (warp / C::WN) * 16;
+    const int col0 = (warp % C::WN) * C::DW;
+    const int kw = k0 + r0;  // the warp's first key row
+
+    // causal: the first key blocks see the most query tiles, and start first
+    const int qt0 = CAUSAL ? k0 / BC : 0;
+    const int qt_end = T / BC;
+    auto stage_at = [&](int qt) {
+        return stages + ((qt - qt0) & 1) * STAGE_BYTES;
+    };
+    auto stage = [&](int qt) {
+        char* dst = stage_at(qt);
+        bf::bf16* qd = reinterpret_cast<bf::bf16*>(dst);
+        float* vd = reinterpret_cast<float*>(qd + 2 * C::TILE);
+        bf::stage_rows<DH, C::THREADS>(qd, q + head + (size_t)qt * BC * DH, BC);
+        bf::stage_rows<DH, C::THREADS>(qd + C::TILE, dout + head + (size_t)qt * BC * DH, BC);
+        bf::stage_vec<C::THREADS>(vd, lse + vec + (size_t)qt * BC, BC);
+        bf::stage_vec<C::THREADS>(vd + BC, dvec + vec + (size_t)qt * BC, BC);
+    };
+    bf::stage_rows<DH, C::THREADS>(Ks, k + head + (size_t)k0 * DH, BR);
+    bf::stage_rows<DH, C::THREADS>(Vs, v + head + (size_t)k0 * DH, BR);
+    stage(qt0);
+    bf::cp_async_commit();
+
+    float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+    const bf::bf16* kp = Ks + (r0 + g) * LD + 2 * t;
+    const bf::bf16* vp = Vs + (r0 + g) * LD + 2 * t;
+    for (int qt = qt0; qt < qt_end; ++qt) {
+        if (qt + 1 < qt_end) stage(qt + 1);
+        bf::cp_async_commit();
+        bf::cp_async_wait<1>();  // tile qt (and K, V) landed
+        __syncthreads();
+        const bf::bf16* Qt = reinterpret_cast<const bf::bf16*>(stage_at(qt));
+        const bf::bf16* dOt = Qt + C::TILE;
+        const float* Ls = reinterpret_cast<const float*>(dOt + C::TILE);
+        const float* Ds = Ls + BC;
+        const int q0 = qt * BC;
+        // causal: skip a tile whose queries all lie before the warp's keys
+        if (!(CAUSAL && q0 + BC - 1 < kw)) {
+            float s[NS][4], dp[NS][4];  // S^T, dP^T: keys x queries
+            bf::scores<DH, NS>(s, kp, Qt + g * LD + 2 * t);
+            bf::scores<DH, NS>(dp, vp, dOt + g * LD + 2 * t);
+            const bool mask = CAUSAL && q0 < kw + 15;
+#pragma unroll
+            for (int j = 0; j < NS; ++j) {
+                const int c = j * 8 + 2 * t;
+                const float2 l2 = *reinterpret_cast<const float2*>(Ls + c);
+                const float2 d2 = *reinterpret_cast<const float2*>(Ds + c);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int key = kw + g + 8 * (e >> 1);
+                    const float lq = (e & 1) ? l2.y : l2.x;
+                    const float dq_ = (e & 1) ? d2.y : d2.x;
+                    const float p = (mask && key > q0 + c + (e & 1))
+                        ? 0.f : exp2f(fmaf(s[j][e], scale_log2, -lq * LOG2E));
+                    s[j][e] = p;                             // P^T
+                    dp[j][e] = p * (dp[j][e] - dq_) * scale;  // dS^T
+                }
+            }
+            bf::accumulate<DH, NS, ND>(dv_acc, s, dOt + col0);  // dV += bf16(P^T) dO
+            bf::accumulate<DH, NS, ND>(dk_acc, dp, Qt + col0);  // dK += bf16(dS^T) Q
+        }
+        __syncthreads();
+    }
+    const float one[2] = {1.f, 1.f};
+    bf::store_frags<DH, ND>(dk + head + (size_t)kw * DH + col0, dk_acc, one, g, t);
+    bf::store_frags<DH, ND>(dv + head + (size_t)kw * DH + col0, dv_acc, one, g, t);
+}
+
+template <int DH, bool CAUSAL>
+cudaError_t launch_dq_bf16(const bf::bf16* q, const bf::bf16* k, const bf::bf16* v,
+                           const bf::bf16* o, const float* lse, const bf::bf16* dout,
+                           bf::bf16* dq, float* dvec, int bh, int t, cudaStream_t stream) {
+    using C = bf::Cfg<DH>;
+    auto kernel = flash_attention_bwd_dq_bf16_kernel<DH, CAUSAL>;
+    const size_t smem = (size_t)(2 * C::RES + 4 * C::TILE) * sizeof(bf::bf16);
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const float scale = 1.f / sqrtf((float)DH);
+    const dim3 grid(bh, t / C::BR);
+    kernel<<<grid, C::THREADS, smem, stream>>>(q, k, v, o, lse, dout, dq, dvec, t,
+                                               scale, scale * LOG2E);
+    return cudaGetLastError();
+}
+
+template <int DH, bool CAUSAL>
+cudaError_t launch_dkv_bf16(const bf::bf16* q, const bf::bf16* k, const bf::bf16* v,
+                            const float* lse, const bf::bf16* dout, const float* dvec,
+                            bf::bf16* dk, bf::bf16* dv, int bh, int t, cudaStream_t stream) {
+    using C = bf::Cfg<DH>;
+    auto kernel = flash_attention_bwd_dkv_bf16_kernel<DH, CAUSAL>;
+    const size_t smem = (size_t)2 * C::RES * sizeof(bf::bf16)
+        + 2 * (2 * C::TILE * sizeof(bf::bf16) + 2 * C::BC * sizeof(float));
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const float scale = 1.f / sqrtf((float)DH);
+    const dim3 grid(bh, t / C::BR);
+    kernel<<<grid, C::THREADS, smem, stream>>>(q, k, v, lse, dout, dvec, dk, dv, t,
+                                               scale, scale * LOG2E);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, o, dout, dq: contiguous [bh, t, dh] bf16 on the device; lse,
+// dvec: [bh, t] f32. Writes dq and D = rowsum(f32(dout) * f32(o)) into
+// dvec. t % 64 == 0, dh in {64, 128, 256}. Returns a cudaError_t.
+extern "C" int dl4j_flash_attention_bwd_dq_bf16(const void* q, const void* k,
+                                                const void* v, const void* o,
+                                                const void* lse, const void* dout,
+                                                void* dq, void* dvec, int bh,
+                                                int t, int dh, int causal,
+                                                void* stream) {
+    if (bad_shape(bh, t)) return (int)cudaErrorInvalidValue;
+    const auto *qb = static_cast<const bf::bf16*>(q), *kb = static_cast<const bf::bf16*>(k),
+               *vb = static_cast<const bf::bf16*>(v), *ob = static_cast<const bf::bf16*>(o),
+               *gb = static_cast<const bf::bf16*>(dout);
+    const float* lf = static_cast<const float*>(lse);
+    auto* dqb = static_cast<bf::bf16*>(dq);
+    float* df = static_cast<float*>(dvec);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DL4J_DQ_BF16(DH)                                                                \
+    return (int)(causal ? launch_dq_bf16<DH, true>(qb, kb, vb, ob, lf, gb, dqb, df, bh, t, s) \
+                        : launch_dq_bf16<DH, false>(qb, kb, vb, ob, lf, gb, dqb, df, bh, t, s))
+    switch (dh) {
+        case 64: DL4J_DQ_BF16(64);
+        case 128: DL4J_DQ_BF16(128);
+        case 256: DL4J_DQ_BF16(256);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef DL4J_DQ_BF16
+}
+
+// q, k, v, dout, dk, dv: contiguous [bh, t, dh] bf16 on the device; lse,
+// dvec: [bh, t] f32 (dvec as the dq kernel wrote it). Writes dk and dv.
+// Returns a cudaError_t (0 = launched).
+extern "C" int dl4j_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
+                                                 const void* v, const void* lse,
+                                                 const void* dout, const void* dvec,
+                                                 void* dk, void* dv, int bh,
+                                                 int t, int dh, int causal,
+                                                 void* stream) {
+    if (bad_shape(bh, t)) return (int)cudaErrorInvalidValue;
+    const auto *qb = static_cast<const bf::bf16*>(q), *kb = static_cast<const bf::bf16*>(k),
+               *vb = static_cast<const bf::bf16*>(v), *gb = static_cast<const bf::bf16*>(dout);
+    const float *lf = static_cast<const float*>(lse), *df = static_cast<const float*>(dvec);
+    auto* dkb = static_cast<bf::bf16*>(dk);
+    auto* dvb = static_cast<bf::bf16*>(dv);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DL4J_DKV_BF16(DH)                                                                \
+    return (int)(causal ? launch_dkv_bf16<DH, true>(qb, kb, vb, lf, gb, df, dkb, dvb, bh, t, s) \
+                        : launch_dkv_bf16<DH, false>(qb, kb, vb, lf, gb, df, dkb, dvb, bh, t, s))
+    switch (dh) {
+        case 64: DL4J_DKV_BF16(64);
+        case 128: DL4J_DKV_BF16(128);
+        case 256: DL4J_DKV_BF16(256);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef DL4J_DKV_BF16
 }

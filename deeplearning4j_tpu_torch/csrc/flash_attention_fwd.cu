@@ -1,5 +1,6 @@
-// Flash-attention forward, f32, for Hopper (sm_90a), on the tensor cores
-// at f32 accuracy (3xTF32).
+// Flash-attention forward for Hopper (sm_90a): f32 on the tensor cores at
+// f32 accuracy (3xTF32), described here, and bf16 (the mixed-precision
+// path), described at its kernel further down.
 //
 // Replaces the forward of PallasFlashAttentionHelper.attend
 // (deeplearning4j_tpu/nn/pallas_kernels.py:359), which calls jax's bundled
@@ -63,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -294,6 +296,190 @@ extern "C" int dl4j_flash_attention_fwd_f32(const void* q, const void* k,
         case 64: return (int)launch_dh<64>(qf, kf, vf, of, lf, bh, t, causal, s);
         case 128: return (int)launch_dh<128>(qf, kf, vf, of, lf, bh, t, causal, s);
         case 256: return (int)launch_dh<256>(qf, kf, vf, of, lf, bh, t, causal, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// ======================================================================
+// Flash-attention forward, bf16 (the mixed-precision path).
+//
+// Replaces the same TPU kernel on bf16 q, k, v: it multiplies bf16
+// operands with f32 accumulation (preferred_element_type=f32), keeps the
+// softmax statistics and the O accumulator in f32, rounds P (the
+// exponentials relative to the running row max) to bf16 before P V, and
+// writes O in bf16 and the LSE in f32 (jax 0.9.0's
+// jax/experimental/pallas/ops/tpu/flash_attention.py :396, :471, :670,
+// :688-693).
+//
+// What bounds it. At GPT-2-small's [8, 12, 1024, 64], causal, the two
+// products over the causal pairs are 12.9 GFLOP, 0.013 ms at the H100
+// SXM's 989 TFLOP/s dense bf16; q, k, v and o move 4 x 12.6 MB, 0.015 ms
+// at 3.35 TB/s. chip_smoke.py re-derives both for the card it runs on.
+//
+// Design (a simple first kernel; wgmma and TMA are later work): one block
+// per (n*h, 64 query rows), 4 row groups of 16 rows, one warp each (two at
+// Dh 256, each keeping half of O's columns); Q resident in shared memory;
+// K and V tiles of BC rows (64 at Dh 64, else 32) through a 2-stage
+// cp.async ring; S = Q K^T and P V as bf16 mma.sync m16n8k16 (bf16_mma.cuh);
+// the online softmax in base 2 on the C fragments, as the f32 kernel's;
+// P goes from the accumulators into P V's A fragment in registers. Causal:
+// the key loop stops at the diagonal, a warp skips a tile that lies wholly
+// after its rows, the heaviest query blocks start first.
+
+namespace {
+
+namespace bf = dl4j_bf16;
+
+template <int DH, bool CAUSAL>
+__global__ void __launch_bounds__(bf::Cfg<DH>::THREADS)
+flash_attention_fwd_bf16_kernel(const bf::bf16* __restrict__ q,
+                                const bf::bf16* __restrict__ k,
+                                const bf::bf16* __restrict__ v,
+                                bf::bf16* __restrict__ o, float* __restrict__ lse,
+                                int T, float scale_log2) {
+    using C = bf::Cfg<DH>;
+    constexpr int BR = C::BR, BC = C::BC, LD = C::LD, NS = C::NS, ND = C::ND;
+    extern __shared__ float4 smem4[];
+    bf::bf16* Qs = reinterpret_cast<bf::bf16*>(smem4);
+    bf::bf16* KVs = Qs + C::RES;  // 2 stages x (K, V)
+
+    const int n_blocks = T / BR;
+    const int qb = CAUSAL ? (n_blocks - 1 - (int)blockIdx.y) : (int)blockIdx.y;
+    const int q0 = qb * BR;
+    const size_t head = (size_t)blockIdx.x * T * DH;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = (warp / C::WN) * 16;
+    const int col0 = (warp % C::WN) * C::DW;
+    const int qw = q0 + r0;
+
+    const int n_tiles = CAUSAL ? (q0 + BR) / BC : T / BC;
+    auto stage = [&](int kt) {
+        bf::bf16* dst = KVs + (kt & 1) * 2 * C::TILE;
+        bf::stage_rows<DH, C::THREADS>(dst, k + head + (size_t)kt * BC * DH, BC);
+        bf::stage_rows<DH, C::THREADS>(dst + C::TILE, v + head + (size_t)kt * BC * DH, BC);
+    };
+    bf::stage_rows<DH, C::THREADS>(Qs, q + head + (size_t)q0 * DH, BR);
+    stage(0);
+    bf::cp_async_commit();
+
+    float acc[ND][4];
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    const bf::bf16* qp = Qs + (r0 + g) * LD + 2 * t;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+        if (kt + 1 < n_tiles) stage(kt + 1);  // into the stage tile kt - 1 left
+        bf::cp_async_commit();
+        bf::cp_async_wait<1>();  // tile kt (and Q) landed
+        __syncthreads();
+        const bf::bf16* Ks = KVs + (kt & 1) * 2 * C::TILE;
+        const bf::bf16* Vs = Ks + C::TILE;
+        const int k0 = kt * BC;
+        if (!(CAUSAL && k0 > qw + 15)) {
+            float s[NS][4];
+            bf::scores<DH, NS>(s, qp, Ks + g * LD + 2 * t);
+            const bool mask = CAUSAL && k0 + BC - 1 > qw;
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;
+                    const int key = k0 + j * 8 + 2 * t + (e & 1);
+                    const float val = (mask && key > qw + g + 8 * h)
+                        ? -INFINITY : s[j][e] * scale_log2;
+                    s[j][e] = val;
+                    mx[h] = fmaxf(mx[h], val);
+                }
+            float alpha[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+                mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+                // finite from the first tile on: key 0 is every row's
+                const float m_new = fmaxf(m[h], mx[h]);
+                alpha[h] = exp2f(m[h] - m_new);
+                m[h] = m_new;
+                l[h] *= alpha[h];
+            }
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float p = exp2f(s[j][e] - m[e >> 1]);
+                    s[j][e] = p;
+                    l[e >> 1] += p;  // the f32 p, as the TPU kernel sums it
+                }
+#pragma unroll
+            for (int n = 0; n < ND; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+            bf::accumulate<DH, NS, ND>(acc, s, Vs + col0);  // O += bf16(P) V
+        }
+        __syncthreads();  // every warp is done with tile kt's stage
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    bf::store_frags<DH, ND>(o + head + (size_t)qw * DH + col0, acc, inv, g, t);
+    if (lse != nullptr && col0 == 0 && t == 0) {
+        float* lh = lse + (size_t)blockIdx.x * T + qw + g;
+        lh[0] = (m[0] + log2f(l[0])) * LN2;
+        lh[8] = (m[1] + log2f(l[1])) * LN2;
+    }
+}
+
+template <int DH, bool CAUSAL>
+cudaError_t launch_bf16(const bf::bf16* q, const bf::bf16* k, const bf::bf16* v,
+                        bf::bf16* o, float* lse, int bh, int t, cudaStream_t stream) {
+    using C = bf::Cfg<DH>;
+    auto kernel = flash_attention_fwd_bf16_kernel<DH, CAUSAL>;
+    const size_t smem = (size_t)(C::RES + 4 * C::TILE) * sizeof(bf::bf16);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const float scale_log2 = 1.4426950408889634f / sqrtf((float)DH);
+    const dim3 grid(bh, t / C::BR);
+    kernel<<<grid, C::THREADS, smem, stream>>>(q, k, v, o, lse, t, scale_log2);
+    return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_bf16_dh(const bf::bf16* q, const bf::bf16* k, const bf::bf16* v,
+                           bf::bf16* o, float* lse, int bh, int t, int causal,
+                           cudaStream_t stream) {
+    return causal ? launch_bf16<DH, true>(q, k, v, o, lse, bh, t, stream)
+                  : launch_bf16<DH, false>(q, k, v, o, lse, bh, t, stream);
+}
+
+}  // namespace
+
+// q, k, v, o: contiguous [bh, t, dh] bf16 on the device; lse: [bh, t] f32
+// or null; t % 64 == 0, dh in {64, 128, 256}, 0 < t / 64 <= 65535.
+// Returns a cudaError_t (0 = launched).
+extern "C" int dl4j_flash_attention_fwd_bf16(const void* q, const void* k,
+                                             const void* v, void* o, void* lse,
+                                             int bh, int t, int dh, int causal,
+                                             void* stream) {
+    if (bh <= 0 || t <= 0 || t % 64 != 0 || t / 64 > 65535)
+        return (int)cudaErrorInvalidValue;
+    const auto* qb = static_cast<const bf::bf16*>(q);
+    const auto* kb = static_cast<const bf::bf16*>(k);
+    const auto* vb = static_cast<const bf::bf16*>(v);
+    auto* ob = static_cast<bf::bf16*>(o);
+    float* lf = static_cast<float*>(lse);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (dh) {
+        case 64: return (int)launch_bf16_dh<64>(qb, kb, vb, ob, lf, bh, t, causal, s);
+        case 128: return (int)launch_bf16_dh<128>(qb, kb, vb, ob, lf, bh, t, causal, s);
+        case 256: return (int)launch_bf16_dh<256>(qb, kb, vb, ob, lf, bh, t, causal, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -11,7 +11,8 @@ reference does. ``ListBuilder.input_pre_processor(idx, spec)`` places a
 ``nn/conf/preprocessors.py`` spec in front of a layer.
 
 Serde is the reference's (``global_conf_to_dict``/``global_conf_from_dict``,
-``MultiLayerConfiguration.to_dict``/``to_json``/``from_dict``/``from_json``):
+``MultiLayerConfiguration.to_dict``/``to_json``/``from_dict``/``from_json``,
+``to_yaml``/``from_yaml``):
 the same keys, tags and ``format`` string, so a configuration written by
 either package reads back in the other. The regularizer settings
 (``dropout``, ``weight_noise``, ``constrain_*``,
@@ -74,12 +75,20 @@ class GlobalConf:
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     dtype: str = "float32"
-    # mixed precision (forward cast to this dtype); not supported by the
-    # port's forward yet — ComputationGraph raises when it is set
+    # mixed precision: the forward runs in this dtype on a cast of the
+    # ``dtype`` master parameters; the loss head stays in f32
     compute_dtype: Optional[str] = None
 
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    def torch_compute_dtype(self) -> Optional[torch.dtype]:
+        """The forward's dtype under mixed precision (``jnp_compute_dtype``):
+        None when unset, else f32, bf16 or f16; any other name raises."""
+        if self.compute_dtype is None:
+            return None
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}[self.compute_dtype]
 
 
 #: the reference's global settings the port has not ported, at their defaults
@@ -397,3 +406,13 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(json.loads(s))
+
+    def to_yaml(self, **kw) -> str:
+        """The serde dict as YAML (``toYaml``; needs PyYAML)."""
+        import yaml
+        return yaml.safe_dump(json.loads(self.to_json()), sort_keys=False, **kw)
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        import yaml
+        return MultiLayerConfiguration.from_dict(yaml.safe_load(s))

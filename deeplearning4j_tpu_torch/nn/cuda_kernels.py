@@ -6,8 +6,14 @@ Counterpart of ``deeplearning4j_tpu/nn/pallas_kernels.py``. Ported so far:
   (``PallasFlashAttentionHelper.attend``, ``pallas_kernels.py:359``):
   ``csrc/flash_attention_fwd.cu``, wrapped by :func:`flash_attention_fwd`,
   which can also return the row LSE the backward needs. Like K3b it
-  multiplies on the tensor cores at f32 accuracy (3xTF32, the helpers of
-  ``csrc/tf32_mma.cuh``).
+  multiplies on the tensor cores at f32 accuracy for f32 heads (3xTF32,
+  the helpers of ``csrc/tf32_mma.cuh``), and has a bf16 kernel beside it
+  for the mixed-precision path (bf16 products with f32 accumulation,
+  ``csrc/bf16_mma.cuh``; the LSE and D stay f32). Each wrapper counts
+  every launch in ``launches`` and its bf16 launches in
+  ``launches_bf16``; each bf16 kernel's plain version keeps the TPU
+  kernel's rounding points (``flash_attention_plain_bf16`` and the
+  ``_bf16`` backward versions).
 - K3b, its backward (the bundled kernel's custom VJP): two kernels in
   ``csrc/flash_attention_bwd.cu``, :func:`flash_attention_bwd_dq` (dQ and
   D = rowsum(dO * O)) and :func:`flash_attention_bwd_dkv` (dK, dV).
@@ -206,12 +212,23 @@ _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+#: the head types the flash kernels take (the TPU kernel's f32 and bf16)
+FLASH_DTYPES = (torch.float32, torch.bfloat16)
+_FLASH_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _check_attention(name: str, heads, rows=()) -> None:
-    """Raise unless ``heads`` are contiguous f32 [N,H,T,Dh] tensors of one
-    shape the kernels take and ``rows`` contiguous f32 [N,H,T] ones."""
-    if any(t.dtype != torch.float32 for t in (*heads, *rows)):
-        raise ValueError(f"{name} takes float32; got "
-                         f"{[t.dtype for t in (*heads, *rows)]}")
+    """Raise unless ``heads`` are contiguous [N,H,T,Dh] tensors of one
+    shape and one type the kernels take (f32 or bf16) and ``rows``
+    contiguous f32 [N,H,T] ones (the LSE and D are f32 in either case, as
+    the TPU kernel's ``l`` and ``m`` are)."""
+    dtype = heads[0].dtype
+    if dtype not in FLASH_DTYPES or any(t.dtype != dtype for t in heads):
+        raise ValueError(f"{name} takes float32 or bfloat16 heads of one type; got "
+                         f"{[t.dtype for t in heads]}")
+    if any(t.dtype != torch.float32 for t in rows):
+        raise ValueError(f"{name} takes float32 row statistics; got "
+                         f"{[t.dtype for t in rows]}")
     shape = heads[0].shape
     if heads[0].ndim != 4 or any(t.shape != shape for t in heads):
         raise ValueError(f"{name}: q, k, v (and o, dO) must share one "
@@ -227,6 +244,14 @@ def _check_attention(name: str, heads, rows=()) -> None:
         raise ValueError(f"{name} takes contiguous tensors")
     if n * h > 2 ** 31 - 1:
         raise ValueError(f"N*H = {n * h} exceeds the kernel's grid")
+
+
+def _counted(wrapper, dtype) -> None:
+    """Counts a bf16 launch of ``wrapper``'s kernel apart, in
+    ``launches_bf16`` (``launches`` counts every launch)."""
+    if dtype == torch.bfloat16:
+        with _count_lock:
+            wrapper.launches_bf16 += 1
 
 
 def _scores(q, k, causal):
@@ -245,33 +270,55 @@ def flash_attention_plain(q, k, v, causal: bool = False,
                           return_lse: bool = False):
     """Plain PyTorch version of the forward kernel: ``softmax(q kᵀ / √Dh) v``
     over [N,H,T,Dh]; with ``return_lse`` also the row logsumexp [N,H,T]
-    of the scaled, masked scores."""
+    of the scaled, masked scores. bf16 heads take
+    :func:`flash_attention_plain_bf16`."""
+    if q.dtype == torch.bfloat16:
+        return flash_attention_plain_bf16(q, k, v, causal, return_lse)
     scores = _scores(q, k, causal)
     o = torch.einsum("nhqk,nhkd->nhqd", torch.softmax(scores, dim=-1), v)
     return (o, torch.logsumexp(scores, dim=-1)) if return_lse else o
 
 
+def flash_attention_plain_bf16(q, k, v, causal: bool = False,
+                               return_lse: bool = False):
+    """The bf16 forward at the TPU kernel's rounding points: S = Q·Kᵀ of the
+    bf16 operands in f32, scaled; the softmax statistics in f32; P =
+    exp(S − rowmax) rounded to bf16 before P·V, which is accumulated in f32
+    and divided by the f32 row sum; O written in bf16, the LSE in f32."""
+    s = _scores(q.float(), k.float(), causal)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    o = (torch.einsum("nhqk,nhkd->nhqd", e.to(torch.bfloat16).float(), v.float())
+         / l).to(torch.bfloat16)
+    return (o, (m + torch.log(l)).squeeze(-1)) if return_lse else o
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False,
                         return_lse: bool = False):
-    """Flash-attention forward over contiguous f32 [N,H,T,Dh] tensors;
-    returns ``o``, or ``(o, lse)`` with ``return_lse``.
+    """Flash-attention forward over contiguous f32 or bf16 [N,H,T,Dh]
+    tensors; returns ``o`` (in the heads' type), or ``(o, lse)`` with
+    ``return_lse`` (the LSE always f32).
 
-    CUDA tensors launch the kernel (T % 64 == 0, Dh in {64, 128, 256}) and
-    anything it does not take raises; CPU tensors get
+    CUDA tensors launch the kernel of their type (T % 64 == 0, Dh in
+    {64, 128, 256}) and anything it does not take raises; CPU tensors get
     :func:`flash_attention_plain`."""
     if _on_cpu("flash_attention_fwd", q, k, v):
         return flash_attention_plain(q, k, v, causal, return_lse)
     _check_attention("flash_attention_fwd", (q, k, v))
     n, h, t, dh = q.shape
     o = torch.empty_like(q)
-    lse = torch.empty((n, h, t), dtype=q.dtype, device=q.device) if return_lse else None
+    lse = (torch.empty((n, h, t), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if n * h:
-        fn = _load(_FWD_SRC, "dl4j_flash_attention_fwd_f32", _FWD_ARGS)
+        fn = _load(_FWD_SRC, f"dl4j_flash_attention_fwd_{_FLASH_SUFFIX[q.dtype]}",
+                   _FWD_ARGS)
         with torch.cuda.device(q.device):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      None if lse is None else lse.data_ptr(),
                      n * h, t, dh, int(bool(causal)), _stream(q))
         _launched(err, flash_attention_fwd, "flash_attention_fwd")
+        _counted(flash_attention_fwd, q.dtype)
     return (o, lse) if return_lse else o
 
 
@@ -283,17 +330,53 @@ def _p_ds(q, k, v, lse, do, d, causal):
 
 
 def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal: bool = False):
-    """Plain version of the dq kernel: ``(dQ, D)`` with ``D = rowsum(dO·O)``."""
+    """Plain version of the dq kernel: ``(dQ, D)`` with ``D = rowsum(dO·O)``.
+    bf16 heads take :func:`flash_attention_bwd_dq_plain_bf16`."""
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_dq_plain_bf16(q, k, v, o, lse, do, causal)
     d = torch.sum(do * o, dim=-1)
     _, ds = _p_ds(q, k, v, lse, do, d, causal)
     return torch.einsum("nhqk,nhkd->nhqd", ds, k) * (1.0 / math.sqrt(q.shape[-1])), d
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal: bool = False):
-    """Plain version of the dk/dv kernel: ``(dK, dV)``."""
+    """Plain version of the dk/dv kernel: ``(dK, dV)``. bf16 heads take
+    :func:`flash_attention_bwd_dkv_plain_bf16`."""
+    if q.dtype == torch.bfloat16:
+        return flash_attention_bwd_dkv_plain_bf16(q, k, v, lse, do, d, causal)
     p, ds = _p_ds(q, k, v, lse, do, d, causal)
     return (torch.einsum("nhqk,nhqd->nhkd", ds, q) * (1.0 / math.sqrt(q.shape[-1])),
             torch.einsum("nhqk,nhqd->nhkd", p, do))
+
+
+def _p_ds_bf16(q, k, v, lse, do, d, causal):
+    """The bf16 backward's f32 ``P = exp(S·scale − LSE)`` and its ``dS = P ∘
+    (dO·Vᵀ − D)·scale`` (scaled before any rounding, as the TPU kernel's),
+    from the bf16 operands in f32."""
+    p = torch.exp(_scores(q.float(), k.float(), causal) - lse[..., None])
+    dp = torch.einsum("nhqd,nhkd->nhqk", do.float(), v.float())
+    return p, p * (dp - d[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+
+
+def flash_attention_bwd_dq_plain_bf16(q, k, v, o, lse, do, causal: bool = False):
+    """The bf16 dq kernel at the TPU kernel's rounding points: ``D =
+    rowsum(f32(dO) ∘ f32(O))`` (f32), dS rounded to bf16 before ``dQ =
+    dS·K``, which is accumulated in f32 and written in bf16."""
+    d = torch.sum(do.float() * o.float(), dim=-1)
+    _, ds = _p_ds_bf16(q, k, v, lse, do, d, causal)
+    dq = torch.einsum("nhqk,nhkd->nhqd", ds.to(torch.bfloat16).float(), k.float())
+    return dq.to(torch.bfloat16), d
+
+
+def flash_attention_bwd_dkv_plain_bf16(q, k, v, lse, do, d, causal: bool = False):
+    """The bf16 dk/dv kernel at the TPU kernel's rounding points: ``dK =
+    bf16(dS)ᵀ·Q`` and ``dV = bf16(P)ᵀ·dO``, accumulated in f32 and written
+    in bf16."""
+    p, ds = _p_ds_bf16(q, k, v, lse, do, d, causal)
+    bf = torch.bfloat16
+    dk = torch.einsum("nhqk,nhqd->nhkd", ds.to(bf).float(), q.float())
+    dv = torch.einsum("nhqk,nhqd->nhkd", p.to(bf).float(), do.float())
+    return dk.to(bf), dv.to(bf)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False):
@@ -305,22 +388,25 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool = False):
 
 
 def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False):
-    """The dq kernel: ``(dQ, D)``, with D = rowsum(dO·O) [N,H,T] for
-    :func:`flash_attention_bwd_dkv`. Runs on CUDA tensors (or raises); CPU
-    tensors get :func:`flash_attention_bwd_dq_plain`."""
+    """The dq kernel: ``(dQ, D)``, with D = rowsum(dO·O) [N,H,T] (f32) for
+    :func:`flash_attention_bwd_dkv`; f32 or bf16 heads, each type on its
+    kernel. Runs on CUDA tensors (or raises); CPU tensors get
+    :func:`flash_attention_bwd_dq_plain`."""
     if _on_cpu("flash_attention_bwd_dq", q, k, v, o, lse, do):
         return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
     _check_attention("flash_attention_bwd_dq", (q, k, v, o, do), (lse,))
     n, h, t, dh = q.shape
     dq = torch.empty_like(q)
-    d = torch.empty_like(lse)
+    d = torch.empty_like(lse)  # f32, as the LSE
     if n * h:
-        fn = _load(_BWD_SRC, "dl4j_flash_attention_bwd_dq_f32", _BWD_ARGS)
+        fn = _load(_BWD_SRC, f"dl4j_flash_attention_bwd_dq_{_FLASH_SUFFIX[q.dtype]}",
+                   _BWD_ARGS)
         with torch.cuda.device(q.device):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      lse.data_ptr(), do.data_ptr(), dq.data_ptr(), d.data_ptr(),
                      n * h, t, dh, int(bool(causal)), _stream(q))
         _launched(err, flash_attention_bwd_dq, "flash_attention_bwd_dq")
+        _counted(flash_attention_bwd_dq, q.dtype)
     return dq, d
 
 
@@ -335,24 +421,30 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, d, causal: bool = False):
     n, h, t, dh = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if n * h:
-        fn = _load(_BWD_SRC, "dl4j_flash_attention_bwd_dkv_f32", _BWD_ARGS)
+        fn = _load(_BWD_SRC, f"dl4j_flash_attention_bwd_dkv_{_FLASH_SUFFIX[q.dtype]}",
+                   _BWD_ARGS)
         with torch.cuda.device(q.device):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
                      do.data_ptr(), d.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                      n * h, t, dh, int(bool(causal)), _stream(q))
         _launched(err, flash_attention_bwd_dkv, "flash_attention_bwd_dkv")
+        _counted(flash_attention_bwd_dkv, q.dtype)
     return dk, dv
 
 
 flash_attention_fwd.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_fwd.launches_bf16 = 0
+flash_attention_bwd_dq.launches_bf16 = 0
+flash_attention_bwd_dkv.launches_bf16 = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Differentiable flash attention over contiguous [N,H,T,Dh] tensors:
-    the forward kernel (with its LSE saved) and the two backward kernels;
-    on CPU tensors their plain versions."""
+    """Differentiable flash attention over contiguous f32 or bf16
+    [N,H,T,Dh] tensors: the forward kernel of their type (with its f32 LSE
+    saved) and the two backward kernels; on CPU tensors their plain
+    versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -375,20 +467,23 @@ class FlashAttentionHelper(AttentionHelper):
     """The "attention" seam's flash kernel, counterpart of
     ``PallasFlashAttentionHelper``. ``supports`` is the reference's gate
     (no mask, no attention dropout, the requested causality, T % 128 == 0,
-    Dh in {64, 128, 256}) without its TPU-backend test. ``attend`` calls
-    the forward kernel alone when no gradient is wanted (no LSE is
+    Dh in {64, 128, 256}) without its TPU-backend test, plus the kernels'
+    types: f32 and bf16 (the TPU kernel's), never f16 or f64. ``attend``
+    calls the forward kernel alone when no gradient is wanted (no LSE is
     written), else :class:`FlashAttentionFunction`."""
 
     def __init__(self, causal: bool = False):
         self.causal = causal
 
     def supports(self, layer, q_shape, mask, dropout_active,
-                 causal=False) -> bool:
+                 causal=False, *, dtype) -> bool:
         if causal != self.causal:
             # a causal kernel must not serve a bidirectional request and
             # vice versa
             return False
         if mask is not None or dropout_active:
+            return False
+        if dtype not in FLASH_DTYPES:
             return False
         t, dh = q_shape[-2], q_shape[-1]
         return t % 128 == 0 and dh in (64, 128, 256)

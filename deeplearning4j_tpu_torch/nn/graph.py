@@ -44,7 +44,13 @@ sees the same noised weights as its forward. Gradient normalization and
 constraints run per layer around the updater seam. ``output`` never
 draws. ``fit`` prefetches iterators as ``MultiLayerNetwork.fit`` does.
 
-Not ported yet: mixed precision, ``fit_batches_on_device``, ROC,
+Mixed precision (``compute_dtype``) is the reference's: parameters and
+floating inputs are cast to the compute dtype inside ``_forward_all``,
+the loss heads run in f32 on the f32 masters, and the gradients, updates,
+optimizer and layer state stay f32; ``output`` answers in the compute
+dtype. Integer inputs (token ids) are never cast.
+
+Not ported yet: ``fit_batches_on_device``, ROC,
 regression, binary and calibration evaluation, listeners, multi-input
 layers and pretraining.
 """
@@ -78,6 +84,8 @@ from deeplearning4j_tpu_torch.nn.train_step import (
     apply_updates,
     as_tensor,
     commit_states,
+    compute_cast,
+    compute_cast_tree,
     dropout_generator,
     gradients,
     init_parameters,
@@ -97,13 +105,11 @@ class ComputationGraph(nn.Module):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         super().__init__()
         conf.finalize()
-        if conf.global_conf.compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype (mixed precision) is not supported by the "
-                "PyTorch port yet")
         self.conf = conf
         self.device = resolve_device(device)
         self.dtype = conf.global_conf.torch_dtype()
+        # mixed precision: the forward's dtype (None: the parameters' own)
+        self.compute_dtype = conf.global_conf.torch_compute_dtype()
         self.params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         # non-trainable layer state (BatchNorm's running statistics)
         self.states: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
@@ -159,7 +165,10 @@ class ComputationGraph(nn.Module):
 
     def init_carries(self, batch: int) -> Dict[str, object]:
         """Fresh carries of every recurrent layer vertex for ``batch``
-        sequences, on the network's device."""
+        sequences, on the network's device, in the parameters' dtype: the
+        reference's TBPTT and ``rnn_time_step`` build them in ``jnp_dtype()``
+        under a compute dtype too (a bf16 KV cache write is cast up, its
+        read cast down)."""
         return {name: layer.init_carry(batch, self.dtype, self.device)
                 for name, layer in self._recurrent_layers()}
 
@@ -182,8 +191,19 @@ class ComputationGraph(nn.Module):
         ``gen`` draws each layer's weight noise before its forward and its
         dropout in it. With ``carries`` (by vertex name) each recurrent
         layer runs ``forward_seq`` from its carry. Each other layer reads
-        its state."""
+        its state.
+
+        Under a compute dtype the parameters and every floating input are
+        cast to it first (the reference's ``_forward_all``), so weight
+        noise is drawn in that dtype; a loss layer's ``:params`` are then
+        its f32 masters, noised again in f32 from the same generator state
+        (the reference re-noises ``params[out_name]`` with the same key),
+        for the f32 loss head."""
         conf = self.conf
+        cd = self.compute_dtype
+        master = params
+        params = compute_cast_tree(params, cd)
+        inputs = {k: compute_cast(v, cd) for k, v in inputs.items()}
         new_carries = None if carries is None else {}
         new_states = {}
         acts: Dict[str, torch.Tensor] = dict(inputs)
@@ -197,8 +217,17 @@ class ComputationGraph(nn.Module):
             if vd.is_layer:
                 layer = vd.obj
                 p_v = params[name]
+                # under a compute dtype a loss head keeps the f32 masters
+                head = (master[name] if cd is not None and loss_inputs
+                        and layer.has_loss() else None)
                 if train and gen is not None and layer.weight_noise is not None:
+                    drawn_from = None if head is None else gen.get_state()
                     p_v = layer.weight_noise.apply(layer, p_v, gen, train)
+                    if head is not None:
+                        after = gen.get_state()
+                        gen.set_state(drawn_from)
+                        head = layer.weight_noise.apply(layer, head, gen, train)
+                        gen.set_state(after)
                 h = in_acts[0] if len(in_acts) == 1 else torch.cat(in_acts, -1)
                 if name in conf.preprocessors:
                     h = conf.preprocessors[name](h)
@@ -206,7 +235,7 @@ class ComputationGraph(nn.Module):
                 if loss_inputs and layer.has_loss():
                     acts[name + ":in"] = h
                     acts[name + ":mask"] = cur_mask
-                    acts[name + ":params"] = p_v
+                    acts[name + ":params"] = p_v if head is None else head
                     if name not in self._consumed:
                         continue
                 if carries is not None and isinstance(layer, BaseRecurrentLayer):
@@ -289,6 +318,8 @@ class ComputationGraph(nn.Module):
             if not (vd.is_layer and layer.has_loss()):
                 raise ValueError(f"output vertex {out_name!r} is not a loss layer")
             h = acts[out_name + ":in"]
+            if self.compute_dtype is not None:
+                h = h.float()  # a stable softmax and log under mixed precision
             lm = None
             if label_masks is not None and label_masks[oi] is not None:
                 lm = label_masks[oi]
@@ -483,7 +514,7 @@ class ComputationGraph(nn.Module):
             if isinstance(out, list):
                 out = out[0]
             lm = None if mds.labels_masks is None else mds.labels_masks[0]
-            e.eval(to_host(mds.labels[0]), out.cpu().numpy(),
+            e.eval(to_host(mds.labels[0]), to_host(out),
                    mask=None if lm is None else to_host(lm),
                    record_meta_data=getattr(ds, "example_meta_data", None))
         return e

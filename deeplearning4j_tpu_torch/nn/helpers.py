@@ -7,7 +7,7 @@ the same numbers as the built-in path.
 
 In the port the seam holds the hand-written CUDA kernels
 (``nn/cuda_kernels.py``). With no attention helper registered and
-auto-flash on, float32 causal attention that
+auto-flash on, float32 or bfloat16 causal attention that
 ``FlashAttentionHelper.supports`` admits takes the kernel
 (``nn/layers/attention.py``); the reference's TPU threshold on T is not
 carried over. Likewise, with no lstm helper registered and
@@ -126,10 +126,11 @@ class AttentionHelper:
 
     ``causal`` describes the REQUESTED semantics: a helper must only accept
     a request whose causality matches what its ``attend`` computes, so
-    registering any helper can never change model outputs."""
+    registering any helper can never change model outputs. ``dtype`` is
+    the request's head type (the seam passes ``q.dtype``)."""
 
     def supports(self, layer, q_shape, mask, dropout_active,
-                 causal=False) -> bool:  # pragma: no cover - interface
+                 causal=False, *, dtype) -> bool:  # pragma: no cover - interface
         return False
 
     def attend(self, q, k, v):  # pragma: no cover - interface

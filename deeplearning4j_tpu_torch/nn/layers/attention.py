@@ -40,25 +40,27 @@ def dot_product_attention(q, k, v, mask=None, dropout_rate=0.0, gen=None,
     a generator ``gen``.
 
     The seam in the reference's order: a registered helper takes the
-    requests its ``supports`` admits; with none registered and auto-flash
-    on, a float32 causal request the flash kernel admits takes the kernel
-    (no threshold on T: the reference's v5e gate is not carried over, and
-    an H100 one waits for a measurement); otherwise the plain math below.
-    A dropout-active request is one that no flash kernel admits. The
-    kernel takes float32 only, so a float64, bf16 or f16 network takes
-    the plain math, as the reference's does off the TPU.
+    requests its ``supports`` admits (it is given the request's type);
+    with none registered and auto-flash on, a float32 or bfloat16 causal
+    request the flash kernel admits takes the kernel of its type (no
+    threshold on T: the reference's v5e gate is not carried over, and an
+    H100 one waits for a measurement); otherwise the plain math below. A
+    dropout-active request is one that no flash kernel admits. The
+    kernels take f32 and bf16 (the TPU kernel's types), so a float64 or
+    f16 network takes the plain math, as the reference's does off the TPU.
     """
     helper = _helpers.get_helper("attention")
     same = q.shape == k.shape == v.shape
     dropout_active = bool(train and dropout_rate > 0 and gen is not None)
     if (helper is not None and same
             and helper.supports(None, tuple(q.shape), mask, dropout_active,
-                                causal=causal)):
+                                causal=causal, dtype=q.dtype)):
         return helper.attend(q, k, v)
-    if (helper is None and causal and same and q.dtype == torch.float32
+    if (helper is None and causal and same
             and _helpers.auto_flash_attention_enabled()
             and _AUTO_FLASH.supports(None, tuple(q.shape), mask,
-                                     dropout_active, causal=True)):
+                                     dropout_active, causal=True,
+                                     dtype=q.dtype)):
         return _AUTO_FLASH.attend(q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("nhqd,nhkd->nhqk", q, k) * scale

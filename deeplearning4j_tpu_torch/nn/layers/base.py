@@ -54,6 +54,16 @@ Params = Dict[str, torch.Tensor]
 LAYER_REGISTRY: Dict[str, type] = {}
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with JAX's type promotion: two float types meet in the
+    wider one (an f32 recurrent carry against a bf16 weight under mixed
+    precision, as ``jnp.matmul`` promotes), one type multiplies as is."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
 def register_layer(cls):
     LAYER_REGISTRY[cls.__name__] = cls
     return cls

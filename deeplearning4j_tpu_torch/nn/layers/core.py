@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, matmul, register_layer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
 
 _ID_CHECK = threading.local()
@@ -80,7 +80,7 @@ class DenseLayer(Layer):
         return p
 
     def _preact(self, params, x):
-        y = x @ params["W"]
+        y = matmul(x, params["W"])
         if self.has_bias:
             y = y + params["b"]
         return y

@@ -17,8 +17,10 @@ so it is not used. ``eps`` sits inside the square root. The moments run
 over every axis but the last (NHWC images, ``[N, F]`` rows), the running
 statistics stay float32 as in the reference, and the activation comes
 after the affine step. With ``lock_gamma_beta`` the layer has no
-parameters and applies ``gamma_init``/``beta_init`` as constants. The
-reference's single-pass bf16 moments wait for mixed precision.
+parameters and applies ``gamma_init``/``beta_init`` as constants. A bf16
+or f16 activation (mixed precision) takes the reference's single-pass
+f32-accumulated moments (:func:`_lowp_moments`) and is normalized in its
+own type; the running statistics stay float32.
 
 LocalResponseNormalization is DL4J's: ``y = x / (k + alpha·Σ x²)^beta``
 over a window of ``n`` channels (half-window ``n // 2``, zero-padded),
@@ -26,18 +28,63 @@ with ``alpha`` NOT divided by ``n`` as
 ``torch.nn.functional.local_response_norm`` divides it.
 
 LayerNormalization normalizes over the last axis with the biased variance
-and eps = 1e-3 (Keras's default, not torch's 1e-5).
+and eps = 1e-3 (Keras's default, not torch's 1e-5); a bf16 or f16
+activation takes :func:`_lowp_moments` too, as the reference's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+
+LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+class _LowpMoments(torch.autograd.Function):
+    """``(mean, var)`` of a low-precision tensor over ``dims``, both f32;
+    saves only the input (in its own type) and the f32 mean."""
+
+    @staticmethod
+    def forward(ctx, x, dims, keepdim):
+        cnt = math.prod(x.shape[d] for d in dims)
+        mean = torch.sum(x, dim=dims, keepdim=keepdim, dtype=torch.float32) / cnt
+        # the square in f32 (E[x²] − E[x]² needs its resolution; f16 would
+        # overflow at |x| > 256); the widened copy is freed at once
+        raw = torch.sum(x.float().square_(), dim=dims, keepdim=keepdim) / cnt
+        raw = raw - torch.square(mean)
+        ctx.save_for_backward(x, mean, raw > 0)
+        ctx.dims, ctx.keepdim, ctx.cnt = dims, keepdim, cnt
+        return mean, torch.clamp_min(raw, 0.0)
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        x, mean, positive = ctx.saved_tensors
+        gv = torch.where(positive, g_var, 0.0)
+        gm = g_mean - 2.0 * mean * gv  # var = E[x²] − mean²
+        if not ctx.keepdim:
+            for d in sorted(d % x.ndim for d in ctx.dims):
+                gm, gv = gm.unsqueeze(d), gv.unsqueeze(d)
+        # (gm + 2·gv·x) / cnt in f32, written once in x's type: the
+        # operands meet in f32 inside the one kernel, with no f32 copy of x
+        gx = torch.empty_like(x)
+        torch.addcmul(gm / ctx.cnt, x, gv * (2.0 / ctx.cnt), out=gx)
+        return gx, None, None
+
+
+def _lowp_moments(x, dims, keepdim: bool = False):
+    """f32-accumulated mean and biased variance of a bf16/f16 ``x`` over
+    ``dims`` without keeping a widened copy of it, the reference's
+    ``_lowp_moments`` (``deeplearning4j_tpu/nn/layers/norm.py:26-48``): the
+    mean summed in f32, the square taken in f32, ``max(E[x²] − E[x]², 0)``.
+    Both come back f32."""
+    dims = tuple(dims) if isinstance(dims, (tuple, list)) else (dims,)
+    return _LowpMoments.apply(x, dims, keepdim)
 
 
 @register_layer
@@ -87,14 +134,20 @@ class BatchNormalizationLayer(Layer):
                       gen=None):
         if train:
             axes = tuple(range(x.ndim - 1))
-            mean = x.mean(dim=axes)
-            d = x - mean
-            var = torch.square(d).mean(dim=axes)  # two passes, biased
+            if x.dtype in LOW_PRECISION:
+                # single pass, f32-accumulated; normalized in x's own type
+                mean, var32 = _lowp_moments(x, axes)
+                d = x - mean.to(x.dtype)
+                var = var32.to(x.dtype)
+            else:
+                mean = x.mean(dim=axes)
+                d = x - mean
+                var = var32 = torch.square(d).mean(dim=axes)  # two passes, biased
             new_state = {
                 "mean": (self.decay * state["mean"]
                          + (1 - self.decay) * mean.detach().float()),
                 "var": (self.decay * state["var"]
-                        + (1 - self.decay) * var.detach().float()),
+                        + (1 - self.decay) * var32.detach().float()),
             }
         else:
             d = x - state["mean"].to(x.dtype)
@@ -152,7 +205,12 @@ class LayerNormalizationLayer(Layer):
                 "beta": torch.zeros((self.n_in,), dtype=dtype, device=device)}
 
     def forward(self, params, x, *, mask=None, train=False, gen=None):
-        mean = x.mean(dim=-1, keepdim=True)
-        var = x.var(dim=-1, unbiased=False, keepdim=True)
-        xhat = (x - mean) / torch.sqrt(var + self.eps)
+        if x.dtype in LOW_PRECISION:
+            mean, var = _lowp_moments(x, -1, keepdim=True)
+            xhat = ((x - mean.to(x.dtype))
+                    * (1.0 / torch.sqrt(var + self.eps)).to(x.dtype))
+        else:
+            mean = x.mean(dim=-1, keepdim=True)
+            var = x.var(dim=-1, unbiased=False, keepdim=True)
+            xhat = (x - mean) / torch.sqrt(var + self.eps)
         return self.act_fn()(xhat * params["gamma"] + params["beta"])

@@ -34,7 +34,7 @@ from deeplearning4j_tpu_torch.nn import activations as act_mod
 from deeplearning4j_tpu_torch.nn import helpers as _helpers
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.cuda_kernels import FusedLSTMHelper
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, matmul, register_layer
 
 _AUTO_LSTM = FusedLSTMHelper()
 
@@ -170,7 +170,7 @@ class LSTMLayer(BaseRecurrentLayer):
         hidden = self.n_out
         gate_act = act_mod.resolve(self.gate_activation)
         cell_act = self.act_fn()
-        z = xw_t + h_prev @ params["RW"][:, :4 * hidden]
+        z = xw_t + matmul(h_prev, params["RW"][:, :4 * hidden])
         zi, zf, zo, zg = torch.split(z, hidden, dim=-1)
         if self.peephole:
             # per-unit (diagonal) peepholes: RW columns 4H, 4H+1, 4H+2
@@ -200,7 +200,7 @@ class LSTMLayer(BaseRecurrentLayer):
             return _AUTO_LSTM.forward_seq(self, params, x, carry)
         if carry is None:
             carry = self.init_carry(x.shape[0], x.dtype, x.device)
-        xws = (x @ params["W"] + params["b"]).transpose(0, 1)  # [T,N,4H]
+        xws = (matmul(x, params["W"]) + params["b"]).transpose(0, 1)  # [T,N,4H]
         ms = None if mask is None else mask.to(x.dtype).transpose(0, 1)  # [T,N]
         final_carry, ys = self._scan_seq(params, xws, carry, ms)
         return ys.transpose(0, 1), final_carry

@@ -43,7 +43,14 @@ seam (``nn/train_step.py``). ``fit`` wraps an iterator in asynchronous
 prefetch (``datasets/iterators.py``, ``prefetch_depth``), whose batches
 reach the step already on the device.
 
-Not ported yet: mixed precision, gradient checkpointing, listeners,
+Mixed precision (``compute_dtype``) is the reference's: the f32 master
+parameters and floating inputs are cast to the compute dtype inside the
+forward, so gradients, updates, optimizer state and layer state stay
+f32; the loss head runs in f32; ``output`` and ``rnn_time_step`` answer
+in the compute dtype; ``feed_forward`` runs uncast, as the reference's
+does. Integer inputs are never cast.
+
+Not ported yet: gradient checkpointing, listeners,
 ``fit_batches_on_device``, ROC and regression evaluation, and pretraining.
 """
 
@@ -75,6 +82,8 @@ from deeplearning4j_tpu_torch.nn.train_step import (
     apply_updates,
     as_tensor,
     commit_states,
+    compute_cast,
+    compute_cast_tree,
     dropout_generator,
     gradients,
     init_parameters,
@@ -92,14 +101,12 @@ class MultiLayerNetwork(nn.Module):
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         super().__init__()
         conf.finalize()
-        if conf.global_conf.compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype (mixed precision) is not supported by the "
-                "PyTorch port yet")
         self.conf = conf
         self.layers = conf.layers
         self.device = resolve_device(device)
         self.dtype = conf.global_conf.torch_dtype()
+        # mixed precision: the forward's dtype (None: the parameters' own)
+        self.compute_dtype = conf.global_conf.torch_compute_dtype()
         self.params: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
         # non-trainable layer state (BatchNorm's running statistics)
         self.states: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
@@ -160,8 +167,12 @@ class MultiLayerNetwork(nn.Module):
         their final carry. ``train`` with ``gen`` draws each layer's weight
         noise before its forward and its dropout in it. Each layer reads
         its state; a train forward returns each stateful layer's new state
-        by index (empty otherwise)."""
+        by index (empty otherwise). Under a compute dtype the parameters and
+        a floating input are cast to it first (the reference's
+        ``_forward_all``); carries and masks are not."""
         n_layers = len(self.layers) if upto is None else upto
+        params = compute_cast_tree(params, self.compute_dtype)
+        x = compute_cast(x, self.compute_dtype)
         h, cur_mask, new_carries, new_states = x, mask, [], {}
         for i, layer in enumerate(self.layers):
             if i >= n_layers:
@@ -200,7 +211,9 @@ class MultiLayerNetwork(nn.Module):
         is the given one, else the feature mask (per timestep for a
         sequence output, per example for a 2-d one). ``train`` with ``gen``
         draws the train-time noise, the output layer's weight noise
-        last."""
+        last. Under a compute dtype the loss head runs in f32: its input is
+        cast up and its parameters are the f32 masters (only the layers
+        before it run in the compute dtype)."""
         out_layer = self.layers[-1]
         if not out_layer.has_loss():
             raise ValueError("Last layer must be an output/loss layer for fit()")
@@ -209,6 +222,8 @@ class MultiLayerNetwork(nn.Module):
             params, x, mask, carries, upto=last, train=train, gen=gen)
         if last in self.conf.preprocessors:
             h = self.conf.preprocessors[last](h)
+        if self.compute_dtype is not None:
+            h = h.float()  # a stable softmax and log under mixed precision
         if label_mask is not None:
             lm = label_mask
         elif mask is None:
@@ -373,7 +388,7 @@ class MultiLayerNetwork(nn.Module):
             it.reset()
         for ds in it:
             out = self.output(ds.features, mask=ds.features_mask)
-            e.eval(to_host(ds.labels), out.cpu().numpy(),
+            e.eval(to_host(ds.labels), to_host(out),
                    mask=None if ds.labels_mask is None else to_host(ds.labels_mask),
                    record_meta_data=getattr(ds, "example_meta_data", None))
         return e
@@ -381,7 +396,7 @@ class MultiLayerNetwork(nn.Module):
     def f1_score(self, features, labels) -> float:
         """Macro F1 on one batch (``f1Score``)."""
         e = Evaluation()
-        e.eval(to_host(labels), self.output(features).cpu().numpy())
+        e.eval(to_host(labels), to_host(self.output(features)))
         return float(e.f1())
 
     def label_probabilities(self, x) -> torch.Tensor:
@@ -498,9 +513,11 @@ class MultiLayerNetwork(nn.Module):
             if squeeze:
                 x = x[:, None, :]
             if self._rnn_carries is None:
+                # in the parameters' dtype, as the reference's (under a
+                # compute dtype too)
                 self._rnn_pos = 0
                 self._rnn_carries = [
-                    l.init_carry(x.shape[0], x.dtype, x.device)
+                    l.init_carry(x.shape[0], self.dtype, x.device)
                     if isinstance(l, BaseRecurrentLayer) else None
                     for l in self.layers]
             t_new = x.shape[1]

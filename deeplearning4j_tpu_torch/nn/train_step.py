@@ -17,6 +17,13 @@ a train forward returns each stateful layer's new state, and
 :func:`commit_states` copies it over the old one, in place, once per
 update.
 
+Mixed precision (the configuration's ``compute_dtype``): a network casts
+its f32 master parameters and its floating inputs to the compute dtype
+inside the forward (:func:`compute_cast_tree`), so the gradients that
+``torch.autograd.grad`` returns for the masters are f32 and everything
+after it (the updater seam, gradient normalization, constraints) sees f32
+parameters and f32 gradients, as without it.
+
 Per layer, :func:`apply_updates` normalizes the gradients (the layer's
 ``gradient_normalization``) before the updater seam, so a fused updater
 kernel sees the normalized gradient, and runs the layer's constraints
@@ -27,7 +34,7 @@ own generator, :func:`dropout_generator`, on the network's device.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,9 +56,34 @@ def as_tensor(x, dtype: torch.dtype, device, cast_float: bool = True) -> torch.T
     return t.to(device)
 
 
+def compute_cast(t, dtype: Optional[torch.dtype]):
+    """The reference's mixed-precision ``cast``: a floating tensor in the
+    compute ``dtype``, anything else (integer ids, None, a Python int)
+    untouched; no-op when ``dtype`` is None. Through autograd the cast of
+    an f32 master parameter gives it an f32 gradient, as ``jax.grad``
+    through ``astype`` does."""
+    if (dtype is not None and isinstance(t, torch.Tensor)
+            and t.is_floating_point() and t.dtype != dtype):
+        return t.to(dtype)
+    return t
+
+
+def compute_cast_tree(params: Tree, dtype: Optional[torch.dtype]) -> Tree:
+    """:func:`compute_cast` over ``{key: {param: tensor}}``."""
+    if dtype is None:
+        return params
+    return {k: {n: compute_cast(t, dtype) for n, t in named.items()}
+            for k, named in params.items()}
+
+
 def to_host(a) -> np.ndarray:
-    """A numpy array of ``a`` (a numpy array or a tensor on any device)."""
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    """A numpy array of ``a`` (a numpy array or a tensor on any device;
+    bf16 as f32)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        # numpy has no bf16: a mixed-precision answer comes back as f32
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    return np.asarray(a)
 
 
 def init_parameters(module: nn.Module, layers: Iterable[Tuple[object, object]],

@@ -28,6 +28,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nn.train_step import to_host
+
 
 class InferenceDeadlineExceeded(TimeoutError):
     """The request's deadline expired before a result was produced."""
@@ -172,7 +174,7 @@ class ParallelInference:
         if self._shutdown:
             raise RuntimeError("ParallelInference is shut down")
         if self.mode in ("sequential", "inplace"):
-            return self.model.output(x).cpu().numpy()
+            return to_host(self.model.output(x))
         if self.dispatcher_error is not None:
             raise DispatcherCrashed("inference dispatcher died") \
                 from self.dispatcher_error
@@ -336,7 +338,7 @@ class ParallelInference:
     def _dispatch_batch(self, batch: List[_Request], n: int) -> None:
         try:
             x = self._assemble(batch, n, self._bucket_for(n))
-            out = self.model.output(x).cpu().numpy()
+            out = to_host(self.model.output(x))
             self.batches_dispatched += 1
             off = 0
             for r in batch:

@@ -49,6 +49,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
 )
 from deeplearning4j_tpu_torch.nn.layers.core import unchecked_token_ids
 from deeplearning4j_tpu_torch.nn.layers.recurrent import map_carry
+from deeplearning4j_tpu_torch.nn.train_step import to_host
 from deeplearning4j_tpu_torch.nn.updaters import AdaDelta, Adam, Nesterovs
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
 from deeplearning4j_tpu_torch.zoo.helpers import (
@@ -255,7 +256,7 @@ def generate(net, prompt_ids, n_new_tokens: int, temperature: float = 0.0,
     probs = net.rnn_time_step(ids[:, :, None].astype(np.float32))
     out = []
     for i in range(n_new_tokens):
-        p_last = (probs[:, -1, :] if probs.ndim == 3 else probs).cpu().numpy()
+        p_last = to_host(probs[:, -1, :] if probs.ndim == 3 else probs)
         if temperature and temperature > 0:
             logits = np.log(np.maximum(p_last, 1e-20)) / temperature
             z = np.exp(logits - logits.max(axis=-1, keepdims=True))

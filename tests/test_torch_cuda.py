@@ -880,3 +880,147 @@ def test_dl4j_convnet_restores_and_fits_on_the_card(card):
             np.eye(3, dtype=np.float32)[[0, 1, 2, 0]])
     assert ck.fused_adam.launches == 8
     assert np.isfinite(net.score_)
+
+
+# ------------------------------------------ K3a / K3b in bf16 (mixed precision)
+# each bf16 kernel against its plain version (the TPU kernel's rounding
+# points): o, dq, dk, dv within 1e-2 x max(1, largest entry) (one bf16 ulp
+# is 3.9e-3 relative; the kernel rounds P against its running row max and
+# sums in another order), the f32 LSE and D within 1e-4. The largest entry
+# of a causal o is row 0, so each entry x = sum_j term_j is also held to
+# 2^-7 (|plain| + sum_j |term_j|) (each version rounds each bf16 term and
+# the result once, at unit roundoff 2^-8) and the whole to 4e-3 relative
+# Frobenius error, which a fault in the small late rows fails. dS = P ∘
+# (dO·Vᵀ − D) cancels (to 0 in row 0 of a causal head), so its magnitude
+# carries 2^-7 of its own terms, P ∘ (|dO|·|V|ᵀ + |D|)
+BF16_SHAPES = [((2, 4, 256, 64), True), ((2, 4, 256, 64), False),
+               ((1, 2, 128, 128), True), ((1, 2, 192, 128), False),
+               ((1, 2, 128, 256), True), ((1, 2, 256, 256), False),
+               ((4, 36, 128, 64), True)]
+
+
+def _bf16_term_sums(q, k, v, lse, do, d, causal):
+    """Each output's sum of absolute terms: P·|V|, |dS|·|K|, |dS|ᵀ·|Q|,
+    Pᵀ·|dO| (the plain version's f32 P and scaled dS, |dS| with 2^-7 of
+    its own terms)."""
+    p, ds = ck._p_ds_bf16(q, k, v, lse, do, d, causal)
+    a = [t.float().abs() for t in (q, k, v, do)]
+    own = p * (torch.einsum("nhqd,nhkd->nhqk", a[3], a[2]) + d.abs()[..., None])
+    ds = ds.to(torch.bfloat16).float().abs() + 2 ** -7 * own / q.shape[-1] ** 0.5
+    return (torch.einsum("nhqk,nhkd->nhqd", p, a[2]),
+            torch.einsum("nhqk,nhkd->nhqd", ds, a[1]),
+            torch.einsum("nhqk,nhqd->nhkd", ds, a[0]),
+            torch.einsum("nhqk,nhqd->nhkd", p, a[3]))
+
+
+def _bf16_close(got, ref, terms):
+    g, r = got.double(), ref.double()
+    _close_to_max(g, r, rel=1e-2)
+    diff = (g - r).abs()
+    scale = 2 ** -7 * (r.abs() + terms.double())
+    assert (diff <= scale).all(), (diff / scale).max().item()
+    assert diff.norm() <= 4e-3 * r.norm(), (diff.norm() / r.norm()).item()
+
+
+def _bf16_heads(shape, device, seed=20, n=4):
+    return [t.to(device, torch.bfloat16) for t in _qkv(shape, seed=seed, n=n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", BF16_SHAPES)
+def test_bf16_flash_kernels_match_their_plain_versions(card, shape, causal):
+    q, k, v, do = _bf16_heads(shape, card)
+    counts = [(w.launches, w.launches_bf16) for w in
+              (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+               ck.flash_attention_bwd_dkv)]
+    o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    dq, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+    dk, dv = ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, causal)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.launches_bf16) for w in
+            (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+             ck.flash_attention_bwd_dkv)] == [(a + 1, b + 1) for a, b in counts]
+    assert all(t.dtype == torch.bfloat16 for t in (o, dq, dk, dv))
+    assert lse.dtype == d.dtype == torch.float32
+    p_o, p_lse = ck.flash_attention_plain(q, k, v, causal, return_lse=True)
+    p_dq, p_d = ck.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    p_dk, p_dv = ck.flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal)
+    torch.testing.assert_close(lse, p_lse, rtol=0, atol=1e-4)
+    torch.testing.assert_close(d, p_d, rtol=0, atol=1e-4)
+    terms = _bf16_term_sums(q, k, v, lse, do, d, causal)
+    for got, ref, a in zip((o, dq, dk, dv), (p_o, p_dq, p_dk, p_dv), terms):
+        _bf16_close(got, ref, a)
+
+
+@pytest.mark.cuda
+def test_bf16_flash_kernels_are_deterministic(card):
+    q, k, v, do = _bf16_heads((2, 4, 256, 64), card, seed=21)
+    runs = []
+    for _ in range(2):
+        o, lse = ck.flash_attention_fwd(q, k, v, True, return_lse=True)
+        dq, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
+        runs.append((o, lse, dq, d, *ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, True)))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_function_gradients_match_the_plain_backward(card, causal):
+    q, k, v, do = _bf16_heads((2, 3, 128, 64), card, seed=22)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ck.FlashAttentionFunction.apply(*leaves, causal).backward(do)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    dq, d = ck.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    dk, dv = ck.flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal)
+    terms = _bf16_term_sums(q, k, v, lse, do, d, causal)[1:]
+    for leaf, ref, a in zip(leaves, (dq, dk, dv), terms):
+        assert leaf.grad.dtype == torch.bfloat16
+        _bf16_close(leaf.grad, ref, a)
+
+
+@pytest.mark.cuda
+def test_bf16_flash_kernels_refuse_what_they_do_not_take(card):
+    q, k, v = _bf16_heads((1, 2, 128, 64), card, n=3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ck.flash_attention_fwd(q, k.float(), v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ck.flash_attention_fwd(q.half(), k.half(), v.half())
+    o, lse = ck.flash_attention_fwd(q, k, v, True, return_lse=True)
+    with pytest.raises(ValueError, match="float32 row statistics"):
+        ck.flash_attention_bwd_dq(q, k, v, o, lse.to(torch.bfloat16), q, True)
+    with pytest.raises(ValueError, match="T % 64"):
+        ck.flash_attention_fwd(*(t[:, :, :96].contiguous() for t in (q, k, v)))
+
+
+@pytest.mark.cuda
+def test_bf16_training_on_the_card_takes_the_bf16_kernels(card):
+    """A small TransformerLM in bf16 (compute_dtype) with the fused
+    updater: every attention layer launches the bf16 kernels (none of the
+    f32 ones), the masters and their updates stay f32 (K2), the loss is
+    finite and falls over 5 steps on one batch."""
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(rng.integers(0, 100, (2, 128))).to(card)
+    labels = torch.nn.functional.one_hot(
+        torch.cat([ids[:, 1:], ids[:, -1:]], 1), 100).float()
+    zoo = TransformerLM(**SMALL)
+    conf = zoo.conf()
+    conf.global_conf.compute_dtype = "bfloat16"
+    net = ComputationGraph(conf).init()
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    wrappers = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+                ck.flash_attention_bwd_dkv)
+    before = [(w.launches, w.launches_bf16) for w in wrappers]
+    adam = ck.fused_adam.launches
+    losses = []
+    for _ in range(5):
+        net.fit(ids, labels)
+        losses.append(net.score_)
+    n_layers = SMALL["n_layers"]
+    assert [(w.launches - a, w.launches_bf16 - b) for w, (a, b)
+            in zip(wrappers, before)] == [(5 * n_layers, 5 * n_layers)] * 3
+    assert ck.fused_adam.launches - adam == 5 * sum(len(p) for p in net.params.values())
+    assert all(t.dtype == torch.float32 for p in net.params.values() for t in p.values())
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert net.output(ids).dtype == torch.bfloat16

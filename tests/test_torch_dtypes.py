@@ -1,12 +1,14 @@
 """A network that is not float32 takes the plain path at the automatic
 kernel seams, as the JAX package's does off the TPU.
 
-The flash-attention and fused-LSTM kernels take float32 only. With no
-helper registered, ``dot_product_attention`` and ``LSTMLayer.forward_seq``
-send a float64, bf16 or f16 request to the plain math, never to
-``_AUTO_FLASH`` / ``_AUTO_LSTM`` (checked with spies in their place); a
-helper the caller registers still gets every request its ``supports``
-admits. On the CPU, a float64 char LSTM (``MultiLayerNetwork``) and a
+The fused-LSTM kernel takes float32 only, the flash-attention kernels
+float32 and bf16 (the TPU kernel's types; bf16 is the mixed-precision
+path). With no helper registered, ``dot_product_attention`` sends a
+float64 or f16 request to the plain math, never to ``_AUTO_FLASH``, and
+a bf16 one to it; ``LSTMLayer.forward_seq`` sends a float64, bf16 or f16
+request to the plain math, never to ``_AUTO_LSTM`` (checked with spies
+in their place); a helper the caller registers still gets every request
+its ``supports`` admits. On the CPU, a float64 char LSTM (``MultiLayerNetwork``) and a
 float64 causal T = 128 graph (``ComputationGraph``) give the JAX
 package's float64 output (``jax.enable_x64``) within 1e-10 relative:
 float64 both ways, only the summation order differs. ``-m cuda`` tests in
@@ -74,6 +76,15 @@ class _Spy:
         return torch.zeros((n, t, layer.n_out), dtype=x.dtype), (h, h)
 
 
+class _FlashSpy(_Spy):
+    """Stands in for ``_AUTO_FLASH``: admits what the flash helper admits
+    (its ``supports`` holds the dtype gate), records what reaches it and
+    answers with zeros."""
+
+    def supports(self, *args, **kwargs):
+        return ck.FlashAttentionHelper(causal=True).supports(*args, **kwargs)
+
+
 def _qkv(dtype, t=128, dh=64):
     g = torch.Generator().manual_seed(0)
     return [torch.randn((1, 2, t, dh), generator=g).to(dtype) for _ in range(3)]
@@ -81,11 +92,15 @@ def _qkv(dtype, t=128, dh=64):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_auto_flash_declines_other_dtypes(monkeypatch, dtype):
-    spy = _Spy()
+    spy = _FlashSpy()
     monkeypatch.setattr(attention, "_AUTO_FLASH", spy)
     q, k, v = _qkv(dtype)
     before = ck.flash_attention_fwd.launches
     out = attention.dot_product_attention(q, k, v, causal=True)
+    if dtype == torch.bfloat16:
+        # the flash kernels have a bf16 half (mixed precision): taken
+        assert spy.calls == [dtype] and out.abs().sum() == 0
+        return
     assert spy.calls == [] and ck.flash_attention_fwd.launches == before
     assert out.dtype == dtype and out.abs().sum() > 0
     ref = ck.flash_attention_plain(*(t.double() for t in (q, k, v)), True)

@@ -26,6 +26,7 @@ from deeplearning4j_tpu_torch.nn import helpers as thelpers
 from deeplearning4j_tpu_torch.nn.layers.attention import dot_product_attention as t_dpa
 
 TOL = 5e-5
+F32 = torch.float32
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -57,18 +58,18 @@ def test_plain_matches_reference_einsum(causal, t, dh, rng):
 def test_supports_gating_mirrors_reference():
     """tests/test_helpers.py's gate table, without the TPU-backend veto."""
     h = ck.FlashAttentionHelper()
-    assert h.supports(None, (2, 8, 256, 64), None, False)
-    assert not h.supports(None, (2, 8, 200, 64), None, False)  # T % 128
-    assert not h.supports(None, (2, 8, 256, 48), None, False)  # dh
-    assert not h.supports(None, (2, 8, 256, 64), np.ones((2, 256)), False)
-    assert not h.supports(None, (2, 8, 256, 64), None, True)  # dropout
+    assert h.supports(None, (2, 8, 256, 64), None, False, dtype=F32)
+    assert not h.supports(None, (2, 8, 200, 64), None, False, dtype=F32)  # T % 128
+    assert not h.supports(None, (2, 8, 256, 48), None, False, dtype=F32)  # dh
+    assert not h.supports(None, (2, 8, 256, 64), np.ones((2, 256)), False, dtype=F32)
+    assert not h.supports(None, (2, 8, 256, 64), None, True, dtype=F32)  # dropout
     hc = ck.FlashAttentionHelper(causal=True)
-    assert hc.supports(None, (2, 8, 256, 64), None, False, causal=True)
+    assert hc.supports(None, (2, 8, 256, 64), None, False, causal=True, dtype=F32)
     # a causal kernel never serves a bidirectional request, nor vice versa
-    assert not hc.supports(None, (2, 8, 256, 64), None, False)
-    assert not h.supports(None, (2, 8, 256, 64), None, False, causal=True)
+    assert not hc.supports(None, (2, 8, 256, 64), None, False, dtype=F32)
+    assert not h.supports(None, (2, 8, 256, 64), None, False, causal=True, dtype=F32)
     for dh in (64, 128, 256):
-        assert hc.supports(None, (1, 1, 384, dh), None, False, causal=True)
+        assert hc.supports(None, (1, 1, 384, dh), None, False, causal=True, dtype=F32)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -87,7 +88,8 @@ def test_seam_order_registered_helper_first(rng):
     calls = []
 
     class Spy(thelpers.AttentionHelper):
-        def supports(self, layer, q_shape, mask, dropout_active, causal=False):
+        def supports(self, layer, q_shape, mask, dropout_active, causal=False,
+                     dtype=None):
             return q_shape[-2] == 128
 
         def attend(self, q, k, v):

@@ -57,4 +57,7 @@ class PutIn:
 
     def _port_normal(self, shape, gen, device, dtype=torch.float32):
         port_dropout._check_generator(gen, device)
-        return torch.from_numpy(self._next("normal", shape)).to(device, dtype)
+        z = self._next("normal", shape)
+        if z.dtype.name == "bfloat16":  # torch cannot read numpy's (ml_dtypes) bf16
+            z = z.astype(np.float32)  # exact: every bf16 is an f32
+        return torch.from_numpy(z).to(device, dtype)
