@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs fifteen phases:
+every kernel, and runs eighteen phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -120,7 +120,33 @@ every kernel, and runs fifteen phases:
    256, 224x224x3): timed, profiled, the FLOP bound at the bf16 rate, the
    running statistics f32 and moved, no kernel launch, the zip restored
    bit for bit, and the card's bf16 gradients at batch 2 against the
-   CPU's f64 ones no farther than the CPU's bf16 ones are.
+   CPU's f64 ones no farther than the CPU's bf16 ones are;
+16. LSTM kernel on bf16 (run after the f32 LSTM kernel): K1-bf16 against
+   its plain version (``lstm_sequence_plain`` on the same bf16 tensors,
+   the TPU kernel's rounding points) at the bf16 path's [128, 64, 512],
+   the char model's [50, 32, 200] and [12, 4, 200], [35, 20, 1500] (grid
+   plan) and [128, 64, 512] on the grid plan: the largest error, each
+   entry's in units of 2^-8 x max(|plain|, 2^-6), the relative Frobenius
+   error and the distance from an f64 recurrence against the plain
+   version's, each beside its limit; timed beside its bound at the bf16
+   tensor-core rate, its chain floor, its plain version and cuDNN's bf16
+   LSTM;
+17. the bf16 LSTM path at ``bench.py``'s recurrent configuration (2 x
+   512, 77 characters, B 64, T 128, Adam(1e-3), ``compute_dtype =
+   "bfloat16"``, ordinary fit): its GravesLSTM network as it is (the plain
+   loop, 0 K1), the same network on DL4J's standard LSTM (2 K1-bf16 and 8
+   K2 launches a step, 2 K1-bf16 in ``output``, no f32 K1; median step,
+   characters/s, peak memory, busy share, device time by group; losses
+   falling; masters and gradients f32; one batch against an f32 twin no
+   farther than a bf16 twin on the plain recurrence is; the zip restored
+   with ``output`` equal bit for bit), and a Bidirectional(LSTM(512)) +
+   LastTimeStep(LSTM(512)) classifier (3 K1-bf16 launches a forward);
+18. the recurrent stack (SimpleRnn, GRU both ways, Bidirectional,
+   GravesBidirectionalLSTM, LastTimeStep, MaskZeroLayer, ConvLSTM2D) at
+   small width on the card, f32 and bf16, with and without a mask, against
+   the same layer on the CPU, with each forward's K1 launches (an unmasked
+   Bidirectional or LastTimeStep over a standard LSTM launches K1 of its
+   dtype, a masked one does not).
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -220,6 +246,42 @@ LSTM_PATHS = {"train": (50, 32, 200), "output": (1000, 32, 200),
               "sample_prime": (12, 4, 200), "sample": (1, 4, 200)}
 LSTM_SHAPES = list(LSTM_PATHS.values()) + [(128, 64, 512), (35, 20, 1500)]
 HOST_CALLS = 1000  # back-to-back calls timed on the host clock at the sampling shape
+# K1-bf16 against its plain version (lstm_sequence_plain on the same bf16
+# tensors: the TPU kernel's rounding points) at the bf16 path's shape
+# (bench.py's recurrent configuration: 2 x 512, B 64, T 128), the char
+# model's training chunk and sampling prime, and one more on the grid plan
+# (H = 1500, whose bf16 rw fits no cluster); [128, 64, 512] once more on
+# the grid plan. The two versions round at the same points and differ only
+# in the order of the f32 sums of h@rw, so a sum near a bf16 rounding
+# boundary rounds the other way and the step carries it on. Held: each
+# entry within LSTM_BF16_ELEM_TOL units of 2^-8 x max(|plain|, 2^-6) (one
+# bf16 ulp is 1 to 2 such units), the relative Frobenius error within
+# LSTM_BF16_FROB_TOL, and the kernel's relative Frobenius distance from an
+# f64 recurrence on the same bf16 inputs within LSTM_BF16_F64_RATIO x the
+# plain version's
+LSTM_BF16_PATH = (128, 64, 512)
+LSTM_BF16_SHAPES = [(LSTM_BF16_PATH, "auto"), ((50, 32, 200), "auto"),
+                    ((12, 4, 200), "auto"), ((35, 20, 1500), "auto"),
+                    (LSTM_BF16_PATH, "grid")]
+# The limits, from the first H100 run (2x its worst readings, over these
+# five shapes): worst entry 64 units (an entry near 0, where a one-ulp flip
+# of a term of magnitude 1/2 to 1 cancels: c = f c + i g), relative
+# Frobenius 2.29e-3 (H = 1500), f64 ratio 0.998 to 1.0002
+LSTM_BF16_ELEM_TOL, LSTM_BF16_FROB_TOL, LSTM_BF16_F64_RATIO = 128.0, 5e-3, 1.05
+# the bf16 LSTM path at bench.py's recurrent configuration (_bench_graveslstm:
+# 2 x 512, 77 characters, B 64, T 128, Adam(1e-3), bf16 compute): its
+# GravesLSTM network as it is, the same network on DL4J's standard LSTM
+# (K1-bf16), and a Bidirectional + LastTimeStep LSTM classifier (2 classes)
+LB_BATCH, LB_T, LB_VOCAB, LB_WIDTH = 64, 128, 77, 512
+LB_WARMUP, LB_TIMED, LB_GRAVES_TIMED, LB_CLASSIFIER_STEPS = 3, 10, 5, 3
+LB_TENSORS = 8  # W, RW, b of each LSTM, W and b of the output layer
+# the recurrent stack at small width on the card against the same port
+# layer on the CPU (same weights and inputs): f32 within the CPU tests'
+# 1e-5 x max(1, largest entry) (outputs) and 1e-5 x the largest entry
+# (each gradient); bf16 in the ratio form against the CPU's f64 result
+# (BF16_WHOLE_RATIO for the output and the whole gradient, each tensor
+# BF16_TENSOR_RATIO or BF16_TENSOR_FLOOR of its norm)
+RS_N, RS_T, RS_IN, RS_H, RS_TOL = 4, 10, 12, 16, 1e-5
 # the character model (LSTMCharModellingExample): its 77-character set
 # (CharacterIterator.getMinimalCharacterSet), widths, batch and TBPTT length
 CHARS = ("abcdefghijklmnopqrstuvwxyz" "ABCDEFGHIJKLMNOPQRSTUVWXYZ" "0123456789"
@@ -919,8 +981,10 @@ def kernel_label(mangled: str):
         ident, i = mangled[j:j + n], j + n
         if ident.endswith("_kernel"):
             tail = mangled[i:]
-            args = re.findall(r"L[ib](\d+)E", tail[:tail.find("EEv") + 1]
-                              if tail.startswith("I") else "")
+            tmpl = tail[:tail.find("EEv") + 1] if tail.startswith("I") else ""
+            args = re.findall(r"L[ib](\d+)E", tmpl)
+            if "__nv_bfloat16" in tmpl:  # a kernel instantiated on bf16 storage
+                args.append("bf16")
             return f"{ident}<{','.join(args)}>"
     return None
 
@@ -1391,6 +1455,410 @@ def lstm_kernel_phase(ck, peaks):
     return rows
 
 
+def lstm_bound_bf16(shape, peaks):
+    """The bound of K1-bf16 at [T, N, H]: the recurrent products (2 T N H 4H
+    flops) at the tensor cores' bf16 rate, or reading xw, rw, h0, c0 and
+    writing ys, hN, cN once each in bf16."""
+    t, n, h = shape
+    flops = 2.0 * t * n * h * 4 * h
+    nbytes = 2.0 * (t * n * 4 * h + h * 4 * h + 2 * n * h + t * n * h + 2 * n * h)
+    ms, by = bound(flops, nbytes, peaks, "bf16")
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def bf16_lstm_readings(got, plain, exact):
+    """K1-bf16's outputs ``got`` against ``plain`` (both (ys, hN, cN)) and
+    an f64 recurrence ``exact`` on the same inputs: the largest error, the
+    worst entry in units of 2^-8 x max(|plain|, 2^-6), the relative
+    Frobenius error, and each version's relative Frobenius distance from
+    ``exact`` with their ratio; over the three outputs together."""
+    g = torch.cat([t.double().reshape(-1) for t in got])
+    p = torch.cat([t.double().reshape(-1) for t in plain])
+    e = torch.cat([t.reshape(-1) for t in exact])
+    err = (g - p).abs()
+    units = err / (2.0 ** -8 * p.abs().clamp_min(2.0 ** -6))
+    d_k = ((g - e).norm() / e.norm()).item()
+    d_p = ((p - e).norm() / e.norm()).item()
+    return {"max_abs_err": err.max().item(), "elem_units": units.max().item(),
+            "rel_frob": ((g - p).norm() / p.norm()).item(),
+            "f64_dist_kernel": d_k, "f64_dist_plain": d_p,
+            "f64_ratio": d_k / max(d_p, 1e-30)}
+
+
+def lstm_bf16_kernel_phase(ck, peaks):
+    """K1-bf16 against its plain version on the card at LSTM_BF16_SHAPES,
+    on a bf16 layer's own inputs (xw = x W + b in bf16, as FusedLSTMHelper
+    computes it, a Xavier-scale rw, non-zero h0, c0): its plan, the
+    readings of :func:`bf16_lstm_readings` against their limits, its time
+    (CUDA events, median of 25) and device time a launch (profiler) beside
+    its bound, the cluster plan's chain floor, the plain version's time and
+    the yardstick: a bf16 ``torch.nn.LSTM`` (cuDNN) with the same weights
+    and its input product. Raises when a limit fails; returns the rows by
+    (shape, plan)."""
+    rng = np.random.default_rng(4)
+    bf = torch.bfloat16
+    rows = {}
+    for shape, plan in LSTM_BF16_SHAPES:
+        t, n, h = shape
+        x = _randn(rng, (t, n, h)).to(bf)
+        w = _randn(rng, (h, 4 * h), np.sqrt(2.0 / (5 * h))).to(bf)
+        rw = _randn(rng, (h, 4 * h), np.sqrt(2.0 / (5 * h))).to(bf)
+        b = _randn(rng, (4 * h,), 0.1).to(bf)
+        h0, c0 = _randn(rng, (n, h), 0.5).to(bf), _randn(rng, (n, h)).to(bf)
+        xw = x @ w + b
+        chosen = ck.lstm_plan_for(xw) if plan == "auto" else {"plan": "grid"}
+        before = dict(ck.lstm_sequence.launches_by_dtype)
+        got = ck.lstm_sequence(xw, rw, h0, c0, plan=plan)
+        torch.cuda.synchronize()
+        if (ck.lstm_sequence.launches_by_dtype["bf16"] != before["bf16"] + 1
+                or ck.lstm_sequence.launches_by_dtype["f32"] != before["f32"]
+                or any(o.dtype != bf for o in got)):
+            raise RuntimeError(f"lstm_sequence bf16 {shape}: not one bf16 launch "
+                               f"with bf16 outputs")
+        plain = ck.lstm_sequence_plain(xw, rw, h0, c0)
+        exact = ck.lstm_sequence_plain(xw.double(), rw.double(), h0.double(), c0.double())
+        row = {"shape": list(shape), "plan": chosen["plan"], "requested": plan,
+               **{k: chosen[k] for k in ("S", "U", "R", "C", "smem") if k in chosen},
+               **bf16_lstm_readings(got, plain, exact)}
+        row["limits"] = {"elem_units": LSTM_BF16_ELEM_TOL, "rel_frob": LSTM_BF16_FROB_TOL,
+                         "f64_ratio": LSTM_BF16_F64_RATIO}
+        row["ok"] = (math.isfinite(row["max_abs_err"])
+                     and row["elem_units"] <= LSTM_BF16_ELEM_TOL
+                     and row["rel_frob"] <= LSTM_BF16_FROB_TOL
+                     and row["f64_ratio"] <= LSTM_BF16_F64_RATIO)
+        print("lstm_bf16 agreement " + json.dumps(row), flush=True)
+        if not row["ok"]:
+            raise RuntimeError(f"lstm_sequence bf16 {shape} {plan}: {row}")
+        row["ms"] = median_ms(lambda: ck.lstm_sequence(xw, rw, h0, c0, plan=plan))
+        row["device_ms"] = device_ms_per_launch(
+            lambda: ck.lstm_sequence(xw, rw, h0, c0, plan=plan), "lstm_sequence")
+        row["device_ms_per_step"] = row["device_ms"] / t
+        if chosen["plan"] == "cluster":
+            row["resident_clusters"] = ck.cluster_occupancy(chosen, h)
+            row["chain_floor_ms"] = device_ms_per_launch(
+                lambda: ck.lstm_chain_floor(t, chosen, n, h), "lstm_chain_floor")
+            row["chain_floor_ms_per_step"] = row["chain_floor_ms"] / t
+        row["plain_ms"] = median_ms(lambda: ck.lstm_sequence_plain(xw, rw, h0, c0))
+        lib = torch.nn.LSTM(h, h).cuda().to(bf)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(ifgo(w, h).t())
+            lib.weight_hh_l0.copy_(ifgo(rw, h).t())
+            lib.bias_ih_l0.copy_(ifgo(b, h))
+            lib.bias_hh_l0.zero_()
+            state = (h0[None].contiguous(), c0[None].contiguous())
+            row["library_max_abs_diff_vs_plain"] = (
+                lib(x, state)[0].float() - plain[0].float()).abs().max().item()
+            row["library_ms"] = median_ms(lambda: lib(x, state))
+            row["ms_with_input_product"] = median_ms(
+                lambda: ck.lstm_sequence(x @ w + b, rw, h0, c0, plan=plan))
+        row["library"] = ("torch.nn.LSTM in bf16 on cuDNN, with its input product; "
+                          "compare with ms_with_input_product")
+        row.update(lstm_bound_bf16(shape, peaks))
+        print("kernel lstm_sequence_bf16 " + json.dumps(row), flush=True)
+        rows[(shape, plan)] = row
+        del x, w, rw, b, h0, c0, xw, got, plain, exact, lib
+    return rows
+
+
+def lstm_bf16_conf(layer_cls):
+    """bench.py's recurrent configuration (_bench_graveslstm) through the
+    port's DSL, on ``layer_cls`` (GravesLSTMLayer as bench.py has it, or
+    LSTMLayer), compute dtype bf16."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    v, w = LB_VOCAB, LB_WIDTH
+    conf = (NeuralNetConfiguration.builder().seed(1).updater(Adam(1e-3)).list()
+            .layer(layer_cls(n_in=v, n_out=w, activation="tanh"))
+            .layer(layer_cls(n_in=w, n_out=w, activation="tanh"))
+            .layer(RnnOutputLayer(n_in=w, n_out=v, activation="softmax",
+                                  loss="negativeloglikelihood"))
+            .set_input_type(InputType.recurrent(v, LB_T)).build())
+    conf.global_conf.compute_dtype = "bfloat16"
+    return conf
+
+
+def lstm_classifier_conf():
+    """A sequence classifier at the same width: Bidirectional(LSTM(512))
+    (concat), LastTimeStep(LSTM(512)), a 2-class softmax; bf16."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (BidirectionalWrapper,
+                                                    LastTimeStepWrapper, LSTMLayer,
+                                                    OutputLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    w = LB_WIDTH
+    conf = (NeuralNetConfiguration.builder().seed(2).updater(Adam(1e-3)).list()
+            .layer(BidirectionalWrapper(layer=LSTMLayer(n_in=LB_VOCAB, n_out=w,
+                                                        activation="tanh")))
+            .layer(LastTimeStepWrapper(layer=LSTMLayer(n_in=2 * w, n_out=w,
+                                                       activation="tanh")))
+            .layer(OutputLayer(n_in=w, n_out=2, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(LB_VOCAB, LB_T)).build())
+    conf.global_conf.compute_dtype = "bfloat16"
+    return conf
+
+
+def k1_counts(ck):
+    """K1's launches since the last reset, by dtype."""
+    return dict(ck.lstm_sequence.launches_by_dtype)
+
+
+def timed_fits(net, x, y, steps):
+    """``steps`` fit steps, each between two CUDA events; returns (step
+    ms, losses)."""
+    events, losses = [], []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        net.fit(x, y)
+        end.record()
+        events.append((start, end))
+        losses.append(net.score_)
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events], [float(v) for v in losses]
+
+
+def lstm_bf16_phase(ck, card):
+    """The bf16 LSTM path at full width (see the module docstring). Returns
+    K1's launches by path and dtype, and K2's."""
+    import tempfile
+
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTMLayer, LSTMLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import (export_params,
+                                                       load_reference_params)
+
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(0, LB_VOCAB, (LB_BATCH, LB_T))).cuda()
+    x = F.one_hot(ids, LB_VOCAB).float()
+    y = F.one_hot(torch.roll(ids, -1, 1), LB_VOCAB).float()
+    chars = LB_BATCH * LB_T
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    paths, out = {}, {}
+
+    def counted(fn):
+        ck.reset_lstm_counts()
+        ck.fused_adam.launches = 0
+        got = fn()
+        torch.cuda.synchronize()
+        return got, {**k1_counts(ck), "fused_adam": ck.fused_adam.launches}
+
+    # 1. bench.py's GravesLSTM network, unchanged: the plain loop (peepholes)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graves = MultiLayerNetwork(lstm_bf16_conf(GravesLSTMLayer)).init()
+    steps = LB_WARMUP + LB_GRAVES_TIMED
+    (g_ms, g_losses), paths["graveslstm_bf16_train"] = counted(
+        lambda: timed_fits(graves, x, y, steps))
+    out["graveslstm"] = {
+        "median_step_ms": float(np.median(g_ms[LB_WARMUP:])), "step_ms": g_ms,
+        "chars_per_s": chars / (float(np.median(g_ms[LB_WARMUP:])) / 1e3),
+        "losses": g_losses, "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": paths["graveslstm_bf16_train"]}
+    del graves
+    if (paths["graveslstm_bf16_train"]["f32"] or paths["graveslstm_bf16_train"]["bf16"]
+            or paths["graveslstm_bf16_train"]["fused_adam"] != LB_TENSORS * steps
+            or not np.isfinite(g_losses).all()):
+        raise RuntimeError(f"lstm_bf16 GravesLSTM: {out['graveslstm']}")
+
+    # 2. the standard-LSTM network: K1-bf16 in every forward
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = MultiLayerNetwork(lstm_bf16_conf(LSTMLayer)).init()
+    steps = LB_WARMUP + LB_TIMED
+    (s_ms, s_losses), paths["lstm_bf16_train"] = counted(
+        lambda: timed_fits(net, x, y, steps))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_steps(net, x, y)
+    profile_counts = k1_counts(ck)  # launched under the profiler (not a path)
+    o, paths["lstm_bf16_output"] = counted(lambda: net.output(x))
+    out_ok = (o.dtype == torch.bfloat16 and tuple(o.shape) == (LB_BATCH, LB_T, LB_VOCAB)
+              and bool(torch.isfinite(o.float()).all()))
+    med = float(np.median(s_ms[LB_WARMUP:]))
+    out["lstm"] = {"median_step_ms": med, "step_ms": s_ms, "chars_per_s": chars / (med / 1e3),
+                   "losses": s_losses, "peak_device_mem_gb": peak_gb, "profile": profile,
+                   "launches": paths["lstm_bf16_train"],
+                   "output_launches": paths["lstm_bf16_output"],
+                   "profiled_launches": profile_counts}
+    # one batch against twins: f32 (plain recurrence: no f32 K1 in this
+    # phase) and bf16 on the plain recurrence, the same weights
+    weights = export_params(net)
+    g_k, loss_k = net.compute_gradient_and_score(x, y)
+    helpers.set_auto_fused_lstm(False)
+    try:
+        plain = load_reference_params(MultiLayerNetwork(lstm_bf16_conf(LSTMLayer)).init(),
+                                      weights)
+        g_p, loss_p = plain.compute_gradient_and_score(x, y)
+        del plain
+        f32_conf = lstm_bf16_conf(LSTMLayer)
+        f32_conf.global_conf.compute_dtype = None
+        ref = load_reference_params(MultiLayerNetwork(f32_conf).init(), weights)
+        g_r, loss_r = ref.compute_gradient_and_score(x, y)
+        del ref
+    finally:
+        helpers.set_auto_fused_lstm(True)
+    parity = ratio_form(g_k, g_p, g_r, loss_k, loss_p, loss_r, BF16_TENSOR_FLOOR)
+    grads_f32 = all(t.dtype == torch.float32 for named in g_k.values() for t in named.values())
+    masters_f32 = all(t.dtype == torch.float32 for named in net.params.values()
+                      for t in named.values())
+    out["lstm"]["parity"] = {"loss_kernel": loss_k, "loss_plain_bf16": loss_p,
+                             "loss_f32": loss_r, **parity}
+    # the zip restored on the card: output bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lstm_bf16.zip")
+        net.save(path)
+        back = MultiLayerNetwork.load(path)
+        zip_equal = bool(torch.equal(back.output(x), o))
+        del back
+    out["lstm"]["zip_output_bit_for_bit"] = zip_equal
+    del net, g_k, g_p, g_r, o
+
+    # 3. the bidirectional classifier: 3 K1-bf16 launches a forward
+    torch.cuda.empty_cache()
+    cls = MultiLayerNetwork(lstm_classifier_conf()).init()
+    labels = F.one_hot(torch.from_numpy(rng.integers(0, 2, LB_BATCH)).cuda(), 2).float()
+    (c_ms, c_losses), paths["bidi_classifier_train"] = counted(
+        lambda: timed_fits(cls, x, labels, LB_CLASSIFIER_STEPS))
+    co, paths["bidi_classifier_output"] = counted(lambda: cls.output(x))
+    out["classifier"] = {"step_ms": c_ms, "losses": c_losses,
+                         "launches": paths["bidi_classifier_train"],
+                         "output_launches": paths["bidi_classifier_output"],
+                         "output_shape": list(co.shape)}
+    cls_ok = (tuple(co.shape) == (LB_BATCH, 2) and bool(torch.isfinite(co.float()).all())
+              and np.isfinite(c_losses).all())
+    del cls, co
+    helpers.clear_helper("updater")
+    print("lstm_bf16 " + json.dumps({"card": card, "batch": [LB_BATCH, LB_T],
+                                     "width": LB_WIDTH, "vocab": LB_VOCAB, **out}),
+          flush=True)
+
+    want = {"lstm_bf16_train": {"f32": 0, "bf16": 2 * steps, "fused_adam": LB_TENSORS * steps},
+            "lstm_bf16_output": {"f32": 0, "bf16": 2, "fused_adam": 0},
+            "bidi_classifier_train": {"f32": 0, "bf16": 3 * LB_CLASSIFIER_STEPS,
+                                      "fused_adam": 11 * LB_CLASSIFIER_STEPS},
+            "bidi_classifier_output": {"f32": 0, "bf16": 3, "fused_adam": 0}}
+    bad = {p: paths[p] for p in want if paths[p] != want[p]}
+    if bad:
+        raise RuntimeError(f"lstm_bf16 launches {bad}, expected {want}")
+    if not (np.isfinite(s_losses).all() and np.mean(s_losses[-3:]) < np.mean(s_losses[:3])):
+        raise RuntimeError(f"lstm_bf16 training did not progress: {s_losses}")
+    if not (out_ok and cls_ok and zip_equal and grads_f32 and masters_f32 and parity["ok"]):
+        raise RuntimeError(f"lstm_bf16: output ok {out_ok}, classifier ok {cls_ok}, zip "
+                           f"{zip_equal}, f32 gradients {grads_f32}, f32 masters "
+                           f"{masters_f32}, parity {parity}")
+    return paths
+
+
+def recurrent_stack_layers():
+    """(name, port layer, input kind, K1 launches of an unmasked forward)
+    for each layer of the recurrent stack at small width."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+
+    n_in, h = RS_IN, RS_H
+    conv = L.ConvLSTM2DLayer(n_in=2, n_out=4, convolution_mode="same")
+    conv.output_type(InputType.recurrent_convolutional(8, 8, 2, RS_T))
+    return [("simple_rnn", L.SimpleRnnLayer(n_in=n_in, n_out=h), "rnn", 0),
+            ("gru_reset_after", L.GRULayer(n_in=n_in, n_out=h), "rnn", 0),
+            ("gru_classic", L.GRULayer(n_in=n_in, n_out=h, reset_after=False), "rnn", 0),
+            ("bidirectional_lstm",
+             L.BidirectionalWrapper(layer=L.LSTMLayer(n_in=n_in, n_out=h)), "rnn", 2),
+            ("graves_bidirectional_lstm",
+             L.GravesBidirectionalLSTMLayer(n_in=n_in, n_out=h), "rnn", 0),
+            ("last_time_step_lstm",
+             L.LastTimeStepWrapper(layer=L.LSTMLayer(n_in=n_in, n_out=h)), "rnn", 1),
+            ("mask_zero_lstm", L.MaskZeroLayer(layer=L.LSTMLayer(n_in=n_in, n_out=h)),
+             "rnn", 0),
+            ("conv_lstm2d", conv, "cnn_seq", 0)]
+
+
+def _stack_run(layer, params, x, mask, w, dtype):
+    """One layer's output and the gradients of sum(out * w) by parameter,
+    with the parameters and x in ``dtype``."""
+    live = {k: v.to(dtype).detach().requires_grad_(True) for k, v in params.items()}
+    xd = x.to(dtype)
+    if type(layer).__name__ == "LastTimeStepWrapper":
+        y = layer.forward(live, xd, mask=mask)
+    else:
+        y = layer.forward_seq(live, xd, mask=mask)[0]
+    grads = torch.autograd.grad((y.double() * w.to(y.device)).sum(), list(live.values()))
+    return y.detach(), dict(zip(live, grads))
+
+
+def recurrent_stack_phase(ck, card):
+    """Each layer of the recurrent stack on the card against the same port
+    layer on the CPU (same weights, inputs and mask), f32 and bf16, with
+    and without a mask; the K1 launches of each card forward. Returns K1's
+    launches on the card by dtype."""
+    rng = np.random.default_rng(21)
+    mask = np.ones((RS_N, RS_T), np.float32)
+    mask[1, 6:] = 0.0
+    mask[2, 3] = 0.0
+    totals = {"f32": 0, "bf16": 0}
+    rows, failures = [], []
+    for name, layer, kind, unmasked_launches in recurrent_stack_layers():
+        params = layer.init_params(torch.Generator().manual_seed(3))
+        shape = ((RS_N, RS_T, RS_IN) if kind == "rnn" else (RS_N, RS_T, 8, 8, 2))
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        if name == "mask_zero_lstm":
+            x[0, 7] = 0.0
+        for with_mask in (False, True):
+            m = torch.from_numpy(mask) if with_mask else None
+            y_shape = _stack_run(layer, params, x, m, torch.zeros(()), torch.float64)[0].shape
+            w = torch.from_numpy(rng.standard_normal(tuple(y_shape)))
+            exact, g_exact = _stack_run(layer, params, x, m, w, torch.float64)
+            for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                cpu, g_cpu = _stack_run(layer, params, x, m, w, dtype)
+                ck.reset_lstm_counts()
+                card_p = {k: v.cuda() for k, v in params.items()}
+                got, g_got = _stack_run(layer, card_p, x.cuda(),
+                                        None if m is None else m.cuda(), w, dtype)
+                torch.cuda.synchronize()
+                launched = k1_counts(ck)
+                totals = {k: totals[k] + launched[k] for k in totals}
+                want_launch = {"f32": 0, "bf16": 0}
+                if not with_mask:
+                    want_launch[tag] = unmasked_launches
+                row = {"layer": name, "dtype": tag, "mask": with_mask,
+                       "k1_launches": launched, "k1_expected": want_launch}
+                got, cpu = got.double().cpu(), cpu.double()
+                if tag == "f32":
+                    row["out_err"] = (got - cpu).abs().max().item()
+                    row["out_limit"] = RS_TOL * max(1.0, cpu.abs().max().item())
+                    row["grad_err_rel_to_max"] = max(
+                        (g_got[k].double().cpu() - g_cpu[k].double()).abs().max().item()
+                        / max(g_cpu[k].abs().max().item(), 1e-30) for k in g_cpu)
+                    ok = (row["out_err"] <= row["out_limit"]
+                          and row["grad_err_rel_to_max"] <= RS_TOL)
+                else:
+                    d_card = (got - exact).norm().item()
+                    d_cpu = (cpu - exact).norm().item()
+                    row["out_ratio"] = d_card / max(d_cpu, 1e-30)
+                    parity = ratio_form({0: {k: g.cpu() for k, g in g_got.items()}},
+                                        {0: g_cpu}, {0: g_exact}, 0.0, 0.0, 0.0,
+                                        BF16_TENSOR_FLOOR)
+                    row["grad_ratio_whole"] = parity["grad_l2_ratio_whole"]
+                    row["grad_ratio_worst"] = parity["grad_l2_ratio_worst"]
+                    ok = (row["out_ratio"] <= BF16_WHOLE_RATIO
+                          or d_card <= BF16_TENSOR_FLOOR * exact.norm().item()) and parity["ok"]
+                ok = ok and launched == want_launch
+                row["ok"] = ok
+                rows.append(row)
+                print("recurrent_stack " + json.dumps(row), flush=True)
+                if not ok:
+                    failures.append((name, tag, with_mask))
+    print("recurrent_stack_summary " + json.dumps({"card": card, "layers": len(rows) // 4,
+                                                  "runs": len(rows), "k1_launches": totals}),
+          flush=True)
+    if failures:
+        raise RuntimeError(f"recurrent_stack: {failures}")
+    return totals
+
+
 def char_corpus(n_examples):
     """``n_examples`` non-overlapping character sequences of CHAR_LEN + 1
     from the repository's own text, with every character outside CHARS
@@ -1463,10 +1931,7 @@ def char_lstm_phase(ck, card):
     chunks = CHAR_BATCHES * CHAR_LEN // CHAR_TBPTT
     by_plan = {}  # the LSTM kernel's launches on each path, by plan
 
-    def reset_counts():
-        ck.lstm_sequence.launches = 0
-        ck.lstm_sequence.launches_by_plan = {"cluster": 0, "grid": 0}
-
+    reset_counts = ck.reset_lstm_counts
     reset_counts()
     ck.fused_adam.launches = 0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3155,6 +3620,7 @@ def main() -> None:
     serve_launches = serving_phase(ck, card, served["ms"])
     train_launches = training_phase(ck, card)
     lstm_rows = lstm_kernel_phase(ck, peaks)
+    lstm_bf16_rows = lstm_bf16_kernel_phase(ck, peaks)
     char_launches, char_by_plan, char_adam_launches = char_lstm_phase(ck, card)
     lenet_adam_launches = lenet_phase(ck, card)
     draws_phase(card)
@@ -3167,7 +3633,10 @@ def main() -> None:
     dl4j = dl4j_import_phase(ck, card)
     gpt2_bf16 = gpt2_bf16_phase(ck, card)
     resnet_bf16 = resnet50_bf16_phase(ck, card, peaks)
+    lstm_bf16 = lstm_bf16_phase(ck, card)
+    stack = recurrent_stack_phase(ck, card)
     lstm = lstm_rows[LSTM_PATHS["train"]]
+    lstm_bf16_row = lstm_bf16_rows[(LSTM_BF16_PATH, "auto")]
 
     def entry(name, source, replaces, row, launches, **extra):
         return {"name": name, "route": "cuda",
@@ -3190,7 +3659,8 @@ def main() -> None:
                 "resnet50_train": resnet[kernel],
                 "dl4j_import_train": dl4j[kernel],
                 "gpt2_bf16_train": gpt2_bf16["train"].get(kernel),
-                "resnet50_bf16_train": resnet_bf16.get(kernel)}
+                "resnet50_bf16_train": resnet_bf16.get(kernel),
+                **{path: counts.get(kernel) for path, counts in lstm_bf16.items()}}
 
     def measured(by_path):
         return {p: n for p, n in by_path.items() if n is not None}
@@ -3226,7 +3696,8 @@ def main() -> None:
               + lenet_adam_launches + ex17_adam_launches
               + lenet_reg_adam_launches + gpt2_drop["fused_adam"]
               + tbptt["fused_adam"] + dl4j["fused_adam"]
-              + gpt2_bf16["train"]["fused_adam"],
+              + gpt2_bf16["train"]["fused_adam"]
+              + sum(c["fused_adam"] for c in lstm_bf16.values()),
               launches_by_path=measured({
                   "train": train_launches["fused_adam"],
                   "char_lstm_train": char_adam_launches,
@@ -3236,9 +3707,11 @@ def main() -> None:
                   **later_paths("fused_adam")})),
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
-              sum(char_launches.values()),
-              launches_by_path=measured({**char_launches,
-                                         **later_paths("lstm_sequence")}),
+              sum(char_launches.values()) + stack["f32"],
+              launches_by_path=measured({
+                  **char_launches, **later_paths("lstm_sequence"),
+                  **{p: c["f32"] for p, c in lstm_bf16.items()},
+                  "recurrent_stack": stack["f32"]}),
               launches_by_plan=char_by_plan,
               library="torch.nn.LSTM (cuDNN) with its input product: "
                       "compare with ms_with_input_product",
@@ -3250,6 +3723,19 @@ def main() -> None:
               bound_by_path={p: lstm_rows[sh]["bound_ms"] for p, sh in LSTM_PATHS.items()},
               chain_floor_by_path={p: lstm_rows[sh]["chain_floor_ms"]
                                    for p, sh in LSTM_PATHS.items()}),
+        entry("lstm_sequence_bf16", "lstm_sequence.cu",
+              "deeplearning4j_tpu/nn/pallas_kernels.py:66 on bf16 xw", lstm_bf16_row,
+              sum(c["bf16"] for c in lstm_bf16.values()) + stack["bf16"],
+              launches_by_path={**{p: c["bf16"] for p, c in lstm_bf16.items()},
+                                "recurrent_stack": stack["bf16"]},
+              shape=list(LSTM_BF16_PATH), plan=lstm_bf16_row["plan"],
+              device_ms=lstm_bf16_row["device_ms"],
+              chain_floor_ms=lstm_bf16_row.get("chain_floor_ms"),
+              library="torch.nn.LSTM in bf16 (cuDNN) with its input product: "
+                      "compare with ms_with_input_product",
+              ms_with_input_product=lstm_bf16_row["ms_with_input_product"],
+              agreement={k: lstm_bf16_row[k] for k in (
+                  "elem_units", "rel_frob", "f64_ratio", "limits")}),
         entry(f"{fwd}_bf16", "flash_attention_fwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:758 on bf16 "
               "q, k, v (via deeplearning4j_tpu/nn/pallas_kernels.py:359)",

@@ -12,7 +12,8 @@ point of the port. The spellings accepted are the reference's (``nin`` /
 
 Layers: dense, output, rnnoutput, convolution, subsampling,
 batchNormalization, localResponseNormalization, activation, dropout,
-LSTM, gravesLSTM, GlobalPooling and zeroPadding. Every other DL4J layer
+LSTM, gravesLSTM, gravesBidirectionalLSTM, SimpleRnn, Bidirectional,
+MaskZeroLayer, GlobalPooling and zeroPadding. Every other DL4J layer
 type (and an activation or loss the port lacks) raises
 :class:`UnsupportedDl4jConfigurationException` naming it. Vertices: every
 one the reference reads.
@@ -23,13 +24,15 @@ Preprocessors become the port's serializable specs
 (``cnn_to_ff_nchw``), or every dense weight after a convolution would be
 read permuted; ``rnnToFeedForward`` and ``feedForwardToRnn`` are the
 identity (a dense layer applies per step over ``[N, T, C]``);
-``cnnToRnn`` and ``rnnToCnn`` (image sequences, an input kind not ported
-yet) raise :class:`UnsupportedDl4jConfigurationException`.
+``cnnToRnn`` and ``rnnToCnn`` keep DL4J's C, H, W order over each step of
+an image sequence (``cnn_seq_to_rnn_nchw``, ``rnn_to_cnn_seq_nchw``).
 
 Coefficients: the flattened vector is walked layer by layer in DL4J's
 ParamInitializer order (weights in 'f' order, conv kernels ``[out, in,
 kH, kW]`` in 'c' order, to HWIO); BatchNorm's ``mean`` and ``var`` go to
-the layer's state. A graph's layers are walked in DL4J's own topological
+the layer's state; a Bidirectional layer's forward direction comes before
+its backward one (``f_``, ``b_``), and MaskZeroLayer holds its wrapped
+layer's parameters. A graph's layers are walked in DL4J's own topological
 order (``_dl4j_topological_order``: Kahn's algorithm over vertex indices
 with Java ``HashSet<Integer>`` successor order), with a warning where
 the bucket-order emulation is all that fixes it. The updater state is
@@ -456,10 +459,26 @@ def convert_dl4j_layer(type_name: str, cfg: dict):
         return L.ActivationLayer(**base)
     if t == "dropout":
         return L.DropoutLayer(**base)
-    if t in ("LSTM", "gravesLSTM"):
-        return (L.LSTMLayer if t == "LSTM" else L.GravesLSTMLayer)(
-            **base, **ff, forget_gate_bias_init=float(
-                _get(cfg, "forgetGateBiasInit", default=1.0)))
+    if t in ("LSTM", "gravesLSTM", "gravesBidirectionalLSTM"):
+        cls = {"LSTM": L.LSTMLayer, "gravesLSTM": L.GravesLSTMLayer,
+               "gravesBidirectionalLSTM": L.GravesBidirectionalLSTMLayer}[t]
+        return cls(**base, **ff, forget_gate_bias_init=float(
+            _get(cfg, "forgetGateBiasInit", default=1.0)))
+    if t == "SimpleRnn":
+        return L.SimpleRnnLayer(**base, **ff)
+    if t == "MaskZeroLayer":
+        inner_t, inner_cfg = next(iter(_get(cfg, "underlying", default={}).items()))
+        return L.MaskZeroLayer(layer=convert_dl4j_layer(inner_t, inner_cfg),
+                               mask_value=float(_get(cfg, "maskingValue", default=0.0)))
+    if t == "Bidirectional":
+        inner = _get(cfg, "fwd", "rnnLayer")
+        if not isinstance(inner, dict) or len(inner) != 1:
+            raise InvalidDl4jConfigurationException(
+                "Bidirectional layer without inner rnn config")
+        mode = str(_get(cfg, "mode", default="CONCAT")).lower()
+        return L.BidirectionalWrapper(
+            layer=convert_dl4j_layer(*next(iter(inner.items()))),
+            mode=mode if mode in ("add", "mul", "average") else "concat")
     if t == "GlobalPooling":
         return L.GlobalPoolingLayer(**base, pooling_type=_pooling_type(cfg))
     if t == "zeroPadding":
@@ -491,10 +510,13 @@ def _convert_dl4j_preprocessor(entry) -> Optional[str]:
         key = key[:-len("PreProcessor")]
     if key == "cnnToFeedForward":
         return "cnn_to_ff_nchw"
-    if key in ("cnnToRnn", "rnnToCnn"):
-        raise UnsupportedDl4jConfigurationException(
-            f"DL4J input preprocessor {key!r} (an image sequence, the "
-            "cnn_seq input kind) is not ported yet")
+    if key == "cnnToRnn":
+        return "cnn_seq_to_rnn_nchw"
+    if key == "rnnToCnn":
+        h = int(_get(cfg, "inputHeight", "numRows"))
+        w = int(_get(cfg, "inputWidth", "numColumns"))
+        c = int(_get(cfg, "numChannels", "depth", default=1))
+        return f"rnn_to_cnn_seq_nchw:{h},{w},{c}"
     if key == "feedForwardToCnn":
         h = int(_get(cfg, "inputHeight", "numRows"))
         w = int(_get(cfg, "inputWidth", "numColumns"))
@@ -728,14 +750,24 @@ def _dl4j_param_specs(layer):
         if "b" in shapes:
             specs.append(("b", (1, layer.n_out), "c", ravel, "param"))
         return specs
-    if cls in ("LSTMLayer", "GravesLSTMLayer"):
+    if cls in ("LSTMLayer", "GravesLSTMLayer", "SimpleRnnLayer"):
         # LSTMParamInitializer: W [nIn, 4H], RW [H, 4H (+3 peepholes)], b;
-        # the gate order (IFOG) is shared with nn/layers/recurrent.py
+        # the gate order (IFOG) is shared with nn/layers/recurrent.py;
+        # SimpleRnnParamInitializer: W, RW, b in the same order
         specs = [("W", shapes["W"], "f", ident, "param"),
                  ("RW", shapes["RW"], "f", ident, "param")]
         if "b" in shapes:
             specs.append(("b", (1, shapes["b"][0]), "c", ravel, "param"))
         return specs
+    if cls in ("BidirectionalWrapper", "GravesBidirectionalLSTMLayer"):
+        # the forward direction's parameters, then the backward's, each in
+        # its layer's order (GravesBidirectionalLSTMParamInitializer: WF,
+        # RWF, bF, WB, RWB, bB; BidirectionalParamInitializer likewise)
+        inner = _dl4j_param_specs(layer.layer)
+        return ([("f_" + n, *rest) for n, *rest in inner]
+                + [("b_" + n, *rest) for n, *rest in inner])
+    if cls == "MaskZeroLayer":  # the wrapped layer's parameters, unprefixed
+        return _dl4j_param_specs(layer.layer)
     if set(shapes) <= {"W", "b"} and len(shapes.get("W", (0, 0))) == 2:
         # DefaultParamInitializer (dense, output): W reshaped 'f'
         specs = [("W", shapes["W"], "f", ident, "param")]

@@ -1,12 +1,13 @@
 """Input type inference — the DL4J ``InputType`` system: the feed-forward,
-recurrent and convolutional (``cnn``, ``cnn_flat``) kinds.
+recurrent, convolutional (``cnn``, ``cnn_flat``) and image-sequence
+(``cnn_seq``) kinds.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/inputs.py``, with the same
 fields, so that a configuration's JSON reads back in both packages.
-Convolutional activations are NHWC (channels last) and recurrent ones
-``[batch, time, size]``, as in the reference. Not ported yet: the
-``cnn3d`` and ``cnn_seq`` kinds (``convolutional3d``,
-``recurrent_convolutional``), which raise.
+Convolutional activations are NHWC (channels last), recurrent ones
+``[batch, time, size]`` and image sequences ``[batch, time, H, W, C]``
+(ConvLSTM2D's data), as in the reference. Not ported yet: the ``cnn3d``
+and ``cnn1d`` kinds (``convolutional3d``), which raise.
 """
 
 from __future__ import annotations
@@ -14,15 +15,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-KINDS = ("ff", "rnn", "cnn", "cnn_flat")
-_NOT_PORTED = ("cnn3d", "cnn_seq", "cnn1d")
+KINDS = ("ff", "rnn", "cnn", "cnn_flat", "cnn_seq")
+_NOT_PORTED = ("cnn3d", "cnn1d")
 
 
 @dataclasses.dataclass(frozen=True)
 class InputType:
-    kind: str  # "ff" | "rnn" | "cnn" | "cnn_flat"
+    kind: str  # "ff" | "rnn" | "cnn" | "cnn_flat" | "cnn_seq"
     size: int = 0                    # ff / rnn feature size (cnn_flat: H*W*C)
-    timesteps: Optional[int] = None  # rnn (None = variable)
+    timesteps: Optional[int] = None  # rnn, cnn_seq (None = variable)
     height: int = 0
     width: int = 0
     channels: int = 0
@@ -66,6 +67,7 @@ class InputType:
     @staticmethod
     def recurrent_convolutional(height: int, width: int, channels: int,
                                 timesteps: Optional[int] = None) -> "InputType":
+        """A sequence of images [batch, time, H, W, C] (ConvLSTM2D data)."""
         return InputType(kind="cnn_seq", height=int(height), width=int(width),
                          channels=int(channels), timesteps=timesteps)
 
@@ -75,13 +77,24 @@ class InputType:
         return self.height * self.width * self.channels
 
     def batch_shape(self, batch: int = 1) -> Tuple[int, ...]:
-        """Example array shape for one batch of this type (NHWC / NTC)."""
+        """Example array shape for one batch of this type (NHWC / NTC /
+        NTHWC)."""
         if self.kind in ("ff", "cnn_flat"):
             return (batch, self.flat_size())
+        t = self.timesteps if self.timesteps is not None else 1
         if self.kind == "rnn":
-            t = self.timesteps if self.timesteps is not None else 1
             return (batch, t, self.size)
+        if self.kind == "cnn_seq":
+            return (batch, t, self.height, self.width, self.channels)
         return (batch, self.height, self.width, self.channels)
+
+    def cnn_seq_to_rnn(self):
+        """The per-step flatten of an image sequence, ``(fn, type)``:
+        [N,T,H,W,C] -> [N,T,H*W*C], for a flat-input layer after a
+        ConvLSTM2D stage."""
+        assert self.kind == "cnn_seq", self.kind
+        return (lambda x: x.reshape(x.shape[0], x.shape[1], -1),
+                InputType.recurrent(self.flat_size(), self.timesteps))
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

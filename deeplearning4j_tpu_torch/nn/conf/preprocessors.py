@@ -14,9 +14,8 @@ statistics over the batch axis, the variance with ddof 0 as ``jnp.var``
 (``torch.var`` defaults to the unbiased estimator). ``binomial_sampling``
 draws one fixed mask per seed, as the reference does, from a
 ``torch.Generator`` (so its draws match the reference's in distribution
-only), with a straight-through gradient. A spec whose output would be a
-kind the port has not ported (a rank-4 ``reshape``: an image sequence)
-raises.
+only), with a straight-through gradient. A rank-4 ``reshape`` gives an
+image sequence ([T,H,W,C], the ``cnn_seq`` kind).
 
 The ``*_nchw`` specs are DL4J's own preprocessors for imported
 checkpoints (``modelimport/dl4j.py``): DL4J flattens an image in C, H, W
@@ -24,7 +23,10 @@ order, so the dense weights after a convolution index its features as
 ``c·H·W + h·W + w``. ``cnn_to_ff_nchw`` flattens NHWC activations in
 that order and ``ff_to_cnn_nchw:h,w,c`` inverts it. The reference builds
 these as closures; here they are specs, so an imported configuration
-stays serializable.
+stays serializable. Likewise for image sequences: ``cnn_seq_to_rnn_nchw``
+(DL4J's CnnToRnnPreProcessor) flattens each step of [N,T,H,W,C] in C, H,
+W order and ``rnn_to_cnn_seq_nchw:h,w,c`` (RnnToCnnPreProcessor) inverts
+it.
 """
 
 from __future__ import annotations
@@ -91,6 +93,11 @@ def apply(spec: str, x):
     if name == "ff_to_cnn_nchw":     # DL4J FeedForwardToCnn
         h, w, c = args
         return x.reshape(x.shape[0], c, h, w).permute(0, 2, 3, 1)
+    if name == "cnn_seq_to_rnn_nchw":  # DL4J CnnToRnn: each step in C, H, W order
+        return x.permute(0, 1, 4, 2, 3).reshape(x.shape[0], x.shape[1], -1)
+    if name == "rnn_to_cnn_seq_nchw":  # DL4J RnnToCnn
+        h, w, c = args
+        return x.reshape(x.shape[0], x.shape[1], c, h, w).permute(0, 1, 3, 4, 2)
     if name == "reshape":            # ReshapePreprocessor (Keras Reshape)
         return x.reshape((x.shape[0],) + args)
     raise ValueError(f"unknown preprocessor {spec!r}")
@@ -117,9 +124,14 @@ def output_type(spec: str, it: InputType) -> InputType:
         return InputType.recurrent(it.size, t)
     if name == "cnn_to_rnn":
         return InputType.recurrent(it.width * it.channels, it.height)
+    if name == "cnn_seq_to_rnn_nchw":
+        return InputType.recurrent(it.flat_size(), it.timesteps)
+    if name == "rnn_to_cnn_seq_nchw":
+        h, w, c = args
+        return InputType.recurrent_convolutional(h, w, c, it.timesteps)
     if name == "reshape":
-        # the target rank decides: 1 -> ff, 2 -> [T,C], 3 -> [H,W,C];
-        # 4 ([T,H,W,C], an image sequence) is a kind not ported yet
+        # the target rank decides: 1 -> ff, 2 -> [T,C], 3 -> [H,W,C],
+        # 4 -> [T,H,W,C] (an image sequence)
         if len(args) == 1:
             return InputType.feed_forward(args[0])
         if len(args) == 2:

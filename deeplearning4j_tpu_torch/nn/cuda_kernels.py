@@ -28,7 +28,9 @@ Counterpart of ``deeplearning4j_tpu/nn/pallas_kernels.py``. Ported so far:
   ``pallas_kernels.py:66``, via ``PallasLSTMHelper.forward_seq`` :153):
   ``csrc/lstm_sequence.cu``, wrapped by :func:`lstm_sequence`, in one of
   two plans that :func:`lstm_plan` chooses (thread-block clusters where rw
-  fits one cluster's shared memory, else one cooperative grid);
+  fits one cluster's shared memory, else one cooperative grid), for f32
+  and, as K1-bf16, for bf16 inputs (the TPU kernel on a bf16 ``xw``; its
+  plain version is :func:`lstm_sequence_plain` on bf16 tensors);
   :class:`LSTMSequenceFunction` differentiates it by recomputing the plain
   recurrence (the reference's ``_fused_bwd`` takes the VJP of its plain
   scan: no backward kernel exists in either package), and
@@ -599,6 +601,7 @@ class FusedUpdaterHelper(UpdaterHelper):
 
 # --------------------------------------------------- K1: fused LSTM sequence
 _LSTM_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_LSTM_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}  # K1's, by symbol suffix
 _LSTM_CLUSTER_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _CHAIN_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _INT_P = ctypes.POINTER(ctypes.c_int)
@@ -608,51 +611,65 @@ CLUSTER_THREADS = 512  # threads of a CTA of the cluster plan (CTHREADS in the .
 PORTABLE_CLUSTER = 8   # the largest cluster every sm_90 launch may take
 
 
-def _cluster_floats(h: int, s: int, r: int) -> int:
-    """Floats of shared memory a CTA of the cluster plan uses (the
-    ``ClusterLayout`` of ``csrc/lstm_sequence.cu``, whose launcher refuses
-    a plan that gives it fewer bytes): its slice of rw [hs, 4U]; two h buffers [rp, hs]; the
-    P partial sums [P, rp, 4U]; two xw buffers [R, 4U]; c and h_t [R, U].
-    ``hs`` is H rounded up to 4, ``rp`` R rounded up to its register block
-    (R up to 4 rows, else 4) and P the slices of the H products (threads /
-    4U)."""
+def _cluster_units(h: int, s: int, elem: int = 4) -> int:
+    """U, the hidden units a CTA of the cluster plan owns: ceil(h / s),
+    rounded up to even for 2-byte elements (a bf16 CTA copies its xw and
+    rw columns two units, 4 bytes, at a time)."""
     u = -(-h // s)
+    return u + (u & 1) if elem == 2 else u
+
+
+def _cluster_bytes(h: int, s: int, r: int, elem: int = 4) -> int:
+    """Bytes of shared memory a CTA of the cluster plan uses (the
+    ``ClusterLayout`` of ``csrc/lstm_sequence.cu``, whose launcher refuses
+    a plan that gives it fewer bytes), for rw, h and xw elements of
+    ``elem`` bytes (4: f32, 2: bf16): its slice of rw [hs, 4U]; two h
+    buffers [rp, hs]; then, in f32 whatever ``elem``, the P partial sums
+    [P, rp, 4U]; two xw buffers [R, 4U] of ``elem`` bytes; c and h_t [R, U]
+    in f32. ``hs`` is H rounded up to 4, ``rp`` R rounded up to its
+    register block (R up to 4 rows, else 4) and P the slices of the H
+    products (threads / 4U)."""
+    u = _cluster_units(h, s, elem)
     cols = 4 * u
     hs = -(-h // 4) * 4
     rb = min(r, 4)
     rp = -(-r // rb) * rb
     p = 1 if cols >= CLUSTER_THREADS else CLUSTER_THREADS // cols
-    return hs * cols + 2 * rp * hs + p * rp * cols + 2 * r * cols + 2 * r * u
+    return (elem * (hs * cols + 2 * rp * hs + 2 * r * cols)
+            + 4 * (p * rp * cols + 2 * r * u))
 
 
 def lstm_plan(n: int, h: int, sms: int, smem_per_block: int,
               max_cluster: int = PORTABLE_CLUSTER, cluster_size: int = 0,
-              clusters: int = 0) -> dict:
+              clusters: int = 0, elem: int = 4) -> dict:
     """The plan of the LSTM sequence kernel for ``n`` batch rows at width
     ``h`` on a device with ``sms`` SMs and ``smem_per_block`` bytes of
-    opt-in shared memory a block; the single place the choice is made, from
-    the shapes and the device's limits alone.
+    opt-in shared memory a block, for elements of ``elem`` bytes (4: the
+    f32 kernel, 2: K1-bf16); the single place the choice is made, from the
+    shapes and the device's limits alone.
 
     The cluster plan when one cluster's shared memory holds all of rw: S
     CTAs a cluster (8, or 16 when 8 cannot hold it and ``max_cluster``
     allows; ``cluster_size`` forces one), CTA s owning hidden units [sU,
-    sU+U), U = ceil(h/S), and R batch rows a cluster, R = ceil(n / C0) for
-    C0 = ``clusters`` (the clusters that can be resident at once, when
-    known) or ``sms // S``, shrunk until the CTA's bytes fit. Returns
-    ``{"plan": "cluster", "S", "U", "R", "C", "smem"}`` with C = ceil(n/R)
-    clusters and ``smem`` bytes a CTA; else ``{"plan": "grid"}`` (the
-    cooperative grid plan, which sizes itself in the kernel)."""
+    sU+U), U = ceil(h/S) (even for bf16), and R batch rows a cluster, R =
+    ceil(n / C0) for C0 = ``clusters`` (the clusters that can be resident
+    at once, when known) or ``sms // S``, shrunk until the CTA's bytes fit.
+    Returns ``{"plan": "cluster", "S", "U", "R", "C", "smem", "elem"}``
+    with C = ceil(n/R) clusters and ``smem`` bytes a CTA; else ``{"plan":
+    "grid"}`` (the cooperative grid plan, which sizes itself in the
+    kernel)."""
     sizes = (cluster_size,) if cluster_size else (8, 16)
     for s in sizes:
         if s < 1 or s > max_cluster or s > 16:
             continue
         resident = clusters or max(1, sms // s)
         r = -(-n // resident)
-        while r >= 1 and 4 * _cluster_floats(h, s, r) > smem_per_block:
+        while r >= 1 and _cluster_bytes(h, s, r, elem) > smem_per_block:
             r -= 1
         if r >= 1:
-            return {"plan": "cluster", "S": s, "U": -(-h // s), "R": r,
-                    "C": -(-n // r), "smem": 4 * _cluster_floats(h, s, r)}
+            return {"plan": "cluster", "S": s, "U": _cluster_units(h, s, elem),
+                    "R": r, "C": -(-n // r), "smem": _cluster_bytes(h, s, r, elem),
+                    "elem": elem}
     return {"plan": "grid"}
 
 
@@ -661,7 +678,14 @@ def lstm_sequence_plain(xw, rw, h0, c0):
     ``_lstm_ref_scan`` (``pallas_kernels.py:98``): over ``xw`` [T,N,4H]
     (``x@W+b``, IFOG blocks), ``rw`` [H,4H] and the carry ``h0``, ``c0``
     [N,H], each step ``z = xw_t + h@rw``, sigmoid i/f/o, tanh g,
-    ``c = f·c + i·g``, ``h = o·tanh(c)``. Returns ``(ys [T,N,H], hN, cN)``."""
+    ``c = f·c + i·g``, ``h = o·tanh(c)``. Returns ``(ys [T,N,H], hN, cN)``.
+
+    On bf16 tensors this is the plain version of K1-bf16: each op rounds
+    its result to bf16 where the TPU kernel on a bf16 ``xw`` rounds it
+    (``_lstm_kernel``, ``pallas_kernels.py:47-48``): ``h@rw`` accumulated
+    in f32 and rounded once, ``xw_t +`` that rounded, each gate rounded,
+    ``f·c``, ``i·g``, their sum, ``tanh(c)`` and ``o·tanh(c)`` each
+    rounded; h and c are carried in bf16."""
     hidden = rw.shape[0]
     h, c = h0, c0
     ys = []
@@ -698,14 +722,14 @@ def _device_lstm_limits(index: int):
 
 def cluster_occupancy(plan: dict, h: int, device=None) -> int:
     """How many clusters of a cluster ``plan`` at width ``h`` can be
-    resident at once on ``device`` (``cudaOccupancyMaxActiveClusters``);
-    raises when none can."""
+    resident at once on ``device`` (``cudaOccupancyMaxActiveClusters``, for
+    the kernel of the plan's element size); raises when none can."""
     dev = torch.device(device if device is not None else "cuda")
     fn = _load(_LSTM_SRC, "dl4j_lstm_cluster_occupancy",
-               [ctypes.c_int] * 4 + [_INT_P])
+               [ctypes.c_int] * 5 + [_INT_P])
     out = ctypes.c_int()
     with torch.cuda.device(dev):
-        err = fn(h, plan["S"], plan["R"], plan["smem"], ctypes.byref(out))
+        err = fn(h, plan["S"], plan["R"], plan["smem"], plan["elem"], ctypes.byref(out))
     if err != 0 or out.value < 1:
         raise RuntimeError(f"lstm_sequence: no cluster of {plan['S']} CTAs with "
                            f"{plan['smem']} bytes of shared memory can be scheduled "
@@ -713,19 +737,20 @@ def cluster_occupancy(plan: dict, h: int, device=None) -> int:
     return out.value
 
 
-def _plan_for(index: int, n: int, h: int, plan: str, cluster_size: int) -> dict:
-    key = (index, n, h, plan, cluster_size)
+def _plan_for(index: int, n: int, h: int, plan: str, cluster_size: int,
+              elem: int = 4) -> dict:
+    key = (index, n, h, plan, cluster_size, elem)
     got = _lstm_plans.get(key)
     if got is not None:
         return got
     sms, smem, max_cluster = _device_lstm_limits(index)
     got = ({"plan": "grid"} if plan == "grid" else
-           lstm_plan(n, h, sms, smem, max_cluster, cluster_size))
+           lstm_plan(n, h, sms, smem, max_cluster, cluster_size, elem=elem))
     if got["plan"] == "cluster":
         # R from the clusters the card can really hold at once
         resident = cluster_occupancy(got, h, index)
         if resident < got["C"] and got["R"] < n:
-            got = lstm_plan(n, h, sms, smem, max_cluster, got["S"], resident)
+            got = lstm_plan(n, h, sms, smem, max_cluster, got["S"], resident, elem)
             cluster_occupancy(got, h, index)
     elif plan == "cluster":
         raise ValueError(f"lstm_sequence: rw [{h},{4 * h}] does not fit the shared "
@@ -739,7 +764,11 @@ def _plan_for(index: int, n: int, h: int, plan: str, cluster_size: int) -> dict:
 def lstm_sequence(xw, rw, h0, c0, units_per_block: int = 0, plan: str = "auto",
                   cluster_size: int = 0):
     """The whole LSTM recurrence in one launch: ``(ys [T,N,H], hN, cN)``
-    from f32 ``xw`` [T,N,4H], ``rw`` [H,4H], ``h0``, ``c0`` [N,H].
+    from ``xw`` [T,N,4H], ``rw`` [H,4H], ``h0``, ``c0`` [N,H], all four
+    float32 (K1) or all four bfloat16 (K1-bf16: the TPU kernel on a bf16
+    ``xw``, rounding where :func:`lstm_sequence_plain` on bf16 tensors
+    rounds; the outputs are bf16). A mix of dtypes raises, bf16 ``xw`` with
+    f32 ``h0``/``c0`` included, as the TPU kernel raises on it.
 
     CUDA tensors launch the kernel and raise on what it does not take.
     ``plan``: "cluster" (thread-block clusters, rw resident in their shared
@@ -752,14 +781,15 @@ def lstm_sequence(xw, rw, h0, c0, units_per_block: int = 0, plan: str = "auto",
     views (a carry sliced from a sequence, an ``RW`` slice) are copied to
     contiguous memory first. CPU tensors get :func:`lstm_sequence_plain`.
     ``lstm_sequence.launches`` counts launches,
-    ``lstm_sequence.launches_by_plan`` the same by plan."""
+    ``lstm_sequence.launches_by_plan`` the same by plan and
+    ``lstm_sequence.launches_by_dtype`` by dtype ("f32", "bf16")."""
     if _on_cpu("lstm_sequence", xw, rw, h0, c0):
         return lstm_sequence_plain(xw, rw, h0, c0)
     # checks that cost little: a sampling step launches this for T = 1
-    f32 = torch.float32
-    if not (xw.dtype == rw.dtype == h0.dtype == c0.dtype == f32):
-        raise ValueError(f"lstm_sequence takes float32; got "
-                         f"{[x.dtype for x in (xw, rw, h0, c0)]}")
+    suffix = _LSTM_DTYPES.get(xw.dtype)
+    if suffix is None or not (xw.dtype == rw.dtype == h0.dtype == c0.dtype):
+        raise ValueError(f"lstm_sequence takes float32 or bfloat16, all four of one "
+                         f"dtype; got {[x.dtype for x in (xw, rw, h0, c0)]}")
     if xw.ndim != 3 or xw.shape[2] % 4:
         raise ValueError(f"lstm_sequence: xw must be [T,N,4H]; got {tuple(xw.shape)}")
     t, n, h4 = xw.shape
@@ -777,57 +807,70 @@ def lstm_sequence(xw, rw, h0, c0, units_per_block: int = 0, plan: str = "auto",
     if max(t, n, hidden) > 2 ** 31 - 1:
         raise ValueError("lstm_sequence: T, N and H must fit the kernel's int arguments")
     xw, rw, h0, c0 = xw.contiguous(), rw.contiguous(), h0.contiguous(), c0.contiguous()
-    ys = torch.empty((t, n, hidden), dtype=f32, device=xw.device)
+    ys = torch.empty((t, n, hidden), dtype=xw.dtype, device=xw.device)
     if t == 0 or n == 0 or hidden == 0:
         return ys, h0.clone(), c0.clone()
     hn, cn = torch.empty_like(h0), torch.empty_like(c0)
     index = xw.device.index
     if index is None:
         index = torch.cuda.current_device()
-    chosen = _plan_for(index, n, hidden, "grid" if units_per_block else plan, cluster_size)
+    chosen = _plan_for(index, n, hidden, "grid" if units_per_block else plan, cluster_size,
+                       xw.element_size())
     ptrs = (xw.data_ptr(), rw.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             ys.data_ptr(), hn.data_ptr(), cn.data_ptr())
     with _on_device(index):
         stream = torch.cuda.current_stream().cuda_stream
         if chosen["plan"] == "cluster":
-            fn = _load(_LSTM_SRC, "dl4j_lstm_sequence_cluster_f32", _LSTM_CLUSTER_ARGS)
+            fn = _load(_LSTM_SRC, f"dl4j_lstm_sequence_cluster_{suffix}", _LSTM_CLUSTER_ARGS)
             err = fn(*ptrs, t, n, hidden, chosen["S"], chosen["R"], chosen["smem"], stream)
         else:
-            fn = _load(_LSTM_SRC, "dl4j_lstm_sequence_f32", _LSTM_ARGS)
+            fn = _load(_LSTM_SRC, f"dl4j_lstm_sequence_{suffix}", _LSTM_ARGS)
             err = fn(*ptrs, t, n, hidden, int(units_per_block), stream)
     if err == _COOPERATIVE_LAUNCH_TOO_LARGE:
         raise RuntimeError(
             f"lstm_sequence: the grid for H={hidden} at {units_per_block or 'the default'} "
             f"units per block cannot be resident at once "
             f"(cudaErrorCooperativeLaunchTooLarge)")
-    _launched(err, lstm_sequence, f"lstm_sequence ({chosen['plan']} plan)")
+    _launched(err, lstm_sequence, f"lstm_sequence ({suffix}, {chosen['plan']} plan)")
     with _count_lock:
         lstm_sequence.launches_by_plan[chosen["plan"]] += 1
+        lstm_sequence.launches_by_dtype[suffix] += 1
     return ys, hn, cn
 
 
-lstm_sequence.launches = 0
-lstm_sequence.launches_by_plan = {"cluster": 0, "grid": 0}
+def reset_lstm_counts() -> None:
+    """Set :func:`lstm_sequence`'s launch counts (total, by plan, by dtype)
+    to 0."""
+    with _count_lock:
+        lstm_sequence.launches = 0
+        lstm_sequence.launches_by_plan = {"cluster": 0, "grid": 0}
+        lstm_sequence.launches_by_dtype = {"f32": 0, "bf16": 0}
+
+
+reset_lstm_counts()
 
 
 def lstm_plan_for(xw, cluster_size: int = 0) -> dict:
     """The plan ``lstm_sequence(xw, ...)`` takes with ``plan="auto"`` on
-    ``xw``'s CUDA device (with the card's resident-cluster count)."""
+    ``xw``'s CUDA device (with the card's resident-cluster count) and
+    dtype."""
     t, n, h4 = xw.shape
     index = xw.device.index if xw.device.index is not None else torch.cuda.current_device()
-    return dict(_plan_for(index, n, h4 // 4, "auto", cluster_size))
+    return dict(_plan_for(index, n, h4 // 4, "auto", cluster_size, xw.element_size()))
 
 
 def lstm_chain_floor(t: int, plan: dict, n: int, h: int, device=None) -> torch.Tensor:
     """Launches the chain-floor kernel of a cluster ``plan``: ``t`` steps of
     the hand-over of h through distributed shared memory and the cluster
     barrier, no products and no cell (the least time ``t`` recurrent steps
-    can take on that geometry). Returns its [n, h] output."""
+    can take on that geometry, with h buffers of the plan's element size).
+    Returns its [n, h] output (f32)."""
     if plan.get("plan") != "cluster":
         raise ValueError("lstm_chain_floor times the cluster plan")
     dev = torch.device(device if device is not None else "cuda")
     out = torch.empty((n, h), dtype=torch.float32, device=dev)
-    fn = _load(_LSTM_SRC, "dl4j_lstm_chain_floor_f32", _CHAIN_ARGS)
+    suffix = "bf16" if plan["elem"] == 2 else "f32"
+    fn = _load(_LSTM_SRC, f"dl4j_lstm_chain_floor_{suffix}", _CHAIN_ARGS)
     with torch.cuda.device(dev):
         err = fn(out.data_ptr(), t, n, h, plan["S"], plan["R"], plan["smem"],
                  torch.cuda.current_stream().cuda_stream)
@@ -840,7 +883,8 @@ class LSTMSequenceFunction(torch.autograd.Function):
     """Differentiable :func:`lstm_sequence`: the kernel forward; the
     backward recomputes :func:`lstm_sequence_plain` from the saved inputs
     and differentiates it, as the reference's ``_fused_bwd`` takes the VJP
-    of ``_lstm_ref_scan`` (``pallas_kernels.py:128-131``)."""
+    of ``_lstm_ref_scan`` (``pallas_kernels.py:128-131``); on bf16 leaves
+    that is the VJP of the bf16 recurrence, as the reference takes it."""
 
     @staticmethod
     def forward(ctx, xw, rw, h0, c0):
@@ -865,15 +909,19 @@ class LSTMSequenceFunction(torch.autograd.Function):
 class FusedLSTMHelper(LSTMHelper):
     """The "lstm" seam's fused kernel, counterpart of ``PallasLSTMHelper``.
     ``supports`` is the reference's gate (:147-151): no mask, no peepholes,
-    sigmoid gates, tanh cell; and a float32 layer (the kernel's only
-    type). ``forward_seq`` hoists ``x@W+b`` into one
+    sigmoid gates, tanh cell; and a float32 or bfloat16 layer (the
+    kernel's types). ``forward_seq`` hoists ``x@W+b`` into one
     product, runs the recurrence through :func:`lstm_sequence` (through
     :class:`LSTMSequenceFunction` when a gradient is wanted) and returns
-    ``(ys [N,T,H], (hN, cN))``."""
+    ``(ys [N,T,H], (hN, cN))``. Registered explicitly, it hands a mixed
+    carry (f32 h0, c0 against a bf16 ``x``) to the kernel, which raises on
+    CUDA tensors, as the reference's registered helper does; the auto seam
+    (``nn/layers/recurrent.py``) sends such a carry to the plain loop
+    instead (:func:`kernel_dtypes_match`)."""
 
     def supports(self, layer, mask) -> bool:
         return (mask is None
-                and getattr(layer, "dtype", None) in (None, "float32")
+                and getattr(layer, "dtype", None) in (None, "float32", "bfloat16")
                 and not getattr(layer, "peephole", False)
                 and layer.gate_activation == "sigmoid"
                 and layer.activation in ("tanh",))
@@ -891,3 +939,15 @@ class FusedLSTMHelper(LSTMHelper):
         else:
             ys, hn, cn = lstm_sequence(xw, rw, h0, c0)
         return ys.transpose(0, 1), (hn, cn)
+
+
+def kernel_dtypes_match(x, rw, carry) -> bool:
+    """Whether K1 (f32) or K1-bf16 takes this LSTM's sequence: ``x`` and
+    the recurrent weights ``rw`` share a kernel dtype, and the carry is
+    None or of that dtype too. A mixed carry (an f32 TBPTT or
+    ``rnn_time_step`` carry under a bf16 compute dtype) takes the plain
+    loop, as the reference computes it off the TPU (its TPU kernel raises
+    on one)."""
+    if x.dtype not in _LSTM_DTYPES or rw.dtype != x.dtype:
+        return False
+    return carry is None or all(c.dtype == x.dtype for c in carry)

@@ -11,9 +11,10 @@ auto-flash on, float32 or bfloat16 causal attention that
 ``FlashAttentionHelper.supports`` admits takes the kernel
 (``nn/layers/attention.py``); the reference's TPU threshold on T is not
 carried over. Likewise, with no lstm helper registered and
-auto-fused-LSTM on, a float32 standard LSTM that
-``FusedLSTMHelper.supports`` admits takes the fused sequence kernel
-(``nn/layers/recurrent.py``) at any T and any H: the reference's TPU win
+auto-fused-LSTM on, a float32 or bfloat16 standard LSTM that
+``FusedLSTMHelper.supports`` admits, with a carry of its dtype or none,
+takes the fused sequence kernel (``nn/layers/recurrent.py``; a mixed
+carry takes the plain loop) at any T and any H: the reference's TPU win
 region (``_AUTO_LSTM_MIN_T``, ``_AUTO_LSTM_MAX_H``) is not carried over,
 and an H100 threshold waits for a measurement. The "updater" kind takes
 ``FusedUpdaterHelper`` (the fused Adam/Nadam/AMSGrad kernel) when it is

@@ -35,6 +35,13 @@ from deeplearning4j_tpu_torch.nn.layers.pooling import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     BaseRecurrentLayer,
+    BidirectionalWrapper,
+    ConvLSTM2DLayer,
+    GravesBidirectionalLSTMLayer,
     GravesLSTMLayer,
+    GRULayer,
+    LastTimeStepWrapper,
     LSTMLayer,
+    MaskZeroLayer,
+    SimpleRnnLayer,
 )

@@ -194,7 +194,7 @@ class Layer:
             if v is None:
                 continue
             if isinstance(v, (Updater, Schedule, Distribution, IDropout,
-                              IWeightNoise)):
+                              IWeightNoise, Layer)):  # a Layer: a wrapper's inner one
                 v = v.to_dict()
             elif (isinstance(v, list) and v
                   and all(isinstance(c, LayerConstraint) for c in v)):
@@ -242,6 +242,8 @@ def layer_from_dict(d: dict) -> Layer:
             kw[k] = IDropout.from_dict(v)
         elif isinstance(v, dict) and "@weight_noise" in v:
             kw[k] = IWeightNoise.from_dict(v)
+        elif isinstance(v, dict) and "@layer" in v:
+            kw[k] = layer_from_dict(v)
         elif (isinstance(v, list) and v
               and all(isinstance(c, dict) and "@constraint" in c for c in v)):
             kw[k] = constraints_from_config(v)

@@ -69,6 +69,20 @@ def nchw_pad(x, kernel, stride, dilation, padding, mode, value=0.0):
     return F.pad(x, (left, right, top, bottom), value=value)
 
 
+def conv2d_nhwc(x, w, stride, dilation, padding, mode):
+    """NHWC ``x`` convolved with HWIO ``w``, NHWC out (no bias): an NCHW
+    view of ``x``, ``w`` as OIHW; "same" pads the XLA way
+    (:func:`same_pads`), else ``padding`` on both sides."""
+    xc = x.permute(0, 3, 1, 2)
+    pad = 0
+    if mode == "same":
+        xc = nchw_pad(xc, (w.shape[0], w.shape[1]), stride, dilation, padding, "same")
+    else:
+        pad = padding
+    return F.conv2d(xc, w.permute(3, 2, 0, 1), None, stride, pad,
+                    dilation).permute(0, 2, 3, 1)
+
+
 @register_layer
 @dataclasses.dataclass
 class ConvolutionLayer(Layer):
@@ -126,16 +140,8 @@ class ConvolutionLayer(Layer):
 
     def forward(self, params, x, *, mask=None, train=False, gen=None):
         x = self._dropout(x, train, gen)  # on NHWC, before the view
-        xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC input
-        pad = 0
-        if self.convolution_mode == "same":
-            xc = nchw_pad(xc, self.kernel_size, self.stride, self.dilation,
-                          self.padding, "same")
-        else:
-            pad = self.padding
-        y = F.conv2d(xc, params["W"].permute(3, 2, 0, 1), None, self.stride,
-                     pad, self.dilation)
-        y = y.permute(0, 2, 3, 1)  # back to NHWC
+        y = conv2d_nhwc(x, params["W"], self.stride, self.dilation, self.padding,
+                        self.convolution_mode)
         if self.has_bias:
             y = y + params["b"]
         return self.act_fn()(y)

@@ -64,6 +64,8 @@ class DenseLayer(Layer):
         if input_type.kind in ("cnn", "cnn_flat"):
             return (lambda x: x.reshape(x.shape[0], -1),
                     InputType.feed_forward(input_type.flat_size()))
+        if input_type.kind == "cnn_seq":  # per step; then position-wise
+            return input_type.cnn_seq_to_rnn()
         return None
 
     def param_shapes(self):
@@ -120,7 +122,9 @@ class DropoutLayer(Layer):
 class EmbeddingSequenceLayer(Layer):
     """Sequence of indices → sequence of embeddings: [N,T] (or [N,T,1])
     token ids → [N,T,n_out]. Ids may arrive as floats (a network's inputs
-    are cast to its dtype) and are truncated to integers."""
+    are cast to its dtype) and are truncated to integers. An id in
+    ``[-n_in, 0)`` stands for ``id + n_in`` (the reference's ``jnp.take``);
+    ids outside ``[-n_in, n_in)`` are refused."""
 
     n_in: int = 0
     n_out: int = 0
@@ -156,9 +160,11 @@ class EmbeddingSequenceLayer(Layer):
             # an out-of-range id would fault the device (a CUDA gather
             # asserts and poisons the context); refuse it here instead
             lo, hi = torch.aminmax(idx)
-            if int(lo) < 0 or int(hi) >= self.n_in:
-                raise ValueError(f"token ids must lie in [0, {self.n_in}); "
-                                 f"got [{int(lo)}, {int(hi)}]")
+            if int(lo) < -self.n_in or int(hi) >= self.n_in:
+                raise ValueError(f"token ids must lie in [-{self.n_in}, "
+                                 f"{self.n_in}); got [{int(lo)}, {int(hi)}]")
+        # ids in [-n_in, 0) count from the end, as jnp.take wraps them
+        idx = torch.where(idx < 0, idx + self.n_in, idx)
         y = params["W"][idx]  # [N,T,n_out]
         if self.has_bias:
             y = y + params["b"]

@@ -169,8 +169,9 @@ def test_binomial_sampling_is_seeded_and_straight_through():
 
 
 def test_kinds_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="cnn_seq"):
-        pp.output_type("reshape:2,3,2,5", InputType.feed_forward(60))
+    # image sequences (cnn_seq) are ported: a rank-4 reshape gives one
+    assert pp.output_type("reshape:2,3,2,5", InputType.feed_forward(60)) == \
+        InputType.recurrent_convolutional(3, 2, 5, 2)
     with pytest.raises(NotImplementedError, match="cnn3d"):
         InputType.convolutional3d(2, 3, 4, 1)
     with pytest.raises(ValueError, match="unknown preprocessor"):

@@ -509,6 +509,110 @@ def test_lstm_sequence_counts_launches_by_plan(card):
             p: int(p == plan) for p in after}
 
 
+# ------------------------------------------------- K1-bf16: LSTM on bf16
+def _lstm_bf16_close(got, ref):
+    """K1-bf16 against its plain version (the same rounding points; only
+    the f32 sums of h@rw run in another order): each entry within 128
+    units of 2^-8 x max(|plain|, 2^-6) and the whole within 5e-3 relative
+    Frobenius error, chip_smoke.py's lstm_bf16_kernel limits."""
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    g, r = got.double(), ref.double()
+    units = (g - r).abs() / (2.0 ** -8 * r.abs().clamp_min(2.0 ** -6))
+    assert units.max().item() <= 128.0
+    assert ((g - r).norm() / r.norm().clamp_min(1e-30)).item() <= 5e-3
+
+
+def _bf16_inputs(shape, device, seed=30):
+    return [a.bfloat16() for a in _lstm_inputs(shape, device, seed)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw", [((128, 64, 512), {}), ((50, 32, 200), {}),
+                                      ((12, 4, 200), {}), ((1, 4, 200), {}),
+                                      ((9, 5, 37), {"plan": "cluster", "cluster_size": 16}),
+                                      ((7, 3, 9), {"plan": "cluster", "cluster_size": 8}),
+                                      ((6, 33, 64), {"plan": "grid"}),
+                                      ((5, 3, 37), {"plan": "grid"})])
+def test_lstm_sequence_bf16_matches_plain(card, shape, kw):
+    """K1-bf16 on both plans; odd H (units copied one at a time, CTAs with
+    a partial slice or none)."""
+    args = _bf16_inputs(shape, card)
+    before = dict(ck.lstm_sequence.launches_by_dtype)
+    got = ck.lstm_sequence(*args, **kw)
+    torch.cuda.synchronize()
+    assert ck.lstm_sequence.launches_by_dtype == {"f32": before["f32"],
+                                                  "bf16": before["bf16"] + 1}
+    for g, ref in zip(got, ck.lstm_sequence_plain(*args)):
+        _lstm_bf16_close(g, ref)
+
+
+@pytest.mark.cuda
+def test_lstm_sequence_bf16_takes_unaligned_inputs(card):
+    """xw and rw starting 2 bytes past a 4-byte boundary: the cluster plan
+    copies one element at a time."""
+    xw, rw, h0, c0 = _bf16_inputs((8, 6, 40), card, seed=31)
+    buf_x = torch.empty(xw.numel() + 1, dtype=torch.bfloat16, device=card)
+    buf_r = torch.empty(rw.numel() + 1, dtype=torch.bfloat16, device=card)
+    xw_u = buf_x[1:].view(xw.shape).copy_(xw)
+    rw_u = buf_r[1:].view(rw.shape).copy_(rw)
+    assert xw_u.data_ptr() % 4 == 2 and xw_u.is_contiguous()
+    got = ck.lstm_sequence(xw_u, rw_u, h0, c0, plan="cluster")
+    for g, ref in zip(got, ck.lstm_sequence_plain(xw, rw, h0, c0)):
+        _lstm_bf16_close(g, ref)
+
+
+@pytest.mark.cuda
+def test_lstm_sequence_bf16_plans_and_refusals(card):
+    xw = torch.empty((128, 64, 4 * 512), dtype=torch.bfloat16, device=card)
+    plan = ck.lstm_plan_for(xw)
+    assert plan["plan"] == "cluster" and plan["S"] == 16 and plan["elem"] == 2
+    assert ck.cluster_occupancy(plan, 512) >= plan["C"]
+    assert ck.lstm_plan_for(xw.float()) == {"plan": "grid"}  # f32 rw fits no cluster
+    out = ck.lstm_chain_floor(20, plan, 64, 512)
+    torch.cuda.synchronize()
+    assert out.shape == (64, 512) and torch.isfinite(out).all()
+    xw, rw, h0, c0 = _bf16_inputs((4, 2, 8), card, seed=32)
+    before = ck.lstm_sequence.launches
+    with pytest.raises(ValueError, match="all four of one dtype"):
+        ck.lstm_sequence(xw, rw, h0.float(), c0.float())
+    with pytest.raises(ValueError, match="all four of one dtype"):
+        ck.lstm_sequence(xw.float(), rw, h0, c0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ck.lstm_sequence(xw.half(), rw.half(), h0.half(), c0.half())
+    assert ck.lstm_sequence.launches == before
+
+
+@pytest.mark.cuda
+def test_bf16_lstm_network_takes_k1_bf16_and_a_mixed_carry_takes_the_loop(card):
+    """A bf16 standard-LSTM network: 2 K1-bf16 launches in fit and in
+    output, none of f32; under TBPTT its carries are f32 (as the
+    reference's), so the chunks take the plain loop: no launch."""
+    def conf(tbptt):
+        b = NeuralNetConfiguration.builder().seed(5).compute_dtype("bfloat16").list()
+        b = (b.layer(LSTMLayer(n_out=32, activation="tanh"))
+             .layer(LSTMLayer(n_out=32, activation="tanh"))
+             .layer(RnnOutputLayer(n_out=7)).set_input_type(InputType.recurrent(7)))
+        if tbptt:
+            b = b.backprop_type("TruncatedBPTT").t_bptt_length(4)
+        return b.build()
+
+    rng = np.random.default_rng(33)
+    x = np.eye(7, dtype=np.float32)[rng.integers(0, 7, (4, 12))]
+    net = MultiLayerNetwork(conf(False)).init()
+    ck.reset_lstm_counts()
+    net.fit(x, x)
+    out = net.output(x)
+    torch.cuda.synchronize()
+    assert ck.lstm_sequence.launches_by_dtype == {"f32": 0, "bf16": 4}
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    tb = MultiLayerNetwork(conf(True)).init()
+    ck.reset_lstm_counts()
+    tb.fit(x, x)
+    tb.rnn_time_step(x[:, :3])
+    torch.cuda.synchronize()
+    assert ck.lstm_sequence.launches == 0 and np.isfinite(tb.score_)
+
+
 @pytest.mark.cuda
 def test_lstm_chain_floor_runs_the_hand_over(card):
     xw = torch.empty((50, 32, 800), device=card)

@@ -12,7 +12,9 @@ activation, the ``add`` vertex, a conv → dense flatten in DL4J's C, H, W
 order) written as a DL4J zip by the JAX package's
 ``export_computation_graph`` restores in the port within 1e-5 of the JAX
 package's restore. The error cases raise the JAX package's exception
-types; every DL4J layer the port has not ported raises naming it; the
+types; every DL4J layer the port has not ported raises naming it (the
+recurrent wrappers, SimpleRnn and the image-sequence preprocessors are
+held in ``tests/test_torch_recurrent_stack.py``); the
 ND4J and normalizer streams are byte-for-byte the JAX package's.
 """
 
@@ -214,8 +216,7 @@ def _cpu(mod):
     return {"device": "cpu"} if mod is dl4j else {}
 
 
-UNPORTED = ["gravesBidirectionalLSTM", "SimpleRnn", "Bidirectional",
-            "MaskZeroLayer", "autoEncoder", "Upsampling2D", "embedding",
+UNPORTED = ["autoEncoder", "Upsampling2D", "embedding",
             "convolution1d", "subsampling1d", "CenterLossOutputLayer", "loss",
             "RnnLossLayer", "CnnLossLayer", "ElementWiseMult", "FrozenLayer"]
 
@@ -255,10 +256,13 @@ def test_preprocessors_are_serializable_specs_in_dl4j_order():
         InputType.convolutional(4, 4, 2)
     np.testing.assert_array_equal(
         pp.apply(back, pp.apply(spec, torch.from_numpy(x))).numpy(), x)
-    for key in ("cnnToRnn", "rnnToCnn"):  # image sequences: not ported yet
-        with pytest.raises(dl4j.UnsupportedDl4jConfigurationException, match=key):
-            dl4j._convert_dl4j_preprocessor({key: {
-                "inputHeight": 2, "inputWidth": 2, "numChannels": 4}})
+    # image sequences: each step in C, H, W order, as the reference's closures
+    seq = np.arange(2 * 3 * 2 * 2 * 4, dtype=np.float32).reshape(2, 3, 2, 2, 4)
+    for key, arr in (("cnnToRnn", seq), ("rnnToCnn", seq.reshape(2, 3, 16))):
+        cfg = {key: {"inputHeight": 2, "inputWidth": 2, "numChannels": 4}}
+        np.testing.assert_array_equal(
+            pp.apply(dl4j._convert_dl4j_preprocessor(cfg), torch.from_numpy(arr)).numpy(),
+            np.asarray(jdl4j._convert_dl4j_preprocessor(cfg)(arr)))
     assert dl4j._convert_dl4j_preprocessor({"rnnToFeedForward": {}}) is None
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")

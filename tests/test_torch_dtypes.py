@@ -127,10 +127,13 @@ def test_auto_lstm_declines_other_dtypes(monkeypatch, dtype):
     x = torch.randn((2, 5, 3), generator=gen).to(dtype)
     before = ck.lstm_sequence.launches
     ys, _ = layer.forward_seq(params, x)
-    assert spy.calls == [] and ck.lstm_sequence.launches == before
-    assert ys.dtype == dtype and ys.abs().sum() > 0
+    if dtype == torch.bfloat16:  # K1-bf16 takes it, as the reference's kernel does
+        assert spy.calls == [torch.bfloat16]
+    else:
+        assert spy.calls == [] and ck.lstm_sequence.launches == before
+        assert ys.dtype == dtype and ys.abs().sum() > 0
     layer.forward_seq(layer.init_params(gen, torch.float32), x.float())
-    assert spy.calls == [torch.float32]  # the positive control
+    assert spy.calls[-1:] == [torch.float32]  # the positive control
 
 
 def test_fused_lstm_helper_declines_a_float64_layer():

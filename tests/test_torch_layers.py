@@ -108,6 +108,23 @@ def test_embedding_rejects_out_of_range_ids(rng):
         tl.forward(tp, torch.tensor([[3.0, 10.0]]))
 
 
+@pytest.mark.parametrize("ids", [[-1, 0], [-4, 3]], ids=["-1,0", "-4,3"])
+def test_embedding_wraps_negative_ids_as_the_reference(ids):
+    w = np.arange(12, dtype=np.float32).reshape(4, 3)
+    jl = jcore.EmbeddingSequenceLayer(n_in=4, n_out=3)
+    tl = tcore.EmbeddingSequenceLayer(n_in=4, n_out=3)
+    idx = np.array([ids], np.float32)
+    want = np.asarray(jl.forward({"W": jnp.asarray(w)}, jnp.asarray(idx))[0])
+    got = tl.forward({"W": torch.from_numpy(w)}, torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy()[0], w[[i % 4 for i in ids]])
+    with pytest.raises(ValueError, match="token ids"):
+        tl.forward({"W": torch.from_numpy(w)}, torch.tensor([[-5.0, 0.0]]))
+    with tcore.unchecked_token_ids():  # no read of the ids: the wrap is a torch.where
+        np.testing.assert_array_equal(
+            tl.forward({"W": torch.from_numpy(w)}, torch.from_numpy(idx)).numpy(), want)
+
+
 def test_positional(rng):
     x = rng.normal(0, 1, (2, 9, 16)).astype(np.float32)
     jl = jcore.PositionalEmbeddingLayer(n_in=16, max_len=32)

@@ -300,10 +300,10 @@ def test_cluster_plan_fits_the_shared_memory_it_is_given(smem, n, h):
         assert 4 * h * 4 * -(-h // 16) > smem
         return
     assert plan["smem"] <= smem
-    assert plan["smem"] == 4 * ck._cluster_floats(h, plan["S"], plan["R"])
+    assert plan["smem"] == ck._cluster_bytes(h, plan["S"], plan["R"])
     # the largest R that fits: one more row would not
     if plan["R"] < -(-n // (132 // plan["S"])):
-        assert 4 * ck._cluster_floats(h, plan["S"], plan["R"] + 1) > smem
+        assert ck._cluster_bytes(h, plan["S"], plan["R"] + 1) > smem
 
 
 def _cluster_emulation(xw, rw, h0, c0, plan):
@@ -313,7 +313,9 @@ def _cluster_emulation(xw, rw, h0, c0, plan):
     split them) from ITS OWN copy of h_{t-1}, then writing its units of h_t
     into buffer (t+1)&1 of every CTA of the cluster. Buffer t&1 is never
     written during step t (asserted), which is what one barrier a step
-    relies on."""
+    relies on. On bf16 inputs (K1-bf16) the slices' products are summed in
+    f32 and rounded once before ``xw`` is added, and every later op rounds
+    to bf16, as the kernel's ``cell_bf16`` does."""
     t_len, n, h4 = xw.shape
     h = h4 // 4
     s, u, r = plan["S"], plan["U"], plan["R"]
@@ -321,8 +323,9 @@ def _cluster_emulation(xw, rw, h0, c0, plan):
     p = 1 if cols >= ck.CLUSTER_THREADS else ck.CLUSTER_THREADS // cols
     hs = -(-h // 4) * 4
     ks = -(-(-(-hs // p)) // 4) * 4
-    ys = torch.zeros(t_len, n, h)
-    hn, cn = torch.zeros(n, h), torch.zeros(n, h)
+    slices = [(k0, min(h, k0 + ks)) for k0 in range(0, p * ks, ks) if k0 < h]
+    ys = torch.zeros(t_len, n, h, dtype=xw.dtype)
+    hn, cn = torch.zeros(n, h, dtype=xw.dtype), torch.zeros(n, h, dtype=xw.dtype)
     for row0 in range(0, n, r):
         rows = slice(row0, min(n, row0 + r))
         hbuf = [[h0[rows].clone(), torch.zeros_like(h0[rows])] for _ in range(s)]
@@ -335,10 +338,13 @@ def _cluster_emulation(xw, rw, h0, c0, plan):
                     continue
                 idx = torch.tensor([g * h + u0 + k for g in range(4) for k in range(uc)])
                 hb = hbuf[rank][t & 1]
-                z = xw[t, rows][:, idx].clone()
-                for part in range(p):
-                    k0, k1 = part * ks, min(h, part * ks + ks)
-                    if k0 < k1:
+                if xw.dtype == torch.bfloat16:  # the slices' f32 sums, rounded once
+                    d = sum(hb[:, k0:k1].float() @ rw[k0:k1][:, idx].float()
+                            for k0, k1 in slices)
+                    z = xw[t, rows][:, idx] + d.bfloat16()
+                else:
+                    z = xw[t, rows][:, idx].clone()
+                    for k0, k1 in slices:
                         z += hb[:, k0:k1] @ rw[k0:k1][:, idx]
                 i, f, o, g = (z[:, j * uc:(j + 1) * uc] for j in range(4))
                 c = torch.sigmoid(f) * cst[rank] + torch.sigmoid(i) * torch.tanh(g)
@@ -373,3 +379,54 @@ def test_cluster_partition_emulation_matches_plain_and_reference(shape, kw):
             want = np.asarray(want)
             bound = 1e-5 * max(1.0, float(np.abs(want).max()))
             assert np.abs(g.numpy() - want).max() <= bound, name
+
+
+# ------------------------------------------ K1-bf16's cluster plan, on the CPU
+@pytest.mark.parametrize("t,n,h,s_want,u_want", [(128, 64, 512, 16, 32), (50, 32, 200, 8, 26),
+                                                 (12, 4, 200, 8, 26), (5, 7, 37, 8, 6),
+                                                 (3, 5, 9, 8, 2)])
+def test_bf16_plans_count_bytes_by_element_size(t, n, h, s_want, u_want):
+    """bf16 rw, h and xw take 2 bytes (the partial sums stay f32): H = 512
+    fits a cluster of 16 in bf16 where the f32 rw fits none; a bf16 CTA
+    owns an even number of units; the plan's bytes are ClusterLayout's and
+    the largest R that fits."""
+    plan = ck.lstm_plan(n, h, elem=2, **H100)
+    assert plan["plan"] == "cluster" and plan["elem"] == 2
+    assert (plan["S"], plan["U"]) == (s_want, u_want) and plan["U"] % 2 == 0
+    assert plan["smem"] == ck._cluster_bytes(h, plan["S"], plan["R"], 2) <= H100["smem_per_block"]
+    if plan["R"] < -(-n // (H100["sms"] // plan["S"])):
+        assert ck._cluster_bytes(h, plan["S"], plan["R"] + 1, 2) > H100["smem_per_block"]
+    units = np.zeros(h, int)
+    for rank in range(plan["S"]):
+        units[rank * plan["U"]:min(h, rank * plan["U"] + plan["U"])] += 1
+    assert (units == 1).all()
+    if h == 512:
+        assert ck.lstm_plan(n, h, **H100) == {"plan": "grid"}
+    # f32's count is 4 bytes an element throughout, as before bf16
+    assert ck._cluster_bytes(h, 8, 3) == ck._cluster_bytes(h, 8, 3, 4)
+
+
+@pytest.mark.parametrize("shape,kw", [((12, 5, 37), {"sms": 16}), ((9, 4, 40), {}),
+                                      ((6, 3, 9), {}), ((7, 6, 64), {"cluster_size": 16})])
+def test_bf16_cluster_partition_emulation_matches_plain_and_reference(shape, kw):
+    """The bf16 plan's partition and hand-over (even U, the slices' f32
+    sums rounded once) against the plain bf16 recurrence at the card's
+    limits (each entry within 128 units of 2^-8 x max(|plain|, 2^-6), the
+    whole within 5e-3 relative Frobenius) and the JAX package's Pallas
+    kernel on bf16 within 2^-5."""
+    t, n, h = shape
+    plan = ck.lstm_plan(n, h, kw.get("sms", 132), 232448, 16, kw.get("cluster_size", 0),
+                        elem=2)
+    assert plan["plan"] == "cluster" and plan["U"] % 2 == 0
+    args = [torch.from_numpy(a).bfloat16() for a in _inputs(shape, seed=12)]
+    got = _cluster_emulation(*args, plan)
+    plain = ck.lstm_sequence_plain(*args)
+    kernel = _lstm_pallas_fwd(*(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in args),
+                              interpret=True)
+    for g, p, k, name in zip(got, plain, kernel, ("ys", "hN", "cN")):
+        assert g.dtype == torch.bfloat16, name
+        gd, pd = g.double(), p.double()
+        units = (gd - pd).abs() / (2.0 ** -8 * pd.abs().clamp_min(2.0 ** -6))
+        assert units.max().item() <= 128.0, name
+        assert ((gd - pd).norm() / pd.norm()).item() <= 5e-3, name
+        assert np.abs(gd.numpy() - np.asarray(k, np.float64)).max() <= 2.0 ** -5, name
