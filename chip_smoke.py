@@ -107,9 +107,15 @@ every kernel, and runs eighteen phases:
 13. bf16 kernels (run second, after the f32 kernels): the bf16 flash
    forward and backward kernels against their plain versions (the TPU
    kernel's rounding points; the largest error, each entry's and the
-   relative Frobenius error) at GPT-2-small's shape, causal and full, and
-   at Dh 128 and 256, timed beside their bound at the tensor cores' bf16
-   rate, their plain versions and SDPA in bf16;
+   relative Frobenius error) at GPT-2-small's shape, causal and full, at
+   T = 192 (a last block of 64 rows), at N*H = 97 and at Dh 128 and 256,
+   each shape with the design that served it (Dh 64: the Hopper design of
+   TMA, mbarriers and wgmma; Dh 128 and 256: mma.sync), timed (CUDA-event
+   medians and the profiler's device time a launch) beside their bound at
+   the tensor cores' bf16 rate, their plain versions and SDPA in bf16
+   (its event median and device time too). Before the phases, a SASS check
+   of the built libraries: the Hopper kernels hold HGMMA and UTMALDG, the
+   mma.sync ones neither;
 14. GPT-2-small in mixed precision (``compute_dtype = "bfloat16"``, f32
    masters): 5 fit steps on integer ids with the fused updater (12 / 12 /
    12 bf16 flash launches, no f32 flash launch and 150 fused-Adam
@@ -199,9 +205,28 @@ BWD_SHAPES = [(SERVED_SHAPE, True), ((2, 4, 256, 128), False),
 # BF16_FROB_TOL in relative Frobenius norm, ||kernel - plain|| / ||plain||
 BF16_TOL, BF16_ROW_TOL = 1e-2, 1e-4
 BF16_ELEM_TOL, BF16_FROB_TOL = 2 ** -7, 4e-3
+# the bf16 wrappers' host time a call: back-to-back calls at a shape whose
+# kernels take a few microseconds, on the host clock
+FLASH_HOST_SHAPE = (1, 1, 64, 64)
 FLASH_BF16_SHAPES = [(SERVED_SHAPE, True), (SERVED_SHAPE, False),
+                     ((1, 12, 192, 64), True), ((1, 12, 192, 64), False),
+                     ((1, 97, 1024, 64), True),
                      ((2, 4, 256, 128), True), ((2, 4, 256, 128), False),
                      ((2, 2, 256, 256), True), ((2, 2, 256, 256), False)]
+# the SASS of the bf16 kernels: (library source, kernel-name substring,
+# instructions it must hold, instructions it must not)
+HOPPER_SASS = (
+    ("flash_attention_fwd.cu", "flash_attention_fwd_bf16_wgmma_kernel",
+     ("HGMMA", "UTMALDG"), ()),
+    ("flash_attention_bwd.cu", "flash_attention_bwd_dkv_bf16_wgmma_kernel",
+     ("HGMMA", "UTMALDG"), ()),
+    ("flash_attention_fwd.cu", "flash_attention_fwd_bf16_kernel",
+     ("HMMA",), ("HGMMA", "UTMALDG")),
+    ("flash_attention_bwd.cu", "flash_attention_bwd_dkv_bf16_kernel",
+     ("HMMA",), ("HGMMA", "UTMALDG")),
+    ("flash_attention_bwd.cu", "flash_attention_bwd_dq_bf16_kernel",
+     ("HMMA",), ("HGMMA", "UTMALDG")),
+)
 # fused updater: max |kernel - plain| over each of p, m, v (and v-hat),
 # relative to that tensor's largest entry; the same float32 coefficients
 # both ways, only the kernel's fused multiply-adds round differently
@@ -377,9 +402,9 @@ RESNET_GROUPS = (
 BF16_WHOLE_RATIO, BF16_TENSOR_RATIO, BF16_TENSOR_FLOOR = 2.0, 3.0, 2e-2
 BF16_LOSS_RATIO, BF16_LOSS_FLOOR = 3.0, 1e-3
 GPT2_BF16_GROUPS = (
-    ("K3a-bf16", ("flash_attention_fwd_bf16_kernel",)),
-    ("K3b-dq-bf16", ("flash_attention_bwd_dq_bf16_kernel",)),
-    ("K3b-dkv-bf16", ("flash_attention_bwd_dkv_bf16_kernel",)),
+    ("K3a-bf16", ("flash_attention_fwd_bf16_",)),  # either design
+    ("K3b-dq-bf16", ("flash_attention_bwd_dq_bf16_",)),
+    ("K3b-dkv-bf16", ("flash_attention_bwd_dkv_bf16_",)),
     ("K3 f32", ("flash_attention_fwd_kernel", "flash_attention_bwd_dq_kernel",
                 "flash_attention_bwd_dkv_kernel")),
     ("K2 fused_adam", ("fused_adam_kernel",)),
@@ -630,9 +655,11 @@ def flash_bf16_phase(ck, peaks):
     of absolute terms) and the whole within BF16_FROB_TOL relative
     Frobenius error, the f32 LSE and D within BF16_ROW_TOL; the backward
     kernels take the forward kernel's own o and LSE. Timed (CUDA-event
-    medians of 25) beside their bf16 bound, their plain versions and SDPA
-    in bf16 (forward; its backward for dq + dk/dv in one call). Returns the
-    rows at GPT-2-small's training shape, causal."""
+    medians of 25, and the profiler's device time a launch) beside their
+    bf16 bound, their plain versions and SDPA in bf16 (forward; its
+    backward for dq + dk/dv in one call; both timed the same two ways).
+    Each shape prints the design that served the forward and the dk/dv
+    kernel. Returns the rows at GPT-2-small's training shape, causal."""
     import torch.nn.functional as F
     rng = np.random.default_rng(2)
     bf = torch.bfloat16
@@ -672,8 +699,10 @@ def flash_bf16_phase(ck, peaks):
                 raise RuntimeError(f"bf16 flash {shape} causal={causal}: {name} "
                                    f"outside its limits: {json.dumps(reading)}")
         del terms
-        print(f"flash_bf16 agreement {list(shape)} causal={causal} "
-              + json.dumps(readings), flush=True)
+        design = {kernel: ck.flash_bf16_tiles(kernel, shape[-1])[0]
+                  for kernel in ("fwd", "dkv")}
+        print(f"flash_bf16 agreement {list(shape)} causal={causal} design="
+              f"{json.dumps(design)} " + json.dumps(readings), flush=True)
         ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
 
@@ -681,32 +710,37 @@ def flash_bf16_phase(ck, peaks):
             return torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
 
         lib_bwd_ms = median_ms(lib_bwd)
+        lib_bwd_device_ms = device_ms_per_call(lib_bwd)
         lib_fwd = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        fwd = lambda: ck.flash_attention_fwd(q, k, v, causal)  # noqa: E731
+        dkv = lambda: ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, causal)  # noqa: E731
         if (shape, causal) == (SERVED_SHAPE, True):
             print("library kernels of SDPA's bf16 forward and backward "
                   + json.dumps({"forward": library_kernels(lib_fwd),
                                 "backward": library_kernels(lib_bwd)}), flush=True)
         rows = {
             "fwd": {"max_abs_err": errs["o"], "lse_max_abs_err": errs["lse"],
-                    "ms": median_ms(lambda: ck.flash_attention_fwd(q, k, v, causal)),
+                    "design": design["fwd"], "ms": median_ms(fwd),
+                    "device_ms": device_ms_per_launch(fwd, "flash_attention_fwd_bf16_"),
                     "plain_ms": median_ms(lambda: ck.flash_attention_plain(
                         q, k, v, causal)),
                     "library_ms": median_ms(lib_fwd),
+                    "library_device_ms": device_ms_per_call(lib_fwd),
                     **flash_bound_bf16(shape, causal, peaks)},
             "dq": {"max_abs_err": errs["dq"], "d_max_abs_err": errs["d"],
                    "ms": median_ms(lambda: ck.flash_attention_bwd_dq(
                        q, k, v, o, lse, do, causal)),
                    "plain_ms": median_ms(lambda: ck.flash_attention_bwd_dq_plain(
                        q, k, v, o, lse, do, causal)),
-                   "library_ms": lib_bwd_ms,
+                   "library_ms": lib_bwd_ms, "library_device_ms": lib_bwd_device_ms,
                    **flash_bound_bf16(shape, causal, peaks, products=3,
                                       heads_io=6, rows_io=2)},
             "dkv": {"max_abs_err": max(errs["dk"], errs["dv"]),
-                    "ms": median_ms(lambda: ck.flash_attention_bwd_dkv(
-                        q, k, v, lse, do, d, causal)),
+                    "design": design["dkv"], "ms": median_ms(dkv),
+                    "device_ms": device_ms_per_launch(dkv, "flash_attention_bwd_dkv_bf16_"),
                     "plain_ms": median_ms(lambda: ck.flash_attention_bwd_dkv_plain(
                         q, k, v, lse, do, d, causal)),
-                    "library_ms": lib_bwd_ms,
+                    "library_ms": lib_bwd_ms, "library_device_ms": lib_bwd_device_ms,
                     **flash_bound_bf16(shape, causal, peaks, products=4,
                                        heads_io=6, rows_io=2)},
         }
@@ -719,7 +753,25 @@ def flash_bf16_phase(ck, peaks):
         if (shape, causal) == (SERVED_SHAPE, True):
             served = rows
         del q, k, v, do, o, lse, dq, d, dk, dv, p_o, p_lse, p_dq, p_d, p_dk, p_dv
-        del ql, kl, vl, lib_out
+        del ql, kl, vl, lib_out, lib_fwd, fwd, dkv
+    # the wrappers' host time a call: at the served shape the kernels take
+    # about as long, so back-to-back CUDA-event medians there can time the
+    # host (compare "ms" with "device_ms")
+    q, k, v, do = (_randn(rng, FLASH_HOST_SHAPE).to(bf) for _ in range(4))
+    o, lse = ck.flash_attention_fwd(q, k, v, True, return_lse=True)
+    _, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
+    for name, fn in (("fwd", lambda: ck.flash_attention_fwd(q, k, v, True)),
+                     ("dkv", lambda: ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, True))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        served[name]["host_us_per_call"] = (time.perf_counter() - t0) * 1e6 / HOST_CALLS
+        served[name]["host_shape"] = list(FLASH_HOST_SHAPE)
+    print("flash_bf16 host " + json.dumps({n: served[n]["host_us_per_call"]
+                                           for n in ("fwd", "dkv")}), flush=True)
     return served
 
 
@@ -1362,6 +1414,50 @@ def device_ms_per_launch(fn, key: str, launches: int = 20) -> float:
     if total == 0:
         raise RuntimeError(f"torch.profiler recorded no {key} kernel")
     return total / launches  # one such kernel a call
+
+
+def device_ms_per_call(fn, calls: int = 20) -> float:
+    """Device time (ms) of every kernel that one call of ``fn`` launches,
+    averaged over ``calls`` calls under torch.profiler (a library call
+    may launch several kernels)."""
+    fn()
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    _, _, per_kernel = profiled(run, cpu=False)
+    return sum(per_kernel.values()) / calls
+
+
+def sass_check(ck):
+    """The instructions of the bf16 flash kernels in the built libraries
+    (``cuobjdump -sass``): each HOPPER_SASS kernel must hold the
+    instructions it lists and none of those it must not. Returns, by
+    kernel, the count of each of HGMMA, UTMALDG and HMMA; raises on a
+    kernel that breaks its row or is missing."""
+    tool = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
+    found, bad = {}, []
+    for source in sorted({row[0] for row in HOPPER_SASS}):
+        sass = subprocess.run([tool, "-sass", ck.build(source)], capture_output=True,
+                              text=True, check=True).stdout
+        for body in re.split(r"\n\s*Function : ", sass)[1:]:
+            label = kernel_label(body.split("\n", 1)[0].strip())
+            if label is None:
+                continue
+            ops = re.findall(r"\b(HGMMA|UTMALDG|HMMA)\.", body)
+            counts = {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
+            for src, key, need, forbid in HOPPER_SASS:
+                if src == source and label.startswith(key + "<"):
+                    found[label] = counts
+                    if any(counts[op] == 0 for op in need) or any(counts[op] for op in forbid):
+                        bad.append(label)
+    missing = [key for _, key, _, _ in HOPPER_SASS
+               if not any(label.startswith(key + "<") for label in found)]
+    if bad or missing:
+        raise RuntimeError(f"SASS check: {bad} break their rows, {missing} missing: "
+                           f"{json.dumps(found)}")
+    return found
 
 
 def lstm_kernel_phase(ck, peaks):
@@ -3612,6 +3708,7 @@ def main() -> None:
           f"source(s)", flush=True)
     for source in ck.SOURCES:
         print(f"ptxas {source} " + json.dumps(ptxas_report(ck, source)), flush=True)
+    print("sass " + json.dumps(sass_check(ck)), flush=True)
 
     served = kernel_phase(ck, peaks)
     bwd = backward_phase(ck, peaks)
@@ -3742,13 +3839,17 @@ def main() -> None:
               bf16["fwd"], gpt2_bf16["train"][f"{fwd}_bf16"]
               + gpt2_bf16["output"][f"{fwd}_bf16"],
               launches_by_path={"gpt2_bf16_train": gpt2_bf16["train"][f"{fwd}_bf16"],
-                                "gpt2_bf16_output": gpt2_bf16["output"][f"{fwd}_bf16"]}),
+                                "gpt2_bf16_output": gpt2_bf16["output"][f"{fwd}_bf16"]},
+              **{k: bf16["fwd"][k] for k in ("device_ms", "library_device_ms", "design",
+                                             "host_us_per_call")}),
         entry("flash_attention_bwd_dkv_bf16", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:941 on bf16 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bf16["dkv"],
               gpt2_bf16["train"]["flash_attention_bwd_dkv_bf16"],
               launches_by_path={"gpt2_bf16_train":
-                                gpt2_bf16["train"]["flash_attention_bwd_dkv_bf16"]}),
+                                gpt2_bf16["train"]["flash_attention_bwd_dkv_bf16"]},
+              **{k: bf16["dkv"][k] for k in ("device_ms", "library_device_ms", "design",
+                                             "host_us_per_call")}),
         entry("flash_attention_bwd_dq_bf16", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 on bf16 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bf16["dq"],

@@ -101,6 +101,7 @@
 #include <math.h>
 
 #include "bf16_mma.cuh"
+#include "hopper_sm90.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -513,12 +514,14 @@ extern "C" int dl4j_flash_attention_bwd_dkv_f32(const void* q, const void* k,
 // 989 TFLOP/s dense bf16; their bytes (5 and 6 bf16 [N,H,T,Dh] tensors of
 // 12.6 MB, 2 f32 [N,H,T] of 0.4 MB) take about 0.019 and 0.023 ms.
 //
-// Design: the f32 kernels' split (the dq kernel first, writing D; then the
-// dk/dv kernel; every output element has one owner block, no atomics) on
-// bf16_mma.cuh's geometry: blocks of 64 resident rows in 4 row groups of
-// 16 (two warps a group at Dh 256), streamed tiles of BC rows through a
-// 2-stage cp.async ring, bf16 mma.sync m16n8k16, P and dS rounded into the
-// next product's A fragment in registers.
+// Design (the first bf16 kernels: dq at every Dh, dk/dv at Dh 128 and 256;
+// Dh 64 takes the wgmma dk/dv kernel below): the f32 kernels' split (the
+// dq kernel first, writing D; then the dk/dv kernel; every output element
+// has one owner block, no atomics) on bf16_mma.cuh's geometry: blocks of
+// 64 resident rows in 4 row groups of 16 (two warps a group at Dh 256),
+// streamed tiles of BC rows through a 2-stage cp.async ring, bf16 mma.sync
+// m16n8k16, P and dS rounded into the next product's A fragment in
+// registers.
 
 namespace {
 
@@ -758,6 +761,324 @@ cudaError_t launch_dkv_bf16(const bf::bf16* q, const bf::bf16* k, const bf::bf16
 
 }  // namespace
 
+// ======================================================================
+// Flash-attention backward dk/dv, bf16, redesigned for Hopper: the kernel
+// that serves the bf16 dk/dv at Dh 64 (GPT-2-small's [8, 12, 1024, 64]);
+// Dh 128 and 256 keep the mma.sync kernel above, and dq stays on it. It
+// computes what that kernel computes, at the same rounding points: S^T
+// and dP^T of bf16 operands in f32; P^T = exp2(S^T scale log2e - LSE
+// log2e) and dS^T = P^T o (dP^T - D) scale in f32, each rounded to bf16
+// only as the operand of dV += P^T dO and dK += dS^T Q; dK and dV summed
+// in f32 and written in bf16. D comes from the dq kernel, which runs
+// first; every output element has one owner block, no atomics, so the
+// results are the same bits from run to run.
+//
+// What bounds it. At [8, 12, 1024, 64], causal, the four products are
+// 25.8 GFLOP, 0.026 ms at 989 TFLOP/s dense bf16; the bytes (6 bf16
+// [N, H, T, Dh] tensors and 2 f32 rows, read or written once) take 0.023
+// ms: operations.
+//
+// Measured there (NVIDIA H100 80GB HBM3, 700 W): 0.0859 ms of device time
+// a launch, against 0.1340 for the mma.sync kernel; ptxas: 168 registers
+// at launch, no spills.
+//
+// Design (hopper_sm90.cuh holds the pieces; the forward's wgmma kernel
+// describes the pattern):
+//   * Persistent: one block of 3 warpgroups on each SM walks work items
+//     (n*h, BR = 128 key rows); causal: the key blocks that see the most
+//     query tiles (the first) come first, dealt in a snake. The producer
+//     warpgroup (24 registers) loads an item's K and V into one of 2
+//     buffers, then streams Q and dO tiles of BC = 64 query rows (TMA) with
+//     their LSE and D rows (1-D bulk copies) through a ring of 5 stages.
+//     Two consumer warpgroups (240 registers) own 64 key rows each.
+//   * S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16 x 4 each, both
+//     operands from shared memory, K-major; P^T is computed while dP^T
+//     still runs. dV share = bf16(P^T) dO (wgmma m64n64k16 x 4, P^T from
+//     registers, dO MN-major) runs while dS^T is computed; then dK share =
+//     bf16(dS^T) Q the same way. Each share is summed from zero and added
+//     to dV or dK in f32 (the tensor core truncates when it adds into its
+//     accumulator).
+//   * Causal: an item starts at its diagonal query tile; a consumer whose
+//     keys all lie after a tile's queries skips its products but still
+//     releases the stage; only the tile on its diagonal is masked. A last
+//     block of 64 keys (T % 128 == 64): the second consumer's keys lie
+//     past T, it skips every tile; rows past T load as zeros and are never
+//     stored.
+
+namespace {
+
+namespace h9 = dl4j_sm90;
+
+namespace wg_dkv {
+constexpr int DH = 64, BR = 128, BC = 64, STAGES = 5, THREADS = 384;
+constexpr int RES = BR * DH;   // bf16 of a resident K or V block
+constexpr int TILE = BC * DH;  // bf16 of a streamed Q or dO tile
+constexpr uint32_t RES_BYTES = RES * sizeof(bf::bf16), TILE_BYTES = TILE * sizeof(bf::bf16),
+                   ROW_BYTES = BC * sizeof(float);
+// 1 KB to align the tiles, 2 buffers of K and V, the Q and dO stages, the
+// LSE and D stages, the barriers
+constexpr size_t SMEM = 1024 + 4 * RES_BYTES + STAGES * (2 * TILE_BYTES + 2 * ROW_BYTES) +
+                        8 * (4 + 2 * STAGES);
+}  // namespace wg_dkv
+
+// a consumer's registers over one work item
+struct DkvState {
+    float a[wg_dkv::BC / 2], b[wg_dkv::BC / 2];  // S^T then P^T; dP^T, dS^T, the dK share
+    float sv[wg_dkv::DH / 2];                   // the dV share
+    float dk[wg_dkv::DH / 2], dv[wg_dkv::DH / 2];
+    uint32_t pa[wg_dkv::BC / 4], da[wg_dkv::BC / 4];  // bf16(P^T), bf16(dS^T): A registers
+};
+
+// One query tile of a consumer (masked: the tile on its diagonal): S^T and
+// dP^T, P^T, the dV share, dS^T, the dK share, all waited for here; dK and
+// dV += their shares in f32. key: the thread's first key row; Lq, Dq: the
+// tile's LSE and D rows in shared memory.
+__device__ __forceinline__ void dkv_tile(DkvState& st, uint64_t dk_desc, uint64_t dv_desc,
+                                         const bf::bf16* Qs, const bf::bf16* dOs,
+                                         const float* Lq, const float* Dq, int q0, int key,
+                                         bool masked, float scale, float scale_log2, int t) {
+    const uint64_t dq_desc = h9::desc_sw128(Qs, 16, 1024);
+    const uint64_t ddo_desc = h9::desc_sw128(dOs, 16, 1024);
+    h9::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < wg_dkv::DH / 16; ++ks)
+        h9::wgmma_ss_n64<0>(st.a, h9::desc_at(dk_desc, ks * 32), h9::desc_at(dq_desc, ks * 32),
+                            ks);
+    h9::wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < wg_dkv::DH / 16; ++ks)
+        h9::wgmma_ss_n64<0>(st.b, h9::desc_at(dv_desc, ks * 32),
+                            h9::desc_at(ddo_desc, ks * 32), ks);
+    h9::wgmma_commit();
+    h9::wgmma_wait<1>();  // S^T landed; dP^T may still run
+    h9::fence_regs(st.a);
+#pragma unroll
+    for (int j = 0; j < wg_dkv::BC / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(Lq + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int query = q0 + 8 * j + 2 * t + (e & 1);
+            const float lq = (e & 1) ? l2.y : l2.x;
+            st.a[4 * j + e] = (masked && key + 8 * (e >> 1) > query)
+                ? 0.f
+                : h9::exp2_ftz(fmaf(st.a[4 * j + e], scale_log2, -lq * LOG2E));  // P^T
+        }
+    }
+    // dV share = bf16(P^T) dO (dO MN-major) runs while dS^T is computed
+    h9::pack_a<wg_dkv::BC / 2>(st.pa, st.a);  // rounded to bf16 only here, as the TPU kernel
+    h9::wgmma_fence();
+    const uint64_t ddo_mn = h9::desc_sw128(dOs, wg_dkv::TILE_BYTES, 1024);
+#pragma unroll
+    for (int kk = 0; kk < wg_dkv::BC / 16; ++kk)
+        h9::wgmma_rs_n64<1>(st.sv, st.pa[4 * kk], st.pa[4 * kk + 1], st.pa[4 * kk + 2],
+                            st.pa[4 * kk + 3], h9::desc_at(ddo_mn, kk * 2048), kk);
+    h9::wgmma_commit();
+    h9::wgmma_wait<1>();  // dP^T landed; the dV share may still run
+    h9::fence_regs(st.b);
+#pragma unroll
+    for (int j = 0; j < wg_dkv::BC / 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(Dq + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            st.b[4 * j + e] =
+                st.a[4 * j + e] * (st.b[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * scale;  // dS^T
+    }
+    h9::pack_a<wg_dkv::BC / 2>(st.da, st.b);
+    // dK share = bf16(dS^T) Q (Q MN-major), into dP^T's registers
+    h9::wgmma_fence();
+    const uint64_t dq_mn = h9::desc_sw128(Qs, wg_dkv::TILE_BYTES, 1024);
+#pragma unroll
+    for (int kk = 0; kk < wg_dkv::BC / 16; ++kk)
+        h9::wgmma_rs_n64<1>(st.b, st.da[4 * kk], st.da[4 * kk + 1], st.da[4 * kk + 2],
+                            st.da[4 * kk + 3], h9::desc_at(dq_mn, kk * 2048), kk);
+    h9::wgmma_commit();
+    h9::wgmma_wait<0>();
+    h9::fence_regs(st.sv);
+    h9::fence_regs(st.b);
+    h9::fence_regs(st.pa);
+    h9::fence_regs(st.da);
+#pragma unroll
+    for (int r = 0; r < wg_dkv::DH / 2; ++r) {
+        st.dv[r] += st.sv[r];
+        st.dk[r] += st.b[r];
+    }
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(wg_dkv::THREADS, 1)
+flash_attention_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                          const __grid_constant__ CUtensorMap tm_k,
+                                          const __grid_constant__ CUtensorMap tm_v,
+                                          const __grid_constant__ CUtensorMap tm_do,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ dvec,
+                                          bf::bf16* __restrict__ dk,
+                                          bf::bf16* __restrict__ dv, int bh, int T,
+                                          float scale, float scale_log2) {
+    constexpr int DH = wg_dkv::DH, BR = wg_dkv::BR, BC = wg_dkv::BC;
+    constexpr int STAGES = wg_dkv::STAGES, RES = wg_dkv::RES, TILE = wg_dkv::TILE;
+    constexpr uint32_t RES_BYTES = wg_dkv::RES_BYTES, TILE_BYTES = wg_dkv::TILE_BYTES,
+                       ROW_BYTES = wg_dkv::ROW_BYTES;
+    extern __shared__ unsigned char smem_raw[];
+    bf::bf16* Ks = reinterpret_cast<bf::bf16*>(h9::align1024(smem_raw));  // 2 buffers
+    bf::bf16* Vs = Ks + 2 * RES;                                          // 2 buffers
+    bf::bf16* Qt = Vs + 2 * RES;         // STAGES tiles
+    bf::bf16* dOt = Qt + STAGES * TILE;  // STAGES tiles
+    float* Ls = reinterpret_cast<float*>(dOt + STAGES * TILE);  // STAGES x BC
+    float* Ds = Ls + STAGES * BC;                                // STAGES x BC
+    uint64_t* kv_full = reinterpret_cast<uint64_t*>(Ds + STAGES * BC);
+    uint64_t* kv_empty = kv_full + 2;
+    uint64_t* full = kv_empty + 2;
+    uint64_t* empty = full + STAGES;
+
+    const int n_kb = (T + BR - 1) / BR, n_items = bh * n_kb;
+
+    if (threadIdx.x == 0) {
+        for (int b = 0; b < 2; ++b) {
+            h9::mbar_init(&kv_full[b], 1);
+            h9::mbar_init(&kv_empty[b], 2 * 4);  // every consumer warp
+        }
+        for (int s = 0; s < STAGES; ++s) {
+            h9::mbar_init(&full[s], 1);
+            h9::mbar_init(&empty[s], 2 * 4);
+        }
+        h9::mbar_fence_init();
+    }
+    __syncthreads();
+
+    // work item w: key block w / bh (causal: the first key blocks see the
+    // most query tiles, and come first) of head w % bh
+    if (threadIdx.x < 128) {  // the producer warpgroup
+        h9::regs_shrink<24>();
+        if (threadIdx.x == 0) {
+            int tile = 0;  // the ring's count of tiles, over every item
+            for (int i = 0;; ++i) {
+                const int w = h9::snake_item(i);
+                if (w >= n_items) break;
+                const int head = w % bh, k0 = (w / bh) * BR;
+                const int qt0 = CAUSAL ? k0 / BC : 0;  // the diagonal tile
+                const size_t rows = (size_t)head * T;
+                const int b = i & 1;
+                if (i >= 2) h9::mbar_wait(&kv_empty[b], (i / 2 - 1) & 1);
+                h9::mbar_expect_tx(&kv_full[b], 2 * RES_BYTES);
+                h9::tma_load_3d(Ks + b * RES, &tm_k, &kv_full[b], 0, k0, head);
+                h9::tma_load_3d(Vs + b * RES, &tm_v, &kv_full[b], 0, k0, head);
+                for (int qt = qt0; qt < T / BC; ++qt, ++tile) {
+                    const int s = tile % STAGES, q0 = qt * BC;
+                    if (tile >= STAGES) h9::mbar_wait(&empty[s], (tile / STAGES - 1) & 1);
+                    h9::mbar_expect_tx(&full[s], 2 * TILE_BYTES + 2 * ROW_BYTES);
+                    h9::tma_load_3d(Qt + s * TILE, &tm_q, &full[s], 0, q0, head);
+                    h9::tma_load_3d(dOt + s * TILE, &tm_do, &full[s], 0, q0, head);
+                    h9::bulk_load(Ls + s * BC, lse + rows + q0, ROW_BYTES, &full[s]);
+                    h9::bulk_load(Ds + s * BC, dvec + rows + q0, ROW_BYTES, &full[s]);
+                }
+            }
+        }
+    } else {  // the consumer warpgroups
+        h9::regs_grow<240>();
+        const int cw = threadIdx.x / 128 - 1;
+        const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+        const int g = lane >> 2, t = lane & 3;
+
+        DkvState st;
+        int tile = 0;
+        for (int i = 0;; ++i) {
+            const int w = h9::snake_item(i);
+            if (w >= n_items) break;
+            const int head = w % bh, k0 = (w / bh) * BR;
+            const int qt0 = CAUSAL ? k0 / BC : 0;
+            const size_t rows = (size_t)head * T;
+            const int kw = k0 + cw * 64;          // the consumer's first key
+            const int key = kw + warp * 16 + g;  // and key + 8
+            const int kvb = i & 1;
+            const uint64_t dk_desc = h9::desc_sw128(Ks + kvb * RES + cw * 64 * DH, 16, 1024);
+            const uint64_t dv_desc = h9::desc_sw128(Vs + kvb * RES + cw * 64 * DH, 16, 1024);
+#pragma unroll
+            for (int r = 0; r < DH / 2; ++r) st.dk[r] = st.dv[r] = 0.f;
+            h9::mbar_wait(&kv_full[kvb], (i / 2) & 1);
+            for (int qt = qt0; qt < T / BC; ++qt, ++tile) {
+                const int s = tile % STAGES, q0 = qt * BC;
+                h9::mbar_wait(&full[s], (tile / STAGES) & 1);
+                // skip a tile whose queries all lie before the consumer's keys
+                if (!(kw >= T || (CAUSAL && q0 + BC - 1 < kw))) {
+                    const bf::bf16* Qs = Qt + s * TILE;
+                    const bf::bf16* dOs = dOt + s * TILE;
+                    dkv_tile(st, dk_desc, dv_desc, Qs, dOs, Ls + s * BC, Ds + s * BC, q0, key,
+                             CAUSAL && q0 < kw + 64,  // the tile on the diagonal
+                             scale, scale_log2, t);
+                }
+                h9::mbar_arrive_warp(&empty[s]);  // this consumer is done with the stage
+            }
+            h9::mbar_arrive_warp(&kv_empty[kvb]);  // and with this item's K and V
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = key + 8 * h;
+                if (r < T) {
+                    bf::bf16* ko = dk + (rows + r) * DH + 2 * t;
+                    bf::bf16* vo = dv + (rows + r) * DH + 2 * t;
+#pragma unroll
+                    for (int j = 0; j < DH / 8; ++j) {
+                        *reinterpret_cast<uint32_t*>(ko + 8 * j) =
+                            h9::pack_bf16(st.dk[4 * j + 2 * h], st.dk[4 * j + 2 * h + 1]);
+                        *reinterpret_cast<uint32_t*>(vo + 8 * j) =
+                            h9::pack_bf16(st.dv[4 * j + 2 * h], st.dv[4 * j + 2 * h + 1]);
+                    }
+                }
+            }
+        }
+    }
+}
+
+template <bool CAUSAL>
+cudaError_t launch_dkv_bf16_wgmma(const bf::bf16* q, const bf::bf16* k, const bf::bf16* v,
+                                  const float* lse, const bf::bf16* dout, const float* dvec,
+                                  bf::bf16* dk, bf::bf16* dv, int bh, int t,
+                                  cudaStream_t stream) {
+    constexpr int DH = wg_dkv::DH, BR = wg_dkv::BR, BC = wg_dkv::BC;
+    constexpr int THREADS = wg_dkv::THREADS;
+    constexpr size_t SMEM = wg_dkv::SMEM;
+    CUtensorMap tq, tk, tv, tdo;
+    int sms = 0;
+    cudaError_t err = h9::encode_heads(&tq, q, bh, t, DH, BC);
+    if (err == cudaSuccess) err = h9::encode_heads(&tk, k, bh, t, DH, BR);
+    if (err == cudaSuccess) err = h9::encode_heads(&tv, v, bh, t, DH, BR);
+    if (err == cudaSuccess) err = h9::encode_heads(&tdo, dout, bh, t, DH, BC);
+    if (err == cudaSuccess) err = h9::sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    auto kernel = flash_attention_bwd_dkv_bf16_wgmma_kernel<CAUSAL>;
+    static unsigned long long smem_set = 0;
+    err = h9::allow_smem(kernel, SMEM, &smem_set);
+    if (err != cudaSuccess) return err;
+    const float scale = 1.f / sqrtf((float)DH);
+    const long long items = (long long)bh * ((t + BR - 1) / BR);
+    const int grid = (int)(items < sms ? items : sms);  // persistent: one block per SM
+    kernel<<<grid, THREADS, SMEM, stream>>>(tq, tk, tv, tdo, lse, dvec, dk, dv, bh, t, scale,
+                                            scale * LOG2E);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// The design and tiles that serve the bf16 dk/dv kernel at head width dh:
+// design 1 is the wgmma kernel, 0 the mma.sync one; br key rows a block,
+// bc queries a tile. Returns a cudaError_t.
+extern "C" int dl4j_flash_attention_bwd_dkv_bf16_tiles(int dh, int* design, int* br,
+                                                       int* bc) {
+    switch (dh) {
+        case 64:
+            *design = 1, *br = wg_dkv::BR, *bc = wg_dkv::BC;
+            return 0;
+        case 128:
+            *design = 0, *br = bf::Cfg<128>::BR, *bc = bf::Cfg<128>::BC;
+            return 0;
+        case 256:
+            *design = 0, *br = bf::Cfg<256>::BR, *bc = bf::Cfg<256>::BC;
+            return 0;
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
 // q, k, v, o, dout, dq: contiguous [bh, t, dh] bf16 on the device; lse,
 // dvec: [bh, t] f32. Writes dq and D = rowsum(f32(dout) * f32(o)) into
 // dvec. t % 64 == 0, dh in {64, 128, 256}. Returns a cudaError_t.
@@ -807,7 +1128,11 @@ extern "C" int dl4j_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
     return (int)(causal ? launch_dkv_bf16<DH, true>(qb, kb, vb, lf, gb, df, dkb, dvb, bh, t, s) \
                         : launch_dkv_bf16<DH, false>(qb, kb, vb, lf, gb, df, dkb, dvb, bh, t, s))
     switch (dh) {
-        case 64: DL4J_DKV_BF16(64);
+        case 64:  // the wgmma kernel
+            return (int)(causal ? launch_dkv_bf16_wgmma<true>(qb, kb, vb, lf, gb, df, dkb, dvb,
+                                                              bh, t, s)
+                                : launch_dkv_bf16_wgmma<false>(qb, kb, vb, lf, gb, df, dkb,
+                                                               dvb, bh, t, s));
         case 128: DL4J_DKV_BF16(128);
         case 256: DL4J_DKV_BF16(256);
         default: return (int)cudaErrorInvalidValue;

@@ -65,6 +65,7 @@
 #include <math.h>
 
 #include "bf16_mma.cuh"
+#include "hopper_sm90.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -316,7 +317,8 @@ extern "C" int dl4j_flash_attention_fwd_f32(const void* q, const void* k,
 // SXM's 989 TFLOP/s dense bf16; q, k, v and o move 4 x 12.6 MB, 0.015 ms
 // at 3.35 TB/s. chip_smoke.py re-derives both for the card it runs on.
 //
-// Design (a simple first kernel; wgmma and TMA are later work): one block
+// Design (the first bf16 kernel; it serves Dh 128 and 256, and Dh 64 takes
+// the wgmma kernel below): one block
 // per (n*h, 64 query rows), 4 row groups of 16 rows, one warp each (two at
 // Dh 256, each keeping half of O's columns); Q resident in shared memory;
 // K and V tiles of BC rows (64 at Dh 64, else 32) through a 2-stage
@@ -461,6 +463,412 @@ cudaError_t launch_bf16_dh(const bf::bf16* q, const bf::bf16* k, const bf::bf16*
 
 }  // namespace
 
+// ======================================================================
+// Flash-attention forward, bf16, redesigned for Hopper: the kernel that
+// serves the bf16 forward at Dh 64 (GPT-2-small's [8, 12, 1024, 64]);
+// Dh 128 and 256 keep the mma.sync kernel above. It computes what that
+// kernel computes, at the same rounding points: S = Q K^T of bf16 operands
+// in f32; the online softmax in f32, base 2; P = exp2(S scale log2e - m)
+// against the running row max m, rounded to bf16 only as the operand of
+// P V; the f32 row sum of the unrounded P; O divided by it and written in
+// bf16; the LSE in f32.
+//
+// What held the mma.sync kernel back: mma.sync with 16 rows a warp, each
+// warp reading its own B fragments from shared memory (about 256 bytes a
+// 4,096-FLOP product, against the SM's 128 bytes a clock); cp.async copies
+// issued by every thread in a 2-stage ring with two block-wide barriers a
+// tile; the softmax and the products in series in every warp, where at
+// Dh 64 the exponentials (MUFU) cost about as much as the products.
+//
+// What bounds it. At [8, 12, 1024, 64], causal, the two products are
+// 12.9 GFLOP, 0.013 ms at 989 TFLOP/s dense bf16, and q, k, v and o move
+// 4 x 12.6 MB, 0.015 ms at 3.35 TB/s: bytes, by a little. At Dh 64 the
+// exponentials are a co-bound: a 128 x 128 tile's 16,384 ex2 take the
+// MUFU (16 a clock an SM) as long as the tile's products take the tensor
+// cores.
+//
+// Measured there (NVIDIA H100 80GB HBM3, 700 W): 0.0444 ms of device time
+// a launch, against 0.0819 for the mma.sync kernel and 0.0455 for
+// F.scaled_dot_product_attention in bf16; full attention 0.0706 (SDPA
+// 0.0612). ptxas: 168 registers at launch, no spills.
+//
+// Design (hopper_sm90.cuh holds the pieces):
+//   * Persistent: one block of 3 warpgroups on each SM walks work items
+//     (n*h, BR = 128 query rows), numbered heaviest causal block first and
+//     dealt to the blocks in a snake, so that the next item's loads run
+//     under this item's last products and stores. Warpgroup 0 is the
+//     producer (setmaxnreg down to 24): one thread issues every load by
+//     TMA, Q into one of 2 buffers, K and V tiles of BC = 128 keys into a
+//     ring of 4 stages, each with a full and an empty mbarrier. Warpgroups
+//     1 and 2 are the consumers (setmaxnreg up to 240), 64 query rows each.
+//   * S = Q K^T: wgmma m64n128k16 x 4, both operands from shared memory
+//     (K-major). The online softmax runs on the accumulator, which holds
+//     mma.sync's C layout block by block, so the quad reductions and the
+//     masking are the mma.sync kernel's; the exponentials are the MUFU's
+//     ex2 alone, the scale folded into one FFMA, and only the last key
+//     tile of an item is compiled with the mask. P goes into the A
+//     registers of P V (wgmma m64n64k16 x 8, V MN-major) in registers.
+//   * Each tile's P V is summed in the tensor core from zero and added to
+//     O in f32 (O <- alpha O + share): the tensor core truncates when it
+//     adds into its accumulator, so no sum is chained across tiles.
+//   * Overlap, as FlashAttention-3: a consumer issues S of tile j together
+//     with P V of tile j - 1 and runs tile j's softmax while P V runs; the
+//     two consumers take turns at issuing (named barriers 1 and 2, one
+//     turn each per tile), so one's exponentials run under the other's
+//     products. The first and last turns of an item are peeled off the
+//     loop: a wgmma issued under a branch makes ptxas serialize them all.
+//   * Causal: BR = BC, so the key loop stops at tile qb (the diagonal), the
+//     only tile masked. Every row sees key 0 in tile 0, so the running max
+//     is finite from the first tile on.
+//   * T % 128 == 64: Q, K and V are mapped per head, so the last block's
+//     rows past T load as zeros; those query rows are computed and never
+//     stored, and keys past T are masked (full) or above the diagonal
+//     (causal).
+
+namespace {
+
+namespace h9 = dl4j_sm90;
+
+namespace wg_fwd {
+constexpr int DH = 64, BR = 128, BC = 128, STAGES = 4, THREADS = 384;
+constexpr int TILE = BC * DH;  // bf16 of a K or V tile
+constexpr uint32_t TILE_BYTES = TILE * sizeof(bf::bf16), Q_BYTES = BR * DH * sizeof(bf::bf16);
+// 1 KB to align the tiles, 2 Q buffers, the K and V stages, the barriers
+constexpr size_t SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * TILE_BYTES + 8 * (4 + 2 * STAGES);
+}  // namespace wg_fwd
+
+// The online softmax of one tile on a consumer's S accumulator (64 rows x
+// BC keys), in place: s becomes P = exp2(s scale_log2 - m) (f32), m the
+// running max of rows g and g + 8 (base-2 units), l their running f32 sums
+// (the quad's partial), alpha the factor that rescales the earlier tiles.
+// MASKED: keys after the row (causal) or past T (full) are -inf. The max
+// is taken on the unscaled scores (scale_log2 > 0), the scale and the max
+// meet in one FFMA, and the row max and sum run in 4 partial chains.
+template <bool CAUSAL, bool MASKED, int NB>
+__device__ __forceinline__ void softmax_tile(float (&s)[4 * NB], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float scale_log2, int k0,
+                                             int row, int T, int t) {
+    if constexpr (MASKED) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int key = k0 + 8 * j + 2 * t + (e & 1);
+                if (CAUSAL ? key > row + 8 * (e >> 1) : key >= T) s[4 * j + e] = -INFINITY;
+            }
+    }
+    // 4 partial maxima a row half: chains of NB / 4, not NB
+    float part[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[h][c] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            part[h][j & 3] = fmaxf(part[h][j & 3], fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+        part[h][0] = fmaxf(fmaxf(part[h][0], part[h][1]), fmaxf(part[h][2], part[h][3]));
+    float neg_m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        float mx = part[h][0];
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx * scale_log2);
+        alpha[h] = h9::exp2_ftz(m[h] - m_new);
+        m[h] = m_new;
+        neg_m[h] = -m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            s[4 * j + e] = h9::exp2_ftz(fmaf(s[4 * j + e], scale_log2, neg_m[e >> 1]));
+    // the row sums of the f32 p, as the TPU kernel sums it, in 4 partials
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[h][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) part[h][j & 3] += s[4 * j + 2 * h] + s[4 * j + 2 * h + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) part[h][0] = (part[h][0] + part[h][1]) + (part[h][2] + part[h][3]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = fmaf(l[h], alpha[h], part[h][0]);
+}
+
+// S = Q K^T of one K tile (wgmma m64n128k16 x 4, both operands K-major),
+// one commit group
+__device__ __forceinline__ void issue_scores(float (&s)[wg_fwd::BC / 2], uint64_t dq,
+                                             const bf::bf16* k_tile) {
+    const uint64_t dk = h9::desc_sw128(k_tile, 16, 1024);
+#pragma unroll
+    for (int ks = 0; ks < wg_fwd::DH / 16; ++ks)
+        h9::wgmma_ss_n128<0>(s, h9::desc_at(dq, ks * 32), h9::desc_at(dk, ks * 32), ks);
+    h9::wgmma_commit();
+}
+
+// share = bf16(P) V of one V tile (wgmma m64n64k16 x 8, P from registers, V
+// MN-major), summed from zero; one commit group
+__device__ __forceinline__ void issue_pv(float (&share)[wg_fwd::DH / 2],
+                                         const uint32_t (&p)[wg_fwd::BC / 4],
+                                         const bf::bf16* v_tile) {
+    const uint64_t dv = h9::desc_sw128(v_tile, wg_fwd::TILE_BYTES, 1024);
+#pragma unroll
+    for (int kk = 0; kk < wg_fwd::BC / 16; ++kk)
+        h9::wgmma_rs_n64<1>(share, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                            h9::desc_at(dv, kk * 2048), kk);
+    h9::wgmma_commit();
+}
+
+// a consumer's registers over one work item
+struct FwdState {
+    float s[wg_fwd::BC / 2];       // S, then P in f32
+    float share[wg_fwd::DH / 2];   // one tile's P V
+    float acc[wg_fwd::DH / 2];     // O, unnormalized
+    uint32_t p[wg_fwd::BC / 4];    // bf16(P) as BC / 16 k-steps of A registers
+    float m[2], l[2], alpha_prev[2];
+};
+
+// One turn of a consumer: S of k_tile (HAS_S) and P V of the previous tile
+// (HAS_PV) issued together, between taking the turn (named barrier `mine`)
+// and handing it on (`other`); the softmax of S (MASKED or not) while P V
+// runs; O <- alpha O + share; the previous tile's stage released. Every
+// wgmma a turn issues is waited for in the same turn: no wgmma crosses a
+// branch (ptxas would serialize them all).
+template <bool CAUSAL, bool MASKED, bool HAS_S, bool HAS_PV>
+__device__ __forceinline__ void fwd_turn(FwdState& st, uint64_t dq, const bf::bf16* k_tile,
+                                         const bf::bf16* v_prev, uint64_t* empty_prev,
+                                         int mine, int other, float scale_log2, int k0, int row,
+                                         int T, int t) {
+    h9::bar_sync(mine, 256);
+    h9::wgmma_fence();
+    if constexpr (HAS_S) issue_scores(st.s, dq, k_tile);
+    if constexpr (HAS_PV) issue_pv(st.share, st.p, v_prev);
+    // consumer 1's last turn of its last item hands a turn to no one: that
+    // arrival stays pending until the block exits
+    h9::bar_arrive(other, 256);
+    float alpha[2];
+    if constexpr (HAS_S) {
+        if constexpr (HAS_PV)
+            h9::wgmma_wait<1>();  // S landed; P V may still run
+        else
+            h9::wgmma_wait<0>();
+        h9::fence_regs(st.s);
+        softmax_tile<CAUSAL, MASKED, wg_fwd::BC / 8>(st.s, st.m, st.l, alpha, scale_log2, k0,
+                                                     row, T, t);
+    }
+    if constexpr (HAS_PV) {
+        h9::wgmma_wait<0>();
+        h9::fence_regs(st.share);
+        h9::fence_regs(st.p);
+        h9::mbar_arrive_warp(empty_prev);  // the previous tile is done
+#pragma unroll
+        for (int r = 0; r < wg_fwd::DH / 2; ++r)
+            st.acc[r] = fmaf(st.acc[r], st.alpha_prev[(r >> 1) & 1], st.share[r]);
+    }
+    if constexpr (HAS_S) {
+        h9::pack_a<wg_fwd::BC / 2>(st.p, st.s);  // P rounded to bf16, as the TPU kernel
+        st.alpha_prev[0] = alpha[0];
+        st.alpha_prev[1] = alpha[1];
+    }
+}
+
+// work item w: query block qb of head `head`, the heaviest causal blocks first
+__device__ __forceinline__ void fwd_item(int w, int bh, int n_qb, bool causal, int& qb,
+                                         int& head) {
+    head = w % bh;
+    qb = causal ? n_qb - 1 - w / bh : w / bh;
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(wg_fwd::THREADS, 1)
+flash_attention_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                      const __grid_constant__ CUtensorMap tm_k,
+                                      const __grid_constant__ CUtensorMap tm_v,
+                                      bf::bf16* __restrict__ o, float* __restrict__ lse,
+                                      int bh, int T, float scale_log2) {
+    constexpr int DH = wg_fwd::DH, BR = wg_fwd::BR, BC = wg_fwd::BC;
+    constexpr int STAGES = wg_fwd::STAGES, TILE = wg_fwd::TILE;
+    constexpr uint32_t TILE_BYTES = wg_fwd::TILE_BYTES, Q_BYTES = wg_fwd::Q_BYTES;
+    extern __shared__ unsigned char smem_raw[];
+    bf::bf16* Qs = reinterpret_cast<bf::bf16*>(h9::align1024(smem_raw));  // 2 buffers
+    bf::bf16* Ks = Qs + 2 * BR * DH;    // STAGES tiles
+    bf::bf16* Vs = Ks + STAGES * TILE;  // STAGES tiles
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + STAGES * TILE);
+    uint64_t* q_empty = q_full + 2;
+    uint64_t* full = q_empty + 2;
+    uint64_t* empty = full + STAGES;
+
+    const int n_qb = (T + BR - 1) / BR, n_items = bh * n_qb;
+
+    if (threadIdx.x == 0) {
+        for (int b = 0; b < 2; ++b) {
+            h9::mbar_init(&q_full[b], 1);
+            h9::mbar_init(&q_empty[b], 2 * 4);  // every consumer warp
+        }
+        for (int s = 0; s < STAGES; ++s) {
+            h9::mbar_init(&full[s], 1);
+            h9::mbar_init(&empty[s], 2 * 4);
+        }
+        h9::mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x < 128) {  // the producer warpgroup
+        h9::regs_shrink<24>();
+        if (threadIdx.x == 0) {
+            int tile = 0;  // the ring's count of tiles, over every item
+            for (int i = 0;; ++i) {
+                const int w = h9::snake_item(i);
+                if (w >= n_items) break;
+                int qb, head;
+                fwd_item(w, bh, n_qb, CAUSAL, qb, head);
+                const int n_tiles = CAUSAL ? qb + 1 : (T + BC - 1) / BC;
+                const int b = i & 1;
+                if (i >= 2) h9::mbar_wait(&q_empty[b], (i / 2 - 1) & 1);
+                h9::mbar_expect_tx(&q_full[b], Q_BYTES);
+                h9::tma_load_3d(Qs + b * BR * DH, &tm_q, &q_full[b], 0, qb * BR, head);
+                for (int kt = 0; kt < n_tiles; ++kt, ++tile) {
+                    const int s = tile % STAGES;
+                    if (tile >= STAGES) h9::mbar_wait(&empty[s], (tile / STAGES - 1) & 1);
+                    h9::mbar_expect_tx(&full[s], 2 * TILE_BYTES);
+                    h9::tma_load_3d(Ks + s * TILE, &tm_k, &full[s], 0, kt * BC, head);
+                    h9::tma_load_3d(Vs + s * TILE, &tm_v, &full[s], 0, kt * BC, head);
+                }
+            }
+        }
+    } else {  // the consumer warpgroups
+        h9::regs_grow<240>();
+        const int cw = threadIdx.x / 128 - 1;
+        const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+        const int g = lane >> 2, t = lane & 3;
+        const int mine = 1 + cw, other = 2 - cw;  // the turns' named barriers
+
+        FwdState st;
+        if (cw == 1) h9::bar_arrive(1, 256);  // consumer 0 takes the first turn
+        int tile = 0;
+        for (int i = 0;; ++i) {
+            const int w = h9::snake_item(i);
+            if (w >= n_items) break;
+            int qb, head;
+            fwd_item(w, bh, n_qb, CAUSAL, qb, head);
+            const int n_tiles = CAUSAL ? qb + 1 : (T + BC - 1) / BC;
+            const int row = qb * BR + cw * 64 + warp * 16 + g;  // and row + 8
+            const int b = i & 1;
+            const uint64_t dq = h9::desc_sw128(Qs + b * BR * DH + cw * 64 * DH, 16, 1024);
+            st.m[0] = st.m[1] = -INFINITY;
+            st.l[0] = st.l[1] = 0.f;
+#pragma unroll
+            for (int r = 0; r < DH / 2; ++r) st.acc[r] = 0.f;
+            h9::mbar_wait(&q_full[b], (i / 2) & 1);
+            // turns: the first issues S of tile 0, turn kt S of tile kt with
+            // P V of tile kt - 1, the last P V of the last tile; only the
+            // last S tile may need the mask
+            for (int kt = 0; kt < n_tiles; ++kt) {
+                const int s = (tile + kt) % STAGES, s_prev = (tile + kt + STAGES - 1) % STAGES;
+                const bool masked = kt == n_tiles - 1 && (CAUSAL || (kt + 1) * BC > T);
+                const bf::bf16* k_tile = Ks + s * TILE;
+                const bf::bf16* v_prev = Vs + s_prev * TILE;
+                h9::mbar_wait(&full[s], ((tile + kt) / STAGES) & 1);
+                if (kt == 0) {
+                    if (masked)
+                        fwd_turn<CAUSAL, true, true, false>(st, dq, k_tile, v_prev, nullptr,
+                                                            mine, other, scale_log2, 0, row, T, t);
+                    else
+                        fwd_turn<CAUSAL, false, true, false>(st, dq, k_tile, v_prev, nullptr,
+                                                             mine, other, scale_log2, 0, row, T,
+                                                             t);
+                } else if (masked) {
+                    fwd_turn<CAUSAL, true, true, true>(st, dq, k_tile, v_prev, &empty[s_prev],
+                                                       mine, other, scale_log2, kt * BC, row, T,
+                                                       t);
+                } else {
+                    fwd_turn<CAUSAL, false, true, true>(st, dq, k_tile, v_prev, &empty[s_prev],
+                                                        mine, other, scale_log2, kt * BC, row, T,
+                                                        t);
+                }
+            }
+            h9::mbar_arrive_warp(&q_empty[b]);  // every S of the item has landed
+            const int s_last = (tile + n_tiles - 1) % STAGES;
+            fwd_turn<CAUSAL, false, false, true>(st, dq, nullptr, Vs + s_last * TILE,
+                                                 &empty[s_last], mine, other, scale_log2, 0, row,
+                                                 T, t);
+            tile += n_tiles;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                st.l[h] += __shfl_xor_sync(0xffffffffu, st.l[h], 1);
+                st.l[h] += __shfl_xor_sync(0xffffffffu, st.l[h], 2);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = row + 8 * h;
+                if (r < T) {
+                    const float inv = 1.f / st.l[h];
+                    bf::bf16* out = o + ((size_t)head * T + r) * DH + 2 * t;
+#pragma unroll
+                    for (int j = 0; j < DH / 8; ++j)
+                        *reinterpret_cast<uint32_t*>(out + 8 * j) = h9::pack_bf16(
+                            st.acc[4 * j + 2 * h] * inv, st.acc[4 * j + 2 * h + 1] * inv);
+                    // m is in base-2 units of the scaled scores
+                    if (lse != nullptr && t == 0)
+                        lse[(size_t)head * T + r] = (st.m[h] + log2f(st.l[h])) * LN2;
+                }
+            }
+        }
+    }
+}
+
+template <bool CAUSAL>
+cudaError_t launch_bf16_wgmma(const bf::bf16* q, const bf::bf16* k, const bf::bf16* v,
+                              bf::bf16* o, float* lse, int bh, int t, cudaStream_t stream) {
+    constexpr int DH = wg_fwd::DH, BR = wg_fwd::BR, BC = wg_fwd::BC;
+    constexpr int THREADS = wg_fwd::THREADS;
+    constexpr size_t SMEM = wg_fwd::SMEM;
+    CUtensorMap tq, tk, tv;
+    int sms = 0;
+    cudaError_t err = h9::encode_heads(&tq, q, bh, t, DH, BR);
+    if (err == cudaSuccess) err = h9::encode_heads(&tk, k, bh, t, DH, BC);
+    if (err == cudaSuccess) err = h9::encode_heads(&tv, v, bh, t, DH, BC);
+    if (err == cudaSuccess) err = h9::sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    auto kernel = flash_attention_fwd_bf16_wgmma_kernel<CAUSAL>;
+    static unsigned long long smem_set = 0;
+    err = h9::allow_smem(kernel, SMEM, &smem_set);
+    if (err != cudaSuccess) return err;
+    const float scale_log2 = 1.4426950408889634f / sqrtf((float)DH);
+    const long long items = (long long)bh * ((t + BR - 1) / BR);
+    const int grid = (int)(items < sms ? items : sms);  // persistent: one block per SM
+    kernel<<<grid, THREADS, SMEM, stream>>>(tq, tk, tv, o, lse, bh, t, scale_log2);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// The design and tiles that serve the bf16 forward at head width dh:
+// design 1 is the wgmma kernel, 0 the mma.sync one; br query rows a block,
+// bc keys a tile. Returns a cudaError_t.
+extern "C" int dl4j_flash_attention_fwd_bf16_tiles(int dh, int* design, int* br, int* bc) {
+    switch (dh) {
+        case 64:
+            *design = 1, *br = wg_fwd::BR, *bc = wg_fwd::BC;
+            return 0;
+        case 128:
+            *design = 0, *br = bf::Cfg<128>::BR, *bc = bf::Cfg<128>::BC;
+            return 0;
+        case 256:
+            *design = 0, *br = bf::Cfg<256>::BR, *bc = bf::Cfg<256>::BC;
+            return 0;
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
 // q, k, v, o: contiguous [bh, t, dh] bf16 on the device; lse: [bh, t] f32
 // or null; t % 64 == 0, dh in {64, 128, 256}, 0 < t / 64 <= 65535.
 // Returns a cudaError_t (0 = launched).
@@ -477,7 +885,9 @@ extern "C" int dl4j_flash_attention_fwd_bf16(const void* q, const void* k,
     float* lf = static_cast<float*>(lse);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dh) {
-        case 64: return (int)launch_bf16_dh<64>(qb, kb, vb, ob, lf, bh, t, causal, s);
+        case 64:  // the wgmma kernel
+            return (int)(causal ? launch_bf16_wgmma<true>(qb, kb, vb, ob, lf, bh, t, s)
+                                : launch_bf16_wgmma<false>(qb, kb, vb, ob, lf, bh, t, s));
         case 128: return (int)launch_bf16_dh<128>(qb, kb, vb, ob, lf, bh, t, causal, s);
         case 256: return (int)launch_bf16_dh<256>(qb, kb, vb, ob, lf, bh, t, causal, s);
         default: return (int)cudaErrorInvalidValue;

@@ -8,9 +8,12 @@ Counterpart of ``deeplearning4j_tpu/nn/pallas_kernels.py``. Ported so far:
   which can also return the row LSE the backward needs. Like K3b it
   multiplies on the tensor cores at f32 accuracy for f32 heads (3xTF32,
   the helpers of ``csrc/tf32_mma.cuh``), and has a bf16 kernel beside it
-  for the mixed-precision path (bf16 products with f32 accumulation,
-  ``csrc/bf16_mma.cuh``; the LSE and D stay f32). Each wrapper counts
-  every launch in ``launches`` and its bf16 launches in
+  for the mixed-precision path (bf16 products with f32 accumulation; the
+  LSE and D stay f32): at Dh 64 the forward and the dk/dv kernel are
+  persistent, warp-specialized ``wgmma`` kernels fed by TMA
+  (``csrc/hopper_sm90.cuh``), otherwise ``mma.sync`` ones
+  (``csrc/bf16_mma.cuh``); :data:`FLASH_BF16_TILES` names each. Each
+  wrapper counts every launch in ``launches`` and its bf16 launches in
   ``launches_bf16``; each bf16 kernel's plain version keeps the TPU
   kernel's rounding points (``flash_attention_plain_bf16`` and the
   ``_bf16`` backward versions).
@@ -218,6 +221,35 @@ _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 _FLASH_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
+#: The design and tiles of the bf16 forward ("fwd") and dk/dv ("dkv")
+#: kernels at each head width, as the C functions choose them: (design,
+#: BR resident rows a block, BC streamed rows a tile). "wgmma" is the
+#: Hopper design (TMA, mbarriers, warp-specialized wgmma; hopper_sm90.cuh),
+#: "mma.sync" the first bf16 kernels' (bf16_mma.cuh). The CPU tests emulate
+#: each kernel's tile order from this table; :func:`flash_bf16_tiles` reads
+#: the library's own, which a card test holds to it.
+FLASH_BF16_TILES = {
+    "fwd": {64: ("wgmma", 128, 128), 128: ("mma.sync", 64, 32),
+            256: ("mma.sync", 64, 32)},
+    "dkv": {64: ("wgmma", 128, 64), 128: ("mma.sync", 64, 32),
+            256: ("mma.sync", 64, 32)},
+}
+_DESIGNS = ("mma.sync", "wgmma")
+_TILE_SYMBOLS = {"fwd": (_FWD_SRC, "dl4j_flash_attention_fwd_bf16_tiles"),
+                 "dkv": (_BWD_SRC, "dl4j_flash_attention_bwd_dkv_bf16_tiles")}
+
+
+def flash_bf16_tiles(kernel: str, dh: int):
+    """``(design, BR, BC)`` of the built bf16 ``kernel`` ("fwd" or "dkv")
+    at head width ``dh``, from the library (builds it; needs nvcc)."""
+    fn = _load(_TILE_SYMBOLS[kernel][0], _TILE_SYMBOLS[kernel][1],
+               [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
+    design, br, bc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = fn(dh, ctypes.byref(design), ctypes.byref(br), ctypes.byref(bc))
+    if err != 0:
+        raise ValueError(f"flash_bf16_tiles: no bf16 {kernel} kernel at Dh {dh}")
+    return _DESIGNS[design.value], br.value, bc.value
+
 
 def _check_attention(name: str, heads, rows=()) -> None:
     """Raise unless ``heads`` are contiguous [N,H,T,Dh] tensors of one
@@ -315,7 +347,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     if n * h:
         fn = _load(_FWD_SRC, f"dl4j_flash_attention_fwd_{_FLASH_SUFFIX[q.dtype]}",
                    _FWD_ARGS)
-        with torch.cuda.device(q.device):
+        with _on_device(q.device.index):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      None if lse is None else lse.data_ptr(),
                      n * h, t, dh, int(bool(causal)), _stream(q))
@@ -403,7 +435,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False):
     if n * h:
         fn = _load(_BWD_SRC, f"dl4j_flash_attention_bwd_dq_{_FLASH_SUFFIX[q.dtype]}",
                    _BWD_ARGS)
-        with torch.cuda.device(q.device):
+        with _on_device(q.device.index):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      lse.data_ptr(), do.data_ptr(), dq.data_ptr(), d.data_ptr(),
                      n * h, t, dh, int(bool(causal)), _stream(q))
@@ -425,7 +457,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, d, causal: bool = False):
     if n * h:
         fn = _load(_BWD_SRC, f"dl4j_flash_attention_bwd_dkv_{_FLASH_SUFFIX[q.dtype]}",
                    _BWD_ARGS)
-        with torch.cuda.device(q.device):
+        with _on_device(q.device.index):
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
                      do.data_ptr(), d.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                      n * h, t, dh, int(bool(causal)), _stream(q))

@@ -1128,3 +1128,98 @@ def test_bf16_training_on_the_card_takes_the_bf16_kernels(card):
     assert all(t.dtype == torch.float32 for p in net.params.values() for t in p.values())
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert net.output(ids).dtype == torch.bfloat16
+
+
+# The bf16 forward and dk/dv kernels at the edges of their tiles, for the
+# Hopper design (Dh 64: persistent blocks of 128 rows, key tiles of 128,
+# query tiles of 64) and the mma.sync one (Dh 128, 256): one tile (T 64),
+# the diagonal tile alone (128), a last block of 64 rows (192), the path's
+# T (1024) and a long one (4096); N*H 1 and 97 (not a multiple of the 132
+# SMs that the persistent grid covers)
+TILE_EDGE_SHAPES = (
+    [((1, 12, t, 64), c) for t in (64, 128, 192, 1024, 4096) for c in (True, False)]
+    + [((1, 1, 192, dh), c) for dh in (64, 128, 256) for c in (True, False)]
+    + [((1, 97, 192, dh), c) for dh in (64, 128, 256) for c in (True, False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", TILE_EDGE_SHAPES)
+def test_bf16_kernels_hold_their_plain_versions_at_the_tile_edges(card, shape, causal):
+    """o and the LSE, and dk and dv fed by the dq kernel's D, within the
+    bf16 limits of their plain versions; three calls give the same bits."""
+    q, k, v, do = _bf16_heads(shape, card, seed=23)
+    runs = []
+    for _ in range(3):
+        o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+        _, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+        runs.append((o, lse, d, *ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, causal)))
+    torch.cuda.synchronize()
+    for later in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], later))
+    o, lse, d, dk, dv = runs[0]
+    p_o, p_lse = ck.flash_attention_plain(q, k, v, causal, return_lse=True)
+    p_dk, p_dv = ck.flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal)
+    torch.testing.assert_close(lse, p_lse, rtol=0, atol=1e-4)
+    t_o, _, t_dk, t_dv = _bf16_term_sums(q, k, v, lse, do, d, causal)
+    for got, ref, a in ((o, p_o, t_o), (dk, p_dk, t_dk), (dv, p_dv, t_dv)):
+        _bf16_close(got, ref, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_function_gradients_at_a_last_block_of_64_rows(card, causal):
+    q, k, v, do = _bf16_heads((1, 4, 192, 64), card, seed=24)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ck.FlashAttentionFunction.apply(*leaves, causal).backward(do)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    dq, d = ck.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    dk, dv = ck.flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal)
+    terms = _bf16_term_sums(q, k, v, lse, do, d, causal)[1:]
+    for leaf, ref, a in zip(leaves, (dq, dk, dv), terms):
+        _bf16_close(leaf.grad, ref, a)
+
+
+@pytest.mark.cuda
+def test_bf16_tiles_table_is_what_the_library_was_built_with(card):
+    for kernel, by_dh in ck.FLASH_BF16_TILES.items():
+        for dh, want in by_dh.items():
+            assert ck.flash_bf16_tiles(kernel, dh) == want
+    with pytest.raises(ValueError, match="Dh 96"):
+        ck.flash_bf16_tiles("fwd", 96)
+
+
+@pytest.mark.cuda
+def test_bf16_hopper_kernels_raise_when_the_tensor_map_is_refused(card):
+    """A contiguous head tensor 2 bytes off a 16-byte boundary:
+    cuTensorMapEncodeTiled refuses its TMA map, and the wrapper raises
+    (nothing falls back)."""
+    shape = (1, 2, 128, 64)
+    q, k, v, do = _bf16_heads(shape, card, seed=25)
+    n = q.numel()
+    off = torch.empty(n + 8, dtype=torch.bfloat16, device=card)[1:n + 1].view(shape)
+    off.copy_(q)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    before = ck.flash_attention_fwd.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ck.flash_attention_fwd(off, k, v, True)
+    assert ck.flash_attention_fwd.launches == before
+    o, lse = ck.flash_attention_fwd(q, k, v, True, return_lse=True)
+    _, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ck.flash_attention_bwd_dkv(off, k, v, lse, do, d, True)
+
+
+@pytest.mark.cuda
+def test_bf16_hopper_kernels_refuse_shapes_they_do_not_take(card):
+    q, k, v, do = _bf16_heads((1, 2, 128, 64), card, seed=26)
+    o, lse = ck.flash_attention_fwd(q, k, v, True, return_lse=True)
+    _, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
+    cut = [t[..., :96, :].contiguous() for t in (q, k, v, do)]
+    with pytest.raises(ValueError, match="T % 64"):
+        ck.flash_attention_fwd(*cut[:3], True)
+    with pytest.raises(ValueError):
+        ck.flash_attention_bwd_dkv(cut[0], cut[1], cut[2], lse[..., :96].contiguous(),
+                                   cut[3], d[..., :96].contiguous(), True)
+    narrow = [t[..., :32].contiguous() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="Dh in"):
+        ck.flash_attention_fwd(*narrow, True)
