@@ -213,19 +213,29 @@ FLASH_BF16_SHAPES = [(SERVED_SHAPE, True), (SERVED_SHAPE, False),
                      ((1, 97, 1024, 64), True),
                      ((2, 4, 256, 128), True), ((2, 4, 256, 128), False),
                      ((2, 2, 256, 256), True), ((2, 2, 256, 256), False)]
-# the SASS of the bf16 kernels: (library source, kernel-name substring,
-# instructions it must hold, instructions it must not)
+# the SASS of the bf16 kernels and of the cluster LSTM kernels: (library
+# source, a pattern that matches the start of the kernel's label (name and
+# template arguments, kernel_label), instructions it must hold ("A|B": A or
+# B), instructions it must not)
 HOPPER_SASS = (
-    ("flash_attention_fwd.cu", "flash_attention_fwd_bf16_wgmma_kernel",
+    ("flash_attention_fwd.cu", r"flash_attention_fwd_bf16_wgmma_kernel<",
      ("HGMMA", "UTMALDG"), ()),
-    ("flash_attention_bwd.cu", "flash_attention_bwd_dkv_bf16_wgmma_kernel",
+    ("flash_attention_bwd.cu", r"flash_attention_bwd_dkv_bf16_wgmma_kernel<",
      ("HGMMA", "UTMALDG"), ()),
-    ("flash_attention_fwd.cu", "flash_attention_fwd_bf16_kernel",
+    ("flash_attention_bwd.cu", r"flash_attention_bwd_dq_bf16_wgmma_kernel<",
+     ("HGMMA", "UTMALDG"), ()),
+    ("flash_attention_fwd.cu", r"flash_attention_fwd_bf16_kernel<",
      ("HMMA",), ("HGMMA", "UTMALDG")),
-    ("flash_attention_bwd.cu", "flash_attention_bwd_dkv_bf16_kernel",
+    ("flash_attention_bwd.cu", r"flash_attention_bwd_dkv_bf16_kernel<",
      ("HMMA",), ("HGMMA", "UTMALDG")),
-    ("flash_attention_bwd.cu", "flash_attention_bwd_dq_bf16_kernel",
+    ("flash_attention_bwd.cu", r"flash_attention_bwd_dq_bf16_kernel<",
      ("HMMA",), ("HGMMA", "UTMALDG")),
+    # K1-bf16's cluster plan multiplies on the tensor cores, K1's (f32) on
+    # the CUDA cores
+    ("lstm_sequence.cu", r"lstm_sequence_cluster_kernel<\d+,bf16>",
+     ("HMMA|HGMMA",), ()),
+    ("lstm_sequence.cu", r"lstm_sequence_cluster_kernel<\d+>",
+     (), ("HMMA", "HGMMA")),
 )
 # fused updater: max |kernel - plain| over each of p, m, v (and v-hat),
 # relative to that tensor's largest entry; the same float32 coefficients
@@ -658,8 +668,8 @@ def flash_bf16_phase(ck, peaks):
     medians of 25, and the profiler's device time a launch) beside their
     bf16 bound, their plain versions and SDPA in bf16 (forward; its
     backward for dq + dk/dv in one call; both timed the same two ways).
-    Each shape prints the design that served the forward and the dk/dv
-    kernel. Returns the rows at GPT-2-small's training shape, causal."""
+    Each shape prints the design that served the forward, the dq and the
+    dk/dv kernel. Returns the rows at GPT-2-small's training shape, causal."""
     import torch.nn.functional as F
     rng = np.random.default_rng(2)
     bf = torch.bfloat16
@@ -700,7 +710,7 @@ def flash_bf16_phase(ck, peaks):
                                    f"outside its limits: {json.dumps(reading)}")
         del terms
         design = {kernel: ck.flash_bf16_tiles(kernel, shape[-1])[0]
-                  for kernel in ("fwd", "dkv")}
+                  for kernel in ("fwd", "dq", "dkv")}
         print(f"flash_bf16 agreement {list(shape)} causal={causal} design="
               f"{json.dumps(design)} " + json.dumps(readings), flush=True)
         ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -713,6 +723,7 @@ def flash_bf16_phase(ck, peaks):
         lib_bwd_device_ms = device_ms_per_call(lib_bwd)
         lib_fwd = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
         fwd = lambda: ck.flash_attention_fwd(q, k, v, causal)  # noqa: E731
+        dq_call = lambda: ck.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)  # noqa: E731
         dkv = lambda: ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, causal)  # noqa: E731
         if (shape, causal) == (SERVED_SHAPE, True):
             print("library kernels of SDPA's bf16 forward and backward "
@@ -728,8 +739,8 @@ def flash_bf16_phase(ck, peaks):
                     "library_device_ms": device_ms_per_call(lib_fwd),
                     **flash_bound_bf16(shape, causal, peaks)},
             "dq": {"max_abs_err": errs["dq"], "d_max_abs_err": errs["d"],
-                   "ms": median_ms(lambda: ck.flash_attention_bwd_dq(
-                       q, k, v, o, lse, do, causal)),
+                   "design": design["dq"], "ms": median_ms(dq_call),
+                   "device_ms": device_ms_per_launch(dq_call, "flash_attention_bwd_dq_bf16_"),
                    "plain_ms": median_ms(lambda: ck.flash_attention_bwd_dq_plain(
                        q, k, v, o, lse, do, causal)),
                    "library_ms": lib_bwd_ms, "library_device_ms": lib_bwd_device_ms,
@@ -753,7 +764,7 @@ def flash_bf16_phase(ck, peaks):
         if (shape, causal) == (SERVED_SHAPE, True):
             served = rows
         del q, k, v, do, o, lse, dq, d, dk, dv, p_o, p_lse, p_dq, p_d, p_dk, p_dv
-        del ql, kl, vl, lib_out, lib_fwd, fwd, dkv
+        del ql, kl, vl, lib_out, lib_fwd, fwd, dq_call, dkv
     # the wrappers' host time a call: at the served shape the kernels take
     # about as long, so back-to-back CUDA-event medians there can time the
     # host (compare "ms" with "device_ms")
@@ -761,6 +772,7 @@ def flash_bf16_phase(ck, peaks):
     o, lse = ck.flash_attention_fwd(q, k, v, True, return_lse=True)
     _, d = ck.flash_attention_bwd_dq(q, k, v, o, lse, do, True)
     for name, fn in (("fwd", lambda: ck.flash_attention_fwd(q, k, v, True)),
+                     ("dq", lambda: ck.flash_attention_bwd_dq(q, k, v, o, lse, do, True)),
                      ("dkv", lambda: ck.flash_attention_bwd_dkv(q, k, v, lse, do, d, True))):
         fn()
         torch.cuda.synchronize()
@@ -771,7 +783,7 @@ def flash_bf16_phase(ck, peaks):
         served[name]["host_us_per_call"] = (time.perf_counter() - t0) * 1e6 / HOST_CALLS
         served[name]["host_shape"] = list(FLASH_HOST_SHAPE)
     print("flash_bf16 host " + json.dumps({n: served[n]["host_us_per_call"]
-                                           for n in ("fwd", "dkv")}), flush=True)
+                                           for n in ("fwd", "dq", "dkv")}), flush=True)
     return served
 
 
@@ -1431,11 +1443,12 @@ def device_ms_per_call(fn, calls: int = 20) -> float:
 
 
 def sass_check(ck):
-    """The instructions of the bf16 flash kernels in the built libraries
-    (``cuobjdump -sass``): each HOPPER_SASS kernel must hold the
-    instructions it lists and none of those it must not. Returns, by
-    kernel, the count of each of HGMMA, UTMALDG and HMMA; raises on a
-    kernel that breaks its row or is missing."""
+    """The instructions of the bf16 flash kernels and the cluster LSTM
+    kernels in the built libraries (``cuobjdump -sass``): each HOPPER_SASS
+    kernel must hold the instructions it lists (one of each "A|B") and none
+    of those it must not. Returns, by kernel, the count of each of HGMMA,
+    UTMALDG and HMMA; raises on a kernel that breaks its row or is
+    missing."""
     tool = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
     found, bad = {}, []
     for source in sorted({row[0] for row in HOPPER_SASS}):
@@ -1448,12 +1461,13 @@ def sass_check(ck):
             ops = re.findall(r"\b(HGMMA|UTMALDG|HMMA)\.", body)
             counts = {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")}
             for src, key, need, forbid in HOPPER_SASS:
-                if src == source and label.startswith(key + "<"):
+                if src == source and re.match(key, label):
                     found[label] = counts
-                    if any(counts[op] == 0 for op in need) or any(counts[op] for op in forbid):
+                    if (not all(any(counts[op] for op in alt.split("|")) for alt in need)
+                            or any(counts[op] for op in forbid)):
                         bad.append(label)
     missing = [key for _, key, _, _ in HOPPER_SASS
-               if not any(label.startswith(key + "<") for label in found)]
+               if not any(re.match(key, label) for label in found)]
     if bad or missing:
         raise RuntimeError(f"SASS check: {bad} break their rows, {missing} missing: "
                            f"{json.dumps(found)}")
@@ -1616,6 +1630,8 @@ def lstm_bf16_kernel_phase(ck, peaks):
         row = {"shape": list(shape), "plan": chosen["plan"], "requested": plan,
                **{k: chosen[k] for k in ("S", "U", "R", "C", "smem") if k in chosen},
                **bf16_lstm_readings(got, plain, exact)}
+        if chosen["plan"] == "cluster":  # the tensor cores' tiles (M, N, K padded)
+            row["mma"] = ck._cluster_mma(h, chosen["S"], chosen["R"])
         row["limits"] = {"elem_units": LSTM_BF16_ELEM_TOL, "rel_frob": LSTM_BF16_FROB_TOL,
                          "f64_ratio": LSTM_BF16_F64_RATIO}
         row["ok"] = (math.isfinite(row["max_abs_err"])
@@ -3855,7 +3871,9 @@ def main() -> None:
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bf16["dq"],
               gpt2_bf16["train"]["flash_attention_bwd_dq_bf16"],
               launches_by_path={"gpt2_bf16_train":
-                                gpt2_bf16["train"]["flash_attention_bwd_dq_bf16"]}),
+                                gpt2_bf16["train"]["flash_attention_bwd_dq_bf16"]},
+              **{k: bf16["dq"][k] for k in ("device_ms", "library_device_ms", "design",
+                                            "host_us_per_call")}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

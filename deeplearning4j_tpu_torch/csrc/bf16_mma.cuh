@@ -1,7 +1,8 @@
 // Device helpers shared by the bf16 flash-attention kernels (forward and
 // backward, the bf16 halves of flash_attention_fwd.cu and
 // flash_attention_bwd.cu): cp.async staging of bf16 row tiles, bf16 tensor-
-// core products with f32 accumulation, and the tile geometry.
+// core products with f32 accumulation, and the tile geometry. K1-bf16's
+// cluster plan (lstm_sequence.cu) takes mma_bf16 and the ldmatrix loads.
 //
 // Products: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one
 // product a tile (the operands are already bf16, so one product is the
@@ -100,6 +101,26 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const unsigned*>(&v);
 }
 
+// four 8x8 bf16 matrices, lane l addressing row l % 8 of matrix l / 8 (16
+// contiguous bytes): r[m] holds row g, columns 2t..2t+1 of matrix m
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s)
+                 : "memory");
+}
+
+// two matrices (lanes 0-15 address their rows)
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[4], const bf16* p) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(s)
+                 : "memory");
+}
+
+// the same, transposed: r[m] holds rows 2t..2t+1 of column g of matrix m
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(p);
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"

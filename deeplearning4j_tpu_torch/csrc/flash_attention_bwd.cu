@@ -514,8 +514,8 @@ extern "C" int dl4j_flash_attention_bwd_dkv_f32(const void* q, const void* k,
 // 989 TFLOP/s dense bf16; their bytes (5 and 6 bf16 [N,H,T,Dh] tensors of
 // 12.6 MB, 2 f32 [N,H,T] of 0.4 MB) take about 0.019 and 0.023 ms.
 //
-// Design (the first bf16 kernels: dq at every Dh, dk/dv at Dh 128 and 256;
-// Dh 64 takes the wgmma dk/dv kernel below): the f32 kernels' split (the
+// Design (the first bf16 kernels, at Dh 128 and 256; Dh 64 takes the wgmma
+// dk/dv and dq kernels below): the f32 kernels' split (the
 // dq kernel first, writing D; then the dk/dv kernel; every output element
 // has one owner block, no atomics) on bf16_mma.cuh's geometry: blocks of
 // 64 resident rows in 4 row groups of 16 (two warps a group at Dh 256),
@@ -764,7 +764,8 @@ cudaError_t launch_dkv_bf16(const bf::bf16* q, const bf::bf16* k, const bf::bf16
 // ======================================================================
 // Flash-attention backward dk/dv, bf16, redesigned for Hopper: the kernel
 // that serves the bf16 dk/dv at Dh 64 (GPT-2-small's [8, 12, 1024, 64]);
-// Dh 128 and 256 keep the mma.sync kernel above, and dq stays on it. It
+// Dh 128 and 256 keep the mma.sync kernel above; the dq kernel after this
+// one is its transpose. It
 // computes what that kernel computes, at the same rounding points: S^T
 // and dP^T of bf16 operands in f32; P^T = exp2(S^T scale log2e - LSE
 // log2e) and dS^T = P^T o (dP^T - D) scale in f32, each rounded to bf16
@@ -1059,6 +1060,347 @@ cudaError_t launch_dkv_bf16_wgmma(const bf::bf16* q, const bf::bf16* k, const bf
 
 }  // namespace
 
+// ======================================================================
+// Flash-attention backward dq, bf16, redesigned for Hopper: the kernel that
+// serves the bf16 dq at Dh 64 (GPT-2-small's [8, 12, 1024, 64]); Dh 128 and
+// 256 keep the mma.sync dq kernel above. It computes what that kernel
+// computes, at the same rounding points (the TPU kernel's
+// _flash_attention_dq_kernel, flash_attention.py :1146-1283): D =
+// rowsum(f32(dO) o f32(O)) in f32, written to dvec for the dk/dv kernel
+// that runs next; S = Q K^T and dP = dO V^T of bf16 operands in f32; P =
+// exp2(S scale log2e - LSE log2e) and dS = P o (dP - D) scale in f32, dS
+// rounded to bf16 only as the operand of dQ += dS K; dQ summed in f32 and
+// written in bf16. Every output element has one owner block, no atomics:
+// the same bits from run to run.
+//
+// What bounds it. At [8, 12, 1024, 64], causal, the three products are
+// 19.35 GFLOP, 0.020 ms at 989 TFLOP/s dense bf16; the bytes (q, k, v, o,
+// dO read and dQ written, 6 bf16 [N, H, T, Dh] tensors, the LSE read and D
+// written) take 0.023 ms: bytes, by a little, with the exponentials (the
+// MUFU's 16 a clock an SM) a co-bound at Dh 64.
+//
+// Measured there (NVIDIA H100 80GB HBM3, 700 W): 0.0591 ms of device time
+// a launch, against 0.1141 for the mma.sync kernel in the same run (full
+// attention 0.0987 against 0.1624); with the dk/dv kernel the bf16
+// backward takes 0.1455 ms against 0.1548 for the backward of
+// F.scaled_dot_product_attention in bf16. Without the turns below the
+// kernel takes 0.0636. ptxas: 168 registers at launch, no spills.
+//
+// Design: the transpose of the dk/dv kernel above.
+//   * Persistent: one block of 3 warpgroups on each SM walks work items
+//     (n*h, BR = 128 query rows); causal: the last query blocks, which see
+//     the most key tiles, come first, dealt in a snake. The producer
+//     warpgroup (24 registers) loads an item's Q, dO and O (TMA) into one
+//     of 2 buffers, then streams K and V tiles of BC = 64 keys through a
+//     ring of 5 stages. Two consumer warpgroups (240 registers) own 64
+//     query rows each.
+//   * D first: each consumer sums f32(dO) o f32(O) of its rows from the
+//     shared-memory tiles, a quarter row a thread and one quad reduction,
+//     and keeps D and the LSE (base 2) of its two rows in registers.
+//   * S = Q K^T and dP = dO V^T: wgmma m64n64k16 x 4 each, both operands
+//     from shared memory, K-major; P is computed while dP still runs. dS
+//     is rounded into the A registers of the dQ share = bf16(dS) K (wgmma
+//     m64n64k16 x 4, K MN-major), which is summed from zero and added to
+//     dQ in f32 (the tensor core truncates when it adds into its
+//     accumulator).
+//   * Overlap: the two consumers take turns at issuing S and dP (named
+//     barriers 1 and 2, one turn each per key tile), so one's exponentials
+//     and dS run under the other's products.
+//   * Causal: an item's key loop stops at its diagonal; a consumer whose
+//     rows all lie before a tile's keys skips its products but still takes
+//     its turn and releases the stage; only the tile on its diagonal is
+//     masked. The second consumer's rows see one more tile than the
+//     first's. A last block of 64 rows (T % 128 == 64): the second
+//     consumer's rows lie past T, load as zeros, and it skips every tile
+//     and writes neither D nor dQ.
+
+namespace {
+
+namespace wg_dq {
+constexpr int DH = 64, BR = 128, BC = 64, STAGES = 5, THREADS = 384;
+constexpr int RES = BR * DH;   // bf16 of a resident Q, dO or O block
+constexpr int TILE = BC * DH;  // bf16 of a streamed K or V tile
+constexpr uint32_t RES_BYTES = RES * sizeof(bf::bf16), TILE_BYTES = TILE * sizeof(bf::bf16);
+// 1 KB to align the tiles, 2 buffers of Q, dO and O, the K and V stages,
+// the barriers
+constexpr size_t SMEM = 1024 + 6 * RES_BYTES + STAGES * 2 * TILE_BYTES + 8 * (4 + 2 * STAGES);
+}  // namespace wg_dq
+
+// a consumer's registers over one work item
+struct DqState {
+    float s[wg_dq::BC / 2];   // S, then P
+    float dp[wg_dq::BC / 2];  // dP, then dS, then the dQ share
+    float dq[wg_dq::DH / 2];
+    uint32_t da[wg_dq::BC / 4];  // bf16(dS): A registers
+};
+
+// One key tile of a consumer (MASKED: the tile on its diagonal), in its
+// turn: S and dP issued between taking the turn (named barrier `mine`) and
+// handing it on (`other`); P, dS and the dQ share, all waited for here; dQ
+// += the share in f32. row: the thread's first query row; lse2, dd: the LSE
+// (base 2) and D of rows row and row + 8.
+template <bool MASKED>
+__device__ __forceinline__ void dq_tile(DqState& st, uint64_t q_desc, uint64_t do_desc,
+                                        const bf::bf16* Ks, const bf::bf16* Vs,
+                                        const float (&lse2)[2], const float (&dd)[2], int k0,
+                                        int row, float scale, float scale_log2, int t, int mine,
+                                        int other) {
+    const uint64_t k_desc = h9::desc_sw128(Ks, 16, 1024);
+    const uint64_t v_desc = h9::desc_sw128(Vs, 16, 1024);
+    h9::bar_sync(mine, 256);
+    h9::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < wg_dq::DH / 16; ++ks)
+        h9::wgmma_ss_n64<0>(st.s, h9::desc_at(q_desc, ks * 32), h9::desc_at(k_desc, ks * 32),
+                            ks);
+    h9::wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < wg_dq::DH / 16; ++ks)
+        h9::wgmma_ss_n64<0>(st.dp, h9::desc_at(do_desc, ks * 32), h9::desc_at(v_desc, ks * 32),
+                            ks);
+    h9::wgmma_commit();
+    h9::bar_arrive(other, 256);
+    h9::wgmma_wait<1>();  // S landed; dP may still run
+    h9::fence_regs(st.s);
+#pragma unroll
+    for (int j = 0; j < wg_dq::BC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            st.s[4 * j + e] = (MASKED && key > row + 8 * (e >> 1))
+                ? 0.f
+                : h9::exp2_ftz(fmaf(st.s[4 * j + e], scale_log2, -lse2[e >> 1]));  // P
+        }
+    h9::wgmma_wait<0>();
+    h9::fence_regs(st.dp);
+#pragma unroll
+    for (int i = 0; i < wg_dq::BC / 2; ++i)
+        st.dp[i] = st.s[i] * (st.dp[i] - dd[(i >> 1) & 1]) * scale;  // dS
+    h9::pack_a<wg_dq::BC / 2>(st.da, st.dp);  // rounded to bf16 only here, as the TPU kernel
+    // dQ share = bf16(dS) K (K MN-major: the sum runs over keys), into dS's
+    // registers
+    h9::wgmma_fence();
+    const uint64_t k_mn = h9::desc_sw128(Ks, wg_dq::TILE_BYTES, 1024);
+#pragma unroll
+    for (int kk = 0; kk < wg_dq::BC / 16; ++kk)
+        h9::wgmma_rs_n64<1>(st.dp, st.da[4 * kk], st.da[4 * kk + 1], st.da[4 * kk + 2],
+                            st.da[4 * kk + 3], h9::desc_at(k_mn, kk * 2048), kk);
+    h9::wgmma_commit();
+    h9::wgmma_wait<0>();
+    h9::fence_regs(st.dp);
+    h9::fence_regs(st.da);
+#pragma unroll
+    for (int r = 0; r < wg_dq::DH / 2; ++r) st.dq[r] += st.dp[r];
+}
+
+// f32(dO) o f32(O) summed over a row of two 128-byte-swizzled [rows][64]
+// tiles: this thread's quarter (16-byte chunks 2t and 2t + 1), then the
+// quad's sum
+__device__ __forceinline__ float row_dot(const bf::bf16* dOs, const bf::bf16* Os, int r,
+                                         int t) {
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 2 * t; c < 2 * t + 2; ++c) {
+        const int off = r * 64 + ((c ^ (r & 7)) * 8);
+        const uint4 a = *reinterpret_cast<const uint4*>(dOs + off);
+        const uint4 b = *reinterpret_cast<const uint4*>(Os + off);
+        const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            sum = fmaf(__uint_as_float(aw[i] << 16), __uint_as_float(bw[i] << 16), sum);
+            sum = fmaf(__uint_as_float(aw[i] & 0xffff0000u), __uint_as_float(bw[i] & 0xffff0000u),
+                       sum);
+        }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    return sum;
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(wg_dq::THREADS, 1)
+flash_attention_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                         const __grid_constant__ CUtensorMap tm_k,
+                                         const __grid_constant__ CUtensorMap tm_v,
+                                         const __grid_constant__ CUtensorMap tm_o,
+                                         const __grid_constant__ CUtensorMap tm_do,
+                                         const float* __restrict__ lse,
+                                         bf::bf16* __restrict__ dq, float* __restrict__ dvec,
+                                         int bh, int T, float scale, float scale_log2) {
+    constexpr int DH = wg_dq::DH, BR = wg_dq::BR, BC = wg_dq::BC;
+    constexpr int STAGES = wg_dq::STAGES, RES = wg_dq::RES, TILE = wg_dq::TILE;
+    constexpr uint32_t RES_BYTES = wg_dq::RES_BYTES, TILE_BYTES = wg_dq::TILE_BYTES;
+    extern __shared__ unsigned char smem_raw[];
+    bf::bf16* Qs = reinterpret_cast<bf::bf16*>(h9::align1024(smem_raw));  // 2 buffers
+    bf::bf16* dOs = Qs + 2 * RES;                                         // 2 buffers
+    bf::bf16* Os = dOs + 2 * RES;                                         // 2 buffers
+    bf::bf16* Kt = Os + 2 * RES;          // STAGES tiles
+    bf::bf16* Vt = Kt + STAGES * TILE;    // STAGES tiles
+    uint64_t* r_full = reinterpret_cast<uint64_t*>(Vt + STAGES * TILE);
+    uint64_t* r_empty = r_full + 2;
+    uint64_t* full = r_empty + 2;
+    uint64_t* empty = full + STAGES;
+
+    const int n_qb = (T + BR - 1) / BR, n_items = bh * n_qb;
+
+    if (threadIdx.x == 0) {
+        for (int b = 0; b < 2; ++b) {
+            h9::mbar_init(&r_full[b], 1);
+            h9::mbar_init(&r_empty[b], 2 * 4);  // every consumer warp
+        }
+        for (int s = 0; s < STAGES; ++s) {
+            h9::mbar_init(&full[s], 1);
+            h9::mbar_init(&empty[s], 2 * 4);
+        }
+        h9::mbar_fence_init();
+    }
+    __syncthreads();
+
+    // work item w: query block qb of head w % bh (causal: the last query
+    // blocks see the most key tiles, and come first); its key tiles run up
+    // to the diagonal (causal) or over all T
+    auto item = [&](int w, int& head, int& qb, int& n_tiles) {
+        head = w % bh;
+        qb = CAUSAL ? n_qb - 1 - w / bh : w / bh;
+        n_tiles = CAUSAL ? min((qb + 1) * BR, T) / BC : T / BC;
+    };
+    if (threadIdx.x < 128) {  // the producer warpgroup
+        h9::regs_shrink<24>();
+        if (threadIdx.x == 0) {
+            int tile = 0;  // the ring's count of tiles, over every item
+            for (int i = 0;; ++i) {
+                const int w = h9::snake_item(i);
+                if (w >= n_items) break;
+                int head, qb, n_tiles;
+                item(w, head, qb, n_tiles);
+                const int b = i & 1;
+                if (i >= 2) h9::mbar_wait(&r_empty[b], (i / 2 - 1) & 1);
+                h9::mbar_expect_tx(&r_full[b], 3 * RES_BYTES);
+                h9::tma_load_3d(Qs + b * RES, &tm_q, &r_full[b], 0, qb * BR, head);
+                h9::tma_load_3d(dOs + b * RES, &tm_do, &r_full[b], 0, qb * BR, head);
+                h9::tma_load_3d(Os + b * RES, &tm_o, &r_full[b], 0, qb * BR, head);
+                for (int kt = 0; kt < n_tiles; ++kt, ++tile) {
+                    const int s = tile % STAGES;
+                    if (tile >= STAGES) h9::mbar_wait(&empty[s], (tile / STAGES - 1) & 1);
+                    h9::mbar_expect_tx(&full[s], 2 * TILE_BYTES);
+                    h9::tma_load_3d(Kt + s * TILE, &tm_k, &full[s], 0, kt * BC, head);
+                    h9::tma_load_3d(Vt + s * TILE, &tm_v, &full[s], 0, kt * BC, head);
+                }
+            }
+        }
+    } else {  // the consumer warpgroups
+        h9::regs_grow<240>();
+        const int cw = threadIdx.x / 128 - 1;
+        const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+        const int g = lane >> 2, t = lane & 3;
+        const int mine = 1 + cw, other = 2 - cw;  // the turns' named barriers
+
+        DqState st;
+        if (cw == 1) h9::bar_arrive(1, 256);  // consumer 0 takes the first turn
+        int tile = 0;
+        for (int i = 0;; ++i) {
+            const int w = h9::snake_item(i);
+            if (w >= n_items) break;
+            int head, qb, n_tiles;
+            item(w, head, qb, n_tiles);
+            const size_t rows = (size_t)head * T;
+            const int b = i & 1;
+            const int row0 = qb * BR + cw * 64;  // the consumer's first row
+            const int row = row0 + warp * 16 + g;  // and row + 8
+            const bool live = row0 < T;  // T % 64 == 0: all its rows or none
+            const int lr = cw * 64 + warp * 16 + g;  // row within the buffers
+            const uint64_t q_desc = h9::desc_sw128(Qs + b * RES + cw * 64 * DH, 16, 1024);
+            const uint64_t do_desc = h9::desc_sw128(dOs + b * RES + cw * 64 * DH, 16, 1024);
+            h9::mbar_wait(&r_full[b], (i / 2) & 1);
+            float dd[2], lse2[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                dd[h] = row_dot(dOs + b * RES, Os + b * RES, lr + 8 * h, t);
+                lse2[h] = live ? lse[rows + row + 8 * h] * LOG2E : 0.f;
+                if (live && t == 0) dvec[rows + row + 8 * h] = dd[h];
+            }
+#pragma unroll
+            for (int r = 0; r < DH / 2; ++r) st.dq[r] = 0.f;
+            for (int kt = 0; kt < n_tiles; ++kt, ++tile) {
+                const int s = tile % STAGES, k0 = kt * BC;
+                h9::mbar_wait(&full[s], (tile / STAGES) & 1);
+                if (!live || (CAUSAL && k0 > row0)) {  // no rows at or after these keys
+                    h9::bar_sync(mine, 256);           // the turn, with no products
+                    h9::bar_arrive(other, 256);
+                } else if (CAUSAL && k0 == row0) {  // the tile on the diagonal
+                    dq_tile<true>(st, q_desc, do_desc, Kt + s * TILE, Vt + s * TILE, lse2, dd,
+                                  k0, row, scale, scale_log2, t, mine, other);
+                } else {
+                    dq_tile<false>(st, q_desc, do_desc, Kt + s * TILE, Vt + s * TILE, lse2, dd,
+                                   k0, row, scale, scale_log2, t, mine, other);
+                }
+                h9::mbar_arrive_warp(&empty[s]);  // this consumer is done with the stage
+            }
+            h9::mbar_arrive_warp(&r_empty[b]);  // and with this item's Q, dO and O
+            if (live) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    bf::bf16* out = dq + (rows + row + 8 * h) * DH + 2 * t;
+#pragma unroll
+                    for (int j = 0; j < DH / 8; ++j)
+                        *reinterpret_cast<uint32_t*>(out + 8 * j) =
+                            h9::pack_bf16(st.dq[4 * j + 2 * h], st.dq[4 * j + 2 * h + 1]);
+                }
+            }
+        }
+    }
+}
+
+template <bool CAUSAL>
+cudaError_t launch_dq_bf16_wgmma(const bf::bf16* q, const bf::bf16* k, const bf::bf16* v,
+                                 const bf::bf16* o, const float* lse, const bf::bf16* dout,
+                                 bf::bf16* dq, float* dvec, int bh, int t,
+                                 cudaStream_t stream) {
+    constexpr int DH = wg_dq::DH, BR = wg_dq::BR, BC = wg_dq::BC;
+    constexpr int THREADS = wg_dq::THREADS;
+    constexpr size_t SMEM = wg_dq::SMEM;
+    CUtensorMap tq, tk, tv, to, tdo;
+    int sms = 0;
+    cudaError_t err = h9::encode_heads(&tq, q, bh, t, DH, BR);
+    if (err == cudaSuccess) err = h9::encode_heads(&tk, k, bh, t, DH, BC);
+    if (err == cudaSuccess) err = h9::encode_heads(&tv, v, bh, t, DH, BC);
+    if (err == cudaSuccess) err = h9::encode_heads(&to, o, bh, t, DH, BR);
+    if (err == cudaSuccess) err = h9::encode_heads(&tdo, dout, bh, t, DH, BR);
+    if (err == cudaSuccess) err = h9::sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    auto kernel = flash_attention_bwd_dq_bf16_wgmma_kernel<CAUSAL>;
+    static unsigned long long smem_set = 0;
+    err = h9::allow_smem(kernel, SMEM, &smem_set);
+    if (err != cudaSuccess) return err;
+    const float scale = 1.f / sqrtf((float)DH);
+    const long long items = (long long)bh * ((t + BR - 1) / BR);
+    const int grid = (int)(items < sms ? items : sms);  // persistent: one block per SM
+    kernel<<<grid, THREADS, SMEM, stream>>>(tq, tk, tv, to, tdo, lse, dq, dvec, bh, t, scale,
+                                            scale * LOG2E);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// The design and tiles that serve the bf16 dq kernel at head width dh:
+// design 1 is the wgmma kernel, 0 the mma.sync one; br query rows a block,
+// bc keys a tile. Returns a cudaError_t.
+extern "C" int dl4j_flash_attention_bwd_dq_bf16_tiles(int dh, int* design, int* br, int* bc) {
+    switch (dh) {
+        case 64:
+            *design = 1, *br = wg_dq::BR, *bc = wg_dq::BC;
+            return 0;
+        case 128:
+            *design = 0, *br = bf::Cfg<128>::BR, *bc = bf::Cfg<128>::BC;
+            return 0;
+        case 256:
+            *design = 0, *br = bf::Cfg<256>::BR, *bc = bf::Cfg<256>::BC;
+            return 0;
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
 // The design and tiles that serve the bf16 dk/dv kernel at head width dh:
 // design 1 is the wgmma kernel, 0 the mma.sync one; br key rows a block,
 // bc queries a tile. Returns a cudaError_t.
@@ -1100,7 +1442,11 @@ extern "C" int dl4j_flash_attention_bwd_dq_bf16(const void* q, const void* k,
     return (int)(causal ? launch_dq_bf16<DH, true>(qb, kb, vb, ob, lf, gb, dqb, df, bh, t, s) \
                         : launch_dq_bf16<DH, false>(qb, kb, vb, ob, lf, gb, dqb, df, bh, t, s))
     switch (dh) {
-        case 64: DL4J_DQ_BF16(64);
+        case 64:  // the wgmma kernel
+            return (int)(causal ? launch_dq_bf16_wgmma<true>(qb, kb, vb, ob, lf, gb, dqb, df, bh,
+                                                             t, s)
+                                : launch_dq_bf16_wgmma<false>(qb, kb, vb, ob, lf, gb, dqb, df,
+                                                              bh, t, s));
         case 128: DL4J_DQ_BF16(128);
         case 256: DL4J_DQ_BF16(256);
         default: return (int)cudaErrorInvalidValue;

@@ -24,9 +24,10 @@
 // on the storage type E (float or __nv_bfloat16); the f32 instantiations run
 // the same instructions as before bf16 was added. In the cluster plan rw, the
 // h buffers and the xw buffers take E's bytes (so at H = 512 the bf16 rw,
-// 2 MiB, fits a cluster of 16 CTAs where the f32 rw does not fit one), the P
+// 2 MiB, fits a cluster of 16 CTAs where the f32 rw does not fit one), the
 // partial sums stay f32; a bf16 CTA owns an even number of units, so that
-// xw's and rw's columns are copied 4 bytes (two units) at a time.
+// xw's and rw's columns are copied 4 bytes (two units) at a time, and runs
+// its recurrent products on the tensor cores (below).
 //
 // What bounds it. At the training chunk [T, N, H] = [50, 32, 200] the
 // recurrent products are 2 T N H 4H = 512 MFLOP: 7.6 us at the H100 SXM's
@@ -69,10 +70,20 @@
 //   so that every cluster is resident at once;
 // - no early exit: CTAs whose units or rows run past H or N go through
 //   every barrier with the others.
-// The products stay on the CUDA cores: at the main paths' shapes a CTA
-// holds R = 1 or 2 rows, and a 16-row tensor-core fragment would be 1/8 or
-// 1/16 full; each step's 2 R H 4U multiply-adds are short, and the step's
-// latency is set by the barrier and the hand-over (see the chain floor).
+// The f32 products stay on the CUDA cores: each thread one column and one
+// slice of H, its rw entry reused over a register block of rows. The bf16
+// products run on the tensor cores with the operands swapped, so that the
+// few batch rows are the narrow side: d^T [4U x R] = rw_slice^T [4U x H]
+// h^T [H x R], bf16 mma.sync m16n8k16 with f32 sums. M is the CTA's 4U gate
+// columns (m-tiles of 16), N the R rows (n-tiles of 8, two to a load), K
+// is H (k-steps of 16); the padding is zeros in both operands. rw stays
+// resident in shared memory, laid out so that ldmatrix.trans reads its A
+// fragments without bank conflicts; h (B) is read by ldmatrix from its
+// buffer. Where M alone gives fewer m-tiles than warps, K is split into
+// parts (warp w: m-tile w % mt, K part w / mt) whose f32 partial sums the
+// cell adds. At [128, 64, 512] (S = 16, U = 32): 8 m-tiles x 2 K parts of
+// 16 k-steps, 32 mma a warp a step. Holding a warp's A fragments in
+// registers over the sequence (64 a thread) was no faster on the card.
 //
 // The grid plan (lstm_sequence_kernel), for widths whose rw does not fit one
 // cluster (H = 512: 4 MB; H = 1500: 36 MB), launched cooperatively (every
@@ -99,21 +110,29 @@
 // and 1.05 ms. The rest of a step is the products, the cell's
 // transcendentals and the block barrier before the cell.
 //
-// K1-bf16 on the same card (chip_smoke.py's lstm_bf16_kernel phase, CUDA
-// events, median of 25): at the bf16 path's [128, 64, 512] the cluster plan
-// (S = 16, R = 10, 7 clusters) takes 1.86 ms, 13.2 us a step of device time
-// against a 1.35 us chain floor, level with cuDNN's bf16 LSTM (1.88 ms) and
-// far above its bound (0.017 ms, 17.2 GFLOP at the bf16 tensor-core rate):
-// each step's products run on the CUDA cores, 8 loads of shared memory
-// (rw re-read for every block of 4 rows) for each 16 FMAs; the grid plan at
-// that shape takes 5.64 ms. At [50, 32, 200] (S = 8, R = 3) 0.174 ms.
+// K1-bf16 on the same card (chip_smoke.py's lstm_bf16_kernel phase): at the
+// bf16 path's [128, 64, 512] the cluster plan (S = 16, R = 10, 7 clusters)
+// takes 0.51-0.56 ms of device time a launch over three runs, 4.4 us a
+// step against a 1.48 us chain floor (with its products on the CUDA cores,
+// 1.84-1.86 ms in an A/B run on the same card), against 3.07 ms for
+// cuDNN's bf16 LSTM and a 0.017 ms bound (17.2 GFLOP at the bf16
+// tensor-core rate). Of a step (flash_bf16_ab.py's lstm_split), the
+// products take about a third, the hand-over and barrier a third, the cell
+// a tenth. The grid plan at that shape takes 5.35 ms. At [50, 32, 200] (S =
+// 8, R = 3) 0.142 ms. ptxas: 72 registers, no spills.
+//
+// DL4J_LSTM_SPLIT_NO_PRODUCTS and DL4J_LSTM_SPLIT_NO_CELL (-D, never in the
+// port's own build) cut the bf16 cluster plan's products (zpart held at 0)
+// or replace its cell by a few adds: wrong results, for
+// flash_bf16_ab.py's split of a step's time only.
 //
 // Host cost: the device's limits, the kernels' shared-memory and cluster
 // attributes and the cluster occupancy are looked up once per device (and
 // kernel, cluster size and shared-memory size) and cached.
 //
 // Numerics: expf and tanhf (not the fast intrinsics); the dot products sum
-// in another order than the plain version does.
+// in another order than the plain version does (bf16: k-steps of 16 chained
+// in the tensor core's f32 accumulator, then the K parts added in f32).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -123,6 +142,8 @@
 #include <mutex>
 #include <type_traits>
 #include <vector>
+
+#include "bf16_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -462,12 +483,29 @@ __device__ __forceinline__ void cp_async_wait_prior() {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+constexpr int CWARPS = CTHREADS / 32;
+
 // The shared-memory layout of one CTA of the cluster plan, in bytes, for
 // rw, h and xw elements of E bytes (4: f32, 2: bf16). The same arithmetic
 // is lstm_plan's in nn/cuda_kernels.py (_cluster_bytes); the launcher
 // refuses a plan whose byte count disagrees.
+//
+// f32 (CUDA-core products): rw [hs][cols], h buffers [rp][hs], the P
+// slices' partial sums [P][rp][cols].
+//
+// bf16 (tensor-core products, d^T = rw_slice^T h^T: M the CTA's gate
+// columns, N the batch rows, K = H): rw [kp][rs], its columns padded to mp
+// (a multiple of 16) and its rows to kp (H up to a multiple of 16), zero
+// past H, past uc and past 4U, each row skewed by 8 bf16 so that ldmatrix
+// reads it without bank conflicts; h buffers [np][kp + 8], rows padded to
+// np (R up to a multiple of 8, n-tiles of 8), zero past H and past R;
+// the ksplit partial sums of the K parts [ksplit][np][mp + 4] f32. mt
+// m-tiles of 16 columns, kt k-steps of 16; warp w < mt ksplit computes
+// m-tile w % mt over k-steps [kc (w / mt), kc (w / mt + 1)).
 struct ClusterLayout {
-    int U, cols, hs, rp, P, ks;
+    int U, cols, hs, rp, P, ks;          // f32
+    int mp, kp, np, rs, zs, mt, kt, ksplit, kc;  // bf16
+    int hrows, hstride;                  // the h buffers: rows, row stride (elements)
     int rw, hbuf, zpart, xw, c, hst, total;  // offsets (bytes) and the size
     __host__ __device__ ClusterLayout(int H, int S, int R, int RB, int E) {
         U = (H + S - 1) / S;
@@ -477,17 +515,84 @@ struct ClusterLayout {
         rp = (R + RB - 1) / RB * RB;       // rows padded to the register block
         P = cols >= CTHREADS ? 1 : CTHREADS / cols;  // slices of the H products
         ks = ((hs + P - 1) / P + 3) & ~3;  // rows of rw a slice, a multiple of 4
-        rw = 0;                            // [hs][cols] E, zero past H and uc
-        hbuf = rw + hs * cols * E;         // 2 x [rp][hs] E
-        zpart = hbuf + 2 * rp * hs * E;    // [P][rp][cols] f32
-        xw = zpart + P * rp * cols * 4;    // 2 x [R][cols] E
-        c = xw + 2 * R * cols * E;         // [R][U] f32
-        hst = c + R * U * 4;               // [R][U] f32, h_t on its way to ys
-        total = hst + R * U * 4;
+        mp = (cols + 15) & ~15;
+        kp = (H + 15) & ~15;
+        np = (R + 7) & ~7;
+        rs = mp + 8;
+        zs = mp + 4;                       // C fragments stored without bank conflicts
+        mt = mp / 16;
+        kt = kp / 16;
+        ksplit = mt >= CWARPS ? 1 : CWARPS / mt;
+        kc = (kt + ksplit - 1) / ksplit;
+        rw = 0;
+        if (E == 2) {
+            hrows = np;
+            hstride = kp + 8;
+            hbuf = rw + kp * rs * E;              // [kp][rs] bf16
+            zpart = hbuf + 2 * np * hstride * E;  // 2 x [np][kp + 8] bf16
+            xw = zpart + ksplit * np * zs * 4;    // [ksplit][np][zs] f32
+        } else {
+            hrows = rp;
+            hstride = hs;
+            hbuf = rw + hs * cols * E;         // [hs][cols] E, zero past H and uc
+            zpart = hbuf + 2 * rp * hs * E;    // 2 x [rp][hs] E
+            xw = zpart + P * rp * cols * 4;    // [P][rp][cols] f32
+        }
+        c = xw + 2 * R * cols * E;         // 2 x [R][cols] E
+        hst = c + R * U * 4;               // [R][U] f32
+        total = hst + R * U * 4;           // [R][U] f32, h_t on its way to ys
     }
 };
 
 __host__ __device__ inline int row_block(int R) { return R < 4 ? R : 4; }
+
+// bf16 step, products: zpart[p][n][m] = sum over K part p of
+// h_{t-1}[n][k] rw[k][m], for every m-tile and K part (bf16 mma.sync
+// m16n8k16, f32 sums: k-steps of 16 chained in the accumulator). Each
+// k-step reads its A fragment of the resident rw slice (ldmatrix.trans)
+// and its B fragments of h (ldmatrix).
+__device__ __forceinline__ void products_bf16(const ClusterLayout& L, const bf16* rw_s,
+                                              const bf16* hb, float* zpart, int warp,
+                                              int lane) {
+    const int q = lane >> 3, g = lane >> 2, t = lane & 3;
+    for (int it = warp; it < L.mt * L.ksplit; it += CWARPS) {
+        const int mtile = it % L.mt, part = it / L.mt;
+        const int kb = part * L.kc, ke = min(L.kt, kb + L.kc);
+        // A: matrices (k lo, m lo), (k lo, m hi), (k hi, m lo), (k hi, m hi)
+        const bf16* a_lane = rw_s + ((q >> 1) * 8 + (lane & 7)) * L.rs + mtile * 16 + (q & 1) * 8;
+        for (int nt = 0; nt < L.np / 8; nt += 2) {
+            // B: matrices (n-tile nt, k lo), (nt, k hi), (nt + 1, k lo), (nt + 1,
+            // k hi); the last n-tile of an odd count alone (x2: lanes 0-15)
+            const bool two = nt + 1 < L.np / 8;
+            const bf16* b_lane = hb + (nt * 8 + (q >> 1) * 8 + (lane & 7)) * L.hstride + (q & 1) * 8;
+            float acc0[4] = {0.f, 0.f, 0.f, 0.f}, acc1[4] = {0.f, 0.f, 0.f, 0.f};
+            for (int kk = kb; kk < ke; ++kk) {
+                unsigned a[4], b[4];
+                dl4j_bf16::ldmatrix_x4_trans(a, a_lane + kk * 16 * L.rs);
+                if (two) {
+                    dl4j_bf16::ldmatrix_x4(b, b_lane + kk * 16);
+                    dl4j_bf16::mma_bf16(acc1, a, b[2], b[3]);
+                } else {
+                    dl4j_bf16::ldmatrix_x2(b, b_lane + kk * 16);
+                }
+                dl4j_bf16::mma_bf16(acc0, a, b[0], b[1]);
+            }
+            // C fragments: (m = g, n = 2t, 2t + 1), (m = g + 8, the same n)
+            float* zp = zpart + (part * L.np + nt * 8 + 2 * t) * L.zs + mtile * 16 + g;
+            zp[0] = acc0[0];
+            zp[L.zs] = acc0[1];
+            zp[8] = acc0[2];
+            zp[L.zs + 8] = acc0[3];
+            if (two) {
+                zp += 8 * L.zs;
+                zp[0] = acc1[0];
+                zp[L.zs] = acc1[1];
+                zp[8] = acc1[2];
+                zp[L.zs + 8] = acc1[3];
+            }
+        }
+    }
+}
 
 // One cluster per slice of R batch rows; RB rows of a register block; E the
 // storage type. `pairs` (bf16): H is even and xw, rw are 4-byte aligned, so
@@ -504,6 +609,7 @@ lstm_sequence_cluster_kernel(const E* __restrict__ xw, const E* __restrict__ rw,
     unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
     const ClusterLayout L(H, S, R, RB, (int)sizeof(E));
     const int U = L.U, cols = L.cols, hs = L.hs, rp = L.rp;
+    const int hrows = L.hrows, hstride = L.hstride;
     E* rw_s = reinterpret_cast<E*>(smem + L.rw);
     E* hbuf = reinterpret_cast<E*>(smem + L.hbuf);
     float* zpart = reinterpret_cast<float*>(smem + L.zpart);
@@ -522,17 +628,19 @@ lstm_sequence_cluster_kernel(const E* __restrict__ xw, const E* __restrict__ rw,
     // once a column, not once an element), h0 into buffer 0, c0, xw_0
     const E zero = from_f<E>(0.f);
     if constexpr (BF16) {
-        // two columns (units u, u + 1 of one gate: U is even) a copy
-        for (int j = 2 * (tid % 32); j < cols; j += 64) {
+        // [kp][rs]: two columns (units u, u + 1 of one gate: U is even) a
+        // copy; zeros past H, uc and 4U (the tensor cores' padding)
+        for (int j = 2 * (tid % 32); j < L.mp; j += 64) {
             const int g = j / U, u = j - g * U;
-            const E* src = rw + (int64_t)g * H + u0 + u;
-            for (int k = tid / 32; k < hs; k += CTHREADS / 32) {
-                E* dst = rw_s + k * cols + j;
-                if (pairs && k < H && u + 1 < uc) {
+            const bool col = j < cols;
+            const E* src = rw + (int64_t)(col ? g : 0) * H + u0 + u;
+            for (int k = tid / 32; k < L.kp; k += CWARPS) {
+                E* dst = rw_s + k * L.rs + j;
+                if (col && pairs && k < H && u + 1 < uc) {
                     cp_async4(dst, src + k * H4);
                 } else {
-                    dst[0] = (k < H && u < uc) ? src[k * H4] : zero;
-                    dst[1] = (k < H && u + 1 < uc) ? src[k * H4 + 1] : zero;
+                    dst[0] = (col && k < H && u < uc) ? src[k * H4] : zero;
+                    dst[1] = (col && k < H && u + 1 < uc) ? src[k * H4 + 1] : zero;
                 }
             }
         }
@@ -548,9 +656,9 @@ lstm_sequence_cluster_kernel(const E* __restrict__ xw, const E* __restrict__ rw,
             }
         }
     }
-    for (int i = tid; i < 2 * rp * hs; i += CTHREADS) {
-        const int b = i / (rp * hs), rem = i - b * rp * hs;
-        const int r = rem / hs, k = rem - r * hs;
+    for (int i = tid; i < 2 * hrows * hstride; i += CTHREADS) {
+        const int b = i / (hrows * hstride), rem = i - b * hrows * hstride;
+        const int r = rem / hstride, k = rem - r * hstride;
         const int n = row0 + r;
         hbuf[i] = (b == 0 && r < R && n < N && k < H) ? h0[(int64_t)n * H + k] : zero;
     }
@@ -596,13 +704,22 @@ lstm_sequence_cluster_kernel(const E* __restrict__ xw, const E* __restrict__ rw,
     cluster_arrive_release();
     cluster_wait_acquire();
 
+#ifdef DL4J_LSTM_SPLIT_NO_PRODUCTS
+    for (int i = tid; BF16 && i < L.ksplit * L.np * L.zs; i += CTHREADS) zpart[i] = 0.f;
+    __syncthreads();
+#endif
+
     for (int t = 0; t < T; ++t) {
-        const E* hb = hbuf + (t & 1) * rp * hs;  // h_{t-1}
+        const E* hb = hbuf + (t & 1) * hrows * hstride;  // h_{t-1}
         // xw_{t+1} does not depend on h: its copy has the whole step to land
         // (its buffer was last read in step t - 1, before the last barrier)
         prefetch_xw(t + 1);
-        // 1. zpart[p][r][j] = sum over slice p of h_{t-1}[r][k] rw[k][j]
-        for (int item = tid; item < cols * L.P; item += CTHREADS) {
+        // 1. bf16: zpart[p][n][m] on the tensor cores; f32: zpart[p][r][j]
+        //    = sum over slice p of h_{t-1}[r][k] rw[k][j]
+#ifndef DL4J_LSTM_SPLIT_NO_PRODUCTS
+        if constexpr (BF16) products_bf16(L, rw_s, hb, zpart, tid >> 5, tid & 31);
+#endif
+        for (int item = tid; !BF16 && item < cols * L.P; item += CTHREADS) {
             const int j = item % cols, p = item / cols;
             const int k_begin = p * L.ks, k_end = min(hs, k_begin + L.ks);
             for (int rb = 0; rb < rp; rb += RB) {
@@ -633,12 +750,12 @@ lstm_sequence_cluster_kernel(const E* __restrict__ xw, const E* __restrict__ rw,
         // 2. the cell for (row r, unit u); h_t to ys and to every CTA's
         //    buffer (t + 1) & 1
         const E* xt = xw_s + (t & 1) * R * cols;
-        E* hnext = hbuf + ((t + 1) & 1) * rp * hs;
+        E* hnext = hbuf + ((t + 1) & 1) * hrows * hstride;
         for (int it = tid; it < R * U; it += CTHREADS) {
             const int r = it / U, u = it - r * U;
             const int n = row0 + r;
             if (u >= uc || n >= N) continue;
-            const E* slot = hnext + r * hs + u0 + u;
+            const E* slot = hnext + r * hstride + u0 + u;
             if constexpr (BF16) {
                 // d summed over the slices in f32, then the cell's roundings
                 float x[4], d[4];
@@ -647,13 +764,18 @@ lstm_sequence_cluster_kernel(const E* __restrict__ xw, const E* __restrict__ rw,
                     x[g] = to_f(xt[r * cols + g * U + u]);
                     d[g] = 0.f;
                 }
-                for (int p = 0; p < L.P; ++p) {
-                    const float* zp = zpart + (p * rp + r) * cols + u;
+                for (int p = 0; p < L.ksplit; ++p) {
+                    const float* zp = zpart + (p * L.np + r) * L.zs + u;
 #pragma unroll
                     for (int g = 0; g < 4; ++g) d[g] += zp[g * U];
                 }
                 float c = c_s[it], h;
+#ifndef DL4J_LSTM_SPLIT_NO_CELL
                 cell_bf16(x, d, c, h);
+#else
+                c = round_bf16(c + x[0] + d[0] + x[1] + d[1]);
+                h = round_bf16(x[2] + d[2] + x[3] + d[3] + 0.5f * c);
+#endif
                 c_s[it] = c;
                 h_s[it] = h;
                 const E hv = from_f<E>(h);
@@ -713,24 +835,24 @@ lstm_chain_floor_kernel(float* __restrict__ out, int T, int N, int H, int S, int
     extern __shared__ float4 smem4[];
     unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
     const ClusterLayout L(H, S, R, row_block(R), (int)sizeof(E));
-    const int U = L.U, hs = L.hs, rp = L.rp;
+    const int U = L.U, hrows = L.hrows, hstride = L.hstride;
     E* hbuf = reinterpret_cast<E*>(smem + L.hbuf);
     const int rank = (int)cluster_rank();
     const int row0 = (int)cluster_id() * R;
     const int u0 = rank * U;
     const int uc = max(0, min(U, H - u0));
-    for (int i = threadIdx.x; i < 2 * rp * hs; i += CTHREADS) hbuf[i] = from_f<E>(0.f);
+    for (int i = threadIdx.x; i < 2 * hrows * hstride; i += CTHREADS) hbuf[i] = from_f<E>(0.f);
     cluster_arrive_release();
     cluster_wait_acquire();
     float last = 0.f;
     for (int t = 0; t < T; ++t) {
-        const E* hb = hbuf + (t & 1) * rp * hs;
-        E* hnext = hbuf + ((t + 1) & 1) * rp * hs;
+        const E* hb = hbuf + (t & 1) * hrows * hstride;
+        E* hnext = hbuf + ((t + 1) & 1) * hrows * hstride;
         for (int it = threadIdx.x; it < R * U; it += CTHREADS) {
             const int r = it / U, u = it - r * U;
             if (u >= uc || row0 + r >= N) continue;
-            last = to_f(hb[r * hs + (u0 + u + 1) % H]) + 1.f;
-            const E* slot = hnext + r * hs + u0 + u;
+            last = to_f(hb[r * hstride + (u0 + u + 1) % H]) + 1.f;
+            const E* slot = hnext + r * hstride + u0 + u;
             for (int peer = 0; peer < S; ++peer)
                 st_cluster(peer_addr(slot, peer), from_f<E>(last));
         }
@@ -809,11 +931,16 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int C, int S, int s
 // The instantiation for a plan's register block and storage type.
 template <typename E>
 const void* cluster_kernel(int R) {
-    switch (row_block(R)) {
-        case 1: return (const void*)lstm_sequence_cluster_kernel<1, E>;
-        case 2: return (const void*)lstm_sequence_cluster_kernel<2, E>;
-        case 3: return (const void*)lstm_sequence_cluster_kernel<3, E>;
-        default: return (const void*)lstm_sequence_cluster_kernel<4, E>;
+    // bf16 has no register block of rows (its products are mma tiles)
+    if constexpr (std::is_same<E, bf16>::value) {
+        return (const void*)lstm_sequence_cluster_kernel<1, E>;
+    } else {
+        switch (row_block(R)) {
+            case 1: return (const void*)lstm_sequence_cluster_kernel<1, E>;
+            case 2: return (const void*)lstm_sequence_cluster_kernel<2, E>;
+            case 3: return (const void*)lstm_sequence_cluster_kernel<3, E>;
+            default: return (const void*)lstm_sequence_cluster_kernel<4, E>;
+        }
     }
 }
 

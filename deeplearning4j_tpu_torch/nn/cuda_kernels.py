@@ -9,8 +9,8 @@ Counterpart of ``deeplearning4j_tpu/nn/pallas_kernels.py``. Ported so far:
   multiplies on the tensor cores at f32 accuracy for f32 heads (3xTF32,
   the helpers of ``csrc/tf32_mma.cuh``), and has a bf16 kernel beside it
   for the mixed-precision path (bf16 products with f32 accumulation; the
-  LSE and D stay f32): at Dh 64 the forward and the dk/dv kernel are
-  persistent, warp-specialized ``wgmma`` kernels fed by TMA
+  LSE and D stay f32): at Dh 64 the forward, the dq and the dk/dv kernel
+  are persistent, warp-specialized ``wgmma`` kernels fed by TMA
   (``csrc/hopper_sm90.cuh``), otherwise ``mma.sync`` ones
   (``csrc/bf16_mma.cuh``); :data:`FLASH_BF16_TILES` names each. Each
   wrapper counts every launch in ``launches`` and its bf16 launches in
@@ -221,26 +221,29 @@ _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 _FLASH_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-#: The design and tiles of the bf16 forward ("fwd") and dk/dv ("dkv")
-#: kernels at each head width, as the C functions choose them: (design,
-#: BR resident rows a block, BC streamed rows a tile). "wgmma" is the
-#: Hopper design (TMA, mbarriers, warp-specialized wgmma; hopper_sm90.cuh),
+#: The design and tiles of the bf16 forward ("fwd"), dq ("dq") and dk/dv
+#: ("dkv") kernels at each head width, as the C functions choose them:
+#: (design, BR resident rows a block, BC streamed rows a tile). "wgmma" is
+#: the Hopper design (TMA, mbarriers, warp-specialized wgmma; hopper_sm90.cuh),
 #: "mma.sync" the first bf16 kernels' (bf16_mma.cuh). The CPU tests emulate
 #: each kernel's tile order from this table; :func:`flash_bf16_tiles` reads
 #: the library's own, which a card test holds to it.
 FLASH_BF16_TILES = {
     "fwd": {64: ("wgmma", 128, 128), 128: ("mma.sync", 64, 32),
             256: ("mma.sync", 64, 32)},
+    "dq": {64: ("wgmma", 128, 64), 128: ("mma.sync", 64, 32),
+           256: ("mma.sync", 64, 32)},
     "dkv": {64: ("wgmma", 128, 64), 128: ("mma.sync", 64, 32),
             256: ("mma.sync", 64, 32)},
 }
 _DESIGNS = ("mma.sync", "wgmma")
 _TILE_SYMBOLS = {"fwd": (_FWD_SRC, "dl4j_flash_attention_fwd_bf16_tiles"),
+                 "dq": (_BWD_SRC, "dl4j_flash_attention_bwd_dq_bf16_tiles"),
                  "dkv": (_BWD_SRC, "dl4j_flash_attention_bwd_dkv_bf16_tiles")}
 
 
 def flash_bf16_tiles(kernel: str, dh: int):
-    """``(design, BR, BC)`` of the built bf16 ``kernel`` ("fwd" or "dkv")
+    """``(design, BR, BC)`` of the built bf16 ``kernel`` ("fwd", "dq" or "dkv")
     at head width ``dh``, from the library (builds it; needs nvcc)."""
     fn = _load(_TILE_SYMBOLS[kernel][0], _TILE_SYMBOLS[kernel][1],
                [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
@@ -651,18 +654,44 @@ def _cluster_units(h: int, s: int, elem: int = 4) -> int:
     return u + (u & 1) if elem == 2 else u
 
 
+def _cluster_mma(h: int, s: int, r: int) -> dict:
+    """The bf16 cluster plan's tensor-core geometry (``ClusterLayout`` for
+    2-byte elements): the product dᵀ = rw_sliceᵀ·hᵀ has M = 4U gate
+    columns padded to ``mp`` (a multiple of 16), N = R rows padded to
+    ``np`` (a multiple of 8: n-tiles of 8) and K = H padded to ``kp``
+    (a multiple of 16); ``mt`` m-tiles and ``kt`` k-steps of 16; K is split
+    into ``ksplit`` parts of ``kc`` k-steps where the m-tiles alone leave
+    warps idle (warp w: m-tile w % mt, part w // mt)."""
+    mp, kp, np_ = -(-4 * _cluster_units(h, s, 2) // 16) * 16, -(-h // 16) * 16, -(-r // 8) * 8
+    mt, kt = mp // 16, kp // 16
+    warps = CLUSTER_THREADS // 32
+    ksplit = 1 if mt >= warps else warps // mt
+    return {"mp": mp, "kp": kp, "np": np_, "mt": mt, "kt": kt, "ksplit": ksplit,
+            "kc": -(-kt // ksplit)}
+
+
 def _cluster_bytes(h: int, s: int, r: int, elem: int = 4) -> int:
     """Bytes of shared memory a CTA of the cluster plan uses (the
     ``ClusterLayout`` of ``csrc/lstm_sequence.cu``, whose launcher refuses
     a plan that gives it fewer bytes), for rw, h and xw elements of
-    ``elem`` bytes (4: f32, 2: bf16): its slice of rw [hs, 4U]; two h
-    buffers [rp, hs]; then, in f32 whatever ``elem``, the P partial sums
-    [P, rp, 4U]; two xw buffers [R, 4U] of ``elem`` bytes; c and h_t [R, U]
-    in f32. ``hs`` is H rounded up to 4, ``rp`` R rounded up to its
-    register block (R up to 4 rows, else 4) and P the slices of the H
-    products (threads / 4U)."""
+    ``elem`` bytes (4: f32, 2: bf16).
+
+    f32: its slice of rw [hs, 4U]; two h buffers [rp, hs]; the P partial
+    sums [P, rp, 4U] f32; two xw buffers [R, 4U]; c and h_t [R, U] in f32.
+    ``hs`` is H rounded up to 4, ``rp`` R rounded up to its register block
+    (R up to 4 rows, else 4) and P the slices of the H products (threads /
+    4U).
+
+    bf16 (tensor-core products, :func:`_cluster_mma`): the slice of rw
+    [kp, mp + 8] (each row skewed by 8 for ldmatrix); two h buffers [np, kp
+    + 8]; the K parts' partial sums [ksplit, np, mp + 4] f32; two xw
+    buffers [R, 4U]; c and h_t [R, U] in f32."""
     u = _cluster_units(h, s, elem)
     cols = 4 * u
+    if elem == 2:
+        g = _cluster_mma(h, s, r)
+        return (2 * (g["kp"] * (g["mp"] + 8) + 2 * g["np"] * (g["kp"] + 8) + 2 * r * cols)
+                + 4 * (g["ksplit"] * g["np"] * (g["mp"] + 4) + 2 * r * u))
     hs = -(-h // 4) * 4
     rb = min(r, 4)
     rp = -(-r // rb) * rb

@@ -532,10 +532,14 @@ def _bf16_inputs(shape, device, seed=30):
                                       ((9, 5, 37), {"plan": "cluster", "cluster_size": 16}),
                                       ((7, 3, 9), {"plan": "cluster", "cluster_size": 8}),
                                       ((6, 33, 64), {"plan": "grid"}),
-                                      ((5, 3, 37), {"plan": "grid"})])
+                                      ((5, 3, 37), {"plan": "grid"}),
+                                      ((5, 300, 200), {}), ((4, 8, 600), {}),
+                                      ((3, 2, 72), {"plan": "cluster", "cluster_size": 1})])
 def test_lstm_sequence_bf16_matches_plain(card, shape, kw):
     """K1-bf16 on both plans; odd H (units copied one at a time, CTAs with
-    a partial slice or none)."""
+    a partial slice or none); the cluster plan's tensor-core tiles at an
+    odd count of 8-row n-tiles (R 20: 3), with one long K part (H 600: 38
+    k-steps) and with more m-tiles than warps (one CTA of 72 units: 18)."""
     args = _bf16_inputs(shape, card)
     before = dict(ck.lstm_sequence.launches_by_dtype)
     got = ck.lstm_sequence(*args, **kw)
@@ -620,6 +624,56 @@ def test_lstm_chain_floor_runs_the_hand_over(card):
     out = ck.lstm_chain_floor(50, plan, 32, 200)
     torch.cuda.synchronize()
     assert out.shape == (32, 200) and torch.isfinite(out).all()
+
+
+# K1-bf16's cluster plan multiplies on the tensor cores (mma.sync, rw
+# resident in shared memory, K split into parts): chip_smoke.py's
+# LSTM_BF16_SHAPES with the plan each takes, one step at the path's width
+# and at the char model's, and the f64 form of its limits (the kernel's distance from an f64
+# recurrence on the same bf16 inputs within 1.05x the plain version's)
+LSTM_BF16_CARD = [((128, 64, 512), "auto"), ((50, 32, 200), "auto"), ((12, 4, 200), "auto"),
+                  ((35, 20, 1500), "auto"), ((128, 64, 512), "grid"), ((1, 64, 512), "auto"),
+                  ((1, 4, 200), "auto"), ((1, 32, 200), "auto")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,plan", LSTM_BF16_CARD)
+def test_lstm_sequence_bf16_holds_the_card_limits(card, shape, plan):
+    args = _bf16_inputs(shape, card, seed=31)
+    chosen = ck.lstm_plan_for(args[0]) if plan == "auto" else {"plan": "grid"}
+    before = dict(ck.lstm_sequence.launches_by_plan)
+    got = ck.lstm_sequence(*args, plan=plan)
+    torch.cuda.synchronize()
+    after = ck.lstm_sequence.launches_by_plan
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == chosen["plan"]) for p in after}
+    assert chosen["plan"] == ("grid" if plan == "grid" or shape[2] == 1500 else "cluster")
+    plain = ck.lstm_sequence_plain(*args)
+    exact = ck.lstm_sequence_plain(*(a.double() for a in args))
+    for g, ref in zip(got, plain):
+        _lstm_bf16_close(g, ref)
+    cat = lambda xs: torch.cat([x.double().reshape(-1) for x in xs])  # noqa: E731
+    g, p, e = cat(got), cat(plain), cat(exact)
+    assert (g - e).norm().item() <= 1.05 * (p - e).norm().item()
+
+
+@pytest.mark.cuda
+def test_lstm_sequence_bf16_is_deterministic(card):
+    args = _bf16_inputs((128, 64, 512), card, seed=32)
+    runs = [ck.lstm_sequence(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for later in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], later))
+
+
+@pytest.mark.cuda
+def test_lstm_chain_floor_runs_the_bf16_hand_over(card):
+    xw = torch.empty((128, 64, 2048), dtype=torch.bfloat16, device=card)
+    plan = ck.lstm_plan_for(xw)
+    assert plan["plan"] == "cluster" and plan["elem"] == 2 and plan["S"] == 16
+    out = ck.lstm_chain_floor(128, plan, 64, 512)
+    torch.cuda.synchronize()
+    assert out.shape == (64, 512) and torch.isfinite(out).all()
 
 
 # ------------------------------------------- float64 networks (fault C1)
@@ -1130,12 +1184,12 @@ def test_bf16_training_on_the_card_takes_the_bf16_kernels(card):
     assert net.output(ids).dtype == torch.bfloat16
 
 
-# The bf16 forward and dk/dv kernels at the edges of their tiles, for the
-# Hopper design (Dh 64: persistent blocks of 128 rows, key tiles of 128,
-# query tiles of 64) and the mma.sync one (Dh 128, 256): one tile (T 64),
-# the diagonal tile alone (128), a last block of 64 rows (192), the path's
-# T (1024) and a long one (4096); N*H 1 and 97 (not a multiple of the 132
-# SMs that the persistent grid covers)
+# The bf16 forward, dq and dk/dv kernels at the edges of their tiles, for
+# the Hopper design (Dh 64: persistent blocks of 128 rows, key tiles of 128
+# (forward) and 64 (dq), query tiles of 64 (dk/dv)) and the mma.sync one
+# (Dh 128, 256): one tile (T 64), the diagonal tile alone (128), a last
+# block of 64 rows (192), the path's T (1024) and a long one (4096); N*H 1
+# and 97 (not a multiple of the 132 SMs that the persistent grid covers)
 TILE_EDGE_SHAPES = (
     [((1, 12, t, 64), c) for t in (64, 128, 192, 1024, 4096) for c in (True, False)]
     + [((1, 1, 192, dh), c) for dh in (64, 128, 256) for c in (True, False)]
@@ -1163,6 +1217,42 @@ def test_bf16_kernels_hold_their_plain_versions_at_the_tile_edges(card, shape, c
     t_o, _, t_dk, t_dv = _bf16_term_sums(q, k, v, lse, do, d, causal)
     for got, ref, a in ((o, p_o, t_o), (dk, p_dk, t_dk), (dv, p_dv, t_dv)):
         _bf16_close(got, ref, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", TILE_EDGE_SHAPES)
+def test_bf16_dq_kernel_holds_its_plain_version_at_the_tile_edges(card, shape, causal):
+    """dq and D (the wgmma kernel at Dh 64: blocks of 128 query rows, two
+    consumers of 64, key tiles of 64; the mma.sync one at Dh 128, 256)
+    within the bf16 limits of their plain versions, fed by the forward
+    kernel's o and LSE; three calls give the same bits."""
+    q, k, v, do = _bf16_heads(shape, card, seed=27)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
+    runs = [ck.flash_attention_bwd_dq(q, k, v, o, lse, do, causal) for _ in range(3)]
+    torch.cuda.synchronize()
+    for later in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], later))
+    dq, d = runs[0]
+    p_dq, p_d = ck.flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
+    torch.testing.assert_close(d, p_d, rtol=0, atol=1e-4)
+    _bf16_close(dq, p_dq, _bf16_term_sums(q, k, v, lse, do, d, causal)[1])
+
+
+@pytest.mark.cuda
+def test_bf16_dq_kernel_raises_when_the_tensor_map_is_refused(card):
+    """dq's TMA maps: a head tensor 2 bytes off a 16-byte boundary is
+    refused, and the wrapper raises (nothing falls back)."""
+    shape = (1, 2, 128, 64)
+    q, k, v, do = _bf16_heads(shape, card, seed=28)
+    o, lse = ck.flash_attention_fwd(q, k, v, True, return_lse=True)
+    off = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=card)[1:q.numel() + 1]
+    off = off.view(shape)
+    off.copy_(o)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    before = ck.flash_attention_bwd_dq.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ck.flash_attention_bwd_dq(q, k, v, off, lse, do, True)
+    assert ck.flash_attention_bwd_dq.launches == before
 
 
 @pytest.mark.cuda

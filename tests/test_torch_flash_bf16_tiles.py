@@ -77,6 +77,37 @@ def emulate_forward(q, k, v, causal, bc, rescale=True):
     return (acc / l[..., None]).to(BF), (m + torch.log2(l)) * LN2
 
 
+def emulate_dq(q, k, v, o, lse, do, causal, bc, fault=None):
+    """The dq kernel's arithmetic in tile order: D = rowsum(f32(dO) ∘
+    f32(O)); key tiles of ``bc``, P = exp2(S·scale·log2e − LSE·log2e) and
+    dS = P ∘ (dP − D)·scale in f32, dS rounded to bf16 only as the operand
+    of each tile's share dS·K, which is summed from zero and added to dQ in
+    f32. Returns (dq bf16, D f32). Faults: ``"diagonal"`` leaves the tile on
+    a row's diagonal unmasked (only whole tiles past it are), ``"d_row"``
+    takes each row's D from its neighbouring row."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    t, dh = q.shape[-2], q.shape[-1]
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
+    scale_log2 = scale * LOG2E
+    d = (dof * o.float()).sum(-1)
+    d_used = d.roll(1, -1) if fault == "d_row" else d
+    dq = torch.zeros(q.shape)
+    for k0 in range(0, t, bc):
+        ks, vs = kf[..., k0:k0 + bc, :], vf[..., k0:k0 + bc, :]
+        s = torch.einsum("nhqd,nhkd->nhqk", qf, ks)
+        p = torch.exp2(s * scale_log2 - (lse * LOG2E)[..., None])
+        if causal:
+            mask = _causal_mask(t, ks.shape[-2], 0, k0)
+            if fault == "diagonal":  # only tiles wholly past the row's diagonal tile
+                keys = torch.arange(k0, k0 + ks.shape[-2])[None, :]
+                mask = keys >= (torch.arange(t)[:, None] // bc + 1) * bc
+            p = p.masked_fill(mask, 0.0)
+        dp = torch.einsum("nhqd,nhkd->nhqk", dof, vs)
+        ds = p * (dp - d_used[..., None]) * scale
+        dq = dq + torch.einsum("nhqk,nhkd->nhqd", ds.to(BF).float(), ks)
+    return dq.to(BF), d
+
+
 def emulate_dkv(q, k, v, lse, do, d, causal, bc):
     """The dk/dv kernel's arithmetic in tile order: query tiles of ``bc``,
     Pᵀ = exp2(Sᵀ·scale·log2e − LSE·log2e) and dSᵀ = Pᵀ ∘ (dPᵀ − D)·scale in
@@ -100,7 +131,8 @@ def emulate_dkv(q, k, v, lse, do, d, causal, bc):
 
 
 def _exact(q, k, v, do, causal):
-    """o, dk, dv of attention in f64 on the bf16 inputs, no rounding."""
+    """o, dk, dv (and dq) of attention in f64 on the bf16 inputs, no
+    rounding."""
     qd, kd, vd, dod = (x.double() for x in (q, k, v, do))
     s = torch.einsum("nhqd,nhkd->nhqk", qd, kd) / math.sqrt(q.shape[-1])
     if causal:
@@ -111,17 +143,19 @@ def _exact(q, k, v, do, causal):
     dp = torch.einsum("nhqd,nhkd->nhqk", dod, vd)
     ds = p * (dp - (dod * o).sum(-1, keepdim=True))
     dk = torch.einsum("nhqk,nhqd->nhkd", ds, qd) / math.sqrt(q.shape[-1])
-    return o, dk, torch.einsum("nhqk,nhqd->nhkd", p, dod)
+    dq = torch.einsum("nhqk,nhkd->nhqd", ds, kd) / math.sqrt(q.shape[-1])
+    return o, dk, torch.einsum("nhqk,nhqd->nhkd", p, dod), dq
 
 
 def _term_sums(q, k, v, lse, do, d, causal):
-    """chip_smoke.py's sums of absolute terms for o, dk, dv: P·|V|,
-    |dS|ᵀ·|Q| (|dS| with 2^-7 of its own terms), Pᵀ·|dO|."""
+    """chip_smoke.py's sums of absolute terms for o, dq, dk, dv: P·|V|,
+    |dS|·|K|, |dS|ᵀ·|Q| (|dS| with 2^-7 of its own terms), Pᵀ·|dO|."""
     p, ds = ck._p_ds_bf16(q, k, v, lse, do, d, causal)
     own = torch.einsum("nhqd,nhkd->nhqk", do.float().abs(), v.float().abs())
     own = p * (own + d.abs()[..., None]) / math.sqrt(q.shape[-1])
     ds = ds.to(BF).float().abs() + BF16_ELEM_TOL * own
     return {"o": torch.einsum("nhqk,nhkd->nhqd", p, v.float().abs()),
+            "dq": torch.einsum("nhqk,nhkd->nhqd", ds, k.float().abs()),
             "dk": torch.einsum("nhqk,nhqd->nhkd", ds, q.float().abs()),
             "dv": torch.einsum("nhqk,nhqd->nhkd", p, do.float().abs())}
 
@@ -138,14 +172,18 @@ def _hold(name, got, plain, terms, exact):
 
 
 def test_tiles_cover_every_head_width():
-    for kernel in ("fwd", "dkv"):
+    for kernel in ("fwd", "dq", "dkv"):
         assert set(ck.FLASH_BF16_TILES[kernel]) == {64, 128, 256}
         for design, br, bc in ck.FLASH_BF16_TILES[kernel].values():
             assert design in ("wgmma", "mma.sync")
             assert br in (64, 128) and bc in (32, 64, 128)
-    # the forward's Hopper design stops at the diagonal tile: BR = BC
+    # the forward's Hopper design stops at the diagonal tile: BR = BC; the
+    # dq kernel's two consumers own BR / 2 = BC rows each, so each has one
+    # diagonal tile
     _, br, bc = ck.FLASH_BF16_TILES["fwd"][64]
     assert br == bc
+    _, br, bc = ck.FLASH_BF16_TILES["dq"][64]
+    assert br == 2 * bc
 
 
 @pytest.mark.parametrize("dh,t,causal", CASES)
@@ -169,7 +207,7 @@ def test_dkv_tile_order_matches_the_plain_version(dh, t, causal):
     dk, dv = emulate_dkv(q, k, v, lse, do, d, causal, bc)
     p_dk, p_dv = ck.flash_attention_bwd_dkv_plain_bf16(q, k, v, lse, do, d, causal)
     terms = _term_sums(q, k, v, lse, do, d, causal)
-    _, exact_dk, exact_dv = _exact(q, k, v, do, causal)
+    _, exact_dk, exact_dv, _ = _exact(q, k, v, do, causal)
     _hold("dk", dk, p_dk, terms["dk"], exact_dk)
     _hold("dv", dv, p_dv, terms["dv"], exact_dv)
 
@@ -191,3 +229,31 @@ def test_forward_emulation_rounds_p_against_the_running_max():
     bad, _ = emulate_forward(q, k, v, False, 128, rescale=False)
     with pytest.raises(AssertionError):
         _hold("o", bad, p_o, terms["o"], exact_o)
+
+
+@pytest.mark.parametrize("dh,t,causal", CASES)
+def test_dq_tile_order_matches_the_plain_version(dh, t, causal):
+    q, k, v, do = _heads(dh, t, seed=dh + t + causal + 11)
+    _, _, bc = ck.FLASH_BF16_TILES["dq"][dh]
+    o, lse = ck.flash_attention_plain_bf16(q, k, v, causal, return_lse=True)
+    dq, d = emulate_dq(q, k, v, o, lse, do, causal, bc)
+    p_dq, p_d = ck.flash_attention_bwd_dq_plain_bf16(q, k, v, o, lse, do, causal)
+    assert (d - p_d).abs().max() <= 1e-4
+    terms = _term_sums(q, k, v, lse, do, p_d, causal)
+    _hold("dq", dq, p_dq, terms["dq"], _exact(q, k, v, do, causal)[3])
+
+
+@pytest.mark.parametrize("fault", ["diagonal", "d_row"])
+def test_dq_emulation_faults_fail_the_limits(fault):
+    """A dq kernel that leaves its diagonal tile unmasked, or takes D from
+    the neighbouring row, fails the card's limits."""
+    q, k, v, do = _heads(64, 256, seed=5)
+    _, _, bc = ck.FLASH_BF16_TILES["dq"][64]
+    o, lse = ck.flash_attention_plain_bf16(q, k, v, True, return_lse=True)
+    p_dq, p_d = ck.flash_attention_bwd_dq_plain_bf16(q, k, v, o, lse, do, True)
+    terms = _term_sums(q, k, v, lse, do, p_d, True)
+    exact_dq = _exact(q, k, v, do, True)[3]
+    _hold("dq", emulate_dq(q, k, v, o, lse, do, True, bc)[0], p_dq, terms["dq"], exact_dq)
+    bad, _ = emulate_dq(q, k, v, o, lse, do, True, bc, fault=fault)
+    with pytest.raises(AssertionError):
+        _hold("dq", bad, p_dq, terms["dq"], exact_dq)

@@ -306,16 +306,43 @@ def test_cluster_plan_fits_the_shared_memory_it_is_given(smem, n, h):
         assert ck._cluster_bytes(h, plan["S"], plan["R"] + 1) > smem
 
 
-def _cluster_emulation(xw, rw, h0, c0, plan):
+def _bf16_mma_sums(hb, rw_cols, h, plan, fault=None):
+    """``hb @ rw_cols`` (f32) in K1-bf16's tensor-core order
+    (``ck._cluster_mma``): the CTA's rw slice as the A operand [kp, mp] and
+    its h buffer as B [np, kp], both zero past H, past the real columns and
+    past the real rows; each K part's k-steps of 16 chained in an f32
+    accumulator from zero; the parts added in f32. ``fault="h_padding"``
+    leaves the h buffer's K padding holding non-finite bits (shared memory
+    not zeroed), which the zero padding of rw cannot cancel: 0 x inf is
+    NaN."""
+    g = ck._cluster_mma(h, plan["S"], plan["R"])
+    rows, m = hb.shape[0], rw_cols.shape[1]
+    a = torch.zeros(g["kp"], g["mp"])
+    a[:h, :m] = rw_cols.float()
+    b = torch.zeros(g["np"], g["kp"])
+    b[:rows, :h] = hb.float()
+    if fault == "h_padding":
+        b[:, h:] = float("inf")
+    d = torch.zeros(g["np"], g["mp"])
+    for part in range(g["ksplit"]):
+        acc = torch.zeros(g["np"], g["mp"])
+        for kk in range(part * g["kc"], min(g["kt"], (part + 1) * g["kc"])):
+            acc = acc + b[:, 16 * kk:16 * kk + 16] @ a[16 * kk:16 * kk + 16]
+        d = d + acc
+    return d[:rows, :m]
+
+
+def _cluster_emulation(xw, rw, h0, c0, plan, fault=None):
     """The cluster plan's partition and hand-over in torch: one cluster per
     slice of R rows, CTA s computing the gate columns of units [sU, sU+U)
-    (each a sum of the P slices of the H products, as the kernel's threads
-    split them) from ITS OWN copy of h_{t-1}, then writing its units of h_t
-    into buffer (t+1)&1 of every CTA of the cluster. Buffer t&1 is never
-    written during step t (asserted), which is what one barrier a step
-    relies on. On bf16 inputs (K1-bf16) the slices' products are summed in
-    f32 and rounded once before ``xw`` is added, and every later op rounds
-    to bf16, as the kernel's ``cell_bf16`` does."""
+    from ITS OWN copy of h_{t-1}, then writing its units of h_t into buffer
+    (t+1)&1 of every CTA of the cluster. Buffer t&1 is never written during
+    step t (asserted), which is what one barrier a step relies on. On f32
+    inputs each column is a sum of the P slices of the H products, as the
+    kernel's threads split them. On bf16 inputs (K1-bf16) the products run
+    in the tensor-core order of :func:`_bf16_mma_sums` (``fault`` passes
+    to it), are rounded once before ``xw`` is added, and every later op
+    rounds to bf16, as the kernel's ``cell_bf16`` does."""
     t_len, n, h4 = xw.shape
     h = h4 // 4
     s, u, r = plan["S"], plan["U"], plan["R"]
@@ -338,9 +365,8 @@ def _cluster_emulation(xw, rw, h0, c0, plan):
                     continue
                 idx = torch.tensor([g * h + u0 + k for g in range(4) for k in range(uc)])
                 hb = hbuf[rank][t & 1]
-                if xw.dtype == torch.bfloat16:  # the slices' f32 sums, rounded once
-                    d = sum(hb[:, k0:k1].float() @ rw[k0:k1][:, idx].float()
-                            for k0, k1 in slices)
+                if xw.dtype == torch.bfloat16:  # the f32 sums, rounded once
+                    d = _bf16_mma_sums(hb, rw[:, idx], h, plan, fault)
                     z = xw[t, rows][:, idx] + d.bfloat16()
                 else:
                     z = xw[t, rows][:, idx].clone()
@@ -353,8 +379,9 @@ def _cluster_emulation(xw, rw, h0, c0, plan):
                 ys[t, rows, u0:u0 + uc] = hv
                 for peer in range(s):  # distributed shared memory
                     hbuf[peer][(t + 1) & 1][:, u0:u0 + uc] = hv
-            for rank in range(s):
-                assert torch.equal(hbuf[rank][t & 1], reading[rank])
+            for rank in range(s):  # bit for bit (a NaN too)
+                bits = torch.int16 if xw.dtype == torch.bfloat16 else torch.int32
+                assert torch.equal(hbuf[rank][t & 1].view(bits), reading[rank].view(bits))
         for rank in range(s):
             u0, uc = rank * u, max(0, min(u, h - rank * u))
             hn[rows, u0:u0 + uc] = ys[-1, rows, u0:u0 + uc]
@@ -402,8 +429,30 @@ def test_bf16_plans_count_bytes_by_element_size(t, n, h, s_want, u_want):
     assert (units == 1).all()
     if h == 512:
         assert ck.lstm_plan(n, h, **H100) == {"plan": "grid"}
+    # the tensor-core layout: rw [kp][mp + 8], two h buffers [np][kp + 8]
+    # (2 bytes), the K parts' sums [ksplit][np][mp + 4] (f32), then the xw
+    # buffers, c and h_t as before
+    g = ck._cluster_mma(h, plan["S"], plan["R"])
+    r, cols = plan["R"], 4 * plan["U"]
+    assert (g["mp"], g["kp"], g["np"]) == (-(-cols // 16) * 16, -(-h // 16) * 16,
+                                            -(-r // 8) * 8)
+    assert g["mt"] * g["ksplit"] <= 16 and g["ksplit"] * g["kc"] >= g["kt"]
+    assert plan["smem"] == (2 * (g["kp"] * (g["mp"] + 8) + 2 * g["np"] * (g["kp"] + 8)
+                                 + 2 * r * cols)
+                            + 4 * (g["ksplit"] * g["np"] * (g["mp"] + 4) + 2 * r * plan["U"]))
     # f32's count is 4 bytes an element throughout, as before bf16
     assert ck._cluster_bytes(h, 8, 3) == ck._cluster_bytes(h, 8, 3, 4)
+
+
+def test_bf16_path_plan_on_the_card():
+    """[128, 64, 512] with the 7 clusters of 16 the H100 holds: R = 10, 8
+    m-tiles of 16 gate columns, two K parts of 16 k-steps (every warp of the
+    CTA busy), 197,120 bytes a CTA."""
+    plan = ck.lstm_plan(64, 512, clusters=7, elem=2, **H100)
+    assert (plan["S"], plan["U"], plan["R"], plan["C"]) == (16, 32, 10, 7)
+    assert ck._cluster_mma(512, 16, 10) == {"mp": 128, "kp": 512, "np": 16, "mt": 8,
+                                            "kt": 32, "ksplit": 2, "kc": 16}
+    assert plan["smem"] == 197120
 
 
 @pytest.mark.parametrize("shape,kw", [((12, 5, 37), {"sms": 16}), ((9, 4, 40), {}),
@@ -430,3 +479,62 @@ def test_bf16_cluster_partition_emulation_matches_plain_and_reference(shape, kw)
         assert units.max().item() <= 128.0, name
         assert ((gd - pd).norm() / pd.norm()).item() <= 5e-3, name
         assert np.abs(gd.numpy() - np.asarray(k, np.float64)).max() <= 2.0 ** -5, name
+
+
+# K1-bf16's tensor-core products at the card's geometry: the clusters the
+# H100 holds at once (the card's readings: 15 of 8 CTAs at H = 200, 7 of 16 at
+# H = 512) give R = 3 at [50, 32, 200] and [8, 16, 512], R = 1 at [12, 4, 200]
+LSTM_BF16_ELEM_TOL, LSTM_BF16_FROB_TOL, LSTM_BF16_F64_RATIO = 128.0, 5e-3, 1.05
+CARD_CLUSTERS = {200: 15, 512: 7}
+
+
+def _bf16_tensor_core_run(shape, fault=None):
+    t, n, h = shape
+    plan = ck.lstm_plan(n, h, clusters=CARD_CLUSTERS[h], elem=2, **H100)
+    assert plan["plan"] == "cluster"
+    args = [torch.from_numpy(a).bfloat16() for a in _inputs(shape, seed=13)]
+    got = _cluster_emulation(*args, plan, fault=fault)
+    return args, plan, got
+
+
+def _hold_bf16(got, plain, exact):
+    """chip_smoke.py's K1-bf16 limits, over ys, hN and cN together."""
+    g = torch.cat([x.double().reshape(-1) for x in got])
+    p = torch.cat([x.double().reshape(-1) for x in plain])
+    e = torch.cat([x.reshape(-1) for x in exact])
+    units = (g - p).abs() / (2.0 ** -8 * p.abs().clamp_min(2.0 ** -6))
+    assert units.max().item() <= LSTM_BF16_ELEM_TOL, units.max().item()
+    assert ((g - p).norm() / p.norm()).item() <= LSTM_BF16_FROB_TOL
+    ratio = ((g - e).norm() / (p - e).norm().clamp_min(1e-30)).item()
+    assert ratio <= LSTM_BF16_F64_RATIO, ratio
+
+
+@pytest.mark.parametrize("shape", [(50, 32, 200), (12, 4, 200), (8, 16, 512)])
+def test_bf16_tensor_core_order_matches_plain_and_reference(shape):
+    """The recurrent products as K1-bf16's cluster plan runs them on the
+    tensor cores (padded M, N, K with zeros, k-steps of 16 chained in f32,
+    K parts added in f32; [50, 32, 200] pads M 104 -> 112, N 3 -> 8 and K
+    200 -> 208) against the plain bf16 recurrence within the card's limits
+    and the JAX package's Pallas kernel on bf16 within 2^-5."""
+    args, plan, got = _bf16_tensor_core_run(shape)
+    g = ck._cluster_mma(shape[2], plan["S"], plan["R"])
+    if shape[2] == 200:
+        assert (g["mp"], g["kp"], g["np"]) == (112, 208, 8)
+    plain = ck.lstm_sequence_plain(*args)
+    exact = ck.lstm_sequence_plain(*(a.double() for a in args))
+    _hold_bf16(got, plain, exact)
+    kernel = _lstm_pallas_fwd(*(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in args),
+                              interpret=True)
+    for x, k, name in zip(got, kernel, ("ys", "hN", "cN")):
+        assert np.abs(x.double().numpy() - np.asarray(k, np.float64)).max() <= 2.0 ** -5, name
+
+
+def test_bf16_tensor_core_order_rejects_an_unzeroed_h_buffer():
+    """A copy that leaves the h buffer's K padding (columns H..kp) holding
+    whatever shared memory held (here inf) fails the limits: the zeros of
+    rw's padding cannot cancel it."""
+    args, _, got = _bf16_tensor_core_run((12, 4, 200), fault="h_padding")
+    plain = ck.lstm_sequence_plain(*args)
+    exact = ck.lstm_sequence_plain(*(a.double() for a in args))
+    with pytest.raises(AssertionError):
+        _hold_bf16(got, plain, exact)
