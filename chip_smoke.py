@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs eighteen phases:
+every kernel, and runs twenty-one phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -108,7 +108,7 @@ every kernel, and runs eighteen phases:
    forward and backward kernels against their plain versions (the TPU
    kernel's rounding points; the largest error, each entry's and the
    relative Frobenius error) at GPT-2-small's shape, causal and full, at
-   T = 192 (a last block of 64 rows), at N*H = 97 and at Dh 128 and 256,
+   the bf16 encoder's [32, 12, 128, 64] full, at T = 192 (a last block of 64 rows), at N*H = 97 and at Dh 128 and 256,
    each shape with the design that served it (Dh 64: the Hopper design of
    TMA, mbarriers and wgmma; Dh 128 and 256: mma.sync), timed (CUDA-event
    medians and the profiler's device time a launch) beside their bound at
@@ -152,7 +152,29 @@ every kernel, and runs eighteen phases:
    small width on the card, f32 and bf16, with and without a mask, against
    the same layer on the CPU, with each forward's K1 launches (an unmasked
    Bidirectional or LastTimeStep over a standard LSTM launches K1 of its
-   dtype, a masked one does not).
+   dtype, a masked one does not);
+19. VGG16 in mixed precision as ``bench.py`` runs it (the zoo's VGG16,
+   1000 labels, seed 1, batch 64 x 224x224x3, its Nesterovs updater,
+   ``MultiLayerNetwork``): 3 warm-up and 6 timed steps (median step,
+   images/s, peak memory), profiled (busy share, device time by group),
+   the FLOP bound share at the bf16 rate, no kernel launch, masters f32,
+   the zip restored bit for bit, and the card's bf16 gradients at batch 2
+   against the CPU's f64 ones no farther than the CPU's bf16 ones are,
+   with the CPU's f32 distance from f64 printed beside them;
+20. the BERT-base-shape ``TransformerEncoder`` in mixed precision as
+   ``bench.py``'s fallback runs it (2 labels, seed 1, B 32, T 128,
+   integer ids, the fused updater), two ways in one process: with no
+   attention helper (148 fused-Adam launches and no flash launch a step)
+   and with ``FlashAttentionHelper(causal=False)`` registered (12 / 12 /
+   12 bf16 flash launches a step, 12 in one ``output``), each timed and
+   profiled; the second way's loss and gradients against an f32 twin no
+   farther than a bf16 twin on the plain attention is; a padded batch
+   with its mask takes the plain path (no flash launch) and, in f32,
+   equals its unpadded prefix within 1e-5;
+21. the zoo's other models at their published widths, f32, batch 8 (AlexNet,
+   VGG19, GoogLeNet at 224x224x3, TextGenerationLSTM, ViT-B/16): one fit
+   step and one ``output`` each, the loss finite, rows summing to 1, no
+   kernel launch but ViT's fused Adam.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -208,7 +230,10 @@ BF16_ELEM_TOL, BF16_FROB_TOL = 2 ** -7, 4e-3
 # the bf16 wrappers' host time a call: back-to-back calls at a shape whose
 # kernels take a few microseconds, on the host clock
 FLASH_HOST_SHAPE = (1, 1, 64, 64)
-FLASH_BF16_SHAPES = [(SERVED_SHAPE, True), (SERVED_SHAPE, False),
+# the bf16 encoder's attention (B 32, 12 heads, T 128, Dh 64, full), the
+# shape FlashAttentionHelper(causal=False) serves on its path
+ENCODER_ATTENTION = ((32, 12, 128, 64), False)
+FLASH_BF16_SHAPES = [(SERVED_SHAPE, True), (SERVED_SHAPE, False), ENCODER_ATTENTION,
                      ((1, 12, 192, 64), True), ((1, 12, 192, 64), False),
                      ((1, 97, 1024, 64), True),
                      ((2, 4, 256, 128), True), ((2, 4, 256, 128), False),
@@ -434,6 +459,46 @@ F32_GEMM_MARKS = ("sgemm", "f32f32_f32", "tf32", "nvjet_sss", "_s1688", "simt")
 # f64 gradient's norm: a random ResNet-50's step is ill-conditioned, and
 # bf16 flips more ReLU inputs than f32 does)
 RESNET_BF16_TENSOR_FLOOR = 5e-2
+# VGG16 in bf16 as bench.py runs it (_bench_vgg16): the zoo's VGG16 (1000
+# labels, seed 1, its Nesterovs: no port kernel) at batch 64 x 224x224x3,
+# 3 warm-up and 6 timed steps, 2 profiled; at batch 2 the card's bf16
+# gradients (no dropout) against the CPU's f64 ones in the ResNet-50 bf16
+# ratio form, the CPU's own f32 distance from f64 printed beside it (a
+# random VGG16's f32 step is ill-conditioned on the CPU: its max pools
+# hold near-ties, tests/test_torch_zoo_models.py)
+VGG_BATCH, VGG_WARMUP, VGG_TIMED, VGG_PROFILED, VGG_TWIN_BATCH = 64, 3, 6, 2, 2
+VGG_GROUPS = (
+    ("pooling", ("pool",)),
+    ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
+                      "cudnn")),
+    ("random draws", ("distribution", "philox", "bernoulli")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+# the BERT-base-shape encoder in bf16 as bench.py runs its fallback
+# (_bench_bert_import: the zoo's TransformerEncoder, 2 labels, seed 1,
+# Adam(1e-4)) at B 32, T 128 on integer ids, ENC_WARMUP + ENC_TIMED steps
+# each way: (a) as bench.py has it, no attention helper (full attention
+# has no auto kernel): ENC_TENSORS K2 launches a step, no K3; (b) with
+# FlashAttentionHelper(causal=False) registered, as the reference's opt-in
+# path: 12 / 12 / 12 bf16 K3 a step and 12 K3a-bf16 in one output; (b)'s
+# one-batch loss and gradients in the GPT-2 bf16 ratio form; a batch
+# padded from ENC_MASK_VALID ids to T with its mask takes the plain path
+# (no K3), and in f32 equals its unpadded prefix within ENC_MASK_TOL. Each
+# way trains a fresh network from the same seed. Adam(1e-4) with no
+# warm-up overshoots on the first steps of this post-LN encoder from random
+# weights, in f32 as in bf16 (on an H100: 1.17, then 10.3 at step 2,
+# then 0.7 to 3.8 for ten steps), so the loss is held to fall over the
+# whole run: the mean of the last ENC_SETTLED steps below the first step's
+ENC_BATCH, ENC_T, ENC_WARMUP, ENC_TIMED, ENC_TENSORS = 32, 128, 2, 18, 148
+ENC_SETTLED = 5
+ENC_MASK_VALID, ENC_MASK_ROWS, ENC_MASK_TOL = 96, 8, 1e-5
+# the zoo's other models at their published widths, f32, batch 8: one fit
+# step and one output each, the fused updater registered (only ViT's Adam
+# takes it); rows of output sum to 1 within ROWSUM_TOL
+ZOO_BATCH = 8
+VIT_B16 = dict(image_size=224, patch_size=16, n_layers=12, d_model=768,
+               n_heads=12, d_ff=3072)
 # the DL4J-format fixtures (tests/fixtures): output within rtol 1e-5 / atol
 # 1e-6 of the recorded one (the CPU tests' limit); the convnet's 3 more
 # fit steps on the fused updater, 8 K2 launches a step
@@ -621,6 +686,8 @@ def backward_phase(ck, peaks):
                   flush=True)
         if (shape, causal) == (SERVED_SHAPE, True):
             served = rows
+        elif (shape, causal) == ENCODER_ATTENTION:
+            encoder = rows
         del q, k, v, do, o, lse, dq, d, dk, dv, p_dq, p_d, p_dk, p_dv
         del ql, kl, vl, lib_out
     return served
@@ -669,11 +736,12 @@ def flash_bf16_phase(ck, peaks):
     bf16 bound, their plain versions and SDPA in bf16 (forward; its
     backward for dq + dk/dv in one call; both timed the same two ways).
     Each shape prints the design that served the forward, the dq and the
-    dk/dv kernel. Returns the rows at GPT-2-small's training shape, causal."""
+    dk/dv kernel. Returns the rows at GPT-2-small's training shape, causal,
+    and at the bf16 encoder's (ENCODER_ATTENTION)."""
     import torch.nn.functional as F
     rng = np.random.default_rng(2)
     bf = torch.bfloat16
-    served = None
+    served = encoder = None
     for shape, causal in FLASH_BF16_SHAPES:
         q, k, v, do = (_randn(rng, shape).to(bf) for _ in range(4))
         o, lse = ck.flash_attention_fwd(q, k, v, causal, return_lse=True)
@@ -763,6 +831,8 @@ def flash_bf16_phase(ck, peaks):
             print(f"kernel flash_bf16_{name} " + json.dumps(row), flush=True)
         if (shape, causal) == (SERVED_SHAPE, True):
             served = rows
+        elif (shape, causal) == ENCODER_ATTENTION:
+            encoder = rows
         del q, k, v, do, o, lse, dq, d, dk, dv, p_o, p_lse, p_dq, p_d, p_dk, p_dv
         del ql, kl, vl, lib_out, lib_fwd, fwd, dq_call, dkv
     # the wrappers' host time a call: at the served shape the kernels take
@@ -784,7 +854,7 @@ def flash_bf16_phase(ck, peaks):
         served[name]["host_shape"] = list(FLASH_HOST_SHAPE)
     print("flash_bf16 host " + json.dumps({n: served[n]["host_us_per_call"]
                                            for n in ("fwd", "dq", "dkv")}), flush=True)
-    return served
+    return served, encoder
 
 
 def adam_phase(ck, peaks):
@@ -1145,6 +1215,42 @@ def ratio_form(port, yard, ref, loss_port, loss_yard, loss_ref, tensor_floor):
     return out
 
 
+def zero_launches(ck):
+    """Sets every kernel's launch counts to 0."""
+    ck.reset_lstm_counts()
+    for c in (ck.fused_adam, ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+              ck.flash_attention_bwd_dkv):
+        c.launches = 0
+    for c in (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+              ck.flash_attention_bwd_dkv):
+        c.launches_bf16 = 0
+
+
+def read_launches(ck):
+    """Each kernel's launches since :func:`zero_launches`, the f32 and the
+    bf16 ones apart (``<kernel>`` and ``<kernel>_bf16``)."""
+    flash = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+             ck.flash_attention_bwd_dkv)
+    got = {f"{c.__name__}_bf16": c.launches_bf16 for c in flash}
+    got.update({c.__name__: c.launches - c.launches_bf16 for c in flash})
+    got["fused_adam"] = ck.fused_adam.launches
+    got["lstm_sequence"] = ck.lstm_sequence.launches_by_dtype["f32"]
+    got["lstm_sequence_bf16"] = ck.lstm_sequence.launches_by_dtype["bf16"]
+    return got
+
+
+def unexpected_launches(got, want):
+    """The kernels of ``got`` whose count is not ``want``'s (0 where
+    ``want`` names none)."""
+    return {k: n for k, n in got.items() if n != want.get(k, 0)}
+
+
+def tensors_of(net):
+    """The number of parameter tensors of a network (K2's launches a
+    step when every one takes the fused updater)."""
+    return sum(len(named) for named in net.params.values())
+
+
 def training_phase(ck, card):
     """GPT-2-small takes TRAIN_STEPS fit steps on one seeded batch with the
     fused updater registered, then PROFILED_STEPS more under the profiler;
@@ -1160,7 +1266,7 @@ def training_phase(ck, card):
     net = TransformerLM().init()  # GPT-2-small, f32, seed 123, on cuda
     vocab = net.conf.vertices["embed"].obj.n_in
     n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
-    n_tensors = sum(len(named) for named in net.params.values())
+    n_tensors = tensors_of(net)
     rng = np.random.default_rng(123)
     ids = torch.from_numpy(rng.integers(0, vocab, (TRAIN_N, T))).cuda()
     x = ids.float()  # token ids arrive as floats, as in serving
@@ -1280,27 +1386,12 @@ def gpt2_bf16_phase(ck, card):
     vocab = net.conf.vertices["embed"].obj.n_in
     d_model = net.conf.vertices["embed"].obj.n_out
     n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
-    n_tensors = sum(len(named) for named in net.params.values())
+    n_tensors = tensors_of(net)
     rng = np.random.default_rng(123)
     ids = torch.from_numpy(rng.integers(0, vocab, (TRAIN_N, T))).cuda()  # integer ids
     labels = F.one_hot(torch.cat([ids[:, 1:], ids[:, -1:]], 1), vocab).float()
     helpers.set_helper("updater", ck.FusedUpdaterHelper())
-    flash = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
-             ck.flash_attention_bwd_dkv)
-
-    def zero():
-        for c in (*flash, ck.fused_adam):
-            c.launches = 0
-        for c in flash:
-            c.launches_bf16 = 0
-
-    def read():
-        got = {f"{c.__name__}_bf16": c.launches_bf16 for c in flash}
-        got.update({c.__name__: c.launches - c.launches_bf16 for c in flash})
-        got["fused_adam"] = ck.fused_adam.launches
-        return got
-
-    zero()
+    zero_launches(ck)
     losses, events = [], []
     for _ in range(TRAIN_STEPS):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1310,17 +1401,15 @@ def gpt2_bf16_phase(ck, card):
         events.append((start, end))
         losses.append(net.score_)
     torch.cuda.synchronize()
-    launches = read()
+    launches = read_launches(ck)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
     window_ms = events[0][0].elapsed_time(events[-1][1])
     warm_window_ms = events[1][0].elapsed_time(events[-1][1])
     want = {"flash_attention_fwd_bf16": n_layers, "flash_attention_bwd_dq_bf16": n_layers,
-            "flash_attention_bwd_dkv_bf16": n_layers, "flash_attention_fwd": 0,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "fused_adam": n_tensors}
-    bad_counts = {k: launches[k] for k, per in want.items()
-                  if launches[k] != per * TRAIN_STEPS}
+            "flash_attention_bwd_dkv_bf16": n_layers, "fused_adam": n_tensors}
+    bad_counts = unexpected_launches(launches, {k: per * TRAIN_STEPS
+                                                for k, per in want.items()})
     profile = profile_steps(net, ids, labels, groups=GPT2_BF16_GROUPS,
                             classify=gemm_group)
     # the three f32 products of the loss head alone: logits, their data and
@@ -1333,10 +1422,10 @@ def gpt2_bf16_phase(ck, card):
     del h32, w32, g32
 
     # one bf16 output: 12 K3a-bf16 launches
-    zero()
+    zero_launches(ck)
     out = net.output(ids[:2])
     torch.cuda.synchronize()
-    out_launches = read()
+    out_launches = read_launches(ck)
     out_ok = (out.dtype == torch.bfloat16 and tuple(out.shape) == (2, T, vocab)
               and bool(torch.isfinite(out.float()).all()))
     del out
@@ -2029,7 +2118,7 @@ def char_lstm_phase(ck, card):
                 onehot[i * CHAR_BATCH:(i + 1) * CHAR_BATCH, 1:])
                for i in range(CHAR_BATCHES + 1)]
     net = MultiLayerNetwork(char_lstm_conf()).init()  # on cuda
-    n_tensors = sum(len(named) for named in net.params.values())
+    n_tensors = tensors_of(net)
     n_lstm = sum(1 for l in net.layers if type(l).__name__ == "LSTMLayer")
     helpers.set_helper("updater", ck.FusedUpdaterHelper())
     chunk_losses = []
@@ -2227,7 +2316,7 @@ def lenet_phase(ck, card):
     data = DataSet(x, y)
     steps_per_epoch = LENET_N // LENET_BATCH
     net = MultiLayerNetwork(lenet_conf()).init()  # on cuda
-    n_tensors = sum(len(named) for named in net.params.values())
+    n_tensors = tensors_of(net)
     if n_tensors != LENET_TENSORS:
         raise RuntimeError(f"LeNet has {n_tensors} parameter tensors")
     helpers.set_helper("updater", ck.FusedUpdaterHelper())
@@ -2732,7 +2821,7 @@ def gpt2_attn_dropout_phase(ck, card):
     net = TransformerLM(attn_dropout=GPT2_DROPOUT).init()
     vocab = net.conf.vertices["embed"].obj.n_in
     n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
-    n_tensors = sum(len(named) for named in net.params.values())
+    n_tensors = tensors_of(net)
     rng = np.random.default_rng(123)
     ids = rng.integers(0, vocab, (TRAIN_N, T))
     x_host = ids.astype(np.float32)  # token ids from the host, as floats
@@ -3068,7 +3157,7 @@ def gpt2_tbptt_phase(ck, card):
     conf.backprop_type, conf.tbptt_fwd_length = "truncated_bptt", TBPTT_LEN
     net = ComputationGraph(conf).init()
     vocab = net.conf.vertices["embed"].obj.n_in
-    n_tensors = sum(len(named) for named in net.params.values())
+    n_tensors = tensors_of(net)
     rng = np.random.default_rng(123)
     ids = torch.from_numpy(rng.integers(0, vocab, (TRAIN_N, T))).cuda()
     x = ids.float()
@@ -3191,23 +3280,26 @@ def gpt2_tbptt_phase(ck, card):
     return {"train": launches, "fused_adam": launches["fused_adam"]}
 
 
-def resnet_train_flops(conf, batch):
-    """The multiply-add FLOPs of one training step of a CNN graph, from
-    its layer shapes: each convolution and dense product forward, its
-    weight gradient, and its data gradient where autograd needs one (its
-    input depends on a parameter: not the stem, behind the zero padding
-    of the network's input)."""
+def cnn_train_flops(conf, batch):
+    """The multiply-add FLOPs of one training step of a CNN, a graph or a
+    sequential network, from its layer shapes: each convolution and dense
+    product forward, its weight gradient, and its data gradient where
+    autograd needs one (its input depends on a parameter: not the first
+    layer, nor the stem behind the zero padding of a graph's input)."""
     from deeplearning4j_tpu_torch.nn.layers import ConvolutionLayer, DenseLayer
 
+    if hasattr(conf, "vertices"):
+        nodes = [(name, conf.vertices[name].obj if conf.vertices[name].is_layer
+                  else None, conf.vertices[name].inputs,
+                  conf.vertex_input_types[name][0]) for name in conf.topo_order]
+    else:
+        nodes = [(i, layer, [i - 1] if i else [], conf.layer_input_types[i])
+                 for i, layer in enumerate(conf.layers)]
     total, has_grad = 0.0, set()
-    for name in conf.topo_order:
-        vd = conf.vertices[name]
-        needs_dgrad = any(s in has_grad for s in vd.inputs)
-        if needs_dgrad or (vd.is_layer and vd.obj.param_shapes()):
+    for name, layer, inputs, it in nodes:
+        needs_dgrad = any(s in has_grad for s in inputs)
+        if needs_dgrad or (layer is not None and layer.param_shapes()):
             has_grad.add(name)
-        if not vd.is_layer:
-            continue
-        layer, it = vd.obj, conf.vertex_input_types[name][0]
         if isinstance(layer, ConvolutionLayer):
             ot = layer.output_type(it)
             kh, kw = layer.kernel_size
@@ -3352,8 +3444,6 @@ def resnet50_phase(ck, card, peaks):
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.zoo.models import ResNet50
 
-    counters = (ck.lstm_sequence, ck.fused_adam, ck.flash_attention_fwd,
-                ck.flash_attention_bwd_dq, ck.flash_attention_bwd_dkv)
     tried, batch, net = [], RESNET_BATCH, None
     while batch >= 1:
         torch.cuda.empty_cache()
@@ -3361,8 +3451,7 @@ def resnet50_phase(ck, card, peaks):
         try:
             net = ResNet50(num_labels=RESNET_LABELS, seed=1).init()
             x, labels = resnet_images(batch, seed=1)
-            for c in counters:
-                c.launches = 0
+            zero_launches(ck)
             net.fit(x, labels)  # the first warm-up step
             torch.cuda.synchronize()
             tried.append({"batch": batch, "fits": True,
@@ -3390,7 +3479,7 @@ def resnet50_phase(ck, card, peaks):
         events.append((start, end))
         losses.append(net._score)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = read_launches(ck)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(l) for l in losses]
     step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
@@ -3406,7 +3495,7 @@ def resnet50_phase(ck, card, peaks):
                            f"layers, unmoved {unmoved[:5]}")
     profile = profile_steps(net, x, labels, fits=RESNET_PROFILED,
                             groups=RESNET_GROUPS)
-    flops = resnet_train_flops(net.conf, batch)
+    flops = cnn_train_flops(net.conf, batch)
     bound_ms = flops / peaks["f32"] * 1e3
     median_step = float(np.median(step_ms))
 
@@ -3536,8 +3625,6 @@ def resnet50_bf16_phase(ck, card, peaks):
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.zoo.models import ResNet50
 
-    counters = (ck.lstm_sequence, ck.fused_adam, ck.flash_attention_fwd,
-                ck.flash_attention_bwd_dq, ck.flash_attention_bwd_dkv)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     conf = ResNet50(num_labels=RESNET_LABELS, seed=1).conf()
@@ -3545,8 +3632,7 @@ def resnet50_bf16_phase(ck, card, peaks):
     net = ComputationGraph(conf).init()
     batch = RESNET_BATCH
     x, labels = resnet_images(batch, seed=1)
-    for c in counters:
-        c.launches = 0
+    zero_launches(ck)
     before = {v: {n: t.clone() for n, t in st.items()}
               for v, st in net.states.items() if st}
     for _ in range(RESNET_WARMUP):
@@ -3560,7 +3646,7 @@ def resnet50_bf16_phase(ck, card, peaks):
         events.append((start, end))
         losses.append(net._score)
     torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = read_launches(ck)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(l) for l in losses]
     step_ms = [s_.elapsed_time(e_) for s_, e_ in events]
@@ -3573,7 +3659,7 @@ def resnet50_bf16_phase(ck, card, peaks):
                       for t in named.values())
     profile = profile_steps(net, x, labels, fits=RESNET_PROFILED,
                             groups=RESNET_GROUPS)
-    flops = resnet_train_flops(net.conf, batch)
+    flops = cnn_train_flops(net.conf, batch)
     bound_ms = flops / peaks["bf16"] * 1e3
     median_step = float(np.median(step_ms))
     out_ms = median_ms(lambda: net.output(x), runs=5, warmup=1)
@@ -3634,6 +3720,351 @@ def resnet50_bf16_phase(ck, card, peaks):
     return launches
 
 
+def vgg16_twins(net_card):
+    """One batch of VGG_TWIN_BATCH from ``net_card``'s weights, through
+    ``compute_gradient_and_score`` (no dropout): the card's bf16 gradients
+    against the CPU's f64 ones, over the CPU's own bf16 distance from them
+    (:func:`ratio_form`, RESNET_BF16_TENSOR_FLOOR), and the CPU's f32
+    distance from f64 (how ill-conditioned the f32 step is: relative L2 of
+    the whole gradient, the worst tensor's largest difference over its
+    largest entry)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import (export_params,
+                                                       load_reference_params)
+    from deeplearning4j_tpu_torch.zoo.models import VGG16
+
+    params = export_params(net_card)
+    x, y = resnet_images(VGG_TWIN_BATCH, seed=5)
+    x, y = x.cpu().numpy(), y.cpu().numpy()
+
+    def grads(device, dtype, compute_dtype):
+        conf = VGG16(num_labels=RESNET_LABELS, seed=1).conf()
+        conf.global_conf.dtype = dtype
+        conf.global_conf.compute_dtype = compute_dtype
+        net = load_reference_params(MultiLayerNetwork(conf, device=device).init(),
+                                    params)
+        g, loss = net.compute_gradient_and_score(x, y)
+        return {k: {n: t.detach().cpu() for n, t in named.items()}
+                for k, named in g.items()}, float(loss)
+
+    g64, l64 = grads("cpu", "float64", None)
+    g32, l32 = grads("cpu", "float32", None)
+    diff = sum(((g32[k][n].double() - t) ** 2).sum().item()
+               for k, named in g64.items() for n, t in named.items())
+    norm = sum((t ** 2).sum().item() for named in g64.values() for t in named.values())
+    worst = _worst_rel(g32, g64)
+    g_cpu, l_cpu = grads("cpu", "float32", "bfloat16")
+    g_card, l_card = grads("cuda", "float32", "bfloat16")
+    out = ratio_form(g_card, g_cpu, g64, l_card, l_cpu, l64, RESNET_BF16_TENSOR_FLOOR)
+    out["f32_conditioning"] = {"grad_rel_l2_whole": math.sqrt(diff / max(norm, 1e-300)),
+                               "worst_tensor": list(worst),
+                               "loss_rel_err": abs(l32 - l64) / abs(l64)}
+    return out
+
+
+def vgg16_bf16_phase(ck, card, peaks):
+    """bench.py's VGG16 in bf16 (``_bench_vgg16``): the zoo's VGG16 (1000
+    labels, seed 1) with ``compute_dtype = "bfloat16"`` through
+    ``MultiLayerNetwork.fit`` at VGG_BATCH x 224x224x3, its Nesterovs
+    updater: VGG_WARMUP warm-up and VGG_TIMED timed steps (median step,
+    images/s, peak memory), VGG_PROFILED more under the profiler (busy
+    share, device time by group: convolutions, bf16 and f32 matrix
+    products, elementwise), the FLOP bound share at the tensor cores' bf16
+    rate; losses finite, masters f32, no launch of K1, K2 or K3 (the
+    reference's path has no kernel either); the zip restored with
+    ``output`` equal bit for bit; the batch-2 gradients in the ratio form
+    (:func:`vgg16_twins`). Returns the launches of the timed steps."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo.models import VGG16
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conf = VGG16(num_labels=RESNET_LABELS, seed=1).conf()
+    conf.global_conf.compute_dtype = "bfloat16"  # as bench.py sets it
+    net = MultiLayerNetwork(conf).init()
+    x, labels = resnet_images(VGG_BATCH, seed=1)
+    for _ in range(VGG_WARMUP):
+        net.fit(x, labels)
+    zero_launches(ck)
+    step_ms, losses = timed_fits(net, x, labels, VGG_TIMED)
+    launches = read_launches(ck)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    masters_f32 = all(t.dtype == torch.float32 for named in net.params.values()
+                      for t in named.values())
+    profile = profile_steps(net, x, labels, fits=VGG_PROFILED, groups=VGG_GROUPS,
+                            classify=gemm_group)
+    flops = cnn_train_flops(net.conf, VGG_BATCH)
+    bound_ms = flops / peaks["bf16"] * 1e3
+    median_step = float(np.median(step_ms))
+    out_ms = median_ms(lambda: net.output(x), runs=5, warmup=1)
+    out = net.output(x)
+    out_ok = (out.dtype == torch.bfloat16 and tuple(out.shape) == (VGG_BATCH, RESNET_LABELS)
+              and bool(torch.isfinite(out.float()).all()))
+    del out, x, labels
+    torch.cuda.empty_cache()
+
+    probe, _ = resnet_images(4, seed=7)
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = net.output(probe)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "vgg16_bf16.zip")
+            net.save(path, save_updater=False)
+            back = MultiLayerNetwork.load(path)
+        got = back.output(probe)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    zip_ok = back.compute_dtype == torch.bfloat16 and torch.equal(got, want)
+    del back, got, want, probe
+    torch.cuda.empty_cache()
+    twins = vgg16_twins(net)
+    stats = {
+        "card": card, "compute_dtype": "bfloat16", "params": net.conf.num_params(),
+        "batch": VGG_BATCH, "image": [RESNET_SIDE, RESNET_SIDE, 3],
+        "labels": RESNET_LABELS, "timed_steps": VGG_TIMED, "losses": losses,
+        "step_ms": step_ms, "median_step_ms": median_step,
+        "train_images_per_s_at_median_step": VGG_BATCH / (median_step / 1e3),
+        "peak_device_mem_gb": peak_gb, "launches": launches,
+        "flops_per_step": flops, "flop_bound_ms_bf16": bound_ms,
+        "bound_share_of_median_step": bound_ms / median_step,
+        "device_busy_share_of_median_step":
+            profile["device_ms_per_step"] / median_step,
+        "profile_per_step": profile,
+        "output_ms": out_ms, "output_images_per_s": VGG_BATCH / (out_ms / 1e3),
+        "masters_f32": masters_f32, "zip_output_equal": zip_ok,
+        "twin_batch": VGG_TWIN_BATCH, "twin": twins,
+    }
+    print("vgg16_bf16 " + json.dumps(stats), flush=True)
+    if any(launches.values()):
+        raise RuntimeError(f"VGG16 bf16 fit launched a kernel: {launches}")
+    if not (np.isfinite(losses).all() and out_ok and masters_f32 and zip_ok
+            and twins["ok"]):
+        raise RuntimeError(f"VGG16 bf16: losses {losses}, output {out_ok}, "
+                           f"masters f32 {masters_f32}, zip {zip_ok}, twins {twins}")
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encoder_bf16_phase(ck, card):
+    """bench.py's BERT-base-shape encoder in bf16 (its ``_bench_bert_import``
+    fallback): the zoo's TransformerEncoder (2 labels, seed 1, Adam(1e-4))
+    with ``compute_dtype = "bfloat16"`` through ``ComputationGraph.fit`` at
+    ENC_BATCH x ENC_T integer ids, with the fused updater, two ways in one
+    process (see ENC_*), each a fresh network from the seed: (a) no
+    attention helper, (b) the registered
+    ``FlashAttentionHelper(causal=False)``. Each way: median step,
+    tokens/s, peak memory, busy share and device time by group, its
+    launches a step; (b) also one ``output`` and one batch's loss and
+    gradients in the ratio form against an f32 twin on the plain
+    attention, a bf16 twin on the plain attention the yardstick; then a
+    masked batch with the helper registered. Returns the launches of each
+    path."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.convert import (export_params,
+                                                       load_reference_params)
+    from deeplearning4j_tpu_torch.zoo.models import TransformerEncoder
+
+    def encoder(compute_dtype="bfloat16"):
+        conf = TransformerEncoder(num_labels=2, seed=1).conf()
+        conf.global_conf.compute_dtype = compute_dtype
+        return ComputationGraph(conf).init()
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    ids = labels = net = None
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    ways = {}
+    for way, helper in (("a", None), ("b", ck.FlashAttentionHelper(causal=False))):
+        del net
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = encoder()
+        if ids is None:
+            vocab = net.conf.vertices["embed"].obj.n_in
+            n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+            n_tensors = tensors_of(net)
+            ids = torch.randint(0, vocab, (ENC_BATCH, ENC_T), generator=gen, device="cuda")
+            labels = F.one_hot(torch.randint(0, 2, (ENC_BATCH,), generator=gen,
+                                             device="cuda"), 2).float()
+        if helper is not None:
+            helpers.set_helper("attention", helper)
+        losses = []
+        for _ in range(ENC_WARMUP):
+            net.fit(ids, labels)
+            losses.append(net.score_)
+        zero_launches(ck)
+        step_ms, timed = timed_fits(net, ids, labels, ENC_TIMED)
+        launches = read_launches(ck)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses += timed
+        profile = profile_steps(net, ids, labels, groups=GPT2_BF16_GROUPS,
+                                classify=gemm_group)
+        median_step = float(np.median(step_ms))
+        ways[way] = {"helper": None if helper is None else "FlashAttentionHelper(causal=False)",
+                     "losses": losses, "step_ms": step_ms, "median_step_ms": median_step,
+                     "tokens_per_s_at_median_step": ENC_BATCH * ENC_T / (median_step / 1e3),
+                     "peak_device_mem_gb": peak_gb, "launches": launches,
+                     "launches_per_step": {k: v / ENC_TIMED for k, v in launches.items()},
+                     "device_busy_share_of_median_step":
+                         profile["device_ms_per_step"] / median_step,
+                     "profile_per_step": profile}
+    want_a = {"fused_adam": n_tensors * ENC_TIMED}
+    want_b = {"fused_adam": n_tensors * ENC_TIMED,
+              **{f"{k}_bf16": n_layers * ENC_TIMED for k in (
+                  "flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")}}
+
+    # (b)'s one output: 12 K3a-bf16
+    zero_launches(ck)
+    out = net.output(ids)
+    torch.cuda.synchronize()
+    out_launches = read_launches(ck)
+    out_ok = (out.dtype == torch.bfloat16 and tuple(out.shape) == (ENC_BATCH, 2)
+              and bool(torch.isfinite(out.float()).all()))
+    del out
+
+    # (b)'s parity: the kernel path, a bf16 twin on the plain attention and
+    # an f32 twin on the plain attention (the oracle), one batch
+    weights = export_params(net)
+    g_k, loss_k = net.compute_gradient_and_score(ids, labels)
+    helpers.clear_helper("attention")
+    plain = load_reference_params(encoder(), weights)
+    g_p, loss_p = plain.compute_gradient_and_score(ids, labels)
+    del plain
+    ref = load_reference_params(encoder(None), weights)
+    g_r, loss_r = ref.compute_gradient_and_score(ids, labels)
+    parity = ratio_form(g_k, g_p, g_r, loss_k, loss_p, loss_r, BF16_TENSOR_FLOOR)
+    grads_f32 = all(t.dtype == torch.float32 for named in g_k.values()
+                    for t in named.values())
+    masters_f32 = all(t.dtype == torch.float32 for named in net.params.values()
+                      for t in named.values())
+    del g_k, g_p, g_r
+
+    # a padded batch with its mask takes the plain path, the helper
+    # registered: a bf16 fit step and output, then in f32 the padded
+    # output against its unpadded prefix's
+    helpers.set_helper("attention", ck.FlashAttentionHelper(causal=False))
+    mask = torch.zeros((ENC_MASK_ROWS, ENC_T), device="cuda")
+    mask[:, :ENC_MASK_VALID] = 1.0
+    padded = ids[:ENC_MASK_ROWS]
+    zero_launches(ck)
+    net.fit(MultiDataSet([padded], [labels[:ENC_MASK_ROWS]], [mask]))
+    net.output(padded, masks=[mask])
+    ref.output(padded, masks=[mask])
+    torch.cuda.synchronize()
+    mask_launches = read_launches(ck)
+    got = ref.output(padded, masks=[mask]).double()
+    want = ref.output(padded[:, :ENC_MASK_VALID]).double()
+    mask_err = (got - want).abs().max().item()
+    helpers.clear_helper("attention")
+    helpers.clear_helper("updater")
+    del ref, got, want
+    stats = {
+        "card": card, "compute_dtype": "bfloat16", "ids": "int64",
+        "params": net.conf.num_params(), "batch": [ENC_BATCH, ENC_T],
+        "tensors": n_tensors, "attention_layers": n_layers, "timed_steps": ENC_TIMED,
+        "ways": ways, "output_launches_b": out_launches,
+        "parity_b": {"loss_kernel": loss_k, "loss_plain_bf16": loss_p,
+                     "loss_f32": loss_r, **parity},
+        "grads_f32": grads_f32, "masters_f32": masters_f32,
+        "masked": {"rows": ENC_MASK_ROWS, "valid": ENC_MASK_VALID,
+                   "launches": mask_launches, "f32_prefix_max_abs_err": mask_err,
+                   "limit": ENC_MASK_TOL},
+    }
+    print("encoder_bf16 " + json.dumps(stats), flush=True)
+    bad = {"a": unexpected_launches(ways["a"]["launches"], want_a),
+           "b": unexpected_launches(ways["b"]["launches"], want_b),
+           "b_output": unexpected_launches(out_launches, {"flash_attention_fwd_bf16": n_layers}),
+           "masked": unexpected_launches(mask_launches, {"fused_adam": n_tensors})}
+    if n_tensors != ENC_TENSORS or any(bad.values()):
+        raise RuntimeError(f"encoder_bf16: {n_tensors} tensors (expected "
+                           f"{ENC_TENSORS}), unexpected launches {bad}")
+    for way in ways.values():
+        losses = way["losses"]
+        if not (np.isfinite(losses).all()
+                and np.mean(losses[-ENC_SETTLED:]) < losses[0]):
+            raise RuntimeError(f"encoder_bf16 did not progress: {losses}")
+    if not (out_ok and parity["ok"] and grads_f32 and masters_f32
+            and mask_err <= ENC_MASK_TOL):
+        raise RuntimeError(f"encoder_bf16: output {out_ok}, parity {parity}, f32 "
+                           f"gradients {grads_f32}, f32 masters {masters_f32}, "
+                           f"masked prefix error {mask_err}")
+    del net, ids, labels, weights
+    torch.cuda.empty_cache()
+    return {"train_a": ways["a"]["launches"], "train_b": ways["b"]["launches"],
+            "output_b": out_launches}
+
+
+def zoo_smoke_phase(ck, card):
+    """The zoo's other models at their published widths on the card, f32,
+    batch ZOO_BATCH: AlexNet, VGG19 and GoogLeNet at 224x224x3,
+    TextGenerationLSTM at its defaults (26 characters, T 40),
+    VisionTransformer at ViT-B/16 numbers. Each takes one fit step and
+    one output with the fused updater registered: the loss finite, the
+    rows of output summing to 1 within ROWSUM_TOL, and no kernel launch
+    but K2 on ViT's Adam (one a tensor): GravesLSTM takes no K1, and ViT's
+    T = 196 is no multiple of 128. Returns the launches by model."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.zoo.models import (AlexNet, GoogLeNet,
+                                                     TextGenerationLSTM, VGG19,
+                                                     VisionTransformer)
+
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    rows, bad = {}, {}
+    for model in (AlexNet(), VGG19(), GoogLeNet(), TextGenerationLSTM(),
+                  VisionTransformer(**VIT_B16)):
+        name = type(model).__name__
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = model.init()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(9)
+        if name == "TextGenerationLSTM":
+            shape, n = (ZOO_BATCH, model.max_length, model.num_labels), model.num_labels
+            idx = torch.randint(0, n, shape[:2], generator=gen, device="cuda")
+            x = F.one_hot(idx, n).float()
+            y = F.one_hot(torch.roll(idx, -1, 1), n).float()
+        else:
+            side = getattr(model, "image_size", 224)
+            x = torch.randn((ZOO_BATCH, side, side, 3), generator=gen, device="cuda")
+            y = F.one_hot(torch.randint(0, model.num_labels, (ZOO_BATCH,),
+                                        generator=gen, device="cuda"),
+                          model.num_labels).float()
+        zero_launches(ck)
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        loss = net.score_
+        fit_s = time.perf_counter() - t0
+        out = net.output(x)
+        torch.cuda.synchronize()
+        launches = read_launches(ck)
+        rowsum_dev = (out.double().sum(-1) - 1.0).abs().max().item()
+        want = {"fused_adam": tensors_of(net)} if name == "VisionTransformer" else {}
+        rows[name] = {"params": net.conf.num_params(), "loss": loss,
+                      "first_fit_s": fit_s, "output_shape": list(out.shape),
+                      "rowsum_max_dev": rowsum_dev, "launches": launches,
+                      "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if (not math.isfinite(loss) or rowsum_dev > ROWSUM_TOL
+                or unexpected_launches(launches, want)):
+            bad[name] = rows[name]
+        del net, x, y, out
+    helpers.clear_helper("updater")
+    torch.cuda.empty_cache()
+    print("zoo_smoke " + json.dumps({"card": card, "batch": ZOO_BATCH, "dtype": "float32",
+                                     "models": rows}), flush=True)
+    if bad:
+        raise RuntimeError(f"zoo_smoke: {bad}")
+    return {name: row["launches"] for name, row in rows.items()}
+
+
 def dl4j_import_phase(ck, card):
     """The DL4J-format fixtures restored on the card; the convnet one fits
     DL4J_FIT_STEPS more steps from its restored Adam state on the fused
@@ -3666,28 +4097,25 @@ def dl4j_import_phase(ck, card):
                                    atol=DL4J_ATOL, err_msg=f"DL4J {name}")
         if name == "convnet":
             convnet = net
-    n_tensors = sum(len(named) for named in convnet.params.values())
+    n_tensors = tensors_of(convnet)
     rng = np.random.default_rng(0)
     x = rng.normal(size=(16, 8, 8, 1)).astype(np.float32)
     y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 16)]
-    counters = (ck.lstm_sequence, ck.fused_adam, ck.flash_attention_fwd,
-                ck.flash_attention_bwd_dq, ck.flash_attention_bwd_dkv)
     helpers.set_helper("updater", ck.FusedUpdaterHelper())
     try:
         it0 = convnet.iteration
         losses = []
-        for c in counters:
-            c.launches = 0
+        zero_launches(ck)
         for _ in range(DL4J_FIT_STEPS):
             convnet.fit(x, y)
             losses.append(convnet.score_)
         torch.cuda.synchronize()
-        launches = {c.__name__: c.launches for c in counters}
+        launches = read_launches(ck)
     finally:
         helpers.clear_helper("updater")
-    want = {c.__name__: 0 for c in counters}
-    want["fused_adam"] = DL4J_CONVNET_TENSORS * DL4J_FIT_STEPS
-    if not (n_tensors == DL4J_CONVNET_TENSORS and launches == want
+    want = {"fused_adam": DL4J_CONVNET_TENSORS * DL4J_FIT_STEPS}
+    if not (n_tensors == DL4J_CONVNET_TENSORS
+            and not unexpected_launches(launches, want)
             and convnet.iteration == it0 + DL4J_FIT_STEPS
             and np.isfinite(losses).all()):
         raise RuntimeError(f"DL4J convnet fit: launches {launches} for "
@@ -3728,7 +4156,7 @@ def main() -> None:
 
     served = kernel_phase(ck, peaks)
     bwd = backward_phase(ck, peaks)
-    bf16 = flash_bf16_phase(ck, peaks)
+    bf16, bf16_encoder = flash_bf16_phase(ck, peaks)
     adam = adam_phase(ck, peaks)
     serve_launches = serving_phase(ck, card, served["ms"])
     train_launches = training_phase(ck, card)
@@ -3748,6 +4176,10 @@ def main() -> None:
     resnet_bf16 = resnet50_bf16_phase(ck, card, peaks)
     lstm_bf16 = lstm_bf16_phase(ck, card)
     stack = recurrent_stack_phase(ck, card)
+    vgg = vgg16_bf16_phase(ck, card, peaks)
+    enc = encoder_bf16_phase(ck, card)
+    zoo = zoo_smoke_phase(ck, card)
+    vit = zoo.pop("VisionTransformer")
     lstm = lstm_rows[LSTM_PATHS["train"]]
     lstm_bf16_row = lstm_bf16_rows[(LSTM_BF16_PATH, "auto")]
 
@@ -3773,7 +4205,28 @@ def main() -> None:
                 "dl4j_import_train": dl4j[kernel],
                 "gpt2_bf16_train": gpt2_bf16["train"].get(kernel),
                 "resnet50_bf16_train": resnet_bf16.get(kernel),
-                **{path: counts.get(kernel) for path, counts in lstm_bf16.items()}}
+                **{path: counts.get(kernel) for path, counts in lstm_bf16.items()},
+                "vgg16_bf16_train": vgg[kernel],
+                "encoder_bf16_train": enc["train_a"][kernel],
+                "encoder_bf16_flash_train": enc["train_b"][kernel],
+                "encoder_bf16_flash_output": enc["output_b"][kernel],
+                "zoo_smoke_vit_train": vit[kernel],
+                "zoo_smoke_other_models": sum(c[kernel] for c in zoo.values())}
+
+    def bf16_paths(kernel):
+        """The bf16 K3 kernel's launches on each path that counts them."""
+        return {"gpt2_bf16_train": gpt2_bf16["train"][kernel],
+                "gpt2_bf16_output": gpt2_bf16["output"][kernel],
+                "vgg16_bf16_train": vgg[kernel],
+                "encoder_bf16_train": enc["train_a"][kernel],
+                "encoder_bf16_flash_train": enc["train_b"][kernel],
+                "encoder_bf16_flash_output": enc["output_b"][kernel]}
+
+    def encoder_row(name):
+        """The bf16 kernel's row at the encoder's attention shape."""
+        return {k: bf16_encoder[name][k] for k in (
+            "shape", "causal", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "library_device_ms", "bound_ms", "bound_by")}
 
     def measured(by_path):
         return {p: n for p, n in by_path.items() if n is not None}
@@ -3810,7 +4263,9 @@ def main() -> None:
               + lenet_reg_adam_launches + gpt2_drop["fused_adam"]
               + tbptt["fused_adam"] + dl4j["fused_adam"]
               + gpt2_bf16["train"]["fused_adam"]
-              + sum(c["fused_adam"] for c in lstm_bf16.values()),
+              + sum(c["fused_adam"] for c in lstm_bf16.values())
+              + enc["train_a"]["fused_adam"] + enc["train_b"]["fused_adam"]
+              + vit["fused_adam"],
               launches_by_path=measured({
                   "train": train_launches["fused_adam"],
                   "char_lstm_train": char_adam_launches,
@@ -3852,26 +4307,25 @@ def main() -> None:
         entry(f"{fwd}_bf16", "flash_attention_fwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:758 on bf16 "
               "q, k, v (via deeplearning4j_tpu/nn/pallas_kernels.py:359)",
-              bf16["fwd"], gpt2_bf16["train"][f"{fwd}_bf16"]
-              + gpt2_bf16["output"][f"{fwd}_bf16"],
-              launches_by_path={"gpt2_bf16_train": gpt2_bf16["train"][f"{fwd}_bf16"],
-                                "gpt2_bf16_output": gpt2_bf16["output"][f"{fwd}_bf16"]},
+              bf16["fwd"], sum(bf16_paths(f"{fwd}_bf16").values()),
+              launches_by_path=bf16_paths(f"{fwd}_bf16"),
+              encoder_attention=encoder_row("fwd"),
               **{k: bf16["fwd"][k] for k in ("device_ms", "library_device_ms", "design",
                                              "host_us_per_call")}),
         entry("flash_attention_bwd_dkv_bf16", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:941 on bf16 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bf16["dkv"],
-              gpt2_bf16["train"]["flash_attention_bwd_dkv_bf16"],
-              launches_by_path={"gpt2_bf16_train":
-                                gpt2_bf16["train"]["flash_attention_bwd_dkv_bf16"]},
+              sum(bf16_paths("flash_attention_bwd_dkv_bf16").values()),
+              launches_by_path=bf16_paths("flash_attention_bwd_dkv_bf16"),
+              encoder_attention=encoder_row("dkv"),
               **{k: bf16["dkv"][k] for k in ("device_ms", "library_device_ms", "design",
                                              "host_us_per_call")}),
         entry("flash_attention_bwd_dq_bf16", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 on bf16 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bf16["dq"],
-              gpt2_bf16["train"]["flash_attention_bwd_dq_bf16"],
-              launches_by_path={"gpt2_bf16_train":
-                                gpt2_bf16["train"]["flash_attention_bwd_dq_bf16"]},
+              sum(bf16_paths("flash_attention_bwd_dq_bf16").values()),
+              launches_by_path=bf16_paths("flash_attention_bwd_dq_bf16"),
+              encoder_attention=encoder_row("dq"),
               **{k: bf16["dq"][k] for k in ("device_ms", "library_device_ms", "design",
                                             "host_us_per_call")}),
     ]}), flush=True)

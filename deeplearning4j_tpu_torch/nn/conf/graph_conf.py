@@ -203,7 +203,12 @@ class ComputationGraphConfiguration:
             vd = self.vertices[name]
             in_types = [types[src] for src in vd.inputs]
             self.vertex_input_types[name] = in_types
-            if vd.is_layer:
+            if vd.is_layer and getattr(vd.obj, "consumes_multiple_inputs", False):
+                # a multi-input layer (cross-attention) sees every input's
+                # type apart: no concatenation, no preprocessor
+                vd.obj.set_n_in_multi(in_types)
+                types[name] = vd.obj.output_type_multi(in_types)
+            elif vd.is_layer:
                 it = in_types[0]
                 if name in self.input_pre_processors:
                     it = pp.output_type(self.input_pre_processors[name], it)

@@ -50,9 +50,13 @@ the loss heads run in f32 on the f32 masters, and the gradients, updates,
 optimizer and layer state stay f32; ``output`` answers in the compute
 dtype. Integer inputs (token ids) are never cast.
 
+A multi-input layer (``consumes_multiple_inputs``: cross-attention) takes
+every input's activation and mask apart through its ``forward_multi``,
+after its weight noise, as in the reference.
+
 Not ported yet: ``fit_batches_on_device``, ROC,
-regression, binary and calibration evaluation, listeners, multi-input
-layers and pretraining.
+regression, binary and calibration evaluation, listeners and
+pretraining.
 """
 
 from __future__ import annotations
@@ -228,6 +232,12 @@ class ComputationGraph(nn.Module):
                         gen.set_state(drawn_from)
                         head = layer.weight_noise.apply(layer, head, gen, train)
                         gen.set_state(after)
+                if getattr(layer, "consumes_multiple_inputs", False):
+                    # every input's activation and mask, weight noise drawn
+                    acts[name] = layer.forward_multi(p_v, in_acts, masks=in_masks,
+                                                     train=train, gen=gen)
+                    m[name] = in_masks[0]
+                    continue
                 h = in_acts[0] if len(in_acts) == 1 else torch.cat(in_acts, -1)
                 if name in conf.preprocessors:
                     h = conf.preprocessors[name](h)

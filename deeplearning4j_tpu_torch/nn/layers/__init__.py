@@ -2,6 +2,8 @@
 
 from deeplearning4j_tpu_torch.nn.layers.attention import (  # noqa: F401
     CausalSelfAttentionLayer,
+    CrossAttentionLayer,
+    LearnedSelfAttentionLayer,
     SelfAttentionLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401

@@ -12,6 +12,16 @@ kernels have no dropout, so the seam declines such a request, as the
 reference's does, and the plain math runs. The causal layer's
 ``forward_seq`` attends through a fixed-capacity KV cache (stateful
 decoding, TBPTT); it never reaches the attention seam.
+
+``LearnedSelfAttentionLayer`` attends from ``n_queries`` learned query
+vectors over a fused, head-major key/value projection (``Wkv``);
+``CrossAttentionLayer`` takes its queries from one graph input and its
+keys and values from others, through the graph's multi-input protocol
+(``consumes_multiple_inputs``: ``set_n_in_multi``, ``output_type_multi``,
+``forward_multi``). Both reach the seam with queries of another length
+than their keys whenever the two differ, and a helper serves only
+requests whose q, k and v have one shape, so such requests take the
+plain math.
 """
 
 from __future__ import annotations
@@ -223,8 +233,11 @@ class CausalSelfAttentionLayer(SelfAttentionLayer, BaseRecurrentLayer):
 
 #: the column order of the fused QKV projection that the model zip stamps
 #: into ``meta.json``; a zip without the stamp holds the older block-major
-#: order ([3, H, Dh] columns)
+#: order ([3, H, Dh] columns, [2, H, Dh] for a fused key/value projection)
 QKV_LAYOUT = "head_major"
+
+#: the fused projections and the number of parts each fuses
+_FUSED_PARTS = {"Wqkv": 3, "bqkv": 3, "Wkv": 2, "bkv": 2}
 
 #: updater slots that are elementwise per-parameter accumulators, so they
 #: share the parameter's column order (every slot of ``nn/updaters.py``)
@@ -233,15 +246,18 @@ _COLUMN_INDEXED_SLOTS = frozenset({"v", "m", "u", "h", "v_hat", "eg2", "edx2", "
 
 def repack_legacy_fused_qkv(model) -> int:
     """Counterpart of the reference's ``repack_legacy_fused_qkv``: move a
-    model's fused ``Wqkv``/``bqkv`` (and their same-shaped updater slots)
-    from the block-major [3, H, Dh] column order to the head-major
-    [H, 3, Dh] one, in place. The zip restorer calls it when ``meta.json``
-    has no ``qkv_layout`` stamp. Returns the number of tensors repacked."""
+    model's fused ``Wqkv``/``bqkv`` and ``Wkv``/``bkv`` (and their
+    same-shaped updater slots) from the block-major [parts, H, Dh] column
+    order to the head-major [H, parts, Dh] one, in place; a layer that
+    lacks one of them is skipped for it. The zip restorer calls it when
+    ``meta.json`` has no ``qkv_layout`` stamp. Returns the number of
+    tensors repacked."""
 
-    def repack(t, h, dh):
+    def repack(t, parts, h, dh):
         if t.ndim == 1:
-            return t.reshape(3, h, dh).transpose(0, 1).reshape(-1)
-        return t.reshape(t.shape[0], 3, h, dh).transpose(1, 2).reshape(t.shape[0], -1)
+            return t.reshape(parts, h, dh).transpose(0, 1).reshape(-1)
+        return (t.reshape(t.shape[0], parts, h, dh).transpose(1, 2)
+                .reshape(t.shape[0], -1))
 
     if hasattr(model.conf, "vertices"):  # a ComputationGraph
         items = [(vd.name, vd.obj) for vd in model.conf.layer_vertices()]
@@ -253,12 +269,155 @@ def repack_legacy_fused_qkv(model) -> int:
             if not isinstance(layer, SelfAttentionLayer) or layer.n_heads <= 1:
                 continue
             h, dh = layer.n_heads, layer._dh()
-            for pn in ("Wqkv", "bqkv"):
+            for pn, parts in _FUSED_PARTS.items():
+                if pn not in model.params[key]:
+                    continue
                 p = model.params[key][pn]
-                p.copy_(repack(p, h, dh))
+                p.copy_(repack(p, parts, h, dh))
                 n += 1
-                for slot, arr in model.updater_states[key][pn].items():
+                slots = (model.updater_states or {}).get(key, {}).get(pn, {})
+                for slot, arr in slots.items():
                     if slot in _COLUMN_INDEXED_SLOTS and arr.shape == p.shape:
-                        arr.copy_(repack(arr, h, dh))
+                        arr.copy_(repack(arr, parts, h, dh))
                         n += 1
     return n
+
+
+@register_layer
+@dataclasses.dataclass
+class LearnedSelfAttentionLayer(SelfAttentionLayer):
+    """Attention from ``n_queries`` learned query vectors (DL4J's
+    LearnedSelfAttentionLayer) over [N,T,C]: the fused key/value
+    projection ``Wkv`` has head-major [H, 2, Dh] columns, the queries
+    ``Q`` are [n_queries, H, Dh], and the output, projected by ``Wo``, is
+    [N, n_queries, n_out]. A mask [N,T] masks the keys."""
+
+    n_queries: int = 1
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.recurrent(self.n_out, self.n_queries)
+
+    def param_shapes(self):
+        dh = self._dh()
+        inner = self.n_heads * dh
+        return {"Wkv": (self.n_in, 2 * inner), "bkv": (2 * inner,),
+                "Q": (self.n_queries, self.n_heads, dh),
+                "Wo": (inner, self.n_out), "bo": (self.n_out,)}
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        dh = self._dh()
+        inner = self.n_heads * dh
+        kw = dict(dtype=dtype, device=device)
+        return {
+            "Wkv": self._init_w(gen, (self.n_in, 2 * inner), self.n_in,
+                                2 * inner, dtype, device),
+            "bkv": torch.zeros((2 * inner,), **kw),
+            "Q": self._init_w(gen, (self.n_queries, self.n_heads, dh), dh, dh,
+                              dtype, device),
+            "Wo": self._init_w(gen, (inner, self.n_out), inner, self.n_out,
+                               dtype, device),
+            "bo": torch.zeros((self.n_out,), **kw),
+        }
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        n, t, _ = x.shape
+        h, dh, nq = self.n_heads, self._dh(), self.n_queries
+        kv = x @ params["Wkv"] + params["bkv"]                  # [N,T,H*2*Dh]
+        kv = kv.reshape(n, t, h, 2, dh).permute(3, 0, 2, 1, 4)  # [2,N,H,T,Dh]
+        q = params["Q"].transpose(0, 1)[None].expand(n, h, nq, dh)
+        out = dot_product_attention(q, kv[0], kv[1], mask=mask,
+                                    dropout_rate=self.attn_dropout, gen=gen,
+                                    train=train)
+        y = out.transpose(1, 2).reshape(n, nq, h * dh)
+        return self.act_fn()(y @ params["Wo"] + params["bo"])
+
+
+@register_layer
+@dataclasses.dataclass
+class CrossAttentionLayer(Layer):
+    """Multi-head cross-attention (Keras ``MultiHeadAttention(query,
+    value[, key])``): the queries from the first graph input, the values
+    from the second and the keys from the third (the values' source when
+    there is none; a single input attends over itself). Separate
+    projections ``Wq``/``Wk``/``Wv``/``Wo``, since the sources and the
+    value width (``value_size``, default ``head_size``) may differ. The
+    keys are masked by the key source's mask, else the value source's,
+    else the query's. Consumes several graph inputs through the
+    multi-input protocol: no concatenation, no preprocessor."""
+
+    n_in: int = 0          # query feature width
+    k_in: int = 0          # key source feature width
+    v_in: int = 0          # value source feature width
+    n_out: int = 0         # output width (default: the query's)
+    n_heads: int = 1
+    head_size: Optional[int] = None   # Dh of q and k
+    value_size: Optional[int] = None  # Dv (default: head_size)
+    attn_dropout: float = 0.0
+
+    consumes_multiple_inputs = True
+
+    def _dh(self) -> int:
+        return self.head_size or max(1, self.n_in // self.n_heads)
+
+    def _dv(self) -> int:
+        return self.value_size or self._dh()
+
+    def set_n_in_multi(self, input_types) -> None:
+        if not self.n_in:
+            self.n_in = input_types[0].size
+        if len(input_types) > 1 and not self.v_in:
+            self.v_in = input_types[1].size
+        if not self.k_in:
+            self.k_in = (input_types[2].size if len(input_types) > 2
+                         else self.v_in or self.n_in)
+        if not self.v_in:
+            self.v_in = self.n_in
+        if not self.n_out:
+            self.n_out = self.n_in
+
+    def output_type_multi(self, input_types) -> InputType:
+        return InputType.recurrent(self.n_out or input_types[0].size,
+                                   input_types[0].timesteps)
+
+    def param_shapes(self):
+        h, dh, dv = self.n_heads, self._dh(), self._dv()
+        return {"Wq": (self.n_in, h * dh), "bq": (h * dh,),
+                "Wk": (self.k_in, h * dh), "bk": (h * dh,),
+                "Wv": (self.v_in, h * dv), "bv": (h * dv,),
+                "Wo": (h * dv, self.n_out), "bo": (self.n_out,)}
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        shapes, out = self.param_shapes(), {}
+        for w in ("Wq", "Wk", "Wv", "Wo"):
+            s, b = shapes[w], "b" + w[1:].lower()
+            out[w] = self._init_w(gen, s, s[0], s[1], dtype, device)
+            out[b] = torch.zeros(shapes[b], dtype=dtype, device=device)
+        return out
+
+    def forward_multi(self, params, inputs, *, masks=None, train=False,
+                      gen=None):
+        xq = inputs[0]
+        xv = inputs[1] if len(inputs) > 1 else xq
+        xk = inputs[2] if len(inputs) > 2 else xv
+        n, tq, _ = xq.shape
+        tk = xk.shape[1]
+        h, dh, dv = self.n_heads, self._dh(), self._dv()
+        q = (xq @ params["Wq"] + params["bq"]).reshape(n, tq, h, dh).transpose(1, 2)
+        k = (xk @ params["Wk"] + params["bk"]).reshape(n, tk, h, dh).transpose(1, 2)
+        v = (xv @ params["Wv"] + params["bv"]).reshape(n, tk, h, dv).transpose(1, 2)
+        kv_mask = None
+        if masks:
+            # over the keys: the key source's mask, else the value
+            # source's, else (one input) the query's
+            kv_mask = (masks[2] if len(masks) > 2 and masks[2] is not None
+                       else masks[1] if len(masks) > 1 else masks[0])
+        out = dot_product_attention(q, k, v, mask=kv_mask,
+                                    dropout_rate=self.attn_dropout, gen=gen,
+                                    train=train)
+        y = out.transpose(1, 2).reshape(n, tq, h * dv)
+        return self.act_fn()(y @ params["Wo"] + params["bo"])
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        # one input: self-attention over x, the mask over its keys
+        return self.forward_multi(params, [x], train=train, gen=gen,
+                                  masks=None if mask is None else [mask])

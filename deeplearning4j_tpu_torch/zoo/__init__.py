@@ -1,15 +1,25 @@
 """Model zoo of the PyTorch/CUDA port."""
 
 from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
+    AlexNet,
+    GoogLeNet,
     LeNet,
     ResNet50,
+    TextGenerationLSTM,
+    TransformerEncoder,
     TransformerLM,
+    VGG16,
+    VGG19,
+    VisionTransformer,
     beam_search,
     generate,
     generate_on_device,
     lm_labels,
     transformer_decoder_block,
+    transformer_encoder_block,
 )
 
-__all__ = ["LeNet", "ResNet50", "TransformerLM", "beam_search", "generate",
-           "generate_on_device", "lm_labels", "transformer_decoder_block"]
+__all__ = ["AlexNet", "GoogLeNet", "LeNet", "ResNet50", "TextGenerationLSTM",
+           "TransformerEncoder", "TransformerLM", "VGG16", "VGG19",
+           "VisionTransformer", "beam_search", "generate", "generate_on_device",
+           "lm_labels", "transformer_decoder_block", "transformer_encoder_block"]

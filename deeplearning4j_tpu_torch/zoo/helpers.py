@@ -1,12 +1,14 @@
 """Block builders for the zoo's CNNs.
 
-Counterpart of ``conv_bn_act``, ``resnet_identity_block`` and
-``resnet_conv_block`` in ``deeplearning4j_tpu/zoo/helpers.py`` (DL4J's
-``ResNet50.java`` ``identityBlock``/``convBlock``). Each appends named
-vertices to a :class:`GraphBuilder` and returns the name of the block's
-output vertex; the names are the reference's, so parameters carry across
-by name. Every convolution here feeds a BatchNorm and has no bias: the
-norm's mean subtraction cancels one and its beta replaces it.
+Counterpart of ``conv_bn_act``, ``resnet_identity_block``,
+``resnet_conv_block`` and ``inception_module`` in
+``deeplearning4j_tpu/zoo/helpers.py`` (DL4J's ``ResNet50.java``
+``identityBlock``/``convBlock``, ``GoogLeNet.java``'s ``inception``).
+Each appends named vertices to a :class:`GraphBuilder` and returns the
+name of the block's output vertex; the names are the reference's, so
+parameters carry across by name. Every convolution of the ResNet blocks
+feeds a BatchNorm and has no bias: the norm's mean subtraction cancels
+one and its beta replaces it.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer,
     BatchNormalizationLayer,
     ConvolutionLayer,
+    SubsamplingLayer,
 )
-from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
+from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex, MergeVertex
 
 
 def conv_bn_act(g: GraphBuilder, name: str, inp: str, n_out: int,
@@ -89,3 +92,29 @@ def resnet_conv_block(g: GraphBuilder, kernel: Tuple[int, int],
                  main, bn + "1")
     g.add_layer(cn, ActivationLayer(activation="relu"), f"short{stage}{block}_branch")
     return cn
+
+
+def inception_module(g: GraphBuilder, name: str, inp: str,
+                     b1: int, b3r: int, b3: int, b5r: int, b5: int, pp: int) -> str:
+    """GoogLeNet's inception module (Szegedy 2014): four branches merged
+    along the channels: 1x1; 1x1 → 3x3; 1x1 → 5x5; 3x3 max pool → 1x1."""
+    g.add_layer(f"{name}-1x1", ConvolutionLayer(n_out=b1, kernel_size=(1, 1),
+                                                activation="relu"), inp)
+    g.add_layer(f"{name}-3x3reduce", ConvolutionLayer(n_out=b3r, kernel_size=(1, 1),
+                                                      activation="relu"), inp)
+    g.add_layer(f"{name}-3x3", ConvolutionLayer(n_out=b3, kernel_size=(3, 3),
+                                                convolution_mode="same",
+                                                activation="relu"), f"{name}-3x3reduce")
+    g.add_layer(f"{name}-5x5reduce", ConvolutionLayer(n_out=b5r, kernel_size=(1, 1),
+                                                      activation="relu"), inp)
+    g.add_layer(f"{name}-5x5", ConvolutionLayer(n_out=b5, kernel_size=(5, 5),
+                                                convolution_mode="same",
+                                                activation="relu"), f"{name}-5x5reduce")
+    g.add_layer(f"{name}-maxpool", SubsamplingLayer(pooling_type="max",
+                                                    kernel_size=(3, 3), stride=(1, 1),
+                                                    convolution_mode="same"), inp)
+    g.add_layer(f"{name}-poolproj", ConvolutionLayer(n_out=pp, kernel_size=(1, 1),
+                                                     activation="relu"), f"{name}-maxpool")
+    g.add_vertex(name, MergeVertex(), f"{name}-1x1", f"{name}-3x3",
+                 f"{name}-5x5", f"{name}-poolproj")
+    return name

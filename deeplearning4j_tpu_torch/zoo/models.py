@@ -1,13 +1,16 @@
-"""Model zoo: LeNet, ResNet-50, the GPT-style TransformerLM, and text
+"""Model zoo: the CNNs, the character LSTM, the transformers, and text
 generation.
 
-Counterpart of ``LeNet``, ``ResNet50``, ``transformer_decoder_block``,
-``TransformerLM``,
-``lm_labels``, ``generate``, ``generate_on_device`` and ``beam_search`` in
-``deeplearning4j_tpu/zoo/models.py``. The same layers, vertex names and
-parameter shapes; ``init(device=None)`` builds the network on ``cuda``
-(``device="cpu"`` for the CPU). No pretrained weights are fetched: the
-zoo's pretrained LeNet and ResNet-50 zips are not in the repository.
+Counterpart of ``LeNet``, ``AlexNet``, ``VGG16``, ``VGG19``,
+``ResNet50``, ``GoogLeNet``, ``TextGenerationLSTM``,
+``transformer_decoder_block``, ``TransformerLM``,
+``transformer_encoder_block``, ``TransformerEncoder``,
+``VisionTransformer``, ``lm_labels``, ``generate``, ``generate_on_device``
+and ``beam_search`` in ``deeplearning4j_tpu/zoo/models.py``. The same
+layers, layer and vertex names, parameter shapes and defaults;
+``init(device=None)`` builds the network on ``cuda`` (``device="cpu"`` for
+the CPU). No pretrained weights are fetched: the zoo's pretrained zips are
+not in the repository.
 
 Generation runs the network's stateful path: every causal attention layer
 carries a fixed-capacity KV cache, so each new token is one single-token
@@ -38,12 +41,16 @@ from deeplearning4j_tpu_torch.nn.layers import (
     CausalSelfAttentionLayer,
     ConvolutionLayer,
     DenseLayer,
+    DropoutLayer,
     EmbeddingSequenceLayer,
     GlobalPoolingLayer,
+    GravesLSTMLayer,
     LayerNormalizationLayer,
+    LocalResponseNormalizationLayer,
     OutputLayer,
     PositionalEmbeddingLayer,
     RnnOutputLayer,
+    SelfAttentionLayer,
     SubsamplingLayer,
     ZeroPaddingLayer,
 )
@@ -51,14 +58,38 @@ from deeplearning4j_tpu_torch.nn.layers.core import unchecked_token_ids
 from deeplearning4j_tpu_torch.nn.layers.recurrent import map_carry
 from deeplearning4j_tpu_torch.nn.train_step import to_host
 from deeplearning4j_tpu_torch.nn.updaters import AdaDelta, Adam, Nesterovs
-from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex
+from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex, ReshapeVertex
+from deeplearning4j_tpu_torch.nn.weights import Distribution
 from deeplearning4j_tpu_torch.zoo.helpers import (
+    inception_module,
     resnet_conv_block,
     resnet_identity_block,
 )
 
 
-class LeNet:
+class _ZooModel:
+    """``num_labels``, ``seed`` and ``init``: a configuration built with
+    ``list()`` becomes a ``MultiLayerNetwork``, one built with
+    ``graph_builder()`` a ``ComputationGraph``."""
+
+    def __init__(self, num_labels: int, seed: int):
+        self.num_labels = num_labels
+        self.seed = seed
+
+    def conf(self):
+        raise NotImplementedError
+
+    def init(self, device=None):
+        """The initialized network (seeded with this model's seed)."""
+        conf = self.conf()
+        if hasattr(conf, "vertices"):
+            from deeplearning4j_tpu_torch.nn.graph import ComputationGraph as net_cls
+        else:
+            from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as net_cls
+        return net_cls(conf, device=device).init(seed=self.seed)
+
+
+class LeNet(_ZooModel):
     """LeNet-5-style CNN (``zoo/model/LeNet.java``): two 5x5 "same"
     convolutions of 20 and 50 channels, each followed by a 2x2 max pool,
     a dense 500 and a softmax output, trained with AdaDelta.
@@ -66,8 +97,7 @@ class LeNet:
 
     def __init__(self, num_labels: int = 10, seed: int = 123,
                  input_shape=(1, 28, 28)):
-        self.num_labels = num_labels
-        self.seed = seed
+        super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
 
     def conf(self):
@@ -86,13 +116,85 @@ class LeNet:
                                    activation="softmax"))
                 .set_input_type(InputType.convolutional(h, w, c)).build())
 
-    def init(self, device=None):
-        """The initialized network (seeded with this model's seed)."""
-        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-        return MultiLayerNetwork(self.conf(), device=device).init(seed=self.seed)
+
+class AlexNet(_ZooModel):
+    """AlexNet, the one-tower variant (``zoo/model/AlexNet.java``): an
+    11x11/4 convolution of 64 channels (padding 3), LRN and a 3x3/2 max
+    pool; a 5x5 "same" convolution of 192, LRN and a max pool; three 3x3
+    "same" convolutions of 384, 256, 256 and a max pool; two dense layers
+    of 4096 with dropout 0.5 and a softmax output. Weights from N(0,
+    0.005), relu, Nesterovs(1e-2, 0.9), l2 5e-4. ``input_shape`` is
+    (channels, height, width)."""
+
+    def __init__(self, num_labels: int = 1000, seed: int = 123,
+                 input_shape=(3, 224, 224)):
+        super().__init__(num_labels, seed)
+        self.input_shape = tuple(input_shape)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        return (NeuralNetConfiguration.builder().seed(self.seed)
+                .activation("relu")
+                .weight_init("distribution", Distribution("normal", 0.0, 0.005))
+                .updater(Nesterovs(1e-2, 0.9)).l2(5e-4).list()
+                .layer(ConvolutionLayer(n_out=64, kernel_size=(11, 11), stride=(4, 4),
+                                        padding=(3, 3)))
+                .layer(LocalResponseNormalizationLayer())
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=192, kernel_size=(5, 5), convolution_mode="same"))
+                .layer(LocalResponseNormalizationLayer())
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=384, kernel_size=(3, 3), convolution_mode="same"))
+                .layer(ConvolutionLayer(n_out=256, kernel_size=(3, 3), convolution_mode="same"))
+                .layer(ConvolutionLayer(n_out=256, kernel_size=(3, 3), convolution_mode="same"))
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=(3, 3), stride=(2, 2)))
+                .layer(DenseLayer(n_out=4096, dropout=0.5))
+                .layer(DenseLayer(n_out=4096, dropout=0.5))
+                .layer(OutputLayer(n_out=self.num_labels, loss="mcxent", activation="softmax"))
+                .set_input_type(InputType.convolutional(h, w, c)).build())
 
 
-class ResNet50:
+def _vgg_conf(blocks, num_labels, seed, input_shape):
+    """VGG: for each ``(convolutions, channels)`` block that many 3x3
+    "same" convolutions and a 2x2/2 max pool, then two dense layers of
+    4096 with dropout 0.5 and a softmax output; xavier, relu,
+    Nesterovs(1e-2, 0.9)."""
+    c, h, w = input_shape
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .activation("relu").weight_init("xavier").updater(Nesterovs(1e-2, 0.9)).list())
+    for n_convs, n_out in blocks:
+        for _ in range(n_convs):
+            b.layer(ConvolutionLayer(n_out=n_out, kernel_size=(3, 3), convolution_mode="same"))
+        b.layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+    b.layer(DenseLayer(n_out=4096, dropout=0.5))
+    b.layer(DenseLayer(n_out=4096, dropout=0.5))
+    b.layer(OutputLayer(n_out=num_labels, loss="mcxent", activation="softmax"))
+    return b.set_input_type(InputType.convolutional(h, w, c)).build()
+
+
+class VGG16(_ZooModel):
+    """VGG-16 (``zoo/model/VGG16.java``; Simonyan & Zisserman 2014):
+    blocks of 2, 2, 3, 3, 3 convolutions of 64 to 512 channels."""
+
+    def __init__(self, num_labels: int = 1000, seed: int = 123,
+                 input_shape=(3, 224, 224)):
+        super().__init__(num_labels, seed)
+        self.input_shape = tuple(input_shape)
+
+    def conf(self):
+        return _vgg_conf([(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)],
+                         self.num_labels, self.seed, self.input_shape)
+
+
+class VGG19(VGG16):
+    """VGG-19 (``zoo/model/VGG19.java``): blocks of 2, 2, 4, 4, 4."""
+
+    def conf(self):
+        return _vgg_conf([(2, 64), (2, 128), (4, 256), (4, 512), (4, 512)],
+                         self.num_labels, self.seed, self.input_shape)
+
+
+class ResNet50(_ZooModel):
     """ResNet-50 (``zoo/model/ResNet50.java``): a 7x7/2 stem (zero padding
     3, convolution, BatchNorm, relu, 3x3/2 max pool), then [3, 4, 6, 3]
     bottleneck blocks of 256, 512, 1024 and 2048 channels, a 3x3 "same"
@@ -104,8 +206,7 @@ class ResNet50:
 
     def __init__(self, num_labels: int = 1000, seed: int = 123,
                  input_shape=(3, 224, 224)):
-        self.num_labels = num_labels
-        self.seed = seed
+        super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
 
     def conf(self):
@@ -143,10 +244,79 @@ class ResNet50:
                                           activation="softmax"), "globalpool")
         return g.set_outputs("fc1000").build()
 
-    def init(self, device=None):
-        """The initialized graph (seeded with this model's seed)."""
-        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-        return ComputationGraph(self.conf(), device=device).init(seed=self.seed)
+
+class GoogLeNet(_ZooModel):
+    """GoogLeNet / Inception-v1 (``zoo/model/GoogLeNet.java``): a 7x7/2
+    stem with "same" max pools and LRN, nine inception modules (3a-3b,
+    4a-4e, 5a-5b) with "same" 3x3/2 max pools between the stages, global
+    average pooling, dropout 0.4 and a softmax output; xavier, relu,
+    Nesterovs(1e-2, 0.9). ``input_shape`` is (channels, height, width)."""
+
+    def __init__(self, num_labels: int = 1000, seed: int = 123,
+                 input_shape=(3, 224, 224)):
+        super().__init__(num_labels, seed)
+        self.input_shape = tuple(input_shape)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .activation("relu").weight_init("xavier")
+             .updater(Nesterovs(1e-2, 0.9)).graph_builder()
+             .add_inputs("input").set_input_types(InputType.convolutional(h, w, c)))
+
+        def max_pool(name, src):
+            g.add_layer(name, SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                               stride=(2, 2), convolution_mode="same"),
+                        src)
+
+        g.add_layer("cnn1", ConvolutionLayer(n_out=64, kernel_size=(7, 7), stride=(2, 2),
+                                             convolution_mode="same"), "input")
+        max_pool("max1", "cnn1")
+        g.add_layer("lrn1", LocalResponseNormalizationLayer(), "max1")
+        g.add_layer("cnn2", ConvolutionLayer(n_out=64, kernel_size=(1, 1)), "lrn1")
+        g.add_layer("cnn3", ConvolutionLayer(n_out=192, kernel_size=(3, 3),
+                                             convolution_mode="same"), "cnn2")
+        g.add_layer("lrn2", LocalResponseNormalizationLayer(), "cnn3")
+        max_pool("max2", "lrn2")
+        x = inception_module(g, "3a", "max2", 64, 96, 128, 16, 32, 32)
+        x = inception_module(g, "3b", x, 128, 128, 192, 32, 96, 64)
+        max_pool("max3", x)
+        x = inception_module(g, "4a", "max3", 192, 96, 208, 16, 48, 64)
+        x = inception_module(g, "4b", x, 160, 112, 224, 24, 64, 64)
+        x = inception_module(g, "4c", x, 128, 128, 256, 24, 64, 64)
+        x = inception_module(g, "4d", x, 112, 144, 288, 32, 64, 64)
+        x = inception_module(g, "4e", x, 256, 160, 320, 32, 128, 128)
+        max_pool("max4", x)
+        x = inception_module(g, "5a", "max4", 256, 160, 320, 32, 128, 128)
+        x = inception_module(g, "5b", x, 384, 192, 384, 48, 128, 128)
+        g.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), x)
+        g.add_layer("dropout", DropoutLayer(dropout=0.4), "avgpool")
+        g.add_layer("output", OutputLayer(n_out=self.num_labels, loss="mcxent",
+                                          activation="softmax"), "dropout")
+        return g.set_outputs("output").build()
+
+
+class TextGenerationLSTM(_ZooModel):
+    """The character-level text generator
+    (``zoo/model/TextGenerationLSTM.java:81-86``): 2 x GravesLSTM(256, tanh)
+    and a softmax ``RnnOutputLayer`` over ``num_labels`` characters;
+    xavier, RmsProp, l2 1e-3, gradients clipped elementwise at 10."""
+
+    def __init__(self, num_labels: int = 26, seed: int = 123, max_length: int = 40):
+        super().__init__(num_labels, seed)
+        self.max_length = max_length
+
+    def conf(self):
+        return (NeuralNetConfiguration.builder().seed(self.seed)
+                .weight_init("xavier").updater("rmsprop")
+                .l2(0.001)
+                .gradient_normalization("clip_elementwise_absolute_value", 10.0).list()
+                .layer(GravesLSTMLayer(n_in=self.num_labels, n_out=256, activation="tanh"))
+                .layer(GravesLSTMLayer(n_out=256, activation="tanh"))
+                .layer(RnnOutputLayer(n_out=self.num_labels, loss="mcxent",
+                                      activation="softmax"))
+                .set_input_type(InputType.recurrent(self.num_labels, self.max_length))
+                .build())
 
 
 def transformer_decoder_block(g, name: str, src: str, d_model: int,
@@ -176,7 +346,7 @@ def transformer_decoder_block(g, name: str, src: str, d_model: int,
     return f"{name}-res2"
 
 
-class TransformerLM:
+class TransformerLM(_ZooModel):
     """GPT-style causal-decoder language model: token ids [N,T] →
     embedding + learned positions → n pre-LN causal decoder blocks → final
     LayerNorm → per-timestep softmax over the vocabulary. Defaults are
@@ -188,8 +358,7 @@ class TransformerLM:
                  d_ff: int = 3072, attn_dropout: float = 0.0):
         # for an LM the label space IS the vocabulary (the reference's rule)
         self.vocab_size = num_labels or vocab_size
-        self.num_labels = self.vocab_size
-        self.seed = seed
+        super().__init__(self.vocab_size, seed)
         self.max_length = max_length
         self.n_layers = n_layers
         self.d_model = d_model
@@ -223,10 +392,128 @@ class TransformerLM:
         g.set_outputs("out")
         return g.build()
 
-    def init(self, device=None):
-        """The initialized network (seeded with this model's seed)."""
-        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-        return ComputationGraph(self.conf(), device=device).init(seed=self.seed)
+
+def transformer_encoder_block(g, name: str, src: str, d_model: int,
+                              n_heads: int, d_ff: int,
+                              attn_dropout: float = 0.0) -> str:
+    """One post-LN (BERT-style) encoder block: self-attention → residual
+    → LayerNorm, position-wise FFN → residual → LayerNorm. Returns the
+    output vertex name."""
+    g.add_layer(f"{name}-att",
+                SelfAttentionLayer(n_heads=n_heads,
+                                   head_size=d_model // n_heads,
+                                   project_input=True,
+                                   attn_dropout=attn_dropout), src)
+    g.add_vertex(f"{name}-res1", ElementWiseVertex(op="add"),
+                 src, f"{name}-att")
+    g.add_layer(f"{name}-ln1", LayerNormalizationLayer(), f"{name}-res1")
+    g.add_layer(f"{name}-ff1", DenseLayer(n_in=d_model, n_out=d_ff,
+                                          activation="gelu"), f"{name}-ln1")
+    g.add_layer(f"{name}-ff2", DenseLayer(n_in=d_ff, n_out=d_model,
+                                          activation="identity"),
+                f"{name}-ff1")
+    g.add_vertex(f"{name}-res2", ElementWiseVertex(op="add"),
+                 f"{name}-ln1", f"{name}-ff2")
+    g.add_layer(f"{name}-ln2", LayerNormalizationLayer(), f"{name}-res2")
+    return f"{name}-ln2"
+
+
+def _encoder_head(g, src, n_layers, d_model, n_heads, d_ff, num_labels):
+    """``n_layers`` encoder blocks after ``src``, mean pooling and a
+    softmax classifier named "out"."""
+    for i in range(n_layers):
+        src = transformer_encoder_block(g, f"block{i}", src, d_model, n_heads, d_ff)
+    g.add_layer("pool", GlobalPoolingLayer(pooling_type="avg"), src)
+    g.add_layer("out", OutputLayer(n_in=d_model, n_out=num_labels,
+                                   activation="softmax", loss="mcxent"), "pool")
+    g.set_outputs("out")
+    return g.build()
+
+
+class TransformerEncoder(_ZooModel):
+    """BERT-base-shape encoder for sequence classification: token ids
+    [N,T] → embedding + learned positions → ``n_layers`` post-LN encoder
+    blocks (full attention) → mean pooling → softmax classifier; xavier,
+    Adam(1e-4). The defaults are BERT-base: 12 layers, 768 wide, 12
+    heads, d_ff 3072, vocabulary 30522, T 128."""
+
+    def __init__(self, num_labels: int = 2, seed: int = 123,
+                 vocab_size: int = 30522, max_length: int = 128,
+                 n_layers: int = 12, d_model: int = 768, n_heads: int = 12,
+                 d_ff: int = 3072):
+        super().__init__(num_labels, seed)
+        self.vocab_size = vocab_size
+        self.max_length = max_length
+        self.n_layers = n_layers
+        self.d_model = d_model
+        self.n_heads = n_heads
+        self.d_ff = d_ff
+
+    def conf(self):
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .weight_init("xavier").updater(Adam(1e-4)).graph_builder()
+             .add_inputs("tokens")
+             .set_input_types(InputType.recurrent(1, self.max_length)))
+        g.add_layer("embed",
+                    EmbeddingSequenceLayer(n_in=self.vocab_size,
+                                           n_out=self.d_model), "tokens")
+        g.add_layer("pos", PositionalEmbeddingLayer(n_in=self.d_model,
+                                                    max_len=self.max_length),
+                    "embed")
+        return _encoder_head(g, "pos", self.n_layers, self.d_model,
+                             self.n_heads, self.d_ff, self.num_labels)
+
+
+class VisionTransformer(_ZooModel):
+    """ViT (Dosovitskiy et al. 2020): images [N,H,W,C] → a patch
+    embedding (one convolution with kernel = stride = patch) → a [N,
+    (H/p)², d_model] token sequence (``ReshapeVertex``) → learned
+    positions → the encoder blocks → mean pooling → softmax classifier;
+    xavier, Adam(3e-4). The defaults are the reference's small ones; ViT-B/16
+    is image 224, patch 16, 12 layers, 768 wide, 12 heads, d_ff 3072.
+    Raises on an image size that the patch size does not divide."""
+
+    def __init__(self, num_labels: int = 10, seed: int = 123,
+                 image_size: int = 32, channels: int = 3,
+                 patch_size: int = 4, n_layers: int = 4,
+                 d_model: int = 64, n_heads: int = 4, d_ff: int = 128):
+        super().__init__(num_labels, seed)
+        if image_size % patch_size != 0:
+            raise ValueError(
+                f"image_size {image_size} not divisible by patch_size "
+                f"{patch_size}")
+        self.image_size = image_size
+        self.channels = channels
+        self.patch_size = patch_size
+        self.n_layers = n_layers
+        self.d_model = d_model
+        self.n_heads = n_heads
+        self.d_ff = d_ff
+
+    @property
+    def num_patches(self) -> int:
+        side = self.image_size // self.patch_size
+        return side * side
+
+    def conf(self):
+        p = self.patch_size
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .weight_init("xavier").updater(Adam(3e-4)).graph_builder()
+             .add_inputs("image")
+             .set_input_types(InputType.convolutional(
+                 self.image_size, self.image_size, self.channels)))
+        g.add_layer("patch",
+                    ConvolutionLayer(n_out=self.d_model, kernel_size=(p, p),
+                                     stride=(p, p), activation="identity"), "image")
+        g.add_vertex("tokens",
+                     ReshapeVertex(shape=(self.num_patches, self.d_model)),
+                     "patch")
+        g.add_layer("pos",
+                    PositionalEmbeddingLayer(n_in=self.d_model,
+                                             max_len=self.num_patches),
+                    "tokens")
+        return _encoder_head(g, "pos", self.n_layers, self.d_model,
+                             self.n_heads, self.d_ff, self.num_labels)
 
 
 def lm_labels(tokens, vocab_size: int):

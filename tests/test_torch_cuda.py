@@ -31,7 +31,11 @@ only, and a graph zip restores on the card bit for bit (on the CPU within
 statistics) takes one float64 step on the card within 1e-10 relative of
 the same step on the CPU and launches no kernel of the port; the DL4J
 convnet fixture restored on the card gives its recorded output within
-1e-5 and fits on the fused updater (8 launches a step).
+1e-5 and fits on the fused updater (8 launches a step). The bf16 kernels
+also hold their plain versions at full attention at the bf16 encoder's T
+128 ([2,2,128,64] and the zoo encoder's [32,12,128,64]), and a small bf16
+TransformerEncoder launches them only with FlashAttentionHelper(causal=
+False) registered and never on a masked batch.
 """
 
 import numpy as np
@@ -1087,6 +1091,24 @@ def _bf16_heads(shape, device, seed=20, n=4):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal", BF16_SHAPES)
 def test_bf16_flash_kernels_match_their_plain_versions(card, shape, causal):
+    _bf16_kernels_hold_their_plain_versions(shape, causal, card)
+
+
+# full attention at the bf16 encoder's T 128: a small twin's heads and the
+# zoo TransformerEncoder's own [32, 12, 128, 64] at batch 32
+ENCODER_BF16_SHAPES = [((2, 2, 128, 64), False), ((32, 12, 128, 64), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", ENCODER_BF16_SHAPES)
+def test_bf16_full_attention_kernels_at_the_encoder_shapes(card, shape, causal):
+    _bf16_kernels_hold_their_plain_versions(shape, causal, card)
+
+
+def _bf16_kernels_hold_their_plain_versions(shape, causal, card):
+    """The three bf16 kernels at ``shape``: one launch each, counted as
+    bf16, then o, dq, dk, dv against their plain versions and the f32
+    LSE and D within 1e-4."""
     q, k, v, do = _bf16_heads(shape, card)
     counts = [(w.launches, w.launches_bf16) for w in
               (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
@@ -1182,6 +1204,49 @@ def test_bf16_training_on_the_card_takes_the_bf16_kernels(card):
     assert all(t.dtype == torch.float32 for p in net.params.values() for t in p.values())
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert net.output(ids).dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_bf16_encoder_takes_the_full_attention_kernels_only_when_registered(card):
+    """A 2-layer bf16 TransformerEncoder (Dh 64, T 128) with the fused
+    updater: with no attention helper a fit step launches K2 once a tensor
+    and no flash kernel (full attention has no automatic kernel); with
+    FlashAttentionHelper(causal=False) registered each attention layer
+    launches the three bf16 kernels in fit and K3a-bf16 in ``output``; a
+    masked batch takes the plain path."""
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.zoo.models import TransformerEncoder
+
+    conf = TransformerEncoder(num_labels=2, seed=4, vocab_size=100, max_length=128,
+                              n_layers=2, d_model=128, n_heads=2, d_ff=256).conf()
+    conf.global_conf.compute_dtype = "bfloat16"
+    net = ComputationGraph(conf).init()
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    rng = np.random.default_rng(8)
+    ids = torch.from_numpy(rng.integers(0, 100, (4, 128))).to(card)
+    labels = torch.nn.functional.one_hot(
+        torch.from_numpy(rng.integers(0, 2, 4)).to(card), 2).float()
+    wrappers = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+                ck.flash_attention_bwd_dkv)
+    n_tensors = sum(len(p) for p in net.params.values())
+
+    def counted(fn):
+        before = [(w.launches, w.launches_bf16) for w in wrappers]
+        adam = ck.fused_adam.launches
+        fn()
+        torch.cuda.synchronize()
+        return ([(w.launches - a, w.launches_bf16 - b)
+                 for w, (a, b) in zip(wrappers, before)], ck.fused_adam.launches - adam)
+
+    assert counted(lambda: net.fit(ids, labels)) == ([(0, 0)] * 3, n_tensors)
+    helpers.set_helper("attention", ck.FlashAttentionHelper(causal=False))
+    assert counted(lambda: net.fit(ids, labels)) == ([(2, 2)] * 3, n_tensors)
+    assert counted(lambda: net.output(ids)) == ([(2, 2), (0, 0), (0, 0)], 0)
+    mask = torch.ones((4, 128), device=card)
+    mask[:, 100:] = 0
+    assert counted(lambda: net.fit(MultiDataSet([ids], [labels], [mask]))) == (
+        [(0, 0)] * 3, n_tensors)
+    assert np.isfinite(net.score_)
 
 
 # The bf16 forward, dq and dk/dv kernels at the edges of their tiles, for
