@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs twenty-one phases:
+every kernel, and runs twenty-two phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -174,7 +174,29 @@ every kernel, and runs twenty-one phases:
 21. the zoo's other models at their published widths, f32, batch 8 (AlexNet,
    VGG19, GoogLeNet at 224x224x3, TextGenerationLSTM, ViT-B/16): one fit
    step and one ``output`` each, the loss finite, rows summing to 1, no
-   kernel launch but ViT's fused Adam.
+   kernel launch but ViT's fused Adam;
+22. the networks' remaining API at full width, each path's launches
+   counted: (a) GPT-2-small in bf16, ``fit_batches_on_device`` over a
+   window of 4 batches (12 / 12 / 12 bf16 flash and 150 fused-Adam
+   launches a step, no host synchronisation from the first step to the
+   window's end) against 4 ``fit`` calls of a clone made before it
+   (parameters and Adam state within 1e-6 x each tensor's largest entry,
+   generator states equal), each way timed and profiled; (b) the bf16
+   char-RNN on standard LSTMs (2 x 512, B 64, T 128) the same way (2
+   K1-bf16 and 8 fused-Adam launches a step), then ``to_computation_graph``
+   (its ``output`` within 1e-6 x max(1, largest entry) of the network's,
+   2 K1-bf16; two more steps on both within 1e-5), ``evaluate`` and
+   ``evaluate_roc_multi_class`` over [64, 128, 77] with a label mask equal
+   to the eval classes on the same ``output`` on the host, their AUCs
+   beside an f32 twin's on the CPU; (c) GPT-2-small f32 ``score_examples``
+   at 8 x 1024 (12 flash-forward launches), each score within 1e-5
+   relative of that example's ``score`` alone, with and without the l1/l2
+   term; (d) the regularized LeNet's ``clone`` (the same dropout masks),
+   ``set_learning_rate`` (8 fused-Adam launches, within 1e-5 of stock Adam
+   at the new rate), ``params_flat`` / ``set_params_flat`` (bit for bit,
+   the storage kept, 8 fused-Adam launches after it) and
+   ``evaluate_roc_binary``, ``evaluate_regression`` and
+   ``EvaluationCalibration`` over ``output``.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -492,6 +514,16 @@ VGG_GROUPS = (
 # whole run: the mean of the last ENC_SETTLED steps below the first step's
 ENC_BATCH, ENC_T, ENC_WARMUP, ENC_TIMED, ENC_TENSORS = 32, 128, 2, 18, 148
 ENC_SETTLED = 5
+# the networks' remaining API at full width: a window of NA_WINDOW batches
+# through fit_batches_on_device against a clone's per-batch fit calls
+# (parameters and updater state within NA_WINDOW_TOL x each tensor's
+# largest entry, generator states equal); the char-RNN's
+# to_computation_graph output within NA_GRAPH_OUT_TOL x max(1, largest
+# entry) of the network's and NA_GRAPH_FITS more steps on both within
+# NA_GRAPH_STEP_TOL x each tensor's largest entry; GPT-2 f32 score_examples
+# within NA_SCORE_RTOL relative of each example's score alone
+NA_WINDOW, NA_WINDOW_TOL, NA_GRAPH_FITS = 4, 1e-6, 2
+NA_GRAPH_OUT_TOL, NA_GRAPH_STEP_TOL, NA_SCORE_RTOL = 1e-6, 1e-5, 1e-5
 ENC_MASK_VALID, ENC_MASK_ROWS, ENC_MASK_TOL = 96, 8, 1e-5
 # the zoo's other models at their published widths, f32, batch 8: one fit
 # step and one output each, the fused updater registered (only ViT's Adam
@@ -4129,6 +4161,355 @@ def dl4j_import_phase(ck, card):
     return launches
 
 
+def tensor_leaves(tree):
+    """The tensors of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in tensor_leaves(tree[k])]
+    return [tree]
+
+
+def max_rel_diff(got, want):
+    """The worst matching tensor's largest difference over its largest
+    entry in ``want`` (two trees of one layout)."""
+    worst = 0.0
+    for a, b in zip(tensor_leaves(got), tensor_leaves(want), strict=True):
+        scale = max(b.float().abs().max().item(), 1e-30)
+        worst = max(worst, (a.float() - b.float()).abs().max().item() / scale)
+    return worst
+
+
+def timed_window(net, window):
+    """``net.fit_batches_on_device(window)`` with a CUDA event at each
+    step's start and one at the window's end; from the first step to the
+    window's end under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+    synchronisation between steps). Returns each step's ms."""
+    events, step = [], net._train_step
+
+    def timed_step(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return step(*args)
+
+    net._train_step = timed_step
+    try:
+        net.fit_batches_on_device(window)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del net._train_step
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+
+
+def timed_per_batch(net, window):
+    """One ``fit`` call a batch of ``window``, each between two CUDA
+    events; returns each call's ms."""
+    events = []
+    for ds in window:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        net.fit(ds)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def busy(run, steps):
+    """Wall ms (host clock to a synchronize) and device ms a step of
+    ``run()`` under torch.profiler (device activity only), and their
+    ratio."""
+    _, wall_ms, by_kernel = profiled(run, cpu=False)
+    wall_ms, device_ms = wall_ms / steps, sum(by_kernel.values()) / steps
+    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / wall_ms}
+
+
+def window_against_clone(ck, net, twin, window, name, want, paths):
+    """The window on ``net`` and one fit a batch on ``twin`` (its clone
+    from before the window), each path's launches counted; returns the
+    readings (step ms, differences, generator equality) and the failures."""
+    zero_launches(ck)
+    window_ms = timed_window(net, window)
+    paths[f"network_api_{name}_window"] = read_launches(ck)
+    zero_launches(ck)
+    fit_ms = timed_per_batch(twin, window)
+    paths[f"network_api_{name}_fits"] = read_launches(ck)
+    out = {"window_step_ms": window_ms, "fit_ms": fit_ms,
+           "median_window_step_ms": float(np.median(window_ms)),
+           "median_fit_ms": float(np.median(fit_ms)),
+           "params_max_rel_diff": max_rel_diff(net.params, twin.params),
+           "updater_state_max_rel_diff": max_rel_diff(net.updater_states,
+                                                      twin.updater_states),
+           "generators_equal": bool(torch.equal(net.dropout_generator.get_state(),
+                                                twin.dropout_generator.get_state())),
+           "iterations": [net.iteration, twin.iteration]}
+    failures = [f"{name} {p}: {paths[f'network_api_{name}_{p}']}, expected {want}"
+                for p in ("window", "fits")
+                if unexpected_launches(paths[f"network_api_{name}_{p}"], want)]
+    if not (out["params_max_rel_diff"] <= NA_WINDOW_TOL
+            and out["updater_state_max_rel_diff"] <= NA_WINDOW_TOL
+            and out["generators_equal"] and net.iteration == twin.iteration):
+        failures.append(f"{name}: window against per-batch fit {out}")
+    return out, failures
+
+
+def network_api_phase(ck, card):
+    """The networks' remaining API at full width (see the module
+    docstring). Returns each path's launches by kernel."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.eval import (Evaluation, EvaluationCalibration,
+                                               RegressionEvaluation, ROCBinary,
+                                               ROCMultiClass)
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import LSTMLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.train_step import regularization, to_host
+    from deeplearning4j_tpu_torch.util.convert import (export_params,
+                                                       load_reference_params)
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    paths, stats, failures, seconds = {}, {"card": card}, [], {}
+    stats["seconds"] = seconds
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        # (a) GPT-2-small in bf16: a window of NA_WINDOW batches (ids on the
+        # host, one-hot labels on the card) against a clone's fit calls
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        conf = TransformerLM().conf()
+        conf.global_conf.compute_dtype = "bfloat16"
+        net = ComputationGraph(conf).init()
+        twin = net.clone()
+        vocab = net.conf.vertices["embed"].obj.n_in
+        n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+        rng = np.random.default_rng(15)
+        ids = [rng.integers(0, vocab, (TRAIN_N, T)) for _ in range(NA_WINDOW)]
+        window = [DataSet(i, F.one_hot(torch.from_numpy(np.roll(i, -1, 1)).cuda(),
+                                       vocab).float()) for i in ids]
+        want = {"flash_attention_fwd_bf16": n_layers * NA_WINDOW,
+                "flash_attention_bwd_dq_bf16": n_layers * NA_WINDOW,
+                "flash_attention_bwd_dkv_bf16": n_layers * NA_WINDOW,
+                "fused_adam": tensors_of(net) * NA_WINDOW}
+        stats["gpt2_bf16"], bad = window_against_clone(ck, net, twin, window, "gpt2",
+                                                       want, paths)
+        failures += bad
+        stats["gpt2_bf16"]["window_profiled"] = busy(
+            lambda: net.fit_batches_on_device(window), NA_WINDOW)
+        stats["gpt2_bf16"]["fits_profiled"] = busy(
+            lambda: [twin.fit(ds) for ds in window], NA_WINDOW)
+        del net, twin, window
+        seconds["a_gpt2_bf16"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # (b) the bf16 char-RNN on standard LSTMs: the same check, then
+        # to_computation_graph, two more steps on both, the evaluators
+        torch.cuda.empty_cache()
+        net = MultiLayerNetwork(lstm_bf16_conf(LSTMLayer)).init()
+        twin = net.clone()
+        eye = np.eye(LB_VOCAB, dtype=np.float32)
+        chars = np.random.default_rng(16).integers(
+            0, LB_VOCAB, (NA_WINDOW + NA_GRAPH_FITS, LB_BATCH, LB_T))
+        batches = [DataSet(eye[c], eye[np.roll(c, -1, 1)]) for c in chars]
+        window = batches[:NA_WINDOW]
+        want = {"lstm_sequence_bf16": 2 * NA_WINDOW, "fused_adam": LB_TENSORS * NA_WINDOW}
+        rnn, bad = window_against_clone(ck, net, twin, window, "char_rnn", want, paths)
+        failures += bad
+        del twin
+        graph = net.to_computation_graph()
+        x = batches[0].features
+        zero_launches(ck)
+        g_out = graph.output(x)
+        torch.cuda.synchronize()
+        paths["network_api_char_rnn_graph_output"] = read_launches(ck)
+        n_out = net.output(x)
+        rnn["graph_output_max_abs_diff"] = (g_out.float() - n_out.float()).abs().max().item()
+        rnn["graph_output_limit"] = NA_GRAPH_OUT_TOL * max(1.0, n_out.float().abs().max().item())
+        zero_launches(ck)
+        for ds in batches[NA_WINDOW:]:
+            graph.fit(ds)
+        torch.cuda.synchronize()
+        paths["network_api_char_rnn_graph_fits"] = read_launches(ck)
+        for ds in batches[NA_WINDOW:]:
+            net.fit(ds)
+        names = [vd.name for vd in graph.conf.layer_vertices()]
+        rnn["graph_fits_params_max_rel_diff"] = max_rel_diff(
+            {i: graph.params[n] for i, n in enumerate(names)}, net.params)
+        rnn["graph_fits_updater_state_max_rel_diff"] = max_rel_diff(
+            {i: graph.updater_states[n] for i, n in enumerate(names)}, net.updater_states)
+        lmask = (np.random.default_rng(17).random((LB_BATCH, LB_T)) > 0.25).astype(np.float32)
+        ev_ds = DataSet(batches[0].features, batches[0].labels, None, lmask)
+        zero_launches(ck)
+        ev = net.evaluate(ev_ds)
+        roc = net.evaluate_roc_multi_class(ev_ds)
+        torch.cuda.synchronize()
+        paths["network_api_char_rnn_evaluate"] = read_launches(ck)
+        out = to_host(net.output(x))
+        host_ev, host_roc = Evaluation(), ROCMultiClass()
+        host_ev.eval(ev_ds.labels, out, mask=lmask)
+        host_roc.eval(ev_ds.labels, out, mask=lmask)
+        present = [c for c in range(LB_VOCAB) if (ev_ds.labels[lmask > 0][:, c] > 0).any()
+                   and (ev_ds.labels[lmask > 0][:, c] == 0).any()]
+        aucs = [roc.calculate_auc(c) for c in range(LB_VOCAB)]
+        rnn["evaluate_equals_host"] = bool(
+            np.array_equal(ev.confusion_matrix(), host_ev.confusion_matrix())
+            and ev.stats() == host_ev.stats()
+            and aucs == [host_roc.calculate_auc(c) for c in range(LB_VOCAB)])
+        t1 = time.perf_counter()
+        f32_conf = lstm_bf16_conf(LSTMLayer)
+        f32_conf.global_conf.compute_dtype = None
+        cpu = load_reference_params(MultiLayerNetwork(f32_conf, device="cpu").init(),
+                                    export_params(net))
+        cpu_roc, cpu_ev = cpu.evaluate_roc_multi_class(ev_ds), cpu.evaluate(ev_ds)
+        seconds["b_f32_cpu_twin"] = time.perf_counter() - t1
+        cpu_aucs = [cpu_roc.calculate_auc(c) for c in range(LB_VOCAB)]
+        rnn.update({
+            "accuracy_bf16_card": ev.accuracy(), "accuracy_f32_cpu": cpu_ev.accuracy(),
+            "classes_with_both_labels": len(present),
+            "mean_auc_bf16_card": float(np.mean([aucs[c] for c in present])),
+            "mean_auc_f32_cpu": float(np.mean([cpu_aucs[c] for c in present])),
+            "max_auc_diff_bf16_card_f32_cpu": float(max(abs(aucs[c] - cpu_aucs[c])
+                                                        for c in present))})
+        rnn["iterations_graph_network"] = [graph.iteration, net.iteration]
+        if not (rnn["graph_output_max_abs_diff"] <= rnn["graph_output_limit"]
+                and rnn["graph_fits_params_max_rel_diff"] <= NA_GRAPH_STEP_TOL
+                and rnn["graph_fits_updater_state_max_rel_diff"] <= NA_GRAPH_STEP_TOL
+                and rnn["evaluate_equals_host"] and graph.iteration == net.iteration):
+            failures.append(f"char_rnn to_computation_graph and evaluators: {rnn}")
+        rnn["window_profiled"] = busy(lambda: net.fit_batches_on_device(window), NA_WINDOW)
+        rnn["fits_profiled"] = busy(lambda: [net.fit(ds) for ds in window], NA_WINDOW)
+        stats["char_rnn_bf16"] = rnn
+        seconds["b_char_rnn"] = time.perf_counter() - t0
+        del net, graph, cpu, g_out, n_out
+        t0 = time.perf_counter()
+
+        # (c) GPT-2-small f32: score_examples at 8 x 1024 against each
+        # example's score alone
+        torch.cuda.empty_cache()
+        net = TransformerLM().init()
+        rng = np.random.default_rng(18)
+        ids = torch.from_numpy(rng.integers(0, vocab, (TRAIN_N, T))).cuda()
+        labels = F.one_hot(torch.roll(ids, -1, 1), vocab).float()
+        zero_launches(ck)
+        plain = net.score_examples(DataSet(ids, labels))
+        torch.cuda.synchronize()
+        paths["network_api_score_examples"] = read_launches(ck)
+        with_reg = net.score_examples(DataSet(ids, labels), add_regularization=True)
+        reg = float(regularization(net._named_layers(), net.params))
+        alone = np.array([net.score(DataSet(ids[i:i + 1], labels[i:i + 1]))
+                          for i in range(TRAIN_N)])
+        se = {"scores": plain.tolist(), "alone": alone.tolist(), "regularization": reg,
+              "max_rel_diff": float(np.max(np.abs(plain - (alone - reg))
+                                           / np.abs(alone - reg))),
+              "max_rel_diff_with_regularization": float(np.max(np.abs(with_reg - alone)
+                                                               / np.abs(alone)))}
+        stats["score_examples_f32"] = se
+        if not (se["max_rel_diff"] <= NA_SCORE_RTOL
+                and se["max_rel_diff_with_regularization"] <= NA_SCORE_RTOL
+                and plain.shape == (TRAIN_N,)):
+            failures.append(f"score_examples: {se}")
+        del net, labels
+        seconds["c_score_examples"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # (d) the regularized LeNet: clone, set_learning_rate, the flat
+        # round trip, the evaluators over output
+        torch.cuda.empty_cache()
+        x, y = lenet_data()
+        b0, b1 = DataSet(x[:LENET_BATCH], y[:LENET_BATCH]), DataSet(
+            x[LENET_BATCH:2 * LENET_BATCH], y[LENET_BATCH:2 * LENET_BATCH])
+        le = {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            net = MultiLayerNetwork(lenet_conf(regularized=True)).init()
+            net.fit(b0)
+            clone = net.clone()
+            zero_launches(ck)
+            net.fit(b1)
+            clone.fit(b1)
+            torch.cuda.synchronize()
+            paths["network_api_lenet_clone_fits"] = read_launches(ck)
+            le["clone_params_max_rel_diff"] = max_rel_diff(clone.params, net.params)
+            le["clone_generators_equal"] = bool(torch.equal(
+                clone.dropout_generator.get_state(), net.dropout_generator.get_state()))
+            lr = net._updaters[0]["W"].learning_rate / 10
+            net.set_learning_rate(lr)
+            stock = net.clone()
+            zero_launches(ck)
+            net.fit(b0)
+            torch.cuda.synchronize()
+            paths["network_api_lenet_new_rate"] = read_launches(ck)
+            helpers.clear_helper("updater")
+            stock.fit(b0)
+            helpers.set_helper("updater", ck.FusedUpdaterHelper())
+            le["new_rate"] = lr
+            le["new_rate_everywhere"] = all(
+                u.learning_rate == lr for named in net._updaters.values()
+                for u in named.values())
+            le["new_rate_params_max_rel_diff_stock_adam"] = max_rel_diff(net.params,
+                                                                         stock.params)
+            ptrs = [t.data_ptr() for t in tensor_leaves(net.params)]
+            flat = net.params_flat()
+            net.set_params_flat(flat)
+            le["flat_round_trip_bit_for_bit"] = bool(np.array_equal(net.params_flat(), flat))
+            zero_launches(ck)
+            net.fit(b1)
+            torch.cuda.synchronize()
+            paths["network_api_lenet_after_set_params_flat"] = read_launches(ck)
+            le["storage_kept"] = ptrs == [t.data_ptr() for t in tensor_leaves(net.params)]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        ev_ds = DataSet(x[:LENET_OUT_BATCH], y[:LENET_OUT_BATCH])
+        zero_launches(ck)
+        rb, rg = net.evaluate_roc_binary(ev_ds), net.evaluate_regression(ev_ds)
+        out = to_host(net.output(ev_ds.features))
+        paths["network_api_lenet_evaluate"] = read_launches(ck)
+        host_rb, host_rg, cal = ROCBinary(), RegressionEvaluation(), EvaluationCalibration()
+        for e in (host_rb, host_rg, cal):
+            e.eval(ev_ds.labels, out)
+        rb_auc = [rb.calculate_auc(c) for c in range(10)]
+        le.update({"roc_binary_auc": rb_auc,
+                   "regression_mse": rg.average_mean_squared_error(),
+                   "calibration_ece": cal.expected_calibration_error(),
+                   "evaluators_equal_host": bool(
+                       rb_auc == [host_rb.calculate_auc(c) for c in range(10)]
+                       and rg.stats() == host_rg.stats())})
+        stats["lenet_regularized"] = le
+        seconds["d_lenet"] = time.perf_counter() - t0
+        if not (le["clone_params_max_rel_diff"] <= NA_WINDOW_TOL
+                and le["clone_generators_equal"] and le["new_rate_everywhere"]
+                and le["new_rate_params_max_rel_diff_stock_adam"] <= LENET_PARAM_TOL
+                and le["flat_round_trip_bit_for_bit"] and le["storage_kept"]
+                and le["evaluators_equal_host"]
+                and all(0.0 <= a <= 1.0 for a in rb_auc)
+                and np.isfinite(le["calibration_ece"])):
+            failures.append(f"lenet: {le}")
+        del net, clone, stock
+    finally:
+        helpers.clear_helper("updater")
+    want = {"network_api_char_rnn_graph_output": {"lstm_sequence_bf16": 2},
+            "network_api_char_rnn_graph_fits": {"lstm_sequence_bf16": 2 * NA_GRAPH_FITS,
+                                                "fused_adam": LB_TENSORS * NA_GRAPH_FITS},
+            "network_api_char_rnn_evaluate": {"lstm_sequence_bf16": 4},
+            "network_api_score_examples": {"flash_attention_fwd": n_layers},
+            "network_api_lenet_clone_fits": {"fused_adam": 2 * LENET_TENSORS},
+            "network_api_lenet_new_rate": {"fused_adam": LENET_TENSORS},
+            "network_api_lenet_after_set_params_flat": {"fused_adam": LENET_TENSORS},
+            "network_api_lenet_evaluate": {}}
+    failures += [f"{p}: {paths[p]}, expected {w}" for p, w in want.items()
+                 if unexpected_launches(paths[p], w)]
+    stats["launches"] = paths
+    print("network_api " + json.dumps(stats), flush=True)
+    if failures:
+        raise RuntimeError("network_api: " + "; ".join(failures))
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4154,31 +4535,43 @@ def main() -> None:
         print(f"ptxas {source} " + json.dumps(ptxas_report(ck, source)), flush=True)
     print("sass " + json.dumps(sass_check(ck)), flush=True)
 
-    served = kernel_phase(ck, peaks)
-    bwd = backward_phase(ck, peaks)
-    bf16, bf16_encoder = flash_bf16_phase(ck, peaks)
-    adam = adam_phase(ck, peaks)
-    serve_launches = serving_phase(ck, card, served["ms"])
-    train_launches = training_phase(ck, card)
-    lstm_rows = lstm_kernel_phase(ck, peaks)
-    lstm_bf16_rows = lstm_bf16_kernel_phase(ck, peaks)
-    char_launches, char_by_plan, char_adam_launches = char_lstm_phase(ck, card)
-    lenet_adam_launches = lenet_phase(ck, card)
-    draws_phase(card)
-    ex17_adam_launches = ex17_phase(ck, card)
-    lenet_reg_adam_launches = lenet_regularized_phase(ck, card)
-    gpt2_drop = gpt2_attn_dropout_phase(ck, card)
-    decode = decode_phase(ck, card, peaks)
-    tbptt = gpt2_tbptt_phase(ck, card)
-    resnet = resnet50_phase(ck, card, peaks)
-    dl4j = dl4j_import_phase(ck, card)
-    gpt2_bf16 = gpt2_bf16_phase(ck, card)
-    resnet_bf16 = resnet50_bf16_phase(ck, card, peaks)
-    lstm_bf16 = lstm_bf16_phase(ck, card)
-    stack = recurrent_stack_phase(ck, card)
-    vgg = vgg16_bf16_phase(ck, card, peaks)
-    enc = encoder_bf16_phase(ck, card)
-    zoo = zoo_smoke_phase(ck, card)
+    seconds = {}
+
+    def timed(fn, *args):
+        """``fn(*args)``, its wall seconds kept under the phase's name."""
+        t0 = time.perf_counter()
+        got = fn(*args)
+        seconds[fn.__name__] = round(time.perf_counter() - t0, 1)
+        return got
+
+    served = timed(kernel_phase, ck, peaks)
+    bwd = timed(backward_phase, ck, peaks)
+    bf16, bf16_encoder = timed(flash_bf16_phase, ck, peaks)
+    adam = timed(adam_phase, ck, peaks)
+    serve_launches = timed(serving_phase, ck, card, served["ms"])
+    train_launches = timed(training_phase, ck, card)
+    lstm_rows = timed(lstm_kernel_phase, ck, peaks)
+    lstm_bf16_rows = timed(lstm_bf16_kernel_phase, ck, peaks)
+    char_launches, char_by_plan, char_adam_launches = timed(char_lstm_phase, ck, card)
+    lenet_adam_launches = timed(lenet_phase, ck, card)
+    timed(draws_phase, card)
+    ex17_adam_launches = timed(ex17_phase, ck, card)
+    lenet_reg_adam_launches = timed(lenet_regularized_phase, ck, card)
+    gpt2_drop = timed(gpt2_attn_dropout_phase, ck, card)
+    decode = timed(decode_phase, ck, card, peaks)
+    tbptt = timed(gpt2_tbptt_phase, ck, card)
+    resnet = timed(resnet50_phase, ck, card, peaks)
+    dl4j = timed(dl4j_import_phase, ck, card)
+    gpt2_bf16 = timed(gpt2_bf16_phase, ck, card)
+    resnet_bf16 = timed(resnet50_bf16_phase, ck, card, peaks)
+    lstm_bf16 = timed(lstm_bf16_phase, ck, card)
+    stack = timed(recurrent_stack_phase, ck, card)
+    vgg = timed(vgg16_bf16_phase, ck, card, peaks)
+    enc = timed(encoder_bf16_phase, ck, card)
+    zoo = timed(zoo_smoke_phase, ck, card)
+    net_api = timed(network_api_phase, ck, card)
+    print("phase_seconds " + json.dumps(seconds), flush=True)
+
     vit = zoo.pop("VisionTransformer")
     lstm = lstm_rows[LSTM_PATHS["train"]]
     lstm_bf16_row = lstm_bf16_rows[(LSTM_BF16_PATH, "auto")]
@@ -4211,7 +4604,15 @@ def main() -> None:
                 "encoder_bf16_flash_train": enc["train_b"][kernel],
                 "encoder_bf16_flash_output": enc["output_b"][kernel],
                 "zoo_smoke_vit_train": vit[kernel],
-                "zoo_smoke_other_models": sum(c[kernel] for c in zoo.values())}
+                "zoo_smoke_other_models": sum(c[kernel] for c in zoo.values()),
+                **api_paths(kernel)}
+
+    def api_paths(kernel):
+        """The kernel's launches on each path of the network_api phase."""
+        return {path: counts[kernel] for path, counts in net_api.items()}
+
+    def api_total(kernel):
+        return sum(api_paths(kernel).values())
 
     def bf16_paths(kernel):
         """The bf16 K3 kernel's launches on each path that counts them."""
@@ -4220,7 +4621,8 @@ def main() -> None:
                 "vgg16_bf16_train": vgg[kernel],
                 "encoder_bf16_train": enc["train_a"][kernel],
                 "encoder_bf16_flash_train": enc["train_b"][kernel],
-                "encoder_bf16_flash_output": enc["output_b"][kernel]}
+                "encoder_bf16_flash_output": enc["output_b"][kernel],
+                **api_paths(kernel)}
 
     def encoder_row(name):
         """The bf16 kernel's row at the encoder's attention shape."""
@@ -4235,7 +4637,7 @@ def main() -> None:
         entry(fwd, "flash_attention_fwd.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:359", served,
               serve_launches + train_launches[fwd] + gpt2_drop["output_fwd"]
-              + decode["output_fwd"] + gpt2_bf16["output"][fwd],
+              + decode["output_fwd"] + gpt2_bf16["output"][fwd] + api_total(fwd),
               launches_by_path=measured({
                   "serve": serve_launches, "train": train_launches[fwd],
                   **later_paths(fwd),
@@ -4245,14 +4647,16 @@ def main() -> None:
         entry("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dkv"],
-              train_launches["flash_attention_bwd_dkv"],
+              train_launches["flash_attention_bwd_dkv"]
+              + api_total("flash_attention_bwd_dkv"),
               launches_by_path=measured({
                   "train": train_launches["flash_attention_bwd_dkv"],
                   **later_paths("flash_attention_bwd_dkv")})),
         entry("flash_attention_bwd_dq", "flash_attention_bwd.cu",
               "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dq"],
-              train_launches["flash_attention_bwd_dq"],
+              train_launches["flash_attention_bwd_dq"]
+              + api_total("flash_attention_bwd_dq"),
               launches_by_path=measured({
                   "train": train_launches["flash_attention_bwd_dq"],
                   **later_paths("flash_attention_bwd_dq")})),
@@ -4265,7 +4669,7 @@ def main() -> None:
               + gpt2_bf16["train"]["fused_adam"]
               + sum(c["fused_adam"] for c in lstm_bf16.values())
               + enc["train_a"]["fused_adam"] + enc["train_b"]["fused_adam"]
-              + vit["fused_adam"],
+              + vit["fused_adam"] + api_total("fused_adam"),
               launches_by_path=measured({
                   "train": train_launches["fused_adam"],
                   "char_lstm_train": char_adam_launches,
@@ -4275,7 +4679,7 @@ def main() -> None:
                   **later_paths("fused_adam")})),
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
-              sum(char_launches.values()) + stack["f32"],
+              sum(char_launches.values()) + stack["f32"] + api_total("lstm_sequence"),
               launches_by_path=measured({
                   **char_launches, **later_paths("lstm_sequence"),
                   **{p: c["f32"] for p, c in lstm_bf16.items()},
@@ -4293,9 +4697,11 @@ def main() -> None:
                                    for p, sh in LSTM_PATHS.items()}),
         entry("lstm_sequence_bf16", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66 on bf16 xw", lstm_bf16_row,
-              sum(c["bf16"] for c in lstm_bf16.values()) + stack["bf16"],
+              sum(c["bf16"] for c in lstm_bf16.values()) + stack["bf16"]
+              + api_total("lstm_sequence_bf16"),
               launches_by_path={**{p: c["bf16"] for p, c in lstm_bf16.items()},
-                                "recurrent_stack": stack["bf16"]},
+                                "recurrent_stack": stack["bf16"],
+                                **api_paths("lstm_sequence_bf16")},
               shape=list(LSTM_BF16_PATH), plan=lstm_bf16_row["plan"],
               device_ms=lstm_bf16_row["device_ms"],
               chain_floor_ms=lstm_bf16_row.get("chain_floor_ms"),

@@ -17,10 +17,10 @@ the same keys, tags and ``format`` string, so a configuration written by
 either package reads back in the other. The regularizer settings
 (``dropout``, ``weight_noise``, ``constrain_*``,
 ``gradient_normalization``) are the reference's and flow into every
-layer that leaves them unset. Not ported yet: the mini-batch,
-checkpointing and optimization-algorithm settings; they are written at
-the reference's defaults, and a configuration that sets one raises when
-it is read.
+layer that leaves them unset. ``mini_batch`` is stored and carried, as
+the reference only stores it. Not ported yet: the checkpointing and
+optimization-algorithm settings; they are written at the reference's
+defaults, and a configuration that sets one raises when it is read.
 """
 
 from __future__ import annotations
@@ -74,6 +74,7 @@ class GlobalConf:
     bias_constraints: Optional[List[Any]] = None
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
+    mini_batch: bool = True
     dtype: str = "float32"
     # mixed precision: the forward runs in this dtype on a cast of the
     # ``dtype`` master parameters; the loss head stays in f32
@@ -93,7 +94,7 @@ class GlobalConf:
 
 #: the reference's global settings the port has not ported, at their defaults
 UNPORTED_GLOBAL_FIELDS = {
-    "mini_batch": True, "gradient_checkpointing": False,
+    "gradient_checkpointing": False,
     "optimization_algo": "stochastic_gradient_descent",
     "max_num_line_search_iterations": 5}
 
@@ -224,6 +225,10 @@ class Builder:
     def gradient_normalization(self, mode: str, threshold: float = 1.0) -> "Builder":
         self._g.gradient_normalization = mode
         self._g.gradient_normalization_threshold = threshold
+        return self
+
+    def mini_batch(self, b: bool) -> "Builder":
+        self._g.mini_batch = b
         return self
 
     def dtype(self, dt: str) -> "Builder":

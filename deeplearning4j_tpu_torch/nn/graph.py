@@ -8,7 +8,16 @@ penalty), ``_apply_updates`` (the "updater" helper seam consulted per
 tensor), ``fit`` over arrays, ``DataSet``, ``MultiDataSet`` or
 iterators, ``score`` and ``compute_gradient_and_score``; the stateful RNN
 API (``rnn_time_step``, ``rnn_clear_previous_state`` and the stored-state
-accessors) and the model zip (``save``, ``ComputationGraph.load``).
+accessors), the model zip (``save``, ``ComputationGraph.load``),
+``fit_batches_on_device``, listeners, ``feed_forward``, ``predict``,
+``summary``, the getters (``get_vertex``, ``get_layer``, ``get_vertices``,
+``get_num_layers``, ``get_num_input_arrays``, ``get_num_output_arrays``,
+``get_output_layer``, ``topological_sort_order``, ``get_layers``), the
+parameter accessors (``param_table``, ``get_param``, ``set_param``,
+``layer_size``, ``num_params``, ``set_learning_rate``), ``clone``,
+``score_examples`` and the evaluators of the first output (``evaluate``,
+``evaluate_regression``, ``evaluate_roc``, ``evaluate_roc_multi_class``,
+``evaluate_roc_binary``).
 
 Carries: with ``carries`` (one per recurrent layer vertex, by name),
 ``_forward_all`` runs each such layer's ``forward_seq`` and reports its
@@ -34,7 +43,7 @@ kernels one by one.
 Layer state (BatchNorm's running statistics) sits in ``states``, keyed
 by vertex name, and is replaced as in ``MultiLayerNetwork``: once per
 step or TBPTT chunk from a train forward; inference reads it.
-``evaluate`` scores the first output on the port's ``eval/evaluation.py``.
+The evaluators score the first output on the port's ``eval/`` classes.
 
 Regularizers as in ``MultiLayerNetwork``: each step runs inside
 ``schedule_tick`` and draws from the network's dropout generator, vertex
@@ -54,9 +63,12 @@ A multi-input layer (``consumes_multiple_inputs``: cross-attention) takes
 every input's activation and mask apart through its ``forward_multi``,
 after its weight noise, as in the reference.
 
-Not ported yet: ``fit_batches_on_device``, ROC,
-regression, binary and calibration evaluation, listeners and
-pretraining.
+``fit_batches_on_device`` and the listeners are ``MultiLayerNetwork``'s,
+over MultiDataSets: each input and each label stacked for the window.
+``param_table`` keys are ``"<vertex>_<param>"``, the vertex matched
+longest-first; ``set_param`` writes in place.
+
+Not ported yet: pretraining.
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ from __future__ import annotations
 import math
 from typing import Dict, List, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -75,13 +88,22 @@ from deeplearning4j_tpu_torch.datasets.dataset import (
 )
 from deeplearning4j_tpu_torch.datasets.iterators import wrap_for_prefetch
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+from deeplearning4j_tpu_torch.eval.regression import RegressionEvaluation
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.network import normalize_backprop_type
+from deeplearning4j_tpu_torch.nn.layers.core import EmbeddingSequenceLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer,
     check_carry_capacity,
     map_carry,
     own_carry,
+)
+from deeplearning4j_tpu_torch.nn.network_api import (
+    NetworkApi,
+    checked_window_ids,
+    example_losses,
+    stack_window,
+    summary_table,
 )
 from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
@@ -102,7 +124,7 @@ from deeplearning4j_tpu_torch.util import model_serializer
 Grads = Dict[str, Dict[str, torch.Tensor]]
 
 
-class ComputationGraph(nn.Module):
+class ComputationGraph(NetworkApi, nn.Module):
     """DAG network. ``device=None`` places it on ``cuda`` and raises when
     there is none; ``device="cpu"`` runs it on the CPU."""
 
@@ -132,6 +154,7 @@ class ComputationGraph(nn.Module):
         # the stateful RNN API's carries and the timesteps they absorbed
         self._rnn_carries: Optional[Dict[str, object]] = None
         self._rnn_pos = 0
+        self.listeners: List = []
 
     # ---------------------------------------------------------------- score
     @property
@@ -383,6 +406,17 @@ class ComputationGraph(nn.Module):
         apply_updates(self.params, grads, self._updaters, self.updater_states,
                       self.iteration, self.epoch, dict(self._named_layers()))
 
+    def _train_step(self, inputs, labels, masks, lmasks) -> torch.Tensor:
+        """One standard-backprop update on one batch; returns its loss, a
+        device scalar (no host synchronisation)."""
+        with schedule_tick(self.iteration, self.epoch):
+            loss, grads, new_states = self._gradients(
+                inputs, labels, masks, lmasks, train=True)
+        commit_states(self.states, new_states)
+        self._apply_updates(grads)
+        self.iteration += 1
+        return loss
+
     def _fit_batch(self, ds) -> None:
         inputs, labels, masks, lmasks = self._batch(self._to_mds(ds))
         if normalize_backprop_type(self.conf.backprop_type) == "truncated_bptt":
@@ -390,14 +424,50 @@ class ComputationGraph(nn.Module):
             if t_total is not None:
                 self._fit_tbptt(inputs, labels, masks, lmasks, t_total)
                 return
-        with schedule_tick(self.iteration, self.epoch):
-            loss, grads, new_states = self._gradients(
-                inputs, labels, masks, lmasks, train=True)
-        commit_states(self.states, new_states)
-        self._apply_updates(grads)
-        self._score = loss
+        self._score = self._train_step(inputs, labels, masks, lmasks)
         self.last_batch_size = int(next(iter(inputs.values())).shape[0])
-        self.iteration += 1
+        self._notify("iteration_done", self.iteration, self.epoch)
+
+    def fit_batches_on_device(self, datasets) -> "ComputationGraph":
+        """Train on a window of equal-shape DataSets or MultiDataSets
+        (``fitBatchesOnDevice``), with the same result as ``fit`` once per
+        batch: each input and each label is stacked on the device once,
+        then the step runs once per batch with no host synchronisation
+        between steps. Then ``score_`` and ``iteration`` are set and
+        ``iteration_done`` is heard once per step, in order. Standard
+        backprop only and no masks (``ValueError``); an empty window does
+        nothing."""
+        if self.params is None:
+            self.init()
+        if normalize_backprop_type(self.conf.backprop_type) != "standard":
+            raise ValueError("fit_batches_on_device supports standard "
+                             "backprop only (not TBPTT)")
+        window = [self._to_mds(ds) for ds in datasets]
+        if not window:
+            return self
+        if any(m.features_masks is not None or m.labels_masks is not None
+               for m in window):
+            raise ValueError("fit_batches_on_device does not carry masks")
+        inputs = {n: stack_window([m.features[i] for m in window], self.dtype,
+                                  self.device)
+                  for i, n in enumerate(self.conf.inputs)}
+        labels = [stack_window([m.labels[i] for m in window], self.dtype, self.device)
+                  for i in range(len(window[0].labels))]
+        # the embeddings that read a network input as it is (under a
+        # compute dtype, as the forward casts it)
+        fed = [(vd.obj, compute_cast(inputs[vd.inputs[0]], self.compute_dtype)
+                if len(vd.inputs) == 1 and vd.inputs[0] in inputs
+                and vd.name not in self.conf.preprocessors else None)
+               for vd in self.conf.layer_vertices()
+               if isinstance(vd.obj, EmbeddingSequenceLayer)]
+        first = self.iteration
+        with checked_window_ids(fed):
+            losses = [self._train_step({n: a[k] for n, a in inputs.items()},
+                                       [a[k] for a in labels], None, None)
+                      for k in range(len(window))]
+        self.last_batch_size = int(next(iter(inputs.values())).shape[1])
+        self._window_done(first, losses)
+        return self
 
     def _temporal_inputs(self, inputs) -> set:
         """The inputs with a time axis: by the declared input types when
@@ -452,6 +522,7 @@ class ComputationGraph(nn.Module):
             commit_states(self.states, new_states)
             self._apply_updates(grads)
             self.iteration += 1
+        self._notify("iteration_done", self.iteration, self.epoch)
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, *, epochs: int = 1,
@@ -471,12 +542,14 @@ class ComputationGraph(nn.Module):
             iterator = data
         iterator = wrap_for_prefetch(iterator, prefetch_depth, self.device)
         for _ in range(epochs):
+            self._notify("on_epoch_start")
             if hasattr(iterator, "reset"):
                 iterator.reset()
             for ds in iterator:
                 self.transfer_bytes += batch_nbytes(ds)
                 self._fit_batch(ds)
             self.epoch += 1
+            self._notify("on_epoch_end")
         return self
 
     @staticmethod
@@ -510,24 +583,177 @@ class ComputationGraph(nn.Module):
         loss, grads, _ = self._gradients(inputs, labels_t)
         return grads, float(loss)
 
-    def evaluate(self, iterator, top_n: int = 1) -> Evaluation:
-        """Classification metrics of the first output over an iterator (or
-        one DataSet / MultiDataSet), feature and label masks honoured
-        (``ComputationGraph.evaluate``)."""
-        e = Evaluation(top_n=top_n)
+    def score_examples(self, ds, add_regularization: bool = False) -> np.ndarray:
+        """Each example's loss at inference (``scoreExamples``): the summed
+        data terms of the output layers, plus the l1/l2 term when
+        ``add_regularization``; masks are not used, as in the reference.
+        One batched forward to each output layer's input, then that
+        layer's loss of each row (``example_losses``)."""
+        if self.params is None:
+            raise RuntimeError("call init() (or load parameters) first")
+        inputs, labels, _, _ = self._batch(self._to_mds(ds))
+        with torch.no_grad():
+            acts, _, _ = self._forward_all(self.params, inputs, loss_inputs=True)
+            scores = 0.0
+            for oi, name in enumerate(self.conf.outputs):
+                h = acts[name + ":in"]
+                if self.compute_dtype is not None:
+                    h = h.float()
+                scores = scores + example_losses(
+                    self.conf.vertices[name].obj, acts[name + ":params"], h,
+                    labels[oi])
+            if add_regularization:
+                scores = scores + regularization(self._named_layers(), self.params)
+        return to_host(scores)
+
+    # ------------------------------------------------------------ evaluation
+    def _host_outputs(self, iterator, masks: bool = True):
+        """``(labels, output, label mask, DataSet)`` of the first output on
+        the host for each batch of an iterator (or one DataSet /
+        MultiDataSet), ``output`` taking the features masks."""
         it = [iterator] if isinstance(iterator, (DataSet, MultiDataSet)) else iterator
         if hasattr(it, "reset"):
             it.reset()
         for ds in it:
             mds = self._to_mds(ds)
-            out = self.output(*mds.features, masks=mds.features_masks)
+            out = self.output(*mds.features,
+                              masks=mds.features_masks if masks else None)
             if isinstance(out, list):
                 out = out[0]
-            lm = None if mds.labels_masks is None else mds.labels_masks[0]
-            e.eval(to_host(mds.labels[0]), to_host(out),
-                   mask=None if lm is None else to_host(lm),
+            lm = None if mds.labels_masks is None or not masks else mds.labels_masks[0]
+            yield (to_host(mds.labels[0]), to_host(out),
+                   None if lm is None else to_host(lm), ds)
+
+    def evaluate(self, iterator, top_n: int = 1) -> Evaluation:
+        """Classification metrics of the first output over an iterator (or
+        one DataSet / MultiDataSet), feature and label masks honoured
+        (``ComputationGraph.evaluate``)."""
+        e = Evaluation(top_n=top_n)
+        for labels, out, lmask, ds in self._host_outputs(iterator):
+            e.eval(labels, out, mask=lmask,
                    record_meta_data=getattr(ds, "example_meta_data", None))
         return e
+
+    def evaluate_regression(self, iterator) -> RegressionEvaluation:
+        """Per-column regression metrics of the first output
+        (``evaluateRegression``), masks honoured."""
+        return self._evaluated(RegressionEvaluation(), iterator)
+
+    # ---------------------------------------------------------- inspection
+    def feed_forward(self, *xs, train: bool = False) -> Dict[str, torch.Tensor]:
+        """Every input's and vertex's activation by name (``feedForward``),
+        under inference mode; ``train`` runs the layers in training mode
+        (batch statistics) with no train-time draws, as the reference."""
+        if self.params is None:
+            raise RuntimeError("call init() (or load parameters) first")
+        if len(xs) == 1 and isinstance(xs[0], (list, tuple)):
+            xs = tuple(xs[0])
+        with torch.inference_mode():
+            inputs = {n: self._as_tensor(x) for n, x in zip(self.conf.inputs, xs)}
+            acts, _, _ = self._forward_all(self.params, inputs, train=train)
+        return {k: v for k, v in acts.items() if ":" not in k}
+
+    def predict(self, *xs) -> np.ndarray:
+        """The arg-max class of the first output."""
+        out = self.output(*xs)
+        if isinstance(out, list):
+            out = out[0]
+        return out.argmax(dim=-1).cpu().numpy()
+
+    def summary(self) -> str:
+        """The vertex table with parameter counts and inputs
+        (``summary()``), the reference's text; initialises the network when
+        it has no parameters yet."""
+        if self.params is None:
+            self.init()
+        rows, total = [], 0
+        for name in self.conf.topo_order:
+            vd = self.conf.vertices[name]
+            n = (sum(t.numel() for t in self.params.get(name, {}).values())
+                 if vd.is_layer else 0)
+            total += n
+            rows.append((name, type(vd.obj).__name__, f"{n:,}", ", ".join(vd.inputs)))
+        return summary_table(("vertex", "type", "inputs"), (6, 10), rows, total)
+
+    def get_vertex(self, name: str):
+        """A vertex's definition by name (``getVertex``)."""
+        return self.conf.vertices[name]
+
+    def get_layer(self, name: str):
+        """The layer of a layer vertex (``getLayer``)."""
+        vd = self.conf.vertices[name]
+        if not vd.is_layer:
+            raise KeyError(f"vertex {name!r} is not a layer vertex")
+        return vd.obj
+
+    def get_vertices(self) -> dict:
+        """Every vertex definition by name (``getVertices``)."""
+        return dict(self.conf.vertices)
+
+    def get_num_layers(self) -> int:
+        """The number of layer vertices (``getNumLayers``)."""
+        return len(self.conf.layer_vertices())
+
+    def get_num_input_arrays(self) -> int:
+        return len(self.conf.inputs)
+
+    def get_num_output_arrays(self) -> int:
+        return len(self.conf.outputs)
+
+    def get_output_layer(self, index: int = 0):
+        """The layer of the ``index``-th output vertex (``getOutputLayer``)."""
+        return self.get_layer(self.conf.outputs[index])
+
+    def topological_sort_order(self) -> List[str]:
+        """Vertex names in execution order (``topologicalSortOrder``)."""
+        return list(self.conf.topo_order)
+
+    def get_layers(self) -> list:
+        """Every layer in topological order (``getLayers``)."""
+        return [vd.obj for vd in self.conf.layer_vertices()]
+
+    def layer_size(self, name: str) -> int:
+        """A layer vertex's output size (``layerSize``): its ``n_out``, else
+        its ``W``'s last axis."""
+        vd = self.conf.vertices[name]
+        n = getattr(vd.obj, "n_out", None) if vd.is_layer else None
+        if n:
+            return int(n)
+        p = (self.params or {}).get(name, {})
+        if "W" in p:
+            return int(p["W"].shape[-1])
+        raise ValueError(f"vertex {name!r} has no defined output size")
+
+    # ------------------------------------------------ parameter accessors
+    def param_table(self) -> Dict[str, torch.Tensor]:
+        """Every parameter keyed ``"<vertex>_<param>"`` (``paramTable``)."""
+        return {f"{v}_{n}": t for v, named in (self.params or {}).items()
+                for n, t in named.items()}
+
+    def _split_param_key(self, key: str):
+        """``(vertex, param)`` of a ``param_table`` key, the vertex matched
+        longest-first (names may hold underscores)."""
+        for vname in sorted(self.params or {}, key=len, reverse=True):
+            prefix = f"{vname}_"
+            if key.startswith(prefix) and key[len(prefix):] in self.params[vname]:
+                return vname, key[len(prefix):]
+        raise KeyError(f"no parameter {key!r}")
+
+    def get_param(self, key: str) -> torch.Tensor:
+        """One parameter by its ``"<vertex>_<param>"`` key (``getParam``)."""
+        vname, pname = self._split_param_key(key)
+        return self.params[vname][pname]
+
+    def set_param(self, key: str, value) -> None:
+        """Overwrite one parameter in place (``setParam``); the shape must
+        match."""
+        old = self.get_param(key)
+        new = self._as_tensor(value)
+        if tuple(new.shape) != tuple(old.shape):
+            raise ValueError(f"shape mismatch for {key}: {tuple(new.shape)} "
+                             f"vs {tuple(old.shape)}")
+        with torch.no_grad():
+            old.copy_(new)
 
     # ------------------------------------------------------ stateful RNN API
     def rnn_clear_previous_state(self) -> None:

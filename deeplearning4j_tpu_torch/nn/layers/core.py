@@ -152,17 +152,23 @@ class EmbeddingSequenceLayer(Layer):
             p["b"] = self._init_b((self.n_out,), dtype, device)
         return p
 
-    def forward(self, params, x, *, mask=None, train=False, gen=None):
+    def check_ids(self, x) -> None:
+        """Refuse ids outside ``[-n_in, n_in)``: an out-of-range id would
+        fault the device (a CUDA gather asserts and poisons the context).
+        Reads the ids' range on the host, so it waits for the device."""
         idx = x.to(torch.int64)
-        if idx.ndim == 3 and idx.shape[-1] == 1:
-            idx = idx[..., 0]
-        if idx.numel() and not getattr(_ID_CHECK, "off", False):
-            # an out-of-range id would fault the device (a CUDA gather
-            # asserts and poisons the context); refuse it here instead
+        if idx.numel():
             lo, hi = torch.aminmax(idx)
             if int(lo) < -self.n_in or int(hi) >= self.n_in:
                 raise ValueError(f"token ids must lie in [-{self.n_in}, "
                                  f"{self.n_in}); got [{int(lo)}, {int(hi)}]")
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        idx = x.to(torch.int64)
+        if idx.ndim == 3 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        if not getattr(_ID_CHECK, "off", False):
+            self.check_ids(idx)
         # ids in [-n_in, 0) count from the end, as jnp.take wraps them
         idx = torch.where(idx < 0, idx + self.n_in, idx)
         y = params["W"][idx]  # [N,T,n_out]

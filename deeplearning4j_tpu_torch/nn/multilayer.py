@@ -9,7 +9,14 @@ recurrent carries, ``_regularization``, ``_loss_fn``, ``_apply_updates``
 stateful RNN API (``rnn_time_step`` and the stored-state accessors),
 ``feed_forward``/``feed_forward_to_layer``, ``evaluate``, ``f1_score``,
 ``label_probabilities``, the parameter accessors (``param_table``,
-``get_param``, ``set_param``, ``num_labels``) and the model zip (``save``,
+``get_param``, ``set_param``, ``num_labels``, ``params_flat`` /
+``set_params_flat``, ``num_params``, ``set_learning_rate``), the getters
+(``n_layers``, ``get_layer``, ``get_layers``, ``get_output_layer``,
+``get_layer_names``, ``layer_size``), ``summary``, ``clone``,
+``to_computation_graph``, ``score_examples``, the evaluators
+(``evaluate``, ``evaluate_roc``, ``evaluate_roc_multi_class``,
+``evaluate_roc_binary``, ``evaluate_regression``), listeners,
+``fit_batches_on_device`` and the model zip (``save``,
 ``MultiLayerNetwork.load``, through ``util/model_serializer.py``).
 
 The network is an ``nn.Module`` whose parameters keep the reference's
@@ -50,12 +57,21 @@ f32; the loss head runs in f32; ``output`` and ``rnn_time_step`` answer
 in the compute dtype; ``feed_forward`` runs uncast, as the reference's
 does. Integer inputs are never cast.
 
-Not ported yet: gradient checkpointing, listeners,
-``fit_batches_on_device``, ROC and regression evaluation, and pretraining.
+Parameters are written in place: ``set_param``, ``set_params_flat`` and
+every update copy into the tensors that the updater state and a fused
+updater kernel point at. ``fit_batches_on_device`` stacks a window of
+batches on the device once and runs the same step once per batch with no
+host synchronisation between steps; listeners then hear each step (the
+reference's order). Listeners hear ``on_epoch_start``/``on_epoch_end``
+around each epoch of ``fit``, and ``iteration_done`` after each step (once
+after the chunks of a TBPTT batch, as in the reference).
+
+Not ported yet: gradient checkpointing and pretraining.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Optional
 
@@ -67,15 +83,27 @@ from deeplearning4j_tpu_torch import resolve_device
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, batch_nbytes
 from deeplearning4j_tpu_torch.datasets.iterators import wrap_for_prefetch
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+from deeplearning4j_tpu_torch.eval.regression import RegressionEvaluation
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphBuilder
 from deeplearning4j_tpu_torch.nn.conf.network import (
     MultiLayerConfiguration,
     normalize_backprop_type,
 )
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.layers.core import EmbeddingSequenceLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer,
     check_carry_capacity,
     map_carry,
     own_carry,
+)
+from deeplearning4j_tpu_torch.nn.network_api import (
+    NetworkApi,
+    carry_over,
+    checked_window_ids,
+    example_losses,
+    stack_window,
+    summary_table,
 )
 from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
@@ -94,7 +122,7 @@ from deeplearning4j_tpu_torch.nn.train_step import (
 from deeplearning4j_tpu_torch.util import model_serializer
 
 
-class MultiLayerNetwork(nn.Module):
+class MultiLayerNetwork(NetworkApi, nn.Module):
     """Sequential network. ``device=None`` places it on ``cuda`` and raises
     when there is none; ``device="cpu"`` runs it on the CPU."""
 
@@ -122,6 +150,7 @@ class MultiLayerNetwork(nn.Module):
         self._rnn_pos = 0
         # every train-time draw (dropout, weight noise); made by init()
         self.dropout_generator: Optional[torch.Generator] = None
+        self.listeners: List = []
 
     @property
     def score_(self) -> float:
@@ -203,6 +232,22 @@ class MultiLayerNetwork(nn.Module):
     def _regularization(self, params):
         return regularization(self._named_layers(), params)
 
+    def _head_input(self, params, x, mask=None, carries=None,
+                    train: bool = False, gen: Optional[torch.Generator] = None):
+        """The output layer's input (its preprocessor applied; f32 under a
+        compute dtype, for a stable softmax and log), with what
+        :meth:`_forward_all` returns beside the activation."""
+        if not self.layers[-1].has_loss():
+            raise ValueError("Last layer must be an output/loss layer for fit()")
+        last = len(self.layers) - 1
+        h, new_carries, new_states = self._forward_all(
+            params, x, mask, carries, upto=last, train=train, gen=gen)
+        if last in self.conf.preprocessors:
+            h = self.conf.preprocessors[last](h)
+        if self.compute_dtype is not None:
+            h = h.float()
+        return h, new_carries, new_states
+
     def _loss_fn(self, params, x, y, mask, label_mask, carries=None,
                  train: bool = False, gen: Optional[torch.Generator] = None):
         """``(loss, (new_carries, new_states))``: the output layer's loss
@@ -214,16 +259,9 @@ class MultiLayerNetwork(nn.Module):
         last. Under a compute dtype the loss head runs in f32: its input is
         cast up and its parameters are the f32 masters (only the layers
         before it run in the compute dtype)."""
-        out_layer = self.layers[-1]
-        if not out_layer.has_loss():
-            raise ValueError("Last layer must be an output/loss layer for fit()")
-        last = len(self.layers) - 1
-        h, new_carries, new_states = self._forward_all(
-            params, x, mask, carries, upto=last, train=train, gen=gen)
-        if last in self.conf.preprocessors:
-            h = self.conf.preprocessors[last](h)
-        if self.compute_dtype is not None:
-            h = h.float()  # a stable softmax and log under mixed precision
+        out_layer, last = self.layers[-1], len(self.layers) - 1
+        h, new_carries, new_states = self._head_input(
+            params, x, mask, carries, train=train, gen=gen)
         if label_mask is not None:
             lm = label_mask
         elif mask is None:
@@ -255,23 +293,64 @@ class MultiLayerNetwork(nn.Module):
         lmask = None if ds.labels_mask is None else self._as_tensor(ds.labels_mask, False)
         return x, y, mask, lmask
 
+    def _train_step(self, x, y, mask, lmask) -> torch.Tensor:
+        """One standard-backprop update on one batch; returns its loss, a
+        device scalar (no host synchronisation)."""
+        with schedule_tick(self.iteration, self.epoch):
+            loss, grads, (_, new_states) = gradients(
+                lambda live: self._loss_fn(live, x, y, mask, lmask, train=True,
+                                           gen=self.dropout_generator),
+                self.params)
+        commit_states(self.states, new_states)
+        self._apply_updates(grads)
+        self.iteration += 1
+        return loss
+
     def _fit_batch(self, ds) -> None:
         x, y, mask, lmask = self._batch(ds)
         if (normalize_backprop_type(self.conf.backprop_type) == "truncated_bptt"
                 and x.ndim == 3):
             self._fit_tbptt(x, y, mask, lmask)
             return
-        gen = self.dropout_generator
-        with schedule_tick(self.iteration, self.epoch):
-            loss, grads, (_, new_states) = gradients(
-                lambda live: self._loss_fn(live, x, y, mask, lmask, train=True,
-                                           gen=gen),
-                self.params)
-        self._score = loss
-        commit_states(self.states, new_states)
-        self._apply_updates(grads)
+        self._score = self._train_step(x, y, mask, lmask)
         self.last_batch_size = int(x.shape[0])
-        self.iteration += 1
+        self._notify("iteration_done", self.iteration, self.epoch)
+
+    def fit_batches_on_device(self, datasets) -> "MultiLayerNetwork":
+        """Train on a window of equal-shape batches
+        (``fitBatchesOnDevice``), with the same result as ``fit`` once per
+        batch: the window is stacked on the device once (one host-to-device
+        copy for the features, one for the labels), then the step runs once
+        per batch with no host synchronisation between steps, each loss
+        left on the device. Then ``score_`` and ``iteration`` are set and
+        ``iteration_done`` is heard once per step, in order. Standard
+        backprop only and no masks (``ValueError``); an empty window does
+        nothing."""
+        if self.params is None:
+            self.init()
+        if normalize_backprop_type(self.conf.backprop_type) != "standard":
+            raise ValueError("fit_batches_on_device supports standard "
+                             "backprop only (not TBPTT)")
+        datasets = list(datasets)
+        if not datasets:
+            return self
+        if any(ds.features_mask is not None or ds.labels_mask is not None
+               for ds in datasets):
+            raise ValueError("fit_batches_on_device does not carry masks")
+        xs = stack_window([ds.features for ds in datasets], self.dtype, self.device)
+        ys = stack_window([ds.labels for ds in datasets], self.dtype, self.device)
+        # an embedding that reads the input as it is (under a compute
+        # dtype, as the forward casts it)
+        fed = [(layer, compute_cast(xs, self.compute_dtype)
+                if i == 0 and 0 not in self.conf.preprocessors else None)
+               for i, layer in enumerate(self.layers)
+               if isinstance(layer, EmbeddingSequenceLayer)]
+        first = self.iteration
+        with checked_window_ids(fed):
+            losses = [self._train_step(x, y, None, None) for x, y in zip(xs, ys)]
+        self.last_batch_size = int(xs.shape[1])
+        self._window_done(first, losses)
+        return self
 
     def _fit_tbptt(self, x, y, mask, lmask) -> None:
         """Truncated BPTT (``doTruncatedBPTT``): chunks of
@@ -304,6 +383,7 @@ class MultiLayerNetwork(nn.Module):
             commit_states(self.states, new_states)
             self._apply_updates(grads)
             self.iteration += 1
+        self._notify("iteration_done", self.iteration, self.epoch)
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, *, epochs: int = 1, features_mask=None,
@@ -325,12 +405,14 @@ class MultiLayerNetwork(nn.Module):
             iterator = data
         iterator = wrap_for_prefetch(iterator, prefetch_depth, self.device)
         for _ in range(epochs):
+            self._notify("on_epoch_start")
             if hasattr(iterator, "reset"):
                 iterator.reset()
             for ds in iterator:
                 self.transfer_bytes += batch_nbytes(ds)
                 self._fit_batch(ds)
             self.epoch += 1
+            self._notify("on_epoch_end")
         return self
 
     # ------------------------------------------------------------- inference
@@ -357,13 +439,16 @@ class MultiLayerNetwork(nn.Module):
     def predict(self, x) -> np.ndarray:
         return self.output(x).argmax(dim=-1).cpu().numpy()
 
-    def feed_forward(self, x) -> List[torch.Tensor]:
+    def feed_forward(self, x, train: bool = False) -> List[torch.Tensor]:
         """The input and every layer's activation (``feedForward``)."""
-        return self.feed_forward_to_layer(len(self.layers) - 1, x)
+        return self.feed_forward_to_layer(len(self.layers) - 1, x, train=train)
 
-    def feed_forward_to_layer(self, layer_num: int, x) -> List[torch.Tensor]:
+    def feed_forward_to_layer(self, layer_num: int, x,
+                              train: bool = False) -> List[torch.Tensor]:
         """The input and the activations of layers 0..``layer_num``
-        inclusive (``feedForwardToLayer``), under inference mode."""
+        inclusive (``feedForwardToLayer``), under inference mode. ``train``
+        runs the layers in training mode (batch statistics), as the
+        reference does, with no train-time draws."""
         if not 0 <= layer_num < len(self.layers):
             raise ValueError(f"layer_num {layer_num} out of range "
                              f"[0, {len(self.layers)})")
@@ -375,23 +460,38 @@ class MultiLayerNetwork(nn.Module):
                 if i in self.conf.preprocessors:
                     h = self.conf.preprocessors[i](h)
                 h, _ = self.layers[i].forward_state(self.params[i],
-                                                    self.states[i], h)
+                                                    self.states[i], h,
+                                                    train=train)
                 acts.append(h)
         return acts
+
+    def _host_outputs(self, iterator, masks: bool = True):
+        """``(labels, output, label mask, DataSet)`` on the host for each
+        batch of an iterator (or one DataSet), ``output`` taking the
+        features mask; without ``masks`` neither mask is used."""
+        it = [iterator] if isinstance(iterator, DataSet) else iterator
+        if hasattr(it, "reset"):
+            it.reset()
+        for ds in it:
+            out = self.output(ds.features, mask=ds.features_mask if masks else None)
+            lmask = ds.labels_mask if masks else None
+            yield (to_host(ds.labels), to_host(out),
+                   None if lmask is None else to_host(lmask), ds)
 
     def evaluate(self, iterator, top_n: int = 1) -> Evaluation:
         """Classification metrics of ``output`` over an iterator (or one
         DataSet), label masks honoured (``MultiLayerNetwork.evaluate``)."""
         e = Evaluation(top_n=top_n)
-        it = [iterator] if isinstance(iterator, DataSet) else iterator
-        if hasattr(it, "reset"):
-            it.reset()
-        for ds in it:
-            out = self.output(ds.features, mask=ds.features_mask)
-            e.eval(to_host(ds.labels), to_host(out),
-                   mask=None if ds.labels_mask is None else to_host(ds.labels_mask),
+        for labels, out, lmask, ds in self._host_outputs(iterator):
+            e.eval(labels, out, mask=lmask,
                    record_meta_data=getattr(ds, "example_meta_data", None))
         return e
+
+    def evaluate_regression(self, iterator) -> RegressionEvaluation:
+        """Per-column regression metrics of ``output`` over an iterator
+        (``evaluateRegression``); as in the reference, masks are not
+        used."""
+        return self._evaluated(RegressionEvaluation(), iterator, masks=False)
 
     def f1_score(self, features, labels) -> float:
         """Macro F1 on one batch (``f1Score``)."""
@@ -433,6 +533,140 @@ class MultiLayerNetwork(nn.Module):
         if not out:
             raise ValueError("output layer has no n_out")
         return int(out)
+
+    def _flat_order(self):
+        """Every parameter tensor in the reference's flat order: layers in
+        order, each layer's names sorted."""
+        return [self.params[i][n] for i in range(len(self.layers))
+                for n in sorted(self.params[i])]
+
+    def params_flat(self) -> np.ndarray:
+        """Every parameter in one host vector (``params()``), in
+        :meth:`_flat_order`."""
+        self._require_params()
+        leaves = [to_host(t).ravel() for t in self._flat_order()]
+        return np.concatenate(leaves) if leaves else np.zeros(0)
+
+    def set_params_flat(self, flat) -> None:
+        """Overwrite every parameter from one vector (``setParams``), in
+        :meth:`_flat_order`, in place: the updater state and a fused
+        updater kernel keep pointing at the same tensors."""
+        self._require_params()
+        flat = torch.as_tensor(np.asarray(flat))
+        tensors = self._flat_order()
+        if flat.numel() != sum(t.numel() for t in tensors):
+            raise ValueError(f"flat vector of {flat.numel()} values for "
+                             f"{sum(t.numel() for t in tensors)} parameters")
+        offset = 0
+        with torch.no_grad():
+            for t in tensors:
+                t.copy_(flat[offset:offset + t.numel()].reshape(t.shape))
+                offset += t.numel()
+
+    # ------------------------------------------------------------- getters
+    @property
+    def n_layers(self) -> int:
+        """``getnLayers()``."""
+        return len(self.layers)
+
+    def get_layer(self, idx):
+        """A layer by index or by name (``getLayer``)."""
+        if isinstance(idx, str):
+            for layer in self.layers:
+                if layer.name == idx:
+                    return layer
+            raise KeyError(f"no layer named {idx!r}")
+        return self.layers[idx]
+
+    def get_layers(self) -> list:
+        return list(self.layers)
+
+    def get_output_layer(self):
+        """The final layer (``getOutputLayer``)."""
+        return self.layers[-1]
+
+    def get_layer_names(self) -> List[str]:
+        """Each layer's name, its class name when unnamed
+        (``getLayerNames``)."""
+        return [layer.name or type(layer).__name__ for layer in self.layers]
+
+    def layer_size(self, layer_idx: int) -> int:
+        """A layer's output size (``layerSize``): its ``n_out``, else its
+        ``W``'s last axis."""
+        n = getattr(self.layers[layer_idx], "n_out", None)
+        if n:
+            return int(n)
+        p = self.params[layer_idx] if self.params is not None else {}
+        if "W" in p:
+            return int(p["W"].shape[-1])
+        raise ValueError(f"layer {layer_idx} has no defined output size")
+
+    def summary(self) -> str:
+        """The layer table with parameter counts and shapes
+        (``summary()``), the reference's text; initialises the network
+        when it has no parameters yet."""
+        if self.params is None:
+            self.init()
+        rows, total = [], 0
+        for i, layer in enumerate(self.layers):
+            p = self.params[i]
+            n = sum(t.numel() for t in p.values())
+            total += n
+            shapes = ", ".join(f"{k}{tuple(v.shape)}" for k, v in sorted(p.items()))
+            rows.append((str(i), type(layer).__name__
+                         + (f" ({layer.name})" if layer.name else ""),
+                         f"{n:,}", shapes))
+        return summary_table(("index", "layer", "shapes"), (5, 10), rows, total)
+
+    def to_computation_graph(self) -> ComputationGraph:
+        """The same network as a single-chain ``ComputationGraph``
+        (``toComputationGraph``) on the same device. Vertices are named as
+        the reference names them: the layer's name, else its lower-cased
+        class name, with ``_2``, ``_3`` on repeats. The layers and global
+        settings are copied, and so are the input type, the explicit
+        preprocessors and the backprop settings (which the reference
+        drops). Once initialised, the graph gets copies of the parameters,
+        layer states, updater states, iteration, epoch and dropout
+        generator state."""
+        names, counts = [], {}
+        for layer in self.layers:
+            base = layer.name or type(layer).__name__.lower()
+            counts[base] = counts.get(base, 0) + 1
+            names.append(base if counts[base] == 1 else f"{base}_{counts[base]}")
+        b = GraphBuilder(copy.deepcopy(self.conf.global_conf))
+        b.add_inputs("input")
+        prev = "input"
+        for name, layer in zip(names, self.layers):
+            b.add_layer(name, copy.deepcopy(layer), prev)
+            prev = name
+        for i, spec in self.conf.input_pre_processors.items():
+            b.input_pre_processor(names[i], spec)
+        if self.conf.input_type is not None:
+            b.set_input_types(self.conf.input_type)
+        b.backprop_type(self.conf.backprop_type)
+        if normalize_backprop_type(self.conf.backprop_type) == "truncated_bptt":
+            b.t_bptt_length(self.conf.tbptt_fwd_length, self.conf.tbptt_bwd_length)
+        net = ComputationGraph(b.set_outputs(prev).build(), device=self.device)
+        if self.params is not None:
+            net.init()
+            carry_over(net, self, dict(enumerate(names)))
+        return net
+
+    def score_examples(self, ds, add_regularization: bool = False) -> np.ndarray:
+        """Each example's loss at inference (``scoreExamples``): the data
+        term, plus the l1/l2 term when ``add_regularization``. As in the
+        reference the features mask is not used and the labels mask is.
+        One batched forward to the output layer's input, then the output
+        layer's loss of each row (:func:`example_losses`)."""
+        self._require_params()
+        x, y, _, lmask = self._batch(ds)
+        with torch.no_grad():
+            h, _, _ = self._head_input(self.params, x)
+            scores = example_losses(self.layers[-1], self.params[len(self.layers) - 1],
+                                    h, y, lmask)
+            if add_regularization:
+                scores = scores + self._regularization(self.params)
+        return to_host(scores)
 
     # ------------------------------------------------------------ model zip
     def save(self, path, save_updater: bool = True) -> None:

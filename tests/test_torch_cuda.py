@@ -35,13 +35,19 @@ convnet fixture restored on the card gives its recorded output within
 also hold their plain versions at full attention at the bf16 encoder's T
 128 ([2,2,128,64] and the zoo encoder's [32,12,128,64]), and a small bf16
 TransformerEncoder launches them only with FlashAttentionHelper(causal=
-False) registered and never on a masked batch.
+False) registered and never on a masked batch. The networks' remaining
+API on the card: ``fit_batches_on_device`` launches each kernel as the
+per-batch ``fit`` of a clone does and lands within 1e-6 x each tensor's
+largest entry of it; ``set_params_flat`` keeps every parameter's storage
+(the fused updater still takes them); ``evaluate_roc_multi_class`` over a
+bf16 ``output`` equals ``ROCMultiClass`` over that output widened.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.nn import cuda_kernels as ck
 from deeplearning4j_tpu_torch.nn import helpers
 from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
@@ -1378,3 +1384,92 @@ def test_bf16_hopper_kernels_refuse_shapes_they_do_not_take(card):
     narrow = [t[..., :32].contiguous() for t in (q, k, v)]
     with pytest.raises(ValueError, match="Dh in"):
         ck.flash_attention_fwd(*narrow, True)
+
+
+# ------------------------------------------------- the networks' remaining API
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree, key=str) for x in _leaves(tree[k])]
+    return [tree]
+
+
+@pytest.mark.cuda
+def test_window_on_the_card_matches_a_clone_s_per_batch_fit(card):
+    """fit_batches_on_device over 3 batches of a small TransformerLM with
+    the fused updater against its clone's 3 fit calls: each kernel
+    launched as per-batch fit launches it (2 / 2 / 2 flash and 30 fused
+    Adam a step), parameters and Adam state within 1e-6 x each tensor's
+    largest entry, the dropout generators equal."""
+    rng = np.random.default_rng(40)
+    ids = [torch.from_numpy(rng.integers(0, 100, (2, 128))).to(card) for _ in range(3)]
+    labels = [torch.nn.functional.one_hot(torch.roll(i, -1, 1), 100).float() for i in ids]
+    net = TransformerLM(**SMALL).init()
+    twin = net.clone()
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    kernels = (ck.flash_attention_fwd, ck.flash_attention_bwd_dq,
+               ck.flash_attention_bwd_dkv, ck.fused_adam)
+    launched = []
+    for run in (lambda: net.fit_batches_on_device(
+                    [DataSet(i, y) for i, y in zip(ids, labels)]),
+                lambda: [twin.fit(i, y) for i, y in zip(ids, labels)]):
+        before = [k.launches for k in kernels]
+        run()
+        torch.cuda.synchronize()
+        launched.append([k.launches - b for k, b in zip(kernels, before)])
+    assert launched == [[6, 6, 6, 90]] * 2
+    assert net.iteration == twin.iteration == 3
+    for tree in ("params", "updater_states"):
+        for a, b in zip(_leaves(getattr(net, tree)), _leaves(getattr(twin, tree))):
+            _close_to_max(a, b, 1e-6)
+    assert torch.equal(net.dropout_generator.get_state(),
+                       twin.dropout_generator.get_state())
+
+
+@pytest.mark.cuda
+def test_set_params_flat_keeps_the_tensors_the_fused_updater_takes(card):
+    """params_flat -> set_params_flat is bit for bit and keeps every
+    parameter's storage; the fused updater then still takes every tensor."""
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.builder().seed(3).updater(Adam(1e-3)).list()
+        .layer(LSTMLayer(n_out=16, activation="tanh"))
+        .layer(RnnOutputLayer(n_out=7)).set_input_type(InputType.recurrent(7))
+        .build()).init()
+    ptrs = [t.data_ptr() for t in _leaves(net.params)]
+    flat = net.params_flat()
+    net.set_params_flat(flat)
+    assert [t.data_ptr() for t in _leaves(net.params)] == ptrs
+    np.testing.assert_array_equal(net.params_flat(), flat)
+    x = np.eye(7, dtype=np.float32)[np.random.default_rng(41).integers(0, 7, (4, 12))]
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    before = ck.fused_adam.launches
+    net.fit(x, x)
+    torch.cuda.synchronize()
+    assert ck.fused_adam.launches - before == len(ptrs)
+    assert [t.data_ptr() for t in _leaves(net.params)] == ptrs
+    assert not np.array_equal(net.params_flat(), flat)
+
+
+@pytest.mark.cuda
+def test_evaluate_roc_on_a_bf16_output(card):
+    """A bf16 LSTM network's evaluate_roc_multi_class (its output widened
+    to f32 on the host) equals ROCMultiClass over that same output, label
+    mask and all."""
+    from deeplearning4j_tpu_torch.eval import ROCMultiClass
+    from deeplearning4j_tpu_torch.nn.train_step import to_host
+
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.builder().seed(5).compute_dtype("bfloat16").list()
+        .layer(LSTMLayer(n_out=32, activation="tanh"))
+        .layer(RnnOutputLayer(n_out=7)).set_input_type(InputType.recurrent(7))
+        .build()).init()
+    rng = np.random.default_rng(42)
+    x = np.eye(7, dtype=np.float32)[rng.integers(0, 7, (6, 12))]
+    mask = (rng.random((6, 12)) > 0.25).astype(np.float32)
+    ds = DataSet(x, x, None, mask)
+    out = net.output(x)
+    assert out.dtype == torch.bfloat16
+    want = ROCMultiClass()
+    want.eval(x, to_host(out), mask=mask)
+    got = net.evaluate_roc_multi_class(ds)
+    assert [got.calculate_auc(c) for c in range(7)] == \
+        [want.calculate_auc(c) for c in range(7)]
