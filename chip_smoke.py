@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs twenty-two phases:
+every kernel, and runs twenty-three phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -196,7 +196,30 @@ every kernel, and runs twenty-two phases:
    at the new rate), ``params_flat`` / ``set_params_flat`` (bit for bit,
    the storage kept, 8 fused-Adam launches after it) and
    ``evaluate_roc_binary``, ``evaluate_regression`` and
-   ``EvaluationCalibration`` over ``output``.
+   ``EvaluationCalibration`` over ``output``;
+23. the small layers (the activations, the core, loss and convolution
+   family layers, 1-D pooling), each path's launches counted: three
+   networks of them with Adam on the fused updater (one launch per
+   parameter tensor a step, no other kernel), f32 and bf16, from the same
+   weights as a twin on the CPU: (a) ``EmbeddingLayer`` (10000 x 256, 256
+   integer ids) -> ``ElementWiseMultiplicationLayer`` -> ``PReLULayer`` ->
+   a dense layer of 256 for each of the 14 activations of the slice ->
+   ``CenterLossOutputLayer`` (100); (b) 1-D over [32, 128, 64]:
+   ``Convolution1DLayer``, ``ZeroPadding1DLayer``, ``Subsampling1DLayer``,
+   ``Upsampling1DLayer``, ``MaskLayer`` (a step mask that ends a quarter
+   of the rows early), ``RnnLossLayer``; (c) 2-D over [16, 64, 64, 3]:
+   convolution (relu6), depthwise (swish), separable (mish),
+   space-to-depth, transposed convolution, crop, zero padding, upsampling,
+   a 1x1 convolution and ``CnnLossLayer``. In f32, 3 steps on both with
+   each parameter and Adam slot within 1e-5 x its largest entry; in bf16,
+   one batch's loss and gradients against the f32 twin no farther than a
+   bf16 twin on the CPU is (the GPT-2 bf16 ratio form), then 3 steps.
+   ``SpaceToBatchLayer``'s forward equals the CPU's. Then the zoo's
+   ``Darknet19`` at its published width (1000 labels, 224x224x3, batch
+   8, its Nesterovs updater) in f32 and bf16: a fit, 3 timed fits (median
+   step, images/s), the busy share of 2 profiled fits, peak memory, one
+   ``output`` (rows summing to 1); and ``SimpleCNN`` (48x48x3, AdaDelta,
+   f32): a fit and an ``output``. Neither launches a kernel.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -531,6 +554,39 @@ ENC_MASK_VALID, ENC_MASK_ROWS, ENC_MASK_TOL = 96, 8, 1e-5
 ZOO_BATCH = 8
 VIT_B16 = dict(image_size=224, patch_size=16, n_layers=12, d_model=768,
                n_heads=12, d_ff=3072)
+# the small-layer slice: three networks of the new layers (a feed-forward
+# one on SL_VOCAB ids, a 1-D one over [N, T, C], a 2-D one over NHWC
+# images) take SL_STEPS Adam steps on K2 from one set of weights, on the
+# card and on the CPU: in f32 every parameter and Adam slot within SL_TOL
+# x its largest entry of the CPU twin's (the CPU tests' limit), or, where
+# the step is ill-conditioned, no farther from an f64 CPU twin's than
+# SL_F32_FACTOR x the CPU f32 twin's distance from it. Adam scales each
+# entry's step by its own gradient, so an entry whose gradient is a
+# thousandth of the tensor's largest takes a full step from a gradient
+# that f32 rounding (1e-6 of the largest entry, either way) moves by a
+# thousandth: a bias that starts at 0 then lies 1e-5 to 1e-2 of its
+# largest entry from the other f32 run after 3 steps, on the CPU as on the
+# card. In bf16 one batch's loss and gradients in the GPT-2 bf16 ratio
+# form (the f32 CPU twin the oracle, a bf16 CPU twin the yardstick), then
+# the steps. Every parameter tensor must move on the card (each layer
+# passes a gradient back). Darknet19 at its published
+# width (1000 labels, 224x224x3) and SimpleCNN (10 labels, 48x48x3) at
+# batch ZOO_BATCH: one fit, SL_ZOO_TIMED timed fits, one output; a bf16
+# softmax row rounds each entry once, by at most bf16's unit roundoff
+# (2^-8) of itself, so its sum lies within ROWSUM_TOL + 2^-8 of 1
+SL_STEPS, SL_TOL, SL_F32_FACTOR, SL_ZOO_TIMED = 3, 1e-5, 4.0, 3
+SL_VOCAB, SL_WIDTH, SL_FF_BATCH, SL_FF_LABELS = 10000, 256, 256, 100
+SL_SEQ, SL_SEQ_LABELS = (32, 128, 64), 10
+SL_IMAGES, SL_IMAGE_LABELS = (16, 64, 64, 3), 10
+# in this order every layer passes a gradient back: thresholdedrelu (theta
+# 1) follows logsoftmax, whose outputs near -log(256) give the next
+# pre-activations a spread of ~5 (after an activation whose outputs lie in
+# [0, 1) it would zero all of its inputs, and every gradient below it)
+SL_ACTIVATIONS = ("relu6", "leakyrelu", "elu", "hardsigmoid", "hardtanh",
+                  "rationaltanh", "rectifiedtanh", "logsoftmax", "thresholdedrelu",
+                  "softplus", "softsign", "cube", "swish", "mish")
+SIMPLE_CNN_SHAPE = (3, 48, 48)
+ROWSUM_TOL_BF16 = ROWSUM_TOL + 2.0 ** -8
 # the DL4J-format fixtures (tests/fixtures): output within rtol 1e-5 / atol
 # 1e-6 of the recorded one (the CPU tests' limit); the convnet's 3 more
 # fit steps on the fused updater, 8 K2 launches a step
@@ -4097,6 +4153,320 @@ def zoo_smoke_phase(ck, card):
     return {name: row["launches"] for name, row in rows.items()}
 
 
+def sl_ff_conf(compute_dtype=None):
+    """Embedding(SL_VOCAB, SL_WIDTH) -> ElementWiseMultiplication -> PReLU
+    -> a Dense(SL_WIDTH) for each of SL_ACTIVATIONS -> CenterLossOutput
+    (SL_FF_LABELS), Adam(1e-3). The embedding is drawn from N(0, 1), so
+    that the first dense layer sees inputs of order 1 (xavier over 10000
+    rows draws them 70 times smaller)."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.weights import Distribution
+
+    b = (NeuralNetConfiguration.builder().seed(16).updater(Adam(1e-3)).list()
+         .layer(L.EmbeddingLayer(n_in=SL_VOCAB, n_out=SL_WIDTH, activation="identity",
+                                 weight_init="distribution",
+                                 distribution=Distribution("normal", 0.0, 1.0)))
+         .layer(L.ElementWiseMultiplicationLayer(activation="identity"))
+         .layer(L.PReLULayer()))
+    for act in SL_ACTIVATIONS:
+        b.layer(L.DenseLayer(n_out=SL_WIDTH, activation=act))
+    conf = (b.layer(L.CenterLossOutputLayer(n_out=SL_FF_LABELS))
+            .set_input_type(InputType.feed_forward(1)).build())
+    conf.global_conf.compute_dtype = compute_dtype
+    return conf
+
+
+def sl_seq_conf(compute_dtype=None):
+    """[N, T, C] -> Convolution1D(128, k 5, elu) -> ZeroPadding1D(2, 2) ->
+    Subsampling1D(max, 2) -> Upsampling1D(2) -> MaskLayer ->
+    Convolution1D(SL_SEQ_LABELS, k 1) -> RnnLossLayer(mcxent, softmax)."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    _, t, c = SL_SEQ
+    conf = (NeuralNetConfiguration.builder().seed(17).updater(Adam(1e-3)).list()
+            .layer(L.Convolution1DLayer(n_out=128, kernel_size=5, activation="elu"))
+            .layer(L.ZeroPadding1DLayer(padding=(2, 2)))
+            .layer(L.Subsampling1DLayer(pooling_type="max", kernel_size=2, stride=2))
+            .layer(L.Upsampling1DLayer(size=2))
+            .layer(L.MaskLayer())
+            .layer(L.Convolution1DLayer(n_out=SL_SEQ_LABELS, kernel_size=1,
+                                        activation="identity"))
+            .layer(L.RnnLossLayer(loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.recurrent1d(c, t)).build())
+    conf.global_conf.compute_dtype = compute_dtype
+    return conf
+
+
+def sl_image_conf(compute_dtype=None):
+    """NHWC [N, 64, 64, 3] -> Convolution(32, same, relu6) -> Depthwise(dm
+    2, swish) -> Separable(64, mish) -> SpaceToDepth(2) -> Deconvolution
+    (32, k 2, s 2) -> Crop(2) -> ZeroPadding(2) -> Upsampling(2) -> 1x1
+    Convolution(SL_IMAGE_LABELS) -> CnnLossLayer(mcxent, softmax): 128 x
+    128 maps of labels."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    _, h, w, c = SL_IMAGES
+    conf = (NeuralNetConfiguration.builder().seed(18).updater(Adam(1e-3)).list()
+            .layer(L.ConvolutionLayer(n_out=32, kernel_size=(3, 3), convolution_mode="same",
+                                      activation="relu6"))
+            .layer(L.DepthwiseConvolution2DLayer(depth_multiplier=2, kernel_size=(3, 3),
+                                                 convolution_mode="same", activation="swish"))
+            .layer(L.SeparableConvolution2DLayer(n_out=64, kernel_size=(3, 3),
+                                                 convolution_mode="same", activation="mish"))
+            .layer(L.SpaceToDepthLayer(block_size=2))
+            .layer(L.Deconvolution2DLayer(n_out=32, kernel_size=(2, 2), stride=(2, 2),
+                                          activation="identity"))
+            .layer(L.CropLayer(crop=(2, 2, 2, 2)))
+            .layer(L.ZeroPaddingLayer(padding=(2, 2)))
+            .layer(L.UpsamplingLayer(size=(2, 2)))
+            .layer(L.ConvolutionLayer(n_out=SL_IMAGE_LABELS, kernel_size=(1, 1),
+                                      activation="identity"))
+            .layer(L.CnnLossLayer(loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.convolutional(h, w, c)).build())
+    conf.global_conf.compute_dtype = compute_dtype
+    return conf
+
+
+def sl_data():
+    """(name, conf builder, features, labels, step mask) of each small-layer
+    network, made on the card from a seed: integer ids for the embedding
+    (a bf16 id would round), and a step mask that ends a quarter of the
+    1-D rows early."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    ids = torch.randint(0, SL_VOCAB, (SL_FF_BATCH, 1), generator=gen, device="cuda")
+    ff_y = F.one_hot(torch.randint(0, SL_FF_LABELS, (SL_FF_BATCH,), generator=gen,
+                                   device="cuda"), SL_FF_LABELS).float()
+    n, t, c = SL_SEQ
+    seq = torch.randn(SL_SEQ, generator=gen, device="cuda")
+    seq_y = F.one_hot(torch.randint(0, SL_SEQ_LABELS, (n, t), generator=gen,
+                                    device="cuda"), SL_SEQ_LABELS).float()
+    mask = torch.ones((n, t), device="cuda")
+    ends = torch.randint(t // 2, t, (n // 4,), generator=gen, device="cuda")
+    for row, end in enumerate(ends.tolist()):
+        mask[row, end:] = 0.0
+    img = torch.randn(SL_IMAGES, generator=gen, device="cuda")
+    img_y = F.one_hot(torch.randint(0, SL_IMAGE_LABELS,
+                                    (SL_IMAGES[0], 2 * SL_IMAGES[1], 2 * SL_IMAGES[2]),
+                                    generator=gen, device="cuda"), SL_IMAGE_LABELS).float()
+    return [("feed_forward", sl_ff_conf, ids, ff_y, None),
+            ("conv1d", sl_seq_conf, seq, seq_y, mask),
+            ("conv2d", sl_image_conf, img, img_y, None)]
+
+
+def sl_leaves(tree, path=""):
+    """``{path: tensor}`` of a nested dict of tensors."""
+    if not isinstance(tree, dict):
+        return {path: tree}
+    out = {}
+    for key, sub in tree.items():
+        out.update(sl_leaves(sub, f"{path}/{key}" if path else str(key)))
+    return out
+
+
+def sl_rel(a, b):
+    """max |a - b| over max |b| (a moved to b's device and dtype)."""
+    b = b.double()
+    return ((a.double().to(b.device) - b).abs().max().item()
+            / max(b.abs().max().item(), 1e-30))
+
+
+def sl_against_cpu(card, cpu32, cpu64):
+    """Each tensor of the card's tree against the CPU f32 twin's (within
+    SL_TOL x its largest entry), else against the f64 twin's (within
+    SL_F32_FACTOR x the CPU f32 twin's distance from it): the worst direct
+    difference, the worst ratio where the direct one is over SL_TOL, and
+    the tensors that fail both."""
+    c32, c64 = sl_leaves(cpu32), sl_leaves(cpu64)
+    worst, ratios, bad = (0.0, ""), [], []
+    for path, t in sl_leaves(card).items():
+        direct = sl_rel(t, c32[path])
+        worst = max(worst, (direct, path))
+        if direct <= SL_TOL:
+            continue
+        e_card, e_cpu = sl_rel(t, c64[path]), sl_rel(c32[path], c64[path])
+        ratios.append((e_card / max(e_cpu, 1e-30), path, e_card, e_cpu))
+        if e_card > SL_F32_FACTOR * e_cpu:
+            bad.append(path)
+    return {"max_rel_diff": list(worst), "over_tol": len(ratios),
+            "worst_f64_ratio": list(max(ratios)) if ratios else None, "failing": bad}
+
+
+def sl_fits(net, x, y, mask, steps=SL_STEPS):
+    losses = []
+    for _ in range(steps):
+        net.fit(x, y, features_mask=mask)
+        losses.append(net.score_)
+    return losses
+
+
+def sl_network(ck, name, conf_fn, x, y, mask):
+    """One small-layer network f32 and bf16, card against CPU (see the
+    constants). Returns its readings and each path's launches."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
+
+    xc, yc = x.cpu(), y.cpu()
+    mc = None if mask is None else mask.cpu()
+    cpu32 = MultiLayerNetwork(conf_fn(), device="cpu").init()
+    weights = export_params(cpu32)
+    tensors = tensors_of(cpu32)
+    g_ref, loss_ref = cpu32.compute_gradient_and_score(xc, yc, features_mask=mc)
+    cpu_losses = sl_fits(cpu32, xc, yc, mc)
+    conf64 = conf_fn()
+    conf64.global_conf.dtype = "float64"
+    cpu64 = load_reference_params(MultiLayerNetwork(conf64, device="cpu").init(), weights)
+    g_64, _ = cpu64.compute_gradient_and_score(xc, yc, features_mask=mc)
+    sl_fits(cpu64, xc, yc, mc)
+    row, paths = {"tensors": tensors}, {}
+
+    card32 = load_reference_params(MultiLayerNetwork(conf_fn()).init(), weights)
+    g_card, _ = card32.compute_gradient_and_score(x, y, features_mask=mask)
+    zero_launches(ck)
+    t0 = time.perf_counter()
+    losses = sl_fits(card32, x, y, mask)
+    torch.cuda.synchronize()
+    row["f32_steps_s"] = time.perf_counter() - t0
+    paths[f"small_layers_{name}_train"] = read_launches(ck)
+    start = {k: {n: torch.from_numpy(a) for n, a in named.items()}
+             for k, named in enumerate(weights)}
+    unmoved = [p for p, t in sl_leaves(card32.params).items()
+               if torch.equal(t.cpu(), sl_leaves(start)[p])]
+    checks = {"grads": sl_against_cpu(g_card, g_ref, g_64),
+              "params": sl_against_cpu(card32.params, cpu32.params, cpu64.params),
+              "slots": sl_against_cpu(card32.updater_states, cpu32.updater_states,
+                                      cpu64.updater_states)}
+    row["f32"] = {"losses": losses, "cpu_losses": cpu_losses, "unmoved": unmoved, **checks}
+    f32_ok = (not any(c["failing"] for c in checks.values()) and not unmoved
+              and np.isfinite(losses).all())
+    del card32, cpu32, cpu64, g_card, g_64
+
+    card16 = load_reference_params(MultiLayerNetwork(conf_fn("bfloat16")).init(), weights)
+    g_k, loss_k = card16.compute_gradient_and_score(x, y, features_mask=mask)
+    cpu16 = load_reference_params(
+        MultiLayerNetwork(conf_fn("bfloat16"), device="cpu").init(), weights)
+    g_p, loss_p = cpu16.compute_gradient_and_score(xc, yc, features_mask=mc)
+    del cpu16
+    parity = ratio_form(g_k, g_p, g_ref, loss_k, loss_p, loss_ref, BF16_TENSOR_FLOOR)
+    grads_f32 = all(t.dtype == torch.float32 for named in g_k.values()
+                    for t in named.values())
+    zero_launches(ck)
+    losses16 = sl_fits(card16, x, y, mask)
+    torch.cuda.synchronize()
+    paths[f"small_layers_{name}_bf16_train"] = read_launches(ck)
+    masters_f32 = all(t.dtype == torch.float32 for named in card16.params.values()
+                      for t in named.values())
+    row["bf16"] = {"losses": losses16, "loss": loss_k, "loss_cpu_bf16": loss_p,
+                   "loss_f32": loss_ref, "grads_f32": grads_f32,
+                   "masters_f32": masters_f32, **parity}
+    bf16_ok = parity["ok"] and grads_f32 and masters_f32 and np.isfinite(losses16).all()
+    del card16, g_k, g_p, g_ref
+    want = {"fused_adam": tensors * SL_STEPS}
+    bad = {p: c for p, c in paths.items() if unexpected_launches(c, want)}
+    row["ok"] = f32_ok and bf16_ok and not bad
+    return row, paths, bad
+
+
+def sl_zoo_model(ck, model, compute_dtype, x, y, timed):
+    """One zoo model on the card: a fit, ``timed`` timed fits (CUDA
+    events), one output, the busy share of 2 profiled fits; the launches
+    of all but the profiled fits."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    conf = model.conf()
+    conf.global_conf.compute_dtype = compute_dtype
+    net_cls = ComputationGraph if hasattr(conf, "vertices") else MultiLayerNetwork
+    net = net_cls(conf).init(seed=model.seed)
+    zero_launches(ck)
+    t0 = time.perf_counter()
+    net.fit(x, y)
+    first = net.score_
+    first_s = time.perf_counter() - t0
+    step_ms, losses = timed_fits(net, x, y, timed) if timed else ([], [])
+    out = net.output(x)
+    torch.cuda.synchronize()
+    launches = read_launches(ck)
+    rowsum_dev = (out.double().sum(-1) - 1.0).abs().max().item()
+    row = {"params": net.conf.num_params(), "dtype": compute_dtype or "float32",
+           "first_loss": first, "first_fit_s": first_s, "losses": losses,
+           "step_ms": step_ms, "output_shape": list(out.shape),
+           "output_dtype": str(out.dtype), "rowsum_max_dev": rowsum_dev,
+           "rowsum_limit": ROWSUM_TOL if compute_dtype is None else ROWSUM_TOL_BF16,
+           "launches": launches}
+    if timed:
+        row["median_step_ms"] = float(np.median(step_ms))
+        row["images_per_s"] = x.shape[0] / (row["median_step_ms"] / 1e3)
+        row.update(busy(lambda: [net.fit(x, y) for _ in range(2)], 2))
+    row["peak_device_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["ok"] = (math.isfinite(first) and np.isfinite(losses).all()
+                 and rowsum_dev <= row["rowsum_limit"]
+                 and not unexpected_launches(launches, {}))
+    del net, out
+    return row
+
+
+def small_layers_phase(ck, card):
+    """The small-layer slice on the card (see the module docstring).
+    Returns K2's launches by path."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.layers import SpaceToBatchLayer
+    from deeplearning4j_tpu_torch.zoo.models import Darknet19, SimpleCNN
+
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    rows, paths, failures = {}, {}, []
+    try:
+        for name, conf_fn, x, y, mask in sl_data():
+            rows[name], got, bad = sl_network(ck, name, conf_fn, x, y, mask)
+            paths.update(got)
+            print("small_layers " + json.dumps({"network": name, **rows[name]}), flush=True)
+            if not rows[name]["ok"]:
+                failures.append(f"{name}: launches {bad}")
+        # space-to-batch changes the batch: its forward against the CPU's
+        s2b = SpaceToBatchLayer(blocks=(2, 2), padding=(1, 1, 0, 0))
+        z = torch.randn((SL_IMAGES[0], 62, 64, 32), device="cuda")
+        got = s2b.forward({}, z)
+        rows["space_to_batch"] = {"shape": list(got.shape),
+                                  "equal_to_cpu": bool(torch.equal(
+                                      got.cpu(), s2b.forward({}, z.cpu())))}
+        if not rows["space_to_batch"]["equal_to_cpu"]:
+            failures.append(f"space_to_batch: {rows['space_to_batch']}")
+        # the zoo's two models of this slice: no kernel launch (Nesterovs
+        # and AdaDelta take none)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(19)
+        for model, dtypes, timed in ((Darknet19(), (None, "bfloat16"), SL_ZOO_TIMED),
+                                     (SimpleCNN(input_shape=SIMPLE_CNN_SHAPE), (None,), 0)):
+            c, h, w = model.input_shape
+            x = torch.randn((ZOO_BATCH, h, w, c), generator=gen, device="cuda")
+            y = F.one_hot(torch.randint(0, model.num_labels, (ZOO_BATCH,), generator=gen,
+                                        device="cuda"), model.num_labels).float()
+            for dtype in dtypes:
+                key = f"{type(model).__name__}_{dtype or 'float32'}"
+                rows[key] = sl_zoo_model(ck, model, dtype, x, y, timed)
+                print("small_layers " + json.dumps({"model": key, "card": card,
+                                                    "batch": ZOO_BATCH, **rows[key]}),
+                      flush=True)
+                if not rows[key]["ok"]:
+                    failures.append(f"{key}: {rows[key]}")
+    finally:
+        helpers.clear_helper("updater")
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"small_layers: {failures}")
+    return {p: c["fused_adam"] for p, c in paths.items()}
+
+
 def dl4j_import_phase(ck, card):
     """The DL4J-format fixtures restored on the card; the convnet one fits
     DL4J_FIT_STEPS more steps from its restored Adam state on the fused
@@ -4570,6 +4940,7 @@ def main() -> None:
     enc = timed(encoder_bf16_phase, ck, card)
     zoo = timed(zoo_smoke_phase, ck, card)
     net_api = timed(network_api_phase, ck, card)
+    small = timed(small_layers_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -4669,14 +5040,14 @@ def main() -> None:
               + gpt2_bf16["train"]["fused_adam"]
               + sum(c["fused_adam"] for c in lstm_bf16.values())
               + enc["train_a"]["fused_adam"] + enc["train_b"]["fused_adam"]
-              + vit["fused_adam"] + api_total("fused_adam"),
+              + vit["fused_adam"] + api_total("fused_adam") + sum(small.values()),
               launches_by_path=measured({
                   "train": train_launches["fused_adam"],
                   "char_lstm_train": char_adam_launches,
                   "lenet_train": lenet_adam_launches,
                   "ex17_train": ex17_adam_launches,
                   "lenet_regularized_train": lenet_reg_adam_launches,
-                  **later_paths("fused_adam")})),
+                  **later_paths("fused_adam"), **small})),
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
               sum(char_launches.values()) + stack["f32"] + api_total("lstm_sequence"),

@@ -10,13 +10,19 @@ configurations, and a ``ModelSerializer`` zip into a network on
 point of the port. The spellings accepted are the reference's (``nin`` /
 ``nIn``, an activation as an enum string or an ``@class`` wrapper).
 
-Layers: dense, output, rnnoutput, convolution, subsampling,
-batchNormalization, localResponseNormalization, activation, dropout,
-LSTM, gravesLSTM, gravesBidirectionalLSTM, SimpleRnn, Bidirectional,
-MaskZeroLayer, GlobalPooling and zeroPadding. Every other DL4J layer
-type (and an activation or loss the port lacks) raises
-:class:`UnsupportedDl4jConfigurationException` naming it. Vertices: every
-one the reference reads.
+Layers: dense, output, rnnoutput, CenterLossOutputLayer, loss,
+RnnLossLayer (read as a ``LossLayer``, as the reference reads it),
+CnnLossLayer, convolution, convolution1d, subsampling, subsampling1d,
+batchNormalization, localResponseNormalization, embedding, activation,
+dropout, LSTM, gravesLSTM, gravesBidirectionalLSTM, SimpleRnn,
+Bidirectional, MaskZeroLayer, GlobalPooling, zeroPadding, Upsampling2D
+and ElementWiseMult. Every other DL4J layer type (autoEncoder and
+FrozenLayer among them) and an unknown activation or loss raise
+:class:`UnsupportedDl4jConfigurationException` naming it. A parameterized
+activation keeps its coefficient: ``ActivationLReLU`` / ``RReLU`` / ``ELU``
+with an ``alpha`` and ``ActivationThresholdedReLU`` with a ``theta`` read
+as ``(name, {...})``, and the pre-0.8 ``leakyreluAlpha`` layer field as
+leakyrelu's alpha. Vertices: every one the reference reads.
 
 Preprocessors become the port's serializable specs
 (``nn/conf/preprocessors.py``), where the reference builds closures:
@@ -92,16 +98,22 @@ _ACTIVATIONS = {
 
 def _activation(v):
     """activationFn: an enum string ("RELU"), ``{"@class": ".ActivationReLU"}``
-    or a WRAPPER_OBJECT ``{"ReLU": {...}}``. One the port has not ported
-    raises."""
+    or a WRAPPER_OBJECT ``{"ReLU": {...}}``. A leakyrelu or elu with an
+    ``alpha``, or a thresholdedrelu with a ``theta``, comes back as
+    ``(name, {...})``. An unknown one raises."""
     if v is None:
         return None
+    params: dict = {}
     if isinstance(v, str):
         key = v.lower()
     elif isinstance(v, dict):
         cls = v.get("@class")
-        if cls is None and len(v) == 1:
+        if cls is not None:
+            params = v
+        elif len(v) == 1:
             cls = next(iter(v))
+            if isinstance(v[cls], dict):
+                params = v[cls]
         if cls is None:
             return None
         key = cls.rsplit(".", 1)[-1]
@@ -118,6 +130,10 @@ def _activation(v):
     if mapped not in act_mod.names():
         raise UnsupportedDl4jConfigurationException(
             f"DL4J activation {v!r} ({mapped}) is not ported yet")
+    if mapped in ("leakyrelu", "elu") and "alpha" in params:
+        return (mapped, {"alpha": float(params["alpha"])})
+    if mapped == "thresholdedrelu" and "theta" in params:
+        return (mapped, {"theta": float(params["theta"])})
     return mapped
 
 
@@ -340,6 +356,9 @@ def _base_kwargs(cfg: dict, conv: bool = False) -> dict:
     if name:
         kw["name"] = name
     act = _activation(_get(cfg, "activationFn", "activationFunction", "activation"))
+    if act == "leakyrelu" and "leakyreluAlpha" in cfg:
+        # the pre-0.8 dialect: the alpha rides the layer, not the activation
+        act = ("leakyrelu", {"alpha": float(cfg["leakyreluAlpha"])})
     if act is not None:
         kw["activation"] = act
     wi = _get(cfg, "weightInit", "weightinit")
@@ -414,26 +433,42 @@ def _pooling_type(cfg) -> str:
 def convert_dl4j_layer(type_name: str, cfg: dict):
     """One WRAPPER_OBJECT layer entry ``{type_name: cfg}`` as a port layer."""
     t = type_name
-    base = _base_kwargs(cfg, conv=t == "convolution")
+    # a 4-D DL4J weight: its canonical constraint dimensions are [1, 2, 3]
+    base = _base_kwargs(cfg, conv=t in ("convolution", "deconvolution2d",
+                                        "separableConvolution2d",
+                                        "depthwiseConvolution2d"))
     ff = _nin_nout(cfg)
     if t == "dense":
         return L.DenseLayer(**base, **ff,
                             has_bias=bool(_get(cfg, "hasBias", default=True)))
-    if t in ("output", "rnnoutput"):
+    if t in ("output", "rnnoutput", "CenterLossOutputLayer"):
         kw = dict(base, **ff)
         loss = _loss(_get(cfg, "lossFn", "lossFunction"))
         if loss:
             kw["loss"] = loss
-        return (L.OutputLayer if t == "output" else L.RnnOutputLayer)(**kw)
-    if t == "convolution":
-        return L.ConvolutionLayer(
-            **base, **ff, kernel_size=_pair(_get(cfg, "kernelSize"), (3, 3)),
-            stride=_pair(_get(cfg, "stride"), (1, 1)),
-            padding=_pair(_get(cfg, "padding"), (0, 0)),
-            dilation=_pair(_get(cfg, "dilation"), (1, 1)),
-            convolution_mode=_conv_mode(_get(cfg, "convolutionMode")))
-    if t == "subsampling":
-        return L.SubsamplingLayer(
+        if t == "CenterLossOutputLayer":
+            if "alpha" in cfg:
+                kw["alpha"] = float(cfg["alpha"])
+            if "lambda" in cfg:
+                kw["lambda_"] = float(cfg["lambda"])
+        return {"output": L.OutputLayer, "rnnoutput": L.RnnOutputLayer,
+                "CenterLossOutputLayer": L.CenterLossOutputLayer}[t](**kw)
+    if t in ("loss", "RnnLossLayer", "CnnLossLayer"):
+        loss = _loss(_get(cfg, "lossFn", "lossFunction")) or "mse"
+        return (L.CnnLossLayer if t == "CnnLossLayer" else L.LossLayer)(
+            **base, loss=loss)
+    if t in ("convolution", "convolution1d"):
+        kw = dict(base, **ff, kernel_size=_pair(_get(cfg, "kernelSize"), (3, 3)),
+                  stride=_pair(_get(cfg, "stride"), (1, 1)),
+                  padding=_pair(_get(cfg, "padding"), (0, 0)),
+                  dilation=_pair(_get(cfg, "dilation"), (1, 1)),
+                  convolution_mode=_conv_mode(_get(cfg, "convolutionMode")))
+        if t == "convolution":
+            return L.ConvolutionLayer(**kw)
+        kw["kernel_size"], kw["stride"] = kw["kernel_size"][0], kw["stride"][0]
+        return L.Convolution1DLayer(**kw)
+    if t in ("subsampling", "subsampling1d"):
+        return (L.Subsampling1DLayer if t == "subsampling1d" else L.SubsamplingLayer)(
             **base, pooling_type=_pooling_type(cfg),
             kernel_size=_pair(_get(cfg, "kernelSize"), (2, 2)),
             stride=_pair(_get(cfg, "stride"), (2, 2)),
@@ -455,6 +490,9 @@ def convert_dl4j_layer(type_name: str, cfg: dict):
     if t == "localResponseNormalization":
         return L.LocalResponseNormalizationLayer(
             **base, **{f: cfg[f] for f in ("k", "n", "alpha", "beta") if f in cfg})
+    if t == "embedding":
+        return L.EmbeddingLayer(**base, **ff,
+                                has_bias=bool(_get(cfg, "hasBias", default=False)))
     if t == "activation":
         return L.ActivationLayer(**base)
     if t == "dropout":
@@ -484,6 +522,10 @@ def convert_dl4j_layer(type_name: str, cfg: dict):
     if t == "zeroPadding":
         return L.ZeroPaddingLayer(
             **base, padding=tuple(_get(cfg, "padding", default=(1, 1, 1, 1))))
+    if t == "Upsampling2D":
+        return L.UpsamplingLayer(**base, size=_pair(_get(cfg, "size", default=2), (2, 2)))
+    if t == "ElementWiseMult":
+        return L.ElementWiseMultiplicationLayer(**base, **ff)
     raise UnsupportedDl4jConfigurationException(
         f"unsupported DL4J layer type {t!r} (not ported yet)")
 

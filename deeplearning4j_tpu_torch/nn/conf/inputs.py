@@ -1,13 +1,15 @@
 """Input type inference — the DL4J ``InputType`` system: the feed-forward,
-recurrent, convolutional (``cnn``, ``cnn_flat``) and image-sequence
-(``cnn_seq``) kinds.
+recurrent, convolutional (``cnn``, ``cnn_flat``, ``cnn3d``, ``cnn1d``) and
+image-sequence (``cnn_seq``) kinds.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/inputs.py``, with the same
 fields, so that a configuration's JSON reads back in both packages.
 Convolutional activations are NHWC (channels last), recurrent ones
-``[batch, time, size]`` and image sequences ``[batch, time, H, W, C]``
-(ConvLSTM2D's data), as in the reference. Not ported yet: the ``cnn3d``
-and ``cnn1d`` kinds (``convolutional3d``), which raise.
+``[batch, time, size]``, volumes ``[batch, D, H, W, C]`` and image
+sequences ``[batch, time, H, W, C]`` (ConvLSTM2D's data), as in the
+reference. A 1-D convolution's data is the recurrent kind
+(``recurrent1d``); the ``cnn1d`` kind has a name and no size, as in the
+reference, whose ``flat_size`` and ``batch_shape`` refuse it.
 """
 
 from __future__ import annotations
@@ -15,25 +17,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-KINDS = ("ff", "rnn", "cnn", "cnn_flat", "cnn_seq")
-_NOT_PORTED = ("cnn3d", "cnn1d")
+KINDS = ("ff", "rnn", "cnn", "cnn_flat", "cnn3d", "cnn1d", "cnn_seq")
 
 
 @dataclasses.dataclass(frozen=True)
 class InputType:
-    kind: str  # "ff" | "rnn" | "cnn" | "cnn_flat" | "cnn_seq"
+    kind: str  # one of KINDS
     size: int = 0                    # ff / rnn feature size (cnn_flat: H*W*C)
     timesteps: Optional[int] = None  # rnn, cnn_seq (None = variable)
     height: int = 0
     width: int = 0
     channels: int = 0
-    depth: int = 0                   # the reference's cnn3d; always 0 here
+    depth: int = 0                   # cnn3d
 
     def __post_init__(self):
-        if self.kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"InputType kind {self.kind!r} is not ported yet "
-                f"(the port has {KINDS})")
         if self.kind not in KINDS:
             raise ValueError(f"unknown InputType kind {self.kind!r}")
 
@@ -65,6 +62,12 @@ class InputType:
                          width=int(width), channels=int(channels))
 
     @staticmethod
+    def recurrent1d(size: int, timesteps: Optional[int] = None) -> "InputType":
+        """A 1-D convolution's data, ``[batch, time, channels]``: the
+        recurrent kind."""
+        return InputType.recurrent(size, timesteps)
+
+    @staticmethod
     def recurrent_convolutional(height: int, width: int, channels: int,
                                 timesteps: Optional[int] = None) -> "InputType":
         """A sequence of images [batch, time, H, W, C] (ConvLSTM2D data)."""
@@ -74,11 +77,15 @@ class InputType:
     def flat_size(self) -> int:
         if self.kind in ("ff", "rnn"):
             return self.size
-        return self.height * self.width * self.channels
+        if self.kind in ("cnn", "cnn_flat", "cnn_seq"):
+            return self.height * self.width * self.channels
+        if self.kind == "cnn3d":
+            return self.depth * self.height * self.width * self.channels
+        raise ValueError(self.kind)
 
     def batch_shape(self, batch: int = 1) -> Tuple[int, ...]:
         """Example array shape for one batch of this type (NHWC / NTC /
-        NTHWC)."""
+        NDHWC / NTHWC)."""
         if self.kind in ("ff", "cnn_flat"):
             return (batch, self.flat_size())
         t = self.timesteps if self.timesteps is not None else 1
@@ -86,7 +93,11 @@ class InputType:
             return (batch, t, self.size)
         if self.kind == "cnn_seq":
             return (batch, t, self.height, self.width, self.channels)
-        return (batch, self.height, self.width, self.channels)
+        if self.kind == "cnn":
+            return (batch, self.height, self.width, self.channels)
+        if self.kind == "cnn3d":
+            return (batch, self.depth, self.height, self.width, self.channels)
+        raise ValueError(self.kind)
 
     def cnn_seq_to_rnn(self):
         """The per-step flatten of an image sequence, ``(fn, type)``:

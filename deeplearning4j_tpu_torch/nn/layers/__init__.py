@@ -12,15 +12,29 @@ from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     register_layer,
 )
 from deeplearning4j_tpu_torch.nn.layers.conv import (  # noqa: F401
+    Convolution1DLayer,
     ConvolutionLayer,
+    CropLayer,
+    Deconvolution2DLayer,
+    DepthwiseConvolution2DLayer,
+    SeparableConvolution2DLayer,
+    SpaceToBatchLayer,
+    SpaceToDepthLayer,
+    Upsampling1DLayer,
+    UpsamplingLayer,
+    ZeroPadding1DLayer,
     ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
     ActivationLayer,
     DenseLayer,
     DropoutLayer,
+    ElementWiseMultiplicationLayer,
+    EmbeddingLayer,
     EmbeddingSequenceLayer,
+    MaskLayer,
     PositionalEmbeddingLayer,
+    PReLULayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.norm import (  # noqa: F401
     BatchNormalizationLayer,
@@ -28,11 +42,16 @@ from deeplearning4j_tpu_torch.nn.layers.norm import (  # noqa: F401
     LocalResponseNormalizationLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.output import (  # noqa: F401
+    CenterLossOutputLayer,
+    CnnLossLayer,
+    LossLayer,
     OutputLayer,
+    RnnLossLayer,
     RnnOutputLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.pooling import (  # noqa: F401
     GlobalPoolingLayer,
+    Subsampling1DLayer,
     SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401

@@ -1,10 +1,13 @@
-"""Core layers: Dense, Activation, Dropout, EmbeddingSequence,
-PositionalEmbedding.
+"""Core layers: Dense, Activation, Dropout, Mask, Embedding,
+EmbeddingSequence, ElementWiseMultiplication, PReLU, PositionalEmbedding.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/core.py``. Parameters keep
 the reference's names and layouts: Dense ``W`` is ``[n_in, n_out]`` and is
 used as ``x @ W + b``. Dense (and so the output layers) applies its input
 dropout in a train forward; ``DropoutLayer`` is dropout alone.
+``EmbeddingLayer`` reads its ids as ``jnp.take`` does, with no read of
+them on the host: an id in ``[-n_in, 0)`` counts from the end, and one
+outside ``[-n_in, n_in)`` gives a row of NaN.
 ``PositionalEmbeddingLayer`` carries its absolute offset (a Python int,
 so reading it never waits for the device) through ``forward_seq`` for
 stateful decoding and TBPTT.
@@ -15,7 +18,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,10 +61,10 @@ class DenseLayer(Layer):
         return InputType.feed_forward(self.n_out)
 
     def input_preprocessor(self, input_type: InputType):
-        """DL4J's automatic CnnToFeedForward: NHWC images (or flat ones)
-        become ``[N, H*W*C]`` rows in H, W, C order, the order of ``W``'s
-        rows in the reference."""
-        if input_type.kind in ("cnn", "cnn_flat"):
+        """DL4J's automatic CnnToFeedForward: NHWC images (flat ones, and
+        NDHWC volumes) become ``[N, H*W*C]`` rows in H, W, C order, the
+        order of ``W``'s rows in the reference."""
+        if input_type.kind in ("cnn", "cnn_flat", "cnn3d"):
             return (lambda x: x.reshape(x.shape[0], -1),
                     InputType.feed_forward(input_type.flat_size()))
         if input_type.kind == "cnn_seq":  # per step; then position-wise
@@ -115,6 +118,79 @@ class DropoutLayer(Layer):
 
     def forward(self, params, x, *, mask=None, train=False, gen=None):
         return self._dropout(x, train, gen)
+
+
+@register_layer
+@dataclasses.dataclass
+class MaskLayer(Layer):
+    """The current mask applied to the activations, else a pass-through
+    (DL4J MaskLayer): a mask of the input's shape multiplies it; a
+    ``[N,T]`` step mask multiplies a ``[N,T,F]`` sequence; a per-example
+    ``[N]`` / ``[N,1]`` mask broadcasts over every other axis."""
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        if mask is None:
+            return x
+        m = mask.to(x.dtype)
+        if m.shape == x.shape:
+            return x * m
+        if x.ndim == 3 and m.ndim == 2 and m.shape == x.shape[:2]:
+            m = m[:, :, None]
+        else:
+            if m.shape[0] != x.shape[0] or m.numel() != x.shape[0]:
+                raise ValueError(
+                    f"MaskLayer: mask shape {tuple(m.shape)} does not broadcast "
+                    f"over input shape {tuple(x.shape)} (want [N]/[N,1] "
+                    "per-example, or [N,T] for 3d time series)")
+            m = m.reshape((m.shape[0],) + (1,) * (x.ndim - 1))
+        return x * m
+
+
+@register_layer
+@dataclasses.dataclass
+class EmbeddingLayer(Layer):
+    """Index → embedding row (DL4J EmbeddingLayer): ``[N]`` or ``[N,1]``
+    ids (integers, or floats truncated) → ``[N, n_out]``. An id in
+    ``[-n_in, 0)`` stands for ``id + n_in``; one outside ``[-n_in, n_in)``
+    gives a row of NaN, as ``jnp.take`` fills it. Nothing reads the ids
+    on the host."""
+
+    n_in: int = 0
+    n_out: int = 0
+    has_bias: bool = False
+
+    def set_n_in(self, input_type: InputType) -> None:
+        if not self.n_in:
+            self.n_in = input_type.flat_size()
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out)
+
+    def param_shapes(self):
+        shapes = {"W": (self.n_in, self.n_out)}
+        if self.has_bias:
+            shapes["b"] = (self.n_out,)
+        return shapes
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        p = {"W": self._init_w(gen, (self.n_in, self.n_out), self.n_in,
+                               self.n_out, dtype, device)}
+        if self.has_bias:
+            p["b"] = self._init_b((self.n_out,), dtype, device)
+        return p
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        idx = x.to(torch.int64)
+        if idx.ndim == 2 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        n = self.n_in
+        valid = (idx >= -n) & (idx < n)
+        idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+        w = params["W"]
+        y = torch.where(valid[..., None], w[idx], w.new_full((), float("nan")))
+        if self.has_bias:
+            y = y + params["b"]
+        return self.act_fn()(y)
 
 
 @register_layer
@@ -175,6 +251,65 @@ class EmbeddingSequenceLayer(Layer):
         if self.has_bias:
             y = y + params["b"]
         return self.act_fn()(y)
+
+
+@register_layer
+@dataclasses.dataclass
+class ElementWiseMultiplicationLayer(Layer):
+    """``act(x * W + b)`` elementwise, ``W`` initialised to ones (DL4J
+    ElementWiseMultiplicationLayer); n_in == n_out."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+    def set_n_in(self, input_type: InputType) -> None:
+        if not self.n_in:
+            self.n_in = input_type.flat_size()
+        if not self.n_out:
+            self.n_out = self.n_in
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return InputType.feed_forward(self.n_out or self.n_in)
+
+    def param_shapes(self):
+        return {"W": (self.n_in,), "b": (self.n_in,)}
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        return {"W": torch.ones((self.n_in,), dtype=dtype, device=device),
+                "b": self._init_b((self.n_in,), dtype, device)}
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        return self.act_fn()(x * params["W"] + params["b"])
+
+
+@register_layer
+@dataclasses.dataclass
+class PReLULayer(Layer):
+    """Parametric ReLU, ``where(x >= 0, x, W * x)``, with a learned alpha
+    ``W`` of the input's feature shape (initialised to zeros); each axis in
+    ``shared_axes`` (counted with the batch axis as 0) shares one alpha
+    (DL4J PReLULayer)."""
+
+    input_shape: Optional[Tuple[int, ...]] = None  # the feature shape
+    shared_axes: Optional[Tuple[int, ...]] = None
+
+    def set_n_in(self, input_type: InputType) -> None:
+        if self.input_shape is None:
+            self.input_shape = tuple(input_type.batch_shape(1)[1:])
+
+    def param_shapes(self):
+        shape = list(self.input_shape or ())
+        if self.shared_axes:
+            for ax in self.shared_axes:
+                shape[ax - 1] = 1
+        return {"W": tuple(shape)}
+
+    def init_params(self, gen, dtype=torch.float32, device=None):
+        return {"W": torch.zeros(self.param_shapes()["W"], dtype=dtype,
+                                 device=device)}
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        return torch.where(x >= 0, x, params["W"] * x)
 
 
 @register_layer

@@ -1,14 +1,16 @@
-"""2-D pooling over NHWC activations.
+"""Pooling over NHWC images and ``[N, T, C]`` sequences.
 
-Counterpart of ``SubsamplingLayer`` in
-``deeplearning4j_tpu/nn/layers/pooling.py`` (max, avg, sum, pnorm). The
+Counterpart of ``SubsamplingLayer``, ``Subsampling1DLayer`` and
+``GlobalPoolingLayer`` in ``deeplearning4j_tpu/nn/layers/pooling.py``
+(max, avg, sum, pnorm). The
 reference pools with ``lax.reduce_window``: ``max`` pads with -inf,
 ``avg`` and ``sum`` with 0, and ``avg`` divides by kh·kw, padding
 included. Here every pad (the XLA "same" one, or ``padding`` on both
 sides, which ``F.max_pool2d`` refuses above half the kernel) is an
 explicit ``F.pad``, and the pool then runs with no padding: ``avg`` and
 ``sum`` are ``F.avg_pool2d`` with the divisor kh·kw and 1; ``pnorm`` is
-(Σ|x|^p)^(1/p) over the window.
+(Σ|x|^p)^(1/p) over the window. ``Subsampling1DLayer`` pools a sequence
+over T as a 2-D pool over ``[N, T, 1, C]`` with ``(k, 1)`` geometry.
 
 ``GlobalPoolingLayer`` pools NHWC images over H and W and ``[N, T, C]``
 sequences over T (max, avg, sum, pnorm). A sequence's ``[N, T]`` mask
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
-from deeplearning4j_tpu_torch.nn.layers.conv import _pair, conv_out_size, nchw_pad
+from deeplearning4j_tpu_torch.nn.layers.conv import (_first, _pair, conv_out_size,
+                                                    nchw_pad)
 
 
 @register_layer
@@ -75,6 +78,29 @@ class SubsamplingLayer(Layer):
         if pt == "pnorm":
             y = y ** (1.0 / float(self.pnorm))
         return y.permute(0, 2, 3, 1)  # back to NHWC
+
+
+@register_layer
+@dataclasses.dataclass
+class Subsampling1DLayer(SubsamplingLayer):
+    """1-D pooling over ``[N, T, C]`` (DL4J Subsampling1DLayer); the
+    geometry is stored as ``(k, 1)`` pairs."""
+
+    def __post_init__(self):
+        self.kernel_size = (_first(self.kernel_size), 1)
+        self.stride = (_first(self.stride), 1)
+        self.padding = (_first(self.padding), 0)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timesteps
+        if t is not None:
+            t = conv_out_size(t, self.kernel_size[0], self.stride[0],
+                              self.padding[0], 1, self.convolution_mode)
+        return InputType.recurrent(input_type.size, t)
+
+    def forward(self, params, x, *, mask=None, train=False, gen=None):
+        return super().forward(params, x[:, :, None, :], train=train,
+                               gen=gen)[:, :, 0, :]
 
 
 @register_layer

@@ -1,9 +1,10 @@
 """Block builders for the zoo's CNNs.
 
-Counterpart of ``conv_bn_act``, ``resnet_identity_block``,
-``resnet_conv_block`` and ``inception_module`` in
-``deeplearning4j_tpu/zoo/helpers.py`` (DL4J's ``ResNet50.java``
-``identityBlock``/``convBlock``, ``GoogLeNet.java``'s ``inception``).
+Counterpart of ``conv_bn_act``, ``darknet_block``,
+``resnet_identity_block``, ``resnet_conv_block`` and ``inception_module``
+in ``deeplearning4j_tpu/zoo/helpers.py`` (DL4J's ``DarknetHelper``,
+``ResNet50.java`` ``identityBlock``/``convBlock``, ``GoogLeNet.java``'s
+``inception``).
 Each appends named vertices to a :class:`GraphBuilder` and returns the
 name of the block's output vertex; the names are the reference's, so
 parameters carry across by name. Every convolution of the ResNet blocks
@@ -40,6 +41,35 @@ def conv_bn_act(g: GraphBuilder, name: str, inp: str, n_out: int,
                 name + "_conv")
     g.add_layer(name + "_act", ActivationLayer(activation=activation), name + "_bn")
     return name + "_act"
+
+
+def darknet_block(g: GraphBuilder, num: int, inp: str, n_out: int,
+                  filter_size: int = 3, pool: int = 0, pool_stride: int = 0) -> str:
+    """Darknet's unit (DL4J ``DarknetHelper.addLayers``): a "same"
+    convolution without bias, BatchNorm, leakyrelu, and a max pool when
+    ``pool`` is set ("same" at stride 1). The activation is the
+    reference's ``"leakyrelu"``, whose alpha is 0.01 (DL4J's
+    ``DarknetHelper`` uses 0.1): the port keeps the reference's."""
+    name = f"convolution2d_{num}"
+    g.add_layer(name,
+                ConvolutionLayer(n_out=n_out, kernel_size=(filter_size, filter_size),
+                                 stride=(1, 1), convolution_mode="same",
+                                 activation="identity", has_bias=False),
+                inp)
+    g.add_layer(f"batchnormalization_{num}",
+                BatchNormalizationLayer(activation="identity"), name)
+    g.add_layer(f"activation_{num}", ActivationLayer(activation="leakyrelu"),
+                f"batchnormalization_{num}")
+    out = f"activation_{num}"
+    if pool:
+        ps = pool_stride or pool
+        g.add_layer(f"maxpooling2d_{num}",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(pool, pool),
+                                     stride=(ps, ps),
+                                     convolution_mode="same" if ps == 1 else "truncate"),
+                    out)
+        out = f"maxpooling2d_{num}"
+    return out
 
 
 def _bottleneck(g: GraphBuilder, kernel, filters, stage: str, block: str,

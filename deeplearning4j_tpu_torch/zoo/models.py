@@ -1,8 +1,8 @@
 """Model zoo: the CNNs, the character LSTM, the transformers, and text
 generation.
 
-Counterpart of ``LeNet``, ``AlexNet``, ``VGG16``, ``VGG19``,
-``ResNet50``, ``GoogLeNet``, ``TextGenerationLSTM``,
+Counterpart of ``LeNet``, ``SimpleCNN``, ``AlexNet``, ``VGG16``,
+``VGG19``, ``Darknet19``, ``ResNet50``, ``GoogLeNet``, ``TextGenerationLSTM``,
 ``transformer_decoder_block``, ``TransformerLM``,
 ``transformer_encoder_block``, ``TransformerEncoder``,
 ``VisionTransformer``, ``lm_labels``, ``generate``, ``generate_on_device``
@@ -10,7 +10,8 @@ and ``beam_search`` in ``deeplearning4j_tpu/zoo/models.py``. The same
 layers, layer and vertex names, parameter shapes and defaults;
 ``init(device=None)`` builds the network on ``cuda`` (``device="cpu"`` for
 the CPU). No pretrained weights are fetched: the zoo's pretrained zips are
-not in the repository.
+not in the repository (``Darknet19`` keeps the reference's artifact names
+and checksums as data only).
 
 Generation runs the network's stateful path: every causal attention layer
 carries a fixed-capacity KV cache, so each new token is one single-token
@@ -47,6 +48,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     GravesLSTMLayer,
     LayerNormalizationLayer,
     LocalResponseNormalizationLayer,
+    LossLayer,
     OutputLayer,
     PositionalEmbeddingLayer,
     RnnOutputLayer,
@@ -61,6 +63,7 @@ from deeplearning4j_tpu_torch.nn.updaters import AdaDelta, Adam, Nesterovs
 from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex, ReshapeVertex
 from deeplearning4j_tpu_torch.nn.weights import Distribution
 from deeplearning4j_tpu_torch.zoo.helpers import (
+    darknet_block,
     inception_module,
     resnet_conv_block,
     resnet_identity_block,
@@ -115,6 +118,50 @@ class LeNet(_ZooModel):
                 .layer(OutputLayer(n_out=self.num_labels, loss="mcxent",
                                    activation="softmax"))
                 .set_input_type(InputType.convolutional(h, w, c)).build())
+
+
+class SimpleCNN(_ZooModel):
+    """A conv, BatchNorm and average-pool stack ending in a fully
+    convolutional softmax head (``zoo/model/SimpleCNN.java``): two 7x7
+    "same" convolutions of 16 channels, then two 5x5 of 32 and two 3x3 of
+    64 and of 128, each pair with BatchNorms, a relu, a 2x2 average pool
+    and dropout 0.5; then a 3x3 convolution of 256, BatchNorm, a 3x3
+    convolution of ``num_labels``, global average pooling and a softmax
+    ``LossLayer``. relu weights and activations, AdaDelta.
+    ``input_shape`` is (channels, height, width)."""
+
+    def __init__(self, num_labels: int = 10, seed: int = 123,
+                 input_shape=(3, 48, 48)):
+        super().__init__(num_labels, seed)
+        self.input_shape = tuple(input_shape)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .activation("relu").weight_init("relu").updater(AdaDelta()).list())
+        b.layer(ConvolutionLayer(n_out=16, kernel_size=(7, 7), convolution_mode="same"))
+        b.layer(BatchNormalizationLayer())
+        b.layer(ConvolutionLayer(n_out=16, kernel_size=(7, 7), convolution_mode="same"))
+        b.layer(BatchNormalizationLayer())
+        b.layer(ActivationLayer(activation="relu"))
+        b.layer(SubsamplingLayer(pooling_type="avg", kernel_size=(2, 2), stride=(2, 2)))
+        b.layer(DropoutLayer(dropout=0.5))
+        for n in (32, 64, 128):
+            k = 5 if n == 32 else 3
+            b.layer(ConvolutionLayer(n_out=n, kernel_size=(k, k), convolution_mode="same"))
+            b.layer(BatchNormalizationLayer())
+            b.layer(ConvolutionLayer(n_out=n, kernel_size=(k, k), convolution_mode="same"))
+            b.layer(BatchNormalizationLayer())
+            b.layer(ActivationLayer(activation="relu"))
+            b.layer(SubsamplingLayer(pooling_type="avg", kernel_size=(2, 2), stride=(2, 2)))
+            b.layer(DropoutLayer(dropout=0.5))
+        b.layer(ConvolutionLayer(n_out=256, kernel_size=(3, 3), convolution_mode="same"))
+        b.layer(BatchNormalizationLayer())
+        b.layer(ConvolutionLayer(n_out=self.num_labels, kernel_size=(3, 3),
+                                 convolution_mode="same", activation="identity"))
+        b.layer(GlobalPoolingLayer(pooling_type="avg"))
+        b.layer(LossLayer(loss="mcxent", activation="softmax"))
+        return b.set_input_type(InputType.convolutional(h, w, c)).build()
 
 
 class AlexNet(_ZooModel):
@@ -192,6 +239,58 @@ class VGG19(VGG16):
     def conf(self):
         return _vgg_conf([(2, 64), (2, 128), (4, 256), (4, 512), (4, 512)],
                          self.num_labels, self.seed, self.input_shape)
+
+
+class Darknet19(_ZooModel):
+    """Darknet-19 (``zoo/model/Darknet19.java``, through DarknetHelper):
+    18 :func:`darknet_block` units of 32 to 1024 channels, five with a 2x2
+    max pool, then a 1x1 convolution of ``num_labels``, global average
+    pooling and a softmax ``LossLayer`` (a ``ComputationGraph``); xavier,
+    Nesterovs(1e-3, 0.9). ``input_shape`` is (channels, height, width).
+    The published weights depend on the input side (224 or 448):
+    :meth:`pretrained_url` and :meth:`pretrained_checksum` name the
+    reference's artifacts, and nothing reads them."""
+
+    def __init__(self, num_labels: int = 1000, seed: int = 123,
+                 input_shape=(3, 224, 224)):
+        super().__init__(num_labels, seed)
+        self.input_shape = tuple(input_shape)
+
+    def _is_448(self) -> bool:
+        return self.input_shape[1] == 448 and self.input_shape[2] == 448
+
+    def pretrained_url(self, pretrained_type: str):
+        if pretrained_type != "imagenet":
+            return None
+        if self._is_448():
+            return "http://blob.deeplearning4j.org/models/darknet19_448_dl4j_inference.v1.zip"
+        return "http://blob.deeplearning4j.org/models/darknet19_dl4j_inference.v1.zip"
+
+    def pretrained_checksum(self, pretrained_type: str) -> int:
+        if pretrained_type != "imagenet":
+            return 0
+        return 870575230 if self._is_448() else 3952910425
+
+    def conf(self):
+        c, h, w = self.input_shape
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .weight_init("xavier").updater(Nesterovs(1e-3, 0.9)).graph_builder()
+             .add_inputs("input").set_input_types(InputType.convolutional(h, w, c)))
+        x = "input"
+        for num, (n_out, filter_size, pool) in enumerate(
+                ((32, 3, 2), (64, 3, 2), (128, 3, 0), (64, 1, 0), (128, 3, 2),
+                 (256, 3, 0), (128, 1, 0), (256, 3, 2), (512, 3, 0), (256, 1, 0),
+                 (512, 3, 0), (256, 1, 0), (512, 3, 2), (1024, 3, 0), (512, 1, 0),
+                 (1024, 3, 0), (512, 1, 0), (1024, 3, 0)), start=1):
+            x = darknet_block(g, num, x, n_out, filter_size=filter_size, pool=pool)
+        g.add_layer("convolution2d_19",
+                    ConvolutionLayer(n_out=self.num_labels, kernel_size=(1, 1),
+                                     convolution_mode="same", activation="identity"), x)
+        g.add_layer("globalpooling", GlobalPoolingLayer(pooling_type="avg"),
+                    "convolution2d_19")
+        g.add_layer("loss", LossLayer(loss="mcxent", activation="softmax"),
+                    "globalpooling")
+        return g.set_outputs("loss").build()
 
 
 class ResNet50(_ZooModel):

@@ -172,8 +172,11 @@ def test_kinds_not_ported_raise():
     # image sequences (cnn_seq) are ported: a rank-4 reshape gives one
     assert pp.output_type("reshape:2,3,2,5", InputType.feed_forward(60)) == \
         InputType.recurrent_convolutional(3, 2, 5, 2)
-    with pytest.raises(NotImplementedError, match="cnn3d"):
-        InputType.convolutional3d(2, 3, 4, 1)
+    # cnn3d is ported: a volume flattens as the reference's does
+    assert InputType.convolutional3d(2, 3, 4, 1).flat_size() == \
+        JIT.convolutional3d(2, 3, 4, 1).flat_size() == 24
+    with pytest.raises(ValueError, match="unknown InputType kind"):
+        InputType(kind="cnn4d")
     with pytest.raises(ValueError, match="unknown preprocessor"):
         pp.apply("nope", torch.zeros(2, 2))
 

@@ -50,6 +50,7 @@ from deeplearning4j_tpu_torch.datasets.normalizers import NormalizerStandardize
 from deeplearning4j_tpu_torch.modelimport import dl4j
 from deeplearning4j_tpu_torch.modelimport import nd4j_binary
 from deeplearning4j_tpu_torch.modelimport import normalizer_serde
+from deeplearning4j_tpu_torch.nn.activations import names as act_names
 from deeplearning4j_tpu_torch.nn.conf import InputType
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
@@ -216,9 +217,7 @@ def _cpu(mod):
     return {"device": "cpu"} if mod is dl4j else {}
 
 
-UNPORTED = ["autoEncoder", "Upsampling2D", "embedding",
-            "convolution1d", "subsampling1d", "CenterLossOutputLayer", "loss",
-            "RnnLossLayer", "CnnLossLayer", "ElementWiseMult", "FrozenLayer"]
+UNPORTED = ["autoEncoder", "FrozenLayer"]
 
 
 @pytest.mark.parametrize("layer_type", UNPORTED)
@@ -228,10 +227,15 @@ def test_unported_layer_raises_naming_it(layer_type):
 
 
 def test_unported_activation_raises_naming_it():
-    with pytest.raises(dl4j.UnsupportedDl4jConfigurationException, match="ELU"):
-        dl4j.import_dl4j_configuration({"confs": [{"layer": {"dense": {
-            "nin": 2, "nout": 2,
-            "activationFn": {"@class": "org.nd4j.linalg.activations.impl.ActivationELU"}}}}]})
+    """Every activation both readers map is ported; one neither reads
+    (DL4J's ActivationPReLU) raises in both, naming it."""
+    conf = {"confs": [{"layer": {"dense": {
+        "nin": 2, "nout": 2,
+        "activationFn": {"@class": "org.nd4j.linalg.activations.impl.ActivationPReLU"}}}}]}
+    for mod in (dl4j, jdl4j):
+        with pytest.raises(mod.UnsupportedDl4jConfigurationException, match="PReLU"):
+            mod.import_dl4j_configuration(conf)
+    assert set(dl4j._ACTIVATIONS.values()) <= set(act_names())
 
 
 def test_preprocessors_are_serializable_specs_in_dl4j_order():
@@ -392,6 +396,32 @@ VOCABULARY = [
     ("GlobalPooling", {"poolingType": "AVG"}),
     ("zeroPadding", {"padding": [1, 2, 3, 4]}),
 ]
+# the types and activations of the small-layer slice
+NEW_VOCABULARY = [
+    ("CenterLossOutputLayer", {"nin": 4, "nout": 3, "alpha": 0.1, "lambda": 0.003,
+                               "activationFn": "SOFTMAX", "lossFn": "MCXENT"}),
+    ("loss", {"activationFn": {"@class": _ACT + "LReLU", "alpha": 0.2}}),
+    ("RnnLossLayer", {"lossFn": {"@class": "org.nd4j.linalg.lossfunctions.impl.LossMCXENT"},
+                      "activationFn": "SOFTMAX"}),
+    ("CnnLossLayer", {"lossFn": "XENT", "activationFn": {"Sigmoid": {}}}),
+    ("convolution1d", {"nin": 3, "nout": 5, "kernelSize": [4, 1], "stride": [2, 1],
+                       "padding": [1, 0], "dilation": [2, 1], "convolutionMode": "Truncate",
+                       "activationFn": {"@class": _ACT + "ELU", "alpha": 0.7}}),
+    ("subsampling1d", {"poolingType": "MAX", "kernelSize": [3, 1], "stride": [2, 1],
+                       "convolutionMode": "Same"}),
+    ("embedding", {"nin": 100, "nout": 8, "hasBias": True, "activationFn": "RELU6"}),
+    ("embedding", {"nin": 100, "nout": 8, "activationFn": "LEAKYRELU",
+                   "leakyreluAlpha": 0.25}),
+    ("Upsampling2D", {"size": [2, 3]}),
+    ("Upsampling2D", {"size": 2}),
+    ("ElementWiseMult", {"nin": 6, "nout": 6, "activationFn": "HARDSIGMOID"}),
+] + [("activation", {"activationFn": a}) for a in (
+    "RELU6", "LEAKYRELU", "ELU", "HARDSIGMOID", "HARDTANH", "RATIONALTANH",
+    "SOFTPLUS", "SOFTSIGN", "CUBE", "SWISH", "THRESHOLDEDRELU", "RRELU", "LRELU",
+    {"@class": _ACT + "RReLU", "alpha": 0.1}, {"@class": _ACT + "ThresholdedReLU",
+                                               "theta": 0.4},
+    {"ELU": {"alpha": 0.3}})]
+VOCABULARY += NEW_VOCABULARY
 
 
 @pytest.mark.parametrize("entry", VOCABULARY,
@@ -401,3 +431,54 @@ def test_layer_vocabulary_matches_reference(entry):
     mine, ref = dl4j.convert_dl4j_layer(t, dict(cfg)), jdl4j.convert_dl4j_layer(t, dict(cfg))
     assert type(mine).__name__ == type(ref).__name__
     assert mine.to_dict() == ref.to_dict()
+
+
+def test_configuration_of_the_new_types_reads_as_the_reference():
+    """One DL4J configuration that uses every newly accepted layer type
+    and activation, read by both readers to equal configurations."""
+    conf = {"confs": [{"seed": 7, "layer": {t: dict(cfg)}} for t, cfg in NEW_VOCABULARY]}
+    mine, ref = dl4j.import_dl4j_configuration(conf), jdl4j.import_dl4j_configuration(conf)
+    assert len(mine.layers) == len(ref.layers) == len(NEW_VOCABULARY)
+    assert [type(layer).__name__ for layer in mine.layers] == \
+        [type(layer).__name__ for layer in ref.layers]
+    assert json.loads(mine.to_json()) == json.loads(ref.to_json())
+
+
+@pytest.mark.parametrize("kind", ["feed_forward", "conv2d"])
+def test_zip_of_the_new_layers_loads_both_ways(tmp_path, kind):
+    """A network of the new layers (the embedding, PReLU and centre-loss
+    one; the separable, depthwise and transposed convolutions into a
+    CnnLossLayer), one Adam step in, through the model zip: the JAX
+    package's zip in the port and the port's in the JAX package, with
+    ``W``, ``b``, ``pW``, ``cL`` and PReLU's ``W`` and their Adam state
+    carried exactly."""
+    from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JMLN
+    from deeplearning4j_tpu.util import model_serializer as jms
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from test_torch_conv_family import JPKG, _conv2d_net, _net_data, jax_init
+    from test_torch_small_layers import JAdam, JL, _ff_net
+
+    if kind == "feed_forward":
+        jconf = _ff_net(JL, JAdam, JNNC, JIT)
+        rng = np.random.default_rng(2)
+        x = rng.integers(0, 50, (8, 1))
+        y = np.eye(5, dtype=np.float32)[rng.integers(0, 5, 8)]
+    else:
+        jconf = _conv2d_net(JPKG, JNNC, JIT)
+        x, y, _ = _net_data("conv2d")
+    jnet = jax_init(JMLN, jconf)
+    jnet.fit(x, y)
+    jzip, pzip = tmp_path / "jax.zip", tmp_path / "port.zip"
+    jms.write_model(jnet, jzip)
+    net = MultiLayerNetwork.load(jzip, device="cpu")
+    names = {n for named in export_params(net) for n in named}
+    assert names >= ({"W", "cL"} if kind == "feed_forward" else {"W", "b", "pW"})
+    np.testing.assert_allclose(net.output(x).numpy(), np.asarray(jnet.output(x)),
+                               rtol=0, atol=EXPORT_TOL)
+    _assert_equal_trees(export_params(net), to_np(jnet.params), "params")
+    _assert_equal_trees(export_updater_state(net), to_np(jnet.updater_states), "updater")
+    net.save(pzip)
+    back = jms.restore_multi_layer_network(pzip)
+    assert json.loads(back.conf.to_json()) == json.loads(jnet.conf.to_json())
+    _assert_equal_trees(to_np(back.params), export_params(net), "params")
+    _assert_equal_trees(to_np(back.updater_states), export_updater_state(net), "updater")

@@ -2,15 +2,19 @@
 
 ``AlexNet``, ``VGG16``, ``VGG19``, ``GoogLeNet`` (with
 ``inception_module``), ``TextGenerationLSTM``, ``TransformerEncoder``
-(with ``transformer_encoder_block``) and ``VisionTransformer``, at the
+(with ``transformer_encoder_block``), ``VisionTransformer``,
+``SimpleCNN`` and ``Darknet19`` (with ``darknet_block``), at the
 published sizes from the configuration only (no network is
 initialized): the parameter count and the layer or vertex names, in
 order, equal the JAX package's ``conf()``; the configuration JSON reads
-both ways. Then the CNNs: a reduced twin of AlexNet, VGG16 and GoogLeNet
-(the sizes of the JAX package's ``tests/test_zoo.py``) gives the
+both ways. Then the CNNs: a reduced twin of AlexNet, VGG16, GoogLeNet,
+SimpleCNN and Darknet19 (the sizes of the JAX package's
+``tests/test_zoo.py``; SimpleCNN at 32x32, as its pretrained-weights test
+builds it) gives the
 reference's ``output`` within 1e-5 from the same weights (carried by
 ``load_reference_params``), and after 3 ``fit`` steps of the model's own
-updater (Nesterovs; AlexNet with l2) each parameter lies within 2e-5 x its
+updater (Nesterovs, AlexNet with l2; SimpleCNN's AdaDelta) each parameter
+lies within 2e-5 x its
 tensor's largest entry of the reference's, with the dropout on, both
 packages drawing the same masks (``tests/torch_putin.py``). VGG19 is
 checked on its configuration only, as the JAX test does. The sequence
@@ -29,7 +33,10 @@ positions, within 1e-6); after 3 f32 steps VGG16's and AlexNet's biases
 lie up to 4.3e-3 of their largest entry from the f64 steps. The port's
 f32 convolutions on the CPU (oneDNN) differ from f64 by ~1e-6 relative,
 the JAX package's by ~1e-7, so the port flips such near-ties more often
-there; in f64 the two packages agree to 1e-15.
+there; in f64 the two packages agree to 1e-15. Darknet19 runs at the
+JAX test's 64x64: at 32x32 its last five blocks see 1x1 maps, each
+BatchNorm then normalizes two values a channel, and even in f64 the two
+packages' scores part from 1e-10 to 0.3 relative within 3 steps.
 """
 
 import functools
@@ -69,7 +76,7 @@ VIT_B16 = dict(image_size=224, patch_size=16, n_layers=12, d_model=768,
                n_heads=12, d_ff=3072)
 PUBLISHED = {"AlexNet": {}, "VGG16": {}, "VGG19": {}, "GoogLeNet": {},
              "TextGenerationLSTM": {}, "TransformerEncoder": {},
-             "VisionTransformer": VIT_B16}
+             "VisionTransformer": VIT_B16, "SimpleCNN": {}, "Darknet19": {}}
 ENC = dict(num_labels=2, n_layers=2, d_model=16, n_heads=2, d_ff=32,
            vocab_size=50, max_length=12, seed=7)
 REDUCED = {
@@ -80,10 +87,12 @@ REDUCED = {
     "TransformerEncoder": ENC,
     "VisionTransformer": dict(num_labels=2, image_size=16, patch_size=4,
                               n_layers=2, d_model=32, n_heads=4, d_ff=64, seed=7),
+    "SimpleCNN": dict(num_labels=5, input_shape=(3, 32, 32)),
+    "Darknet19": dict(num_labels=6, input_shape=(3, 64, 64)),
 }
-CNNS = ["AlexNet", "VGG16", "GoogLeNet"]
+CNNS = ["AlexNet", "VGG16", "GoogLeNet", "SimpleCNN", "Darknet19"]
 # the models whose training forward draws dropout masks
-DROPOUT = {"AlexNet", "VGG16", "GoogLeNet"}
+DROPOUT = {"AlexNet", "VGG16", "GoogLeNet", "SimpleCNN"}
 # the models whose step twins run in float64 (see the module docstring)
 F64_STEPS = set(CNNS)
 
@@ -149,6 +158,24 @@ def test_published_models_keep_the_reference_defaults():
         "clip_elementwise_absolute_value", 10.0)
     assert [layer.n_out for layer in tg.layers[:2]] == [256, 256]
     assert P.VisionTransformer(**VIT_B16).num_patches == 196
+    for name in ("SimpleCNN", "Darknet19"):
+        mine, ref = getattr(P, name)(), getattr(J, name)()
+        assert (mine.num_labels, mine.seed, mine.input_shape) == \
+            (ref.num_labels, ref.seed, ref.input_shape)
+    simple = P.SimpleCNN().conf()
+    assert type(simple.global_conf.updater).__name__ == "AdaDelta"
+    assert type(simple.layers[-1]).__name__ == "LossLayer"
+    dark = P.Darknet19().conf()
+    assert type(dark.global_conf.updater).__name__ == "Nesterovs"
+    assert (dark.global_conf.updater.learning_rate, dark.global_conf.updater.momentum) \
+        == (1e-3, 0.9)
+    # the reference's "leakyrelu" (alpha 0.01), not DarknetHelper's 0.1
+    assert dark.vertices["activation_1"].obj.activation == "leakyrelu"
+    for shape in ((3, 224, 224), (3, 448, 448)):
+        mine, ref = P.Darknet19(input_shape=shape), J.Darknet19(input_shape=shape)
+        for kind in ("imagenet", "cifar10"):
+            assert mine.pretrained_url(kind) == ref.pretrained_url(kind)
+            assert mine.pretrained_checksum(kind) == ref.pretrained_checksum(kind)
 
 
 # ------------------------------------------------------------- reduced twins
