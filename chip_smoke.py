@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs twenty-three phases:
+every kernel, and runs twenty-five phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -219,7 +219,33 @@ every kernel, and runs twenty-three phases:
    8, its Nesterovs updater) in f32 and bf16: a fit, 3 timed fits (median
    step, images/s), the busy share of 2 profiled fits, peak memory, one
    ``output`` (rows summing to 1); and ``SimpleCNN`` (48x48x3, AdaDelta,
-   f32): a fit and an ``output``. Neither launches a kernel.
+   f32): a fit and an ``output``. Neither launches a kernel;
+24. layerwise pretraining, each path's K2 launches counted: DL4J's
+   VaeMNISTAnomaly at its published widths (784 -> [256, 256] -> 32 ->
+   [256, 256] -> Bernoulli, Adam(1e-3), l2 1e-4) pretrains 20 batches of
+   128 synthetic binarized rows (14 K2 launches a step; the losses finite
+   and the last 5 below the first 5; median step, examples/s, busy share,
+   peak memory); one step against CPU twins with the same ε (each
+   parameter and Adam slot within 1e-5 x its largest entry, or no farther
+   from an f64 twin than 4x the CPU f32 twin), 3 against a stock-Adam
+   twin on the card (1e-5), ``reconstruction_log_probability`` with 16
+   samples over 256 rows against the CPU's (1e-5 relative); a stacked
+   denoising autoencoder (784 -> 256 -> 64 -> softmax 10, corruption 0.3)
+   pretrained and fitted as a MultiLayerNetwork and as a ComputationGraph
+   through ``pretrain_layer(name)`` from the same weights and draws
+   (1e-6); FrozenLayer (its tensors bit for bit unchanged from a zero Adam
+   state, moved as the CPU's from a carried one), TimeDistributedWrapper
+   over image sequences and MixtureOfExpertsLayer networks, 3 steps each
+   against CPU twins;
+25. object detection: the zoo's TinyYOLO at its defaults (416x416, 20
+   labels) on 16 synthetic scenes: one warm-up and 10 timed fits (median
+   step, images/s, busy share, peak memory, FLOP bound share; the loss
+   falling), ``output`` decoded into detections (conf 0.1, NMS 0.4) on the
+   card and on the CPU from the same raw output (equal lists; the decode
+   and NMS host ms), one batch-2 step's loss against the CPU's f64 step
+   (1e-5 relative); then YOLO2 at its defaults (608x608, 80 labels, batch
+   8): one fit and one ``output`` ([8, 19, 19, 425]). K2 takes one launch
+   per parameter tensor a step.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -587,6 +613,48 @@ SL_ACTIVATIONS = ("relu6", "leakyrelu", "elu", "hardsigmoid", "hardtanh",
                   "softplus", "softsign", "cube", "swish", "mish")
 SIMPLE_CNN_SHAPE = (3, 48, 48)
 ROWSUM_TOL_BF16 = ROWSUM_TOL + 2.0 ** -8
+# layerwise pretraining: DL4J's VaeMNISTAnomaly (dl4j-examples,
+# unsupervised/variational/VaeMNISTAnomaly.java) at its published widths,
+# 784 -> encoder [256, 256] -> 32 -> decoder [256, 256] -> Bernoulli
+# (sigmoid), leakyrelu, Adam(1e-3), xavier, l2 1e-4 (which the pretrain
+# step does not add), batch 128; MNIST is not in the repository, so its
+# rows are synthetic: PT_PROTOTYPES seeded binary patterns of density
+# PT_DENSITY, each row one of them with PT_FLIP of its bits flipped (a
+# structure the loss can learn). PT_BATCHES pretrain steps (14 K2 launches
+# each), PT_PROFILED more under the profiler; one step against CPU twins
+# and 3 against a stock-Adam twin on the card, each parameter and Adam
+# slot within PT_TOL x its largest entry (else the small-layer f64 form,
+# SL_F32_FACTOR); reconstruction_log_probability over PT_RECON_ROWS rows
+# with PT_RECON_SAMPLES samples within PT_TOL relative of the CPU's, the
+# same draws handed to both. A stacked denoising autoencoder (784 -> 256
+# -> 64 -> softmax 10, corruption 0.3) pretrains PT_AE_BATCHES steps a
+# layer and fits PT_FIT_STEPS, as a MultiLayerNetwork and as a
+# ComputationGraph from the same weights and draws, within PT_GRAPH_TOL x
+# each tensor's largest entry. FrozenLayer, TimeDistributedWrapper (over
+# cnn_seq) and MixtureOfExpertsLayer networks take PT_FIT_STEPS Adam steps
+# against CPU twins in the small-layer form
+PT_BATCH, PT_BATCHES, PT_PROFILED, PT_TOL, PT_GRAPH_TOL = 128, 20, 5, 1e-5, 1e-6
+PT_PROTOTYPES, PT_DENSITY, PT_FLIP = 10, 0.15, 0.05
+PT_RECON_ROWS, PT_RECON_SAMPLES, PT_AE_BATCHES, PT_FIT_STEPS = 256, 16, 5, 3
+VAE_MNIST = dict(n_in=784, n_out=32, encoder_layer_sizes=(256, 256),
+                 decoder_layer_sizes=(256, 256))
+PT_TD_SEQ = (16, 8, 28, 28, 1)  # [N, T, H, W, C] image sequences
+# object detection: the zoo's TinyYOLO at its defaults ((3, 416, 416), 20
+# VOC labels, seed 123, Adam(1e-3)) on YOLO_BATCH synthetic scenes of
+# example 18's kind (bright squares whose side and channel encode the
+# class; labels [13, 13, 25] in absolute grid units): one warm-up and
+# YOLO_TIMED timed fits on one repeated batch (losses finite, the last
+# below the first), 2 profiled; output at YOLO_BATCH decoded on the card
+# and on the CPU from the same raw output (conf >= YOLO_CONF, NMS at
+# YOLO_NMS): the same detections in the same order, boxes and
+# confidences within YOLO_DET_TOL. At YOLO_TWIN_BATCH one f32 step on the
+# card against the same step in f64 on the CPU: the loss within
+# YOLO_LOSS_TOL relative (the step's max pools make the f32 gradients
+# ill-conditioned, ROADMAP §C, so they are printed beside the CPU f32
+# twin's distance, not held). YOLO2 at its defaults ((3, 608, 608), 80
+# COCO labels) at YOLO2_BATCH: one fit and one output
+YOLO_BATCH, YOLO_TIMED, YOLO_CONF, YOLO_NMS, YOLO_DET_TOL = 16, 10, 0.1, 0.4, 1e-5
+YOLO_TWIN_BATCH, YOLO_LOSS_TOL, YOLO2_BATCH = 2, 1e-5, 8
 # the DL4J-format fixtures (tests/fixtures): output within rtol 1e-5 / atol
 # 1e-6 of the recorded one (the CPU tests' limit); the convnet's 3 more
 # fit steps on the fused updater, 8 K2 launches a step
@@ -4467,6 +4535,587 @@ def small_layers_phase(ck, card):
     return {p: c["fused_adam"] for p, c in paths.items()}
 
 
+# --------------------------------------------------------------- pretraining
+class handed_draws:
+    """A context in which ``nn/dropout.py``'s ``bernoulli``, ``normal`` and
+    ``uniform`` hand out the given ``(kind, CPU tensor)`` draws in turn
+    (cycling), moved to the asking device (and dtype), so that a network on
+    the card and its twin on the CPU take the same draws. ``calls``
+    counts them."""
+
+    def __init__(self, draws):
+        self.draws, self.calls = list(draws), 0
+
+    def _take(self, kind, shape, device, dtype):
+        k, t = self.draws[self.calls % len(self.draws)]
+        if k != kind or tuple(t.shape) != tuple(shape):
+            raise RuntimeError(f"draw {self.calls}: asked {kind}{tuple(shape)}, "
+                               f"handed {k}{tuple(t.shape)}")
+        self.calls += 1
+        return t.to(device, dtype)
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.nn import dropout as d
+        self._saved = (d.bernoulli, d.normal, d.uniform)
+        d.bernoulli = lambda p, shape, gen, device, dtype=None: self._take(
+            "bernoulli", shape, device, torch.bool)
+        d.normal = lambda shape, gen, device, dtype=torch.float32: self._take(
+            "normal", shape, device, dtype)
+        d.uniform = lambda shape, gen, device, dtype=torch.float32, low=0.0, high=1.0: \
+            self._take("uniform", shape, device, dtype)
+        return self
+
+    def __exit__(self, *exc):
+        from deeplearning4j_tpu_torch.nn import dropout as d
+        d.bernoulli, d.normal, d.uniform = self._saved
+        return False
+
+
+class StepRecorder:
+    """The batches of a ``pretrain`` call, handed out one by one: a CUDA
+    event before each batch and after the last, and the network's loss
+    (a device scalar, not read) after each step."""
+
+    def __init__(self, net, batches):
+        self.net, self.batches, self.events, self.losses = net, batches, [], []
+
+    def _mark(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+    def __iter__(self):
+        for ds in self.batches:
+            self._mark()
+            yield ds
+            self.losses.append(self.net._score)
+        self._mark()
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def pt_rows(n, seed):
+    """``(rows, one-hot labels)`` on the card: n binarized 784-wide rows,
+    each one of PT_PROTOTYPES seeded patterns (density PT_DENSITY) with
+    PT_FLIP of its bits flipped, labelled by its pattern."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    protos = (torch.rand((PT_PROTOTYPES, 784), generator=gen, device="cuda")
+              < PT_DENSITY).float()
+    idx = torch.randint(0, PT_PROTOTYPES, (n,), generator=gen, device="cuda")
+    flip = (torch.rand((n, 784), generator=gen, device="cuda") < PT_FLIP).float()
+    return (protos[idx] - flip).abs(), F.one_hot(idx, PT_PROTOTYPES).float()
+
+
+def pt_batches(rows, labels, start, count):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    return [DataSet(rows[i * PT_BATCH:(i + 1) * PT_BATCH],
+                    labels[i * PT_BATCH:(i + 1) * PT_BATCH])
+            for i in range(start, start + count)]
+
+
+def vae_mnist_conf(dtype="float32"):
+    """DL4J's VaeMNISTAnomaly network (see PT_BATCH's comment)."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    conf = (NeuralNetConfiguration.builder().seed(12345).updater(Adam(1e-3))
+            .weight_init("xavier").l2(1e-4).list()
+            .layer(L.VariationalAutoencoderLayer(
+                **VAE_MNIST, activation="leakyrelu", pzx_activation="identity",
+                reconstruction_distribution=L.BernoulliReconstructionDistribution(
+                    activation="sigmoid")))
+            .set_input_type(InputType.feed_forward(784)).build())
+    conf.global_conf.dtype = dtype
+    return conf
+
+
+def pt_net(conf_fn, weights, device=None, dtype="float32", states=None, updater=None):
+    """A network of ``conf_fn`` in ``dtype`` on ``device`` (the card by
+    default) with the given weights (and layer and updater states)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import (
+        load_reference_params,
+        load_reference_states,
+        load_reference_updater_state,
+    )
+
+    conf = conf_fn()
+    conf.global_conf.dtype = dtype
+    cls = ComputationGraph if hasattr(conf, "vertices") else MultiLayerNetwork
+    net = load_reference_params(cls(conf, device=device).init(), weights)
+    if states is not None:
+        load_reference_states(net, states)
+    if updater is not None:
+        load_reference_updater_state(net, updater)
+    return net
+
+
+def pt_vae(ck, rows):
+    """The VaeMNISTAnomaly network on the card: the timed pretraining run,
+    one step against CPU twins, 3 steps against a stock-Adam twin, the
+    reconstruction log probability against the CPU's."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import export_params
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = MultiLayerNetwork(vae_mnist_conf()).init()
+    weights = export_params(net)
+    tensors = tensors_of(net)
+    rec = StepRecorder(net, pt_batches(rows, rows, 0, PT_BATCHES))
+    zero_launches(ck)
+    net.pretrain(rec)
+    step_ms = rec.step_ms()
+    launches = read_launches(ck)
+    losses = [float(v) for v in rec.losses]
+    profiled_batches = pt_batches(rows, rows, PT_BATCHES, PT_PROFILED)
+    row = {"tensors": tensors, "batch": PT_BATCH, "steps": len(losses),
+           "losses": losses, "iteration": net.iteration,
+           "median_step_ms": float(np.median(step_ms)),
+           "examples_per_s": PT_BATCH / (float(np.median(step_ms)) / 1e3),
+           "step_ms": step_ms, "launches": launches,
+           **busy(lambda: net.pretrain_layer(0, profiled_batches), PT_PROFILED),
+           "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    falling = np.mean(losses[-5:]) < np.mean(losses[:5])
+    bad = []
+    if not (np.isfinite(losses).all() and falling and net.iteration == 0):
+        bad.append("losses")
+    if unexpected_launches(launches, {"fused_adam": tensors * PT_BATCHES}):
+        bad.append("launches")
+
+    # one step against the CPU twins, the same ε handed to each
+    cpu_gen = torch.Generator().manual_seed(17)
+    x = rows[:PT_BATCH]
+    eps = [("normal", torch.randn((PT_BATCH, VAE_MNIST["n_out"]), generator=cpu_gen))]
+    card = pt_net(vae_mnist_conf, weights)
+    cpu32 = pt_net(vae_mnist_conf, weights, "cpu")
+    cpu64 = pt_net(vae_mnist_conf, weights, "cpu", "float64")
+    for twin, xx in ((card, x), (cpu32, x.cpu()), (cpu64, x.cpu())):
+        with handed_draws(eps):
+            twin.pretrain_layer(0, xx)
+    row["one_step"] = {"loss": card.score_, "loss_cpu": cpu32.score_,
+                       "params": sl_against_cpu(card.params, cpu32.params, cpu64.params),
+                       "slots": sl_against_cpu(card.updater_states, cpu32.updater_states,
+                                               cpu64.updater_states)}
+    if any(row["one_step"][k]["failing"] for k in ("params", "slots")):
+        bad.append("one_step")
+
+    # 3 steps on the fused updater against 3 on stock Adam, both on the card
+    fused = pt_net(vae_mnist_conf, weights)
+    with handed_draws(eps):
+        fused.pretrain_layer(0, [DataSet(x, x)] * 3)
+    helpers.clear_helper("updater")
+    try:
+        stock = pt_net(vae_mnist_conf, weights)
+        with handed_draws(eps):
+            stock.pretrain_layer(0, [DataSet(x, x)] * 3)
+    finally:
+        helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    got = {**sl_leaves(fused.params, "p"), **sl_leaves(fused.updater_states, "u")}
+    want = {**sl_leaves(stock.params, "p"), **sl_leaves(stock.updater_states, "u")}
+    worst = max((sl_rel(got[k], want[k]), k) for k in want)
+    row["stock_adam_3_steps"] = {"max_rel_diff": list(worst), "limit": PT_TOL}
+    if worst[0] > PT_TOL:
+        bad.append("stock_adam")
+
+    # the reconstruction log probability, the same draws on both
+    xr = rows[-PT_RECON_ROWS:]
+    draws = [("normal", torch.randn((PT_RECON_ROWS, VAE_MNIST["n_out"]), generator=cpu_gen))
+             for _ in range(PT_RECON_SAMPLES)]
+    layer = card.layers[0]
+    with torch.no_grad():
+        with handed_draws(draws) as h:
+            lp = layer.reconstruction_log_probability(card.params[0], xr,
+                                                      card.dropout_generator,
+                                                      PT_RECON_SAMPLES)
+        with handed_draws(draws):
+            lp_cpu = layer.reconstruction_log_probability(cpu32.params[0], xr.cpu(),
+                                                          cpu32.dropout_generator,
+                                                          PT_RECON_SAMPLES)
+    row["reconstruction_log_probability"] = {
+        "rows": PT_RECON_ROWS, "samples": h.calls, "mean": lp.mean().item(),
+        "max_rel_diff": sl_rel(lp, lp_cpu), "limit": PT_TOL}
+    if h.calls != PT_RECON_SAMPLES or sl_rel(lp, lp_cpu) > PT_TOL:
+        bad.append("reconstruction_log_probability")
+    row["ok"] = not bad
+    return row, {"pretrain_vae": launches["fused_adam"]}, bad
+
+
+def dae_conf(graph=False):
+    """A stacked denoising autoencoder: AutoEncoder(256) -> AutoEncoder(64)
+    -> softmax output (PT_PROTOTYPES), corruption 0.3, Adam(1e-3), as a
+    list or as a graph ("ae1", "ae2", "out")."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    ae1 = L.AutoEncoderLayer(n_out=256, corruption_level=0.3)
+    ae2 = L.AutoEncoderLayer(n_out=64, corruption_level=0.3)
+    out = L.OutputLayer(n_out=PT_PROTOTYPES, loss="mcxent", activation="softmax")
+    b = NeuralNetConfiguration.builder().seed(21).updater(Adam(1e-3)).weight_init("xavier")
+    if not graph:
+        return (b.list().layer(ae1).layer(ae2).layer(out)
+                .set_input_type(InputType.feed_forward(784)).build())
+    return (b.graph_builder().add_inputs("in").set_input_types(InputType.feed_forward(784))
+            .add_layer("ae1", ae1, "in").add_layer("ae2", ae2, "ae1")
+            .add_layer("out", out, "ae2").set_outputs("out").build())
+
+
+def pt_dae(ck, rows, labels):
+    """The stacked denoising autoencoder pretrained and fitted on the card
+    as a MultiLayerNetwork and as a ComputationGraph from the same weights
+    and draws (both networks' dropout generators start from the seed)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import export_params
+
+    mln = MultiLayerNetwork(dae_conf()).init()
+    w = export_params(mln)
+    names = ("ae1", "ae2", "out")
+    graph = pt_net(lambda: dae_conf(True), dict(zip(names, w)))
+    batches = pt_batches(rows, labels, 0, PT_AE_BATCHES)
+    x, y = rows[:PT_BATCH], labels[:PT_BATCH]
+    paths, row = {}, {}
+    for key, net in (("mln", mln), ("graph", graph)):
+        zero_launches(ck)
+        net.pretrain(batches)
+        pretrain_loss = net.score_
+        fit_losses = []
+        for _ in range(PT_FIT_STEPS):
+            net.fit(x, y)
+            fit_losses.append(net.score_)
+        paths[f"pretrain_dae_{key}"] = read_launches(ck)
+        row[key] = {"pretrain_loss": pretrain_loss, "fit_losses": fit_losses,
+                    "launches": paths[f"pretrain_dae_{key}"]}
+    worst = (0.0, "")
+    for i, name in enumerate(names):
+        for n, t in mln.params[i].items():
+            worst = max(worst, (sl_rel(graph.params[name][n], t), f"{name}/{n}"))
+            for slot, s in mln.updater_states[i][n].items():
+                worst = max(worst, (sl_rel(graph.updater_states[name][n][slot], s),
+                                    f"{name}/{n}/{slot}"))
+    want = {"fused_adam": 3 * 2 * PT_AE_BATCHES + tensors_of(mln) * PT_FIT_STEPS}
+    bad = [k for k in paths if unexpected_launches(paths[k], want)]
+    if worst[0] > PT_GRAPH_TOL:
+        bad.append("graph_vs_multilayer")
+    if not all(np.isfinite(row[k]["fit_losses"]).all() for k in ("mln", "graph")):
+        bad.append("losses")
+    row.update({"graph_vs_multilayer": list(worst), "limit": PT_GRAPH_TOL,
+                "corruption": 0.3, "ok": not bad})
+    return row, {p: c["fused_adam"] for p, c in paths.items()}, bad
+
+
+def wrapper_confs():
+    """``{name: conf builder}``: FrozenLayer(Dense 256) -> Dense(128) ->
+    softmax; TimeDistributed convolution, pool and global pool over
+    PT_TD_SEQ -> RnnOutputLayer; MixtureOfExperts(256, 8 experts, top 2,
+    collecting its gates) -> softmax. Adam(1e-3) each."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    def base(seed):
+        return NeuralNetConfiguration.builder().seed(seed).updater(Adam(1e-3)).list()
+
+    out = lambda: L.OutputLayer(n_out=PT_PROTOTYPES, loss="mcxent", activation="softmax")  # noqa: E731
+    n, t, h, w, c = PT_TD_SEQ
+    return {
+        "frozen": lambda: (base(22).layer(L.FrozenLayer(layer=L.DenseLayer(
+            n_out=256, activation="relu"))).layer(L.DenseLayer(n_out=128, activation="relu"))
+            .layer(out()).set_input_type(InputType.feed_forward(784)).build()),
+        "time_distributed": lambda: (base(23).layer(L.TimeDistributedWrapper(
+            layer=L.ConvolutionLayer(n_out=8, kernel_size=(3, 3), convolution_mode="same",
+                                     activation="relu")))
+            .layer(L.TimeDistributedWrapper(layer=L.SubsamplingLayer(kernel_size=(2, 2),
+                                                                     stride=(2, 2))))
+            .layer(L.TimeDistributedWrapper(layer=L.GlobalPoolingLayer(pooling_type="avg")))
+            .layer(L.RnnOutputLayer(n_out=PT_PROTOTYPES, loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.recurrent_convolutional(h, w, c, t)).build()),
+        "moe": lambda: (base(24).layer(L.MixtureOfExpertsLayer(
+            n_out=256, n_experts=8, top_k=2, collect_gates=True)).layer(out())
+            .set_input_type(InputType.feed_forward(784)).build()),
+    }
+
+
+def pt_wrapper(ck, name, conf_fn, x, y, carried):
+    """PT_FIT_STEPS Adam steps on the card against CPU twins (f32, f64)
+    from the same weights, and with ``carried`` from a non-zero Adam state
+    of layer 0 (seeded) on all three."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import export_params, export_updater_state
+
+    cpu = MultiLayerNetwork(conf_fn(), device="cpu").init()
+    weights, upd = export_params(cpu), export_updater_state(cpu)
+    if carried:
+        rng = np.random.default_rng(25)
+        for slots in upd[0].values():
+            slots["m"] = (1e-3 * rng.standard_normal(slots["m"].shape)).astype(np.float32)
+            slots["v"] = (1e-6 * rng.random(slots["v"].shape)).astype(np.float32)
+    nets = {key: pt_net(conf_fn, weights, dev, dt, updater=upd)
+            for key, dev, dt in (("card", None, "float32"), ("cpu32", "cpu", "float32"),
+                                 ("cpu64", "cpu", "float64"))}
+    for key in ("cpu32", "cpu64"):
+        for _ in range(PT_FIT_STEPS):
+            nets[key].fit(x.cpu(), y.cpu())
+    zero_launches(ck)
+    losses = []
+    for _ in range(PT_FIT_STEPS):
+        nets["card"].fit(x, y)
+        losses.append(nets["card"].score_)
+    launches = read_launches(ck)
+    card = nets["card"]
+    row = {"tensors": tensors_of(card), "carried_adam_state": carried, "losses": losses,
+           "cpu_losses_f32": nets["cpu32"].score_,
+           **{k: sl_against_cpu(getattr(card, a), getattr(nets["cpu32"], a),
+                                getattr(nets["cpu64"], a))
+              for k, a in (("params", "params"), ("slots", "updater_states"))}}
+    bad = [k for k in ("params", "slots") if row[k]["failing"]]
+    if name == "frozen":
+        still = all(torch.equal(t.cpu(), torch.from_numpy(weights[0][n]))
+                    for n, t in card.params[0].items())
+        row["frozen_unchanged"] = still
+        if still == carried:  # unchanged from a zero state, moved from a carried one
+            bad.append("frozen")
+    if name == "moe":
+        gates = card.states[0]["gates"]
+        row["gates"] = {"shape": list(gates.shape),
+                        "experts_per_token": sorted(set((gates > 0).sum(-1).tolist()))}
+        if row["gates"]["experts_per_token"] != [2]:
+            bad.append("gates")
+    if unexpected_launches(launches, {"fused_adam": row["tensors"] * PT_FIT_STEPS}):
+        bad.append("launches")
+    if not np.isfinite(losses).all():
+        bad.append("losses")
+    row["ok"] = not bad
+    return row, launches["fused_adam"], bad
+
+
+def pretrain_phase(ck, card):
+    """Layerwise pretraining, the wrappers and the mixture of experts on
+    the card (see the module docstring). Returns K2's launches by path."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    paths, failures = {}, []
+    rows, labels = pt_rows(PT_BATCH * (PT_BATCHES + PT_PROFILED) + PT_RECON_ROWS, seed=17)
+    try:
+        row, got, bad = pt_vae(ck, rows)
+        paths.update(got)
+        print("pretrain " + json.dumps({"network": "vae_mnist_anomaly", "card": card,
+                                        **VAE_MNIST, **row}), flush=True)
+        failures += [f"vae: {b}" for b in bad]
+        row, got, bad = pt_dae(ck, rows, labels)
+        paths.update(got)
+        print("pretrain " + json.dumps({"network": "stacked_denoising_autoencoder",
+                                        **row}), flush=True)
+        failures += [f"dae: {b}" for b in bad]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(26)
+        seq = torch.randn(PT_TD_SEQ, generator=gen, device="cuda")
+        seq_y = F.one_hot(torch.randint(0, PT_PROTOTYPES, PT_TD_SEQ[:2], generator=gen,
+                                        device="cuda"), PT_PROTOTYPES).float()
+        data = {"frozen": (rows[:PT_BATCH], labels[:PT_BATCH]),
+                "time_distributed": (seq, seq_y),
+                "moe": (rows[:PT_BATCH], labels[:PT_BATCH])}
+        for name, conf_fn in wrapper_confs().items():
+            for carried in ((False, True) if name == "frozen" else (False,)):
+                row, launches, bad = pt_wrapper(ck, name, conf_fn, *data[name], carried)
+                key = f"pretrain_{name}" + ("_carried" if carried else "")
+                paths[key] = launches
+                print("pretrain " + json.dumps({"network": key, **row}), flush=True)
+                failures += [f"{key}: {b}" for b in bad]
+    finally:
+        helpers.clear_helper("updater")
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"pretrain: {failures}")
+    return paths
+
+
+# ------------------------------------------------------------------- yolo
+def yolo_scenes(n, size, n_classes, seed):
+    """``n`` scenes of example 18's kind at ``size``, on the card: noise,
+    then 1 to 3 bright squares each, whose side (32 to 120 pixels) and
+    channel encode the class; labels ``[size/32, size/32, 5 + n_classes]``
+    (centre and size in absolute grid units, the object flag, one-hot)."""
+    rng = np.random.default_rng(seed)
+    g = size // 32
+    x = rng.normal(0.0, 0.1, size=(n, size, size, 3)).astype(np.float32)
+    lab = np.zeros((n, g, g, 5 + n_classes), np.float32)
+    for i in range(n):
+        for _ in range(int(rng.integers(1, 4))):
+            cls = int(rng.integers(0, n_classes))
+            side = min(32 + 8 * (cls % 12), size // 2)
+            cy, cx = rng.uniform(side / 2, size - side / 2, 2)
+            x[i, int(cy - side / 2):int(cy + side / 2),
+              int(cx - side / 2):int(cx + side / 2), cls % 3] += 2.0
+            gy, gx = int(cy // 32), int(cx // 32)
+            lab[i, gy, gx, :5] = [cx / 32, cy / 32, side / 32, side / 32, 1.0]
+            lab[i, gy, gx, 5:] = 0.0
+            lab[i, gy, gx, 5 + cls] = 1.0
+    return torch.from_numpy(x).cuda(), torch.from_numpy(lab).cuda()
+
+
+def same_detections(got, want):
+    """The two detection lists compared: count, order (example, class),
+    the worst difference of a box or confidence."""
+    out = {"count": len(got), "count_cpu": len(want)}
+    if len(got) != len(want):
+        return {**out, "ok": False}
+    order = all((a.example, a.predicted_class) == (b.example, b.predicted_class)
+                for a, b in zip(got, want))
+    worst = max((abs(getattr(a, k) - getattr(b, k)) for a, b in zip(got, want)
+                 for k in ("center_x", "center_y", "width", "height", "confidence")),
+                default=0.0)
+    return {**out, "order_equal": order, "max_diff": worst, "limit": YOLO_DET_TOL,
+            "ok": order and worst <= YOLO_DET_TOL}
+
+
+def yolo_twin(net, x, y):
+    """One step's loss and gradients at YOLO_TWIN_BATCH on the card (f32)
+    against the same on the CPU in f64 and f32, from ``net``'s weights and
+    running statistics (batch statistics in the step)."""
+    from deeplearning4j_tpu_torch.util.convert import export_params, export_states
+    from deeplearning4j_tpu_torch.zoo.models import TinyYOLO
+
+    weights, states = export_params(net), export_states(net)
+    out = {}
+    for key, dev, dt in (("card", None, "float32"), ("cpu64", "cpu", "float64"),
+                         ("cpu32", "cpu", "float32")):
+        twin = pt_net(lambda: TinyYOLO().conf(), weights, dev, dt, states=states)
+        inputs, labels, _, _ = twin._batch(twin._wrap(x[:YOLO_TWIN_BATCH].to(twin.device),
+                                                      y[:YOLO_TWIN_BATCH].to(twin.device)))
+        loss, grads, _ = twin._gradients(inputs, labels, train=True)
+        out[key] = (float(loss), torch.cat([g.reshape(-1).double().cpu()
+                                            for named in grads.values()
+                                            for g in named.values()]))
+        del twin, grads
+    ref = out["cpu64"][1]
+    dist = {k: ((out[k][1] - ref).norm() / ref.norm()).item() for k in ("card", "cpu32")}
+    rel = abs(out["card"][0] - out["cpu64"][0]) / abs(out["cpu64"][0])
+    return {"batch": YOLO_TWIN_BATCH, "loss": out["card"][0], "loss_cpu_f64": out["cpu64"][0],
+            "loss_cpu_f32": out["cpu32"][0], "loss_rel_diff": rel, "limit": YOLO_LOSS_TOL,
+            "grad_l2_from_f64": dist["card"], "cpu_f32_grad_l2_from_f64": dist["cpu32"],
+            "ok": rel <= YOLO_LOSS_TOL}
+
+
+def yolo_phase(ck, card, peaks):
+    """TinyYOLO and YOLO2 on the card (see the module docstring). Returns
+    K2's launches by path."""
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import nms
+    from deeplearning4j_tpu_torch.zoo.models import YOLO2, TinyYOLO
+
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    paths, failures = {}, []
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = TinyYOLO()
+        net = model.init()
+        tensors = tensors_of(net)
+        c, h, w = model.input_shape
+        x, y = yolo_scenes(YOLO_BATCH, h, model.num_labels, seed=18)
+        zero_launches(ck)
+        net.fit(x, y)
+        first = net.score_
+        step_ms, losses = timed_fits(net, x, y, YOLO_TIMED)
+        launches = read_launches(ck)
+        paths["yolo_tiny_train"] = launches["fused_adam"]
+        median = float(np.median(step_ms))
+        flops = cnn_train_flops(net.conf, YOLO_BATCH)
+        row = {"model": "TinyYOLO", "card": card, "input": [h, w, c],
+               "labels": model.num_labels, "batch": YOLO_BATCH, "tensors": tensors,
+               "params": net.conf.num_params(), "first_loss": first, "losses": losses,
+               "step_ms": step_ms, "median_step_ms": median,
+               "images_per_s": YOLO_BATCH / (median / 1e3), "launches": launches,
+               "train_gflop": flops / 1e9, "flop_bound_ms": flops / peaks["f32"] * 1e3,
+               "flop_bound_share": flops / peaks["f32"] * 1e3 / median,
+               **busy(lambda: [net.fit(x, y) for _ in range(2)], 2),
+               "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        bad = []
+        if not (math.isfinite(first) and np.isfinite(losses).all() and losses[-1] < first):
+            bad.append("losses")
+        if unexpected_launches(launches, {"fused_adam": tensors * (1 + YOLO_TIMED)}):
+            bad.append("launches")
+        # detections from the card's output against the CPU's decode of it
+        with torch.no_grad():
+            raw = net.output(x)
+        torch.cuda.synchronize()
+        layer = net.conf.vertices["outputs"].obj
+        t0 = time.perf_counter()
+        dets = layer.get_predicted_objects(raw, YOLO_CONF, YOLO_NMS)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        candidates = layer.get_predicted_objects(raw, YOLO_CONF)
+        t0 = time.perf_counter()
+        nms(list(candidates), YOLO_NMS)
+        nms_ms = (time.perf_counter() - t0) * 1e3
+        row["detections"] = {
+            "raw_shape": list(raw.shape), "conf": YOLO_CONF, "nms": YOLO_NMS,
+            "candidates": len(candidates), "decode_and_nms_host_ms": decode_ms,
+            "nms_host_ms": nms_ms,
+            **same_detections(dets, layer.get_predicted_objects(raw.cpu(), YOLO_CONF,
+                                                                YOLO_NMS))}
+        if not row["detections"]["ok"]:
+            bad.append("detections")
+        row["twin"] = yolo_twin(net, x, y)
+        if not row["twin"]["ok"]:
+            bad.append("twin")
+        row["ok"] = not bad
+        print("yolo " + json.dumps(row), flush=True)
+        failures += [f"TinyYOLO: {b}" for b in bad]
+        del net, raw, x, y
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = YOLO2()
+        net = model.init()
+        tensors = tensors_of(net)
+        c, h, w = model.input_shape
+        x, y = yolo_scenes(YOLO2_BATCH, h, model.num_labels, seed=19)
+        zero_launches(ck)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        net.fit(x, y)
+        end.record()
+        with torch.no_grad():
+            raw = net.output(x)
+        torch.cuda.synchronize()
+        launches = read_launches(ck)
+        paths["yolo2_train"] = launches["fused_adam"]
+        g = h // 32
+        row = {"model": "YOLO2", "input": [h, w, c], "labels": model.num_labels,
+               "batch": YOLO2_BATCH, "tensors": tensors, "params": net.conf.num_params(),
+               "loss": net.score_, "first_step_ms": start.elapsed_time(end),
+               "output_shape": list(raw.shape), "output_finite": bool(raw.isfinite().all()),
+               "launches": launches,
+               "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        bad = []
+        if not (math.isfinite(row["loss"]) and row["output_finite"]
+                and row["output_shape"] == [YOLO2_BATCH, g, g, 5 * (5 + model.num_labels)]):
+            bad.append("output")
+        if unexpected_launches(launches, {"fused_adam": tensors}):
+            bad.append("launches")
+        row["ok"] = not bad
+        print("yolo " + json.dumps(row), flush=True)
+        failures += [f"YOLO2: {b}" for b in bad]
+        del net, raw, x, y
+    finally:
+        helpers.clear_helper("updater")
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"yolo: {failures}")
+    return paths
+
+
 def dl4j_import_phase(ck, card):
     """The DL4J-format fixtures restored on the card; the convnet one fits
     DL4J_FIT_STEPS more steps from its restored Adam state on the fused
@@ -4941,6 +5590,8 @@ def main() -> None:
     zoo = timed(zoo_smoke_phase, ck, card)
     net_api = timed(network_api_phase, ck, card)
     small = timed(small_layers_phase, ck, card)
+    pretrain = timed(pretrain_phase, ck, card)
+    yolo = timed(yolo_phase, ck, card, peaks)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -5040,14 +5691,15 @@ def main() -> None:
               + gpt2_bf16["train"]["fused_adam"]
               + sum(c["fused_adam"] for c in lstm_bf16.values())
               + enc["train_a"]["fused_adam"] + enc["train_b"]["fused_adam"]
-              + vit["fused_adam"] + api_total("fused_adam") + sum(small.values()),
+              + vit["fused_adam"] + api_total("fused_adam") + sum(small.values())
+              + sum(pretrain.values()) + sum(yolo.values()),
               launches_by_path=measured({
                   "train": train_launches["fused_adam"],
                   "char_lstm_train": char_adam_launches,
                   "lenet_train": lenet_adam_launches,
                   "ex17_train": ex17_adam_launches,
                   "lenet_regularized_train": lenet_reg_adam_launches,
-                  **later_paths("fused_adam"), **small})),
+                  **later_paths("fused_adam"), **small, **pretrain, **yolo})),
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
               sum(char_launches.values()) + stack["f32"] + api_total("lstm_sequence"),

@@ -15,10 +15,12 @@ RnnLossLayer (read as a ``LossLayer``, as the reference reads it),
 CnnLossLayer, convolution, convolution1d, subsampling, subsampling1d,
 batchNormalization, localResponseNormalization, embedding, activation,
 dropout, LSTM, gravesLSTM, gravesBidirectionalLSTM, SimpleRnn,
-Bidirectional, MaskZeroLayer, GlobalPooling, zeroPadding, Upsampling2D
-and ElementWiseMult. Every other DL4J layer type (autoEncoder and
-FrozenLayer among them) and an unknown activation or loss raise
-:class:`UnsupportedDl4jConfigurationException` naming it. A parameterized
+Bidirectional, MaskZeroLayer, GlobalPooling, zeroPadding, Upsampling2D,
+ElementWiseMult, autoEncoder (its ``corruptionLevel``) and FrozenLayer
+(its wrapped ``layer``). Every other DL4J layer type and an unknown
+activation or loss raise :class:`UnsupportedDl4jConfigurationException`
+naming it; as in the reference, ``coefficients.bin`` is read for a
+FrozenLayer over a dense-family layer and refused for an autoEncoder. A parameterized
 activation keeps its coefficient: ``ActivationLReLU`` / ``RReLU`` / ``ELU``
 with an ``alpha`` and ``ActivationThresholdedReLU`` with a ``theta`` read
 as ``(name, {...})``, and the pre-0.8 ``leakyreluAlpha`` layer field as
@@ -526,6 +528,16 @@ def convert_dl4j_layer(type_name: str, cfg: dict):
         return L.UpsamplingLayer(**base, size=_pair(_get(cfg, "size", default=2), (2, 2)))
     if t == "ElementWiseMult":
         return L.ElementWiseMultiplicationLayer(**base, **ff)
+    if t == "autoEncoder":
+        kw = dict(base, **ff)
+        if "corruptionLevel" in cfg:
+            kw["corruption_level"] = float(cfg["corruptionLevel"])
+        return L.AutoEncoderLayer(**kw)
+    if t == "FrozenLayer":
+        inner = _get(cfg, "layer", default=None)
+        if isinstance(inner, dict) and len(inner) == 1:
+            return L.FrozenLayer(layer=convert_dl4j_layer(*next(iter(inner.items()))))
+        raise InvalidDl4jConfigurationException("FrozenLayer without inner layer")
     raise UnsupportedDl4jConfigurationException(
         f"unsupported DL4J layer type {t!r} (not ported yet)")
 

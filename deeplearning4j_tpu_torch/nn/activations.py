@@ -46,6 +46,13 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return _min(_max(x, lo), hi)
 
 
+def signed_abs(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.abs``: ``|v|`` as ``v·s``, ``s`` = +1 where v >= 0 (else -1)
+    held constant, so the gradient at 0 is +1, as ``jax.grad`` gives
+    (``torch.abs``'s is 0)."""
+    return v * torch.where(v >= 0, 1.0, -1.0).to(v.dtype)
+
+
 def identity(x: torch.Tensor) -> torch.Tensor:
     return x
 

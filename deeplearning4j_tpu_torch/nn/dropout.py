@@ -10,7 +10,9 @@ layer's ``dropout`` field takes a float keep probability or an
 variant is the identity.
 
 Every random draw of the port's regularizers (this module, weight noise,
-attention dropout) goes through :func:`bernoulli` and :func:`normal`,
+attention dropout) and of its pretraining layers (the autoencoder's
+corruption, the VAE's ε and its distributions' samples) goes through
+:func:`bernoulli`, :func:`normal` and :func:`uniform`,
 from the network's dropout ``torch.Generator``, which must live on the
 device it draws for: a CPU generator never draws for a CUDA tensor.
 
@@ -56,6 +58,15 @@ def normal(shape, gen: torch.Generator, device, dtype=torch.float32):
     """Standard normal draws of ``shape`` in ``dtype`` on ``device``."""
     _check_generator(gen, device)
     return torch.randn(tuple(shape), generator=gen, device=device, dtype=dtype)
+
+
+def uniform(shape, gen: torch.Generator, device, dtype=torch.float32,
+            low: float = 0.0, high: float = 1.0):
+    """Uniform draws in ``[low, high)`` of ``shape`` in ``dtype`` on
+    ``device``."""
+    _check_generator(gen, device)
+    u = torch.rand(tuple(shape), generator=gen, device=device, dtype=dtype)
+    return low + (high - low) * u
 
 
 def _coerce_scalar(value):

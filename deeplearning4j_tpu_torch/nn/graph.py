@@ -68,7 +68,9 @@ over MultiDataSets: each input and each label stacked for the window.
 ``param_table`` keys are ``"<vertex>_<param>"``, the vertex matched
 longest-first; ``set_param`` writes in place.
 
-Not ported yet: pretraining.
+Layerwise pretraining (``pretrain``, ``pretrain_layer(vertex_name)``) is
+``MultiLayerNetwork``'s: a vertex's inputs, concatenated on the last axis,
+feed its ``pretrain_loss`` alone (``nn/train_step.py`` ``pretrain_step``).
 """
 
 from __future__ import annotations
@@ -116,6 +118,8 @@ from deeplearning4j_tpu_torch.nn.train_step import (
     gradients,
     init_parameters,
     init_states,
+    pretrain_batches,
+    pretrain_step,
     regularization,
     to_host,
 )
@@ -523,6 +527,54 @@ class ComputationGraph(NetworkApi, nn.Module):
             self._apply_updates(grads)
             self.iteration += 1
         self._notify("iteration_done", self.iteration, self.epoch)
+
+    # ------------------------------------------------------------- pretrain
+    def pretrain_layer(self, vertex_name: str, data, epochs: int = 1
+                       ) -> "ComputationGraph":
+        """Unsupervised pretraining of one layer vertex (``pretrainLayer``):
+        each batch runs through the graph (no train-time noise, no
+        gradient), the vertex's inputs are concatenated on the last axis,
+        and one :func:`pretrain_step` of its ``pretrain_loss`` follows, its
+        draws from the dropout generator. The step count starts at 0 in
+        each call; ``iteration`` does not move; ``score_`` is the last
+        loss."""
+        if self.params is None:
+            self.init()
+        vd = self.conf.vertices[vertex_name]
+        layer = vd.obj if vd.is_layer else None
+        if layer is None or not hasattr(layer, "pretrain_loss"):
+            raise ValueError(
+                f"vertex {vertex_name!r} is not a pretrainable layer "
+                "(needs pretrain_loss — VAE/autoencoder)")
+        batches = pretrain_batches(data)
+        step = 0
+        for _ in range(epochs):
+            if hasattr(batches, "reset"):
+                batches.reset()
+            for ds in batches:
+                mds = self._to_mds(ds)
+                inputs = {n: self._as_tensor(f) for n, f in zip(self.conf.inputs,
+                                                                mds.features)}
+                with torch.no_grad():
+                    acts, _, _ = self._forward_all(self.params, inputs)
+                ins = [acts[s] for s in vd.inputs]
+                h = ins[0] if len(ins) == 1 else torch.cat(ins, -1)
+                self._score = pretrain_step(layer, vertex_name, self.params,
+                                            self._updaters, self.updater_states, h,
+                                            self.dropout_generator, step)
+                step += 1
+        return self
+
+    def pretrain(self, data, epochs: int = 1) -> "ComputationGraph":
+        """Layerwise pretraining of every layer vertex that has a
+        ``pretrain_loss``, in topological order (``pretrain``)."""
+        if self.params is None:
+            self.init()
+        for name in self.conf.topo_order:
+            vd = self.conf.vertices[name]
+            if vd.is_layer and hasattr(vd.obj, "pretrain_loss"):
+                self.pretrain_layer(name, data, epochs=epochs)
+        return self
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, *, epochs: int = 1,

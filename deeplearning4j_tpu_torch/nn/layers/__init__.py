@@ -6,6 +6,7 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (  # noqa: F401
     LearnedSelfAttentionLayer,
     SelfAttentionLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.autoencoder import AutoEncoderLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     LAYER_REGISTRY,
     Layer,
@@ -36,10 +37,20 @@ from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
     PositionalEmbeddingLayer,
     PReLULayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.moe import (  # noqa: F401
+    MixtureOfExpertsLayer,
+    load_balancing_loss,
+)
 from deeplearning4j_tpu_torch.nn.layers.norm import (  # noqa: F401
     BatchNormalizationLayer,
     LayerNormalizationLayer,
     LocalResponseNormalizationLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.objdetect import (  # noqa: F401
+    DetectedObject,
+    Yolo2OutputLayer,
+    get_predicted_objects,
+    nms,
 )
 from deeplearning4j_tpu_torch.nn.layers.output import (  # noqa: F401
     CenterLossOutputLayer,
@@ -65,4 +76,17 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     LSTMLayer,
     MaskZeroLayer,
     SimpleRnnLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.vae import VariationalAutoencoderLayer  # noqa: F401
+from deeplearning4j_tpu_torch.nn.layers.vae_distributions import (  # noqa: F401
+    BernoulliReconstructionDistribution,
+    CompositeReconstructionDistribution,
+    ExponentialReconstructionDistribution,
+    GaussianReconstructionDistribution,
+    LossFunctionWrapper,
+    ReconstructionDistribution,
+)
+from deeplearning4j_tpu_torch.nn.layers.wrappers import (  # noqa: F401
+    FrozenLayer,
+    TimeDistributedWrapper,
 )

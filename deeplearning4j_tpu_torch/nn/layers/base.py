@@ -26,8 +26,9 @@ and its threshold (``nn/updaters.py`` ``normalize_gradients``). Each is
 inherited from the network's defaults when unset.
 
 ``to_dict`` / ``layer_from_dict`` are the reference's serde: the same keys
-and ``@layer``, ``@dropout``, ``@weight_noise`` and ``@constraint`` tags,
-so a configuration's JSON reads back in both packages.
+and ``@layer``, ``@dropout``, ``@weight_noise``, ``@constraint`` and
+``@recon`` (a VAE's reconstruction distribution, nested for a composite)
+tags, so a configuration's JSON reads back in both packages.
 """
 
 from __future__ import annotations
@@ -188,13 +189,17 @@ class Layer:
 
     # ---- serde --------------------------------------------------------------
     def to_dict(self) -> dict:
+        from deeplearning4j_tpu_torch.nn.layers.vae_distributions import (
+            ReconstructionDistribution,
+        )
         d = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if v is None:
                 continue
             if isinstance(v, (Updater, Schedule, Distribution, IDropout,
-                              IWeightNoise, Layer)):  # a Layer: a wrapper's inner one
+                              IWeightNoise, Layer,  # a Layer: a wrapper's inner one
+                              ReconstructionDistribution)):
                 v = v.to_dict()
             elif (isinstance(v, list) and v
                   and all(isinstance(c, LayerConstraint) for c in v)):
@@ -242,6 +247,11 @@ def layer_from_dict(d: dict) -> Layer:
             kw[k] = IDropout.from_dict(v)
         elif isinstance(v, dict) and "@weight_noise" in v:
             kw[k] = IWeightNoise.from_dict(v)
+        elif isinstance(v, dict) and "@recon" in v:
+            from deeplearning4j_tpu_torch.nn.layers.vae_distributions import (
+                ReconstructionDistribution,
+            )
+            kw[k] = ReconstructionDistribution.from_dict(v)
         elif isinstance(v, dict) and "@layer" in v:
             kw[k] = layer_from_dict(v)
         elif (isinstance(v, list) and v

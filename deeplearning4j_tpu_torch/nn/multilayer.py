@@ -66,7 +66,12 @@ reference's order). Listeners hear ``on_epoch_start``/``on_epoch_end``
 around each epoch of ``fit``, and ``iteration_done`` after each step (once
 after the chunks of a TBPTT batch, as in the reference).
 
-Not ported yet: gradient checkpointing and pretraining.
+Layerwise pretraining (``pretrain``, ``pretrain_layer``): each layer with
+a ``pretrain_loss`` (VAE, autoencoder) minimizes it alone on the
+features of the layers below, through the same updater seam and updater
+state as ``fit`` (``nn/train_step.py`` ``pretrain_step``).
+
+Not ported yet: gradient checkpointing.
 """
 
 from __future__ import annotations
@@ -116,6 +121,8 @@ from deeplearning4j_tpu_torch.nn.train_step import (
     gradients,
     init_parameters,
     init_states,
+    pretrain_batches,
+    pretrain_step,
     regularization,
     to_host,
 )
@@ -384,6 +391,48 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
             self._apply_updates(grads)
             self.iteration += 1
         self._notify("iteration_done", self.iteration, self.epoch)
+
+    # ------------------------------------------------------------- pretrain
+    def pretrain_layer(self, layer_idx: int, data, epochs: int = 1
+                       ) -> "MultiLayerNetwork":
+        """Unsupervised pretraining of one layer (``pretrainLayer``): each
+        batch's features go through the layers below it (no train-time
+        noise, no gradient), then one :func:`pretrain_step` of the layer's
+        ``pretrain_loss`` (a VAE's negative ELBO, an autoencoder's
+        reconstruction loss), its draws from the dropout generator. The
+        step count starts at 0 in each call; ``iteration`` does not move;
+        ``score_`` is the last loss."""
+        if self.params is None:
+            self.init()
+        layer = self.layers[layer_idx]
+        if not hasattr(layer, "pretrain_loss"):
+            raise ValueError(
+                f"layer {layer_idx} ({type(layer).__name__}) has no "
+                "pretrain_loss — only VAE/autoencoder layers pretrain")
+        batches = pretrain_batches(data)
+        step = 0
+        for _ in range(epochs):
+            if hasattr(batches, "reset"):
+                batches.reset()
+            for ds in batches:
+                with torch.no_grad():
+                    h, _, _ = self._forward_all(self.params, self._as_tensor(ds.features),
+                                                upto=layer_idx)
+                self._score = pretrain_step(layer, layer_idx, self.params,
+                                            self._updaters, self.updater_states, h,
+                                            self.dropout_generator, step)
+                step += 1
+        return self
+
+    def pretrain(self, data, epochs: int = 1) -> "MultiLayerNetwork":
+        """Layerwise pretraining of every layer that has a
+        ``pretrain_loss``, in order (``pretrain(DataSetIterator)``)."""
+        if self.params is None:
+            self.init()
+        for i, layer in enumerate(self.layers):
+            if hasattr(layer, "pretrain_loss"):
+                self.pretrain_layer(i, data, epochs=epochs)
+        return self
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, *, epochs: int = 1, features_mask=None,

@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from deeplearning4j_tpu_torch.nn import helpers as _helpers
+from deeplearning4j_tpu_torch.nn.activations import signed_abs
 from deeplearning4j_tpu_torch.nn.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.updaters import Sgd, normalize_gradients
 
@@ -123,12 +124,17 @@ def init_states(module: nn.Module, layers: Iterable[Tuple[object, object]],
 
 def commit_states(states: Tree, new_states: Tree) -> None:
     """Copy each new state (detached) over the old, in place, so that the
-    buffers keep their identity."""
+    buffers keep their identity. A state the layer did not start with, or
+    one whose shape changed (a mixture of experts' collected gates, one row
+    a token of the last batch), replaces the old entry."""
     with torch.no_grad():
         for key, named in new_states.items():
             for n, t in named.items():
-                if t is not states[key][n]:
-                    states[key][n].copy_(t)
+                old = states[key].get(n)
+                if old is None or old.shape != t.shape:
+                    states[key][n] = t.detach().clone()
+                elif t is not old:
+                    old.copy_(t)
 
 
 def regularization(layers: Iterable[Tuple[object, object]], params: Tree):
@@ -142,11 +148,9 @@ def regularization(layers: Iterable[Tuple[object, object]], params: Tree):
             l1 = (layer.l1_bias if is_bias else layer.l1) or 0.0
             l2 = (layer.l2_bias if is_bias else layer.l2) or 0.0
             if l1:
-                # |v| as v·s with s = +1 where v >= 0 (else -1), held constant:
-                # the subgradient at 0 is +1, as jax.grad of jnp.abs gives
-                # (torch.abs gives 0), so biases that start at 0 move alike
-                s = torch.where(v >= 0, 1.0, -1.0).to(v.dtype)
-                reg = reg + l1 * torch.sum(v * s)
+                # the subgradient at 0 is +1, as jax.grad of jnp.abs gives,
+                # so biases that start at 0 move alike
+                reg = reg + l1 * torch.sum(signed_abs(v))
             if l2:
                 reg = reg + 0.5 * l2 * torch.sum(v * v)
     return reg
@@ -218,3 +222,33 @@ def apply_updates(params: Tree, grads: Tree, updaters, states,
                 for n, v in apply_constraints(layer, params[key]).items():
                     if v is not params[key][n]:
                         params[key][n].copy_(v)
+
+
+def pretrain_batches(data):
+    """The batches a ``pretrain_layer`` call walks: a DataSet (or
+    MultiDataSet) as one batch, an array or tensor as the features of one,
+    anything else as an iterator of them."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    if hasattr(data, "features"):
+        return [data]
+    if hasattr(data, "shape"):
+        return [DataSet(data, data)]
+    return data
+
+
+def pretrain_step(layer, key, params: Tree, updaters, states, h: torch.Tensor,
+                  gen: Optional[torch.Generator], step: int) -> torch.Tensor:
+    """One layerwise-pretraining update of ``params[key]`` (the reference's
+    jitted pretrain step): the gradient of ``layer.pretrain_loss`` alone (no
+    l1/l2, no gradient normalization, no constraints), then the updater
+    seam at the learning rate of ``(step, epoch 0)`` and the 1-based step
+    ``step + 1``, where ``step`` counts from 0 in each ``pretrain_layer``
+    call. The updater state is the one ``fit`` uses. Returns the loss."""
+    loss, grads, _ = gradients(
+        lambda live: (layer.pretrain_loss(live[key], h, gen), None),
+        {key: params[key]})
+    apply_updates({key: params[key]}, grads, {key: updaters[key]},
+                  {key: states[key]}, step, 0)
+    return loss
+

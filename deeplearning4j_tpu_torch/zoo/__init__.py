@@ -7,12 +7,16 @@ from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
     LeNet,
     ResNet50,
     SimpleCNN,
+    TINY_YOLO_ANCHORS,
     TextGenerationLSTM,
+    TinyYOLO,
     TransformerEncoder,
     TransformerLM,
     VGG16,
     VGG19,
     VisionTransformer,
+    YOLO2,
+    YOLO2_ANCHORS,
     beam_search,
     generate,
     generate_on_device,
@@ -22,7 +26,8 @@ from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
 )
 
 __all__ = ["AlexNet", "Darknet19", "GoogLeNet", "LeNet", "ResNet50", "SimpleCNN",
-           "TextGenerationLSTM",
+           "TINY_YOLO_ANCHORS", "TextGenerationLSTM", "TinyYOLO",
            "TransformerEncoder", "TransformerLM", "VGG16", "VGG19",
-           "VisionTransformer", "beam_search", "generate", "generate_on_device",
-           "lm_labels", "transformer_decoder_block", "transformer_encoder_block"]
+           "VisionTransformer", "YOLO2", "YOLO2_ANCHORS", "beam_search", "generate",
+           "generate_on_device", "lm_labels", "transformer_decoder_block",
+           "transformer_encoder_block"]

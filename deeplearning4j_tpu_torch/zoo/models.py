@@ -2,16 +2,17 @@
 generation.
 
 Counterpart of ``LeNet``, ``SimpleCNN``, ``AlexNet``, ``VGG16``,
-``VGG19``, ``Darknet19``, ``ResNet50``, ``GoogLeNet``, ``TextGenerationLSTM``,
-``transformer_decoder_block``, ``TransformerLM``,
-``transformer_encoder_block``, ``TransformerEncoder``,
+``VGG19``, ``Darknet19``, ``TinyYOLO``, ``YOLO2`` (with
+``TINY_YOLO_ANCHORS`` and ``YOLO2_ANCHORS``), ``ResNet50``,
+``GoogLeNet``, ``TextGenerationLSTM``, ``transformer_decoder_block``,
+``TransformerLM``, ``transformer_encoder_block``, ``TransformerEncoder``,
 ``VisionTransformer``, ``lm_labels``, ``generate``, ``generate_on_device``
 and ``beam_search`` in ``deeplearning4j_tpu/zoo/models.py``. The same
 layers, layer and vertex names, parameter shapes and defaults;
 ``init(device=None)`` builds the network on ``cuda`` (``device="cpu"`` for
 the CPU). No pretrained weights are fetched: the zoo's pretrained zips are
-not in the repository (``Darknet19`` keeps the reference's artifact names
-and checksums as data only).
+not in the repository (``Darknet19``, ``TinyYOLO`` and ``YOLO2`` keep the
+reference's artifact names and checksums as data only).
 
 Generation runs the network's stateful path: every causal attention layer
 carries a fixed-capacity KV cache, so each new token is one single-token
@@ -53,14 +54,16 @@ from deeplearning4j_tpu_torch.nn.layers import (
     PositionalEmbeddingLayer,
     RnnOutputLayer,
     SelfAttentionLayer,
+    SpaceToDepthLayer,
     SubsamplingLayer,
+    Yolo2OutputLayer,
     ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.core import unchecked_token_ids
 from deeplearning4j_tpu_torch.nn.layers.recurrent import map_carry
 from deeplearning4j_tpu_torch.nn.train_step import to_host
 from deeplearning4j_tpu_torch.nn.updaters import AdaDelta, Adam, Nesterovs
-from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex, ReshapeVertex
+from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex, MergeVertex, ReshapeVertex
 from deeplearning4j_tpu_torch.nn.weights import Distribution
 from deeplearning4j_tpu_torch.zoo.helpers import (
     darknet_block,
@@ -291,6 +294,101 @@ class Darknet19(_ZooModel):
         g.add_layer("loss", LossLayer(loss="mcxent", activation="softmax"),
                     "globalpooling")
         return g.set_outputs("loss").build()
+
+
+# the reference's anchor priors (TinyYOLO.java, YOLO2.java), (w, h) in grid units
+TINY_YOLO_ANCHORS = ((1.08, 1.19), (3.42, 4.41), (6.63, 11.38), (9.42, 5.11),
+                     (16.62, 10.52))
+YOLO2_ANCHORS = ((0.57273, 0.677385), (1.87446, 2.06253), (3.33843, 5.47434),
+                 (7.88282, 3.52778), (9.77052, 9.16828))
+
+
+class TinyYOLO(_ZooModel):
+    """Tiny YOLOv2 (``zoo/model/TinyYOLO.java``): eight
+    :func:`darknet_block` units of 16 to 1024 channels, the first five with
+    a 2x2 max pool at stride 2, the sixth at stride 1 ("same": 13x13 stays
+    13x13 at 416x416), a 1x1 convolution of 5·(5 + ``num_labels``) and a
+    ``Yolo2OutputLayer`` over ``TINY_YOLO_ANCHORS`` (a
+    ``ComputationGraph``); xavier, Adam(1e-3). ``input_shape`` is
+    (channels, height, width). The reference's pretrained artifact is named
+    as data only; nothing reads it."""
+
+    PRETRAINED_URL = "http://blob.deeplearning4j.org/models/tiny-yolo-voc_dl4j_inference.v1.zip"
+    PRETRAINED_CHECKSUM = 2004171617
+
+    def __init__(self, num_labels: int = 20, seed: int = 123,
+                 input_shape=(3, 416, 416)):
+        super().__init__(num_labels, seed)
+        self.input_shape = tuple(input_shape)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .weight_init("xavier").updater(Adam(1e-3)).graph_builder()
+             .add_inputs("input").set_input_types(InputType.convolutional(h, w, c)))
+        x = "input"
+        for num, n_out in enumerate((16, 32, 64, 128, 256), start=1):
+            x = darknet_block(g, num, x, n_out, pool=2)
+        x = darknet_block(g, 6, x, 512, pool=2, pool_stride=1)
+        x = darknet_block(g, 7, x, 1024)
+        x = darknet_block(g, 8, x, 1024)
+        return _yolo_head(g, "convolution2d_9", x, TINY_YOLO_ANCHORS, self.num_labels)
+
+
+def _yolo_head(g, conv_name: str, src: str, anchors, num_labels: int):
+    """The 1x1 convolution of B·(5 + C) channels and the
+    ``Yolo2OutputLayer`` ("outputs") of both YOLO models."""
+    g.add_layer(conv_name,
+                ConvolutionLayer(n_out=len(anchors) * (5 + num_labels),
+                                 kernel_size=(1, 1), convolution_mode="same",
+                                 activation="identity"), src)
+    g.add_layer("outputs", Yolo2OutputLayer(boxes=anchors, n_classes=num_labels),
+                conv_name)
+    return g.set_outputs("outputs").build()
+
+
+class YOLO2(_ZooModel):
+    """YOLOv2 on a Darknet-19 backbone with the passthrough reorg
+    (``zoo/model/YOLO2.java``): 20 :func:`darknet_block` units; the 1/16
+    map of block 13 goes through ``SpaceToDepthLayer(2)`` and a
+    ``MergeVertex`` onto the 1/32 map of block 20, then block 21, the 1x1
+    convolution of 5·(5 + ``num_labels``) and a ``Yolo2OutputLayer`` over
+    ``YOLO2_ANCHORS``; xavier, Adam(1e-3). At 608x608 the output is
+    19x19. The pretrained artifact is named as data only."""
+
+    PRETRAINED_URL = "http://blob.deeplearning4j.org/models/yolo2_dl4j_inference.v1.zip"
+    PRETRAINED_CHECKSUM = 1357637732
+
+    def __init__(self, num_labels: int = 80, seed: int = 123,
+                 input_shape=(3, 608, 608)):
+        super().__init__(num_labels, seed)
+        self.input_shape = tuple(input_shape)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .weight_init("xavier").updater(Adam(1e-3)).graph_builder()
+             .add_inputs("input").set_input_types(InputType.convolutional(h, w, c)))
+        x = "input"
+        for num, (n_out, filter_size, pool) in enumerate(
+                ((32, 3, 2), (64, 3, 2), (128, 3, 0), (64, 1, 0), (128, 3, 2),
+                 (256, 3, 0), (128, 1, 0), (256, 3, 2), (512, 3, 0), (256, 1, 0),
+                 (512, 3, 0), (256, 1, 0), (512, 3, 0)), start=1):
+            x = darknet_block(g, num, x, n_out, filter_size=filter_size, pool=pool)
+        passthrough = x  # the 1/16 map
+        g.add_layer("maxpooling2d_13",
+                    SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)),
+                    passthrough)
+        x = "maxpooling2d_13"
+        for num, (n_out, filter_size) in enumerate(
+                ((1024, 3), (512, 1), (1024, 3), (512, 1), (1024, 3), (1024, 3),
+                 (1024, 3)), start=14):
+            x = darknet_block(g, num, x, n_out, filter_size=filter_size)
+        # the passthrough: the 1/16 map reorganized to 1/32, joined to the deep map
+        g.add_layer("reorg", SpaceToDepthLayer(block_size=2), passthrough)
+        g.add_vertex("concat", MergeVertex(), "reorg", x)
+        x = darknet_block(g, 21, "concat", 1024)
+        return _yolo_head(g, "convolution2d_22", x, YOLO2_ANCHORS, self.num_labels)
 
 
 class ResNet50(_ZooModel):

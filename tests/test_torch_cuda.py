@@ -41,6 +41,11 @@ per-batch ``fit`` of a clone does and lands within 1e-6 x each tensor's
 largest entry of it; ``set_params_flat`` keeps every parameter's storage
 (the fused updater still takes them); ``evaluate_roc_multi_class`` over a
 bf16 ``output`` equals ``ROCMultiClass`` over that output widened.
+Layerwise pretraining and detection: a VAE's pretrain step on the card
+(the fused updater, the CPU twin's ε) within 1e-5 of the CPU's (or, where
+Adam's per-entry scaling makes the step ill-conditioned, no farther from
+an f64 step than 4x the CPU's f32 step), and the YOLOv2 loss and its
+gradient within 1e-5 of the CPU's.
 """
 
 import numpy as np
@@ -1473,3 +1478,92 @@ def test_evaluate_roc_on_a_bf16_output(card):
     got = net.evaluate_roc_multi_class(ds)
     assert [got.calculate_auc(c) for c in range(7)] == \
         [want.calculate_auc(c) for c in range(7)]
+
+
+def _vae_conf(dtype="float32"):
+    from deeplearning4j_tpu_torch.nn.layers import VariationalAutoencoderLayer
+
+    conf = (NeuralNetConfiguration.builder().seed(9).updater(Adam(1e-3)).l2(1e-4).list()
+            .layer(VariationalAutoencoderLayer(n_out=8, encoder_layer_sizes=(32, 32),
+                                               decoder_layer_sizes=(32, 32), num_samples=2))
+            .set_input_type(InputType.feed_forward(64)).build())
+    conf.global_conf.dtype = dtype
+    return conf
+
+
+@pytest.mark.cuda
+def test_vae_pretrain_step_on_the_card_matches_the_cpu(card, monkeypatch):
+    """A VAE's pretrain step on the card (fused updater: 14 launches) from
+    the CPU twin's weights and with its ε: the loss within 1e-5 relative,
+    each parameter and Adam slot within 1e-5 x its largest entry of the
+    CPU f32 step's, or (Adam's per-entry scaling of a near-zero gradient)
+    no farther from the CPU's f64 step than 4x the CPU f32 step is."""
+    from deeplearning4j_tpu_torch.nn import dropout as d
+    from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
+
+    gen = torch.Generator().manual_seed(3)
+    eps = [torch.randn((16, 8), generator=gen) for _ in range(2)]
+    calls = []
+
+    def handed(shape, g, device, dtype=torch.float32):
+        calls.append(tuple(shape))
+        return eps[(len(calls) - 1) % 2].to(device, dtype)
+
+    monkeypatch.setattr(d, "normal", handed)
+    x = (torch.rand((16, 64), generator=gen) < 0.3).float()
+    cpu32 = MultiLayerNetwork(_vae_conf(), device="cpu").init()
+    weights = export_params(cpu32)
+    cpu64 = load_reference_params(MultiLayerNetwork(_vae_conf("float64"), device="cpu")
+                                  .init(), weights)
+    net = load_reference_params(MultiLayerNetwork(_vae_conf()).init(), weights)
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    before = ck.fused_adam.launches
+    net.pretrain_layer(0, x.cuda())
+    torch.cuda.synchronize()
+    assert ck.fused_adam.launches - before == 14  # 4 encoder, 4 latent, 4 decoder, 2 head
+    cpu32.pretrain_layer(0, x)
+    cpu64.pretrain_layer(0, x.double())
+    assert calls == [(16, 8)] * 6
+    assert abs(net.score_ - cpu32.score_) <= 1e-5 * abs(cpu32.score_)
+    for tree in ("params", "updater_states"):
+        def leaves(n):
+            t = getattr(n, tree)[0]
+            return {f"{k}/{s}": v for k, sl in t.items()
+                    for s, v in (sl.items() if isinstance(sl, dict) else [("", sl)])}
+        got, want, ref = leaves(net), leaves(cpu32), leaves(cpu64)
+        for k, w in want.items():
+            g, r = got[k].cpu().double(), ref[k]
+            scale = max(w.abs().max().item(), 1e-30)
+            if (g - w.double()).abs().max().item() <= 1e-5 * scale:
+                continue
+            assert (g - r).abs().max().item() <= 4 * (w.double() - r).abs().max().item(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given_target", [False, True])
+def test_yolo2_loss_gradients_on_the_card_match_the_cpu(card, given_target):
+    """The YOLOv2 loss and its input gradient on the card within 1e-5 x
+    max(1, the largest entry) of the CPU's, on the same scores and labels
+    (boxes in absolute grid units), with the IoU or a given confidence
+    target."""
+    from deeplearning4j_tpu_torch.nn.layers import Yolo2OutputLayer
+
+    layer = Yolo2OutputLayer(boxes=((1.0, 1.2), (2.0, 1.5), (0.6, 0.8)), n_classes=4)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((3, 7, 6, 3 * 9), generator=gen)
+    lab = torch.zeros((3, 7, 6, 9))
+    obj = torch.rand((3, 7, 6), generator=gen) < 0.3
+    for i, yy, xx in obj.nonzero().tolist():
+        lab[i, yy, xx, :5] = torch.tensor([xx + 0.5, yy + 0.25, 1.5, 0.8, 1.0])
+        lab[i, yy, xx, 5 + (i + yy + xx) % 4] = 1.0
+    target = torch.rand((3, 7, 6, 3), generator=gen) if given_target else None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaf = x.to(dev).requires_grad_(True)
+        loss = layer.compute_loss({}, leaf, lab.to(dev),
+                                  conf_target=None if target is None else target.to(dev))
+        (g,) = torch.autograd.grad(loss, leaf)
+        out[dev] = (loss.item(), g.cpu())
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * max(1.0, abs(out["cpu"][0]))
+    want = out["cpu"][1]
+    assert (out["cuda"][1] - want).abs().max() <= 1e-5 * max(1.0, want.abs().max().item())

@@ -217,13 +217,16 @@ def _cpu(mod):
     return {"device": "cpu"} if mod is dl4j else {}
 
 
-UNPORTED = ["autoEncoder", "FrozenLayer"]
+# a DL4J layer type neither reader takes (the last two the port refused,
+# autoEncoder and FrozenLayer, read as the reference's: PRETRAIN_VOCABULARY)
+UNKNOWN = ["quantumLayer"]
 
 
-@pytest.mark.parametrize("layer_type", UNPORTED)
+@pytest.mark.parametrize("layer_type", UNKNOWN)
 def test_unported_layer_raises_naming_it(layer_type):
-    with pytest.raises(dl4j.UnsupportedDl4jConfigurationException, match=layer_type):
-        dl4j.import_dl4j_configuration({"confs": [{"layer": {layer_type: {}}}]})
+    for mod in (dl4j, jdl4j):
+        with pytest.raises(mod.UnsupportedDl4jConfigurationException, match=layer_type):
+            mod.import_dl4j_configuration({"confs": [{"layer": {layer_type: {}}}]})
 
 
 def test_unported_activation_raises_naming_it():
@@ -422,6 +425,16 @@ NEW_VOCABULARY = [
                                                "theta": 0.4},
     {"ELU": {"alpha": 0.3}})]
 VOCABULARY += NEW_VOCABULARY
+# the pretraining slice's types
+PRETRAIN_VOCABULARY = [
+    ("autoEncoder", {"nin": 6, "nout": 4, "corruptionLevel": 0.2,
+                     "activationFn": "SIGMOID"}),
+    ("autoEncoder", {"nin": 6, "nout": 4, "l2": 1e-4}),
+    ("FrozenLayer", {"layer": {"dense": {"nin": 3, "nout": 4, "activationFn": "TANH"}}}),
+    ("FrozenLayer", {"layer": {"convolution": {"nin": 2, "nout": 3, "kernelSize": [3, 3],
+                                               "convolutionMode": "Same"}}}),
+]
+VOCABULARY += PRETRAIN_VOCABULARY
 
 
 @pytest.mark.parametrize("entry", VOCABULARY,
@@ -482,3 +495,39 @@ def test_zip_of_the_new_layers_loads_both_ways(tmp_path, kind):
     assert json.loads(back.conf.to_json()) == json.loads(jnet.conf.to_json())
     _assert_equal_trees(to_np(back.params), export_params(net), "params")
     _assert_equal_trees(to_np(back.updater_states), export_updater_state(net), "updater")
+
+
+def _write_dl4j_zip(path, conf, flat):
+    with zipfile.ZipFile(path, "w") as z:
+        z.writestr("configuration.json", json.dumps(conf))
+        z.writestr("coefficients.bin",
+                   nd4j_binary.nd4j_array_to_bytes(flat.reshape(1, -1).astype(np.float32)))
+
+
+def test_frozen_layer_and_autoencoder_zips_read_as_the_reference(tmp_path):
+    """A FrozenLayer over a dense layer reads its coefficients as the dense
+    layer's in both readers; an autoEncoder's (W, b, vb) both refuse, and
+    a FrozenLayer without its layer is invalid in both."""
+    dense = {"nin": 3, "nout": 4, "activationFn": "TANH"}
+    out = {"nin": 4, "nout": 2, "activationFn": "SOFTMAX", "lossFn": "MCXENT"}
+    conf = {"confs": [{"layer": {"FrozenLayer": {"layer": {"dense": dense}}}},
+                      {"layer": {"output": out}}]}
+    flat = np.arange(3 * 4 + 4 + 4 * 2 + 2, dtype=np.float32) / 10.0
+    path = str(tmp_path / "frozen.zip")
+    _write_dl4j_zip(path, conf, flat)
+    jnet, tnet = _restore_both(path, False)
+    assert type(tnet.conf.layers[0]).__name__ == "FrozenLayer"
+    _assert_equal_trees(export_params(tnet), to_np(jnet.params), "params")
+    x = np.linspace(-1, 1, 6, dtype=np.float32).reshape(2, 3)
+    np.testing.assert_allclose(tnet.output(x).numpy(), np.asarray(jnet.output(x)),
+                               rtol=RTOL, atol=ATOL)
+    ae = {"confs": [{"layer": {"autoEncoder": {"nin": 3, "nout": 2}}},
+                    {"layer": {"output": dict(out, nin=2)}}]}
+    path = str(tmp_path / "ae.zip")
+    _write_dl4j_zip(path, ae, np.zeros(3 * 2 + 2 + 3 + 2 * 2 + 2, np.float32))
+    for mod in (jdl4j, dl4j):
+        with pytest.raises(mod.UnsupportedDl4jConfigurationException, match="AutoEncoder"):
+            mod.restore_multi_layer_network(path, **_cpu(mod))
+        with pytest.raises(mod.InvalidDl4jConfigurationException, match="FrozenLayer"):
+            mod.import_dl4j_configuration({"confs": [{"layer": {"FrozenLayer": {}}}]})
+

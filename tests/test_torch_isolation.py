@@ -67,7 +67,13 @@ def test_import_leaves_jax_unloaded():
             "deeplearning4j_tpu_torch.eval.evaluation, "
             "deeplearning4j_tpu_torch.nn.conf.preprocessors, "
             "deeplearning4j_tpu_torch.nn.layers.conv, "
-            "deeplearning4j_tpu_torch.nn.layers.pooling; "
+            "deeplearning4j_tpu_torch.nn.layers.pooling, "
+            "deeplearning4j_tpu_torch.nn.layers.vae, "
+            "deeplearning4j_tpu_torch.nn.layers.autoencoder, "
+            "deeplearning4j_tpu_torch.nn.layers.objdetect, "
+            "deeplearning4j_tpu_torch.nn.layers.wrappers, "
+            "deeplearning4j_tpu_torch.nn.layers.moe, "
+            "deeplearning4j_tpu_torch.nn.simple; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
