@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs twenty-five phases:
+every kernel, and runs twenty-eight phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -245,7 +245,42 @@ every kernel, and runs twenty-five phases:
    and NMS host ms), one batch-2 step's loss against the CPU's f64 step
    (1e-5 relative); then YOLO2 at its defaults (608x608, 80 labels, batch
    8): one fit and one ``output`` ([8, 19, 19, 425]). K2 takes one launch
-   per parameter tensor a step.
+   per parameter tensor a step;
+26. SameDiff: the zoo LeNet's widths built in SameDiff ops from a zoo
+   LeNet's weights (its output and one batch's gradients, card and CPU f32,
+   first set beside the CPU's f64 ones), trained with Adam(1e-3)
+   on the fused updater over 20 batches of 128 synthetic MNIST-shaped
+   images (8 K2 launches a step; median step, images/s, busy share, peak
+   memory; the mean of the last 5 losses below the first 5's); one more
+   step against CPU twins from the same variables and Adam state in the
+   small-layer form; ``save``/``load`` on the card (``output`` bit for
+   bit) and ``evaluate`` equal to ``Evaluation`` on the same output.
+   Then a bounded ``while_loop`` (at most 8 trips, stopping at 5) with an
+   ``if_cond``, and the same loop unbounded, on the card against the CPU
+   (outputs and gradients within 1e-6 x max(1, largest entry)); and the
+   zoo LeNet with its dense 500 a ``SameDiffLayer`` against the zoo LeNet
+   over 3 Adam steps from the same weights (1e-6, 8 K2 a step);
+27. transfer learning: the zoo's LeNet zip registered with its Adler32
+   and SHA-256 and restored through ``init_pretrained`` from a
+   ``file://`` URL into a temporary cache (``output`` bit for bit); the
+   zoo's VGG16 at its defaults fine-tuned as dl4j-examples'
+   EditLastLayerOthersFrozen does (frozen through fc2, a new 5-class
+   softmax head, Adam(1e-4)): 3 steps at batch 16 on synthetic images (32
+   K2 launches a step; frozen tensors and the source network bit for bit
+   unchanged, the head moved; median step, images/s, busy share, peak
+   memory beside ``network_memory_report``'s forecast and
+   ``compiled_memory_analysis``), ``TransferLearningHelper``'s featurized
+   head 3 steps against CPU twins (2 K2 a step), and ImageNet labels
+   decoding the source network's output as the CPU decodes it;
+28. gradient checkpointing: GPT-2-small (8 x 1024, f32, Adam(3e-4))
+   without and with it from the same weights, 3 timed fits each (12 / 12
+   / 12 / 150 and 24 / 12 / 12 / 150 K3a / K3b-dq / K3b-dkv / K2 launches
+   a step; the checkpointed peak memory below the plain one), one batch's
+   loss and gradients within 1e-6 relative of each other; the same pair
+   with attention dropout 0.1 from one dropout-generator state (the plain
+   attention path: the recompute must replay the masks); the reference's
+   remat case (12 x Dense(512), batch 256) through
+   ``compiled_memory_analysis`` with and without checkpointing.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -660,6 +695,34 @@ YOLO_TWIN_BATCH, YOLO_LOSS_TOL, YOLO2_BATCH = 2, 1e-5, 8
 # fit steps on the fused updater, 8 K2 launches a step
 DL4J_FIXTURES = ("convnet", "lstm", "graph", "branchy_graph")
 DL4J_RTOL, DL4J_ATOL, DL4J_FIT_STEPS, DL4J_CONVNET_TENSORS = 1e-5, 1e-6, 3, 8
+# SameDiff: the zoo LeNet's widths in SameDiff ops (1,256,080 parameters in
+# 8 variables, from a zoo LeNet's init), Adam(1e-3) on the fused updater,
+# fit over SD_BATCHES batches of SD_BATCH synthetic MNIST-shaped images
+# (8 K2 launches a step); one more step against CPU twins from the same
+# variables and Adam state, each within SL_TOL x its largest
+# entry or in the f64 form (SL_F32_FACTOR); save/load and evaluate over
+# SD_EVAL images. Control flow over [SD_CF_ROWS, SD_CF_WIDTH] (a loop of
+# at most SD_CF_BOUND trips stopping at 5, an if_cond; and unbounded):
+# outputs and gradients within SD_CF_TOL x max(1, largest entry) of the
+# CPU's. The zoo LeNet with its dense 500 a SameDiffLayer: SD_LAYER_STEPS
+# Adam steps within SD_LAYER_TOL x each tensor's largest entry of the zoo
+# LeNet's from the same weights
+SD_BATCH, SD_BATCHES, SD_EVAL, SD_LENET_PARAMS = 128, 20, 256, 1256080
+SD_CF_ROWS, SD_CF_WIDTH, SD_CF_BOUND, SD_CF_TOL = 64, 64, 8, 1e-6
+SD_LAYER_STEPS, SD_LAYER_TOL = 3, 1e-6
+# transfer learning: the zoo's VGG16 at its defaults fine-tuned as
+# dl4j-examples' EditLastLayerOthersFrozen (frozen through fc2, layer
+# TR_FROZEN_TILL; a new softmax head of TR_CLASSES) with Adam(1e-4):
+# TR_STEPS steps at TR_BATCH on synthetic 224x224x3 images (one K2 launch
+# per parameter tensor a step, frozen ones included); the featurized head
+# TR_STEPS steps, each tensor within SL_TOL x its largest entry of a CPU
+# twin's, else in the f64 form (SL_F32_FACTOR)
+TR_FROZEN_TILL, TR_CLASSES, TR_BATCH, TR_STEPS = 19, 5, 16, 3
+# gradient checkpointing: GPT-2-small (TRAIN_N x T, f32, Adam(3e-4)) with
+# and without it, CK_STEPS timed fits each; one batch's loss and gradients
+# within CK_TOL relative (each tensor's largest difference over its
+# largest entry), with attention dropout GPT2_DROPOUT too
+CK_STEPS, CK_TOL = 3, 1e-6
 
 
 def card_peaks(name: str):
@@ -5116,6 +5179,710 @@ def yolo_phase(ck, card, peaks):
     return paths
 
 
+# --------------------------------------------------------------- samediff
+def sd_images(n, seed):
+    """MNIST-shaped images of the verify skill's kind on the card: seeded
+    Gaussian noise with row 2 + class raised by 2, and one-hot labels."""
+    rng = np.random.default_rng(seed)
+    y_idx = rng.integers(0, 10, n)
+    x = rng.normal(0, 0.3, size=(n, 28, 28, 1)).astype(np.float32)
+    x[np.arange(n), 2 + y_idx, :, 0] += 2.0
+    return (torch.from_numpy(x).cuda(),
+            torch.from_numpy(np.eye(10, dtype=np.float32)[y_idx]).cuda())
+
+
+def sd_lenet(weights, device=None):
+    """The zoo LeNet's widths in SameDiff ops (NHWC, HWIO), its variables
+    the given zoo LeNet weights (``export_params`` layout): conv 5x5 "SAME"
+    1 -> 20, max pool 2x2, conv 5x5 "SAME" 20 -> 50, max pool 2x2, a
+    reshape to 2450, linear 500 and relu, linear 10; softmax cross
+    entropy. 8 variables, 1,256,080 parameters."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    sd = SameDiff.create(device)
+    x = sd.place_holder("input", shape=(None, 28, 28, 1))
+    y = sd.place_holder("label", shape=(None, 10))
+    w = {i: (sd.var(f"w{j}", value=weights[i]["W"]), sd.var(f"b{j}", value=weights[i]["b"]))
+         for j, i in enumerate((0, 2, 4, 5))}
+    h = sd.nn.conv2d(x, w[0][0], stride=(1, 1), padding="SAME") + w[0][1]
+    h = sd.nn.max_pooling2d(h, size=(2, 2), stride=(2, 2))
+    h = sd.nn.conv2d(h, w[2][0], stride=(1, 1), padding="SAME") + w[2][1]
+    h = sd.nn.max_pooling2d(h, size=(2, 2), stride=(2, 2)).reshape(-1, 2450)
+    h = sd.nn.relu(sd.nn.linear(h, *w[4]))
+    logits = sd.nn.linear(h, *w[5], name="logits")
+    sd.nn.softmax(logits, name="probs")
+    sd.loss.softmax_cross_entropy(y, logits, name="loss")
+    sd.set_loss_variables("loss")
+    return sd
+
+
+def sd_step_twin(sd, variables, states, ph):
+    """One ``fit`` step of ``sd``'s graph on the given tensors (any device
+    and dtype; ``SameDiff`` itself takes data in f32): the gradients of
+    the summed loss variables, then the updater seam at step 1."""
+    from deeplearning4j_tpu_torch.nn.train_step import apply_updates, gradients
+
+    like = next(iter(variables.values()))
+    fn = sd._build_fn(sd._loss_variables)
+    consts = {k: v.to(like.device, like.dtype if v.is_floating_point() else v.dtype)
+              for k, v in sd.constants_map.items()}
+    upd = sd._training_config.updater
+    _, grads, _ = gradients(
+        lambda live: (sum(o.sum() for o in fn(live[""], ph, consts)), None),
+        {"": variables})
+    apply_updates({"": variables}, grads, {"": {k: upd for k in variables}},
+                  {"": states}, 0, 0)
+
+
+def sd_gradient_reading(sd, x, y):
+    """One batch's gradients of ``sd`` (on the card, f32) and of its copy
+    on the CPU (f32), each variable's largest difference from the CPU's
+    f64 gradients (the lowered function in f64) over their largest entry;
+    printed, not held: cuDNN's f32 weight gradients (ROADMAP §C)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn.train_step import gradients
+
+    feed = {"input": x.cpu().numpy(), "label": y.cpu().numpy()}
+    card = sd.calculate_gradients(feed)
+    with tempfile.TemporaryDirectory() as tmp:
+        sd.save(os.path.join(tmp, "g"))
+        cpu = type(sd).load(os.path.join(tmp, "g.npz"), device="cpu")
+    cpu32 = cpu.calculate_gradients(feed)
+    fn = cpu._build_fn(cpu._loss_variables)
+    ph = {k: torch.from_numpy(v).double() for k, v in feed.items()}
+    _, g64, _ = gradients(
+        lambda live: (sum(o.sum() for o in fn(live[""], ph, {})), None),
+        {"": {k: v.double() for k, v in cpu.variables_map.items()}})
+    out = {}
+    for k, ref in g64[""].items():
+        ref = ref.numpy()
+        scale = float(np.abs(ref).max())
+        out[k] = {"card_f32": float(np.abs(card[k] - ref).max()) / scale,
+                  "cpu_f32": float(np.abs(cpu32[k] - ref).max()) / scale}
+    return out
+
+
+def sd_trees(variables, states):
+    return {"var": variables,
+            "m": {k: s["m"] for k, s in states.items()},
+            "v": {k: s["v"] for k, s in states.items()}}
+
+
+def sd_lenet_run(ck, card):
+    """The SameDiff LeNet on the card (see the module docstring)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.eval import Evaluation
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    from deeplearning4j_tpu_torch.util.convert import export_params
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    zoo = LeNet().init()
+    sd = sd_lenet(export_params(zoo))
+    sd.set_training_config(TrainingConfig(Adam(1e-3)))
+    n_params = sum(v.numel() for v in sd.variables_map.values())
+    x, y = sd_images(SD_BATCH * SD_BATCHES + SD_EVAL, seed=31)
+    # the same function as the zoo LeNet: its output on the same weights
+    with torch.no_grad():
+        zoo_out = zoo.output(x[:SD_BATCH])
+    sd_out = sd.output({"input": x[:SD_BATCH]}, "probs")["probs"]
+    zoo_diff = float(np.abs(sd_out - zoo_out.cpu().numpy()).max())
+    grads_from_f64 = sd_gradient_reading(sd, x[:SD_BATCH], y[:SD_BATCH])
+    del zoo
+    batches = [DataSet(x[i * SD_BATCH:(i + 1) * SD_BATCH], y[i * SD_BATCH:(i + 1) * SD_BATCH])
+               for i in range(SD_BATCHES)]
+    events, losses, step = [], [], sd._fit_step
+
+    def timed_step(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss = step(*args)
+        end.record()
+        events.append((start, end))
+        losses.append(loss)
+        return loss
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(ck)
+    sd._fit_step = timed_step
+    try:
+        sd.fit(batches)
+    finally:
+        del sd._fit_step
+    torch.cuda.synchronize()
+    launches = read_launches(ck)
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(v) for v in losses]
+    median = float(np.median(step_ms))
+    row = {"network": "samediff_lenet", "card": card, "variables": len(sd.variables_map),
+           "params": n_params, "output_max_diff_from_zoo_lenet": zoo_diff,
+           "gradients_from_f64": grads_from_f64, "batch": SD_BATCH, "steps": SD_BATCHES, "losses": losses,
+           "step_ms": step_ms, "median_step_ms": median,
+           "images_per_s": SD_BATCH / (median / 1e3), "launches": launches,
+           "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    bad = []
+    if (n_params, len(sd.variables_map)) != (SD_LENET_PARAMS, 8):
+        bad.append("widths")
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        bad.append("losses")
+    if unexpected_launches(launches, {"fused_adam": 8 * SD_BATCHES}):
+        bad.append("launches")
+
+    # one more step on the card against CPU twins from the same variables
+    # and Adam state (f32 within SD_TOL, else the f64 form)
+    host = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
+    snap = ({k: host(v) for k, v in sd.variables_map.items()},
+            {k: {s: host(t) for s, t in st.items()} for k, st in sd._updater_state.items()})
+    xb, yb = batches[0].features, batches[0].labels
+    sd.fit(batches[0])
+    twins = {}
+    for dt in (torch.float32, torch.float64):
+        variables = {k: v.to(dt).clone() for k, v in snap[0].items()}
+        states = {k: {s: t.to(dt).clone() for s, t in st.items()} for k, st in snap[1].items()}
+        sd_step_twin(sd, variables, states, {"input": xb.cpu().to(dt), "label": yb.cpu().to(dt)})
+        twins[dt] = sd_trees(variables, states)
+    row["twin"] = sl_against_cpu(sd_trees(sd.variables_map, sd._updater_state),
+                                 twins[torch.float32], twins[torch.float64])
+    if row["twin"]["failing"]:
+        bad.append("twin")
+    row.update(busy(lambda: [sd.fit(batches[i]) for i in range(2)], 2))
+
+    # the npz on the card: output equal bit for bit; evaluate against
+    # Evaluation on the same output
+    xe, ye = x[-SD_EVAL:], y[-SD_EVAL:]
+    with tempfile.TemporaryDirectory() as tmp:
+        sd.save(os.path.join(tmp, "lenet"))
+        loaded = type(sd).load(os.path.join(tmp, "lenet.npz"))
+    out = sd.output({"input": xe}, "probs")["probs"]
+    out_loaded = loaded.output({"input": xe}, "probs")["probs"]
+    ev = sd.evaluate(DataSet(xe, ye), "probs")
+    ev_ref = Evaluation()
+    ev_ref.eval(ye.cpu().numpy(), out)
+    row["npz_output_equal"] = bool(np.array_equal(out, out_loaded))
+    row["evaluate"] = {"accuracy": ev.accuracy(), "f1": ev.f1(),
+                       "equal": bool(ev.accuracy() == ev_ref.accuracy()
+                                     and np.array_equal(ev.confusion, ev_ref.confusion))}
+    if not (row["npz_output_equal"] and row["evaluate"]["equal"]):
+        bad.append("npz or evaluate")
+    row["ok"] = not bad
+    return row, launches, bad
+
+
+def sd_control_graph(device, bounded):
+    """A bounded (``max_iterations``) or unbounded while loop stopping
+    after ``n`` trips and an if_cond, over [SD_CF_ROWS, SD_CF_WIDTH]."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    rng = np.random.default_rng(33)
+    sd = SameDiff.create(device)
+    x = sd.place_holder("x", shape=(None, SD_CF_WIDTH))
+    n = sd.place_holder("n", shape=())
+    w = sd.var("w", value=rng.normal(0, 0.05, (SD_CF_WIDTH, SD_CF_WIDTH)))
+    r = sd.var("r", value=np.float32(1.1))
+    fin = sd.while_loop([sd.constant("i0", np.float32(0.0)), x],
+                        lambda s, i, v: s.math.lt(i, n),
+                        lambda s, i, v: [i + 1.0, s.math.tanh(v @ w) * r + 0.1],
+                        name="loop", max_iterations=bounded)
+    br = sd.if_cond(sd.math.gt(fin[1].mean(), 0.0),
+                    lambda s: s.math.square(fin[1]) @ w,
+                    lambda s: fin[1] - 1.0, name="branch")
+    (br.mean() + fin[0]).rename("loss")
+    sd.set_loss_variables("loss")
+    return sd
+
+
+def sd_close(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    return float(np.abs(got - want).max() / max(1.0, float(np.abs(want).max())))
+
+
+def sd_control_run():
+    """Control flow on the card against the CPU (see the module docstring)."""
+    rng = np.random.default_rng(34)
+    xv = rng.normal(size=(SD_CF_ROWS, SD_CF_WIDTH)).astype(np.float32)
+    feeds = [{"x": xv, "n": np.float32(5)}, {"x": -np.abs(xv), "n": np.float32(5)}]
+    row, bad = {}, []
+    for bounded in (SD_CF_BOUND, None):
+        card, cpu = sd_control_graph(None, bounded), sd_control_graph("cpu", bounded)
+        key = "bounded" if bounded else "unbounded"
+        worst = 0.0
+        for feed in feeds:
+            names = ("branch", "loop_out0", "loss")
+            a, b = card.output(feed, *names), cpu.output(feed, *names)
+            worst = max([worst] + [sd_close(a[k], b[k]) for k in names])
+            if bounded:
+                ga, gb = card.calculate_gradients(feed), cpu.calculate_gradients(feed)
+                worst = max([worst] + [sd_close(ga[k], gb[k]) for k in gb])
+        row[key] = {"max_diff": worst, "limit": SD_CF_TOL}
+        if worst > SD_CF_TOL:
+            bad.append(key)
+    row["shape"] = [SD_CF_ROWS, SD_CF_WIDTH]
+    row["ok"] = not bad
+    return row, bad
+
+
+def sd_layer_confs():
+    """The zoo LeNet with Adam(1e-3), and the same with its dense 500 a
+    ``SameDiffLayer`` subclass computing relu(x @ W + b)."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer,
+        DenseLayer,
+        OutputLayer,
+        SameDiffLayer,
+        SubsamplingLayer,
+        register_layer,
+    )
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    @register_layer
+    @dataclasses.dataclass
+    class SmokeSameDiffDense(SameDiffLayer):
+        def define_parameters(self):
+            return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
+
+        def define_layer(self, params, x):
+            return torch.relu(x @ params["W"] + params["b"])
+
+    def conf(dense):
+        b = (NeuralNetConfiguration.builder().seed(123)
+                .activation("identity").weight_init("xavier").updater(Adam(1e-3)).list()
+                .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5), convolution_mode="same"))
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5), convolution_mode="same"))
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+                .layer(dense)
+                .layer(OutputLayer(n_out=10, loss="mcxent", activation="softmax"))
+                .set_input_type(InputType.convolutional(28, 28, 1)))
+        if isinstance(dense, SameDiffLayer):
+            # a SameDiffLayer asks for no flatten: DenseLayer's own one
+            b.input_pre_processor(4, "cnn_to_ff")
+        return b.build()
+
+    return (lambda: conf(DenseLayer(n_out=500, activation="relu")),
+            lambda: conf(SmokeSameDiffDense(n_out=500)))
+
+
+def sd_layer_run(ck):
+    """3 Adam steps of the SameDiffLayer LeNet against the zoo LeNet's from
+    the same weights, both on the card."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
+
+    plain_conf, sd_conf = sd_layer_confs()
+    plain = MultiLayerNetwork(plain_conf()).init()
+    net = load_reference_params(MultiLayerNetwork(sd_conf()).init(), export_params(plain))
+    x, y = sd_images(SD_BATCH, seed=35)
+    zero_launches(ck)
+    for _ in range(SD_LAYER_STEPS):
+        net.fit(x, y)
+    launches = read_launches(ck)
+    for _ in range(SD_LAYER_STEPS):
+        plain.fit(x, y)
+    worst = max(max_rel_diff(net.params, plain.params),
+                max_rel_diff(net.updater_states, plain.updater_states))
+    row = {"network": "samediff_layer_lenet", "steps": SD_LAYER_STEPS, "launches": launches,
+           "layer": type(net.layers[4]).__name__, "max_rel_diff": worst,
+           "limit": SD_LAYER_TOL, "loss": net.score_, "loss_zoo": plain.score_}
+    bad = []
+    if worst > SD_LAYER_TOL:
+        bad.append("against the zoo LeNet")
+    if unexpected_launches(launches, {"fused_adam": 8 * SD_LAYER_STEPS}):
+        bad.append("launches")
+    row["ok"] = not bad
+    return row, launches, bad
+
+
+def samediff_phase(ck, card):
+    """SameDiff on the card (see the module docstring). Returns each
+    path's launches."""
+    from deeplearning4j_tpu_torch.nn import helpers
+
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    paths, failures = {}, []
+    try:
+        row, paths["samediff_lenet_fit"], bad = sd_lenet_run(ck, card)
+        print("samediff " + json.dumps(row), flush=True)
+        failures += [f"lenet: {b}" for b in bad]
+        row, bad = sd_control_run()
+        print("samediff " + json.dumps({"network": "control_flow", **row}), flush=True)
+        failures += [f"control flow: {b}" for b in bad]
+        row, paths["samediff_layer_fit"], bad = sd_layer_run(ck)
+        print("samediff " + json.dumps(row), flush=True)
+        failures += [f"layer: {b}" for b in bad]
+    finally:
+        helpers.clear_helper("updater")
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"samediff: {failures}")
+    return paths
+
+
+# --------------------------------------------------------------- transfer
+def tr_images(n, seed):
+    """224x224x3 images of TR_CLASSES classes on the card: noise, and a
+    bright square whose position and channel encode the class."""
+    rng = np.random.default_rng(seed)
+    y_idx = rng.integers(0, TR_CLASSES, n)
+    x = rng.normal(0.0, 0.5, size=(n, 224, 224, 3)).astype(np.float32)
+    for i, c in enumerate(y_idx):
+        x[i, 40 * c:40 * c + 40, 40 * c:40 * c + 40, c % 3] += 2.0
+    return (torch.from_numpy(x).cuda(),
+            torch.from_numpy(np.eye(TR_CLASSES, dtype=np.float32)[y_idx]).cuda())
+
+
+def tr_pretrained(tmp):
+    """The zoo's LeNet zip written into a cache, registered with its
+    Adler32 and SHA-256, and restored through a file:// URL on the card:
+    ``output`` equal bit for bit."""
+    import hashlib
+    import pathlib
+    import zlib
+
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    src = LeNet().init()
+    origin = pathlib.Path(tmp) / "origin" / "lenet.zip"
+    origin.parent.mkdir()
+    src.save(str(origin))
+    blob = origin.read_bytes()
+    model = LeNet()
+    model.PRETRAINED_URLS = {"mnist": origin.as_uri()}
+    model.PRETRAINED_CHECKSUMS = {"mnist": zlib.adler32(blob)}
+    model.PRETRAINED_SHA256 = {"mnist": hashlib.sha256(blob).hexdigest()}
+    t0 = time.perf_counter()
+    net = model.init_pretrained("mnist")
+    seconds = time.perf_counter() - t0
+    x, _ = sd_images(64, seed=36)
+    equal = bool(torch.equal(net.output(x), src.output(x)))
+    return {"model": "LeNet", "zip_mb": len(blob) / 1e6, "restore_s": seconds,
+            "fetched_into_cache": os.path.exists(model._cache_path("mnist")),
+            "device": str(net.device), "output_equal": equal, "ok": equal}
+
+
+def tr_head_twin(helper, feats, ck):
+    """``fit_featurized`` TR_STEPS times on the card and on CPU twins of
+    the head (f32 and f64) fed the same features: parameters and Adam
+    slots in the small-layer form (``sl_against_cpu``)."""
+    import copy
+
+    from deeplearning4j_tpu_torch.util.convert import export_params
+
+    head = helper.unfrozen_mln
+    weights = export_params(head)
+    twins = {dt: pt_net(lambda: copy.deepcopy(head.conf), weights, "cpu", dt)
+             for dt in ("float32", "float64")}
+    zero_launches(ck)
+    for _ in range(TR_STEPS):
+        helper.fit_featurized(feats)
+    launches = read_launches(ck)
+    for twin in twins.values():
+        for _ in range(TR_STEPS):
+            twin.fit(feats.features.cpu(), feats.labels.cpu())
+    tree = lambda net: {"params": net.params, "state": net.updater_states}  # noqa: E731
+    got = sl_against_cpu(tree(head), tree(twins["float32"]), tree(twins["float64"]))
+    return {"features": list(feats.features.shape), "head_tensors": tensors_of(head),
+            "launches": launches, **got, "limit": SL_TOL,
+            "ok": not got["failing"] and not unexpected_launches(
+                launches, {"fused_adam": tensors_of(head) * TR_STEPS})}, launches
+
+
+def tr_labels(tmp, out):
+    """ImageNetLabels from a JSON written here; ``decode_predictions`` of
+    the card's output against the CPU's decode of the same output."""
+    from deeplearning4j_tpu_torch.zoo import ImageNetLabels
+
+    path = os.path.join(tmp, "imagenet_class_index.json")
+    with open(path, "w") as fh:
+        json.dump({str(i): [f"n{i:08d}", f"class_{i}"] for i in range(1000)}, fh)
+    labels = ImageNetLabels(path)
+    got = labels.decode_predictions(out, top=5)
+    want = labels.decode_predictions(out.cpu().numpy(), top=5)
+    same = [[(c.number, c.probability) for c in r] for r in got] == [
+        [(c.number, c.probability) for c in r] for r in want]
+    return {"rows": len(got), "top1": [r[0].label for r in got[:4]], "equal": same,
+            "ok": same}
+
+
+def transfer_phase(ck, card):
+    """The zoo's pretrained path and VGG16 fine-tuning on the card (see
+    the module docstring). Returns each path's launches."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.conf import (
+        MemoryUseMode,
+        compiled_memory_analysis,
+        network_memory_report,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import FrozenLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        FineTuneConfiguration,
+        TransferLearning,
+        TransferLearningHelper,
+    )
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.zoo import VGG16
+
+    paths, failures = {}, []
+    saved_dir = os.environ.get("DL4J_TPU_ZOO_DIR")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    os.environ["DL4J_TPU_ZOO_DIR"] = os.path.join(tmp, "zoo")
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        row = tr_pretrained(tmp)
+        print("transfer " + json.dumps({"path": "init_pretrained", **row}), flush=True)
+        if not row["ok"]:
+            failures.append("init_pretrained")
+
+        torch.cuda.empty_cache()
+        source = VGG16().init()
+        before = {k: {n: t.clone() for n, t in v.items()} for k, v in source.params.items()}
+        net = (TransferLearning.Builder(source)
+               .fine_tune_configuration(FineTuneConfiguration(updater=Adam(1e-4), seed=123))
+               .set_feature_extractor(TR_FROZEN_TILL)
+               .remove_output_layer()
+               .add_layer(OutputLayer(n_out=TR_CLASSES, activation="softmax", loss="mcxent"))
+               .build())
+        frozen = [i for i, layer in enumerate(net.layers) if isinstance(layer, FrozenLayer)]
+        start = {k: {n: t.clone() for n, t in v.items()} for k, v in net.params.items()}
+        x, y = tr_images(TR_BATCH * 2, seed=37)
+        xb, yb = x[:TR_BATCH], y[:TR_BATCH]
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(ck)
+        step_ms, losses = timed_fits(net, xb, yb, TR_STEPS)
+        launches = read_launches(ck)
+        paths["transfer_vgg16_fine_tune"] = launches
+        peak = torch.cuda.max_memory_allocated()
+        median = float(np.median(step_ms))
+        frozen_equal = all(torch.equal(net.params[i][n], start[i][n])
+                           for i in frozen for n in start[i])
+        head = len(net.layers) - 1
+        head_moved = all(not torch.equal(net.params[head][n], start[head][n])
+                         for n in start[head])
+        source_equal = all(torch.equal(source.params[k][n], t)
+                           for k, v in before.items() for n, t in v.items())
+        del before, start
+        report = network_memory_report(net.conf, "VGG16-fine-tune")
+        row = {"path": "vgg16_fine_tune", "card": card, "batch": TR_BATCH,
+               "classes": TR_CLASSES, "frozen_layers": len(frozen),
+               "tensors": tensors_of(net), "params": net.conf.num_params(),
+               "losses": losses, "step_ms": step_ms, "median_step_ms": median,
+               "images_per_s": TR_BATCH / (median / 1e3), "launches": launches,
+               "frozen_unchanged": frozen_equal, "head_moved": head_moved,
+               "source_unchanged": source_equal, "peak_device_mem_gb": peak / 1e9,
+               "forecast_training_gb": report.get_total_memory_bytes(
+                   TR_BATCH, MemoryUseMode.TRAINING) / 1e9,
+               **busy(lambda: [net.fit(xb, yb) for _ in range(2)], 2)}
+        # after the counts: its step launches K2 on copies of the tensors
+        row["compiled_memory_analysis"] = compiled_memory_analysis(net, batch=TR_BATCH)
+        bad = [k for k in ("frozen_unchanged", "head_moved", "source_unchanged") if not row[k]]
+        if not np.isfinite(losses).all():
+            bad.append("losses")
+        if unexpected_launches(launches, {"fused_adam": tensors_of(net) * TR_STEPS}):
+            bad.append("launches")
+        row["ok"] = not bad
+        print("transfer " + json.dumps(row), flush=True)
+        failures += [f"vgg16: {b}" for b in bad]
+
+        helper = TransferLearningHelper(net, frozen_till=TR_FROZEN_TILL)
+        feats = helper.featurize(DataSet(x[TR_BATCH:], y[TR_BATCH:]))
+        row, paths["transfer_featurized_head"] = tr_head_twin(helper, feats, ck)
+        print("transfer " + json.dumps({"path": "featurized_head", **row}), flush=True)
+        if not row["ok"]:
+            failures.append("featurized head")
+
+        with torch.no_grad():
+            out = source.output(xb)
+        row = tr_labels(tmp, out)
+        print("transfer " + json.dumps({"path": "imagenet_labels", **row}), flush=True)
+        if not row["ok"]:
+            failures.append("labels")
+        del source, net, helper, out
+    finally:
+        helpers.clear_helper("updater")
+        if saved_dir is None:
+            os.environ.pop("DL4J_TPU_ZOO_DIR", None)
+        else:
+            os.environ["DL4J_TPU_ZOO_DIR"] = saved_dir
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"transfer: {failures}")
+    return paths
+
+
+# ----------------------------------------------------------- checkpointing
+def ck_gpt2(checkpointing, weights=None, attn_dropout=0.0):
+    """GPT-2-small (f32, Adam(3e-4)) with or without gradient
+    checkpointing, from ``weights`` where given."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.convert import load_reference_params
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    conf = TransformerLM(attn_dropout=attn_dropout).conf()
+    conf.global_conf.gradient_checkpointing = checkpointing
+    net = ComputationGraph(conf).init(seed=123)
+    return net if weights is None else load_reference_params(net, weights)
+
+
+def ck_grads(net, x, labels):
+    """One batch's train-mode loss and gradients."""
+    inputs, targets, _, _ = net._batch(net._wrap(x, labels))
+    loss, grads, _ = net._gradients(inputs, targets, train=True)
+    torch.cuda.synchronize()
+    return float(loss), grads
+
+
+def ck_compare(loss_a, grads_a, loss_b, grads_b):
+    rel = abs(loss_a - loss_b) / abs(loss_b)
+    name, worst = worst_gradient(grads_a, grads_b)
+    return {"loss": loss_a, "loss_plain": loss_b, "loss_rel": rel,
+            "worst_grad": name, "worst_grad_rel_to_max": worst, "limit": CK_TOL,
+            "ok": rel <= CK_TOL and worst <= CK_TOL}
+
+
+def ck_host(grads):
+    return {k: {n: g.cpu() for n, g in v.items()} for k, v in grads.items()}
+
+
+def ck_gpt2_pair(ck, card, x, labels):
+    """GPT-2-small plain and checkpointed from the same weights: CK_STEPS
+    timed fits each (launches, peak memory), then one batch's train-mode
+    gradients from the starting weights."""
+    from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
+
+    row, paths, bad, grads, weights = {"card": card, "batch": [TRAIN_N, T]}, {}, [], {}, None
+    for checkpointing in (False, True):
+        torch.cuda.empty_cache()
+        net = ck_gpt2(checkpointing, weights)
+        if weights is None:
+            weights = export_params(net)
+        n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+        key = "checkpointed" if checkpointing else "plain"
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(ck)
+        step_ms, losses = timed_fits(net, x, labels, CK_STEPS)
+        launches = read_launches(ck)
+        peak = torch.cuda.max_memory_allocated()
+        # K3a runs again in each layer's recompute
+        want = {"flash_attention_fwd": (1 + checkpointing) * n_layers * CK_STEPS,
+                "flash_attention_bwd_dq": n_layers * CK_STEPS,
+                "flash_attention_bwd_dkv": n_layers * CK_STEPS,
+                "fused_adam": tensors_of(net) * CK_STEPS}
+        paths[f"checkpointing_gpt2_{key}_train"] = launches
+        row[key] = {"losses": losses, "step_ms": step_ms,
+                    "median_step_ms": float(np.median(step_ms)), "launches": launches,
+                    "launches_per_step": {k: v // CK_STEPS for k, v in launches.items()},
+                    "peak_device_mem_gb": peak / 1e9}
+        if unexpected_launches(launches, want):
+            bad.append(f"{key} launches")
+        if not np.isfinite(losses).all():
+            bad.append(f"{key} losses")
+        load_reference_params(net, weights)
+        loss, g = ck_grads(net, x, labels)
+        grads[key] = (loss, ck_host(g))
+        del net, g
+    row["parity"] = ck_compare(*grads["checkpointed"], *grads["plain"])
+    if not row["parity"]["ok"]:
+        bad.append("gradients")
+    if not row["checkpointed"]["peak_device_mem_gb"] < row["plain"]["peak_device_mem_gb"]:
+        bad.append("peak")
+    return row, paths, bad
+
+
+def ck_dropout_pair(x, labels):
+    """The pair with attention dropout (the plain attention path): both from
+    the same weights and dropout-generator state."""
+    from deeplearning4j_tpu_torch.util.convert import export_params
+
+    torch.cuda.empty_cache()
+    plain = ck_gpt2(False, attn_dropout=GPT2_DROPOUT)
+    state = plain.dropout_generator.get_state()
+    loss_p, grads_p = ck_grads(plain, x, labels)
+    grads_p = ck_host(grads_p)
+    weights = export_params(plain)
+    del plain
+    torch.cuda.empty_cache()
+    net = ck_gpt2(True, weights, attn_dropout=GPT2_DROPOUT)
+    net.dropout_generator.set_state(state)
+    loss_c, grads_c = ck_grads(net, x, labels)
+    grads_c = ck_host(grads_c)
+    del net
+    return ck_compare(loss_c, grads_c, loss_p, grads_p)
+
+
+def ck_remat_memory():
+    """The reference's remat case (12 x Dense(512, tanh), output 8, input
+    64, batch 256): compiled_memory_analysis with and without
+    checkpointing."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        InputType,
+        NeuralNetConfiguration,
+        compiled_memory_analysis,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    out = {}
+    for remat in (False, True):
+        b = NeuralNetConfiguration.builder().seed(1).gradient_checkpointing(remat).list()
+        for _ in range(12):
+            b.layer(DenseLayer(n_out=512, activation="tanh"))
+        conf = b.layer(OutputLayer(n_out=8)).set_input_type(InputType.feed_forward(64)).build()
+        out["remat" if remat else "plain"] = compiled_memory_analysis(
+            MultiLayerNetwork(conf).init(), batch=256)
+    out["ok"] = all(v.get("total", 0) > 0 for v in out.values())
+    return out
+
+
+def checkpointing_phase(ck, card):
+    """Gradient checkpointing on the card (see the module docstring).
+    Returns each path's launches."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+
+    rng = np.random.default_rng(123)
+    ids = torch.from_numpy(rng.integers(0, 50257, (TRAIN_N, T))).cuda()
+    x = ids.float()
+    labels = F.one_hot(torch.cat([ids[:, 1:], ids[:, -1:]], 1), 50257).float()
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    failures = []
+    try:
+        row, paths, bad = ck_gpt2_pair(ck, card, x, labels)
+        row["ok"] = not bad
+        print("checkpointing " + json.dumps({"network": "gpt2_small", **row}), flush=True)
+        failures += bad
+    finally:
+        helpers.clear_helper("updater")
+        torch.cuda.empty_cache()
+    row = ck_dropout_pair(x, labels)
+    print("checkpointing " + json.dumps({"network": "gpt2_small_attn_dropout",
+                                         "attn_dropout": GPT2_DROPOUT, **row}), flush=True)
+    if not row["ok"]:
+        failures.append("dropout gradients")
+    del x, labels
+    torch.cuda.empty_cache()
+    row = ck_remat_memory()
+    print("checkpointing " + json.dumps({"network": "remat_12x_dense512_batch256", **row}),
+          flush=True)
+    if not row["ok"]:
+        failures.append("remat memory")
+    if failures:
+        raise RuntimeError(f"checkpointing: {failures}")
+    return paths
+
+
 def dl4j_import_phase(ck, card):
     """The DL4J-format fixtures restored on the card; the convnet one fits
     DL4J_FIT_STEPS more steps from its restored Adam state on the fused
@@ -5592,6 +6359,9 @@ def main() -> None:
     small = timed(small_layers_phase, ck, card)
     pretrain = timed(pretrain_phase, ck, card)
     yolo = timed(yolo_phase, ck, card, peaks)
+    sd_paths = timed(samediff_phase, ck, card)
+    tr_paths = timed(transfer_phase, ck, card)
+    ck_paths = timed(checkpointing_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -5627,7 +6397,7 @@ def main() -> None:
                 "encoder_bf16_flash_output": enc["output_b"][kernel],
                 "zoo_smoke_vit_train": vit[kernel],
                 "zoo_smoke_other_models": sum(c[kernel] for c in zoo.values()),
-                **api_paths(kernel)}
+                **api_paths(kernel), **workflow_paths(kernel)}
 
     def api_paths(kernel):
         """The kernel's launches on each path of the network_api phase."""
@@ -5635,6 +6405,15 @@ def main() -> None:
 
     def api_total(kernel):
         return sum(api_paths(kernel).values())
+
+    def workflow_paths(kernel):
+        """The kernel's launches on each path of the samediff, transfer and
+        checkpointing phases."""
+        return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths)
+                for path, counts in paths.items()}
+
+    def workflow_total(kernel):
+        return sum(workflow_paths(kernel).values())
 
     def bf16_paths(kernel):
         """The bf16 K3 kernel's launches on each path that counts them."""
@@ -5659,7 +6438,8 @@ def main() -> None:
         entry(fwd, "flash_attention_fwd.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:359", served,
               serve_launches + train_launches[fwd] + gpt2_drop["output_fwd"]
-              + decode["output_fwd"] + gpt2_bf16["output"][fwd] + api_total(fwd),
+              + decode["output_fwd"] + gpt2_bf16["output"][fwd] + api_total(fwd)
+              + workflow_total(fwd),
               launches_by_path=measured({
                   "serve": serve_launches, "train": train_launches[fwd],
                   **later_paths(fwd),
@@ -5670,7 +6450,7 @@ def main() -> None:
               "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dkv"],
               train_launches["flash_attention_bwd_dkv"]
-              + api_total("flash_attention_bwd_dkv"),
+              + api_total("flash_attention_bwd_dkv") + workflow_total("flash_attention_bwd_dkv"),
               launches_by_path=measured({
                   "train": train_launches["flash_attention_bwd_dkv"],
                   **later_paths("flash_attention_bwd_dkv")})),
@@ -5678,7 +6458,7 @@ def main() -> None:
               "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
               "(via deeplearning4j_tpu/nn/pallas_kernels.py:359)", bwd["dq"],
               train_launches["flash_attention_bwd_dq"]
-              + api_total("flash_attention_bwd_dq"),
+              + api_total("flash_attention_bwd_dq") + workflow_total("flash_attention_bwd_dq"),
               launches_by_path=measured({
                   "train": train_launches["flash_attention_bwd_dq"],
                   **later_paths("flash_attention_bwd_dq")})),
@@ -5692,7 +6472,8 @@ def main() -> None:
               + sum(c["fused_adam"] for c in lstm_bf16.values())
               + enc["train_a"]["fused_adam"] + enc["train_b"]["fused_adam"]
               + vit["fused_adam"] + api_total("fused_adam") + sum(small.values())
-              + sum(pretrain.values()) + sum(yolo.values()),
+              + sum(pretrain.values()) + sum(yolo.values())
+              + workflow_total("fused_adam"),
               launches_by_path=measured({
                   "train": train_launches["fused_adam"],
                   "char_lstm_train": char_adam_launches,

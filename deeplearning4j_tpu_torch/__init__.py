@@ -39,3 +39,19 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+# Lazy top-level conveniences, as in the reference: the modules import on
+# first attribute access, keeping a bare import light
+_LAZY = {
+    "SameDiff": "deeplearning4j_tpu_torch.autodiff.samediff",
+    "ModelSelector": "deeplearning4j_tpu_torch.zoo.zoo_model",
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(mod), name)

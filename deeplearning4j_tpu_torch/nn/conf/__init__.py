@@ -7,3 +7,11 @@ from deeplearning4j_tpu_torch.nn.conf.network import (  # noqa: F401
     MultiLayerConfiguration,
     NeuralNetConfiguration,
 )
+from deeplearning4j_tpu_torch.nn.conf.memory import (  # noqa: F401
+    LayerMemoryReport,
+    MemoryType,
+    MemoryUseMode,
+    NetworkMemoryReport,
+    compiled_memory_analysis,
+    network_memory_report,
+)

@@ -18,15 +18,19 @@ either package reads back in the other. The regularizer settings
 (``dropout``, ``weight_noise``, ``constrain_*``,
 ``gradient_normalization``) are the reference's and flow into every
 layer that leaves them unset. ``mini_batch`` is stored and carried, as
-the reference only stores it. Not ported yet: the checkpointing and
-optimization-algorithm settings; they are written at the reference's
-defaults, and a configuration that sets one raises when it is read.
+the reference only stores it. ``gradient_checkpointing`` recomputes each
+layer's activations in the backward pass (both networks). Not ported
+yet: the optimization-algorithm settings; they are written at the
+reference's defaults, and a configuration that sets one raises when it
+is read. ``MultiLayerConfiguration.memory_report`` is the reference's
+analytic forecast (``nn/conf/memory.py`` holds the report classes).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import Any, List, Optional
 
 import torch
@@ -79,6 +83,9 @@ class GlobalConf:
     # mixed precision: the forward runs in this dtype on a cast of the
     # ``dtype`` master parameters; the loss head stays in f32
     compute_dtype: Optional[str] = None
+    # rematerialization: recompute layer activations in the backward pass
+    # instead of keeping them (FLOPs for device memory)
+    gradient_checkpointing: bool = False
 
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
@@ -94,7 +101,6 @@ class GlobalConf:
 
 #: the reference's global settings the port has not ported, at their defaults
 UNPORTED_GLOBAL_FIELDS = {
-    "gradient_checkpointing": False,
     "optimization_algo": "stochastic_gradient_descent",
     "max_num_line_search_iterations": 5}
 
@@ -225,6 +231,12 @@ class Builder:
     def gradient_normalization(self, mode: str, threshold: float = 1.0) -> "Builder":
         self._g.gradient_normalization = mode
         self._g.gradient_normalization_threshold = threshold
+        return self
+
+    def gradient_checkpointing(self, enabled: bool = True) -> "Builder":
+        """Recompute layer activations in the backward pass: less device
+        memory, about one more forward of compute."""
+        self._g.gradient_checkpointing = enabled
         return self
 
     def mini_batch(self, b: bool) -> "Builder":
@@ -369,6 +381,31 @@ class MultiLayerConfiguration:
 
     def num_params(self) -> int:
         return sum(layer.num_params() for layer in self.layers)
+
+    def memory_report(self, batch: int = 1) -> dict:
+        """Analytic per-layer memory forecast (the reference's dict): each
+        layer's parameters and activation bytes at ``batch``. Every dtype
+        but float32 counts 2 bytes an element, float64 included, as in the
+        reference."""
+        report = {"layers": [], "total_param_bytes": 0, "total_activation_bytes": 0}
+        bytes_per = 4 if self.global_conf.dtype == "float32" else 2
+        for i, layer in enumerate(self.layers):
+            n_params = layer.num_params()
+            act_elems = 0
+            if self.input_type is not None:
+                out = layer.output_type(self.layer_input_types[i])
+                act_elems = int(math.prod(out.batch_shape(batch)))
+            entry = {
+                "name": layer.name or f"layer{i}",
+                "type": type(layer).__name__,
+                "params": n_params,
+                "param_bytes": n_params * bytes_per,
+                "activation_bytes": act_elems * bytes_per,
+            }
+            report["layers"].append(entry)
+            report["total_param_bytes"] += entry["param_bytes"]
+            report["total_activation_bytes"] += entry["activation_bytes"]
+        return report
 
     # -- serde ---------------------------------------------------------------
     def to_dict(self) -> dict:

@@ -68,6 +68,11 @@ over MultiDataSets: each input and each label stacked for the window.
 ``param_table`` keys are ``"<vertex>_<param>"``, the vertex matched
 longest-first; ``set_param`` writes in place.
 
+Gradient checkpointing is ``MultiLayerNetwork``'s: each single-input layer
+vertex outside a carried recurrence recomputes its train forward in the
+backward pass (``checkpointed_forward``); a multi-input layer keeps its
+activations, as in the reference.
+
 Layerwise pretraining (``pretrain``, ``pretrain_layer(vertex_name)``) is
 ``MultiLayerNetwork``'s: a vertex's inputs, concatenated on the last axis,
 feed its ``pretrain_loss`` alone (``nn/train_step.py`` ``pretrain_step``).
@@ -111,6 +116,7 @@ from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
     apply_updates,
     as_tensor,
+    checkpointed_forward,
     commit_states,
     compute_cast,
     compute_cast_tree,
@@ -280,9 +286,13 @@ class ComputationGraph(NetworkApi, nn.Module):
                         p_v, h, carry=carries.get(name), mask=cur_mask,
                         train=train, gen=gen)
                 else:
-                    y, st = layer.forward_state(p_v, self.states[name], h,
-                                                mask=cur_mask, train=train,
-                                                gen=gen)
+                    fwd = lambda p, hh, _l=layer, _s=self.states[name], _m=cur_mask: \
+                        _l.forward_state(p, _s, hh, mask=_m, train=train, gen=gen)
+                    if train and conf.global_conf.gradient_checkpointing:
+                        # recompute the activations in the backward pass
+                        y, st = checkpointed_forward(fwd, gen, p_v, h)
+                    else:
+                        y, st = fwd(p_v, h)
                     if train and st:
                         new_states[name] = st
                 acts[name] = y

@@ -77,6 +77,10 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     MaskZeroLayer,
     SimpleRnnLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.samediff import (  # noqa: F401
+    SameDiffLambdaLayer,
+    SameDiffLayer,
+)
 from deeplearning4j_tpu_torch.nn.layers.vae import VariationalAutoencoderLayer  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.vae_distributions import (  # noqa: F401
     BernoulliReconstructionDistribution,

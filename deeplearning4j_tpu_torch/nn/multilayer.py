@@ -71,7 +71,12 @@ a ``pretrain_loss`` (VAE, autoencoder) minimizes it alone on the
 features of the layers below, through the same updater seam and updater
 state as ``fit`` (``nn/train_step.py`` ``pretrain_step``).
 
-Not ported yet: gradient checkpointing.
+Gradient checkpointing (``gradient_checkpointing`` in the configuration):
+in a train forward each layer outside a carried recurrence runs under
+``nn/train_step.py`` ``checkpointed_forward``, so its activations are
+recomputed in the backward pass, the same draws replayed (the
+reference's ``jax.checkpoint`` per layer). Weight noise is drawn before,
+outside the recompute.
 """
 
 from __future__ import annotations
@@ -114,6 +119,7 @@ from deeplearning4j_tpu_torch.nn.tick import schedule_tick
 from deeplearning4j_tpu_torch.nn.train_step import (
     apply_updates,
     as_tensor,
+    checkpointed_forward,
     commit_states,
     compute_cast,
     compute_cast_tree,
@@ -224,8 +230,14 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
                                          mask=cur_mask, train=train, gen=gen)
                 new_carries.append(c)
             else:
-                h, st = layer.forward_state(p_i, self.states[i], h, mask=cur_mask,
-                                            train=train, gen=gen)
+                fwd = lambda p, hh, _l=layer, _s=self.states[i], _m=cur_mask: \
+                    _l.forward_state(p, _s, hh, mask=_m, train=train, gen=gen)
+                if train and self.conf.global_conf.gradient_checkpointing:
+                    # recompute this layer's activations in the backward
+                    # pass instead of keeping them
+                    h, st = checkpointed_forward(fwd, gen, p_i, h)
+                else:
+                    h, st = fwd(p_i, h)
                 if train and st:
                     new_states[i] = st
                 new_carries.append(None)

@@ -30,6 +30,16 @@ kernel sees the normalized gradient, and runs the layer's constraints
 after its update, writing them into the same tensors. The train-time
 noise (dropout, weight noise, attention dropout) draws from a network's
 own generator, :func:`dropout_generator`, on the network's device.
+
+Gradient checkpointing (the configuration's ``gradient_checkpointing``):
+:func:`checkpointed_forward` runs a layer's train forward under
+``torch.utils.checkpoint`` (non-reentrant, so that parameters get their
+gradients where no input requires grad), and its backward recomputes
+the forward instead of keeping the activations. The recompute draws from
+the network's generator set to the state the forward started from, so it
+draws the same masks; the generator then takes back the state the
+recompute found it in, so the draws after the step are those without
+checkpointing. The layer's new state comes from the first forward only.
 """
 
 from __future__ import annotations
@@ -135,6 +145,36 @@ def commit_states(states: Tree, new_states: Tree) -> None:
                     states[key][n] = t.detach().clone()
                 elif t is not old:
                     old.copy_(t)
+
+
+def checkpointed_forward(forward: Callable, gen: Optional[torch.Generator], *args):
+    """``forward(*args) -> (y, new_state)`` with ``y``'s activations
+    recomputed in the backward pass; returns ``(y, new_state)``, the state
+    of the first forward. ``gen``, the generator ``forward`` draws from,
+    replays in the recompute."""
+    from torch.utils.checkpoint import checkpoint
+
+    start = None if gen is None else gen.get_state()
+    first = []  # the new state of the first forward
+
+    def run(*a):
+        if first:  # the recompute, in the backward pass
+            if gen is None:
+                return forward(*a)[0]
+            now = gen.get_state()
+            gen.set_state(start)
+            try:  # the recompute may stop early, by raising
+                return forward(*a)[0]
+            finally:
+                gen.set_state(now)
+        y, st = forward(*a)
+        first.append(st)
+        return y
+
+    # every draw comes from ``gen``, saved and restored above, so the
+    # global generators need no saving
+    y = checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+    return y, first[0]
 
 
 def regularization(layers: Iterable[Tuple[object, object]], params: Tree):

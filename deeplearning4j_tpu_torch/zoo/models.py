@@ -9,10 +9,12 @@ Counterpart of ``LeNet``, ``SimpleCNN``, ``AlexNet``, ``VGG16``,
 ``VisionTransformer``, ``lm_labels``, ``generate``, ``generate_on_device``
 and ``beam_search`` in ``deeplearning4j_tpu/zoo/models.py``. The same
 layers, layer and vertex names, parameter shapes and defaults;
-``init(device=None)`` builds the network on ``cuda`` (``device="cpu"`` for
-the CPU). No pretrained weights are fetched: the zoo's pretrained zips are
-not in the repository (``Darknet19``, ``TinyYOLO`` and ``YOLO2`` keep the
-reference's artifact names and checksums as data only).
+every model is a ``ZooModel`` (``zoo/zoo_model.py``), registered with
+``ModelSelector``, with the reference's ``meta_data`` and its registry of
+pretrained artifacts (URLs, Adler32 checksums); ``init(device=None)``
+builds the network on ``cuda`` (``device="cpu"`` for the CPU) and
+``init_pretrained`` restores a cached or ``file://`` artifact. The
+reference's zips themselves are not in the repository.
 
 Generation runs the network's stateful path: every causal attention layer
 carries a fixed-capacity KV cache, so each new token is one single-token
@@ -71,40 +73,34 @@ from deeplearning4j_tpu_torch.zoo.helpers import (
     resnet_conv_block,
     resnet_identity_block,
 )
+from deeplearning4j_tpu_torch.zoo.zoo_model import (
+    ModelMetaData,
+    PretrainedType,
+    ZooModel,
+    register_zoo_model,
+)
 
 
-class _ZooModel:
-    """``num_labels``, ``seed`` and ``init``: a configuration built with
-    ``list()`` becomes a ``MultiLayerNetwork``, one built with
-    ``graph_builder()`` a ``ComputationGraph``."""
-
-    def __init__(self, num_labels: int, seed: int):
-        self.num_labels = num_labels
-        self.seed = seed
-
-    def conf(self):
-        raise NotImplementedError
-
-    def init(self, device=None):
-        """The initialized network (seeded with this model's seed)."""
-        conf = self.conf()
-        if hasattr(conf, "vertices"):
-            from deeplearning4j_tpu_torch.nn.graph import ComputationGraph as net_cls
-        else:
-            from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork as net_cls
-        return net_cls(conf, device=device).init(seed=self.seed)
-
-
-class LeNet(_ZooModel):
+@register_zoo_model
+class LeNet(ZooModel):
     """LeNet-5-style CNN (``zoo/model/LeNet.java``): two 5x5 "same"
     convolutions of 20 and 50 channels, each followed by a 2x2 max pool,
     a dense 500 and a softmax output, trained with AdaDelta.
     ``input_shape`` is (channels, height, width), as in the reference."""
 
+    # the reference's published artifact (LeNet.java:58-70): a DL4J
+    # ModelSerializer zip, which init_pretrained restores
+    PRETRAINED_URLS = {PretrainedType.MNIST:
+                       "http://blob.deeplearning4j.org/models/lenet_dl4j_mnist_inference.zip"}
+    PRETRAINED_CHECKSUMS = {PretrainedType.MNIST: 1906861161}
+
     def __init__(self, num_labels: int = 10, seed: int = 123,
                  input_shape=(1, 28, 28)):
         super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
 
     def conf(self):
         c, h, w = self.input_shape
@@ -123,7 +119,8 @@ class LeNet(_ZooModel):
                 .set_input_type(InputType.convolutional(h, w, c)).build())
 
 
-class SimpleCNN(_ZooModel):
+@register_zoo_model
+class SimpleCNN(ZooModel):
     """A conv, BatchNorm and average-pool stack ending in a fully
     convolutional softmax head (``zoo/model/SimpleCNN.java``): two 7x7
     "same" convolutions of 16 channels, then two 5x5 of 32 and two 3x3 of
@@ -137,6 +134,9 @@ class SimpleCNN(_ZooModel):
                  input_shape=(3, 48, 48)):
         super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
 
     def conf(self):
         c, h, w = self.input_shape
@@ -167,7 +167,8 @@ class SimpleCNN(_ZooModel):
         return b.set_input_type(InputType.convolutional(h, w, c)).build()
 
 
-class AlexNet(_ZooModel):
+@register_zoo_model
+class AlexNet(ZooModel):
     """AlexNet, the one-tower variant (``zoo/model/AlexNet.java``): an
     11x11/4 convolution of 64 channels (padding 3), LRN and a 3x3/2 max
     pool; a 5x5 "same" convolution of 192, LRN and a max pool; three 3x3
@@ -180,6 +181,9 @@ class AlexNet(_ZooModel):
                  input_shape=(3, 224, 224)):
         super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
 
     def conf(self):
         c, h, w = self.input_shape
@@ -222,29 +226,48 @@ def _vgg_conf(blocks, num_labels, seed, input_shape):
     return b.set_input_type(InputType.convolutional(h, w, c)).build()
 
 
-class VGG16(_ZooModel):
+@register_zoo_model
+class VGG16(ZooModel):
     """VGG-16 (``zoo/model/VGG16.java``; Simonyan & Zisserman 2014):
     blocks of 2, 2, 3, 3, 3 convolutions of 64 to 512 channels."""
+
+    PRETRAINED_URLS = {
+        PretrainedType.IMAGENET: "http://blob.deeplearning4j.org/models/vgg16_dl4j_inference.zip",
+        PretrainedType.CIFAR10: "http://blob.deeplearning4j.org/models/vgg16_dl4j_cifar10_inference.v1.zip",
+        PretrainedType.VGGFACE: "http://blob.deeplearning4j.org/models/vgg16_dl4j_vggface_inference.v1.zip",
+    }
+    PRETRAINED_CHECKSUMS = {PretrainedType.IMAGENET: 3501732770,
+                            PretrainedType.CIFAR10: 2192260131,
+                            PretrainedType.VGGFACE: 2706403553}
 
     def __init__(self, num_labels: int = 1000, seed: int = 123,
                  input_shape=(3, 224, 224)):
         super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
 
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
+
     def conf(self):
         return _vgg_conf([(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)],
                          self.num_labels, self.seed, self.input_shape)
 
 
+@register_zoo_model
 class VGG19(VGG16):
     """VGG-19 (``zoo/model/VGG19.java``): blocks of 2, 2, 4, 4, 4."""
+
+    PRETRAINED_URLS = {PretrainedType.IMAGENET:
+                       "http://blob.deeplearning4j.org/models/vgg19_dl4j_inference.zip"}
+    PRETRAINED_CHECKSUMS = {PretrainedType.IMAGENET: 2782932419}
 
     def conf(self):
         return _vgg_conf([(2, 64), (2, 128), (4, 256), (4, 512), (4, 512)],
                          self.num_labels, self.seed, self.input_shape)
 
 
-class Darknet19(_ZooModel):
+@register_zoo_model
+class Darknet19(ZooModel):
     """Darknet-19 (``zoo/model/Darknet19.java``, through DarknetHelper):
     18 :func:`darknet_block` units of 32 to 1024 channels, five with a 2x2
     max pool, then a 1x1 convolution of ``num_labels``, global average
@@ -252,7 +275,7 @@ class Darknet19(_ZooModel):
     Nesterovs(1e-3, 0.9). ``input_shape`` is (channels, height, width).
     The published weights depend on the input side (224 or 448):
     :meth:`pretrained_url` and :meth:`pretrained_checksum` name the
-    reference's artifacts, and nothing reads them."""
+    reference's artifacts, each in a cache slot of its own."""
 
     def __init__(self, num_labels: int = 1000, seed: int = 123,
                  input_shape=(3, 224, 224)):
@@ -261,6 +284,12 @@ class Darknet19(_ZooModel):
 
     def _is_448(self) -> bool:
         return self.input_shape[1] == 448 and self.input_shape[2] == 448
+
+    def _artifact_name(self, pretrained_type: str) -> str:
+        # the 224 and 448 weights are different artifacts: two cache slots
+        if self._is_448():
+            return f"darknet19_448_{pretrained_type}.zip"
+        return f"darknet19_{pretrained_type}.zip"
 
     def pretrained_url(self, pretrained_type: str):
         if pretrained_type != "imagenet":
@@ -273,6 +302,9 @@ class Darknet19(_ZooModel):
         if pretrained_type != "imagenet":
             return 0
         return 870575230 if self._is_448() else 3952910425
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
 
     def conf(self):
         c, h, w = self.input_shape
@@ -303,23 +335,28 @@ YOLO2_ANCHORS = ((0.57273, 0.677385), (1.87446, 2.06253), (3.33843, 5.47434),
                  (7.88282, 3.52778), (9.77052, 9.16828))
 
 
-class TinyYOLO(_ZooModel):
+@register_zoo_model
+class TinyYOLO(ZooModel):
     """Tiny YOLOv2 (``zoo/model/TinyYOLO.java``): eight
     :func:`darknet_block` units of 16 to 1024 channels, the first five with
     a 2x2 max pool at stride 2, the sixth at stride 1 ("same": 13x13 stays
     13x13 at 416x416), a 1x1 convolution of 5·(5 + ``num_labels``) and a
     ``Yolo2OutputLayer`` over ``TINY_YOLO_ANCHORS`` (a
     ``ComputationGraph``); xavier, Adam(1e-3). ``input_shape`` is
-    (channels, height, width). The reference's pretrained artifact is named
-    as data only; nothing reads it."""
+    (channels, height, width)."""
 
     PRETRAINED_URL = "http://blob.deeplearning4j.org/models/tiny-yolo-voc_dl4j_inference.v1.zip"
     PRETRAINED_CHECKSUM = 2004171617
+    PRETRAINED_URLS = {PretrainedType.IMAGENET: PRETRAINED_URL}
+    PRETRAINED_CHECKSUMS = {PretrainedType.IMAGENET: PRETRAINED_CHECKSUM}
 
     def __init__(self, num_labels: int = 20, seed: int = 123,
                  input_shape=(3, 416, 416)):
         super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
 
     def conf(self):
         c, h, w = self.input_shape
@@ -347,22 +384,28 @@ def _yolo_head(g, conv_name: str, src: str, anchors, num_labels: int):
     return g.set_outputs("outputs").build()
 
 
-class YOLO2(_ZooModel):
+@register_zoo_model
+class YOLO2(ZooModel):
     """YOLOv2 on a Darknet-19 backbone with the passthrough reorg
     (``zoo/model/YOLO2.java``): 20 :func:`darknet_block` units; the 1/16
     map of block 13 goes through ``SpaceToDepthLayer(2)`` and a
     ``MergeVertex`` onto the 1/32 map of block 20, then block 21, the 1x1
     convolution of 5·(5 + ``num_labels``) and a ``Yolo2OutputLayer`` over
     ``YOLO2_ANCHORS``; xavier, Adam(1e-3). At 608x608 the output is
-    19x19. The pretrained artifact is named as data only."""
+    19x19."""
 
     PRETRAINED_URL = "http://blob.deeplearning4j.org/models/yolo2_dl4j_inference.v1.zip"
     PRETRAINED_CHECKSUM = 1357637732
+    PRETRAINED_URLS = {PretrainedType.IMAGENET: PRETRAINED_URL}
+    PRETRAINED_CHECKSUMS = {PretrainedType.IMAGENET: PRETRAINED_CHECKSUM}
 
     def __init__(self, num_labels: int = 80, seed: int = 123,
                  input_shape=(3, 608, 608)):
         super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
 
     def conf(self):
         c, h, w = self.input_shape
@@ -391,7 +434,8 @@ class YOLO2(_ZooModel):
         return _yolo_head(g, "convolution2d_22", x, YOLO2_ANCHORS, self.num_labels)
 
 
-class ResNet50(_ZooModel):
+@register_zoo_model
+class ResNet50(ZooModel):
     """ResNet-50 (``zoo/model/ResNet50.java``): a 7x7/2 stem (zero padding
     3, convolution, BatchNorm, relu, 3x3/2 max pool), then [3, 4, 6, 3]
     bottleneck blocks of 256, 512, 1024 and 2048 channels, a 3x3 "same"
@@ -401,10 +445,17 @@ class ResNet50(_ZooModel):
     convolution carries ``space_to_depth_stem`` and runs the plain
     convolution. ``input_shape`` is (channels, height, width)."""
 
+    PRETRAINED_URLS = {PretrainedType.IMAGENET:
+                       "http://blob.deeplearning4j.org/models/resnet50_dl4j_inference.zip"}
+    PRETRAINED_CHECKSUMS = {PretrainedType.IMAGENET: 1982516793}
+
     def __init__(self, num_labels: int = 1000, seed: int = 123,
                  input_shape=(3, 224, 224)):
         super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
 
     def conf(self):
         c, h, w = self.input_shape
@@ -442,17 +493,25 @@ class ResNet50(_ZooModel):
         return g.set_outputs("fc1000").build()
 
 
-class GoogLeNet(_ZooModel):
+@register_zoo_model
+class GoogLeNet(ZooModel):
     """GoogLeNet / Inception-v1 (``zoo/model/GoogLeNet.java``): a 7x7/2
     stem with "same" max pools and LRN, nine inception modules (3a-3b,
     4a-4e, 5a-5b) with "same" 3x3/2 max pools between the stages, global
     average pooling, dropout 0.4 and a softmax output; xavier, relu,
     Nesterovs(1e-2, 0.9). ``input_shape`` is (channels, height, width)."""
 
+    PRETRAINED_URLS = {PretrainedType.IMAGENET:
+                       "http://blob.deeplearning4j.org/models/googlenet_dl4j_inference.zip"}
+    PRETRAINED_CHECKSUMS = {PretrainedType.IMAGENET: 3337733202}
+
     def __init__(self, num_labels: int = 1000, seed: int = 123,
                  input_shape=(3, 224, 224)):
         super().__init__(num_labels, seed)
         self.input_shape = tuple(input_shape)
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
 
     def conf(self):
         c, h, w = self.input_shape
@@ -493,7 +552,8 @@ class GoogLeNet(_ZooModel):
         return g.set_outputs("output").build()
 
 
-class TextGenerationLSTM(_ZooModel):
+@register_zoo_model
+class TextGenerationLSTM(ZooModel):
     """The character-level text generator
     (``zoo/model/TextGenerationLSTM.java:81-86``): 2 x GravesLSTM(256, tanh)
     and a softmax ``RnnOutputLayer`` over ``num_labels`` characters;
@@ -502,6 +562,9 @@ class TextGenerationLSTM(_ZooModel):
     def __init__(self, num_labels: int = 26, seed: int = 123, max_length: int = 40):
         super().__init__(num_labels, seed)
         self.max_length = max_length
+
+    def meta_data(self):
+        return ModelMetaData(((self.max_length, self.num_labels),), 1, "rnn")
 
     def conf(self):
         return (NeuralNetConfiguration.builder().seed(self.seed)
@@ -543,7 +606,8 @@ def transformer_decoder_block(g, name: str, src: str, d_model: int,
     return f"{name}-res2"
 
 
-class TransformerLM(_ZooModel):
+@register_zoo_model
+class TransformerLM(ZooModel):
     """GPT-style causal-decoder language model: token ids [N,T] →
     embedding + learned positions → n pre-LN causal decoder blocks → final
     LayerNorm → per-timestep softmax over the vocabulary. Defaults are
@@ -562,6 +626,9 @@ class TransformerLM(_ZooModel):
         self.n_heads = n_heads
         self.d_ff = d_ff
         self.attn_dropout = attn_dropout
+
+    def meta_data(self):
+        return ModelMetaData(((self.max_length,),), 1, "rnn")
 
     def conf(self):
         g = (NeuralNetConfiguration.builder().seed(self.seed)
@@ -627,7 +694,8 @@ def _encoder_head(g, src, n_layers, d_model, n_heads, d_ff, num_labels):
     return g.build()
 
 
-class TransformerEncoder(_ZooModel):
+@register_zoo_model
+class TransformerEncoder(ZooModel):
     """BERT-base-shape encoder for sequence classification: token ids
     [N,T] → embedding + learned positions → ``n_layers`` post-LN encoder
     blocks (full attention) → mean pooling → softmax classifier; xavier,
@@ -646,6 +714,9 @@ class TransformerEncoder(_ZooModel):
         self.n_heads = n_heads
         self.d_ff = d_ff
 
+    def meta_data(self):
+        return ModelMetaData(((self.max_length,),), 1, "rnn")
+
     def conf(self):
         g = (NeuralNetConfiguration.builder().seed(self.seed)
              .weight_init("xavier").updater(Adam(1e-4)).graph_builder()
@@ -661,7 +732,8 @@ class TransformerEncoder(_ZooModel):
                              self.n_heads, self.d_ff, self.num_labels)
 
 
-class VisionTransformer(_ZooModel):
+@register_zoo_model
+class VisionTransformer(ZooModel):
     """ViT (Dosovitskiy et al. 2020): images [N,H,W,C] → a patch
     embedding (one convolution with kernel = stride = patch) → a [N,
     (H/p)², d_model] token sequence (``ReshapeVertex``) → learned
@@ -691,6 +763,10 @@ class VisionTransformer(_ZooModel):
     def num_patches(self) -> int:
         side = self.image_size // self.patch_size
         return side * side
+
+    def meta_data(self):
+        return ModelMetaData(
+            ((self.channels, self.image_size, self.image_size),), 1, "cnn")
 
     def conf(self):
         p = self.patch_size

@@ -45,7 +45,13 @@ Layerwise pretraining and detection: a VAE's pretrain step on the card
 (the fused updater, the CPU twin's ε) within 1e-5 of the CPU's (or, where
 Adam's per-entry scaling makes the step ill-conditioned, no farther from
 an f64 step than 4x the CPU's f32 step), and the YOLOv2 loss and its
-gradient within 1e-5 of the CPU's.
+gradient within 1e-5 of the CPU's. SameDiff and checkpointing: a SameDiff
+LeNet's gradients on the card (TF32 off) within 1e-5 of the CPU's (its
+convolution weights within 1e-3: cuDNN's f32 weight-gradient algorithms),
+and in f64 within 1e-10; a
+checkpointed dropout network's gradients equal to its plain twin's on the
+card from one generator state, and within 1e-5 of the CPU's handed the
+card's masks.
 """
 
 import numpy as np
@@ -1567,3 +1573,139 @@ def test_yolo2_loss_gradients_on_the_card_match_the_cpu(card, given_target):
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * max(1.0, abs(out["cpu"][0]))
     want = out["cpu"][1]
     assert (out["cuda"][1] - want).abs().max() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+def _sd_lenet(device):
+    """The zoo LeNet's widths in SameDiff ops, narrowed (8 and 16
+    channels, dense 64) for a test, from a seeded generator."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    gen = np.random.default_rng(5)
+    sd = SameDiff.create(device)
+    x = sd.place_holder("input", shape=(None, 28, 28, 1))
+    y = sd.place_holder("label", shape=(None, 10))
+
+    def var(name, *shape):
+        fan = float(np.prod(shape[:-1]))
+        return sd.var(name, value=gen.normal(0, 1 / np.sqrt(fan), shape).astype(np.float32))
+
+    h = sd.nn.conv2d(x, var("w0", 5, 5, 1, 8), stride=(1, 1), padding="SAME") + var("b0", 8)
+    h = sd.nn.max_pooling2d(h, size=(2, 2), stride=(2, 2))
+    h = sd.nn.conv2d(h, var("w1", 5, 5, 8, 16), stride=(1, 1), padding="SAME") + var("b1", 16)
+    h = sd.nn.max_pooling2d(h, size=(2, 2), stride=(2, 2)).reshape(-1, 7 * 7 * 16)
+    h = sd.nn.relu(sd.nn.linear(h, var("w2", 7 * 7 * 16, 64), var("b2", 64)))
+    logits = sd.nn.linear(h, var("w3", 64, 10), var("b3", 10))
+    sd.loss.softmax_cross_entropy(y, logits, name="loss")
+    sd.set_loss_variables("loss")
+    return sd
+
+
+def _sd_gradients_f64(sd, feed, device="cpu"):
+    """The gradients of ``sd``'s loss in f64 on ``device``, through its
+    lowered function (``SameDiff`` itself takes data in f32)."""
+    fn = sd._build_fn(sd._loss_variables)
+    live = {k: v.to(device, torch.float64).requires_grad_(True)
+            for k, v in sd.variables_map.items()}
+    ph = {k: torch.from_numpy(v).to(device, torch.float64) for k, v in feed.items()}
+    consts = {k: v.to(device, torch.float64) for k, v in sd.constants_map.items()}
+    grads = torch.autograd.grad(sum(o.sum() for o in fn(live, ph, consts)), list(live.values()))
+    return {k: g.cpu().numpy() for k, g in zip(live, grads)}
+
+
+# cuDNN's f32 weight-gradient algorithm for these convolutions (8 and 16
+# channels, batch 16) sums in reduced precision: 4.4e-4 (w0) of the
+# largest entry from the f64 gradient on an H100, TF32 off, where the
+# CPU's f32 lies 4e-7 from it (this test's printed reading, ROADMAP §C);
+# at the zoo LeNet's widths and batch 128 the card's lie 4e-7 from f64
+# too (chip_smoke.py's samediff line, gradients_from_f64)
+SD_CONV_WGRAD_TOL = 1e-3
+
+
+@pytest.mark.cuda
+def test_samediff_lenet_gradients_on_the_card_match_the_cpu(card):
+    """A SameDiff LeNet's ``calculate_gradients`` on the card (f32, TF32
+    off) against the CPU's: each variable within 1e-5 x its largest
+    gradient entry, the convolution weights within SD_CONV_WGRAD_TOL; and
+    the same lowered graph in f64 on the card within 1e-10 of the CPU's
+    f64 gradients (the port's ops, exact there)."""
+    gen = np.random.default_rng(6)
+    x = gen.normal(size=(16, 28, 28, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[gen.integers(0, 10, 16)]
+    feed = {"input": x, "label": y}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sd = _sd_lenet(None)
+        got, got64 = sd.calculate_gradients(feed), _sd_gradients_f64(sd, feed, "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = _sd_lenet("cpu")
+    want, want64 = cpu.calculate_gradients(feed), _sd_gradients_f64(cpu, feed)
+    assert set(got) == set(want) == {"w0", "b0", "w1", "b1", "w2", "b2", "w3", "b3"}
+    # each f32 gradient's distance from the f64 one (``-s`` shows it)
+    print({k: {src: float(np.abs(g[k] - want64[k]).max() / np.abs(want64[k]).max())
+               for src, g in (("card_f32", got), ("cpu_f32", want))} for k in want})
+    for k, w in want.items():
+        tol = SD_CONV_WGRAD_TOL if k in ("w0", "w1") else 1e-5
+        assert np.abs(got[k] - w).max() <= tol * np.abs(w).max(), k
+        assert np.abs(got64[k] - want64[k]).max() <= 1e-10 * np.abs(want64[k]).max(), k
+
+
+@pytest.mark.cuda
+def test_checkpointed_dropout_gradients_on_the_card_match_the_cpu(card):
+    """A checkpointed network with dropout: its gradients on the card equal
+    its plain twin's there from the same generator state (the recompute
+    replays the masks), and are within 1e-5 x each tensor's largest entry
+    of the CPU's when the card's masks are handed to the CPU."""
+    from deeplearning4j_tpu_torch.nn import dropout as d
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.train_step import gradients
+
+    def conf(remat):
+        return (NeuralNetConfiguration.builder().seed(2).dropout(0.7)
+                .gradient_checkpointing(remat).list()
+                .layer(DenseLayer(n_out=64, activation="tanh"))
+                .layer(DenseLayer(n_out=64, activation="relu"))
+                .layer(OutputLayer(n_out=5))
+                .set_input_type(InputType.feed_forward(32)).build())
+
+    gen = np.random.default_rng(7)
+    x = torch.from_numpy(gen.normal(size=(24, 32)).astype(np.float32))
+    y = torch.from_numpy(np.eye(5, dtype=np.float32)[gen.integers(0, 5, 24)])
+    net = MultiLayerNetwork(conf(True)).init()
+    weights = export_params(net)
+    plain = load_reference_params(MultiLayerNetwork(conf(False)).init(), weights)
+    plain.dropout_generator.set_state(net.dropout_generator.get_state())
+    masks = []
+    bernoulli = d.bernoulli
+
+    def recorded(*args, **kw):
+        masks.append(bernoulli(*args, **kw))
+        return masks[-1]
+
+    def grads(n, xs, ys):
+        return gradients(lambda live: (n._loss_fn(live, xs, ys, None, None, train=True,
+                                                  gen=n.dropout_generator)[0], None),
+                         n.params)[1]
+
+    d.bernoulli = recorded
+    try:
+        g_ck = grads(net, x.cuda(), y.cuda())
+    finally:
+        d.bernoulli = bernoulli
+    g_plain = grads(plain, x.cuda(), y.cuda())
+    for k in g_ck:
+        for n in g_ck[k]:
+            assert torch.equal(g_ck[k][n], g_plain[k][n]), (k, n)
+    drawn = masks[:2]  # the first forward's masks; the recompute drew again
+    assert len(masks) == 4 and all(torch.equal(a, b) for a, b in zip(drawn, masks[2:][::-1]))
+    cpu = load_reference_params(MultiLayerNetwork(conf(True), device="cpu").init(), weights)
+    handed = iter(m.cpu() for m in drawn + drawn[::-1])
+    d.bernoulli = lambda *a, **k: next(handed)
+    try:
+        g_cpu = grads(cpu, x, y)
+    finally:
+        d.bernoulli = bernoulli
+    for k in g_cpu:
+        for n, w in g_cpu[k].items():
+            assert (g_ck[k][n].cpu() - w).abs().max() <= 1e-5 * w.abs().max(), (k, n)

@@ -73,7 +73,14 @@ def test_import_leaves_jax_unloaded():
             "deeplearning4j_tpu_torch.nn.layers.objdetect, "
             "deeplearning4j_tpu_torch.nn.layers.wrappers, "
             "deeplearning4j_tpu_torch.nn.layers.moe, "
-            "deeplearning4j_tpu_torch.nn.simple; "
+            "deeplearning4j_tpu_torch.nn.simple, "
+            "deeplearning4j_tpu_torch.autodiff.samediff, "
+            "deeplearning4j_tpu_torch.nn.layers.samediff, "
+            "deeplearning4j_tpu_torch.nn.transferlearning, "
+            "deeplearning4j_tpu_torch.nn.conf.memory, "
+            "deeplearning4j_tpu_torch.zoo.zoo_model, "
+            "deeplearning4j_tpu_torch.zoo.labels; "
+            "deeplearning4j_tpu_torch.SameDiff; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -130,6 +137,30 @@ def test_entry_points_need_an_explicit_cpu(tmp_path):
     back = MultiLayerNetwork.load(path, device="cpu")
     assert all(p.device.type == "cpu" for p in back.parameters())
     assert restore_multi_layer_network(path, device="cpu").iteration == 0
+
+
+def test_samediff_and_the_zoo_base_need_an_explicit_cpu(tmp_path, monkeypatch):
+    """SameDiff, its npz and ``init_pretrained`` pick cuda unless the
+    caller asks for the CPU."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SameDiff.create()
+    sd = SameDiff.create(device="cpu")
+    sd.var("w", value=np.ones(3, np.float32))
+    sd.save(os.path.join(str(tmp_path), "g"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SameDiff.load(os.path.join(str(tmp_path), "g.npz"))
+    assert SameDiff.load(os.path.join(str(tmp_path), "g.npz"),
+                         device="cpu").variables_map["w"].device.type == "cpu"
+    monkeypatch.setenv("DL4J_TPU_ZOO_DIR", str(tmp_path))
+    LeNet(input_shape=(1, 12, 12)).init(device="cpu").save(
+        os.path.join(str(tmp_path), "lenet_mnist.zip"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LeNet(input_shape=(1, 12, 12)).init_pretrained("mnist")
+    net = LeNet(input_shape=(1, 12, 12)).init_pretrained("mnist", device="cpu")
+    assert all(p.device.type == "cpu" for p in net.parameters())
 
 
 def test_chip_smoke_refuses_without_a_card():
