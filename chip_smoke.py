@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs twenty-eight phases:
+every kernel, and runs thirty-one phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -280,7 +280,27 @@ every kernel, and runs twenty-eight phases:
    with attention dropout 0.1 from one dropout-generator state (the plain
    attention path: the recompute must replay the masks); the reference's
    remat case (12 x Dense(512), batch 256) through
-   ``compiled_memory_analysis`` with and without checkpointing.
+   ``compiled_memory_analysis`` with and without checkpointing;
+29. the zoo's face models at their published widths with Adam on the
+   fused updater, synthetic images: InceptionResNetV1 (160x160x3, batch
+   32) and FaceNetNN4Small2 (96x96x3, batch 64), a warm-up and 5 timed
+   fits each (one K2 launch per parameter tensor a step; median step,
+   images/s, busy share, peak memory), the first batch's loss and
+   gradients in f32 against an f64 twin on the card;
+30. Keras import from the committed configurations
+   (``tests/fixtures/keras``; weights drawn from a seed at the shapes
+   Keras stores, filled through ``copy_weights``): BERT-base (12 x 768,
+   vocab 30522, T 128, two inputs) in bf16 with the full-attention helper
+   at batch 32, int64 ids, 5 timed fits (12 / 12 / 12 K3-bf16 launches a
+   step) beside the zoo TransformerEncoder's step, its f32 output at batch
+   2 against an f64 twin; keras-io's IMDB Bidirectional LSTM (4 K1
+   launches a forward) against the plain recurrence, 3 fits; keras-io's
+   MNIST convnet against the same network on the CPU;
+31. DL4J export: the LeNet phase's LeNet and a two-input dense graph trained on the
+   card (K2), written as DL4J zips and read back onto the card by the
+   port's reader (the graph's output equal, LeNet's within 1e-6, the Adam
+   state equal), and ``load_model_guess`` on the DL4J and the port's own
+   zips.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -723,6 +743,42 @@ TR_FROZEN_TILL, TR_CLASSES, TR_BATCH, TR_STEPS = 19, 5, 16, 3
 # within CK_TOL relative (each tensor's largest difference over its
 # largest entry), with attention dropout GPT2_DROPOUT too
 CK_STEPS, CK_TOL = 3, 1e-6
+# the zoo's face models at their published widths, Adam on the fused
+# updater (one K2 launch per parameter tensor a step), synthetic images
+# (no face set is in the repository): InceptionResNetV1 (160x160x3) at
+# batch FN_IRV1_BATCH, FaceNetNN4Small2 (96x96x3) at FN_NN4_BATCH, one
+# warm-up and FN_STEPS timed fits, 2 profiled; the first batch's loss and
+# gradients in f32 against an f64 twin on the card from the same weights:
+# the loss within FN_LOSS_TOL relative, the whole gradient within
+# FN_GRAD_TOL (relative L2; the zoo VGG16's f32 gradients lay 3.4e-3 from
+# f64 on the card, its max pools' near-ties, so 3x that); each tensor's
+# printed
+FN_IRV1_BATCH, FN_NN4_BATCH, FN_STEPS, FN_LOSS_TOL, FN_GRAD_TOL = 32, 64, 5, 1e-5, 1e-2
+# Keras import (tests/fixtures/keras, written by make_keras_fixtures.py),
+# weights drawn from a seed at the shapes Keras stores: (a) BERT-base (12 x
+# 768, 12 heads, vocab 30522, T 128, token and position ids) in bf16 with
+# FlashAttentionHelper(causal=False), batch KI_BERT_BATCH, int64 ids, the
+# imported network's default Sgd(0.1): KI_STEPS timed fits (12 / 12 / 12
+# K3-bf16 launches a step, no K2) beside the zoo TransformerEncoder's at
+# the same shape, 2 profiled; its f32 output at batch 2 (f32 K3a) within
+# KI_BERT_TOL of an f64 twin's on the card; (b) keras-io's IMDB
+# Bidirectional LSTM (maxlen 200) at batch KI_IMDB_BATCH, f32: output (4
+# K1 launches) within LSTM_TOL x max(1, largest) of the plain recurrence's
+# (the kernel off), KI_IMDB_STEPS fits; (c) keras-io's MNIST convnet:
+# output at batch KI_CNN_BATCH within KI_CNN_TOL x max(1, largest) of the
+# same network on the CPU
+KI_BERT_BATCH, KI_STEPS, KI_BERT_TOL = 32, 5, 1e-4
+KI_IMDB_BATCH, KI_IMDB_STEPS, KI_CNN_BATCH, KI_CNN_TOL = 32, 3, 64, 1e-5
+# DL4J export of networks trained on the card: the LeNet of the lenet
+# phase (lenet_conf: Adam on the fused updater, ME_STEPS steps at
+# ME_BATCH) and a
+# two-input dense graph (Merge, ElementWise); each zip read back onto the
+# card by the port's DL4J reader: the graph's output equal (0.0), LeNet's
+# within ME_LENET_TOL x max(1, largest) (its dense rows come back in
+# DL4J's C, H, W order, so its product sums in another order); the Adam
+# state read back equal; load_model_guess on the DL4J zips and the port's
+# own zips gives each network's class
+ME_STEPS, ME_BATCH, ME_LENET_TOL = 3, 64, 1e-6
 
 
 def card_peaks(name: str):
@@ -6296,6 +6352,473 @@ def network_api_phase(ck, card):
     return paths
 
 
+# ------------------------------------------------------------ zoo face models
+def fn_gradient_reading(net, x, y):
+    """The first batch's loss and gradients in f32 on ``net`` against an f64
+    twin on the card from the same weights and layer state."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.convert import (export_params, export_states,
+                                                       load_reference_params,
+                                                       load_reference_states)
+
+    g32, loss32 = net.compute_gradient_and_score(x, y)
+    conf = type(net.conf).from_json(net.conf.to_json())
+    conf.global_conf.dtype = "float64"
+    twin = ComputationGraph(conf).init()
+    load_reference_params(twin, export_params(net))
+    load_reference_states(twin, export_states(net))
+    g64, loss64 = twin.compute_gradient_and_score(x.double(), y.double())
+    num = den = 0.0
+    worst = (0.0, None)
+    for key, named in g64.items():
+        for n, want in named.items():
+            d = (g32[key][n].double() - want).norm().item()
+            w = want.norm().item()
+            num, den = num + d * d, den + w * w
+            if w > 0 and d / w > worst[0]:
+                worst = (d / w, f"{key}/{n}")
+    del twin, g64, g32
+    torch.cuda.empty_cache()
+    return {"loss_f32": float(loss32), "loss_f64": float(loss64),
+            "loss_rel": abs(float(loss32) - float(loss64)) / abs(float(loss64)),
+            "grad_rel_l2": math.sqrt(num / den), "worst_tensor_rel_l2": worst[0],
+            "worst_tensor": worst[1], "limits": {"loss_rel": FN_LOSS_TOL,
+                                                 "grad_rel_l2": FN_GRAD_TOL}}
+
+
+def zoo_facenet_phase(ck, card):
+    """InceptionResNetV1 and FaceNetNN4Small2 at their published widths on
+    the fused updater (see FN_*). Returns each model's launches."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.zoo import FaceNetNN4Small2, InceptionResNetV1
+
+    paths, failures = {}, []
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        for model, batch in ((InceptionResNetV1(), FN_IRV1_BATCH),
+                             (FaceNetNN4Small2(), FN_NN4_BATCH)):
+            name = type(model).__name__
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            c, h, w = model.input_shape
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(17)
+            x = torch.rand((batch, h, w, c), generator=gen, device="cuda")
+            y = F.one_hot(torch.randint(0, model.num_labels, (batch,), generator=gen,
+                                        device="cuda"), model.num_labels).float()
+            net = model.init()
+            reading = fn_gradient_reading(net, x, y)
+            net.fit(x, y)  # warm-up
+            zero_launches(ck)
+            step_ms, losses = timed_fits(net, x, y, FN_STEPS)
+            launches = read_launches(ck)
+            paths[f"zoo_facenet_{name}_train"] = launches
+            median = float(np.median(step_ms))
+            row = {"model": name, "card": card, "input": [h, w, c], "batch": batch,
+                   "params": net.conf.num_params(), "tensors": tensors_of(net),
+                   "step_ms": step_ms, "median_step_ms": median,
+                   "images_per_s": batch / (median / 1e3), "losses": losses,
+                   "launches": launches,
+                   "k2_launches_per_step": launches["fused_adam"] / FN_STEPS,
+                   "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "first_batch_f32_against_f64": reading,
+                   **busy(lambda: [net.fit(x, y) for _ in range(2)], 2)}
+            bad = []
+            if unexpected_launches(launches, {"fused_adam": tensors_of(net) * FN_STEPS}):
+                bad.append("launches")
+            if not np.isfinite(losses).all():
+                bad.append("losses")
+            if not (reading["loss_rel"] <= FN_LOSS_TOL
+                    and reading["grad_rel_l2"] <= FN_GRAD_TOL):
+                bad.append("f64 twin")
+            row["ok"] = not bad
+            print("zoo_facenet " + json.dumps(row), flush=True)
+            failures += [f"{name}: {b}" for b in bad]
+            del net, x, y
+    finally:
+        helpers.clear_helper("updater")
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"zoo_facenet: {failures}")
+    return paths
+
+
+# ---------------------------------------------------------------- Keras import
+class SeededKerasWeights:
+    """``Hdf5Archive``'s read API (``get_groups``, ``get_data_sets``,
+    ``read_dataset``) over weights drawn from a seed at the shapes Keras
+    stores each layer's weights in, for the layers of an imported network:
+    what ``copy_weights`` reads from a real ``.h5``. Test scaffolding: the
+    card's machine has neither Keras nor h5py."""
+
+    def __init__(self, km, net, seed):
+        self._rng = np.random.default_rng(seed)
+        if hasattr(net.conf, "vertices"):
+            layers = {n: net.conf.vertices[n].obj for n in km.layer_names}
+        else:
+            layers = {layer.name: layer for layer in net.layers}
+        self.tree = {name: self._keras_weights(layer) for name, layer in layers.items()
+                     if name in km.layer_names}
+
+    def _draw(self, shape, fan_in):
+        return (self._rng.standard_normal(shape) / math.sqrt(fan_in)).astype(np.float32)
+
+    def _keras_weights(self, layer):
+        cls = type(layer).__name__
+        if cls in ("LastTimeStepWrapper", "BidirectionalWrapper"):
+            inner = layer.layer
+            if cls == "LastTimeStepWrapper":
+                return self._keras_weights(inner)
+            one = lambda: self._keras_weights(inner)  # noqa: E731
+            return {"forward_lstm": one(), "backward_lstm": one()}
+        if cls == "SelfAttentionLayer":
+            d, h, dh = layer.n_in, layer.n_heads, layer._dh()
+            proj = lambda: {"kernel": self._draw((d, h, dh), d),  # noqa: E731
+                            "bias": self._draw((h, dh), 50.0)}
+            return {"query": proj(), "key": proj(), "value": proj(),
+                    "attention_output": {"kernel": self._draw((h, dh, d), h * dh),
+                                         "bias": self._draw((d,), 50.0)}}
+        shapes = layer.param_shapes()
+        if not shapes:
+            return {}
+        if cls == "LayerNormalizationLayer":
+            n = shapes["gamma"][0]
+            return {"gamma": 1.0 + self._draw((n,), 2500.0), "beta": self._draw((n,), 2500.0)}
+        if cls == "EmbeddingSequenceLayer":
+            return {"embeddings": self._draw(shapes["W"], 2500.0)}
+        if cls == "LSTMLayer":
+            return {"kernel": self._draw(shapes["W"], shapes["W"][0]),
+                    "recurrent_kernel": self._draw(shapes["RW"], shapes["RW"][0]),
+                    "bias": self._draw(shapes["b"], 100.0)}
+        out = {"kernel": self._draw(shapes["W"], int(np.prod(shapes["W"][:-1])))}
+        if "b" in shapes:
+            out["bias"] = self._draw(shapes["b"], 100.0)
+        return out
+
+    def _node(self, groups):
+        node = self.tree
+        for g in groups:
+            node = node[g]
+        return node
+
+    def get_groups(self, *groups):
+        return [k for k, v in self._node(groups).items() if isinstance(v, dict)]
+
+    def get_data_sets(self, *groups):
+        return [k for k, v in self._node(groups).items() if not isinstance(v, dict)]
+
+    def read_dataset(self, name, *groups):
+        return self._node(groups)[name]
+
+
+def keras_fixture(name):
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "keras", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def keras_network(name, seed, device=None, dtype=None, compute_dtype=None, weights=None):
+    """The fixture ``name`` imported through ``import_keras_model_from_json``
+    onto ``device``, filled by ``copy_weights`` from seeded Keras-shaped
+    weights (or given ``weights``, as ``export_params`` gives them)."""
+    from deeplearning4j_tpu_torch.modelimport.keras import KerasModelImport
+    from deeplearning4j_tpu_torch.util.convert import load_reference_params
+
+    fixture = keras_fixture(name)
+    km = KerasModelImport.import_keras_model_from_json(fixture["model_config"],
+                                                       fixture["training_config"])
+    if dtype is not None:
+        km.conf.global_conf.dtype = dtype
+    km.conf.global_conf.compute_dtype = compute_dtype
+    net = km.init(device)
+    if weights is None:
+        km.copy_weights(net, SeededKerasWeights(km, net, seed))
+    else:
+        load_reference_params(net, weights)
+    return net
+
+
+def keras_bert(ck, card):
+    """(a): the imported BERT-base in bf16 beside the zoo encoder."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.datasets.dataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.convert import export_params
+    from deeplearning4j_tpu_torch.zoo.models import TransformerEncoder
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = keras_network("bert_base", seed=31, compute_dtype="bfloat16")
+    weights = export_params(net)  # as imported, for the f32 and f64 twins
+    n_att = sum(1 for n in net.conf.topo_order if n.startswith("mha_"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    tok = torch.randint(0, 30522, (KI_BERT_BATCH, ENC_T), generator=gen, device="cuda")
+    pos = torch.arange(ENC_T, device="cuda").repeat(KI_BERT_BATCH, 1)
+    y = F.one_hot(torch.randint(0, 2, (KI_BERT_BATCH,), generator=gen, device="cuda"),
+                  2).float()
+    data = MultiDataSet([tok, pos], [y])
+    helpers.set_helper("attention", ck.FlashAttentionHelper(causal=False))
+    try:
+        net.fit(data)  # warm-up
+        zero_launches(ck)
+        step_ms, losses = timed_fits(net, data, None, KI_STEPS)
+        launches = read_launches(ck)
+        zero_launches(ck)
+        out = net.output(tok, pos)
+        torch.cuda.synchronize()
+        out_launches = read_launches(ck)
+        out_ok = (out.dtype == torch.bfloat16 and tuple(out.shape) == (KI_BERT_BATCH, 2)
+                  and bool(torch.isfinite(out.float()).all()))
+        prof = busy(lambda: [net.fit(data) for _ in range(2)], 2)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del net, out
+        torch.cuda.empty_cache()
+        # the zoo's encoder at the same shape (its Adam, stock), reported
+        zconf = TransformerEncoder(num_labels=2, seed=1).conf()
+        zconf.global_conf.compute_dtype = "bfloat16"
+        zoo = ComputationGraph(zconf).init()
+        zoo.fit(tok, y)
+        zoo_ms, _ = timed_fits(zoo, tok, y, KI_STEPS)
+        del zoo
+        torch.cuda.empty_cache()
+        # the imported weights' f32 output at batch 2 (f32 K3a) against an
+        # f64 twin's (plain attention)
+        f32 = keras_network("bert_base", 0, dtype="float32", weights=weights)
+        zero_launches(ck)
+        got = f32.output(tok[:2], pos[:2]).double()
+        torch.cuda.synchronize()
+        f32_launches = read_launches(ck)
+        del f32
+        f64 = keras_network("bert_base", 0, dtype="float64", weights=weights)
+        want = f64.output(tok[:2], pos[:2])
+        err = (got - want).abs().max().item()
+        del f64
+    finally:
+        helpers.clear_helper("attention")
+        torch.cuda.empty_cache()
+    median = float(np.median(step_ms))
+    want_launches = {f"{k}_bf16": n_att * KI_STEPS for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    row = {"model": "bert_base", "card": card, "compute_dtype": "bfloat16", "ids": "int64",
+           "batch": [KI_BERT_BATCH, ENC_T], "attention_layers": n_att,
+           "params": sum(int(np.prod(a.shape)) for v in weights.values() for a in v.values()),
+           "step_ms": step_ms, "median_step_ms": median,
+           "tokens_per_s": KI_BERT_BATCH * ENC_T / (median / 1e3), "losses": losses,
+           "launches": launches,
+           "launches_per_step": {k: v / KI_STEPS for k, v in launches.items()},
+           "output_launches": out_launches, "peak_device_mem_gb": peak, **prof,
+           "zoo_encoder_step_ms": zoo_ms, "zoo_encoder_median_step_ms": float(np.median(zoo_ms)),
+           "f32_output_launches": f32_launches,
+           "f32_output_against_f64": {"max_abs_err": err, "limit": KI_BERT_TOL}}
+    bad = []
+    if unexpected_launches(launches, want_launches):
+        bad.append("launches")
+    if unexpected_launches(out_launches, {"flash_attention_fwd_bf16": n_att}):
+        bad.append("output launches")
+    if unexpected_launches(f32_launches, {"flash_attention_fwd": n_att}):
+        bad.append("f32 output launches")
+    if not (out_ok and np.isfinite(losses).all() and err <= KI_BERT_TOL):
+        bad.append("output or losses")
+    row["ok"] = not bad
+    print("keras_import " + json.dumps(row), flush=True)
+    return {"keras_bert_train": launches, "keras_bert_output": out_launches,
+            "keras_bert_f32_output": f32_launches}, bad
+
+
+def keras_imdb(ck, card):
+    """(b): keras-io's IMDB Bidirectional LSTM on K1."""
+    from deeplearning4j_tpu_torch.nn import helpers
+
+    net = keras_network("imdb_bilstm", seed=32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    x = torch.randint(0, 20000, (KI_IMDB_BATCH, 200), generator=gen, device="cuda")
+    y = torch.randint(0, 2, (KI_IMDB_BATCH, 1), generator=gen, device="cuda").float()
+    zero_launches(ck)
+    got = net.output(x)
+    torch.cuda.synchronize()
+    out_launches = read_launches(ck)
+    helpers.set_auto_fused_lstm(False)
+    try:
+        zero_launches(ck)
+        plain = net.output(x)
+        torch.cuda.synchronize()
+        plain_launches = read_launches(ck)
+    finally:
+        helpers.set_auto_fused_lstm(True)
+    err = (got - plain).abs().max().item()
+    limit = LSTM_TOL * max(1.0, plain.abs().max().item())
+    zero_launches(ck)
+    step_ms, losses = timed_fits(net, x, y, KI_IMDB_STEPS)
+    fit_launches = read_launches(ck)
+    row = {"model": "imdb_bilstm", "card": card, "batch": [KI_IMDB_BATCH, 200],
+           "params": net.conf.num_params(), "output_launches": out_launches,
+           "plain_output_launches": plain_launches,
+           "output_against_plain": {"max_abs_err": err, "limit": limit},
+           "step_ms": step_ms, "losses": losses, "fit_launches": fit_launches}
+    bad = []
+    if unexpected_launches(out_launches, {"lstm_sequence": 4}) or any(plain_launches.values()):
+        bad.append("output launches")
+    if unexpected_launches(fit_launches, {"lstm_sequence": 4 * KI_IMDB_STEPS}):
+        bad.append("fit launches")
+    if not (err <= limit and np.isfinite(losses).all()):
+        bad.append("output or losses")
+    row["ok"] = not bad
+    print("keras_import " + json.dumps(row), flush=True)
+    del net
+    return {"keras_imdb_output": out_launches, "keras_imdb_train": fit_launches}, bad
+
+
+def keras_cnn(ck, card):
+    """(c): keras-io's MNIST convnet on the card against the CPU."""
+    from deeplearning4j_tpu_torch.util.convert import export_params
+
+    net = keras_network("sequential_cnn", seed=33)
+    cpu = keras_network("sequential_cnn", 0, device="cpu", weights=export_params(net))
+    x = torch.rand((KI_CNN_BATCH, 28, 28, 1), generator=torch.Generator().manual_seed(7))
+    zero_launches(ck)
+    got = net.output(x.cuda()).cpu()
+    torch.cuda.synchronize()
+    launches = read_launches(ck)
+    want = cpu.output(x)
+    err = (got - want).abs().max().item()
+    limit = KI_CNN_TOL * max(1.0, want.abs().max().item())
+    row = {"model": "sequential_cnn", "card": card, "batch": KI_CNN_BATCH,
+           "params": net.conf.num_params(), "layers": [type(l).__name__ for l in net.layers],
+           "output_against_cpu": {"max_abs_err": err, "limit": limit},
+           "output_launches": launches}
+    bad = [] if err <= limit and not any(launches.values()) else ["output"]
+    row["ok"] = not bad
+    print("keras_import " + json.dumps(row), flush=True)
+    return {"keras_cnn_output": launches}, bad
+
+
+def keras_import_phase(ck, card):
+    """The committed Keras configurations imported and driven on the card
+    (see KI_*). Returns each path's launches."""
+    paths, failures = {}, []
+    for name, run in (("bert", keras_bert), ("imdb", keras_imdb), ("cnn", keras_cnn)):
+        got, bad = run(ck, card)
+        paths.update(got)
+        failures += [f"{name}: {b}" for b in bad]
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"keras_import: {failures}")
+    return paths
+
+
+# ---------------------------------------------------------------- DL4J export
+def me_graph_conf():
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex, MergeVertex
+
+    g = (NeuralNetConfiguration.builder().seed(9).updater(Adam(1e-3))
+         .graph_builder().add_inputs("a", "b")
+         .set_input_types(InputType.feed_forward(256), InputType.feed_forward(128)))
+    g.add_layer("da", DenseLayer(n_out=512, activation="relu"), "a")
+    g.add_layer("db", DenseLayer(n_out=512, activation="tanh"), "b")
+    g.add_vertex("sum", ElementWiseVertex(op="add"), "da", "db")
+    g.add_vertex("cat", MergeVertex(), "sum", "da")
+    g.add_layer("out", OutputLayer(n_out=10, activation="softmax", loss="mcxent"), "cat")
+    return g.set_outputs("out").build()
+
+
+def me_round_trip(ck, net, x, y, tmp, name):
+    """``net`` trained ME_STEPS steps on the fused updater, exported as a
+    DL4J zip and read back onto the card; returns (row, launches)."""
+    from deeplearning4j_tpu_torch.modelimport import dl4j, dl4j_export
+    from deeplearning4j_tpu_torch.util.model_guesser import load_model_guess
+
+    graph = hasattr(net.conf, "vertices")
+    zero_launches(ck)
+    _, losses = timed_fits(net, x, y, ME_STEPS)
+    launches = read_launches(ck)
+    xs = x.features if graph else [x]
+    path, own = os.path.join(tmp, f"{name}_dl4j.zip"), os.path.join(tmp, f"{name}_own.zip")
+    t0 = time.perf_counter()
+    (dl4j_export.export_computation_graph if graph
+     else dl4j_export.export_multi_layer_network)(net, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = (dl4j.restore_computation_graph if graph else dl4j.restore_multi_layer_network)(path)
+    restore_s = time.perf_counter() - t0
+    want = net.output(*xs)
+    got = back.output(*xs)
+    err = (got - want).abs().max().item()
+    limit = 0.0 if graph else ME_LENET_TOL * max(1.0, want.abs().max().item())
+    # the Adam state read back equal, but for a dense weight after a
+    # convolution, whose rows come back in DL4J's order
+    _, permuted = (({}, {}) if graph else dl4j_export._walk_boundaries(net.conf))
+    kept = [(k, n) for k, named in net.updater_states.items() for n in named
+            if not (k in permuted and n == "W")]
+    state_equal = all(torch.equal(net.updater_states[k][n][slot],
+                                  back.updater_states[k][n][slot])
+                      for k, n in kept for slot in net.updater_states[k][n])
+    net.save(own)
+    kinds = {"dl4j": type(load_model_guess(path)).__name__,
+             "own": type(load_model_guess(own)).__name__}
+    row = {"network": name, "losses": losses, "fit_launches": launches,
+           "zip_bytes": os.path.getsize(path), "export_s": export_s, "restore_s": restore_s,
+           "restored_on": str(next(back.parameters()).device),
+           "output_max_abs_err": err, "limit": limit,
+           "adam_state_equal": state_equal, "adam_tensors_compared": len(kept),
+           "guessed": kinds, "iteration": [net.iteration, back.iteration]}
+    want_kind = type(net).__name__
+    row["ok"] = (err <= limit and state_equal and kinds == {"dl4j": want_kind, "own": want_kind}
+                 and back.iteration == net.iteration
+                 and not unexpected_launches(launches,
+                                             {"fused_adam": tensors_of(net) * ME_STEPS}))
+    return row, launches
+
+
+def model_export_phase(ck, card):
+    """Networks trained on the card written as DL4J zips and read back (see
+    ME_*). Returns each path's launches."""
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    paths, failures = {}, []
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        lenet = MultiLayerNetwork(lenet_conf()).init()
+        x = torch.rand((ME_BATCH, 28, 28, 1), generator=gen, device="cuda")
+        y = F.one_hot(torch.randint(0, 10, (ME_BATCH,), generator=gen, device="cuda"),
+                      10).float()
+        row, paths["model_export_lenet_train"] = me_round_trip(ck, lenet, x, y, tmp, "lenet")
+        print("model_export " + json.dumps({"card": card, **row}), flush=True)
+        if not row["ok"]:
+            failures.append("lenet")
+        graph = ComputationGraph(me_graph_conf()).init()
+        data = MultiDataSet([torch.randn((ME_BATCH, 256), generator=gen, device="cuda"),
+                             torch.randn((ME_BATCH, 128), generator=gen, device="cuda")], [y])
+        row, paths["model_export_graph_train"] = me_round_trip(ck, graph, data, None, tmp,
+                                                               "graph")
+        print("model_export " + json.dumps({"card": card, **row}), flush=True)
+        if not row["ok"]:
+            failures.append("graph")
+    finally:
+        helpers.clear_helper("updater")
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"model_export: {failures}")
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -6362,6 +6885,9 @@ def main() -> None:
     sd_paths = timed(samediff_phase, ck, card)
     tr_paths = timed(transfer_phase, ck, card)
     ck_paths = timed(checkpointing_phase, ck, card)
+    fn_paths = timed(zoo_facenet_phase, ck, card)
+    ki_paths = timed(keras_import_phase, ck, card)
+    me_paths = timed(model_export_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -6407,9 +6933,10 @@ def main() -> None:
         return sum(api_paths(kernel).values())
 
     def workflow_paths(kernel):
-        """The kernel's launches on each path of the samediff, transfer and
-        checkpointing phases."""
-        return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths)
+        """The kernel's launches on each path of the samediff, transfer,
+        checkpointing, zoo_facenet, keras_import and model_export phases."""
+        return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths, fn_paths,
+                                                   ki_paths, me_paths)
                 for path, counts in paths.items()}
 
     def workflow_total(kernel):
@@ -6423,7 +6950,7 @@ def main() -> None:
                 "encoder_bf16_train": enc["train_a"][kernel],
                 "encoder_bf16_flash_train": enc["train_b"][kernel],
                 "encoder_bf16_flash_output": enc["output_b"][kernel],
-                **api_paths(kernel)}
+                **api_paths(kernel), **workflow_paths(kernel)}
 
     def encoder_row(name):
         """The bf16 kernel's row at the encoder's attention shape."""
@@ -6483,7 +7010,8 @@ def main() -> None:
                   **later_paths("fused_adam"), **small, **pretrain, **yolo})),
         entry("lstm_sequence", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66", lstm,
-              sum(char_launches.values()) + stack["f32"] + api_total("lstm_sequence"),
+              sum(char_launches.values()) + stack["f32"] + api_total("lstm_sequence")
+              + workflow_total("lstm_sequence"),
               launches_by_path=measured({
                   **char_launches, **later_paths("lstm_sequence"),
                   **{p: c["f32"] for p, c in lstm_bf16.items()},
@@ -6502,10 +7030,11 @@ def main() -> None:
         entry("lstm_sequence_bf16", "lstm_sequence.cu",
               "deeplearning4j_tpu/nn/pallas_kernels.py:66 on bf16 xw", lstm_bf16_row,
               sum(c["bf16"] for c in lstm_bf16.values()) + stack["bf16"]
-              + api_total("lstm_sequence_bf16"),
+              + api_total("lstm_sequence_bf16") + workflow_total("lstm_sequence_bf16"),
               launches_by_path={**{p: c["bf16"] for p, c in lstm_bf16.items()},
                                 "recurrent_stack": stack["bf16"],
-                                **api_paths("lstm_sequence_bf16")},
+                                **api_paths("lstm_sequence_bf16"),
+                                **workflow_paths("lstm_sequence_bf16")},
               shape=list(LSTM_BF16_PATH), plan=lstm_bf16_row["plan"],
               device_ms=lstm_bf16_row["device_ms"],
               chain_floor_ms=lstm_bf16_row.get("chain_floor_ms"),

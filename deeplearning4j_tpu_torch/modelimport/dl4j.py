@@ -678,6 +678,7 @@ def import_dl4j_graph_configuration(source):
     vertex_inputs = d.get("vertexInputs") or {}
     g = NeuralNetConfiguration.builder().graph_builder()
     g.add_inputs(*(d.get("networkInputs") or []))
+    raw_pre = {}
     for name, entry in vertices.items():
         if not isinstance(entry, dict) or len(entry) != 1:
             raise InvalidDl4jConfigurationException(f"bad vertex {name!r}")
@@ -691,6 +692,7 @@ def import_dl4j_graph_configuration(source):
             spec = None if pp is None else _convert_dl4j_preprocessor(pp)
             if spec is not None:
                 g.input_pre_processor(name, spec)
+                raw_pre[name] = pp
         else:
             g.add_vertex(name, obj, *srcs)
     g.set_outputs(*(d.get("networkOutputs") or []))
@@ -699,6 +701,8 @@ def import_dl4j_graph_configuration(source):
         g.t_bptt_length(fwd, int(d.get("tbpttBackLength", fwd)))
     built = g.build()
     built._dl4j_counters = _counters(d)
+    # the LayerVertex entries as read, which the exporter writes back
+    built._dl4j_layer_preprocessors = raw_pre
     return built
 
 

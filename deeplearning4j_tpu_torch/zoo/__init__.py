@@ -10,7 +10,9 @@ from deeplearning4j_tpu_torch.zoo.labels import (  # noqa: F401
 from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
     AlexNet,
     Darknet19,
+    FaceNetNN4Small2,
     GoogLeNet,
+    InceptionResNetV1,
     LeNet,
     ResNet50,
     SimpleCNN,
@@ -41,7 +43,8 @@ from deeplearning4j_tpu_torch.zoo.zoo_model import (  # noqa: F401
 )
 
 __all__ = ["ModelMetaData", "ModelSelector", "PretrainedType", "ZooModel",
-           "register_zoo_model", "AlexNet", "Darknet19", "GoogLeNet", "LeNet", "ResNet50", "SimpleCNN",
+           "register_zoo_model", "AlexNet", "Darknet19", "FaceNetNN4Small2", "GoogLeNet",
+           "InceptionResNetV1", "LeNet", "ResNet50", "SimpleCNN",
            "TINY_YOLO_ANCHORS", "TextGenerationLSTM", "TinyYOLO",
            "TransformerEncoder", "TransformerLM", "VGG16", "VGG19",
            "VisionTransformer", "YOLO2", "YOLO2_ANCHORS", "beam_search", "generate",

@@ -1,10 +1,11 @@
 """Block builders for the zoo's CNNs.
 
 Counterpart of ``conv_bn_act``, ``darknet_block``,
-``resnet_identity_block``, ``resnet_conv_block`` and ``inception_module``
-in ``deeplearning4j_tpu/zoo/helpers.py`` (DL4J's ``DarknetHelper``,
+``resnet_identity_block``, ``resnet_conv_block``, ``inception_module``
+and ``inception_resnet_block_a`` / ``_b`` / ``_c`` in
+``deeplearning4j_tpu/zoo/helpers.py`` (DL4J's ``DarknetHelper``,
 ``ResNet50.java`` ``identityBlock``/``convBlock``, ``GoogLeNet.java``'s
-``inception``).
+``inception``, ``InceptionResNetHelper``).
 Each appends named vertices to a :class:`GraphBuilder` and returns the
 name of the block's output vertex; the names are the reference's, so
 parameters carry across by name. Every convolution of the ResNet blocks
@@ -23,7 +24,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     ConvolutionLayer,
     SubsamplingLayer,
 )
-from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex, MergeVertex
+from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex, MergeVertex, ScaleVertex
 
 
 def conv_bn_act(g: GraphBuilder, name: str, inp: str, n_out: int,
@@ -148,3 +149,51 @@ def inception_module(g: GraphBuilder, name: str, inp: str,
     g.add_vertex(name, MergeVertex(), f"{name}-1x1", f"{name}-3x3",
                  f"{name}-5x5", f"{name}-poolproj")
     return name
+
+
+def _residual_tail(g: GraphBuilder, name: str, inp: str, branches, n_out: int,
+                   scale: float) -> str:
+    """The end of an Inception-ResNet block: the branches merged, a 1x1
+    linear projection back to ``n_out`` channels, scaled by ``scale``,
+    added to the block's input, relu."""
+    g.add_vertex(f"{name}-merge", MergeVertex(), *branches)
+    g.add_layer(f"{name}-proj", ConvolutionLayer(n_out=n_out, kernel_size=(1, 1),
+                                                 activation="identity"),
+                f"{name}-merge")
+    g.add_vertex(f"{name}-scale", ScaleVertex(scale_factor=scale), f"{name}-proj")
+    g.add_vertex(f"{name}-residual", ElementWiseVertex(op="add"), inp, f"{name}-scale")
+    g.add_layer(name, ActivationLayer(activation="relu"), f"{name}-residual")
+    return name
+
+
+def inception_resnet_block_a(g: GraphBuilder, name: str, inp: str, scale: float) -> str:
+    """Inception-ResNet-v1 block35 (``InceptionResNetHelper.inceptionV1ResA``):
+    1x1; 1x1 -> 3x3; 1x1 -> 3x3 -> 3x3, 32 channels each, merged and
+    projected to 256."""
+    b1 = conv_bn_act(g, f"{name}-b1", inp, 32, (1, 1))
+    b2a = conv_bn_act(g, f"{name}-b2a", inp, 32, (1, 1))
+    b2 = conv_bn_act(g, f"{name}-b2b", b2a, 32, (3, 3))
+    b3a = conv_bn_act(g, f"{name}-b3a", inp, 32, (1, 1))
+    b3b = conv_bn_act(g, f"{name}-b3b", b3a, 32, (3, 3))
+    b3 = conv_bn_act(g, f"{name}-b3c", b3b, 32, (3, 3))
+    return _residual_tail(g, name, inp, (b1, b2, b3), 256, scale)
+
+
+def inception_resnet_block_b(g: GraphBuilder, name: str, inp: str, scale: float) -> str:
+    """Inception-ResNet-v1 block17: 1x1; 1x1 -> 1x7 -> 7x1, 128 channels
+    each, merged and projected to 896."""
+    b1 = conv_bn_act(g, f"{name}-b1", inp, 128, (1, 1))
+    b2a = conv_bn_act(g, f"{name}-b2a", inp, 128, (1, 1))
+    b2b = conv_bn_act(g, f"{name}-b2b", b2a, 128, (1, 7))
+    b2 = conv_bn_act(g, f"{name}-b2c", b2b, 128, (7, 1))
+    return _residual_tail(g, name, inp, (b1, b2), 896, scale)
+
+
+def inception_resnet_block_c(g: GraphBuilder, name: str, inp: str, scale: float) -> str:
+    """Inception-ResNet-v1 block8: 1x1; 1x1 -> 1x3 -> 3x1, 192 channels
+    each, merged and projected to 1792."""
+    b1 = conv_bn_act(g, f"{name}-b1", inp, 192, (1, 1))
+    b2a = conv_bn_act(g, f"{name}-b2a", inp, 192, (1, 1))
+    b2b = conv_bn_act(g, f"{name}-b2b", b2a, 192, (1, 3))
+    b2 = conv_bn_act(g, f"{name}-b2c", b2b, 192, (3, 1))
+    return _residual_tail(g, name, inp, (b1, b2), 1792, scale)

@@ -4,7 +4,8 @@ generation.
 Counterpart of ``LeNet``, ``SimpleCNN``, ``AlexNet``, ``VGG16``,
 ``VGG19``, ``Darknet19``, ``TinyYOLO``, ``YOLO2`` (with
 ``TINY_YOLO_ANCHORS`` and ``YOLO2_ANCHORS``), ``ResNet50``,
-``GoogLeNet``, ``TextGenerationLSTM``, ``transformer_decoder_block``,
+``GoogLeNet``, ``InceptionResNetV1``, ``FaceNetNN4Small2``,
+``TextGenerationLSTM``, ``transformer_decoder_block``,
 ``TransformerLM``, ``transformer_encoder_block``, ``TransformerEncoder``,
 ``VisionTransformer``, ``lm_labels``, ``generate``, ``generate_on_device``
 and ``beam_search`` in ``deeplearning4j_tpu/zoo/models.py``. The same
@@ -43,6 +44,7 @@ from deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer,
     BatchNormalizationLayer,
     CausalSelfAttentionLayer,
+    CenterLossOutputLayer,
     ConvolutionLayer,
     DenseLayer,
     DropoutLayer,
@@ -65,11 +67,20 @@ from deeplearning4j_tpu_torch.nn.layers.core import unchecked_token_ids
 from deeplearning4j_tpu_torch.nn.layers.recurrent import map_carry
 from deeplearning4j_tpu_torch.nn.train_step import to_host
 from deeplearning4j_tpu_torch.nn.updaters import AdaDelta, Adam, Nesterovs
-from deeplearning4j_tpu_torch.nn.vertices import ElementWiseVertex, MergeVertex, ReshapeVertex
+from deeplearning4j_tpu_torch.nn.vertices import (
+    ElementWiseVertex,
+    L2NormalizeVertex,
+    MergeVertex,
+    ReshapeVertex,
+)
 from deeplearning4j_tpu_torch.nn.weights import Distribution
 from deeplearning4j_tpu_torch.zoo.helpers import (
+    conv_bn_act,
     darknet_block,
     inception_module,
+    inception_resnet_block_a,
+    inception_resnet_block_b,
+    inception_resnet_block_c,
     resnet_conv_block,
     resnet_identity_block,
 )
@@ -550,6 +561,126 @@ class GoogLeNet(ZooModel):
         g.add_layer("output", OutputLayer(n_out=self.num_labels, loss="mcxent",
                                           activation="softmax"), "dropout")
         return g.set_outputs("output").build()
+
+
+def _max_pool_3x3_2(g, name, src):
+    g.add_layer(name, SubsamplingLayer(pooling_type="max", kernel_size=(3, 3),
+                                       stride=(2, 2), convolution_mode="same"), src)
+
+
+def _center_loss_head(g, src, embedding_size, num_labels):
+    """A linear bottleneck to the embedding, L2-normalized, into a softmax
+    center-loss output (alpha 0.9, lambda 1e-4)."""
+    g.add_layer("bottleneck", DenseLayer(n_out=embedding_size, activation="identity"), src)
+    g.add_vertex("embeddings", L2NormalizeVertex(), "bottleneck")
+    g.add_layer("lossLayer",
+                CenterLossOutputLayer(n_out=num_labels, loss="mcxent", activation="softmax",
+                                      alpha=0.9, lambda_=1e-4),
+                "embeddings")
+    return g.set_outputs("lossLayer").build()
+
+
+@register_zoo_model
+class InceptionResNetV1(ZooModel):
+    """Inception-ResNet-v1 with a center-loss embedding head
+    (``zoo/model/InceptionResNetV1.java``): a stem of conv-BN-relu units
+    and a "same" max pool, 5 x block35 (scale 0.17), reduction A (256 ->
+    896 channels), 10 x block17 (0.10), reduction B (896 -> 1792), 5 x
+    block8 (0.20), global average pooling, dropout 0.8, a 128-wide linear
+    bottleneck, L2 normalization and a softmax center-loss output; relu
+    weights, Adam(1e-3). ``input_shape`` is (channels, height, width)."""
+
+    def __init__(self, num_labels: int = 1000, seed: int = 123,
+                 input_shape=(3, 160, 160), embedding_size: int = 128):
+        super().__init__(num_labels, seed)
+        self.input_shape = tuple(input_shape)
+        self.embedding_size = embedding_size
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
+
+    def _stem(self, g, inp):
+        x = conv_bn_act(g, "stem-1", inp, 32, (3, 3), (2, 2))
+        x = conv_bn_act(g, "stem-2", x, 32, (3, 3))
+        x = conv_bn_act(g, "stem-3", x, 64, (3, 3))
+        _max_pool_3x3_2(g, "stem-pool", x)
+        x = conv_bn_act(g, "stem-4", "stem-pool", 80, (1, 1))
+        x = conv_bn_act(g, "stem-5", x, 192, (3, 3))
+        return conv_bn_act(g, "stem-6", x, 256, (3, 3), (2, 2))
+
+    def conf(self):
+        c, h, w = self.input_shape
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .activation("relu").weight_init("relu")
+             .updater(Adam(1e-3)).graph_builder()
+             .add_inputs("input").set_input_types(InputType.convolutional(h, w, c)))
+        x = self._stem(g, "input")
+        for i in range(5):
+            x = inception_resnet_block_a(g, f"block35-{i}", x, 0.17)
+        ra_b1 = conv_bn_act(g, "redA-b1", x, 384, (3, 3), (2, 2))
+        ra_b2a = conv_bn_act(g, "redA-b2a", x, 192, (1, 1))
+        ra_b2b = conv_bn_act(g, "redA-b2b", ra_b2a, 192, (3, 3))
+        ra_b2 = conv_bn_act(g, "redA-b2c", ra_b2b, 256, (3, 3), (2, 2))
+        _max_pool_3x3_2(g, "redA-pool", x)
+        g.add_vertex("redA", MergeVertex(), ra_b1, ra_b2, "redA-pool")
+        x = "redA"
+        for i in range(10):
+            x = inception_resnet_block_b(g, f"block17-{i}", x, 0.10)
+        rb_b1a = conv_bn_act(g, "redB-b1a", x, 256, (1, 1))
+        rb_b1 = conv_bn_act(g, "redB-b1b", rb_b1a, 384, (3, 3), (2, 2))
+        rb_b2a = conv_bn_act(g, "redB-b2a", x, 256, (1, 1))
+        rb_b2 = conv_bn_act(g, "redB-b2b", rb_b2a, 256, (3, 3), (2, 2))
+        rb_b3a = conv_bn_act(g, "redB-b3a", x, 256, (1, 1))
+        rb_b3b = conv_bn_act(g, "redB-b3b", rb_b3a, 256, (3, 3))
+        rb_b3 = conv_bn_act(g, "redB-b3c", rb_b3b, 256, (3, 3), (2, 2))
+        _max_pool_3x3_2(g, "redB-pool", x)
+        g.add_vertex("redB", MergeVertex(), rb_b1, rb_b2, rb_b3, "redB-pool")
+        x = "redB"
+        for i in range(5):
+            x = inception_resnet_block_c(g, f"block8-{i}", x, 0.20)
+        g.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), x)
+        g.add_layer("dropout", DropoutLayer(dropout=0.8), "avgpool")
+        return _center_loss_head(g, "dropout", self.embedding_size, self.num_labels)
+
+
+@register_zoo_model
+class FaceNetNN4Small2(ZooModel):
+    """FaceNet's NN4.small2 (``zoo/model/FaceNetNN4Small2.java``): a 7x7/2
+    conv-BN-relu stem with "same" 3x3/2 max pools, inception modules 3a,
+    3b, 4a, 4e, 5a, 5b, global average pooling, a 128-wide linear
+    bottleneck, L2 normalization and a softmax center-loss output; relu
+    weights, Adam(0.1). ``input_shape`` is (channels, height, width)."""
+
+    def __init__(self, num_labels: int = 1000, seed: int = 123,
+                 input_shape=(3, 96, 96), embedding_size: int = 128):
+        super().__init__(num_labels, seed)
+        self.input_shape = tuple(input_shape)
+        self.embedding_size = embedding_size
+
+    def meta_data(self):
+        return ModelMetaData((self.input_shape,), 1, "cnn")
+
+    def conf(self):
+        c, h, w = self.input_shape
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .activation("relu").weight_init("relu")
+             .updater(Adam(0.1)).graph_builder()
+             .add_inputs("input").set_input_types(InputType.convolutional(h, w, c)))
+        x = conv_bn_act(g, "stem-cnn1", "input", 64, (7, 7), (2, 2))
+        _max_pool_3x3_2(g, "stem-pool1", x)
+        x = conv_bn_act(g, "inception-2", "stem-pool1", 64, (1, 1))
+        x = conv_bn_act(g, "inception-3", x, 192, (3, 3))
+        _max_pool_3x3_2(g, "stem-pool2", x)
+        x = inception_module(g, "3a", "stem-pool2", 64, 96, 128, 16, 32, 32)
+        x = inception_module(g, "3b", x, 64, 96, 128, 32, 64, 64)
+        _max_pool_3x3_2(g, "pool3", x)
+        x = inception_module(g, "4a", "pool3", 256, 96, 192, 32, 64, 128)
+        x = inception_module(g, "4e", x, 160, 128, 256, 32, 64, 128)
+        _max_pool_3x3_2(g, "pool4", x)
+        x = inception_module(g, "5a", "pool4", 256, 96, 384, 24, 64, 96)
+        x = inception_module(g, "5b", x, 256, 96, 384, 24, 64, 96)
+        g.add_layer("avgpool", GlobalPoolingLayer(pooling_type="avg"), x)
+        return _center_loss_head(g, "avgpool", self.embedding_size, self.num_labels)
 
 
 @register_zoo_model

@@ -11,9 +11,6 @@ verifies its Adler32 and SHA-256 where they apply, and restores it through
 the port's readers: the reference's zip (``util/model_serializer.py``)
 and DL4J's ModelSerializer zip (``modelimport/dl4j.py``). A download that
 fails its check is deleted; a file the user placed is never deleted.
-
-``ModelSelector.select`` of a model the reference has and the port has
-not ported yet raises, naming it.
 """
 
 from __future__ import annotations
@@ -261,9 +258,6 @@ class ZooModel:
 
 _ZOO_REGISTRY: Dict[str, Type[ZooModel]] = {}
 
-#: the reference's zoo models that the port has not ported yet
-UNPORTED_ZOO_MODELS = ("InceptionResNetV1", "FaceNetNN4Small2")
-
 
 def register_zoo_model(cls: Type[ZooModel]) -> Type[ZooModel]:
     _ZOO_REGISTRY[cls.__name__.lower()] = cls
@@ -280,11 +274,6 @@ class ModelSelector:
     @staticmethod
     def select(name: str, num_labels: int = 1000, seed: int = 123) -> ZooModel:
         key = name.lower()
-        unported = {n.lower(): n for n in UNPORTED_ZOO_MODELS}
-        if key in unported:
-            raise NotImplementedError(
-                f"zoo model {unported[key]} is not ported yet; available: "
-                f"{ModelSelector.available()}")
         if key not in _ZOO_REGISTRY:
             raise KeyError(f"Unknown zoo model {name!r}; available: {ModelSelector.available()}")
         return _ZOO_REGISTRY[key](num_labels=num_labels, seed=seed)

@@ -302,3 +302,49 @@ def test_normalization_zoo_and_import_modules_leave_jax_unloaded(tmp_path):
     assert all(t.device.type == "cpu" for s in net.states.values()
                for t in s.values())
     assert restore_computation_graph(graph, device="cpu").params["a"]["W"].device.type == "cpu"
+
+
+def test_import_export_modules_leave_jax_keras_and_h5py_unloaded(tmp_path):
+    """The model-import slice's modules (the Keras import, the DL4J export,
+    the model guesser, the zoo's last models) import no jax, and neither
+    h5py nor Keras until a file is read; their entry points refuse to
+    guess a device."""
+    modules = ("modelimport.keras", "modelimport.keras.hdf5", "modelimport.keras.layers",
+               "modelimport.keras.model", "modelimport.keras.importer",
+               "modelimport.dl4j_export", "util.model_guesser", "zoo.helpers", "zoo.models")
+    code = ("import sys, " + ", ".join(f"deeplearning4j_tpu_torch.{m}" for m in modules)
+            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'deeplearning4j_tpu', 'h5py', 'keras', 'tensorflow')]; "
+              "print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    names = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {f"deeplearning4j_tpu_torch/{m.replace('.', '/')}.py"
+            for m in modules if m != "modelimport.keras"} <= names
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    import json
+
+    from deeplearning4j_tpu_torch.modelimport.dl4j_export import export_multi_layer_network
+    from deeplearning4j_tpu_torch.modelimport.keras import KerasModelImport
+    from deeplearning4j_tpu_torch.util.model_guesser import load_model_guess
+    from deeplearning4j_tpu_torch.zoo import FaceNetNN4Small2, InceptionResNetV1, LeNet
+
+    with open(os.path.join(REPO, "tests", "fixtures", "keras", "sequential_cnn.json")) as f:
+        fixture = json.load(f)
+    wrapper = KerasModelImport.import_keras_model_from_json(
+        fixture["model_config"], fixture["training_config"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wrapper.init()
+    net = wrapper.init(device="cpu")
+    assert all(p.device.type == "cpu" for p in net.parameters())
+    for model in (InceptionResNetV1(input_shape=(3, 75, 75)), FaceNetNN4Small2()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model.init()
+    path = os.path.join(str(tmp_path), "lenet_dl4j.zip")
+    export_multi_layer_network(LeNet(input_shape=(1, 12, 12)).init(device="cpu"), path)
+    with pytest.raises(Exception, match="no CUDA device"):
+        load_model_guess(path)
+    assert type(load_model_guess(path, device="cpu")).__name__ == "MultiLayerNetwork"

@@ -365,11 +365,11 @@ def test_builders_refuse_uninitialized_networks():
 
 # ------------------------------------------------------------- the zoo
 def test_model_selector_and_meta_data_match_reference():
-    assert set(pzoo.ModelSelector.available()) | {
-        n.lower() for n in pzoo.UNPORTED_ZOO_MODELS} == set(jzoo.ModelSelector.available())
-    for name in pzoo.UNPORTED_ZOO_MODELS:
-        with pytest.raises(NotImplementedError, match=name):
-            pzoo.ModelSelector.select(name.lower())
+    # every zoo model of the reference is ported and selectable by name
+    assert set(pzoo.ModelSelector.available()) == set(jzoo.ModelSelector.available())
+    for name in ("InceptionResNetV1", "FaceNetNN4Small2"):
+        m = pzoo.ModelSelector.select(name.lower(), num_labels=5, seed=3)
+        assert type(m).__name__ == name and (m.num_labels, m.seed) == (5, 3)
     with pytest.raises(KeyError, match="Unknown zoo model"):
         pzoo.ModelSelector.select("nope")
     m = pzoo.ModelSelector.select("LeNet", num_labels=4, seed=9)
