@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs thirty-one phases:
+every kernel, and runs thirty-two phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -300,7 +300,31 @@ every kernel, and runs thirty-one phases:
    card (K2), written as DL4J zips and read back onto the card by the
    port's reader (the graph's output equal, LeNet's within 1e-6, the Adam
    state equal), and ``load_model_guess`` on the DL4J and the port's own
-   zips.
+   zips;
+32. training utilities (``optimize/``, ``util/gradient_check.py``,
+   ``ui/``, ``eval/tools.py``): (a) the zoo LeNet (Adam on the fused
+   updater, batch 128 over 4096 images with the planted signal) under
+   ``EarlyStoppingTrainer`` twice (held-out loss, then accuracy), the
+   first with six listeners (score, throughput, collected scores,
+   held-out evaluation, checkpoints every 8 steps keeping 2, stats into a
+   ``FileStatsStorage``): the best zip's score within 1e-6 of the
+   trainer's record, the last checkpoint equal to the live parameters it
+   saved, 8 K2 a step, the median step with and without the listeners;
+   (b) GPT-2-small bf16 (8 x 1024) 10 steps each with no listener and
+   with ``StatsListener`` (histograms) at report frequency 1 and 10,
+   ``ProfilerListener`` over steps 3-5 (its Chrome trace names K2 and the
+   bf16 K3 kernels), 150 K2 and 12 of each bf16 K3 a step; (c) ``Solver``
+   on the zoo LeNet at full batch 1024, each algorithm 10 iterations: f32
+   scores non-increasing, the first score and gradient within 1e-5 of an
+   f64 twin's (the output layer's; the tensors below a relu within
+   1e-3, its near-tie flips counted); f64 histories within 1e-8 of the
+   same runs on the CPU, made after everything timed; (d)
+   ``check_model_gradients`` in f64 on a narrowed LeNet and an LSTM
+   network at the reference's defaults; (e) random and
+   grid search over LeNet's learning rate and dense width, one epoch a
+   trial, scored by the held-out loss, the random draws equal to the
+   CPU's; (f) ``UIServer`` on 127.0.0.1 serving (a)'s stats, and
+   ``eval/tools.py``'s ROC page of (a)'s best model.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -779,6 +803,35 @@ KI_IMDB_BATCH, KI_IMDB_STEPS, KI_CNN_BATCH, KI_CNN_TOL = 32, 3, 64, 1e-5
 # state read back equal; load_model_guess on the DL4J zips and the port's
 # own zips gives each network's class
 ME_STEPS, ME_BATCH, ME_LENET_TOL = 3, 64, 1e-6
+# training utilities: (a) the zoo LeNet, Adam(1e-3) on the fused updater,
+# TU_BATCH over TU_N seeded images with the planted signal, TU_HELD
+# held-out; early stopping up to TU_EPOCHS epochs, patience TU_PATIENCE,
+# checkpoints every TU_CKPT_EVERY steps keeping TU_CKPT_KEEP, the best
+# zip's held-out score within TU_BEST_RTOL of the trainer's record; (b)
+# GPT-2-small bf16, TU_GPT2_STEPS steps a run, ProfilerListener over steps
+# TU_PROFILE (first, count); (c) Solver at full batch TU_SOLVER_N,
+# TU_SOLVER_ITERS iterations an algorithm: the f32 first score and
+# gradient (relative L2) within TU_SOLVER_F32_TOL of the f64 twin's, the
+# f64 history within TU_SOLVER_F64_RTOL relative of the CPU's, entry by
+# entry; (d) gradient checks at the reference's defaults on a narrowed
+# LeNet (TU_GC_LENET: input side, conv widths, dense width, batch) and
+# an LSTM network (TU_GC_LSTM: batch, steps, inputs, units, outputs); (e)
+# TU_HPO_TRIALS random trials and a 2 x 2 grid, one epoch each
+TU_N, TU_HELD, TU_BATCH, TU_EPOCHS, TU_PATIENCE = 4096, 1024, 128, 5, 2
+TU_CKPT_EVERY, TU_CKPT_KEEP, TU_BEST_RTOL, TU_MAX_SECONDS = 8, 2, 1e-6, 600
+TU_GPT2_STEPS, TU_PROFILE = 10, (3, 3)
+TU_SOLVER_N, TU_SOLVER_ITERS, TU_SOLVER_F32_TOL, TU_SOLVER_F64_RTOL = 1024, 10, 1e-5, 1e-8
+# the f32 first gradient below the output layer: a relu pre-activation
+# within f32 rounding of 0 takes the other side of the kink than in f64
+# (on an H100 80GB HBM3 at 700 W, one of the dense layer's 64000 at batch
+# 128 moved its gradient by 0.6%), so those tensors are held at
+# TU_SOLVER_F32_TIE_TOL (relative L2) and the flips are counted; the loss
+# and the output layer's gradients at TU_SOLVER_F32_TOL
+TU_SOLVER_F32_TIE_TOL = 1e-3
+TU_ALGOS = ("stochastic_gradient_descent", "line_gradient_descent",
+            "conjugate_gradient", "lbfgs")
+TU_GC_LENET, TU_GC_LSTM = (12, (4, 6), 16, 4), (3, 6, 4, 8, 5)
+TU_HPO_TRIALS, TU_HPO_SEED = 4, 0
 
 
 def card_peaks(name: str):
@@ -6819,6 +6872,534 @@ def model_export_phase(ck, card):
     return paths
 
 
+def tu_lenet_conf(lr=1e-3, dense=500, dtype="float32", side=28, widths=(20, 50)):
+    """The zoo's LeNet (``zoo/models.py``: two 5x5 "same" convolutions,
+    each with a 2x2 max pool, a relu dense layer, a softmax output) with
+    Adam(``lr``) in place of its AdaDelta, the dense width, the input
+    side and the convolution widths as parameters (the zoo's at their
+    defaults) and the dtype."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
+                                                    OutputLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    return (NeuralNetConfiguration.builder().seed(123).dtype(dtype)
+            .activation("identity").weight_init("xavier").updater(Adam(lr)).list()
+            .layer(ConvolutionLayer(n_out=widths[0], kernel_size=(5, 5), stride=(1, 1),
+                                    convolution_mode="same", activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+            .layer(ConvolutionLayer(n_out=widths[1], kernel_size=(5, 5), stride=(1, 1),
+                                    convolution_mode="same", activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=dense, activation="relu"))
+            .layer(OutputLayer(n_out=10, loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.convolutional(side, side, 1)).build())
+
+
+def tu_data(n, seed, dtype=np.float32):
+    """``n`` images with the verify skill's planted signal (row 2 + class
+    raised by 2 over N(0, 0.3)) and one-hot labels."""
+    rng = np.random.default_rng(seed)
+    y_idx = rng.integers(0, 10, n)
+    x = rng.normal(0, 0.3, size=(n, 28, 28, 1))
+    x[np.arange(n), 2 + y_idx, :, 0] += 2.0
+    return x.astype(dtype), np.eye(10, dtype=dtype)[y_idx]
+
+
+def tu_solver_start():
+    """The zoo LeNet's initial f64 weights (a CPU init from the conf's
+    seed, the same in every process) and the full batch of (c)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.convert import export_params
+
+    weights = export_params(MultiLayerNetwork(tu_lenet_conf(dtype="float64"),
+                                              device="cpu").init())
+    return weights, tu_data(TU_SOLVER_N, 5, np.float64)
+
+
+def tu_solver_run(algo, dtype, device):
+    """``Solver(algo)`` for TU_SOLVER_ITERS iterations from (c)'s start on
+    ``device`` in ``dtype``; returns (score history, the network)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import Solver
+    from deeplearning4j_tpu_torch.util.convert import load_reference_params
+
+    weights, (x, y) = tu_solver_start()
+    net = load_reference_params(MultiLayerNetwork(tu_lenet_conf(dtype=dtype),
+                                                  device=device).init(), weights)
+    s = Solver(net, algo, max_iterations=TU_SOLVER_ITERS)
+    s.optimize(DataSet(x, y))
+    return s.score_history, net
+
+
+def tu_cpu_twin():
+    """(c)'s float64 runs on the CPU: each algorithm's score history, and
+    the first loss and flat gradient."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.solvers import flat_leaves
+    from deeplearning4j_tpu_torch.util.convert import load_reference_params
+
+    out = {f"hist_{algo}": tu_solver_run(algo, "float64", "cpu")[0] for algo in TU_ALGOS}
+    weights, (x, y) = tu_solver_start()
+    net = load_reference_params(MultiLayerNetwork(tu_lenet_conf(dtype="float64"),
+                                                  device="cpu").init(), weights)
+    grads, loss = net.compute_gradient_and_score(x, y)
+    out["first_loss"] = loss
+    out["first_grad"] = torch.cat([g.reshape(-1) for _, _, g in flat_leaves(grads)])
+    return out
+
+
+class StepClock:
+    """A listener, last in the list, that waits for the device at each
+    iteration and keeps the host time between consecutive iterations (one
+    step and the listeners before it; across an epoch's end, the
+    evaluation too: the median leaves those out)."""
+
+    def __init__(self):
+        self.last, self.ms = None, []
+
+    def iteration_done(self, model, iteration, epoch):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if self.last is not None:
+            self.ms.append((now - self.last) * 1e3)
+        self.last = now
+
+
+class Snapshots:
+    """Clones of the parameters at every ``every``-th iteration (the last
+    ``keep``)."""
+
+    def __init__(self, every, keep):
+        self.every, self.keep, self.at = every, keep, {}
+
+    def iteration_done(self, model, iteration, epoch):
+        if iteration % self.every == 0:
+            self.at[iteration] = {k: {n: t.clone() for n, t in named.items()}
+                                  for k, named in model.params.items()}
+            for it in sorted(self.at)[:-self.keep]:
+                del self.at[it]
+
+
+def tu_early_stopping(ck, card, tmp):
+    """(a): two early-stopping runs of the zoo LeNet and the timed steps.
+    Returns (row, launches by path, the stats storage and session, the
+    best model, the held-out iterator)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import (
+        CheckpointListener, ClassificationScoreCalculator,
+        CollectScoresIterationListener, DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, EvaluativeListener, InvalidScoreIterationTerminationCondition,
+        LocalFileModelSaver, MaxEpochsTerminationCondition,
+        MaxTimeIterationTerminationCondition, PerformanceListener,
+        ScoreImprovementEpochTerminationCondition, ScoreIterationListener)
+    from deeplearning4j_tpu_torch.ui import FileStatsStorage, StatsListener
+
+    x, y = tu_data(TU_N, 0)
+    hx, hy = tu_data(TU_HELD, 1)
+    train = ListDataSetIterator(DataSet(x, y), TU_BATCH)
+    held = ListDataSetIterator(DataSet(hx, hy), TU_BATCH)
+    printed, paths, row = [], {}, {"card": card}
+
+    def config(calculator, saver_dir):
+        return EarlyStoppingConfiguration(
+            score_calculator=calculator,
+            epoch_termination_conditions=[
+                MaxEpochsTerminationCondition(TU_EPOCHS),
+                ScoreImprovementEpochTerminationCondition(TU_PATIENCE)],
+            iteration_termination_conditions=[
+                InvalidScoreIterationTerminationCondition(),
+                MaxTimeIterationTerminationCondition(TU_MAX_SECONDS)],
+            model_saver=LocalFileModelSaver(saver_dir))
+
+    # the median step of one epoch with no listener but the clock
+    net = MultiLayerNetwork(tu_lenet_conf()).init()
+    clock = StepClock()
+    net.set_listeners(clock)
+    net.fit(train, epochs=1)
+    row["median_step_ms_no_listeners"] = float(np.median(clock.ms))
+
+    # run 1: held-out loss, six listeners
+    net = MultiLayerNetwork(tu_lenet_conf()).init()
+    storage = FileStatsStorage(os.path.join(tmp, "stats.jsonl"))
+    stats = StatsListener(storage, session_id="tu_lenet")
+    collect, evaluative = CollectScoresIterationListener(), EvaluativeListener(held)
+    ckpt = CheckpointListener(os.path.join(tmp, "ckpt"), save_every_n_iterations=TU_CKPT_EVERY,
+                              keep_last=TU_CKPT_KEEP)
+    snaps, clock = Snapshots(TU_CKPT_EVERY, TU_CKPT_KEEP), StepClock()
+    net.set_listeners(ScoreIterationListener(TU_CKPT_EVERY, printer=printed.append),
+                      PerformanceListener(TU_CKPT_EVERY, report_score=True,
+                                          printer=printed.append),
+                      collect, evaluative, ckpt, stats, snaps, clock)
+    trainer = EarlyStoppingTrainer(config(DataSetLossCalculator(held),
+                                          os.path.join(tmp, "es_loss")), net, train)
+    zero_launches(ck)
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    paths["tu_lenet_early_stopping_loss"] = launches = read_launches(ck)
+    steps = net.iteration
+    best_again = DataSetLossCalculator(held).calculate_score(result.best_model)
+    best_rel = abs(best_again - result.best_model_score) / abs(result.best_model_score)
+    last = ckpt.available_checkpoints(ckpt.dir)[-1]
+    back = CheckpointListener.load_checkpoint(ckpt.dir, last["number"])
+    ckpt_diff = max((back.params[k][n] - t).abs().max().item()
+                    for k, named in snaps.at[last["iteration"]].items()
+                    for n, t in named.items())
+    row["loss_run"] = {
+        "reason": result.termination_reason, "details": result.termination_details,
+        "best_epoch": result.best_model_epoch, "total_epochs": result.total_epochs,
+        "scores": {str(k): v for k, v in result.score_vs_epoch.items()}, "steps": steps,
+        "best_restored_score": best_again, "best_rel_err": best_rel, "limit": TU_BEST_RTOL,
+        "checkpoints": [c["path"].name for c in ckpt.available_checkpoints(ckpt.dir)],
+        "checkpoint_vs_live_max_abs": ckpt_diff, "launches": launches,
+        "median_step_ms_all_listeners": float(np.median(clock.ms)),
+        "step_ms_p90_all_listeners": float(np.percentile(clock.ms, 90)),
+        "collected_scores": len(collect.scores), "evaluations": len(evaluative.evaluations),
+        "held_out_accuracy": [e.accuracy() for e in evaluative.evaluations],
+        "printed": printed[:2] + printed[-1:], "stats_bytes": os.path.getsize(storage.path),
+        "stats_reports": storage.get_num_update_records_for("tu_lenet")}
+    bad = unexpected_launches(launches, {"fused_adam": LENET_TENSORS * steps})
+    if bad or best_rel > TU_BEST_RTOL or ckpt_diff != 0.0:
+        raise RuntimeError(f"training_utilities (a): launches {bad}, best {best_rel}, "
+                           f"checkpoint {ckpt_diff}")
+    best = result.best_model
+
+    # run 2: held-out accuracy, no listeners
+    net2 = MultiLayerNetwork(tu_lenet_conf()).init()
+    zero_launches(ck)
+    result2 = EarlyStoppingTrainer(config(ClassificationScoreCalculator(held),
+                                          os.path.join(tmp, "es_acc")), net2, train).fit()
+    torch.cuda.synchronize()
+    paths["tu_lenet_early_stopping_accuracy"] = launches2 = read_launches(ck)
+    again = ClassificationScoreCalculator(held).calculate_score(result2.best_model)
+    row["accuracy_run"] = {
+        "reason": result2.termination_reason, "details": result2.termination_details,
+        "best_epoch": result2.best_model_epoch, "total_epochs": result2.total_epochs,
+        "scores": {str(k): v for k, v in result2.score_vs_epoch.items()},
+        "steps": net2.iteration, "best_restored_score": again, "launches": launches2}
+    bad = unexpected_launches(launches2, {"fused_adam": LENET_TENSORS * net2.iteration})
+    if bad or again != result2.best_model_score:
+        raise RuntimeError(f"training_utilities (a) accuracy run: launches {bad}, best "
+                           f"{again} vs {result2.best_model_score}")
+    print("training_utilities (a) " + json.dumps(row), flush=True)
+    return paths, storage, best, held
+
+
+def tu_gpt2_stats(ck, card, tmp):
+    """(b): GPT-2-small bf16 with and without StatsListener; returns the
+    launches by path."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.optimize import ProfilerListener
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage, StatsListener,
+                                             StatsUpdateConfiguration)
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    conf = TransformerLM().conf()  # GPT-2-small, seed 123
+    conf.global_conf.compute_dtype = "bfloat16"
+    net = ComputationGraph(conf).init()
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    want = {"flash_attention_fwd_bf16": n_layers, "flash_attention_bwd_dq_bf16": n_layers,
+            "flash_attention_bwd_dkv_bf16": n_layers, "fused_adam": tensors_of(net)}
+    ids = torch.from_numpy(np.random.default_rng(123).integers(0, vocab, (TRAIN_N, T))).cuda()
+    labels = F.one_hot(torch.cat([ids[:, 1:], ids[:, -1:]], 1), vocab).float()
+    paths, row, failures = {}, {"card": card, "batch": [TRAIN_N, T]}, []
+    prof = None
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        net.fit(ids, labels)  # warm-up
+        for name, freq in (("none", None), ("stats_every_1", 1), ("stats_every_10", 10)):
+            clock, listeners, storage = StepClock(), [], None
+            if freq is not None:
+                storage = FileStatsStorage(os.path.join(tmp, f"gpt2_{name}.jsonl"))
+                cfg = StatsUpdateConfiguration(report_iterations=freq, collect_histograms=True)
+                listeners.append(StatsListener(storage, cfg, session_id=name))
+            if freq == 1:
+                prof = ProfilerListener(os.path.join(tmp, "profile"),
+                                        start_iteration=net.iteration + TU_PROFILE[0] - 1,
+                                        n_iterations=TU_PROFILE[1])
+                listeners.append(prof)
+            net.set_listeners(*listeners, clock)
+            zero_launches(ck)
+            clock.iteration_done(net, net.iteration, net.epoch)  # the clock's start
+            for _ in range(TU_GPT2_STEPS):
+                net.fit(ids, labels)
+            paths[f"tu_gpt2_bf16_{name}"] = launches = read_launches(ck)
+            row[name] = {"median_step_ms": float(np.median(clock.ms)),
+                         "step_ms": clock.ms, "launches": launches,
+                         "stats_bytes": None if storage is None else os.path.getsize(storage.path),
+                         "reports": None if storage is None
+                         else storage.get_num_update_records_for(name)}
+            bad = unexpected_launches(launches, {k: v * TU_GPT2_STEPS for k, v in want.items()})
+            if bad:
+                failures.append(f"{name} launches {bad}")
+        net.set_listeners()
+    finally:
+        helpers.clear_helper("updater")
+    with open(prof.trace_path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    traced = {k: any(k in n for n in names) for k in (
+        "fused_adam_kernel", "flash_attention_fwd_bf16_wgmma_kernel",
+        "flash_attention_bwd_dq_bf16_wgmma_kernel", "flash_attention_bwd_dkv_bf16_wgmma_kernel")}
+    row["profile"] = {"trace_bytes": os.path.getsize(prof.trace_path), "kernels_named": traced,
+                      "error": prof.last_error}
+    for name in ("stats_every_1", "stats_every_10"):
+        row[name]["over_no_listener_ms"] = row[name]["median_step_ms"] - row["none"]["median_step_ms"]
+    # the host synchronisations of one report (the one read expected)
+    import warnings
+
+    lone = StatsListener(FileStatsStorage(os.path.join(tmp, "gpt2_sync.jsonl")),
+                         StatsUpdateConfiguration(collect_histograms=True), session_id="sync")
+    lone.iteration_done(net, net.iteration, net.epoch)  # its static report first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            lone.iteration_done(net, net.iteration, net.epoch)
+            row["report_host_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    row["syncs_per_report"] = sum("synchroniz" in str(w.message) for w in caught)
+    if row["syncs_per_report"] != 1:
+        failures.append(f"{row['syncs_per_report']} host synchronisations a report")
+    print("training_utilities (b) " + json.dumps(row), flush=True)
+    if failures or not all(traced.values()):
+        raise RuntimeError(f"training_utilities (b): {failures}, traced {traced}")
+    del net, labels
+    torch.cuda.empty_cache()
+    return paths
+
+
+def tu_solver(ck, card):
+    """(c): Solver on the zoo LeNet at full batch on the card in f32 and
+    f64, then the same f64 runs on the CPU (the phase's last work: the
+    CPU's threads would slow the host-bound steps timed before it).
+    Returns the launches."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.solvers import flat_leaves
+    from deeplearning4j_tpu_torch.util.convert import load_reference_params
+
+    row, failures = {"card": card, "batch": TU_SOLVER_N, "iterations": TU_SOLVER_ITERS}, []
+    zero_launches(ck)
+    t0 = time.perf_counter()
+    runs = {}
+    for algo in TU_ALGOS:
+        for dtype in ("float32", "float64"):
+            hist, _ = tu_solver_run(algo, dtype, "cuda")
+            runs[(algo, dtype)] = hist
+    row["card_seconds"] = time.perf_counter() - t0
+    launches = read_launches(ck)
+    weights, (x, y) = tu_solver_start()
+    nets = {dt: load_reference_params(MultiLayerNetwork(tu_lenet_conf(dtype=dt)).init(), weights)
+            for dt in ("float32", "float64")}
+    grads, loss = nets["float32"].compute_gradient_and_score(x.astype(np.float32),
+                                                             y.astype(np.float32))
+    leaves = flat_leaves(grads)
+    t0 = time.perf_counter()
+    cpu = tu_cpu_twin()
+    row["cpu_twin_seconds"] = time.perf_counter() - t0
+    g64 = cpu["first_grad"]
+    rel, offset = {}, 0
+    for k, n, g in leaves:
+        want = g64[offset:offset + g.numel()]
+        rel[f"{k}_{n}"] = float((g.reshape(-1).double().cpu() - want).norm() / want.norm())
+        offset += g.numel()
+    g32 = torch.cat([g.reshape(-1) for _, _, g in leaves]).double().cpu()
+    out_key = len(nets["float32"].layers) - 1
+
+    def dense_pre(net, dt):
+        """The relu dense layer's pre-activations."""
+        h = net.feed_forward(x.astype(dt))[out_key - 1].reshape(len(x), -1)
+        return h @ net.params[out_key - 1]["W"] + net.params[out_key - 1]["b"]
+
+    flips = int(((dense_pre(nets["float32"], np.float32) > 0)
+                 != (dense_pre(nets["float64"], np.float64) > 0)).sum())
+    first = {"loss_f32": loss, "loss_f64_cpu": cpu["first_loss"],
+             "loss_rel": abs(loss - cpu["first_loss"]) / abs(cpu["first_loss"]),
+             "grad_rel_l2": float((g32 - g64).norm() / g64.norm()), "grad_rel_l2_by_tensor": rel,
+             "dense_relu_flips": flips, "limit": TU_SOLVER_F32_TOL,
+             "limit_below_output_layer": TU_SOLVER_F32_TIE_TOL}
+    row["f32_first"] = first
+    if not (first["loss_rel"] <= TU_SOLVER_F32_TOL
+            and all(v <= (TU_SOLVER_F32_TOL if k.startswith(f"{out_key}_") else TU_SOLVER_F32_TIE_TOL)
+                    for k, v in rel.items())):
+        failures.append(f"f32 first {first}")
+    for algo in TU_ALGOS:
+        h32, h64, want = runs[(algo, "float32")], runs[(algo, "float64")], cpu[f"hist_{algo}"]
+        rel = (max(abs(a - b) / abs(b) for a, b in zip(h64, want))
+               if len(h64) == len(want) else None)
+        row[algo] = {"f32": h32, "f64": h64, "f64_cpu": want, "f64_max_rel": rel,
+                     "f32_non_increasing": all(b <= a for a, b in zip(h32, h32[1:]))}
+        if rel is None or rel > TU_SOLVER_F64_RTOL or not row[algo]["f32_non_increasing"]:
+            failures.append(f"{algo}: {row[algo]}")
+    row["launches"] = launches
+    print("training_utilities (c) " + json.dumps(row), flush=True)
+    if failures or unexpected_launches(launches, {}):
+        raise RuntimeError(f"training_utilities (c): {failures}, launches {launches}")
+    return launches
+
+
+def tu_gradient_checks(ck, card):
+    """(d): check_model_gradients in f64 on the card. Returns the
+    launches."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import LSTMLayer, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.gradient_check import check_model_gradients
+
+    side, widths, dense, batch = TU_GC_LENET
+    lenet = MultiLayerNetwork(tu_lenet_conf(dense=dense, side=side, widths=widths)).init()
+    rng = np.random.default_rng(4)
+    n, t_len, n_in, units, n_out = TU_GC_LSTM
+    lstm = MultiLayerNetwork(
+        NeuralNetConfiguration.builder().seed(3).list()
+        .layer(LSTMLayer(n_out=units, activation="tanh"))
+        .layer(RnnOutputLayer(n_out=n_out, activation="softmax", loss="mcxent"))
+        .set_input_type(InputType.recurrent(n_in)).build()).init()
+    cases = {"lenet": (lenet, rng.normal(size=(batch, side, side, 1)),
+                       np.eye(10)[rng.integers(0, 10, batch)]),
+             "lstm": (lstm, rng.normal(size=(n, t_len, n_in)),
+                      np.eye(n_out)[rng.integers(0, n_out, (n, t_len))])}
+    row, ok = {"card": card}, True
+    zero_launches(ck)
+    for name, (net, x, y) in cases.items():
+        report = {}
+        t0 = time.perf_counter()
+        passed = check_model_gradients(net, x, y, report=report)
+        row[name] = {"passed": passed, "worst_rel_err": report["max_rel_error_any"],
+                     "worst_significant_rel_err": report["max_rel_error"],
+                     "coordinates": len(report["coordinates"]),
+                     "seconds": time.perf_counter() - t0}
+        ok = ok and passed
+    launches = read_launches(ck)
+    row["launches"] = launches
+    print("training_utilities (d) " + json.dumps(row), flush=True)
+    if not ok or unexpected_launches(launches, {}):
+        raise RuntimeError(f"training_utilities (d): {row}")
+    return launches
+
+
+def tu_search(ck, card):
+    """(e): random and grid search over LeNet's learning rate and dense
+    width. Returns the launches by path."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import DataSetLossCalculator
+    from deeplearning4j_tpu_torch.optimize.hpo import (Choice, GridSearch, LogUniform,
+                                                       RandomSearch)
+
+    x, y = tu_data(TU_N, 0)
+    hx, hy = tu_data(TU_HELD, 1)
+    train = ListDataSetIterator(DataSet(x, y), TU_BATCH)
+    held = ListDataSetIterator(DataSet(hx, hy), TU_BATCH)
+    steps = []
+
+    def model_fn(p):
+        net = MultiLayerNetwork(tu_lenet_conf(lr=p["lr"], dense=p["n_out"])).init()
+        net.fit(train, epochs=1)
+        steps.append(net.iteration)
+        return net
+
+    def score_fn(net, p):
+        return DataSetLossCalculator(held).calculate_score(net)
+
+    space = {"lr": LogUniform(1e-4, 1e-2), "n_out": Choice(100, 500)}
+    grid = {"lr": Choice(1e-4, 1e-2), "n_out": Choice(100, 500)}
+    paths, row = {}, {"card": card}
+    for name, search, run in (
+            ("random", RandomSearch(space, model_fn, score_fn),
+             lambda s: s.optimize(TU_HPO_TRIALS, seed=TU_HPO_SEED)),
+            ("grid", GridSearch(grid, model_fn, score_fn), lambda s: s.optimize())):
+        steps.clear()
+        zero_launches(ck)
+        best = run(search)
+        torch.cuda.synchronize()
+        paths[f"tu_hpo_{name}"] = launches = read_launches(ck)
+        row[name] = {"trials": [[t.params, t.score] for t in search.trials],
+                     "best": best.params, "launches": launches, "steps": sum(steps)}
+        if unexpected_launches(launches, {"fused_adam": LENET_TENSORS * sum(steps)}):
+            raise RuntimeError(f"training_utilities (e) {name}: launches {launches}")
+    # the same seed's draws on the CPU, with no training
+    cpu = RandomSearch(space, lambda p: None, lambda m, p: 0.0)
+    cpu.optimize(TU_HPO_TRIALS, seed=TU_HPO_SEED)
+    row["random_draws_equal_cpu"] = [t.params for t in cpu.trials] == \
+        [p for p, _ in row["random"]["trials"]]
+    print("training_utilities (e) " + json.dumps(row), flush=True)
+    if not row["random_draws_equal_cpu"]:
+        raise RuntimeError("training_utilities (e): the draws differ from the CPU's")
+    return paths
+
+
+def tu_ui(card, storage, best, held, tmp):
+    """(f): the UI server over (a)'s stats and the ROC page of (a)'s best
+    model."""
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.eval.tools import export_roc_charts_to_html_file
+    from deeplearning4j_tpu_torch.ui import UIServer
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=10) as r:
+            return json.loads(r.read())
+
+    server = UIServer(port=0)
+    server.attach(storage)
+    try:
+        base = f"http://127.0.0.1:{server.start()}"
+        sessions = get("/train/sessions")
+        overview = get("/train/overview/tu_lenet")
+        model = get("/train/model/tu_lenet")
+    finally:
+        server.stop()
+    reports = storage.get_num_update_records_for("tu_lenet")
+    page = os.path.join(tmp, "roc.html")
+    export_roc_charts_to_html_file(best.evaluate_roc_multi_class(held), page)
+    row = {"card": card, "sessions": sessions, "reports": reports,
+           "overview_iterations": len(overview["iterations"]),
+           "overview_scores": len(overview["scores"]), "model_layers": model["layer_names"],
+           "roc_page_bytes": os.path.getsize(page)}
+    print("training_utilities (f) " + json.dumps(row), flush=True)
+    if not (sessions == ["tu_lenet"] and row["overview_iterations"] == reports
+            == row["overview_scores"] and model["layer_names"]):
+        raise RuntimeError(f"training_utilities (f): {row}")
+
+
+def training_utilities_phase(ck, card):
+    """Early stopping, listeners, Solver, gradient checks, search and the
+    UI on the card (see TU_*). Returns each path's launches."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn import helpers
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tu_")
+    paths = {}
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        es_paths, storage, best, held = tu_early_stopping(ck, card, tmp)
+        paths.update(es_paths)
+        paths.update(tu_search(ck, card))
+    finally:
+        helpers.clear_helper("updater")
+    try:
+        paths.update(tu_gpt2_stats(ck, card, tmp))
+        paths["tu_gradient_check"] = tu_gradient_checks(ck, card)
+        tu_ui(card, storage, best, held, tmp)
+        paths["tu_solver"] = tu_solver(ck, card)
+    finally:
+        storage.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -6888,6 +7469,7 @@ def main() -> None:
     fn_paths = timed(zoo_facenet_phase, ck, card)
     ki_paths = timed(keras_import_phase, ck, card)
     me_paths = timed(model_export_phase, ck, card)
+    tu_paths = timed(training_utilities_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -6934,9 +7516,10 @@ def main() -> None:
 
     def workflow_paths(kernel):
         """The kernel's launches on each path of the samediff, transfer,
-        checkpointing, zoo_facenet, keras_import and model_export phases."""
+        checkpointing, zoo_facenet, keras_import, model_export and
+        training_utilities phases."""
         return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths, fn_paths,
-                                                   ki_paths, me_paths)
+                                                   ki_paths, me_paths, tu_paths)
                 for path, counts in paths.items()}
 
     def workflow_total(kernel):

@@ -46,6 +46,8 @@ def resolve_device(device=None) -> torch.device:
 _LAZY = {
     "SameDiff": "deeplearning4j_tpu_torch.autodiff.samediff",
     "ModelSelector": "deeplearning4j_tpu_torch.zoo.zoo_model",
+    "EarlyStoppingTrainer": "deeplearning4j_tpu_torch.optimize",
+    "Solver": "deeplearning4j_tpu_torch.optimize",
 }
 
 

@@ -19,10 +19,10 @@ either package reads back in the other. The regularizer settings
 ``gradient_normalization``) are the reference's and flow into every
 layer that leaves them unset. ``mini_batch`` is stored and carried, as
 the reference only stores it. ``gradient_checkpointing`` recomputes each
-layer's activations in the backward pass (both networks). Not ported
-yet: the optimization-algorithm settings; they are written at the
-reference's defaults, and a configuration that sets one raises when it
-is read. ``MultiLayerConfiguration.memory_report`` is the reference's
+layer's activations in the backward pass (both networks).
+``optimization_algo`` and ``max_num_line_search_iterations`` choose what
+``optimize/solvers.py``'s ``Solver`` runs (``fit`` ignores them, as in
+the reference). ``MultiLayerConfiguration.memory_report`` is the reference's
 analytic forecast (``nn/conf/memory.py`` holds the report classes).
 """
 
@@ -43,7 +43,6 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer,
     activation_from_config,
     layer_from_dict,
-    refuse_unported,
 )
 from deeplearning4j_tpu_torch.nn.updaters import Updater, resolve_updater
 from deeplearning4j_tpu_torch.nn.weightnoise import IWeightNoise
@@ -86,6 +85,9 @@ class GlobalConf:
     # rematerialization: recompute layer activations in the backward pass
     # instead of keeping them (FLOPs for device memory)
     gradient_checkpointing: bool = False
+    # the full-batch Solver's algorithm and line-search budget
+    optimization_algo: str = "stochastic_gradient_descent"
+    max_num_line_search_iterations: int = 5
 
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
@@ -99,16 +101,9 @@ class GlobalConf:
                 "float16": torch.float16}[self.compute_dtype]
 
 
-#: the reference's global settings the port has not ported, at their defaults
-UNPORTED_GLOBAL_FIELDS = {
-    "optimization_algo": "stochastic_gradient_descent",
-    "max_num_line_search_iterations": 5}
-
-
 def global_conf_to_dict(gc: GlobalConf) -> dict:
-    """A GlobalConf as the reference writes one: every field (the unported
-    ones at their defaults), updaters, the distribution, dropout, weight
-    noise and constraints tagged."""
+    """A GlobalConf as the reference writes one: every field, updaters,
+    the distribution, dropout, weight noise and constraints tagged."""
     g = dataclasses.asdict(gc)
     for key in ("updater", "bias_updater", "distribution", "weight_noise"):
         if getattr(gc, key) is not None:
@@ -118,12 +113,11 @@ def global_conf_to_dict(gc: GlobalConf) -> dict:
     for key in ("all_constraints", "weight_constraints", "bias_constraints"):
         if getattr(gc, key):
             g[key] = [c.to_dict() for c in getattr(gc, key)]
-    g.update(UNPORTED_GLOBAL_FIELDS)
     return g
 
 
 def global_conf_from_dict(d: dict) -> GlobalConf:
-    g = refuse_unported(d, UNPORTED_GLOBAL_FIELDS, "global configuration")
+    g = dict(d)
     for key in ("updater", "bias_updater"):
         if isinstance(g.get(key), dict):
             g[key] = Updater.from_dict(g[key])
@@ -249,6 +243,17 @@ class Builder:
 
     def compute_dtype(self, dt: Optional[str]) -> "Builder":
         self._g.compute_dtype = dt
+        return self
+
+    def optimization_algo(self, algo: str) -> "Builder":
+        """The ``Solver``'s algorithm: stochastic_gradient_descent,
+        line_gradient_descent, conjugate_gradient or lbfgs."""
+        self._g.optimization_algo = algo
+        return self
+
+    def max_num_line_search_iterations(self, n: int) -> "Builder":
+        """The ``Solver``'s line-search budget per iteration."""
+        self._g.max_num_line_search_iterations = n
         return self
 
     def list(self) -> "ListBuilder":

@@ -209,19 +209,6 @@ class Layer:
         return d
 
 
-def refuse_unported(d: dict, defaults: dict, what: str) -> dict:
-    """``d`` without the ``defaults`` keys, each of which must hold its
-    default: a configuration that sets one needs what is not ported."""
-    d = dict(d)
-    for k, default in defaults.items():
-        v = d.pop(k, default)
-        if v != default:
-            raise NotImplementedError(
-                f"{what}: {k}={v!r} is not ported yet (the port reads "
-                f"only {default!r})")
-    return d
-
-
 def activation_from_config(v):
     """Parameterized activations (``("leakyrelu", {"alpha": ...})``) are
     tuples in memory but JSON lists on disk."""

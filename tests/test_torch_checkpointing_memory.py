@@ -361,10 +361,20 @@ def test_global_conf_serde_with_checkpointing_both_ways():
     gj = JGraphConf.from_json(_ck_conf("port", True, graph=True).to_json())
     assert gj.global_conf.gradient_checkpointing
     assert tc.to_dict()["global"] == jc.to_dict()["global"]
-    bad = jc.to_dict()
-    bad["global"]["optimization_algo"] = "lbfgs"
-    with pytest.raises(NotImplementedError, match="optimization_algo"):
-        MultiLayerConfiguration.from_dict(bad)
+    # the Solver's settings: read, written and equal to the reference's
+    # both ways
+    lb_j, lb_t = jc.to_dict(), tc.to_dict()
+    for d in (lb_j, lb_t):
+        d["global"]["optimization_algo"] = "lbfgs"
+        d["global"]["max_num_line_search_iterations"] = 7
+    from_ref = MultiLayerConfiguration.from_dict(lb_j)
+    assert from_ref.global_conf.optimization_algo == "lbfgs"
+    assert from_ref.global_conf.max_num_line_search_iterations == 7
+    assert from_ref.to_dict()["global"] == lb_j["global"]
+    back = JMLConf.from_json(MultiLayerConfiguration.from_dict(lb_t).to_json())
+    assert back.global_conf.optimization_algo == "lbfgs"
+    assert back.global_conf.max_num_line_search_iterations == 7
+    assert back.to_dict()["global"] == from_ref.to_dict()["global"]
 
 
 # ------------------------------------------------------------- memory

@@ -51,7 +51,10 @@ convolution weights within 1e-3: cuDNN's f32 weight-gradient algorithms),
 and in f64 within 1e-10; a
 checkpointed dropout network's gradients equal to its plain twin's on the
 card from one generator state, and within 1e-5 of the CPU's handed the
-card's masks.
+card's masks. Training utilities: ``Solver`` on a narrowed float64
+LeNet gives the CPU's score history within 1e-8 relative for each
+algorithm, and ``check_model_gradients`` passes on the card in float64
+on the CPU's coordinates (a narrowed LeNet, an LSTM network).
 """
 
 import numpy as np
@@ -1709,3 +1712,76 @@ def test_checkpointed_dropout_gradients_on_the_card_match_the_cpu(card):
     for k in g_cpu:
         for n, w in g_cpu[k].items():
             assert (g_ck[k][n].cpu() - w).abs().max() <= 1e-5 * w.abs().max(), (k, n)
+
+
+def _narrow_lenet(dtype):
+    """The zoo LeNet's structure ("same" 5x5 convolutions with max pools, a
+    relu dense layer, a softmax output), narrowed: 4 and 6 channels, dense
+    16, 12x12 inputs."""
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
+                                                    OutputLayer, SubsamplingLayer)
+
+    return (NeuralNetConfiguration.builder().seed(9).dtype(dtype).activation("identity")
+            .optimization_algo("lbfgs").list()
+            .layer(ConvolutionLayer(n_out=4, kernel_size=(5, 5), convolution_mode="same"))
+            .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2), pooling_type="max"))
+            .layer(ConvolutionLayer(n_out=6, kernel_size=(5, 5), convolution_mode="same"))
+            .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2), pooling_type="max"))
+            .layer(DenseLayer(n_out=16, activation="relu"))
+            .layer(OutputLayer(n_out=10, loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.convolutional(12, 12, 1)).build())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["stochastic_gradient_descent", "line_gradient_descent",
+                                  "conjugate_gradient", "lbfgs"])
+def test_solver_f64_history_on_the_card_matches_the_cpu(card, algo):
+    """``Solver`` on a narrowed LeNet in float64: the card's score history
+    within 1e-8 relative of the CPU's, entry by entry, with the same
+    iteration count; no kernel of the port runs."""
+    from deeplearning4j_tpu_torch.optimize import Solver
+
+    rng = np.random.default_rng(3)
+    y = rng.integers(0, 10, 64)
+    x = rng.normal(0, 0.3, (64, 12, 12, 1))
+    x[np.arange(64), 1 + y % 10, :, 0] += 2.0
+    ds = DataSet(x, np.eye(10)[y])
+    cpu = MultiLayerNetwork(_narrow_lenet("float64"), device="cpu").init()
+    gpu = load_reference_params(MultiLayerNetwork(_narrow_lenet("float64")).init(),
+                                export_params(cpu))
+    launches = ck.fused_adam.launches
+    hists = []
+    for net in (cpu, gpu):
+        s = Solver(net, algo, max_iterations=8)
+        s.optimize(ds)
+        hists.append(s.score_history)
+    assert ck.fused_adam.launches == launches
+    assert len(hists[0]) == len(hists[1]) > 2
+    np.testing.assert_allclose(hists[1], hists[0], rtol=1e-8, atol=0)
+    assert hists[1][-1] < hists[1][0]
+
+
+@pytest.mark.cuda
+def test_gradient_checks_pass_on_the_card_in_f64(card):
+    """``check_model_gradients`` at the reference's defaults on the card: a
+    narrowed LeNet and an LSTM network pass, on the coordinates the CPU
+    checks, with a worst significant relative error (the reference's
+    reading: errors above 1e-8 absolute) within 1e-6 of the CPU's."""
+    from deeplearning4j_tpu_torch.util.gradient_check import check_model_gradients
+
+    rng = np.random.default_rng(5)
+    lstm_conf = (NeuralNetConfiguration.builder().seed(3).list()
+                 .layer(LSTMLayer(n_out=8, activation="tanh"))
+                 .layer(RnnOutputLayer(n_out=5, activation="softmax", loss="mcxent"))
+                 .set_input_type(InputType.recurrent(4)).build())
+    cases = [(_narrow_lenet("float32"), rng.normal(size=(4, 12, 12, 1)),
+              np.eye(10)[rng.integers(0, 10, 4)]),
+             (lstm_conf, rng.normal(size=(3, 6, 4)), np.eye(5)[rng.integers(0, 5, (3, 6))])]
+    for conf, x, y in cases:
+        cpu = MultiLayerNetwork(conf, device="cpu").init()
+        gpu = load_reference_params(MultiLayerNetwork(conf).init(), export_params(cpu))
+        reports = [{}, {}]
+        for net, report in zip((cpu, gpu), reports):
+            assert check_model_gradients(net, x, y, report=report)
+        assert reports[1]["coordinates"] == reports[0]["coordinates"]
+        assert abs(reports[1]["max_rel_error"] - reports[0]["max_rel_error"]) <= 1e-6

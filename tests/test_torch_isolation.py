@@ -79,8 +79,26 @@ def test_import_leaves_jax_unloaded():
             "deeplearning4j_tpu_torch.nn.transferlearning, "
             "deeplearning4j_tpu_torch.nn.conf.memory, "
             "deeplearning4j_tpu_torch.zoo.zoo_model, "
-            "deeplearning4j_tpu_torch.zoo.labels; "
+            "deeplearning4j_tpu_torch.zoo.labels, "
+            "deeplearning4j_tpu_torch.optimize, "
+            "deeplearning4j_tpu_torch.optimize.listeners, "
+            "deeplearning4j_tpu_torch.optimize.solvers, "
+            "deeplearning4j_tpu_torch.optimize.earlystopping, "
+            "deeplearning4j_tpu_torch.optimize.hpo, "
+            "deeplearning4j_tpu_torch.util.gradient_check, "
+            "deeplearning4j_tpu_torch.ui, "
+            "deeplearning4j_tpu_torch.ui.storage, "
+            "deeplearning4j_tpu_torch.ui.components, "
+            "deeplearning4j_tpu_torch.ui.stats, "
+            "deeplearning4j_tpu_torch.ui.modules, "
+            "deeplearning4j_tpu_torch.ui.remote, "
+            "deeplearning4j_tpu_torch.ui.server, "
+            "deeplearning4j_tpu_torch.observe, "
+            "deeplearning4j_tpu_torch.observe.metrics, "
+            "deeplearning4j_tpu_torch.eval.tools; "
             "deeplearning4j_tpu_torch.SameDiff; "
+            "deeplearning4j_tpu_torch.EarlyStoppingTrainer; "
+            "deeplearning4j_tpu_torch.Solver; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -161,6 +179,55 @@ def test_samediff_and_the_zoo_base_need_an_explicit_cpu(tmp_path, monkeypatch):
         LeNet(input_shape=(1, 12, 12)).init_pretrained("mnist")
     net = LeNet(input_shape=(1, 12, 12)).init_pretrained("mnist", device="cpu")
     assert all(p.device.type == "cpu" for p in net.parameters())
+
+
+def test_solver_and_early_stopping_follow_the_model_s_device(tmp_path):
+    """``Solver``, ``EarlyStoppingTrainer``, its calculators and savers, and
+    the checkpoint loader run where the model lies; what builds or
+    restores a network with no model to follow picks cuda unless the
+    caller asks for the CPU."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import (
+        CheckpointListener,
+        DataSetLossCalculator,
+        EarlyStoppingConfiguration,
+        EarlyStoppingTrainer,
+        LocalFileModelSaver,
+        MaxEpochsTerminationCondition,
+        Solver,
+    )
+    from deeplearning4j_tpu_torch.util.gradient_check import check_model_gradients
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    conf = (NeuralNetConfiguration.builder().seed(1).optimization_algo("lbfgs").list()
+            .layer(DenseLayer(n_out=4, activation="tanh")).layer(OutputLayer(n_out=2))
+            .set_input_type(InputType.feed_forward(3)).build())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Solver(MultiLayerNetwork(conf))
+    rng = np.random.default_rng(0)
+    ds = DataSet(rng.normal(size=(8, 3)).astype(np.float32),
+                 np.eye(2, dtype=np.float32)[rng.integers(0, 2, 8)])
+    net = MultiLayerNetwork(conf, device="cpu").init()
+    Solver(net, max_iterations=2).optimize(ds)
+    assert all(p.device.type == "cpu" for p in net.parameters())
+    assert check_model_gradients(net, ds.features, ds.labels, subset=2)
+    net.set_listeners(CheckpointListener(tmp_path / "cp", save_every_n_epochs=1))
+    cfg = EarlyStoppingConfiguration(
+        score_calculator=DataSetLossCalculator(ListDataSetIterator(ds, 4)),
+        epoch_termination_conditions=[MaxEpochsTerminationCondition(2)],
+        model_saver=LocalFileModelSaver(tmp_path / "es"))
+    result = EarlyStoppingTrainer(cfg, net, ListDataSetIterator(ds, 4)).fit()
+    assert all(p.device.type == "cpu" for p in result.best_model.parameters())
+    # a saver or loader with no model to follow
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalFileModelSaver(tmp_path / "es").get_best_model()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CheckpointListener.load_checkpoint(tmp_path / "cp")
+    assert CheckpointListener.load_checkpoint(tmp_path / "cp", device="cpu").epoch == 2
 
 
 def test_chip_smoke_refuses_without_a_card():
