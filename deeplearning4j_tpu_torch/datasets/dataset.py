@@ -18,11 +18,18 @@ import numpy as np
 class DataSet:
     """features/labels (+ optional masks), the unit a fit step consumes."""
 
-    def __init__(self, features, labels, features_mask=None, labels_mask=None):
+    def __init__(self, features, labels, features_mask=None, labels_mask=None,
+                 example_meta_data=None):
         self.features = features
         self.labels = labels
         self.features_mask = features_mask
         self.labels_mask = labels_mask
+        # per-example provenance (RecordMetaData list), filled by record
+        # iterators with collect_meta_data=True (DataSet.getExampleMetaData)
+        self.example_meta_data = example_meta_data
+
+    def get_example_meta_data(self):
+        return self.example_meta_data
 
     def num_examples(self) -> int:
         return int(np.shape(self.features)[0])

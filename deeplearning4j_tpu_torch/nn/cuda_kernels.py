@@ -88,6 +88,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _build_lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs: dict = {}
+# where libraries not yet loaded are built and looked for: BUILD_DIR, or
+# the directory util/compile_cache.py points it at
+_build_dir = None
+# callables (source, seconds) told of each real build (observe/buildhook.py)
+_build_listeners: list = []
+
+
+def build_dir() -> str:
+    """The directory libraries not yet loaded are built into and loaded
+    from: ``BUILD_DIR`` unless :func:`set_build_dir` moved it."""
+    return BUILD_DIR if _build_dir is None else _build_dir
+
+
+def set_build_dir(path) -> None:
+    """Build and look for libraries not yet loaded in ``path`` (None:
+    ``BUILD_DIR``). Libraries already loaded stay loaded."""
+    global _build_dir
+    _build_dir = None if path is None else os.path.abspath(str(path))
+
+
+def add_build_listener(fn) -> None:
+    """Call ``fn(source, seconds)`` after each real build (a library found
+    already built is no build)."""
+    if fn not in _build_listeners:
+        _build_listeners.append(fn)
 
 
 def _nvcc() -> str:
@@ -116,26 +141,28 @@ def _source_bytes(source: str, csrc_dir: str, seen: set) -> bytes:
 
 
 def _lib_path(source: str, csrc_dir: str = CSRC_DIR) -> str:
-    """``build/lib<stem>-<hash>.so``: the hash covers the source, every
-    header it includes from ``csrc/`` and the compiler flags, so an edit of
-    any of them builds a new library."""
+    """``<build_dir()>/lib<stem>-<hash>.so``: the hash covers the source,
+    every header it includes from ``csrc/`` and the compiler flags, so an
+    edit of any of them builds a new library."""
     digest = hashlib.sha256(_source_bytes(source, csrc_dir, set())
                             + " ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+    return os.path.join(build_dir(), f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
 
 def build(source: str) -> str:
-    """Compile ``csrc/<source>`` into ``build/`` unless a library built
-    from the same source and flags is there. Returns the library path; the
-    compiler's report (registers, shared memory, spills) is kept beside it
-    as ``<library>.log``. Raises on any failure."""
+    """Compile ``csrc/<source>`` into :func:`build_dir` unless a library
+    built from the same source and flags is there. Returns the library
+    path; the compiler's report (registers, shared memory, spills) is kept
+    beside it as ``<library>.log``. Each real build is reported to the
+    build listeners with its seconds. Raises on any failure."""
     out = _lib_path(source)
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
     os.close(fd)
+    t0 = time.perf_counter()
     try:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -148,6 +175,9 @@ def build(source: str) -> str:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    seconds = time.perf_counter() - t0
+    for fn in list(_build_listeners):
+        fn(source, seconds)
     return out
 
 

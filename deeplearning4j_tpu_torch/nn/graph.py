@@ -169,8 +169,14 @@ class ComputationGraph(NetworkApi, nn.Module):
     # ---------------------------------------------------------------- score
     @property
     def score_(self) -> float:
-        """The last fit step's loss (NaN before the first)."""
+        """The last fit step's loss (NaN before the first). Reading it
+        syncs with the device; the train loop never blocks on it."""
         return float("nan") if self._score is None else float(self._score)
+
+    @score_.setter
+    def score_(self, v) -> None:
+        # a float or a (device) tensor, kept as given until it is read
+        self._score = v
 
     # ----------------------------------------------------------------- init
     def init(self, seed: Optional[int] = None) -> "ComputationGraph":

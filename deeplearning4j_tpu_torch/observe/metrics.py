@@ -2,8 +2,8 @@
 
 A copy of the JAX package's jax-free ``observe/metrics.py``: a thread-safe
 registry of labeled instruments with text exposition in the Prometheus
-0.0.4 format at ``/metrics``. The port's UI server reports through it
-(``instrument_http``, ``HTTPObserverMixin``). Deliberately stdlib-only and
+0.0.4 format at ``/metrics``. The port's UI server, batching dispatcher,
+model registry and cost ledger report through it. Deliberately stdlib-only and
 duck-typed: lower layers just call ``registry.counter(...)`` on whatever
 object they are handed.
 
@@ -13,12 +13,12 @@ Conventions follow the Prometheus client library:
   raise;
 - histograms are cumulative (every bucket counts all observations ≤ its
   upper bound, ``+Inf`` always present) with ``_sum`` and ``_count`` series;
-- a histogram observation made under an active span carries an OpenMetrics
-  **exemplar** (the bucket line grows a ``# {trace_id="..."} value ts``
-  suffix). The port has no trace module yet, so no span is ever active
-  and :func:`_current_trace_id` answers None; the exemplar grammar,
-  ``parse_prometheus_text``'s ``.exemplars`` side table and
-  ``exemplar_trace_ids`` are kept as they are, for explicit exemplars.
+- histogram observations made under an active span carry an OpenMetrics
+  **exemplar** — the bucket line grows a ``# {trace_id="..."} value ts``
+  suffix linking the latest observation that landed in that bucket to its
+  trace (the open span of ``observe/trace.py``). Exemplar labels are
+  escaped exactly like series labels, and ``parse_prometheus_text``
+  captures exemplars on its ``.exemplars`` side table.
 """
 
 from __future__ import annotations
@@ -89,10 +89,18 @@ def format_exemplar(ex: Exemplar) -> str:
     return s
 
 
+# lazily bound: metrics must stay importable without pulling trace first
+_trace_ctx = None
+
+
 def _current_trace_id() -> Optional[str]:
-    """The open span's trace id. The port has no ``observe/trace.py`` yet,
-    so no span can be open: always None."""
-    return None
+    """The trace id of the span open on this execution context, or None."""
+    global _trace_ctx
+    if _trace_ctx is None:
+        from deeplearning4j_tpu_torch.observe import trace as _t
+        _trace_ctx = _t._current_ctx
+    cur = _trace_ctx.get()
+    return None if cur is None else cur[0]
 
 
 class _Metric:

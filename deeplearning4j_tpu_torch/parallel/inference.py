@@ -4,18 +4,48 @@ Counterpart of ``deeplearning4j_tpu/parallel/inference.py``: requests from
 many client threads are queued, one dispatcher thread coalesces them
 within a ``wait_ms`` window measured from the oldest queued request, pads
 the batch to the smallest declared bucket and runs the model's ``output``
-on it; ``warmup`` runs every bucket ahead of time.
+on it; ``warmup`` runs every bucket ahead of time, through the same
+transfer path the dispatcher uses, so a live request never pays a kernel
+build, an allocator growth or a library's autotuning.
+
+Serving fast path:
+- the coalesce-and-pad step writes request rows straight into ONE
+  preallocated per-bucket host buffer (always: the reference's
+  ``reuse_pad_buffer`` keyword is accepted and has no effect). For a model
+  on the card the buffer is pinned and its copy to the device is
+  asynchronous; an event recorded after the copy is waited on before the
+  buffer is refilled, so a copy in flight is never overwritten;
+- a dispatch that lands on an UNDECLARED bucket, or on a (bucket, row
+  shape, dtype) that warmup never ran for the serving model, is counted in
+  ``inference_cold_dispatches_total``.
 
 Serving contract (as the reference):
 - a request whose deadline has passed is never dispatched; it fails with
   ``InferenceDeadlineExceeded``;
 - a dispatcher-thread crash fails every queued, in-flight and future
-  request with ``DispatcherCrashed`` (terminal: supervised restarts come
-  with the serving-tier slice, as do metrics, tracing and the cost ledger);
+  request with ``DispatcherCrashed``; with ``max_restarts > 0`` the next
+  request after the backoff window (``parallel/elastic.BackoffPolicy``,
+  on an injectable ``restart_clock``) restarts the thread in place, and
+  while the window runs requests fail fast with ``retry_after_s``. The
+  ``dispatched`` flag marks a request that was in the dying batch.
+  ``serving_dispatcher_restarts_total{model}`` counts the restarts;
+- ``update_model`` swaps the served model atomically: in-flight batches
+  finish on the old model, and ``output(return_model=True)`` names the
+  model object that served each answer;
 - ``shutdown`` fails every request still queued.
 
+Tracing (``observe/trace.py``): with a tracer active, every batched request
+runs inside an ``inference_request`` span whose context rides the request
+across the thread hop; the dispatcher records a ``queue_wait`` span per
+request (parented to the request's context) and a ``batch_execute`` span
+around the forward, flow-linked to every request it served. The span
+closes after the answer is copied to the host, so on the card its wall
+time covers the device work (what the cost ledger apportions).
+
 The dispatcher thread enters ``torch.inference_mode()`` itself (the mode
-is thread-local).
+is thread-local), and so does every restarted one. ``mesh=`` and
+``set_mesh`` take one device only; multi-device serving comes with the
+multi-device slice (ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -23,12 +53,15 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.train_step import to_host
+from deeplearning4j_tpu_torch.observe import trace as _trace
+from deeplearning4j_tpu_torch.util import faultinject as _faultinject
 
 
 class InferenceDeadlineExceeded(TimeoutError):
@@ -36,11 +69,19 @@ class InferenceDeadlineExceeded(TimeoutError):
 
 
 class DispatcherCrashed(RuntimeError):
-    """The batching dispatcher thread died. ``dispatched`` is True only for
-    a request that was part of the dying batch."""
+    """The batching dispatcher thread died.
 
-    def __init__(self, msg: str, *, dispatched: bool = False):
+    ``retry_after_s`` is set when a supervised restart is pending (come
+    back after the backoff); ``None`` means terminal (no supervision, or
+    the budget is spent). ``dispatched`` is True only for a request that
+    was part of the dying batch — the signal the per-version circuit
+    breaker counts; fast-fail rejections while a restart is pending never
+    carry it."""
+
+    def __init__(self, msg: str, *, retry_after_s: Optional[float] = None,
+                 dispatched: bool = False):
         super().__init__(msg)
+        self.retry_after_s = retry_after_s
         self.dispatched = dispatched
 
 
@@ -51,16 +92,22 @@ _PENDING, _CLAIMED, _CANCELLED = 0, 1, 2
 
 class _Request:
     __slots__ = ("x", "event", "result", "error", "deadline", "_state",
-                 "_lock")
+                 "_lock", "served_model", "ctx", "t_enqueue", "t_claim")
 
-    def __init__(self, x, deadline: Optional[float] = None):
+    def __init__(self, x, deadline: Optional[float] = None,
+                 ctx: Optional[_trace.SpanContext] = None):
         self.x = x
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.served_model = None  # the model object that actually served
         self.deadline = deadline  # absolute time.monotonic() stamp
         self._state = _PENDING
         self._lock = threading.Lock()
+        self.ctx = ctx  # trace context handed across the dispatcher hop
+        # timestamps only for traced requests: the untraced path pays nothing
+        self.t_enqueue = time.perf_counter_ns() if ctx is not None else None
+        self.t_claim: Optional[int] = None
 
     def claim(self) -> bool:
         """Dispatcher-side: take ownership for dispatch. Returns False if
@@ -99,11 +146,51 @@ class _Request:
             return True
 
 
+class _PadBuffer:
+    """One preallocated host batch: ``array`` is what the rows are written
+    into; for a model on the card it is a view of the pinned tensor
+    ``pinned``, and ``copied`` the event recorded after its last
+    asynchronous copy to the device."""
+
+    __slots__ = ("array", "pinned", "copied")
+
+    def __init__(self, shape, dtype, pin: bool):
+        self.pinned = None
+        self.copied = None
+        if pin:
+            self.pinned = torch.from_numpy(np.zeros(shape, dtype)).pin_memory()
+            self.array = self.pinned.numpy()
+        else:
+            self.array = np.zeros(shape, dtype)
+
+    def wait_copied(self) -> None:
+        """Block until the last copy out of the buffer has finished."""
+        if self.copied is not None:
+            self.copied.synchronize()
+            self.copied = None
+
+
 def _pow2(n: int) -> int:
     b = 1
     while b < n:
         b <<= 1
     return b
+
+
+def _model_device(model) -> Optional[torch.device]:
+    dev = getattr(model, "device", None)
+    return None if dev is None else torch.device(dev)
+
+
+def _single_device(mesh):
+    """``mesh`` (a ``torch.distributed`` ``DeviceMesh``) when it spans one
+    device, or None (the model's own device); the multi-device dispatch
+    comes with the multi-device slice."""
+    if mesh is not None and mesh.size() != 1:
+        raise ValueError(
+            f"a mesh of {mesh.size()} devices: the port serves on one device "
+            "until the multi-device slice (ROADMAP item 8)")
+    return mesh
 
 
 class ParallelInference:
@@ -114,19 +201,33 @@ class ParallelInference:
     ``max_batch_size`` rows within ``wait_ms`` of the oldest request.
     ``buckets`` are the batch sizes a dispatch is padded to (default:
     powers of two up to ``max_batch_size``). The model is a network of this
-    package (its ``output`` takes a host array and returns a tensor on its
-    device); results come back as numpy arrays.
+    package, or anything with its ``output`` (a host array or a tensor in,
+    a tensor or array out) and ``device``; results come back as numpy
+    arrays.
+
+    ``metrics``: optional duck-typed registry (``observe.metrics``). When
+    given, records ``inference_batch_size`` (histogram), and the gauges
+    ``inference_queue_depth`` and ``inference_dispatcher_up``, the counters
+    ``inference_cold_dispatches_total`` and
+    ``serving_dispatcher_restarts_total``, each labelled ``model`` (the
+    ``metrics_name``). ``cost``: an ``observe.cost.CostLedger`` that each
+    traced batch's device time is apportioned into.
     """
 
     def __init__(self, model, *, mode: str = "batched", max_batch_size: int = 32,
-                 queue_limit: int = 64, wait_ms: float = 2.0,
-                 buckets: Optional[Sequence[int]] = None):
+                 queue_limit: int = 64, wait_ms: float = 2.0, mesh=None,
+                 metrics=None, metrics_name: str = "default",
+                 buckets: Optional[Sequence[int]] = None,
+                 reuse_pad_buffer: bool = True,
+                 max_restarts: int = 0, restart_backoff=None,
+                 restart_clock=time.monotonic, cost=None):
         if mode not in ("sequential", "inplace", "batched"):
             raise ValueError(f"unknown mode {mode!r} (inplace|sequential|batched)")
         self.model = model
         self.mode = mode
         self.max_batch_size = int(max_batch_size)
         self.wait_s = wait_ms / 1e3
+        self.mesh = _single_device(mesh)
         if buckets is None:
             raw = []
             b = 1
@@ -139,11 +240,14 @@ class ParallelInference:
             if not raw or min(raw) < 1:
                 raise ValueError("buckets must be positive batch sizes")
         self.buckets: Tuple[int, ...] = tuple(sorted(set(raw)))
-        # one preallocated host buffer per (bucket, row shape, dtype); the
-        # dispatcher is serial and copies each result off the device before
-        # the buffer is rewritten
-        self._pad_buffers: Dict[tuple, np.ndarray] = {}
+        # bounded: clients choose the row shape and dtype
+        self._pad_buffers: Dict[tuple, _PadBuffer] = {}
         self._max_pad_buffers = max(16, 2 * len(self.buckets))
+        # PER MODEL: the (bucket, row shape, dtype) signatures warmup ran;
+        # weak keys, so a retired version is not pinned by its set
+        self._warmed_keys: "weakref.WeakKeyDictionary" = (
+            weakref.WeakKeyDictionary())
+        self._model_lock = threading.Lock()
         self._q: "queue.Queue[_Request]" = queue.Queue(maxsize=queue_limit)
         self._shutdown = False
         self._worker = None
@@ -151,43 +255,113 @@ class ParallelInference:
         self.batches_dispatched = 0
         self._inflight_batch: List[_Request] = []
         self._carry: Optional[_Request] = None  # claimed, awaiting next batch
+        self._metrics_name = metrics_name
+        self.cost = cost
+        # supervision: restart in place under the backoff ladder;
+        # max_restarts=0 keeps the terminal-crash contract
+        self.max_restarts = int(max_restarts)
+        self.restarts_used = 0
+        if restart_backoff is None:
+            from deeplearning4j_tpu_torch.parallel.elastic import BackoffPolicy
+            restart_backoff = BackoffPolicy()
+        self._restart_backoff = restart_backoff
+        self._restart_clock = restart_clock
+        self._restart_at: Optional[float] = None  # restart_clock stamp
+        self._restart_lock = threading.Lock()
+        self._forward_seq = 0  # per-model dispatch counter (chaos keying)
+        self._m_batch = self._m_depth = self._m_up = self._m_cold = None
+        self._m_restarts = None
+        if metrics is not None:
+            self._m_batch = metrics.histogram(
+                "inference_batch_size",
+                "Coalesced rows per dispatched device batch", ("model",),
+                buckets=[2 ** i for i in range(0, 11)])
+            self._m_depth = metrics.gauge(
+                "inference_queue_depth", "Requests waiting for dispatch",
+                ("model",))
+            self._m_up = metrics.gauge(
+                "inference_dispatcher_up",
+                "1 while the batching dispatcher thread is alive", ("model",))
+            self._m_up.set(1, model=metrics_name)
+            self._m_cold = metrics.counter(
+                "inference_cold_dispatches_total",
+                "Dispatches padded to an UNDECLARED (never-warmed) bucket — "
+                "each one may pay a live kernel build or allocator growth",
+                ("model",))
+            self._m_restarts = metrics.counter(
+                "serving_dispatcher_restarts_total",
+                "Supervised in-place restarts of a crashed batching "
+                "dispatcher thread", ("model",))
         if mode == "batched":
-            self._worker = threading.Thread(target=self._run, daemon=True,
-                                            name="ParallelInference")
-            self._worker.start()
+            self._start_worker()
+
+    def _start_worker(self) -> None:
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="ParallelInference")
+        self._worker.start()
 
     # ----------------------------------------------------------- client API
     @property
     def healthy(self) -> bool:
         """False once the dispatcher thread has crashed or after shutdown."""
+        if self.mode in ("sequential", "inplace"):
+            return not self._shutdown
         return not self._shutdown and self.dispatcher_error is None
 
-    def output(self, x, *, deadline_s: Optional[float] = None) -> np.ndarray:
+    def output(self, x, *, deadline_s: Optional[float] = None,
+               return_model: bool = False):
         """Predict; ``deadline_s`` is a relative per-request deadline.
 
         Raises ``InferenceDeadlineExceeded`` past the deadline (whether the
         request was still queued or its batch finished too late) and
-        ``DispatcherCrashed`` when the batching thread is gone."""
+        ``DispatcherCrashed`` when the batching thread is gone.
+        ``return_model=True`` returns ``(result, model)``, ``model`` being
+        the object that served the batch — the only truthful attribution
+        under concurrent hot swaps."""
         x = np.asarray(x)
         if x.ndim == 0:
             raise ValueError("request must be at least 1-d (a batch of rows)")
         if self._shutdown:
             raise RuntimeError("ParallelInference is shut down")
         if self.mode in ("sequential", "inplace"):
-            return to_host(self.model.output(x))
+            model = self._model()
+            with _trace.span("inference_request", category="serve",
+                             attrs={"model": self._metrics_name,
+                                    "rows": int(x.shape[0]),
+                                    "mode": self.mode}):
+                with torch.inference_mode():
+                    res = to_host(model.output(x))
+            return (res, model) if return_model else res
         if self.dispatcher_error is not None:
-            raise DispatcherCrashed("inference dispatcher died") \
-                from self.dispatcher_error
+            self._ensure_dispatcher()
         deadline = (time.monotonic() + deadline_s
                     if deadline_s is not None else None)
-        req = _Request(x, deadline=deadline)
+        tracer = _trace.get_active_tracer()
+        if tracer is None:
+            return self._output_batched(x, deadline, deadline_s,
+                                        return_model, None)
+        # per-request span: enqueue → wait → result; its context rides the
+        # _Request across the dispatcher thread
+        with tracer.span("inference_request", category="serve",
+                         attrs={"model": self._metrics_name,
+                                "rows": int(x.shape[0]),
+                                "mode": "batched"}) as sp:
+            return self._output_batched(x, deadline, deadline_s,
+                                        return_model, sp.context)
+
+    def _output_batched(self, x, deadline, deadline_s, return_model, ctx):
+        req = _Request(x, deadline=deadline, ctx=ctx)
         self._q.put(req)
         # re-check AFTER the put: a crash or shutdown that drained the queue
         # concurrently with this enqueue would otherwise strand the request
         if self.dispatcher_error is not None:
-            req.fail_unclaimed(DispatcherCrashed("inference dispatcher died"))
+            req.fail_unclaimed(DispatcherCrashed(
+                "inference dispatcher died",
+                retry_after_s=self.restart_state()["retry_after_s"]))
         elif self._shutdown:
             req.fail_unclaimed(RuntimeError("ParallelInference shut down"))
+        if self._m_depth is not None:
+            self._m_depth.set(self._q.qsize(), model=self._metrics_name)
         if deadline is None:
             req.event.wait()
         elif not req.event.wait(max(deadline - time.monotonic(), 0.0)):
@@ -201,27 +375,128 @@ class ParallelInference:
                     f"deadline of {deadline_s}s expired (late batch)")
         if req.error is not None:
             raise req.error
-        return req.result
+        return (req.result, req.served_model) if return_model else req.result
 
-    def _bucket_for(self, n: int) -> int:
-        """Smallest declared bucket holding ``n`` rows, else the next power
-        of two (a shape warmup did not run)."""
+    def update_model(self, model) -> None:
+        """Atomically swap the served model (``ParallelInference.updateModel``).
+        In-flight batches finish on the old model."""
+        with self._model_lock:
+            self.model = model
+
+    def _model(self):
+        with self._model_lock:
+            return self.model
+
+    # ----------------------------------------------------------- supervision
+    def _ensure_dispatcher(self) -> None:
+        """Crashed-dispatcher gate on the request path: restart the thread
+        in place once the backoff window has passed, or raise
+        ``DispatcherCrashed`` — with a ``retry_after_s`` hint while the
+        window runs, terminally once the budget is gone. Lazy (no
+        supervisor thread), so the ladder is deterministic under an
+        injected clock."""
+        with self._restart_lock:
+            if self.dispatcher_error is None or self._shutdown:
+                return  # restarted concurrently (or shutting down)
+            cause = self.dispatcher_error
+            if self._restart_at is None:
+                msg = ("inference dispatcher died"
+                       if self.max_restarts == 0 else
+                       f"inference dispatcher died (restart budget of "
+                       f"{self.max_restarts} exhausted)")
+                raise DispatcherCrashed(msg) from cause
+            remaining = self._restart_at - self._restart_clock()
+            if remaining > 0:
+                raise DispatcherCrashed(
+                    "inference dispatcher died; restart pending",
+                    retry_after_s=remaining) from cause
+            # the dying thread may still be failing its casualties: let it
+            # finish before a new thread shares the queue
+            old = self._worker
+            if old is not None and old is not threading.current_thread():
+                old.join(timeout=5.0)
+            self.restarts_used += 1
+            self.dispatcher_error = None
+            self._restart_at = None
+            self._inflight_batch = []
+            self._carry = None
+            self._start_worker()
+            if self._m_up is not None:
+                self._m_up.set(1, model=self._metrics_name)
+            if self._m_restarts is not None:
+                self._m_restarts.inc(model=self._metrics_name)
+
+    def restart_state(self) -> dict:
+        """Supervision snapshot for health probes: whether the dispatcher
+        is crashed, whether a restart is still possible, and how long
+        until the backoff window opens."""
+        with self._restart_lock:
+            crashed = self.dispatcher_error is not None
+            pending = crashed and self._restart_at is not None
+            retry_after = None
+            if pending:
+                retry_after = max(
+                    0.0, self._restart_at - self._restart_clock())
+            return {"crashed": crashed,
+                    "restart_pending": pending,
+                    "retry_after_s": retry_after,
+                    "restarts_used": self.restarts_used,
+                    "max_restarts": self.max_restarts,
+                    "terminal": crashed and self._restart_at is None}
+
+    # ------------------------------------------------------------ fast path
+    def _bucket_for(self, n: int) -> Tuple[int, bool]:
+        """Smallest declared bucket holding ``n`` rows, or (cold) the next
+        power of two. Returns ``(target_rows, declared)``."""
         for b in self.buckets:
             if b >= n:
-                return b
-        return _pow2(n)
+                return b, True
+        return _pow2(n), False
 
-    def warmup(self, row_shape: Sequence[int], *, dtype=np.float32) -> dict:
-        """Run the forward for every declared bucket ahead of time (kernel
-        builds, allocator growth, library autotuning). Returns
-        ``{bucket: seconds}``."""
+    def _to_device(self, x: np.ndarray, model, buf: Optional[_PadBuffer] = None):
+        """Host batch → what the model's ``output`` is given, exactly as the
+        dispatcher ships it (shared with warmup): a tensor on the model's
+        card, copied asynchronously out of a pinned pad buffer (an event
+        marks the copy's end), or the host array for a CPU model."""
+        dev = _model_device(model)
+        if dev is None or dev.type == "cpu":
+            return x
+        if buf is not None and buf.pinned is not None:
+            xd = buf.pinned.to(dev, non_blocking=True)
+            buf.copied = torch.cuda.Event()
+            buf.copied.record(torch.cuda.current_stream(dev))
+            return xd
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def set_mesh(self, mesh) -> None:
+        """Repoint the dispatch at ``mesh`` (None: the model's own device).
+        One device only until the multi-device slice."""
+        self.mesh = _single_device(mesh)
+
+    def warmup(self, row_shape: Sequence[int], *, dtype=np.float32,
+               model=None, buckets: Optional[Sequence[int]] = None,
+               mesh=None) -> dict:
+        """Run the forward for every declared bucket (or those holding
+        ``buckets``' row counts) ahead of time, through the dispatcher's
+        own transfer path: kernel builds, allocator growth and library
+        autotuning happen here, never under a live request. ``model``
+        defaults to the live model; a version not yet activated can be
+        warmed before its hot swap. Returns ``{bucket: seconds}``."""
+        _single_device(mesh)
+        model = self._model() if model is None else model
         report = {}
         with torch.inference_mode():
-            for b in self.buckets:
+            for b in (self.buckets if buckets is None else
+                      [self._bucket_for(int(x))[0] for x in buckets]):
                 x = np.zeros((b,) + tuple(row_shape), dtype)
                 t0 = time.perf_counter()
-                self.model.output(x).cpu()
+                to_host(model.output(self._to_device(x, model)))
                 report[b] = time.perf_counter() - t0
+                try:
+                    self._warmed_keys.setdefault(model, set()).add(
+                        (b, tuple(row_shape), np.dtype(dtype).str))
+                except TypeError:  # a model that takes no weak reference:
+                    pass           # its dispatches count cold
         return report
 
     def shutdown(self) -> None:
@@ -230,6 +505,8 @@ class ParallelInference:
             self._worker.join(timeout=5.0)
         # fail any requests still queued so no client blocks forever
         self._fail_queued(RuntimeError("ParallelInference shut down"))
+        if self._m_up is not None:
+            self._m_up.set(0, model=self._metrics_name)
 
     def _fail_queued(self, error: Exception) -> None:
         while True:
@@ -238,6 +515,8 @@ class ParallelInference:
             except queue.Empty:
                 break
             r.fail_unclaimed(error)
+        if self._m_depth is not None:
+            self._m_depth.set(0, model=self._metrics_name)
 
     # ------------------------------------------------------------ dispatcher
     def _run(self) -> None:
@@ -245,18 +524,34 @@ class ParallelInference:
             with torch.inference_mode():
                 self._run_loop()
         except BaseException as e:  # noqa: BLE001 — containment seam
-            # the crash must not strand waiters: record it, fail the dying
-            # batch, the carried request and everything queued; output()
-            # fails fast from now on
-            self.dispatcher_error = e
-            crash = DispatcherCrashed(f"inference dispatcher died: {e!r}",
-                                      dispatched=True)
+            # the crash must not strand waiters: under supervision the
+            # restart window is scheduled BEFORE the error becomes visible
+            # (same lock as _ensure_dispatcher), so a racing request never
+            # reads "crashed" without a window
+            retry_after = None
+            with self._restart_lock:
+                if self.restarts_used < self.max_restarts \
+                        and not self._shutdown:
+                    retry_after = self._restart_backoff.delay(
+                        self.restarts_used + 1, seed=self._metrics_name)
+                    self._restart_at = self._restart_clock() + retry_after
+                else:
+                    self._restart_at = None
+                self.dispatcher_error = e
+            if self._m_up is not None:
+                self._m_up.set(0, model=self._metrics_name)
+            # the dying batch's forwards DIED (dispatched=True, what the
+            # breaker counts); the carry and the queued ones never ran
+            crash = DispatcherCrashed(
+                f"inference dispatcher died: {e!r}",
+                retry_after_s=retry_after, dispatched=True)
             for r in self._inflight_batch:
                 if not r.event.is_set():
                     r.error = crash
                     r.event.set()
             undispatched = DispatcherCrashed(
-                f"inference dispatcher died: {e!r}")
+                f"inference dispatcher died: {e!r}",
+                retry_after_s=retry_after)
             if self._carry is not None and not self._carry.event.is_set():
                 self._carry.error = undispatched
                 self._carry.event.set()
@@ -277,6 +572,8 @@ class ParallelInference:
                     continue
                 if not first.claim():  # cancelled or expired while queued
                     continue
+                if first.ctx is not None:
+                    first.t_claim = time.perf_counter_ns()
             batch: List[_Request] = [first]
             # published before coalescing: a crash past the first claim
             # must be able to fail these waiters
@@ -293,60 +590,133 @@ class ParallelInference:
                     break
                 if not r.claim():
                     continue
+                if r.ctx is not None:
+                    r.t_claim = time.perf_counter_ns()
                 if n + r.x.shape[0] > cap:
                     self._carry = r
                     break
                 batch.append(r)
                 n += r.x.shape[0]
-            self._dispatch_batch(batch, n)
+            if self._m_depth is not None:
+                self._m_depth.set(self._q.qsize(), model=self._metrics_name)
+            self._dispatch(batch, n)
             self._inflight_batch = []
         if self._carry is not None and not self._carry.event.is_set():
             self._carry.error = RuntimeError("ParallelInference shut down")
             self._carry.event.set()
             self._carry = None
 
-    def _assemble(self, batch: List[_Request], n: int,
-                  target: int) -> np.ndarray:
+    def _dispatch(self, batch: List[_Request], n: int) -> None:
+        tracer = _trace.get_active_tracer()
+        if tracer is None:
+            return self._dispatch_batch(batch, n, None)
+        # queue-wait attribution first, parented to each REQUEST's span
+        # (the explicit handoff: contextvars never cross the thread hop)
+        for r in batch:
+            if r.ctx is not None and r.t_claim is not None:
+                tracer.record("queue_wait", r.t_enqueue, r.t_claim,
+                              parent=r.ctx, category="serve",
+                              attrs={"model": self._metrics_name})
+        # a kernel built at first use runs on THIS thread inside the span,
+        # so the per-thread compile-seconds delta is what the cost ledger
+        # must not bill to the batch's requests
+        compile_s0 = tracer.thread_compile_seconds()
+        with tracer.span("batch_execute", category="serve",
+                         attrs={"model": self._metrics_name, "rows": n,
+                                "requests": len(batch)}) as sp:
+            for r in batch:
+                sp.add_link(r.ctx)
+            self._dispatch_batch(batch, n, sp)
+        if self.cost is not None and sp.end_ns is not None:
+            compile_ms = (tracer.thread_compile_seconds() - compile_s0) * 1e3
+            self.cost.record_batch(
+                self._metrics_name,
+                span_ms=(sp.end_ns - sp.start_ns) / 1e6,
+                compile_ms=compile_ms,
+                requests=[(r.ctx.trace_id if r.ctx is not None else None,
+                           int(r.x.shape[0])) for r in batch])
+
+    def _assemble(self, batch: List[_Request], n: int, target: int,
+                  pin: bool) -> Tuple[np.ndarray, Optional[_PadBuffer]]:
         """Coalesce request rows into ONE padded host batch, written straight
         into a preallocated per-bucket buffer when the rows agree in shape
-        and dtype."""
+        and dtype. Returns ``(batch array, its buffer)``."""
         first = batch[0].x
         row_shape, dtype = first.shape[1:], first.dtype
-        if not all(r.x.shape[1:] == row_shape and r.x.dtype == dtype
-                   for r in batch[1:]):
+        homogeneous = all(r.x.shape[1:] == row_shape and r.x.dtype == dtype
+                          for r in batch[1:])
+        if not homogeneous:
             x = np.concatenate([r.x for r in batch], axis=0)
             if target > n:
                 pad = np.zeros((target - n,) + x.shape[1:], x.dtype)
                 x = np.concatenate([x, pad], axis=0)
-            return x
-        key = (target, row_shape, dtype.str)
+            return x, None
+        key = (target, row_shape, dtype.str, pin)
         buf = self._pad_buffers.get(key)
         if buf is None:
             while len(self._pad_buffers) >= self._max_pad_buffers:
-                self._pad_buffers.pop(next(iter(self._pad_buffers)))
-            buf = np.zeros((target,) + tuple(row_shape), dtype)
+                self._pad_buffers.pop(next(iter(self._pad_buffers))).wait_copied()
+            buf = _PadBuffer((target,) + tuple(row_shape), dtype, pin)
             self._pad_buffers[key] = buf
+        buf.wait_copied()  # never refill a buffer whose copy is in flight
         off = 0
         for r in batch:
             k = r.x.shape[0]
-            buf[off:off + k] = r.x
+            buf.array[off:off + k] = r.x
             off += k
         if off < target:
-            buf[off:] = 0  # stale rows from the last batch must not leak
-        return buf
+            buf.array[off:] = 0  # stale rows from the last batch must not leak
+        return buf.array, buf
 
-    def _dispatch_batch(self, batch: List[_Request], n: int) -> None:
+    def _dispatch_batch(self, batch: List[_Request], n: int, sp) -> None:
         try:
-            x = self._assemble(batch, n, self._bucket_for(n))
-            out = to_host(self.model.output(x))
+            target, declared = self._bucket_for(n)
+            model = self._model()
+            dev = _model_device(model)
+            x, buf = self._assemble(batch, n, target,
+                                    pin=dev is not None and dev.type == "cuda")
+            # cold: off-bucket, or a signature warmup never ran for THIS
+            # model (lazy mode, where no warmup ever ran, counts only
+            # off-bucket dispatches)
+            keys = None
+            any_warmed = len(self._warmed_keys) > 0
+            if any_warmed:
+                try:
+                    keys = self._warmed_keys.get(model)
+                except TypeError:
+                    keys = None
+            cold = not declared or (
+                any_warmed and
+                (keys is None or
+                 (target, x.shape[1:], x.dtype.str) not in keys))
+            if cold and self._m_cold is not None:
+                self._m_cold.inc(model=self._metrics_name)
+            if sp is not None:
+                sp.set_attribute("padded_to", int(target))
+                if cold:
+                    sp.set_attribute("cold_bucket", True)
+            # serving chaos seam, keyed on (model, dispatch seq): a
+            # crash_forward raises a BaseException that escapes this
+            # handler and kills the dispatcher thread
+            seq = self._forward_seq
+            self._forward_seq += 1
+            _faultinject.on_forward(self._metrics_name, seq)
+            out = to_host(model.output(self._to_device(x, model, buf)))
+            if buf is not None and np.may_share_memory(out, buf.array):
+                out = out.copy()  # an answer must outlive the reused buffer
             self.batches_dispatched += 1
+            if self._m_batch is not None:
+                self._m_batch.observe(n, model=self._metrics_name)
             off = 0
             for r in batch:
                 k = r.x.shape[0]
                 r.result = out[off:off + k]
+                r.served_model = model
                 off += k
                 r.event.set()
         except Exception as e:  # deliver errors to the batch's clients
+            if sp is not None:
+                sp.error = f"{type(e).__name__}: {e}"
             for r in batch:
                 r.error = e
                 r.event.set()

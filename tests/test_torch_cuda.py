@@ -54,7 +54,11 @@ card from one generator state, and within 1e-5 of the CPU's handed the
 card's masks. Training utilities: ``Solver`` on a narrowed float64
 LeNet gives the CPU's score history within 1e-8 relative for each
 algorithm, and ``check_model_gradients`` passes on the card in float64
-on the CPU's coordinates (a narrowed LeNet, an LSTM network).
+on the CPU's coordinates (a narrowed LeNet, an LSTM network). The model
+registry: a two-version registry (a small TransformerLM in f32 and its
+int8 version) serves on the card, each answer within the served-answer
+limit of its version's own ``output``, and the int8 version's growth of
+the card's allocation is its int8 tensors and scales.
 """
 
 import numpy as np
@@ -1785,3 +1789,47 @@ def test_gradient_checks_pass_on_the_card_in_f64(card):
             assert check_model_gradients(net, x, y, report=report)
         assert reports[1]["coordinates"] == reports[0]["coordinates"]
         assert abs(reports[1]["max_rel_error"] - reports[0]["max_rel_error"]) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_two_version_registry_serves_on_the_card_with_int8_bytes(card):
+    """A two-version registry on the card at a small size (a 2-layer, d 128,
+    T 128 TransformerLM: the causal layers take K3a): v1 f32 and v2 its
+    int8 version. The int8 version grows the card's allocation by its
+    int8 tensors and scales (its ``param_nbytes`` less the 1-d float
+    parameters it shares with v1, which it does not copy), each block
+    rounded up to the caching allocator's 512 bytes; each answer
+    equals its version's own ``output`` within the served-answer limit
+    (rtol 1e-4, atol 1e-8); each forward launches K3a once a layer."""
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+    from deeplearning4j_tpu_torch.serving.quantize import QTensor
+
+    net = TransformerLM(vocab_size=100, max_length=128, n_layers=2, d_model=128,
+                        n_heads=2, d_ff=256, seed=3).init()
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 100, (2, 128)).astype(np.float32)
+    reg = ModelRegistry(max_batch_size=2, buckets=(1, 2))
+    try:
+        reg.register("lm", net, input_shape=(128,))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        v = reg.register("lm", net, dtype_policy="int8", sample_input=x, activate=False)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        qm = reg.get("lm").versions[v].model
+        quantized = [t for named in qm.qparams.values() for t in named.values()
+                     if isinstance(t, QTensor)]
+        assert quantized and all(t.q.dtype == torch.int8 and t.q.is_cuda for t in quantized)
+        # the caching allocator rounds each block up to 512 bytes
+        int8_bytes = sum(t.nbytes for t in quantized)
+        assert 0 <= grown - int8_bytes <= 512 * 2 * len(quantized)
+        assert int8_bytes < qm.param_nbytes
+        for version in (1, v):
+            launches = ck.flash_attention_fwd.launches
+            out, served = reg.predict_versioned("lm", x, version=version)
+            assert served == version
+            assert ck.flash_attention_fwd.launches - launches == 2
+            ref = reg.get("lm").versions[version].model.output(x).cpu().numpy()
+            assert np.all(np.abs(out - ref) <= 1e-8 + 1e-4 * np.abs(ref))
+    finally:
+        reg.shutdown()

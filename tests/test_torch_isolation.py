@@ -415,3 +415,44 @@ def test_import_export_modules_leave_jax_keras_and_h5py_unloaded(tmp_path):
     with pytest.raises(Exception, match="no CUDA device"):
         load_model_guess(path)
     assert type(load_model_guess(path, device="cpu")).__name__ == "MultiLayerNetwork"
+
+
+def test_serving_and_observability_modules_leave_jax_unloaded(tmp_path):
+    """The tracing, supervision and model-registry slice's modules import no
+    jax; the registry's path loads refuse to guess a device."""
+    modules = ("observe", "observe.trace", "observe.export", "observe.buildhook",
+               "observe.log", "observe.cost", "parallel.time_source",
+               "parallel.elastic", "parallel.inference", "util.faultinject",
+               "util.compile_cache", "serving", "serving.quantize",
+               "serving.breaker", "serving.registry")
+    code = ("import sys, " + ", ".join(f"deeplearning4j_tpu_torch.{m}" for m in modules)
+            + "; from deeplearning4j_tpu_torch.observe import enable_tracing; "
+              "enable_tracing(jax_hook=True); "
+              "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    names = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {f"deeplearning4j_tpu_torch/{m.replace('.', '/')}.py"
+            for m in modules if m not in ("observe", "serving")} <= names
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    path = os.path.join(str(tmp_path), "lenet.zip")
+    LeNet(input_shape=(1, 12, 12)).init(device="cpu").save(path)
+    with pytest.raises(Exception, match="no CUDA device"):
+        ModelRegistry.load(path)
+    reg = ModelRegistry(warmup="off")
+    try:
+        with pytest.raises(Exception, match="no CUDA device"):
+            reg.register("lenet", path=path)
+        assert not reg.has("lenet")
+        assert reg.register("lenet", path=path, device="cpu") == 1
+        assert reg.get("lenet").versions[1].model.device.type == "cpu"
+    finally:
+        reg.shutdown()
+    assert ModelRegistry.load(path, device="cpu").device.type == "cpu"

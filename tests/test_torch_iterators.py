@@ -394,3 +394,35 @@ def test_model_zip_carries_a_normalizer_both_ways(tmp_path):
     pser.add_normalizer_to_model(plain, mm)
     assert jser.restore_normalizer(plain).to_dict() == mm.to_dict()
     assert pser.validate_model_zip(plain) == []
+
+
+class _Copying:
+    """A pre-processor whose only face returns a new DataSet (no metadata)."""
+
+    def __init__(self, ds_cls):
+        self.ds_cls = ds_cls
+
+    def transform(self, ds):
+        return self.ds_cls(np.asarray(ds.features) * 2.0, ds.labels)
+
+
+@pytest.mark.parametrize("face", ["mutating", "returning"])
+def test_example_meta_data_is_kept_and_carried_as_the_reference(face):
+    """C15: ``DataSet`` takes ``example_meta_data`` and a pre-processor
+    keeps it, whether it mutates the DataSet or returns a copy."""
+    from deeplearning4j_tpu.datasets.dataset import apply_preprocessor as japply
+    from deeplearning4j_tpu_torch.datasets.dataset import apply_preprocessor as tapply
+
+    f, l, _, _ = _data(n=4)
+    meta = [f"records.csv:{i}" for i in range(4)]
+    out = {}
+    for name, D, N, apply in (("port", DataSet, PN, tapply), ("ref", JDataSet, JN, japply)):
+        ds = D(f, l, example_meta_data=list(meta))
+        assert ds.get_example_meta_data() == meta
+        assert D(f, l).get_example_meta_data() is None
+        pre = (N.NormalizerStandardize().fit(D(f, l)) if face == "mutating"
+               else _Copying(D))
+        got = apply(pre, ds)
+        out[name] = (got.get_example_meta_data(), np.asarray(got.features))
+    assert out["port"][0] == out["ref"][0] == meta
+    np.testing.assert_allclose(out["port"][1], out["ref"][1], rtol=TOL, atol=TOL)

@@ -472,3 +472,30 @@ def test_mini_batch_false_json_both_ways(direction):
     back = dst_cls.from_json(text)
     assert back.global_conf.mini_batch is False
     assert json.loads(back.to_json())["global"] == json.loads(text)["global"]
+
+
+class _Loss:
+    """A device loss stand-in that counts its reads."""
+
+    def __init__(self, v):
+        self.v, self.reads = v, 0
+
+    def __float__(self):
+        self.reads += 1
+        return self.v
+
+
+@pytest.mark.parametrize("kind", ["mln", "graph"])
+def test_score_can_be_set_as_the_reference(kind):
+    """C16: ``score_`` takes a float or a 0-dim tensor and reads it back; an
+    assigned loss stays unread (no device sync) until ``score_`` is read."""
+    j, t = net(REF, kind), net(PORT, kind)
+    for a, b in ((1.25, 1.25), (np.float32(0.5), torch.tensor(0.5))):
+        j.score_, t.score_ = a, b
+        assert t.score_ == j.score_ == float(a)
+    loss = _Loss(3.0)
+    t.score_ = loss
+    assert loss.reads == 0
+    assert t.score_ == 3.0 and loss.reads == 1
+    t.score_ = None
+    assert np.isnan(t.score_) and np.isnan(net(PORT, kind).score_)

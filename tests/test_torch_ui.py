@@ -315,7 +315,7 @@ def test_server_records_requests_in_a_metrics_registry():
     counts = parsed["http_requests_total"]
     assert counts[(("path", "/train/sessions"), ("server", "ui"), ("status", "200"))] == 1.0
     assert counts[(("path", "/i18n"), ("server", "ui"), ("status", "200"))] == 1.0
-    assert not exemplar_trace_ids(reg)  # no trace context in the port
+    assert not exemplar_trace_ids(reg)  # no span was open: no exemplar
 
 
 # ----------------------------------------------------------------- modules
