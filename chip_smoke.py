@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs thirty-three phases:
+every kernel, and runs thirty-four phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -342,7 +342,31 @@ every kernel, and runs thirty-three phases:
    probe; one ``queue_wait`` and one ``batch_execute`` a batch, linked,
    the ledger conserving, exemplars naming traces, no ``kernel_build``
    span; requests/s, p50 and p99 by version; the calibrations beside the
-   port's own on the CPU; the phase within 60 s.
+   port's own on the CPU; the phase within 60 s;
+34. the HTTP front end (``serving/server.py``, ``client.py``,
+   ``admission.py``, ``brownout.py``, ``streaming/codec.py``,
+   ``observe/health.py``, ``alerts.py``, ``slo.py``, ``incident.py``):
+   the same four versions behind a ``ModelServer`` on loopback, 8
+   ``ModelServingClient`` threads sending 48 one-row binary requests of
+   256 ids under a 0.25 canary split to the int8 version, 4 pinned to
+   the bf16 version (``"bfloat16"`` frames, byte for byte the codec's
+   frame of that version's own ``output``) and 4 JSON requests to a small
+   MLP: every answer within the served-answer limit of its version's own
+   ``output``, 12 K3a (K3a-bf16) a forward; ``/readyz``, ``/livez``,
+   ``/v1/models`` and ``/metrics`` read during the load, the 200s counted
+   in ``serving_requests_total``, ``/debug/capture``, each request's
+   spans linked client → server → dispatcher, ``X-Device-Ms`` summed
+   against the cost ledger; on a one-slot server a burst's 429s with
+   ``Retry-After`` fire a burn-rate rule on a manual clock, which engages
+   a brownout (priority 0 shed, un-pinned requests degraded to v2) until
+   recovery resolves it; a ``drop_response`` retried with one reconnect;
+   a ``crash_forward`` served through the fallback chain; a
+   ``TrainingWatchdog`` and a ``TraceListener`` on 5 Adam steps of the
+   zoo LeNet (8 K2 a step, no event, host reads a step counted) and
+   example 26's diverging MLP ended as an "Error" termination by
+   ``EarlyStoppingTrainer``; requests/s, p50 and p99 by version, the HTTP
+   layer's ms a request (the client's span less the dispatcher's
+   ``inference_request``); the phase within 60 s.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -884,6 +908,31 @@ SR_ACTIVATE_AT, SR_SPLIT_AT, SR_CANARY, SR_SAMPLE = 16, 32, 0.25, 2
 SR_BF16_REQUESTS, SR_CRASH_REQUESTS, SR_GROWTH_TOL, SR_MAX_SECONDS = 4, 3, 0.10, 60.0
 SR_INT8_CAL_TOL, SR_BF16_CAL_BAND = 1e-3, 4.0
 SR_BREAKER = dict(failure_threshold=1, window_s=60.0, cooldown_s=2.0, half_open_probes=1)
+# the HTTP front end: the registry's four GPT-2-small versions (seeds and
+# policies of SR_*) behind a ModelServer on loopback, called by a
+# ModelServingClient from HS_CLIENTS threads with binary frames: HS_REQUESTS
+# one-row requests of SR_T ids under a SR_CANARY split to v3, then
+# HS_BF16_REQUESTS pinned to v4 (their frames "bfloat16", byte for byte the
+# codec's frame of v4's own output), and HS_JSON_REQUESTS JSON requests of
+# HS_JSON_ROWS rows to a small MLP served beside it. Every answer is held
+# to its served version's own output within the served-answer limit;
+# /readyz, /livez, /v1/models and /metrics are read during the load,
+# /metrics and /debug/capture after it. Then resilience on a second server
+# of max_inflight 1 over the same registry: a burst of HS_CLIENTS requests
+# (429s with Retry-After) drives a burn-rate rule on a manual clock (HS_BURN),
+# which engages a brownout that sheds priority 0 and degrades un-pinned
+# requests to v2; HS_RECOVERY JSON requests resolve the rule; a
+# drop_response fault is retried with one reconnect; a crash_forward is
+# served through the fallback chain. Training side: a TrainingWatchdog and a
+# TraceListener ride HS_LENET_STEPS Adam steps of the zoo LeNet (batch
+# HS_LENET_BATCH), and example 26's diverging MLP ends as an "Error"
+# termination under EarlyStoppingTrainer. The phase within HS_MAX_SECONDS.
+HS_CLIENTS, HS_REQUESTS, HS_BF16_REQUESTS, HS_JSON_REQUESTS, HS_JSON_ROWS = 8, 48, 4, 4, 2
+HS_RECOVERY, HS_LENET_STEPS, HS_LENET_BATCH, HS_MAX_SECONDS = 24, 5, 64, 60.0
+HS_BURN = {"type": "burn_rate", "name": "serving_burn", "severity": "page",
+           "slo": {"metric": "serving_requests_total", "error_labels": {"status": "429"},
+                   "objective": 0.99},
+           "windows": [{"long_s": 3600, "short_s": 300, "factor": 2.0}]}
 
 
 def card_peaks(name: str):
@@ -7745,6 +7794,523 @@ def serving_registry_phase(ck, card):
     return paths
 
 
+class ResponseLog:
+    """Wraps a ``ModelServingClient``'s request so each calling thread
+    keeps its last response's headers and body (the served version, the
+    device ms, the frame); the client's own spans and retries stay as
+    they are."""
+
+    def __init__(self, client):
+        self.local = threading.local()
+        self._request = client._request
+        client._request = self
+
+    def __call__(self, path, data=None, headers=None):
+        status, body, hdrs = self._request(path, data, headers)
+        self.local.last = (hdrs, body)
+        return status, body, hdrs
+
+    def last(self):
+        return self.local.last
+
+
+def count_syncs(fn):
+    """``fn()`` and the host synchronisations it made
+    (``torch.cuda.set_sync_debug_mode("warn")``'s warnings)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def hs_span_tree(spans):
+    """Per client trace: the span names by parent, and the batch that
+    linked its inference_request; the HTTP layer's ms (client_predict
+    less inference_request) of each dispatched request."""
+    by_id = {sp.span_id: sp for sp in spans}
+    linked = {ln.span_id for sp in spans if sp.name == "batch_execute" for ln in sp.links}
+    traces, http_ms = {}, []
+    for sp in spans:
+        if sp.name != "client_predict":
+            continue
+        kids = [c for c in spans if c.trace_id == sp.trace_id]
+        names = {c.name: (by_id[c.parent_id].name if c.parent_id in by_id else None)
+                 for c in kids}
+        inf = [c for c in kids if c.name == "inference_request"]
+        traces[sp.trace_id] = (names, bool(inf) and inf[0].span_id in linked)
+        if inf:
+            http_ms.append(sp.duration_ms - inf[0].duration_ms)
+    return traces, http_ms
+
+
+def hs_mlp():
+    """A small MLP on the card (Dense 16→32 tanh, softmax over 3) for the
+    JSON requests."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = (NeuralNetConfiguration.builder().seed(7).list()
+            .layer(DenseLayer(n_out=32, activation="tanh"))
+            .layer(OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.feed_forward(16)).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def hs_training(ck, card):
+    """The watchdog and the trace listener on the zoo LeNet's Adam steps,
+    and example 26's diverging run under early stopping. Returns (row,
+    launches by path)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.observe import metrics, trace
+    from deeplearning4j_tpu_torch.observe.health import TrainingWatchdog, attach_observability
+    from deeplearning4j_tpu_torch.optimize import (
+        DataSetLossCalculator, EarlyStoppingConfiguration, EarlyStoppingTrainer,
+        MaxEpochsTerminationCondition)
+
+    row, paths = {"card": card}, {}
+    x, y = tu_data(HS_LENET_BATCH * HS_LENET_STEPS, 3)
+    probe = tu_data(HS_LENET_BATCH, 4)
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        bare = MultiLayerNetwork(tu_lenet_conf()).init()
+        bare.fit(x[:HS_LENET_BATCH], y[:HS_LENET_BATCH])  # the first step: cuDNN's choices
+        _, bare_syncs = count_syncs(lambda: bare.fit(ListDataSetIterator(
+            DataSet(x, y), HS_LENET_BATCH), epochs=1))
+        net = MultiLayerNetwork(tu_lenet_conf()).init()
+        net.fit(x[:HS_LENET_BATCH], y[:HS_LENET_BATCH])
+        reg_metrics, tracer = metrics.MetricsRegistry(), trace.Tracer()
+        wd = TrainingWatchdog(model_name="lenet", metrics=reg_metrics, check_params_every=1,
+                              gradient_batch=probe, action="raise")
+        attach_observability(net, tracer=tracer, metrics=reg_metrics, model_name="lenet",
+                             watchdog=wd)
+        zero_launches(ck)
+        t0 = time.perf_counter()
+        _, syncs = count_syncs(lambda: net.fit(ListDataSetIterator(
+            DataSet(x, y), HS_LENET_BATCH), epochs=1))
+        torch.cuda.synchronize()
+        row["lenet_watched_s"] = time.perf_counter() - t0
+        paths["http_serving_watchdog"] = got = read_launches(ck)
+        bad = unexpected_launches(got, {"fused_adam": tensors_of(net) * HS_LENET_STEPS})
+        parsed = metrics.parse_prometheus_text(reg_metrics.exposition())
+        steps = parsed["training_steps_total"][(("model", "lenet"),)]
+        if bad or wd.events or steps != HS_LENET_STEPS:
+            raise RuntimeError(f"http_serving watchdog: launches {bad}, events "
+                               f"{[e.to_dict() for e in wd.events]}, steps {steps}")
+        spans = sum(sp.name == "train_iteration" for sp in tracer.recorder.spans())
+        # each read the listeners add, one at a time
+        by_check = {
+            "watchdog_score": count_syncs(lambda: wd._check_score(net))[1],
+            "watchdog_params": count_syncs(lambda: wd._check_params(net))[1],
+            "watchdog_gradient_probe": count_syncs(lambda: wd._check_gradients(net))[1],
+            "trace_listener": count_syncs(lambda: net.listeners[0].iteration_done(
+                net, net.iteration, net.epoch))[1]}
+        row["watchdog"] = {
+            "steps": HS_LENET_STEPS, "batch": HS_LENET_BATCH, "events": 0,
+            "host_syncs_by_check": by_check,
+            "k2_per_step": got["fused_adam"] / HS_LENET_STEPS,
+            "host_syncs_per_step": syncs / HS_LENET_STEPS,
+            "host_syncs_per_step_without_listeners": bare_syncs / HS_LENET_STEPS,
+            "train_iteration_spans": spans}
+    finally:
+        helpers.clear_helper("updater")
+
+    # example 26's explosive run: SGD at lr 1000 on MSE, ended as "Error"
+    rng = np.random.default_rng(0)
+    dx = rng.normal(size=(64, 8)).astype(np.float32)
+    dy = dx @ rng.normal(size=(8, 1)).astype(np.float32)
+    conf = (NeuralNetConfiguration.builder().seed(1).updater(Sgd(1000.0)).list()
+            .layer(DenseLayer(n_in=8, n_out=16, activation="tanh"))
+            .layer(OutputLayer(n_in=16, n_out=1, activation="identity", loss="mse"))
+            .build())
+    div = MultiLayerNetwork(conf).init()
+    attach_observability(div, trace=False, watchdog={"action": "raise",
+                                                     "divergence_windows": 3})
+    cfg = EarlyStoppingConfiguration(
+        score_calculator=DataSetLossCalculator(ListDataSetIterator(DataSet(dx, dy), 16)),
+        epoch_termination_conditions=[MaxEpochsTerminationCondition(50)])
+    zero_launches(ck)
+    result = EarlyStoppingTrainer(cfg, div, ListDataSetIterator(DataSet(dx, dy), 16)).fit()
+    paths["http_serving_diverging"] = got = read_launches(ck)
+    row["diverging"] = {"termination_reason": result.termination_reason,
+                        "termination_details": result.termination_details,
+                        "total_epochs": result.total_epochs}
+    if result.termination_reason != "Error" or unexpected_launches(got, {}):
+        raise RuntimeError(f"http_serving diverging run: {row['diverging']}, launches {got}")
+    return row, paths
+
+
+def http_serving_phase(ck, card):
+    """GPT-2-small served over HTTP through the port's ``ModelServer`` and
+    ``ModelServingClient``, with the endpoints, resilience and the
+    training-side watchdog (see HS_*). Returns each path's launches."""
+    from deeplearning4j_tpu_torch.nn.train_step import to_host
+    from deeplearning4j_tpu_torch.observe import alerts, cost, metrics, slo, trace
+    from deeplearning4j_tpu_torch.parallel.inference import host_answer
+    from deeplearning4j_tpu_torch.parallel.time_source import ManualTimeSource
+    from deeplearning4j_tpu_torch.serving import (BrownoutController, ModelRegistry,
+                                                  ModelServer, ModelServingClient,
+                                                  RetryPolicy, ServingError)
+    from deeplearning4j_tpu_torch.streaming.codec import serialize_array
+    from deeplearning4j_tpu_torch.util import faultinject
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    t_phase = time.perf_counter()
+    name, paths, row = "gpt2", {}, {"card": card}
+    reg_metrics = metrics.MetricsRegistry()
+    ledger = cost.CostLedger(reg_metrics)
+    tracer = trace.enable_tracing(metrics=reg_metrics)
+    reg = ModelRegistry(metrics=reg_metrics, max_batch_size=8, buckets=(1, 2, 4, 8),
+                        max_dispatcher_restarts=2, breaker=SR_BREAKER, cost=ledger)
+    servers, clients = [], []
+    try:
+        v1_net = TransformerLM(seed=SR_SEEDS[0]).init()
+        v2_net = TransformerLM(seed=SR_SEEDS[1]).init()
+        mlp = hs_mlp()
+        vocab = v1_net.conf.vertices["embed"].obj.n_in
+        layers = sum(1 for n in v1_net.conf.topo_order if n.endswith("-att"))
+        rng = np.random.default_rng(22)
+        reqs = rng.integers(0, vocab, (HS_REQUESTS, 1, SR_T)).astype(np.float32)
+        sample = rng.integers(0, vocab, (SR_SAMPLE, SR_T)).astype(np.float32)
+        json_x = rng.normal(size=(HS_JSON_REQUESTS, HS_JSON_ROWS, 16)).astype(np.float32)
+        t0 = time.perf_counter()
+        reg.register(name, v1_net, input_shape=(SR_T,))
+        reg.register(name, v2_net, activate=False, input_shape=(SR_T,))
+        reg.register(name, v2_net, activate=False, dtype_policy="int8", sample_input=sample)
+        reg.register(name, v2_net, activate=False, dtype_policy="bf16", sample_input=sample)
+        reg.register("mlp", mlp, input_shape=(16,))
+        row["register_s"] = time.perf_counter() - t0
+        served = reg.get(name)
+        versions = {v: mv.model for v, mv in served.versions.items()}
+        server = ModelServer(reg, metrics=reg_metrics, max_inflight=64, cost=ledger)
+        servers.append(server)
+        server.start()
+        client = ModelServingClient(server.url, timeout=120.0)
+        clients.append(client)
+        log = ResponseLog(client)
+
+        # ---- the load: binary frames from HS_CLIENTS threads, the canary on
+        reg.set_traffic_split(name, {3: SR_CANARY})
+        answers, lock, done, errors, probes = [None] * HS_REQUESTS, threading.Lock(), [0], [], {}
+
+        def worker(c):
+            try:
+                for j in range(c, HS_REQUESTS, HS_CLIENTS):
+                    t_req = time.perf_counter()
+                    out = client.predict(name, reqs[j], binary=True)
+                    hdrs, body = log.last()
+                    answers[j] = (out, int(hdrs["X-Model-Version"]), hdrs.get("X-Device-Ms"),
+                                  time.perf_counter() - t_req, len(body))
+                    with lock:
+                        done[0] += 1
+            except Exception as e:  # noqa: BLE001 — reported and failed below
+                errors.append(repr(e))
+
+        def prober():
+            """The operator's endpoints while the load runs."""
+            try:
+                while done[0] < HS_CLIENTS and not errors:
+                    time.sleep(0.01)
+                for path in ("/readyz", "/livez?verbose=1", "/v1/models", "/metrics"):
+                    status, body, _ = client._request(path)
+                    probes[path] = (status, body.decode() if path == "/metrics"
+                                    else json.loads(body))
+                probes["answered_before"] = done[0]
+            except Exception as e:  # noqa: BLE001
+                errors.append("prober " + repr(e))
+
+        threads = [threading.Thread(target=worker, args=(c,)) for c in range(HS_CLIENTS)]
+        threads.append(threading.Thread(target=prober))
+        batches0 = served.inference.batches_dispatched
+        tracer.recorder.clear()
+        zero_launches(ck)
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        paths["http_serving_load"] = got = read_launches(ck)
+        batches = served.inference.batches_dispatched - batches0
+        if errors or any(th.is_alive() for th in threads):
+            raise RuntimeError(f"http_serving: {errors or 'a client hung'}")
+        canary = sum(1 for a in answers if a[1] == 3)
+        sr_launch_check(ck, "http load", got, batches + canary, 0, layers)
+        spans = tracer.recorder.spans()
+
+        # ---- v4 pinned: bf16 frames
+        zero_launches(ck)
+        bf16_frames = []
+        for j in range(HS_BF16_REQUESTS):
+            client.predict(name, reqs[j], version=4, binary=True)
+            hdrs, body = log.last()
+            bf16_frames.append((int(hdrs["X-Model-Version"]), body))
+        paths["http_serving_bf16"] = got = read_launches(ck)
+        sr_launch_check(ck, "http bf16", got, 0, HS_BF16_REQUESTS, layers)
+
+        # ---- JSON on the small network
+        json_out = [client.predict("mlp", json_x[j]) for j in range(HS_JSON_REQUESTS)]
+        status, body, _ = client._request("/metrics")
+        scraped = metrics.parse_prometheus_text(body.decode())
+        status, body, _ = client._request("/debug/capture?seconds=600")
+        capture = json.loads(body)
+
+        # every answer against its served version's own output on its row
+        worst = {}
+        for j, (out, v, _, _, _) in enumerate(answers):
+            reading, limit = sr_answer_error(out, to_host(versions[v].output(reqs[j])))
+            worst[v] = max(worst.get(v, -math.inf), reading)
+            if not reading <= limit:
+                raise RuntimeError(f"http_serving: request {j} on v{v}: {reading} > {limit}")
+        bf16_equal = []
+        for j, (v, body) in enumerate(bf16_frames):
+            own = serialize_array(host_answer(versions[4].output(reqs[j])))
+            header = json.loads(body[4:4 + int.from_bytes(body[:4], "big")])
+            bf16_equal.append(v == 4 and body == own and header["dtype"] == "bfloat16")
+        json_worst = max(sr_answer_error(np.asarray(o), to_host(mlp.output(json_x[j])))[0]
+                         for j, o in enumerate(json_out))
+        if not (all(bf16_equal) and json_worst <= SERVE_ATOL):
+            raise RuntimeError(f"http_serving: bf16 frames equal {bf16_equal}, "
+                               f"JSON reading {json_worst}")
+
+        # the endpoints, the metrics against the clients' counts, the spans
+        served_200 = HS_REQUESTS + HS_BF16_REQUESTS
+        requests_200 = scraped["serving_requests_total"].get(
+            (("model", name), ("status", "200")))
+        probe_ok = (probes["/readyz"][0] == 200 and probes["/readyz"][1]["ready"]
+                    and probes["/livez?verbose=1"][0] == 200
+                    and probes["/livez?verbose=1"][1]["status"] == "ok"
+                    and [len(m["versions"]) for m in probes["/v1/models"][1]["models"]
+                         if m["name"] == name] == [4]
+                    and "serving_requests_total" in probes["/metrics"][1])
+        traces, http_ms = hs_span_tree(spans)
+        linked = [t for t, (names, batched) in traces.items() if batched
+                  and names.get("http_request") == "client_predict"
+                  and names.get("inference_request") == "http_request"
+                  and names.get("queue_wait") == "inference_request"]
+        cap_names = {e["name"] for e in capture["trace"]["traceEvents"] if e["ph"] == "X"}
+        device_ms = [float(a[2]) for a in answers if a[2] is not None]
+        billed = reg_metrics.get("request_device_ms").sum(model=name, priority="1")
+        if not (probe_ok and requests_200 == served_200
+                and len(linked) == HS_REQUESTS - canary and len(traces) == HS_REQUESTS
+                and {"client_predict", "http_request", "queue_wait",
+                     "batch_execute"} <= cap_names
+                and len(device_ms) == HS_REQUESTS - canary
+                and abs(sum(device_ms) - billed) <= 1e-6 * len(device_ms)):
+            raise RuntimeError(
+                f"http_serving: probes {probe_ok}, 200s {requests_200} of {served_200}, "
+                f"{len(linked)} linked traces of {len(traces)}, capture {sorted(cap_names)}, "
+                f"X-Device-Ms {sum(device_ms)} against {billed}")
+        lat = {}
+        for _, v, _, s, _ in answers:
+            lat.setdefault(v, []).append(s * 1e3)
+        row["load"] = {
+            "requests": HS_REQUESTS, "clients": HS_CLIENTS, "tokens_per_request": SR_T,
+            "wall_s": wall, "requests_per_s": HS_REQUESTS / wall,
+            "batches_dispatched": batches, "canary_answers": canary,
+            "answer_frame_bytes": answers[0][4],
+            "by_version": {v: {"requests": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+                               "p99_ms": float(np.percentile(ms, 99)),
+                               "worst_reading": worst[v]}
+                           for v, ms in sorted(lat.items())},
+            "http_layer_ms": {"requests": len(http_ms),
+                              "p50": float(np.percentile(http_ms, 50)),
+                              "p99": float(np.percentile(http_ms, 99)),
+                              "what": "client_predict span less inference_request span"},
+            "x_device_ms_sum": sum(device_ms), "ledger_billed_ms": billed,
+            "answer_limit": {"rtol": SERVE_RTOL, "atol": SERVE_ATOL}}
+        row["bf16_pinned"] = {"requests": HS_BF16_REQUESTS, "frames_equal_own_output": True,
+                              "frame_bytes": len(bf16_frames[0][1])}
+        row["json"] = {"requests": HS_JSON_REQUESTS, "worst_reading": json_worst}
+        row["endpoints"] = {"probed_after_answers": probes["answered_before"],
+                            "serving_requests_total_200": requests_200,
+                            "capture_spans": capture["bounds"]["span_count"],
+                            "linked_traces": len(linked)}
+        row["seconds_to_here"] = time.perf_counter() - t_phase
+
+        # ---- resilience on a second server of one slot, over the same registry
+        reg.clear_traffic_split(name)
+        reg.set_fallback(name, [2])
+        burst_metrics, clock, notes = metrics.MetricsRegistry(), ManualTimeSource(0), []
+        mgr = alerts.AlertManager(burst_metrics, alerts.load_rules({"rules": [HS_BURN]}),
+                                  [alerts.CallbackSink(notes.append)], time_source=clock)
+        brown = BrownoutController(alerts=mgr, watch_rules=(HS_BURN["name"],),
+                                   enter_after_s=0.0, exit_after_s=5.0, time_source=clock,
+                                   metrics=burst_metrics)
+        slos = slo.load_slos({"slos": [{"name": "gpt2_availability", "sli": "availability",
+                                        "metric": "serving_requests_total",
+                                        "error_labels": {"status": "429"},
+                                        "objective": 0.99}]})
+        small = ModelServer(reg, metrics=burst_metrics, max_inflight=1, cost=ledger,
+                            alerts=mgr, brownout=brown, slo=slos)
+        servers.append(small)
+        small.start()
+        sclient = ModelServingClient(small.url, timeout=120.0)
+        clients.append(sclient)
+        slog = ResponseLog(sclient)
+        mgr.evaluate_once()
+        for j in range(4):
+            sclient.predict("mlp", json_x[j % HS_JSON_REQUESTS])
+        clock.advance(10)
+        mgr.evaluate_once()
+        batches0 = served.inference.batches_dispatched
+        zero_launches(ck)
+        gate, burst = threading.Barrier(HS_CLIENTS), [None] * HS_CLIENTS
+
+        def burster(c):
+            try:
+                gate.wait(timeout=60)
+                sclient.predict(name, reqs[c], binary=True)
+                burst[c] = 200
+            except ServingError as e:
+                burst[c] = (e.status, e.retry_after_s)
+            except Exception as e:  # noqa: BLE001
+                burst[c] = repr(e)
+
+        threads = [threading.Thread(target=burster, args=(c,)) for c in range(HS_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        clock.advance(10)
+        fired = mgr.evaluate_once()
+        # the rule fires; the brownout it drives sheds priority 0 and
+        # degrades an un-pinned request to the fallback version
+        try:
+            sclient.predict(name, reqs[0], binary=True, priority=0)
+            shed = None
+        except ServingError as e:
+            shed = (e.status, e.retry_after_s)
+        degraded_out = sclient.predict(name, reqs[1], binary=True)
+        dh, _ = slog.last()
+        degraded = (dh.get("X-Degraded"), int(dh["X-Model-Version"]))
+        status, body, _ = sclient._request("/alerts")
+        alerts_firing = json.loads(body)["firing"]
+        clock.advance(10)
+        held = mgr.evaluate_once()  # the shed 429 lands in this sample
+        clock.advance(400)
+        for j in range(HS_RECOVERY):
+            sclient.predict("mlp", json_x[j % HS_JSON_REQUESTS])
+        resolved = mgr.evaluate_once()  # the short window holds recovery alone
+        status, body, _ = sclient._request("/slo")
+        slo_status = json.loads(body)
+        status, body, _ = sclient._request("/alerts")
+        alerts_after = json.loads(body)["firing"]
+        for _ in range(2):  # clear, then clear for exit_after_s: lifted
+            clock.advance(10)
+            sclient.predict("mlp", json_x[0])
+        brownout_after = brown.describe()
+        burst_batches = served.inference.batches_dispatched - batches0
+        burst_ok = sum(1 for b in burst if b == 200)
+        paths["http_serving_resilience"] = got = read_launches(ck)
+        # the admitted burst requests' batches, the degraded forward on v2
+        sr_launch_check(ck, "http resilience", got, burst_batches + 1, 0, layers)
+        rejected = [b for b in burst if isinstance(b, tuple)]
+        reading, limit = sr_answer_error(degraded_out, to_host(versions[2].output(reqs[1])))
+        if not (rejected and all(b[0] == 429 and b[1] is not None for b in rejected)
+                and burst_ok + len(rejected) == HS_CLIENTS
+                and [n.state for n in fired] == ["firing"] and not held
+                and [n.state for n in resolved] == ["resolved"]
+                and [n.state for n in notes] == ["firing", "resolved"]
+                and shed is not None and shed[0] == 429
+                and degraded == ("brownout", 2) and reading <= limit
+                and alerts_firing == [HS_BURN["name"]] and alerts_after == []
+                and not brownout_after["active"]
+                and [t["active"] for t in brownout_after["transitions"]] == [True, False]):
+            raise RuntimeError(f"http_serving resilience: burst {burst}, fired {fired}, "
+                               f"resolved {resolved}, shed {shed}, degraded {degraded}, "
+                               f"{reading}, alerts {alerts_firing} then {alerts_after}, "
+                               f"brownout {brownout_after}")
+        row["resilience"] = {
+            "burst": {"requests": HS_CLIENTS, "served": burst_ok, "rejected_429": len(rejected),
+                      "retry_after_s": sorted({b[1] for b in rejected})},
+            "burn_rule": {"fired_value": fired[0].value, "resolved_value": resolved[0].value,
+                          "notifications": [n.state for n in notes]},
+            "brownout": {"shed_priority_0": list(shed), "degraded": list(degraded),
+                         "degraded_reading": reading,
+                         "transitions": [t["active"] for t in brownout_after["transitions"]]},
+            "slo": [{"name": e["name"], "compliance": e["compliance"],
+                     "alert": e["alert"]["state"]} for e in slo_status["slos"]]}
+
+        # a dropped response, retried by a client with a RetryPolicy
+        rmetrics = metrics.MetricsRegistry()
+        rclient = ModelServingClient(server.url, timeout=120.0, metrics=rmetrics,
+                                     retry=RetryPolicy(max_retries=2, base_s=0.01))
+        clients.append(rclient)
+        rclient.predict("mlp", json_x[0])  # the connection the fault then drops
+        seq = server._req_seq["mlp"]
+        faultinject.set_plan(faultinject.FaultPlan.parse({"faults": [
+            {"type": "drop_response", "model": "mlp", "step": seq}]}))
+        dropped_out = rclient.predict("mlp", json_x[1])
+        faultinject.set_plan(None)
+        rparsed = metrics.parse_prometheus_text(rmetrics.exposition())
+        reconnects = rparsed.get("client_reconnects_total", {}).get((), 0)
+        dropped = metrics.parse_prometheus_text(reg_metrics.exposition())[
+            "serving_dropped_responses_total"].get((("model", "mlp"),))
+        reading, limit = sr_answer_error(np.asarray(dropped_out), to_host(mlp.output(json_x[1])))
+        if not (reconnects == 1 and dropped == 1 and reading <= limit):
+            raise RuntimeError(f"http_serving drop_response: reconnects {reconnects}, "
+                               f"dropped {dropped}, {reading}")
+
+        # a crash at the next dispatch, served through the fallback chain
+        faultinject.set_plan(faultinject.FaultPlan.parse({"faults": [
+            {"type": "crash_forward", "model": name, "step": served.inference._forward_seq}]}))
+        zero_launches(ck)
+        crash_out = client.predict(name, reqs[2], binary=True)
+        ch, _ = log.last()
+        faultinject.set_plan(None)
+        paths["http_serving_crash"] = got = read_launches(ck)
+        sr_launch_check(ck, "http crash", got, 1, 0, layers)
+        crash_v = int(ch["X-Model-Version"])
+        reading, limit = sr_answer_error(crash_out, to_host(versions[crash_v].output(reqs[2])))
+        state = served.inference.restart_state()
+        if not (crash_v == 2 and ch.get("X-Degraded") == "breaker" and reading <= limit
+                and state["crashed"]):
+            raise RuntimeError(f"http_serving crash: v{crash_v}, {ch.get('X-Degraded')}, "
+                               f"{reading}, {state}")
+        row["faults"] = {"drop_response": {"reconnects": reconnects, "dropped": dropped},
+                         "crash_forward": {"served_by": crash_v,
+                                           "x_degraded": ch.get("X-Degraded"),
+                                           "restart_pending": state["restart_pending"]}}
+    finally:
+        faultinject.set_plan(None)
+        for c in clients:
+            c.close()
+        for srv in servers:
+            srv.stop(drain=False)
+        reg.shutdown()
+        trace.disable_tracing()
+        torch.cuda.empty_cache()
+    row["serving_s"] = time.perf_counter() - t_phase
+    row["training"], train_paths = hs_training(ck, card)
+    paths.update(train_paths)
+    row["phase_s"] = time.perf_counter() - t_phase
+    print("http_serving " + json.dumps(row), flush=True)
+    load = row["load"]
+    print(f"http_serving summary: {load['requests_per_s']:.2f} requests/s at "
+          f"{HS_CLIENTS} clients; p50/p99 ms by version "
+          + ", ".join(f"v{v} {d['p50_ms']:.1f}/{d['p99_ms']:.1f}"
+                      for v, d in load["by_version"].items())
+          + f"; HTTP layer {load['http_layer_ms']['p50']:.2f} ms a request (p50), "
+          f"{load['http_layer_ms']['p99']:.2f} (p99); answer frame "
+          f"{load['answer_frame_bytes']} bytes; the phase {row['phase_s']:.1f} s", flush=True)
+    if not row["phase_s"] <= HS_MAX_SECONDS:
+        raise RuntimeError(f"http_serving: the phase took {row['phase_s']:.1f} s")
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -7816,6 +8382,7 @@ def main() -> None:
     me_paths = timed(model_export_phase, ck, card)
     tu_paths = timed(training_utilities_phase, ck, card)
     sr_paths = timed(serving_registry_phase, ck, card)
+    hs_paths = timed(http_serving_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -7863,9 +8430,10 @@ def main() -> None:
     def workflow_paths(kernel):
         """The kernel's launches on each path of the samediff, transfer,
         checkpointing, zoo_facenet, keras_import, model_export,
-        training_utilities and serving_registry phases."""
+        training_utilities, serving_registry and http_serving phases."""
         return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths, fn_paths,
-                                                   ki_paths, me_paths, tu_paths, sr_paths)
+                                                   ki_paths, me_paths, tu_paths, sr_paths,
+                                                   hs_paths)
                 for path, counts in paths.items()}
 
     def workflow_total(kernel):

@@ -11,8 +11,9 @@ LocalFileModelSaver), and ``BaseEarlyStoppingTrainer.java:46``
 Everything runs on the model's device: the calculators score through the
 network's own ``score``, ``evaluate*`` and forward; a ``LocalFileModelSaver``
 restores onto the device of the model it saved (or the ``device`` it was
-given). The port has no ``observe/health.py`` yet, so the trainer ends no
-run as an "Error" termination: an exception from an epoch propagates.
+given). A ``WatchdogAlarm`` from a raise-policy ``TrainingWatchdog``
+(``observe/health.py``) ends the run as an "Error" termination, as the
+reference's does; any other exception from an epoch propagates.
 """
 
 from __future__ import annotations
@@ -455,9 +456,19 @@ class EarlyStoppingTrainer:
         last_eval = float("nan")
         reason, details = "EpochTerminationCondition", "max epochs"
         while True:
-            # no watchdog is ported (observe/health.py): an exception from
-            # the epoch propagates
-            self._fit_epoch()
+            try:
+                self._fit_epoch()
+            except Exception as e:
+                # a raise-policy TrainingWatchdog (observe/health.py) firing
+                # mid-fit ends the run as an Error termination with the best
+                # model so far — the reference's BaseEarlyStoppingTrainer
+                # "Error" reason, wired to real divergence detection
+                from deeplearning4j_tpu_torch.observe.health import WatchdogAlarm
+                if not isinstance(e, WatchdogAlarm):
+                    raise
+                reason, details = "Error", str(e)
+                epoch += 1
+                break
             last = self.model.score_
             stop_iter = next((c for c in cfg.iteration_conditions if c.terminate(last)), None)
             if stop_iter is not None:

@@ -61,7 +61,19 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.train_step import to_host
 from deeplearning4j_tpu_torch.observe import trace as _trace
+from deeplearning4j_tpu_torch.streaming.codec import mark_bfloat16
 from deeplearning4j_tpu_torch.util import faultinject as _faultinject
+
+
+def host_answer(a) -> np.ndarray:
+    """A forward's answer on the host. A bf16 answer (the reference's is a
+    bf16 numpy array) comes back as f32 marked for the codec's 2-byte bf16
+    frame (``streaming/codec.py``), so the model server answers the
+    reference's bytes."""
+    out = to_host(a)
+    if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16:
+        return mark_bfloat16(out)
+    return out
 
 
 class InferenceDeadlineExceeded(TimeoutError):
@@ -330,7 +342,7 @@ class ParallelInference:
                                     "rows": int(x.shape[0]),
                                     "mode": self.mode}):
                 with torch.inference_mode():
-                    res = to_host(model.output(x))
+                    res = host_answer(model.output(x))
             return (res, model) if return_model else res
         if self.dispatcher_error is not None:
             self._ensure_dispatcher()
@@ -701,7 +713,7 @@ class ParallelInference:
             seq = self._forward_seq
             self._forward_seq += 1
             _faultinject.on_forward(self._metrics_name, seq)
-            out = to_host(model.output(self._to_device(x, model, buf)))
+            out = host_answer(model.output(self._to_device(x, model, buf)))
             if buf is not None and np.may_share_memory(out, buf.array):
                 out = out.copy()  # an answer must outlive the reused buffer
             self.batches_dispatched += 1

@@ -104,7 +104,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.train_step import to_host
 from deeplearning4j_tpu_torch.parallel.inference import (
-    DispatcherCrashed, InferenceDeadlineExceeded, ParallelInference)
+    DispatcherCrashed, InferenceDeadlineExceeded, ParallelInference, host_answer)
 from deeplearning4j_tpu_torch.serving import breaker as _breaker
 from deeplearning4j_tpu_torch.serving import quantize as _quantize
 
@@ -120,7 +120,7 @@ def _no_mesh(what: str, value) -> None:
 def _predict_host(model, x) -> np.ndarray:
     """One synchronous forward, answered on the host."""
     with torch.inference_mode():
-        return to_host(model.output(np.asarray(x)))
+        return host_answer(model.output(np.asarray(x)))
 
 
 class ModelNotFound(KeyError):

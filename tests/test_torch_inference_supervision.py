@@ -302,8 +302,10 @@ def test_pad_buffer_is_reused_zeroed_and_bounded_as_the_reference(reuse):
         pi = side.inf.ParallelInference(cap, max_batch_size=8, buckets=[8],
                                         wait_ms=0.0, reuse_pad_buffer=reuse)
         try:
-            outs = [pi.output(np.full((6, 3), 7.0, np.float32)),
-                    pi.output(np.full((2, 3), 3.0, np.float32))]
+            # each answer compared as it was when returned (a copy made
+            # before the next call)
+            outs = [np.array(pi.output(np.full((6, 3), 7.0, np.float32)), copy=True),
+                    np.array(pi.output(np.full((2, 3), 3.0, np.float32)), copy=True)]
             n_buffers = len(pi._pad_buffers)
             for width in range(1, pi._max_pad_buffers + 8):
                 pi.output(np.zeros((2, width), np.float32))
@@ -318,6 +320,40 @@ def test_pad_buffer_is_reused_zeroed_and_bounded_as_the_reference(reuse):
     # the port always reuses its buffer; the reference only with reuse on
     assert (p_n, p_bounded) == (1, True)
     assert (r_n, r_bounded) == (1 if reuse else 0, True)
+
+
+def _held_first_answer(side, reuse, zero_copy):
+    """The first answer of a model that answers a view of its input, read
+    again after later batches, beside a copy made when it was returned.
+    ``zero_copy`` hands the model the host batch itself, as the
+    reference's ``jnp.asarray`` does on the CPU when it aliases the
+    buffer rather than copying it."""
+    pi = side.inf.ParallelInference(_Capture(), max_batch_size=8, buckets=[8],
+                                    wait_ms=0.0, reuse_pad_buffer=reuse)
+    if zero_copy:
+        pi._to_device = lambda x, *a, **k: x
+    try:
+        held = pi.output(np.full((6, 3), 7.0, np.float32))
+        at_return = np.array(held, copy=True)
+        pi.output(np.full((2, 3), 3.0, np.float32))
+        pi.output(np.zeros((2, 3), np.float32))
+        return held, at_return
+    finally:
+        pi.shutdown()
+
+
+@pytest.mark.parametrize("reuse", [True, False])
+def test_an_answer_outlives_the_reused_pad_buffer_where_the_reference_s_may_not(reuse):
+    """C19 (ROADMAP §C, a departure kept): with reuse on, the reference's
+    answer may be a view of its reused pad buffer, which later batches
+    overwrite after the answer was handed out; the port copies an answer
+    that shares the buffer, so a held answer keeps its values."""
+    held, at_return = _held_first_answer(PORT, reuse, zero_copy=False)
+    np.testing.assert_array_equal(held, at_return)
+    np.testing.assert_array_equal(at_return, 7.0)
+    ref_held, ref_at_return = _held_first_answer(REF, reuse, zero_copy=True)
+    np.testing.assert_array_equal(ref_at_return, 7.0)
+    assert np.array_equal(ref_held, ref_at_return) is (not reuse)
 
 
 def test_pad_buffer_is_not_refilled_before_its_copy_completes():

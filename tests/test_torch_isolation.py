@@ -95,6 +95,22 @@ def test_import_leaves_jax_unloaded():
             "deeplearning4j_tpu_torch.ui.server, "
             "deeplearning4j_tpu_torch.observe, "
             "deeplearning4j_tpu_torch.observe.metrics, "
+            "deeplearning4j_tpu_torch.observe.listener, "
+            "deeplearning4j_tpu_torch.observe.health, "
+            "deeplearning4j_tpu_torch.observe.alerts, "
+            "deeplearning4j_tpu_torch.observe.slo, "
+            "deeplearning4j_tpu_torch.observe.fleet, "
+            "deeplearning4j_tpu_torch.observe.incident, "
+            "deeplearning4j_tpu_torch.observe.export, "
+            "deeplearning4j_tpu_torch.serving, "
+            "deeplearning4j_tpu_torch.serving.admission, "
+            "deeplearning4j_tpu_torch.serving.brownout, "
+            "deeplearning4j_tpu_torch.serving.server, "
+            "deeplearning4j_tpu_torch.serving.client, "
+            "deeplearning4j_tpu_torch.serving.metrics, "
+            "deeplearning4j_tpu_torch.streaming, "
+            "deeplearning4j_tpu_torch.streaming.codec, "
+            "deeplearning4j_tpu_torch.util.fsio, "
             "deeplearning4j_tpu_torch.eval.tools; "
             "deeplearning4j_tpu_torch.SameDiff; "
             "deeplearning4j_tpu_torch.EarlyStoppingTrainer; "
