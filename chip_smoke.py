@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs thirty-four phases:
+every kernel, and runs thirty-five phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -367,6 +367,27 @@ every kernel, and runs thirty-four phases:
    ``EarlyStoppingTrainer``; requests/s, p50 and p99 by version, the HTTP
    layer's ms a request (the client's span less the dispatcher's
    ``inference_request``); the phase within 60 s.
+35. DL4J's text-classification path (``nlp/``, ``native/``): Word2Vec as
+   DL4J's Word2VecRawTextExample trains it, at 300 wide, through
+   ``fit_file`` and the native corpus scan over this repository's own .py
+   and .md text (the scan equal to its numpy fallback; words/s, the host
+   ms a step split between the pairs, the negative draws and the copy and
+   launches, launches a step and the busy share of a profiled prefix, the
+   nearest words of a few), a twin over a prefix on the card and the CPU
+   in f32 and f64; ParagraphVectors (DBOW, DM) over the port's files as
+   labelled documents, ``infer_vector`` against CPU copies (the card's
+   tables bit for bit unchanged), GloVe (5 epochs at batch 8192) against
+   the CPU, each in the ratio form; the word vectors written as text,
+   binary and zip from the card and a CPU copy (the same bytes) and read
+   back onto both (equal); then DL4J's CnnSentenceClassificationExample
+   (three "same" convolutions over (3|4|5, 300), a merge, a global max
+   pool, softmax over 2, Adam(0.01)) fed by ``CnnSentenceDataSetIterator``
+   (32 x 256 x 300 x 1 batches of seeded two-class reviews): a warm-up
+   and 20 timed fits (8 K2 a step, nothing else; median step, examples/s,
+   busy share, device time by group, peak memory, the iterator's host ms
+   a batch), the loss falling, held-out accuracy >= 0.9, one batch against
+   an f64 twin, the zip restored bit for bit and one sentence classified
+   on the card as on the CPU.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -933,6 +954,72 @@ HS_BURN = {"type": "burn_rate", "name": "serving_burn", "severity": "page",
            "slo": {"metric": "serving_requests_total", "error_labels": {"status": "429"},
                    "objective": 0.99},
            "windows": [{"long_s": 3600, "short_s": 300, "factor": 2.0}]}
+
+# DL4J's text-classification path (phase 35, nlp_text_classification). (a)
+# Word2Vec as DL4J's Word2VecRawTextExample trains it (window 5, 5
+# negatives, min word frequency 5, 1 epoch, seed 42) at the width of the
+# GoogleNews vectors CnnSentenceClassificationExample reads (300), by
+# fit_file (the native corpus scan) over this repository's own .py and .md
+# text: one line a source line, the files in sorted path order, hidden and
+# build directories skipped (NLP_W2V_LINES cuts it; None: whole). A twin
+# over the first NLP_TWIN_LINES lines on the card and in the port on the CPU
+# in f32 and f64: syn0 and syn1neg on the card within NLP_TOL x their
+# largest entry of the CPU f32 tables, or no farther from the f64 ones than
+# NLP_F32_FACTOR x the CPU f32 tables are (index_add_ on the card adds in no
+# fixed order); launches a step and the busy share from a profiled run over
+# the first NLP_PROFILED_LINES lines. (b) ParagraphVectors, DBOW and DM,
+# over the first NLP_PV_FILES files of NLP_PV_DIR as documents labelled by
+# their paths, infer_vector of NLP_PV_INFER of them on the card against CPU
+# copies of the same tables in f32 and f64, in that form, the card's tables
+# bit for bit unchanged by it; GloVe (5 epochs at batch 8192) over the first
+# NLP_GLOVE_LINES lines on the card, the CPU in f32 and in f64, in that
+# form. (c) The word vectors written as text, binary and zip from the card
+# and from a CPU copy (the same bytes; a zip's members), read back onto the
+# card and the CPU (equal bit for bit; the text format within NLP_TEXT_TOL
+# of the table: 6 decimals, then f32). (d)
+# CnnSentenceClassificationExample's graph: three "same" convolutions of
+# NLP_MAPS maps over (3|4|5, 300), stride (1, 300), leaky relu, relu init, a
+# merge, a global max pool (dropout 0.5, which neither package applies:
+# ROADMAP §C), softmax over 2, Adam(0.01), l2 1e-4;
+# CnnSentenceDataSetIterator batches (NHWC, NLP_BATCH x NLP_LEN x 300 x 1,
+# the vectors unnormalized as the example reads them) of seeded two-class
+# reviews of NLP_LEN words, NLP_PLANTED of each from its class's
+# NLP_PLANTED_SET planted words (taken among the frequent words
+# NLP_PLANTED_FROM), the rest from the long tail (past NLP_FILLER_FROM).
+# With 21 steps of Adam(0.01), planted words among the middle frequencies
+# often left the classifier at chance: the long tail's patches won the max
+# pool and took the first steps' gradient. One warm-up and NLP_TIMED timed
+# fits (8 K2 a step, nothing else), the mean of the last 5 losses below the
+# first 5's, held-out accuracy at least NLP_MIN_ACCURACY over NLP_HELD_OUT
+# reviews, one batch's loss and gradients against an f64 twin in the ratio
+# form, the zip restored on the card with output equal bit for bit,
+# load_single_sentence classified on the card as on the CPU. The phase is
+# meant to take at most NLP_MAX_SECONDS.
+NLP_W2V = dict(layer_size=300, window_size=5, negative_sample=5,
+               min_word_frequency=5, epochs=1, seed=42)
+NLP_W2V_LINES, NLP_TWIN_LINES, NLP_TOL, NLP_F32_FACTOR = None, 2000, 1e-5, 4.0
+NLP_PROFILED_LINES = 300
+NLP_NEAREST = ("def", "return", "tensor", "kernel")
+NLP_SKIP_DIRS = ("build", "__pycache__")
+NLP_PV = dict(layer_size=300, window_size=5, negative_sample=5, min_word_frequency=5,
+              epochs=1, seed=42)
+NLP_PV_DIR, NLP_PV_FILES, NLP_PV_INFER = "deeplearning4j_tpu_torch/", 48, 4
+NLP_GLOVE = dict(layer_size=300, window=5, epochs=5, batch_size=8192, seed=42)
+NLP_GLOVE_LINES = 1500
+NLP_TEXT_TOL = 1e-6
+NLP_FORMATS = {"text": ("write_word_vectors", "load_txt_vectors", "vectors.txt"),
+               "binary": ("write_binary_model", "read_binary_model", "vectors.bin"),
+               "zip": ("write_word2vec_model", "read_word2vec_model", "word2vec.zip")}
+NLP_BATCH, NLP_LEN, NLP_MAPS, NLP_TIMED, NLP_HELD_OUT = 32, 256, 100, 20, 256
+NLP_PLANTED, NLP_PLANTED_SET, NLP_MIN_ACCURACY, NLP_MAX_SECONDS = 16, 8, 0.9, 120.0
+NLP_PLANTED_FROM, NLP_FILLER_FROM = (20, 220), 2000
+NLP_GROUPS = (
+    ("K2 fused_adam", ("fused_adam_kernel",)),
+    ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd",
+                      "xmma", "cudnn", "gemm", "sm90_", "sm80_", "cutlass", "nvjet")),
+    ("reductions (the global max pool, the loss)", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
 
 
 def card_peaks(name: str):
@@ -8311,6 +8398,549 @@ def http_serving_phase(ck, card):
     return paths
 
 
+# ---------------------------------------------------------------- the NLP stack
+def nlp_corpus():
+    """This repository's .py and .md files in sorted path order (hidden and
+    build directories skipped): ``[(path, lines)]``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = []
+    for d, dirs, files in os.walk(root):
+        dirs[:] = [x for x in dirs if not x.startswith(".") and x not in NLP_SKIP_DIRS]
+        paths += [os.path.relpath(os.path.join(d, f), root) for f in files
+                  if f.endswith((".py", ".md"))]
+    out = []
+    for rel in sorted(paths):
+        with open(os.path.join(root, rel), encoding="utf-8", errors="replace") as f:
+            out.append((rel, f.read().split("\n")))
+    return out
+
+
+def nlp_write_lines(path, lines):
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def nlp_twin(model, device, dtype=None):
+    """A copy of ``model`` whose lookup table holds copies of its tables on
+    ``device`` (in ``dtype``): the same vocabulary and values."""
+    import copy
+
+    twin = copy.copy(model)
+    twin.device = torch.device(device)
+    twin.elements_algorithm = type(model.elements_algorithm)()
+    table = twin.lookup_table = copy.copy(model.lookup_table)
+    table.device = twin.device
+    for n in ("_syn0", "syn1", "syn1neg"):
+        t = getattr(table, n)
+        if t is not None:
+            setattr(table, n, t.detach().to(device, dtype or t.dtype, copy=True))
+    table.touch()
+    return twin
+
+
+def nlp_tables(model):
+    t = model.lookup_table
+    return {n: getattr(t, n) for n in ("syn0", "syn1neg") if getattr(t, n) is not None}
+
+
+class NlpHostSplit:
+    """Host seconds of skip-gram's parts while it is installed: the window
+    draws and pairs (``generate_sg_pairs``), the negative draws
+    (``_sample_negatives``) and the rest of ``train_pairs`` (the index copy
+    and the launches); each sentence's host ms and its words."""
+
+    def __init__(self):
+        from deeplearning4j_tpu_torch.nlp import learning
+
+        self.learning, self.cls = learning, learning.ElementsLearningAlgorithm
+        self.orig = (learning.generate_sg_pairs, self.cls._sample_negatives,
+                     self.cls.train_pairs, learning.SkipGram.train_sequence)
+        self.s = {"pairs": 0.0, "negatives": 0.0, "train_pairs": 0.0}
+        self.step_ms, self.words = [], 0
+
+    def _timed(self, key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.s[key] += time.perf_counter() - t0
+        return run
+
+    def __enter__(self):
+        pairs, neg, train, seq = self.orig
+
+        def train_sequence(algo, s, lr, keep=None):
+            t0 = time.perf_counter()
+            n = seq(algo, s, lr, keep)
+            if n:
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.words += len(s)
+            return n
+
+        self.learning.generate_sg_pairs = self._timed("pairs", pairs)
+        self.cls._sample_negatives = self._timed("negatives", neg)
+        self.cls.train_pairs = self._timed("train_pairs", train)
+        self.learning.SkipGram.train_sequence = train_sequence
+        return self
+
+    def __exit__(self, *exc):
+        (self.learning.generate_sg_pairs, self.cls._sample_negatives,
+         self.cls.train_pairs, self.learning.SkipGram.train_sequence) = self.orig
+
+    def reading(self):
+        steps = max(len(self.step_ms), 1)
+        return {"steps": len(self.step_ms), "words": self.words,
+                "median_step_host_ms": float(np.median(self.step_ms)) if self.step_ms else None,
+                "host_ms_per_step": {
+                    "pairs": self.s["pairs"] * 1e3 / steps,
+                    "negative_draws": self.s["negatives"] * 1e3 / steps,
+                    "copy_and_launches": (self.s["train_pairs"] - self.s["negatives"])
+                    * 1e3 / steps}}
+
+
+def nlp_device_events(prof):
+    """(kernel launches, copies, device ms) of a finished torch.profiler run."""
+    kernels = copies = 0
+    ms = 0.0
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.count
+        else:
+            kernels += e.count
+        ms += us / 1e3
+    return kernels, copies, ms
+
+
+def nlp_word2vec(ck, files, tmp):
+    """(a): the native scan against its fallback, Word2Vec over the corpus
+    on the card (timed, the host split), its nearest words, and the twin
+    over a prefix. Returns (model, row, failures, launches)."""
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.nlp import Word2Vec, vocab
+
+    lines = [line for _, text in files for line in text]
+    cut = lines if NLP_W2V_LINES is None else lines[:NLP_W2V_LINES]
+    path = nlp_write_lines(os.path.join(tmp, "corpus.txt"), cut)
+    failures = []
+    available = native.native_available()
+    t0 = time.perf_counter()
+    scanned = vocab.scan_corpus_file(path)
+    scan_s = time.perf_counter() - t0
+    lib, failed = native._lib, native._build_failed
+    native._lib, native._build_failed = None, True
+    try:
+        t0 = time.perf_counter()
+        fallback = vocab.scan_corpus_file(path)
+        fallback_s = time.perf_counter() - t0
+    finally:
+        native._lib, native._build_failed = lib, failed
+    if not (available and list(scanned.items()) == list(fallback.items())):
+        failures.append("native scan")
+    model = Word2Vec(**NLP_W2V)
+    t0 = time.perf_counter()
+    model.build_vocab_from_file(path)
+    vocab_s = time.perf_counter() - t0
+    zero_launches(ck)
+    with NlpHostSplit() as split:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit_file(path)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    launches = read_launches(ck)
+    if unexpected_launches(launches, {}):
+        failures.append(f"word2vec launches {launches}")
+    reading = split.reading()
+    nearest = {w: model.words_nearest(w, top_n=8) for w in NLP_NEAREST}
+    # the twin: the prefix on the card (profiled), the CPU in f32 and f64
+    prefix = nlp_write_lines(os.path.join(tmp, "prefix.txt"), lines[:NLP_TWIN_LINES])
+    profiled_steps = []
+    short = nlp_write_lines(os.path.join(tmp, "profiled.txt"), lines[:NLP_PROFILED_LINES])
+
+    def prefix_run():
+        with NlpHostSplit() as split:
+            Word2Vec(**NLP_W2V).fit_file(short)
+        profiled_steps.append(len(split.step_ms))
+
+    t0 = time.perf_counter()
+    prof, wall_ms, _ = profiled(prefix_run, cpu=False)
+    kernels, copies, device_ms = nlp_device_events(prof)
+    twin_steps = max(profiled_steps[-1], 1)
+    t1 = time.perf_counter()
+    card = Word2Vec(**NLP_W2V).fit_file(prefix)  # the same draws, unprofiled
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cpu32 = Word2Vec(**NLP_W2V, device="cpu").fit_file(prefix)
+    t3 = time.perf_counter()
+    cpu64 = Word2Vec(**NLP_W2V, device="cpu")
+    cpu64.build_vocab_from_file(prefix)
+    cpu64.lookup_table.to(dtype=torch.float64)
+    cpu64.fit_file(prefix)
+    twin_s = {"card_profiled": t1 - t0, "card": t2 - t1, "cpu_f32": t3 - t2,
+              "cpu_f64": time.perf_counter() - t3}
+    twin = sl_against_cpu(nlp_tables(card), nlp_tables(cpu32), nlp_tables(cpu64))
+    if twin["failing"] or card.vocab.num_words() != cpu32.vocab.num_words():
+        failures.append(f"word2vec twin {twin}")
+    row = {"vocab": model.vocab.num_words(), "corpus_lines": len(lines),
+           "trained_lines": len(cut), "cut": None if NLP_W2V_LINES is None else NLP_W2V_LINES,
+           "native_available": available, "native_scan_s": scan_s,
+           "fallback_scan_s": fallback_s, "scan_words": len(scanned),
+           "build_vocab_s": vocab_s, "train_s": train_s,
+           "words_per_s": reading["words"] / train_s, **reading,
+           "launches": launches, "nearest": nearest,
+           "twin": {"lines": NLP_TWIN_LINES, "vocab": card.vocab.num_words(),
+                    "profiled_lines": NLP_PROFILED_LINES, "profiled_steps": profiled_steps[-1],
+                    "kernel_launches_per_step": kernels / twin_steps,
+                    "copies_per_step": copies / twin_steps,
+                    "device_ms_per_step": device_ms / twin_steps,
+                    "wall_ms_per_step": wall_ms / twin_steps,
+                    "device_busy_share": device_ms / wall_ms,
+                    "seconds": twin_s, "against_cpu": twin}}
+    return model, row, failures, launches
+
+
+def nlp_paragraph_and_glove(files):
+    """(b): ParagraphVectors (DBOW, DM) and GloVe on the card against the
+    CPU. Returns (row, failures)."""
+    from deeplearning4j_tpu_torch.nlp import Glove, ParagraphVectors
+
+    failures, row = [], {}
+    docs = [(" ".join(text), [rel]) for rel, text in files
+            if rel.startswith(NLP_PV_DIR)][:NLP_PV_FILES]
+    for algo in ("dbow", "dm"):
+        t0 = time.perf_counter()
+        pv = ParagraphVectors(**NLP_PV, sequence_algorithm=algo).fit(docs)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        before = {n: t.clone() for n, t in nlp_tables(pv).items()}
+        objects = dict(nlp_tables(pv))
+        cpu32, cpu64 = nlp_twin(pv, "cpu"), nlp_twin(pv, "cpu", torch.float64)
+        inferred = {}
+        t0 = time.perf_counter()
+        for i, (text, _) in enumerate(docs[:NLP_PV_INFER]):
+            inferred[f"doc{i}"] = torch.from_numpy(pv.infer_vector(text))
+        infer_s = time.perf_counter() - t0
+        unchanged = all(torch.equal(t, before[n]) and t is objects[n]
+                        for n, t in nlp_tables(pv).items())
+        against = sl_against_cpu(
+            inferred,
+            {k: torch.from_numpy(cpu32.infer_vector(t)) for k, (t, _) in
+             zip(inferred, docs)},
+            {k: torch.from_numpy(cpu64.infer_vector(t)) for k, (t, _) in
+             zip(inferred, docs)})
+        row[f"paragraph_vectors_{algo}"] = {
+            "documents": len(docs), "vocab": pv.vocab.num_words(),
+            "labels": len(pv.labels), "fit_s": fit_s,
+            "infer_ms": infer_s * 1e3 / NLP_PV_INFER, "table_unchanged": unchanged,
+            "infer_against_cpu": against}
+        if against["failing"] or not unchanged:
+            failures.append(f"paragraph vectors {algo}")
+    lines = [line for _, text in files for line in text][:NLP_GLOVE_LINES]
+    t0 = time.perf_counter()
+    card = Glove(**NLP_GLOVE).fit(lines)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu32 = Glove(**NLP_GLOVE, device="cpu").fit(lines)
+    cpu64 = Glove(**NLP_GLOVE, device="cpu", dtype=torch.float64).fit(lines)
+    cpu_s = time.perf_counter() - t0
+    against = sl_against_cpu(nlp_tables(card), nlp_tables(cpu32), nlp_tables(cpu64))
+    row["glove"] = {"lines": len(lines), "vocab": card.vocab.num_words(), "fit_s": fit_s,
+                    "cpu_twins_s": cpu_s, "against_cpu": against}
+    if against["failing"]:
+        failures.append("glove")
+    return row, failures
+
+
+def nlp_file_bytes(path, fmt):
+    """A file's bytes; a zip's members (its container holds write times)."""
+    import zipfile
+
+    if fmt == "zip":
+        with zipfile.ZipFile(path) as zf:
+            return {n: zf.read(n) for n in zf.namelist()}
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def nlp_serializer(model, tmp):
+    """(c): the word vectors written from the card and from a CPU copy, and
+    read back onto both. Returns (row, failures)."""
+    from deeplearning4j_tpu_torch.nlp import WordVectorSerializer as S
+
+    cpu = nlp_twin(model, "cpu")
+    row, failures = {}, []
+    for fmt, (write, read, name) in NLP_FORMATS.items():
+        on_card, on_cpu = os.path.join(tmp, f"card_{name}"), os.path.join(tmp, f"cpu_{name}")
+        t0 = time.perf_counter()
+        getattr(S, write)(model, on_card)
+        write_s = time.perf_counter() - t0
+        getattr(S, write)(cpu, on_cpu)
+        t0 = time.perf_counter()
+        back = getattr(S, read)(on_card)
+        read_s = time.perf_counter() - t0
+        back_cpu = getattr(S, read)(on_card, device="cpu")
+        got = back.lookup_table.syn0
+        r = {"bytes": os.path.getsize(on_card), "write_s": write_s, "read_s": read_s,
+             "same_bytes_as_cpu": nlp_file_bytes(on_card, fmt) == nlp_file_bytes(on_cpu, fmt),
+             "read_on": str(got.device),
+             "card_equals_cpu_read": torch.equal(got.cpu(), back_cpu.lookup_table.syn0),
+             "max_abs_from_model": (got - model.lookup_table.syn0).abs().max().item(),
+             "words_equal": back.vocab.words() == model.vocab.words()}
+        # the text format keeps 6 decimals: 5e-7, and the f32 rounding of
+        # what it reads back
+        limit = NLP_TEXT_TOL if fmt == "text" else 0.0
+        r["ok"] = (r["same_bytes_as_cpu"] and r["card_equals_cpu_read"] and r["words_equal"]
+                   and got.device.type == "cuda" and r["max_abs_from_model"] <= limit)
+        row[fmt] = r
+        if not r["ok"]:
+            failures.append(f"serializer {fmt}")
+    return row, failures
+
+
+def nlp_kim_conf():
+    """DL4J's CnnSentenceClassificationExample graph at 300-wide vectors,
+    NLP_LEN words and NLP_MAPS maps a kernel height."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer,
+        GlobalPoolingLayer,
+        OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.vertices import MergeVertex
+
+    width = NLP_W2V["layer_size"]
+    g = (NeuralNetConfiguration.builder().seed(12345).weight_init("relu")
+         .activation("leakyrelu").updater(Adam(0.01)).l2(1e-4)
+         .graph_builder().add_inputs("input")
+         .set_input_types(InputType.convolutional(NLP_LEN, width, 1)))
+    for k in (3, 4, 5):
+        g.add_layer(f"cnn{k}", ConvolutionLayer(
+            n_out=NLP_MAPS, kernel_size=(k, width), stride=(1, width),
+            convolution_mode="same", activation="leakyrelu"), "input")
+    g.add_vertex("merge", MergeVertex(), "cnn3", "cnn4", "cnn5")
+    g.add_layer("globalPool", GlobalPoolingLayer(pooling_type="max", dropout=0.5), "merge")
+    g.add_layer("out", OutputLayer(n_out=2, activation="softmax", loss="mcxent"),
+                "globalPool")
+    return g.set_outputs("out").build()
+
+
+def nlp_reviews(model, n, seed):
+    """``n`` seeded two-class reviews of NLP_LEN words of ``model``'s
+    vocabulary: NLP_PLANTED words of each from its class's planted set
+    (drawn among the NLP_PLANTED_FROM frequent words, as a review's
+    sentiment words are common ones), the rest from the long tail (the
+    words past NLP_FILLER_FROM). Returns (texts, labels, planted)."""
+    rng = np.random.default_rng(7)
+    words = [w for w in model.vocab.words() if w.split() == [w]]
+    frequent = words[NLP_PLANTED_FROM[0]:NLP_PLANTED_FROM[1]]
+    chosen = rng.choice(len(frequent), 2 * NLP_PLANTED_SET, replace=False)
+    planted = {"negative": [frequent[i] for i in chosen[:NLP_PLANTED_SET]],
+               "positive": [frequent[i] for i in chosen[NLP_PLANTED_SET:]]}
+    filler = words[NLP_FILLER_FROM:]
+    rng = np.random.default_rng(seed)
+    texts, labels = [], []
+    for _ in range(n):
+        label = ("negative", "positive")[int(rng.integers(0, 2))]
+        tokens = list(rng.choice(filler, NLP_LEN))
+        at = rng.choice(NLP_LEN, NLP_PLANTED, replace=False)
+        for pos, word in zip(at, rng.choice(planted[label], NLP_PLANTED)):
+            tokens[pos] = word
+        texts.append(" ".join(tokens))
+        labels.append(label)
+    return texts, labels, planted
+
+
+def nlp_batches(model, texts, labels, seed):
+    """CnnSentenceDataSetIterator's batches over the reviews, each batch's
+    host ms."""
+    import random
+
+    from deeplearning4j_tpu_torch.nlp import (
+        CnnSentenceDataSetIterator,
+        CollectionLabeledSentenceProvider,
+    )
+
+    it = CnnSentenceDataSetIterator(
+        CollectionLabeledSentenceProvider(texts, labels, rng=random.Random(seed)), model,
+        minibatch_size=NLP_BATCH, max_sentence_length=NLP_LEN,
+        use_normalized_word_vectors=False, feature_format="NHWC")
+    batches, ms = [], []
+    while True:
+        t0 = time.perf_counter()
+        if not it.has_next():
+            break
+        batches.append(it.next())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return it, batches, ms
+
+
+def nlp_classifier(ck, model, tmp):
+    """(d): the CNN sentence classifier on the card. Returns (row,
+    failures, paths)."""
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
+
+    failures, paths = [], {}
+    texts, labels, planted = nlp_reviews(model, NLP_BATCH * (1 + NLP_TIMED), seed=1)
+    held_texts, held_labels, _ = nlp_reviews(model, NLP_HELD_OUT, seed=2)
+    it, batches, batch_ms = nlp_batches(model, texts, labels, seed=3)
+    _, held, _ = nlp_batches(model, held_texts, held_labels, seed=4)
+    shapes = {tuple(b.features.shape) for b in batches}
+    masks = sum(b.features_mask is not None for b in batches + held)
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = ComputationGraph(nlp_kim_conf()).init()
+        # one batch's loss and gradients against an f64 twin, in the ratio form
+        x0, y0 = batches[0].features, batches[0].labels
+        g32, loss32 = net.compute_gradient_and_score(x0, y0)
+        cpu = load_reference_params(
+            ComputationGraph(type(net.conf).from_json(net.conf.to_json()), device="cpu").init(),
+            export_params(net))
+        gcpu, loss_cpu = cpu.compute_gradient_and_score(x0, y0)
+        conf = type(net.conf).from_json(net.conf.to_json())
+        conf.global_conf.dtype = "float64"
+        twin = load_reference_params(ComputationGraph(conf).init(), export_params(net))
+        g64, loss64 = twin.compute_gradient_and_score(x0, y0)
+        grads = sl_against_cpu(g32, gcpu, g64)
+        loss_rel = abs(loss32 - loss64) / abs(loss64)
+        del cpu, twin, g32, gcpu, g64
+        net.fit(batches[0].features, batches[0].labels)  # warm-up
+        losses = [float(net.score_)]
+        zero_launches(ck)
+        step_ms = []
+        for b in batches[1:]:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            net.fit(b.features, b.labels)
+            end.record()
+            step_ms.append((start, end))
+            losses.append(float(net.score_))
+        torch.cuda.synchronize()
+        step_ms = [s.elapsed_time(e) for s, e in step_ms]
+        paths["nlp_cnn_sentence_train"] = read_launches(ck)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        x, y = batches[-1].features, batches[-1].labels
+        profile = profile_steps(net, x, y, fits=2, groups=NLP_GROUPS)
+        zero_launches(ck)
+        correct = total = 0
+        for b in held:
+            out = net.output(b.features)
+            correct += int((out.argmax(1).cpu() == torch.from_numpy(b.labels).argmax(1)).sum())
+            total += len(b.labels)
+        paths["nlp_cnn_sentence_output"] = read_launches(ck)
+        accuracy = correct / total
+        path = os.path.join(tmp, "cnn_sentence.zip")
+        net.save(path)
+        back = ComputationGraph.load(path)
+        want = net.output(held[0].features)
+        zip_equal = torch.equal(back.output(held[0].features), want)
+        on_cpu = ComputationGraph.load(path, device="cpu")
+        single = it.load_single_sentence(held_texts[0])
+        p_card = net.output(single).cpu()
+        p_cpu = on_cpu.output(single)
+        single_row = {"shape": list(single.shape), "card": p_card[0].tolist(),
+                      "cpu": p_cpu[0].tolist(),
+                      "same_class": int(p_card.argmax()) == int(p_cpu.argmax()),
+                      "max_abs_diff": (p_card - p_cpu).abs().max().item()}
+    finally:
+        helpers.clear_helper("updater")
+    median = float(np.median(step_ms))
+    first5, last5 = float(np.mean(losses[1:6])), float(np.mean(losses[-5:]))
+    row = {"batch_shape": [list(s) for s in shapes], "masks": masks,
+           "params": net.conf.num_params(), "tensors": tensors_of(net),
+           "iterator_host_ms_per_batch": float(np.median(batch_ms)),
+           "iterator_host_ms": batch_ms, "step_ms": step_ms, "median_step_ms": median,
+           "examples_per_s": NLP_BATCH / (median / 1e3), "losses": losses,
+           "first5_mean": first5, "last5_mean": last5,
+           "launches": paths["nlp_cnn_sentence_train"],
+           "k2_per_step": paths["nlp_cnn_sentence_train"]["fused_adam"] / NLP_TIMED,
+           "output_launches": paths["nlp_cnn_sentence_output"],
+           "peak_device_mem_gb": peak_gb, "profile": profile,
+           "held_out_accuracy": accuracy, "held_out": total,
+           "planted": {k: v[:5] for k, v in planted.items()},
+           "batch_against_f64": {"loss_f32": loss32, "loss_cpu_f32": loss_cpu,
+                                 "loss_f64": loss64, "loss_rel": loss_rel, **grads},
+           "zip_output_equal": zip_equal, "single_sentence": single_row}
+    if shapes != {(NLP_BATCH, NLP_LEN, NLP_W2V["layer_size"], 1)} or masks:
+        failures.append(f"batches {shapes} masks {masks}")
+    if unexpected_launches(paths["nlp_cnn_sentence_train"],
+                           {"fused_adam": tensors_of(net) * NLP_TIMED}) or tensors_of(net) != 8:
+        failures.append(f"launches {paths['nlp_cnn_sentence_train']}")
+    if unexpected_launches(paths["nlp_cnn_sentence_output"], {}):
+        failures.append(f"output launches {paths['nlp_cnn_sentence_output']}")
+    if not (np.isfinite(losses).all() and last5 < first5):
+        failures.append("losses")
+    if accuracy < NLP_MIN_ACCURACY:
+        failures.append(f"held-out accuracy {accuracy}")
+    if grads["failing"] or loss_rel > NLP_TOL:
+        failures.append("f64 twin")
+    if not zip_equal:
+        failures.append("zip")
+    if not (single_row["same_class"] and single_row["max_abs_diff"] <= NLP_TOL):
+        failures.append("single sentence")
+    return row, failures, paths
+
+
+def nlp_text_classification_phase(ck, card):
+    """DL4J's text-classification path on the card (see NLP_*): Word2Vec,
+    ParagraphVectors, GloVe, the serializer and the CNN sentence
+    classifier. Returns each path's launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nlp_")
+    failures, parts_s = [], {}
+
+    def report(name, t0, row, bad):
+        parts_s[name] = time.perf_counter() - t0
+        failures.extend(bad)
+        print(f"nlp_text_classification {name} " + json.dumps({"card": card, **row}),
+              flush=True)
+
+    try:
+        files = nlp_corpus()
+        t0 = time.perf_counter()
+        model, w2v, bad, w2v_launches = nlp_word2vec(ck, files, tmp)
+        report("word2vec", t0, w2v, bad)
+        t0 = time.perf_counter()
+        cnn, bad, paths = nlp_classifier(ck, model, tmp)
+        report("cnn_sentence", t0, cnn, bad)
+        t0 = time.perf_counter()
+        others, bad = nlp_paragraph_and_glove(files)
+        report("paragraph_vectors_glove", t0, others, bad)
+        t0 = time.perf_counter()
+        ser, bad = nlp_serializer(model, tmp)
+        report("serializer", t0, ser, bad)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print("nlp_text_classification summary " + json.dumps({
+        "card": card, "vocab": w2v["vocab"], "words_per_s": w2v["words_per_s"],
+        "word2vec_busy_share": w2v["twin"]["device_busy_share"],
+        "cnn_median_step_ms": cnn["median_step_ms"],
+        "cnn_examples_per_s": cnn["examples_per_s"],
+        "iterator_host_ms_per_batch": cnn["iterator_host_ms_per_batch"],
+        "held_out_accuracy": cnn["held_out_accuracy"], "phase_s": seconds,
+        "parts_s": parts_s, "target_s": NLP_MAX_SECONDS, "failures": failures}), flush=True)
+    if failures:
+        raise RuntimeError(f"nlp_text_classification: {failures}")
+    return {"nlp_word2vec_train": w2v_launches, **paths}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -8383,6 +9013,7 @@ def main() -> None:
     tu_paths = timed(training_utilities_phase, ck, card)
     sr_paths = timed(serving_registry_phase, ck, card)
     hs_paths = timed(http_serving_phase, ck, card)
+    nlp_paths = timed(nlp_text_classification_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -8430,10 +9061,11 @@ def main() -> None:
     def workflow_paths(kernel):
         """The kernel's launches on each path of the samediff, transfer,
         checkpointing, zoo_facenet, keras_import, model_export,
-        training_utilities, serving_registry and http_serving phases."""
+        training_utilities, serving_registry, http_serving and
+        nlp_text_classification phases."""
         return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths, fn_paths,
                                                    ki_paths, me_paths, tu_paths, sr_paths,
-                                                   hs_paths)
+                                                   hs_paths, nlp_paths)
                 for path, counts in paths.items()}
 
     def workflow_total(kernel):

@@ -9,8 +9,9 @@ This package imports torch and numpy only: never jax, and nothing of
 ``deeplearning4j_tpu`` (not even its jax-free modules).
 
 Device rule: the entry points (``ComputationGraph(conf, device=None)``,
-``TransformerLM(...).init(device=None)`` and ``ParallelInference`` over
-such a network) place everything on ``cuda``. They use the CPU only when
+``TransformerLM(...).init(device=None)``, ``ParallelInference`` over
+such a network, the embedding models of ``nlp/`` and the word-vector
+readers) place everything on ``cuda``. They use the CPU only when
 the caller passes ``device="cpu"``; with no CUDA device and no explicit
 ``"cpu"`` they raise. On a CUDA tensor a kernel runs or raises: nothing
 falls back to the CPU or to a kernel's plain version.

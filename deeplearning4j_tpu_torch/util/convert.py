@@ -8,7 +8,8 @@ copy. ``export_params(net)`` is the inverse.
 the updater state (e.g. Adam's ``m`` and ``v``), so that both sides can
 resume from one optimizer state, and ``load_reference_states`` /
 ``export_states`` for the layer state (BatchNorm's running statistics,
-the reference's ``net.states``).
+the reference's ``net.states``). ``load_reference_lookup_table`` carries
+an embedding model's tables (``nlp/``: syn0, syn1, syn1neg).
 
 A ``ComputationGraph`` is carried as ``{vertex: {name: ...}}`` on both
 sides. The reference's ``MultiLayerNetwork`` keeps a list of per-layer
@@ -129,3 +130,28 @@ def export_updater_state(net):
     """The network's updater state on the host, shaped as
     :func:`export_params` shapes the parameters."""
     return _export_net(net.updater_states, 3)
+
+
+def load_reference_lookup_table(model, syn0, syn1=None, syn1neg=None):
+    """Copy the reference's embedding tables (numpy ``syn0``, ``syn1`` and
+    ``syn1neg``, what ``np.asarray`` of its ``lookup_table``'s gives; None
+    for a table it has not) into the port model's (a ``SequenceVectors``
+    or its lookup table), in place. The model must have exactly those
+    tables, each of that shape; on any mismatch it raises and copies
+    nothing. Returns ``model``."""
+    table = getattr(model, "lookup_table", model)
+    if table is None or table.syn0 is None:
+        raise RuntimeError("the model has no lookup table yet: build its "
+                           "vocabulary first")
+    mine = {n: t for n in ("syn0", "syn1", "syn1neg")
+            if (t := getattr(table, n)) is not None}
+    theirs = {n: a for n, a in (("syn0", syn0), ("syn1", syn1),
+                                ("syn1neg", syn1neg)) if a is not None}
+    problems = _mismatches(mine, theirs, "lookup table ", 1)
+    if problems:
+        raise ValueError("tables do not match the model: " + "; ".join(problems))
+    with torch.no_grad():
+        for n, t in mine.items():
+            t.copy_(torch.from_numpy(np.array(theirs[n])).to(dtype=t.dtype))
+    table.touch()
+    return model

@@ -172,6 +172,38 @@ def test_entry_points_need_an_explicit_cpu(tmp_path):
     assert all(p.device.type == "cpu" for p in back.parameters())
     assert restore_multi_layer_network(path, device="cpu").iteration == 0
 
+    # the NLP stack: the embedding models, the lookup table and the
+    # serializer's readers pick cuda unless the caller asks for the CPU
+    from deeplearning4j_tpu_torch.nlp import (
+        Glove,
+        InMemoryLookupTable,
+        ParagraphVectors,
+        SequenceVectors,
+        Word2Vec,
+        WordVectorSerializer,
+    )
+
+    for model in (SequenceVectors, Word2Vec, ParagraphVectors, Glove):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model(layer_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Word2Vec.builder().layer_size(4).build()
+    w2v = Word2Vec(layer_size=4, min_word_frequency=1, device="cpu").fit(["a b c", "b c d"])
+    assert w2v.lookup_table.syn0.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InMemoryLookupTable(w2v.vocab, 4)
+    files = {"txt": ("write_word_vectors", "load_txt_vectors"),
+             "bin": ("write_binary_model", "read_binary_model"),
+             "zip": ("write_word2vec_model", "read_word2vec_model")}
+    for ext, (write, read) in files.items():
+        vec_path = os.path.join(str(tmp_path), f"v.{ext}")
+        getattr(WordVectorSerializer, write)(w2v, vec_path)
+        for reader in (getattr(WordVectorSerializer, read), WordVectorSerializer.load_static_model):
+            with pytest.raises(Exception, match="no CUDA device"):
+                reader(vec_path)
+        back_vec = getattr(WordVectorSerializer, read)(vec_path, device="cpu")
+        assert back_vec.lookup_table.syn0.device.type == "cpu"
+
 
 def test_samediff_and_the_zoo_base_need_an_explicit_cpu(tmp_path, monkeypatch):
     """SameDiff, its npz and ``init_pretrained`` pick cuda unless the
@@ -431,6 +463,29 @@ def test_import_export_modules_leave_jax_keras_and_h5py_unloaded(tmp_path):
     with pytest.raises(Exception, match="no CUDA device"):
         load_model_guess(path)
     assert type(load_model_guess(path, device="cpu")).__name__ == "MultiLayerNetwork"
+
+
+def test_nlp_and_native_modules_leave_jax_unloaded():
+    """The NLP slice's modules (``nlp/`` but ``distributed.py``, ``native/``
+    and the lookup-table carry) import no jax."""
+    modules = ("nlp", "nlp.tokenization", "nlp.text_utils", "nlp.stemming",
+               "nlp.dictionary_tokenizer", "nlp.language_packs", "nlp.sentence",
+               "nlp.sentiment", "nlp.trees", "nlp.movingwindow", "nlp.vocab",
+               "nlp.vectorizer", "nlp.lookup", "nlp.learning", "nlp.sequencevectors",
+               "nlp.word2vec", "nlp.paragraph_vectors", "nlp.glove", "nlp.serializer",
+               "nlp.cnn_sentence", "native", "native.codec", "native.loader",
+               "util.convert")
+    code = ("import sys, " + ", ".join(f"deeplearning4j_tpu_torch.{m}" for m in modules)
+            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    names = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {f"deeplearning4j_tpu_torch/{m.replace('.', '/')}.py"
+            for m in modules if m not in ("nlp", "native")} <= names
+    assert "deeplearning4j_tpu_torch/nlp/distributed.py" not in names
 
 
 def test_serving_and_observability_modules_leave_jax_unloaded(tmp_path):
