@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs thirty-five phases:
+every kernel, and runs thirty-six phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -388,6 +388,19 @@ every kernel, and runs thirty-five phases:
    a batch), the loss falling, held-out accuracy >= 0.9, one batch against
    an f64 twin, the zip restored bit for bit and one sentence classified
    on the card as on the CPU.
+36. DL4J's graph-embedding path (``graph/``, ``clustering/``, ``plot/``),
+   DeepWalk's own evaluation at BlogCatalog's size (a seeded block model of
+   10,312 vertices, 333,983 edges and 39 groups, loaded by
+   ``GraphLoader``): DeepWalk at the paper's settings (pairs/s, the
+   median step, launches a step, the busy share, the host ms a step split
+   between the walks, the pairs and the step, the score at each tenth of
+   the fit; a 1,000-vertex twin on the card and the CPU in f32 and f64);
+   a softmax classifier over the vectors (2 K2 a step, held-out accuracy
+   >= 0.7); KMeans (purity; against a CPU run from the same centres);
+   exact t-SNE (its loop free of host reads; a short twin against the CPU)
+   and Barnes-Hut; brute-force k-NN against the host VPTree, LSH against
+   the CPU port, the k-NN server under 8 client threads; Node2Vec; the
+   vectors' text file from the card and a CPU copy (the same bytes).
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -894,7 +907,9 @@ ME_STEPS, ME_BATCH, ME_LENET_TOL = 3, 64, 1e-6
 TU_N, TU_HELD, TU_BATCH, TU_EPOCHS, TU_PATIENCE = 4096, 1024, 128, 5, 2
 TU_CKPT_EVERY, TU_CKPT_KEEP, TU_BEST_RTOL, TU_MAX_SECONDS = 8, 2, 1e-6, 600
 TU_GPT2_STEPS, TU_PROFILE = 10, (3, 3)
-TU_SOLVER_N, TU_SOLVER_ITERS, TU_SOLVER_F32_TOL, TU_SOLVER_F64_RTOL = 1024, 10, 1e-5, 1e-8
+# TU_SOLVER_N is 512 (1,024 earlier): (c)'s float64 CPU twin runs in
+# process after the timed parts, and at 1,024 it took 96 s of the script
+TU_SOLVER_N, TU_SOLVER_ITERS, TU_SOLVER_F32_TOL, TU_SOLVER_F64_RTOL = 512, 10, 1e-5, 1e-8
 # the f32 first gradient below the output layer: a relu pre-activation
 # within f32 rounding of 0 takes the other side of the kink than in f64
 # (on an H100 80GB HBM3 at 700 W, one of the dense layer's 64000 at batch
@@ -997,7 +1012,9 @@ HS_BURN = {"type": "burn_rate", "name": "serving_burn", "severity": "page",
 # meant to take at most NLP_MAX_SECONDS.
 NLP_W2V = dict(layer_size=300, window_size=5, negative_sample=5,
                min_word_frequency=5, epochs=1, seed=42)
-NLP_W2V_LINES, NLP_TWIN_LINES, NLP_TOL, NLP_F32_FACTOR = None, 2000, 1e-5, 4.0
+# NLP_W2V_LINES cuts the corpus to its first 100,000 lines: the repository's
+# text grows with every module (175,044 lines took 84 s of host-bound steps)
+NLP_W2V_LINES, NLP_TWIN_LINES, NLP_TOL, NLP_F32_FACTOR = 100_000, 2000, 1e-5, 4.0
 NLP_PROFILED_LINES = 300
 NLP_NEAREST = ("def", "return", "tensor", "kernel")
 NLP_SKIP_DIRS = ("build", "__pycache__")
@@ -1020,6 +1037,74 @@ NLP_GROUPS = (
     ("reductions (the global max pool, the loss)", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
+
+# DL4J's graph-embedding path (phase 36, graph_clustering): DeepWalk's own
+# evaluation (Perozzi et al. 2014, section 5) on DL4J's API. (a) A seeded
+# degree-corrected stochastic block model of BlogCatalog's size (the
+# DeepWalk paper's Table 1: GC_VERTICES vertices, GC_EDGES undirected edges,
+# GC_GROUPS groups; the BlogCatalog file itself is not in the repository):
+# the vertices dealt evenly into the blocks, power-law weights of exponent
+# GC_EXPONENT scaled to BlogCatalog's mean degree, each edge drawn between
+# an endpoint picked by weight and, with probability 1 - GC_OUT_DRAW, a
+# partner picked by weight in its block, else one in another block, until
+# GC_EDGES distinct edges (pairs inside a block repeat more often, so about
+# a fifth of the edges leave their block); written as an edge list and read
+# by GraphLoader. (b) DeepWalk at the paper's settings (GC_DEEPWALK,
+# GC_FIT: gamma = 80 walks a vertex, t = 40, w = 10, d = 128, 8,192 pairs
+# a step), the mean HS score of GC_SCORE_PAIRS fixed walk pairs at each
+# tenth of the epochs (finite and falling), one epoch profiled on a second
+# model, GC_PAD_STEPS steps of one batch timed with the padded path
+# positions adding their zeros into inner node 0 (as the reference pads)
+# and into each pair's own last inner node, in turns; a twin over a seeded GC_TWIN_VERTICES-vertex induced subgraph,
+# GC_TWIN_EPOCHS epochs from the same carried tables on the card and on
+# the CPU in f32 and f64 (sl_against_cpu's ratio form: index_add_ on the
+# card adds in no fixed order), vertices_nearest and similarity on the card
+# as on a CPU copy of its tables. (c) A softmax OutputLayer(128 -> 39),
+# Adam(0.01) on the fused updater, GC_CLF_EPOCHS epochs of batch
+# GC_CLF_BATCH over a seeded half of the vertices labelled by block (2 K2 a
+# step, nothing else), the mean of the last 5 losses below the first 5's,
+# held-out accuracy at least GC_MIN_ACCURACY. (d) KMeans (GC_KMEANS) over
+# every vector: purity against the blocks; from the card's seeds a CPU run
+# whose costs lie within GC_TOL relative of the card's, at least
+# GC_MIN_SAME_ASSIGN of the assignments equal. (e) Exact t-SNE (GC_TSNE)
+# over GC_TSNE_POINTS seeded vectors (None: all of them; the perplexity
+# search is host f64 over N x N); its loop run short under the sync debug
+# mode "error"; a GC_TSNE_TWIN_POINTS-point run of GC_TSNE_TWIN_ITERS
+# iterations on the card against the CPU in f32 and f64 in the ratio form;
+# Barnes-Hut over GC_BH_POINTS seeded vectors for GC_BH_ITERS iterations
+# (its tree loop on the host by design). (f) Brute force on the card
+# against the host VPTree for GC_VPTREE_QUERIES queries: the same index
+# sets (where the k-th distance ties within GC_TIE_BAND relative, either
+# member), equal distances lowest index first, distances in the ratio form
+# against f64; search_excluding_self(GC_K) for every vertex; LSH (GC_LSH)
+# recall@GC_K over GC_LSH_QUERIES queries beside the CPU port's on the
+# same data, with the sign bits that differ; NearestNeighborsServer over
+# the vectors with the blocks as labels, GC_CLIENTS client threads sending
+# GC_REQUESTS /knn and /knnnew requests (every answer the local index's,
+# the exposition counting them, the reference's 400s for bad bodies). (g)
+# Node2Vec (GC_NODE2VEC, GC_N2V_FIT: its numpy walks scan a padded
+# neighbour matrix as wide as the largest degree, so one walk a vertex of
+# GC_N2V_FIT's length) on the same graph, its host walk time and a finite
+# score; GraphVectorSerializer from the card and from a CPU copy of the
+# table (the same bytes), read back onto both (bit for bit). The phase is
+# meant to take at most GC_MAX_SECONDS.
+GC_VERTICES, GC_EDGES, GC_GROUPS, GC_EXPONENT, GC_OUT_DRAW, GC_SEED = (
+    10312, 333983, 39, 2.5, 0.125, 24)
+GC_DEEPWALK = dict(vector_size=128, window_size=10, learning_rate=0.01, seed=12345)
+GC_FIT = dict(walk_length=40, epochs=80)
+GC_SCORE_PAIRS, GC_SCORE_POINTS, GC_TWIN_VERTICES, GC_TWIN_EPOCHS = 4096, 10, 1000, 2
+GC_TOL, GC_F32_FACTOR, GC_SIM_TOL = 1e-5, 4.0, 1e-6
+GC_CLF_BATCH, GC_CLF_EPOCHS, GC_MIN_ACCURACY = 256, 20, 0.7
+GC_KMEANS, GC_KMEANS_PROFILED, GC_MIN_SAME_ASSIGN = (39, 100, "euclidean", 1), 5, 0.999
+GC_TSNE, GC_TSNE_POINTS, GC_TSNE_PROFILED = dict(perplexity=30.0, n_iter=1000), 4096, 20
+GC_TSNE_TWIN_POINTS, GC_TSNE_TWIN_ITERS, GC_BH_POINTS, GC_BH_ITERS = 512, 50, 500, 3
+GC_K, GC_VPTREE_QUERIES, GC_TIE_BAND, GC_LSH_QUERIES = 10, 32, 1e-5, 256
+GC_LSH = dict(hash_length=8, num_tables=8, seed=0)
+GC_CLIENTS, GC_REQUESTS, GC_PAD_STEPS = 8, 400, 50
+GC_NODE2VEC = dict(vector_size=128, window_size=1, learning_rate=0.01, p=0.25, q=4.0,
+                   walks_per_vertex=1, seed=4)
+GC_N2V_FIT = dict(walk_length=2, epochs=1)
+GC_MAX_SECONDS = 100.0
 
 
 def card_peaks(name: str):
@@ -8941,6 +9026,812 @@ def nlp_text_classification_phase(ck, card):
     return {"nlp_word2vec_train": w2v_launches, **paths}
 
 
+# ------------------------------------------------- graph embeddings and tools
+def gc_edges():
+    """The seeded BlogCatalog-sized block model (see GC_*): (edges [m, 2],
+    each vertex's block)."""
+    rng = np.random.default_rng(GC_SEED)
+    n, m, k = GC_VERTICES, GC_EDGES, GC_GROUPS
+    block = rng.permutation(np.arange(n) % k)
+    theta = (1.0 - rng.random(n)) ** (-1.0 / (GC_EXPONENT - 1.0))
+    theta = np.minimum(theta * (2.0 * m / n) / theta.mean(), n - 1)
+    order = np.argsort(block, kind="stable")          # vertices by block
+    cum = np.cumsum(theta[order])
+    starts = np.searchsorted(block[order], np.arange(k))
+    ends = np.searchsorted(block[order], np.arange(k), side="right")
+    before = np.where(starts > 0, cum[np.maximum(starts - 1, 0)], 0.0)
+    total = cum[ends - 1] - before
+    everyone = np.cumsum(theta)
+    keys = np.empty(0, np.int64)
+    while keys.size < m:
+        draws = int((m - keys.size) * 1.3) + 1000
+        u = np.searchsorted(everyone, rng.random(draws) * everyone[-1])
+        inside = rng.random(draws) >= GC_OUT_DRAW
+        b = block[u]
+        v_in = order[np.minimum(np.searchsorted(cum, before[b] + rng.random(draws) * total[b]),
+                                n - 1)]
+        v_out = np.searchsorted(everyone, rng.random(draws) * everyone[-1])
+        v = np.where(inside, v_in, v_out)
+        ok = (u != v) & (inside | (block[v] != b))
+        keys = np.concatenate([keys, np.minimum(u, v)[ok] * n + np.maximum(u, v)[ok]])
+        _, first = np.unique(keys, return_index=True)
+        keys = keys[np.sort(first)]                   # distinct, in draw order
+    keys = keys[:m]
+    return np.stack([keys // n, keys % n], axis=1), block
+
+
+def gc_graph(tmp):
+    """(a): the graph written as an edge list and loaded. Returns (graph,
+    edges, block, row)."""
+    from deeplearning4j_tpu_torch.graph import GraphHuffman, GraphLoader
+
+    t0 = time.perf_counter()
+    edges, block = gc_edges()
+    make_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "blogcatalog_sbm.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(f"{a},{b}" for a, b in edges.tolist()) + "\n")
+    t0 = time.perf_counter()
+    graph = GraphLoader.load_undirected_graph_edge_list_file(path, GC_VERTICES)
+    graph.csr()
+    load_s = time.perf_counter() - t0
+    degrees = graph.vertex_degrees()
+    tree = GraphHuffman(GC_VERTICES).build_tree(degrees)
+    row = {"vertices": graph.num_vertices(), "edges": int(degrees.sum()) // 2,
+           "groups": GC_GROUPS, "mean_degree": float(degrees.mean()),
+           "largest_degree": int(degrees.max()), "smallest_degree": int(degrees.min()),
+           "out_of_block_share": float((block[edges[:, 0]] != block[edges[:, 1]]).mean()),
+           "longest_code": max(tree.code_length), "mean_code": float(np.mean(tree.code_length)),
+           "make_s": make_s, "load_s": load_s}
+    failures = [] if (row["vertices"], row["edges"]) == (GC_VERTICES, GC_EDGES) else ["size"]
+    return graph, edges, block, row, failures
+
+
+def gc_score_pairs(graph, window, device, count=GC_SCORE_PAIRS):
+    """``count`` skip-gram pairs of a fixed epoch of walks, on
+    ``device``."""
+    rng = np.random.default_rng(7)
+    walks = graph.random_walks(rng.permutation(graph.num_vertices()),
+                               GC_FIT["walk_length"], rng)
+    pos = np.arange(window, walks.shape[1] - window)
+    offsets = np.concatenate([np.arange(-window, 0), np.arange(1, window + 1)])
+    first = np.repeat(walks[:, pos][..., None], len(offsets), axis=2).reshape(-1)
+    second = walks[:, pos[:, None] + offsets[None, :]].reshape(-1)
+    pick = rng.choice(first.size, count, replace=False)
+    return (torch.from_numpy(first[pick]).to(device), torch.from_numpy(second[pick]).to(device))
+
+
+def gc_hs_score(table, firsts, seconds):
+    """The mean of -log P(second | first) over the pairs, on the table's
+    device."""
+    vec = table.vertex_vectors[firsts]
+    nodes, bits, mask = (t[seconds] for t in (table._path_nodes, table._path_bits,
+                                              table._path_mask))
+    dots = torch.einsum("bld,bd->bl", table.out_weights[nodes], vec)
+    z = torch.where(bits > 0, dots, -dots)
+    return float((torch.nn.functional.softplus(-z) * mask).sum(1).mean())
+
+
+class GcFitSplit:
+    """DeepWalk's parts while installed on a model: host seconds of the
+    walks (``Graph.random_walks``), the pairs (``fit_walks`` less its
+    steps) and the steps (``iterate_batch``: gathers, launches), each step
+    between two CUDA events, and the score at each tenth of ``epochs``."""
+
+    def __init__(self, model, epochs, score):
+        self.model, self.score, self.every = model, score, max(epochs // GC_SCORE_POINTS, 1)
+        self.s = {"walks": 0.0, "fit_walks": 0.0, "steps": 0.0}
+        self.events, self.scores, self.epochs = [], [], 0
+
+    def __enter__(self):
+        model, graph, table = self.model, self.model.graph, self.model.lookup_table
+        walks, fit_walks, step = graph.random_walks, model.fit_walks, table.iterate_batch
+
+        def timed_walks(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return walks(*a, **k)
+            finally:
+                self.s["walks"] += time.perf_counter() - t0
+
+        def timed_step(firsts, seconds):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            step(firsts, seconds)
+            end.record()
+            self.s["steps"] += time.perf_counter() - t0
+            self.events.append((start, end))
+
+        def timed_fit_walks(w):
+            t0 = time.perf_counter()
+            fit_walks(w)
+            self.s["fit_walks"] += time.perf_counter() - t0
+            self.epochs += 1
+            if self.epochs % self.every == 0:
+                self.scores.append((self.epochs, self.score()))
+
+        graph.random_walks, model.fit_walks, table.iterate_batch = (
+            timed_walks, timed_fit_walks, timed_step)
+        self.installed = (graph, model, table)
+        return self
+
+    def __exit__(self, *exc):
+        graph, model, table = self.installed
+        del graph.random_walks, model.fit_walks, table.iterate_batch
+
+    def reading(self):
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in self.events]
+        steps = max(len(ms), 1)
+        return {"steps": len(ms), "median_step_ms": float(np.median(ms)) if ms else None,
+                "host_ms_per_step": {
+                    "walks": self.s["walks"] * 1e3 / steps,
+                    "pairs": (self.s["fit_walks"] - self.s["steps"]) * 1e3 / steps,
+                    "step": self.s["steps"] * 1e3 / steps},
+                "scores": self.scores}
+
+
+def gc_padding(table, firsts, seconds):
+    """Step ms with the table's padded paths (every padded position adds
+    0 into inner node 0) and with the padded positions sent to the pair's
+    own last inner node (the same values: they add 0 there), in turns on
+    copies of the tables; the padded share of the positions."""
+    from deeplearning4j_tpu_torch.graph.deepwalk import _hs_batch_update
+
+    nodes, bits, mask = table._path_nodes, table._path_bits, table._path_mask
+    last = (mask.sum(1).long() - 1).clamp(min=0)
+    spread = torch.where(mask > 0, nodes, nodes.gather(1, last[:, None]))
+    vv, ow = table.vertex_vectors.clone(), table.out_weights.clone()
+
+    def timed(path_nodes):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GC_PAD_STEPS):
+            _hs_batch_update(vv, ow, firsts, path_nodes[seconds], bits[seconds],
+                             mask[seconds], table.learning_rate)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / GC_PAD_STEPS
+
+    timed(nodes)
+    ms = {"node_0": [], "own_last_node": []}
+    for name, arr in (("node_0", nodes), ("own_last_node", spread),
+                      ("own_last_node", spread), ("node_0", nodes)):
+        ms[name].append(timed(arr))
+    return {"pairs": int(firsts.numel()), "steps": GC_PAD_STEPS,
+            "padded_share": float(1.0 - mask[seconds].mean()),
+            "ms_per_step": {k: float(np.mean(v)) for k, v in ms.items()}}
+
+
+def gc_tables(model):
+    t = model.lookup_table
+    return {"vertex_vectors": t.vertex_vectors, "out_weights": t.out_weights}
+
+
+def gc_deepwalk(graph):
+    """(b): DeepWalk over the graph on the card (timed, the host split, the
+    score at each tenth), a profiled epoch on a second model. Returns
+    (model, row, failures)."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+
+    failures = []
+    model = DeepWalk(**GC_DEEPWALK)
+    model.initialize(graph)
+    firsts, seconds = gc_score_pairs(graph, GC_DEEPWALK["window_size"],
+                                     model.lookup_table.device)
+    start_score = gc_hs_score(model.lookup_table, firsts, seconds)
+    with GcFitSplit(model, GC_FIT["epochs"],
+                    lambda: gc_hs_score(model.lookup_table, firsts, seconds)) as split:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(graph, **GC_FIT)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    reading = split.reading()
+    w = GC_DEEPWALK["window_size"]
+    pairs = (GC_FIT["epochs"] * graph.num_vertices()
+             * max(GC_FIT["walk_length"] + 1 - 2 * w, 0) * 2 * w)
+    second = DeepWalk(**GC_DEEPWALK)
+    second.initialize(graph)
+    steps_per_epoch = reading["steps"] / GC_FIT["epochs"]
+    prof, wall_ms, _ = profiled(
+        lambda: second.fit(graph, walk_length=GC_FIT["walk_length"], epochs=1), cpu=False)
+    kernels, copies, device_ms = nlp_device_events(prof)
+    pad_firsts, pad_seconds = gc_score_pairs(graph, w, model.lookup_table.device,
+                                             model.batch_size)
+    padding = gc_padding(model.lookup_table, pad_firsts, pad_seconds)
+    scores = [start_score] + [s for _, s in reading["scores"]]
+    row = {"settings": {**GC_DEEPWALK, **GC_FIT, "batch_size": model.batch_size},
+           "fit_s": fit_s, "pairs_per_s": pairs / fit_s, **reading,
+           "profiled_epoch": {"steps": steps_per_epoch,
+                              "kernel_launches_per_step": kernels / steps_per_epoch,
+                              "copies_per_step": copies / steps_per_epoch,
+                              "device_ms_per_step": device_ms / steps_per_epoch,
+                              "wall_ms_per_step": wall_ms / steps_per_epoch,
+                              "device_busy_share": device_ms / wall_ms},
+           "score_at_start": start_score, "padding": padding}
+    if not (np.isfinite(scores).all() and scores[-1] < scores[0]):
+        failures.append(f"deepwalk scores {scores}")
+    if model.lookup_table.vertex_vectors.device.type != "cuda":
+        failures.append("deepwalk not on the card")
+    return model, row, failures
+
+
+def gc_subgraph(edges):
+    """The twin's graph: the subgraph induced by GC_TWIN_VERTICES seeded
+    vertices, renumbered (a new Graph each call)."""
+    from deeplearning4j_tpu_torch.graph import Graph
+
+    keep = np.sort(np.random.default_rng(11).choice(GC_VERTICES, GC_TWIN_VERTICES,
+                                                    replace=False))
+    new = np.full(GC_VERTICES, -1)
+    new[keep] = np.arange(GC_TWIN_VERTICES)
+    sub = new[edges]
+    sub = sub[(sub >= 0).all(axis=1)]
+    g = Graph(GC_TWIN_VERTICES)
+    for a, b in sub.tolist():
+        g.add_edge(a, b)
+    return g
+
+
+def gc_twin(edges):
+    """(b)'s twin: the subgraph trained from the same carried tables on the
+    card and the CPU in f32 and f64; the queries on the card's tables as
+    on a CPU copy. Returns (row, failures)."""
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    from deeplearning4j_tpu_torch.util.convert import load_reference_graph_lookup_table
+
+    def model(device, start=None, dtype=None):
+        m = DeepWalk(**GC_DEEPWALK, device=device)
+        m.initialize(gc_subgraph(edges))
+        if start is not None:
+            load_reference_graph_lookup_table(m, *start)
+        if dtype is not None:
+            m.lookup_table.to(dtype=dtype)
+        return m
+
+    cpu32 = model("cpu")
+    start = tuple(t.numpy().copy() for t in gc_tables(cpu32).values())
+    card, cpu64 = model(None, start), model("cpu", start, torch.float64)
+    seconds = {}
+    for name, m in (("card", card), ("cpu_f32", cpu32), ("cpu_f64", cpu64)):
+        t0 = time.perf_counter()
+        m.fit(m.graph, walk_length=GC_FIT["walk_length"], epochs=GC_TWIN_EPOCHS)
+        if name == "card":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    against = sl_against_cpu(gc_tables(card), gc_tables(cpu32), gc_tables(cpu64))
+    copy = model("cpu", tuple(t.cpu().numpy() for t in gc_tables(card).values()))
+    probes = (0, 1, 17, GC_TWIN_VERTICES // 2, GC_TWIN_VERTICES - 1)
+    nearest_equal = ties = 0
+    for v in probes:
+        mine, theirs = card.vertices_nearest(v, 10).tolist(), copy.vertices_nearest(v, 10).tolist()
+        nearest_equal += mine == theirs
+        # an order that differs must differ by similarities within GC_SIM_TOL
+        ties += mine != theirs and all(
+            abs(copy.similarity(v, a) - copy.similarity(v, b)) <= GC_SIM_TOL
+            for a, b in zip(mine, theirs))
+    sim_diff = max(abs(card.similarity(a, b) - copy.similarity(a, b))
+                   for a in probes for b in probes)
+    row = {"vertices": GC_TWIN_VERTICES, "edges": int(card.graph.vertex_degrees().sum()) // 2,
+           "epochs": GC_TWIN_EPOCHS, "seconds": seconds, "against_cpu": against,
+           "vertices_nearest_equal": nearest_equal,
+           "vertices_nearest_within_ties": ties, "probes": len(probes),
+           "similarity_max_diff": sim_diff}
+    failures = []
+    if against["failing"]:
+        failures.append(f"twin {against}")
+    if not (nearest_equal + ties == len(probes) and sim_diff <= GC_SIM_TOL):
+        failures.append("twin queries")
+    return row, failures
+
+
+def gc_classifier(ck, vectors, block):
+    """(c): the vertex classifier on the card. Returns (row, failures,
+    paths)."""
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    rng = np.random.default_rng(5)
+    perm = rng.permutation(GC_VERTICES)
+    train, held = perm[:GC_VERTICES // 2], perm[GC_VERTICES // 2:]
+    labels = np.eye(GC_GROUPS, dtype=np.float32)[block]
+    conf = (NeuralNetConfiguration.builder().seed(12345).updater(Adam(0.01)).list()
+            .layer(OutputLayer(n_in=vectors.shape[1], n_out=GC_GROUPS, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.feed_forward(vectors.shape[1])).build())
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        net = MultiLayerNetwork(conf).init()
+        zero_launches(ck)
+        events, losses = [], []
+        for _ in range(GC_CLF_EPOCHS):
+            order = train[rng.permutation(train.size)]
+            for s in range(0, order.size, GC_CLF_BATCH):
+                idx = order[s:s + GC_CLF_BATCH]
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                net.fit(vectors[idx], labels[idx])
+                end.record()
+                events.append((start, end))
+                losses.append(float(net.score_))
+        torch.cuda.synchronize()
+        launches = read_launches(ck)
+        out = net.output(vectors[held])
+        accuracy = float((out.argmax(1).cpu().numpy() == block[held]).mean())
+    finally:
+        helpers.clear_helper("updater")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    row = {"train": int(train.size), "held_out": int(held.size), "steps": len(step_ms),
+           "median_step_ms": float(np.median(step_ms)), "first5_mean": first5,
+           "last5_mean": last5, "held_out_accuracy": accuracy, "chance": 1.0 / GC_GROUPS,
+           "launches": launches, "k2_per_step": launches["fused_adam"] / len(step_ms)}
+    failures = []
+    if unexpected_launches(launches, {"fused_adam": 2 * len(step_ms)}) or tensors_of(net) != 2:
+        failures.append(f"classifier launches {launches}")
+    if not (np.isfinite(losses).all() and last5 < first5):
+        failures.append("classifier losses")
+    if accuracy < GC_MIN_ACCURACY:
+        failures.append(f"classifier accuracy {accuracy}")
+    return row, failures, {"graph_clustering_classifier_train": launches}
+
+
+def gc_purity(assign, block):
+    return float(sum(np.bincount(block[assign == c]).max() for c in np.unique(assign))
+                 / assign.size)
+
+
+def gc_kmeans(points, block):
+    """(d): KMeans over every vector on the card; from its seeds, a CPU run.
+    Returns (row, failures)."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+
+    k, max_iter, distance, seed = GC_KMEANS
+    km = KMeansClustering.setup(k, max_iter, distance, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km.fit(points)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    start = points[km.seed_indices]
+    again = KMeansClustering.setup(k, max_iter, distance, seed=seed)
+    t0 = time.perf_counter()
+    again.iterate(points, start)
+    iterate_s = time.perf_counter() - t0
+    short = KMeansClustering.setup(k, GC_KMEANS_PROFILED, distance, seed=seed)
+    prof, wall_ms, _ = profiled(lambda: short.iterate(points, start), cpu=False)
+    _, _, device_ms = nlp_device_events(prof)
+    cpu = KMeansClustering.setup(k, max_iter, distance, seed=seed, device="cpu")
+    t0 = time.perf_counter()
+    cpu.iterate(points.cpu(), start.cpu())
+    cpu_s = time.perf_counter() - t0
+    common = min(len(km.iteration_costs), len(cpu.iteration_costs))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(km.iteration_costs[:common],
+                                                     cpu.iteration_costs[:common]))
+    differ = int((km.assignments != cpu.assignments).sum())
+    row = {"k": k, "iterations": len(km.iteration_costs),
+           "cpu_iterations": len(cpu.iteration_costs), "fit_s": fit_s,
+           "ms_per_iteration": iterate_s * 1e3 / len(again.iteration_costs),
+           "device_busy_share": device_ms / wall_ms, "cpu_s": cpu_s,
+           "purity": gc_purity(km.assignments, block), "first_cost": km.iteration_costs[0],
+           "last_cost": km.iteration_costs[-1], "cost_max_rel_diff": rel,
+           "assignments_differing": differ}
+    failures = []
+    if rel > GC_TOL or differ > (1 - GC_MIN_SAME_ASSIGN) * GC_VERTICES:
+        failures.append(f"kmeans against cpu {rel} {differ}")
+    return row, failures
+
+
+def gc_block_agreement(points, block, k=GC_K):
+    """The mean share of each point's k nearest (itself left out) that
+    share its block."""
+    from deeplearning4j_tpu_torch.clustering import BruteForceNearestNeighbors
+
+    _, idx = BruteForceNearestNeighbors(points).search_excluding_self(k)
+    return float((block[idx] == block[:, None]).mean())
+
+
+def gc_tsne(vectors, block):
+    """(e): exact t-SNE on the card (timed, profiled, its loop checked for
+    host reads), the short twin against the CPU, Barnes-Hut on the host.
+    Returns (row, failures)."""
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne, Tsne
+    from deeplearning4j_tpu_torch.plot import tsne as T
+
+    rng = np.random.default_rng(9)
+    sample = (np.arange(GC_VERTICES) if GC_TSNE_POINTS is None
+              else np.sort(rng.choice(GC_VERTICES, GC_TSNE_POINTS, replace=False)))
+    search, run = T._binary_search_betas, T._exact_tsne_run
+    seen = {}
+
+    def timed_search(*a, **k):
+        t0 = time.perf_counter()
+        out = search(*a, **k)
+        seen["search_s"] = time.perf_counter() - t0
+        return out
+
+    def timed_run(p, y0, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = run(p, y0, *a)
+        torch.cuda.synchronize()
+        seen.update(run_s=time.perf_counter() - t0, p=p, y0=y0, args=a)
+        return y
+
+    T._binary_search_betas, T._exact_tsne_run = timed_search, timed_run
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y = Tsne(**GC_TSNE).fit_transform(vectors[sample])
+        fit_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        T._binary_search_betas, T._exact_tsne_run = search, run
+    p, y0, args = seen["p"], seen["y0"], seen["args"]
+    short = (GC_TSNE_PROFILED,) + args[1:]
+    prof, wall_ms, _ = profiled(lambda: run(p, y0, *short), cpu=False)
+    _, _, device_ms = nlp_device_events(prof)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(p, y0, *short)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    yt = torch.from_numpy(y).to(p.device, torch.float64)
+    d2 = T.pairwise_distance(yt, yt, "sqeuclidean")
+    num = 1.0 / (1.0 + d2)
+    num.fill_diagonal_(0.0)
+    q = torch.clamp(num / num.sum(), min=1e-12)
+    pd = p.double()
+    kl = float((pd * torch.log(pd / q)).sum())
+    # the twin: GC_TSNE_TWIN_POINTS points on the card, the CPU in f32 and f64
+    twin = vectors[sample[:GC_TSNE_TWIN_POINTS]]
+    n = len(twin)
+    tw = torch.from_numpy(twin)
+    d2t = T.pairwise_distance(tw, tw, "sqeuclidean").numpy()
+    np.fill_diagonal(d2t, np.inf)
+    pc = T._binary_search_betas(np.where(np.isinf(d2t), 1e12, d2t),
+                                min(GC_TSNE["perplexity"], (n - 1) / 3.0))
+    pt = np.maximum((pc + pc.T) / (2.0 * n), 1e-12)
+    yt0 = np.random.default_rng(0).standard_normal((n, 2)) * 1e-4
+    twin_args = (GC_TSNE_TWIN_ITERS,) + args[1:3] + (max(n / 16.0, 50.0),)
+    runs = {name: run(torch.tensor(pt, dtype=dt, device=dev), torch.tensor(yt0, dtype=dt,
+                                                                            device=dev),
+                      *twin_args)
+            for name, dev, dt in (("card", p.device, torch.float32),
+                                  ("cpu32", "cpu", torch.float32),
+                                  ("cpu64", "cpu", torch.float64))}
+    against = sl_against_cpu({"y": runs["card"]}, {"y": runs["cpu32"]}, {"y": runs["cpu64"]})
+    bh_sample = np.sort(rng.choice(GC_VERTICES, GC_BH_POINTS, replace=False))
+    t0 = time.perf_counter()
+    bh = BarnesHutTsne(perplexity=GC_TSNE["perplexity"], n_iter=GC_BH_ITERS,
+                       seed=0).fit_transform(vectors[bh_sample])
+    bh_s = time.perf_counter() - t0
+    row = {"points": len(sample), "cut": GC_TSNE_POINTS is not None, **GC_TSNE,
+           "fit_s": fit_s, "perplexity_search_host_s": seen["search_s"],
+           "ms_per_iteration": seen["run_s"] * 1e3 / GC_TSNE["n_iter"],
+           "device_busy_share": device_ms / wall_ms, "peak_device_mem_gb": peak_gb,
+           "final_kl": kl, "block_agreement_2d_10nn": gc_block_agreement(y, block[sample]),
+           "block_agreement_128d_10nn": gc_block_agreement(vectors[sample], block[sample]),
+           "sync_check": "no host read in the loop (sync debug mode error)",
+           "twin": {"points": n, "iterations": GC_TSNE_TWIN_ITERS, "against_cpu": against},
+           "barnes_hut": {"points": GC_BH_POINTS, "iterations": GC_BH_ITERS,
+                          "host_s": bh_s, "host_s_per_iteration": bh_s / GC_BH_ITERS,
+                          "finite": bool(np.isfinite(bh).all())}}
+    failures = []
+    if not (np.isfinite(y).all() and np.isfinite(kl)):
+        failures.append("tsne not finite")
+    if against["failing"]:
+        failures.append(f"tsne twin {against}")
+    if not row["barnes_hut"]["finite"]:
+        failures.append("barnes-hut not finite")
+    return row, failures
+
+
+def gc_nearest(vectors, block):
+    """(f), but the server: brute force against the host VPTree, every
+    vertex's search_excluding_self, LSH against the CPU port. Returns
+    (row, failures)."""
+    from deeplearning4j_tpu_torch.clustering import (
+        BruteForceNearestNeighbors,
+        RandomProjectionLSH,
+        VPTree,
+        pairwise_distance,
+    )
+
+    failures = []
+    index = BruteForceNearestNeighbors(vectors)
+    index.search_excluding_self(GC_K)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, all_idx = index.search_excluding_self(GC_K)
+    all_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(13)
+    queries = rng.choice(GC_VERTICES, GC_VPTREE_QUERIES, replace=False)
+    cd, ci = index.search(vectors[queries], GC_K)
+    t0 = time.perf_counter()
+    tree = VPTree(vectors)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [tree.search(vectors[q], GC_K) for q in queries]
+    vptree_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+    same_sets = tie_sets = 0
+    for r, (hd, hi) in enumerate(host):
+        mine, theirs = set(ci[r].tolist()), set(hi.tolist())
+        if mine == theirs:
+            same_sets += 1
+            continue
+        dist = {**dict(zip(hi.tolist(), hd.tolist())), **dict(zip(ci[r].tolist(), cd[r].tolist()))}
+        kth = float(cd[r, -1])
+        tie_sets += all(abs(dist[i] - kth) <= GC_TIE_BAND * kth for i in mine ^ theirs)
+    tie_order = all(ci[r, j] < ci[r, j + 1] for r in range(len(ci))
+                    for j in range(GC_K - 1) if cd[r, j] == cd[r, j + 1])
+    # distances: the card's against the CPU port's (the same formula) and f64
+    xq, xc = vectors[queries], vectors[ci]
+    cpu32 = torch.stack([pairwise_distance(torch.from_numpy(xq[r:r + 1]),
+                                           torch.from_numpy(xc[r]))[0]
+                         for r in range(len(queries))])
+    f64 = torch.from_numpy(np.sqrt(((xc.astype(np.float64)
+                                     - xq[:, None, :].astype(np.float64)) ** 2).sum(-1)))
+    dist = sl_against_cpu({"d": torch.from_numpy(cd)}, {"d": cpu32}, {"d": f64})
+    # LSH on the card and the CPU port, recall@k against brute force
+    lsh, lsh_cpu = RandomProjectionLSH(**GC_LSH), RandomProjectionLSH(**GC_LSH, device="cpu")
+    t0 = time.perf_counter()
+    lsh.make_index(vectors)
+    index_s = time.perf_counter() - t0
+    lsh_cpu.make_index(vectors)
+    flipped = int((lsh.hash_signs(vectors) != lsh_cpu.hash_signs(vectors)).sum())
+    lq = rng.choice(GC_VERTICES, GC_LSH_QUERIES, replace=False)
+    _, truth = index.search(vectors[lq], GC_K)
+    t0 = time.perf_counter()
+    got = [lsh.get_all_nearest_neighbors(vectors[q], GC_K)[1] for q in lq]
+    lsh_ms = (time.perf_counter() - t0) * 1e3 / len(lq)
+    got_cpu = [lsh_cpu.get_all_nearest_neighbors(vectors[q], GC_K)[1] for q in lq]
+
+    def recall(answers):
+        return float(np.mean([len(set(a.tolist()) & set(t.tolist())) / GC_K
+                              for a, t in zip(answers, truth)]))
+
+    row = {"search_excluding_self_all_ms": all_ms, "all_shape": list(all_idx.shape),
+           "vptree": {"queries": len(queries), "build_s": build_s, "ms_per_query": vptree_ms,
+                      "same_sets": same_sets, "sets_differing_within_ties": tie_sets},
+           "ties_lowest_index_first": tie_order, "distances_against_f64": dist,
+           "lsh": {**GC_LSH, "index_s": index_s, "queries": len(lq), "ms_per_query": lsh_ms,
+                   "recall_at_k": recall(got), "cpu_recall_at_k": recall(got_cpu),
+                   "flipped_sign_bits": flipped,
+                   "bits": GC_VERTICES * GC_LSH["hash_length"] * GC_LSH["num_tables"]}}
+    if same_sets + tie_sets != len(queries) or not tie_order:
+        failures.append(f"brute force against vptree {same_sets} {tie_sets}")
+    if dist["failing"]:
+        failures.append("brute force distances")
+    if all_idx.shape != (GC_VERTICES, GC_K) or (all_idx == np.arange(GC_VERTICES)[:, None]).any():
+        failures.append("search_excluding_self")
+    return row, failures
+
+
+def gc_http(url, path, body):
+    """(status, JSON) of one request; a raw body is sent as it is."""
+    import urllib.error
+    import urllib.request
+
+    data = body if isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode())
+
+
+def gc_server(vectors, block):
+    """(f)'s server: GC_CLIENTS threads of NearestNeighborsClient against
+    NearestNeighborsServer on the card. Returns (row, failures)."""
+    from deeplearning4j_tpu_torch.clustering import BruteForceNearestNeighbors
+    from deeplearning4j_tpu_torch.clustering.server import (
+        NearestNeighborsClient,
+        NearestNeighborsServer,
+    )
+    from deeplearning4j_tpu_torch.observe.metrics import MetricsRegistry
+
+    labels = [f"group{b}" for b in block]
+    rng = np.random.default_rng(17)
+    asks = [("knn", int(i)) if j % 2 == 0 else
+            ("knnnew", (vectors[i] + rng.normal(0, 0.01, vectors.shape[1])).astype(np.float32))
+            for j, i in enumerate(rng.integers(0, GC_VERTICES, GC_REQUESTS))]
+    metrics = MetricsRegistry()
+    server = NearestNeighborsServer(vectors, labels, port=0, metrics=metrics)
+    on_device = server._index.points.device.type
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    answers, ms = [None] * len(asks), [0.0] * len(asks)
+    try:
+        def client(start):
+            c = NearestNeighborsClient(url, timeout=30)
+            for j in range(start, len(asks), GC_CLIENTS):
+                kind, what = asks[j]
+                t0 = time.perf_counter()
+                answers[j] = c.knn(what, GC_K) if kind == "knn" else c.knn_new(what, GC_K)
+                ms[j] = (time.perf_counter() - t0) * 1e3
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(GC_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        load_s = time.perf_counter() - t0
+        alive = sum(t.is_alive() for t in threads)
+        bad = [gc_http(url, "/knn", {"ndarray": GC_VERTICES, "k": 2})[0],
+               gc_http(url, "/knnnew", {"ndarray": [1.0, 2.0], "k": 2})[0],
+               gc_http(url, "/knn", b"{not json")[0]]
+    finally:
+        server.stop()
+    local = BruteForceNearestNeighbors(vectors)
+    wrong = 0
+    for (kind, what), got in zip(asks, answers):
+        if kind == "knn":
+            d, i = local.search(vectors[what], GC_K + 1)
+            pairs = [(int(a), float(b)) for a, b in zip(i[0], d[0]) if a != what][:GC_K]
+        else:
+            d, i = local.search(what, GC_K)
+            pairs = [(int(a), float(b)) for a, b in zip(i[0], d[0])]
+        want = {"results": [{"index": a, "distance": b} for a, b in pairs],
+                "labels": [labels[a] for a, _ in pairs]}
+        wrong += got != want
+    text = metrics.exposition()
+
+    def counted(path, status):
+        m = re.search(r'http_requests_total\{server="knn",path="%s",status="%d"\} (\d+)'
+                      % (path, status), text)
+        return int(m.group(1)) if m else 0
+
+    sent = {p: sum(k == p[1:] for k, _ in asks) for p in ("/knn", "/knnnew")}
+    row = {"device": on_device, "clients": GC_CLIENTS, "requests": len(asks),
+           "requests_per_s": len(asks) / load_s, "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)), "answers_wrong": wrong,
+           "bad_body_statuses": bad,
+           "exposition_200": {p: counted(p, 200) for p in sent},
+           "exposition_400": counted("/knn", 400) + counted("/knnnew", 400)}
+    failures = []
+    if (wrong or alive or on_device != "cuda" or bad != [400, 400, 400]
+            or row["exposition_200"] != sent or row["exposition_400"] != 3):
+        failures.append(f"server {row}")
+    return row, failures
+
+
+def gc_node2vec_and_serializer(graph, model, firsts, seconds, tmp):
+    """(g): Node2Vec on the same graph; the serializer from the card and a
+    CPU copy. Returns (row, failures)."""
+    from deeplearning4j_tpu_torch.graph import (
+        GraphVectors,
+        GraphVectorSerializer,
+        InMemoryGraphLookupTable,
+        Node2Vec,
+    )
+
+    failures = []
+    nv = Node2Vec(**GC_NODE2VEC)
+    walks = nv.generate_walks
+    walk_s = []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = walks(*a, **k)
+        walk_s.append(time.perf_counter() - t0)
+        return out
+
+    nv.generate_walks = timed
+    t0 = time.perf_counter()
+    nv.fit(graph, **GC_N2V_FIT)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    score = gc_hs_score(nv.lookup_table, firsts, seconds)
+    n2v = {**GC_NODE2VEC, **GC_N2V_FIT, "walk_host_s": sum(walk_s), "fit_s": fit_s,
+           "score": score, "device": str(nv.lookup_table.vertex_vectors.device)}
+    if not np.isfinite(score) or nv.lookup_table.vertex_vectors.device.type != "cuda":
+        failures.append("node2vec")
+    on_card, on_cpu = os.path.join(tmp, "card.txt"), os.path.join(tmp, "cpu.txt")
+    t0 = time.perf_counter()
+    GraphVectorSerializer.write_graph_vectors(model, on_card)
+    write_s = time.perf_counter() - t0
+    table = model.lookup_table
+    cpu_table = InMemoryGraphLookupTable(table.n_vertices, table.vector_size(), None,
+                                         table.learning_rate, device="cpu")
+    cpu_table.vertex_vectors = table.vertex_vectors.cpu()
+    GraphVectorSerializer.write_graph_vectors(GraphVectors(cpu_table), on_cpu)
+    with open(on_card, "rb") as a, open(on_cpu, "rb") as b:
+        same = a.read() == b.read()
+    t0 = time.perf_counter()
+    back = GraphVectorSerializer.load_txt_vectors(on_card)
+    read_s = time.perf_counter() - t0
+    back_cpu = GraphVectorSerializer.load_txt_vectors(on_card, device="cpu")
+    got = back.lookup_table.vertex_vectors
+    ser = {"bytes": os.path.getsize(on_card), "write_s": write_s, "read_s": read_s,
+           "same_bytes_as_cpu": same, "read_on": str(got.device),
+           "card_read_equal": torch.equal(got, table.vertex_vectors),
+           "cpu_read_equal": torch.equal(back_cpu.lookup_table.vertex_vectors,
+                                         table.vertex_vectors.cpu())}
+    if not (same and ser["card_read_equal"] and ser["cpu_read_equal"]
+            and got.device.type == "cuda"):
+        failures.append(f"serializer {ser}")
+    return {"node2vec": n2v, "serializer": ser}, failures
+
+
+def graph_clustering_phase(ck, card):
+    """DL4J's graph-embedding path on the card (see GC_*): the graph,
+    DeepWalk, the vertex classifier, KMeans, t-SNE, nearest neighbours and
+    the k-NN server, Node2Vec and the serializer. Returns the classifier's
+    launches."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+    failures, parts_s, rows = [], {}, {}
+
+    def report(name, t0, row, bad):
+        parts_s[name] = time.perf_counter() - t0
+        rows[name] = row
+        failures.extend(bad)
+        print(f"graph_clustering {name} " + json.dumps({"card": card, **row}), flush=True)
+
+    try:
+        t0 = time.perf_counter()
+        graph, edges, block, row, bad = gc_graph(tmp)
+        report("(a) graph", t0, row, bad)
+        t0 = time.perf_counter()
+        model, row, bad = gc_deepwalk(graph)
+        twin, twin_bad = gc_twin(edges)
+        report("(b) deepwalk", t0, {**row, "twin": twin}, bad + twin_bad)
+        vt = model.lookup_table.vertex_vectors
+        vectors = vt.cpu().numpy()
+        t0 = time.perf_counter()
+        row, bad, paths = gc_classifier(ck, vectors, block)
+        report("(c) classifier", t0, row, bad)
+        t0 = time.perf_counter()
+        row, bad = gc_kmeans(vt, block)
+        report("(d) kmeans", t0, row, bad)
+        t0 = time.perf_counter()
+        row, bad = gc_tsne(vectors, block)
+        report("(e) tsne", t0, row, bad)
+        t0 = time.perf_counter()
+        row, bad = gc_nearest(vectors, block)
+        server, server_bad = gc_server(vectors, block)
+        report("(f) nearest_neighbours", t0, {**row, "server": server}, bad + server_bad)
+        t0 = time.perf_counter()
+        firsts, seconds = gc_score_pairs(graph, GC_NODE2VEC["window_size"], vt.device)
+        row, bad = gc_node2vec_and_serializer(graph, model, firsts, seconds, tmp)
+        report("(g) node2vec_serializer", t0, row, bad)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    dw, clf = rows["(b) deepwalk"], rows["(c) classifier"]
+    tsne, nn = rows["(e) tsne"], rows["(f) nearest_neighbours"]
+    print("graph_clustering summary " + json.dumps({
+        "card": card, "vertices": GC_VERTICES, "edges": GC_EDGES,
+        "deepwalk_pairs_per_s": dw["pairs_per_s"], "deepwalk_median_step_ms": dw["median_step_ms"],
+        "deepwalk_launches_per_step": dw["profiled_epoch"]["kernel_launches_per_step"],
+        "deepwalk_busy_share": dw["profiled_epoch"]["device_busy_share"],
+        "deepwalk_scores": dw["scores"], "held_out_accuracy": clf["held_out_accuracy"],
+        "kmeans_purity": rows["(d) kmeans"]["purity"],
+        "tsne_points": tsne["points"], "tsne_ms_per_iteration": tsne["ms_per_iteration"],
+        "server_requests_per_s": nn["server"]["requests_per_s"],
+        "server_p50_p99_ms": [nn["server"]["p50_ms"], nn["server"]["p99_ms"]],
+        "phase_s": seconds, "parts_s": parts_s, "target_s": GC_MAX_SECONDS,
+        "failures": failures}), flush=True)
+    if failures:
+        raise RuntimeError(f"graph_clustering: {failures}")
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -9014,6 +9905,7 @@ def main() -> None:
     sr_paths = timed(serving_registry_phase, ck, card)
     hs_paths = timed(http_serving_phase, ck, card)
     nlp_paths = timed(nlp_text_classification_phase, ck, card)
+    gc_paths = timed(graph_clustering_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -9061,11 +9953,11 @@ def main() -> None:
     def workflow_paths(kernel):
         """The kernel's launches on each path of the samediff, transfer,
         checkpointing, zoo_facenet, keras_import, model_export,
-        training_utilities, serving_registry, http_serving and
-        nlp_text_classification phases."""
+        training_utilities, serving_registry, http_serving,
+        nlp_text_classification and graph_clustering phases."""
         return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths, fn_paths,
                                                    ki_paths, me_paths, tu_paths, sr_paths,
-                                                   hs_paths, nlp_paths)
+                                                   hs_paths, nlp_paths, gc_paths)
                 for path, counts in paths.items()}
 
     def workflow_total(kernel):

@@ -155,3 +155,25 @@ def load_reference_lookup_table(model, syn0, syn1=None, syn1neg=None):
             t.copy_(torch.from_numpy(np.array(theirs[n])).to(dtype=t.dtype))
     table.touch()
     return model
+
+
+def load_reference_graph_lookup_table(model, vertex_vectors, out_weights):
+    """Copy the reference's DeepWalk tables (numpy ``vertex_vectors`` and
+    ``out_weights``, what ``np.asarray`` of its ``lookup_table``'s gives)
+    into the port model's (a ``DeepWalk``, a ``Node2Vec`` or its
+    ``InMemoryGraphLookupTable``), in place. Both tables must have the
+    model's shapes; on any mismatch it raises and copies nothing. Returns
+    ``model``."""
+    table = getattr(model, "lookup_table", model)
+    if table is None:
+        raise RuntimeError("the model has no lookup table yet: call "
+                           "initialize(graph) first")
+    mine = {"vertex_vectors": table.vertex_vectors, "out_weights": table.out_weights}
+    problems = _mismatches(mine, {"vertex_vectors": vertex_vectors,
+                                  "out_weights": out_weights}, "lookup table ", 1)
+    if problems:
+        raise ValueError("tables do not match the model: " + "; ".join(problems))
+    with torch.no_grad():
+        mine["vertex_vectors"].copy_(torch.from_numpy(np.array(vertex_vectors)))
+        mine["out_weights"].copy_(torch.from_numpy(np.array(out_weights)))
+    return model

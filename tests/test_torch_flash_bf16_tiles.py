@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.nn import cuda_kernels as ck
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BF = torch.bfloat16
 LOG2E = 1.4426950408889634

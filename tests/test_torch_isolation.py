@@ -204,6 +204,51 @@ def test_entry_points_need_an_explicit_cpu(tmp_path):
         back_vec = getattr(WordVectorSerializer, read)(vec_path, device="cpu")
         assert back_vec.lookup_table.syn0.device.type == "cpu"
 
+    # graph embeddings, nearest neighbours, k-means, LSH, t-SNE and the
+    # k-NN server pick cuda unless the caller asks for the CPU
+    from deeplearning4j_tpu_torch.clustering import (
+        BruteForceNearestNeighbors,
+        KMeansClustering,
+        RandomProjectionLSH,
+        knn,
+    )
+    from deeplearning4j_tpu_torch.clustering.server import NearestNeighborsServer
+    from deeplearning4j_tpu_torch.graph import (
+        DeepWalk,
+        Graph,
+        GraphVectorSerializer,
+        InMemoryGraphLookupTable,
+        Node2Vec,
+    )
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne, Tsne
+
+    pts = np.arange(12, dtype=np.float32).reshape(6, 2)
+    refusals = [lambda: DeepWalk(vector_size=4), lambda: Node2Vec(vector_size=4),
+                lambda: DeepWalk.Builder().vector_size(4).build(),
+                lambda: InMemoryGraphLookupTable(3, 4, None, 0.01),
+                lambda: BruteForceNearestNeighbors(pts), lambda: KMeansClustering(2),
+                lambda: KMeansClustering.setup(2), lambda: RandomProjectionLSH(4, 2),
+                lambda: Tsne(), lambda: BarnesHutTsne(), lambda: NearestNeighborsServer(pts)]
+    for refused in refusals:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            refused()
+    g = Graph(3)
+    g.add_edge(0, 1)
+    g.add_edge(1, 2)
+    dw = DeepWalk(vector_size=4, window_size=1, device="cpu")
+    dw.fit(g, walk_length=4)
+    assert dw.lookup_table.vertex_vectors.device.type == "cpu"
+    vec_path = os.path.join(str(tmp_path), "graph_vectors.txt")
+    GraphVectorSerializer.write_graph_vectors(dw, vec_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GraphVectorSerializer.load_txt_vectors(vec_path)
+    back = GraphVectorSerializer.load_txt_vectors(vec_path, device="cpu")
+    assert back.lookup_table.vertex_vectors.device.type == "cpu"
+    assert BruteForceNearestNeighbors(pts, device="cpu").points.device.type == "cpu"
+    assert NearestNeighborsServer(pts, use_device=False)._index is None
+    # the functions follow their tensors
+    assert knn(torch.from_numpy(pts), torch.from_numpy(pts), 2)[1].device.type == "cpu"
+
 
 def test_samediff_and_the_zoo_base_need_an_explicit_cpu(tmp_path, monkeypatch):
     """SameDiff, its npz and ``init_pretrained`` pick cuda unless the
@@ -486,6 +531,31 @@ def test_nlp_and_native_modules_leave_jax_unloaded():
     assert {f"deeplearning4j_tpu_torch/{m.replace('.', '/')}.py"
             for m in modules if m not in ("nlp", "native")} <= names
     assert "deeplearning4j_tpu_torch/nlp/distributed.py" not in names
+
+
+def test_graph_clustering_and_plot_modules_leave_jax_unloaded():
+    """The graph embeddings, clustering and t-SNE slice's modules and the
+    graph lookup-table carry import no jax."""
+    modules = ("graph", "graph.api", "graph.graph", "graph.huffman", "graph.iterator",
+               "graph.loader", "graph.deepwalk", "graph.node2vec", "graph.serializer",
+               "clustering", "clustering.vptree", "clustering.kdtree", "clustering.sptree",
+               "clustering.quadtree", "clustering.bruteforce", "clustering.cluster",
+               "clustering.kmeans", "clustering.lsh", "clustering.server", "plot",
+               "plot.tsne", "util.convert")
+    code = ("import sys, " + ", ".join(f"deeplearning4j_tpu_torch.{m}" for m in modules)
+            + "; from deeplearning4j_tpu_torch.util.convert import "
+              "load_reference_graph_lookup_table; "
+              "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'deeplearning4j_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    names = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {f"deeplearning4j_tpu_torch/{m.replace('.', '/')}.py"
+            for m in modules if m not in ("graph", "clustering", "plot")} <= names
+    assert {f"deeplearning4j_tpu_torch/{m}/__init__.py"
+            for m in ("graph", "clustering", "plot")} <= names
 
 
 def test_serving_and_observability_modules_leave_jax_unloaded(tmp_path):

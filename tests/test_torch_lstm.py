@@ -39,6 +39,7 @@ from deeplearning4j_tpu_torch.nn import cuda_kernels as ck
 from deeplearning4j_tpu_torch.nn import helpers as thelpers
 from deeplearning4j_tpu_torch.nn.layers import GravesLSTMLayer, LSTMLayer
 from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 2e-5, 2e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6

@@ -24,6 +24,7 @@ from deeplearning4j_tpu import native as r_native
 from deeplearning4j_tpu_torch import native as p_native
 from deeplearning4j_tpu_torch import nlp as P
 from deeplearning4j_tpu_torch.util.convert import load_reference_lookup_table
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5  # × the table's largest entry
 
@@ -79,6 +80,12 @@ def _port(name):
     return getattr(P, cls)(**kw, device="cpu").fit(CORPUS)
 
 
+@functools.lru_cache(maxsize=None)
+def _fitted_port(name):
+    """One port fit a configuration, shared by the cases that only read it."""
+    return _port(name)
+
+
 def _tables(table):
     """The table's syn0, syn1 and syn1neg that exist, as numpy."""
     out = {}
@@ -99,7 +106,7 @@ def _close(got, want, what):
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_tables_match_the_reference(name):
-    ref, port = _reference(name), _port(name)
+    ref, port = _reference(name), _fitted_port(name)
     assert port.vocab.words() == ref.vocab.words()
     _close(_tables(port.lookup_table), _tables(ref.lookup_table), name)
     assert port.lookup_table.syn0.dtype == torch.float32
@@ -107,7 +114,7 @@ def test_tables_match_the_reference(name):
 
 @pytest.mark.parametrize("name", ["dbow", "dm", "dm_hs"])
 def test_infer_vector_matches_and_leaves_the_table_bit_for_bit(name):
-    ref, port = _reference(name), _port(name)
+    ref, port = _reference(name), _fitted_port(name)
     before = {n: t.clone() for n, t in
               ((n, getattr(port.lookup_table, n)) for n in ("syn0", "syn1", "syn1neg"))
               if t is not None}
@@ -124,7 +131,7 @@ def test_infer_vector_matches_and_leaves_the_table_bit_for_bit(name):
 
 @pytest.mark.parametrize("name", ["skipgram_hs_ns", "dm"])
 def test_vocabulary_and_huffman_match(name):
-    ref, port = _reference(name), _port(name)
+    ref, port = _reference(name), _fitted_port(name)
     def rows(m):
         return [(vw.word, vw.index, vw.frequency, vw.code, vw.points, vw.is_label)
                 for vw in m.vocab.vocab_words()]
