@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs thirty-six phases:
+every kernel, and runs thirty-seven phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -401,6 +401,23 @@ every kernel, and runs thirty-six phases:
    and Barnes-Hut; brute-force k-NN against the host VPTree, LSH against
    the CPU port, the k-NN server under 8 client threads; Node2Vec; the
    vectors' text file from the card and a CPU copy (the same bytes).
+37. DL4J's char LSTM retrained through the continuous-training pipeline
+   (``cli.py``, ``pipeline/``, ``streaming/``, ``util/preemption.py``):
+   ``python -m deeplearning4j_tpu_torch.cli pipeline`` twice on one state
+   directory over 160 sequences of this repository's text, (a) true
+   labels (TRAIN 80 TBPTT chunks: 2 K1 + 8 K2 a chunk; the gate; a canary
+   at 0.25 then 0.5 with shadow diffs; PROMOTE), then labels through a
+   seeded permutation of the characters (ROLLBACK at the gate, the
+   promoted version still live), the journal's terminal commits, the
+   served zip bit for bit the promoted candidate's and within 1e-5 on the
+   CPU; (b) the streamed batches as codec frames through an
+   ``EmbeddedBroker``, a ``SocketPublisher``/``SocketConsumer`` pair and
+   two ``Route``s into a ``StreamBuffer``, a ``ContinuousTrainer``'s two
+   mini-epochs against a twin fed the same batches from a list; (c) a
+   SIGTERM inside a fit under a ``PreemptionHandler``, the resumed zip bit
+   for bit the parameters at that step boundary; (d) ``evaluate`` over a
+   CSV of LeNet rows against ``Evaluation``; (e) ``serve`` and one binary
+   predict; (f) ``profile``'s buckets naming K1 and K2.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -907,9 +924,10 @@ ME_STEPS, ME_BATCH, ME_LENET_TOL = 3, 64, 1e-6
 TU_N, TU_HELD, TU_BATCH, TU_EPOCHS, TU_PATIENCE = 4096, 1024, 128, 5, 2
 TU_CKPT_EVERY, TU_CKPT_KEEP, TU_BEST_RTOL, TU_MAX_SECONDS = 8, 2, 1e-6, 600
 TU_GPT2_STEPS, TU_PROFILE = 10, (3, 3)
-# TU_SOLVER_N is 512 (1,024 earlier): (c)'s float64 CPU twin runs in
-# process after the timed parts, and at 1,024 it took 96 s of the script
-TU_SOLVER_N, TU_SOLVER_ITERS, TU_SOLVER_F32_TOL, TU_SOLVER_F64_RTOL = 512, 10, 1e-5, 1e-8
+# TU_SOLVER_N is 256 (1,024, then 512 earlier): (c)'s float64 CPU twin
+# runs in process after the timed parts, and at 1,024 it took 96 s of the
+# script; halved again to make room for the continuous-training phase
+TU_SOLVER_N, TU_SOLVER_ITERS, TU_SOLVER_F32_TOL, TU_SOLVER_F64_RTOL = 256, 10, 1e-5, 1e-8
 # the f32 first gradient below the output layer: a relu pre-activation
 # within f32 rounding of 0 takes the other side of the kink than in f64
 # (on an H100 80GB HBM3 at 700 W, one of the dense layer's 64000 at batch
@@ -1012,9 +1030,10 @@ HS_BURN = {"type": "burn_rate", "name": "serving_burn", "severity": "page",
 # meant to take at most NLP_MAX_SECONDS.
 NLP_W2V = dict(layer_size=300, window_size=5, negative_sample=5,
                min_word_frequency=5, epochs=1, seed=42)
-# NLP_W2V_LINES cuts the corpus to its first 100,000 lines: the repository's
-# text grows with every module (175,044 lines took 84 s of host-bound steps)
-NLP_W2V_LINES, NLP_TWIN_LINES, NLP_TOL, NLP_F32_FACTOR = 100_000, 2000, 1e-5, 4.0
+# NLP_W2V_LINES cuts the corpus to its first 50,000 lines: the repository's
+# text grows with every module (175,044 lines took 84 s of host-bound steps;
+# 100,000 until the continuous-training phase needed the room)
+NLP_W2V_LINES, NLP_TWIN_LINES, NLP_TOL, NLP_F32_FACTOR = 50_000, 2000, 1e-5, 4.0
 NLP_PROFILED_LINES = 300
 NLP_NEAREST = ("def", "return", "tensor", "kernel")
 NLP_SKIP_DIRS = ("build", "__pycache__")
@@ -2661,14 +2680,15 @@ def recurrent_stack_phase(ck, card):
     return totals
 
 
-def char_corpus(n_examples):
+def char_corpus(n_examples, files=CORPUS):
     """``n_examples`` non-overlapping character sequences of CHAR_LEN + 1
     from the repository's own text, with every character outside CHARS
     dropped (as the example's CharacterIterator drops them), as indices
-    into CHARS (a [n_examples, CHAR_LEN + 1] int64 array)."""
+    into CHARS (a [n_examples, CHAR_LEN + 1] int64 array). ``files``: the
+    text, relative to the repository's root."""
     root = os.path.dirname(os.path.abspath(__file__))
     text = "".join(open(os.path.join(root, f), encoding="utf-8").read()
-                   for f in CORPUS)
+                   for f in files)
     index = {c: i for i, c in enumerate(CHARS)}
     ids = np.fromiter((index[c] for c in text if c in index), dtype=np.int64)
     need = n_examples * (CHAR_LEN + 1)
@@ -2857,11 +2877,12 @@ def char_lstm_phase(ck, card):
     return launched, by_plan, train["fused_adam"]
 
 
-def lenet_conf(regularized=False):
+def lenet_conf(regularized=False, flat_input=False):
     """``__graft_entry__._lenet``'s LeNet, through the port's DSL: conv 5x5
     20, max pool 2x2, conv 5x5 50, max pool 2x2, dense 500, output 10;
     Adam(1e-3), seed 42, f32, 28x28x1. ``regularized``: dropout 0.5 on the
-    dense layer's input and per-layer L2 gradient renormalization."""
+    dense layer's input and per-layer L2 gradient renormalization.
+    ``flat_input``: rows of 784 pixels (``InputType.convolutional_flat``)."""
     from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer, DenseLayer,
                                                     OutputLayer, SubsamplingLayer)
@@ -2870,7 +2891,10 @@ def lenet_conf(regularized=False):
     b = NeuralNetConfiguration.builder().seed(42).updater(Adam(1e-3))
     if regularized:
         b = b.gradient_normalization("renormalize_l2_per_layer")
-    return (b.list()
+    lb = b.list()
+    if flat_input:  # the list builder adds no ff_to_cnn for a flat input
+        lb = lb.input_pre_processor(0, "ff_to_cnn:28,28,1")
+    return (lb
             .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5), stride=(1, 1),
                                     padding=(0, 0), activation="relu"))
             .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2),
@@ -2883,7 +2907,8 @@ def lenet_conf(regularized=False):
                               dropout=0.5 if regularized else None))
             .layer(OutputLayer(n_out=10, activation="softmax",
                                loss="negativeloglikelihood"))
-            .set_input_type(InputType.convolutional(28, 28, 1)).build())
+            .set_input_type(InputType.convolutional_flat(28, 28, 1) if flat_input
+                            else InputType.convolutional(28, 28, 1)).build())
 
 
 def lenet_data():
@@ -9832,6 +9857,491 @@ def graph_clustering_phase(ck, card):
     return paths
 
 
+# the continuous-training phase (37): DL4J's char LSTM (char_lstm_conf) as
+# the serving baseline of ``python -m deeplearning4j_tpu_torch.cli
+# pipeline``, fed CT_SEQS non-overlapping sequences of CHAR_LEN + 1
+# characters from CT_CORPUS (text the port never edits), the tail
+# CT_EVAL_FRACTION held out. Run 1 streams true labels and must PROMOTE;
+# run 2, on the same state directory, streams labels through a seeded
+# permutation of the 77 classes and must ROLLBACK at the gate. CT_CONFIG
+# overrides examples/pipeline_config.json's fields. Each TRAIN stage runs
+# mini_epochs x batches_per_mini_epoch x CHAR_LEN / CHAR_TBPTT chunks.
+CT_CORPUS = ("ARCHITECTURE.md", "SURVEY.md", "PARITY.md", "KNOWN_GAPS.md", "VERDICT.md")
+CT_SEQS, CT_EVAL_FRACTION, CT_PERM_SEED = 160, 0.2, 25
+CT_CONFIG = {
+    "name": "char",
+    "train": {"batch_size": CHAR_BATCH, "batches_per_mini_epoch": 2, "mini_epochs": 2},
+    "gate": {"metric": "loss", "rel_margin": 0.02},
+    "canary": {"schedule": [{"fraction": 0.25, "hold_s": 1}, {"fraction": 0.5, "hold_s": 1}],
+               "shadow_sample": 0.5, "poll_s": 0.05},
+}
+# (b) the broker-fed trainer against a twin fed the same batches from a
+# list: each parameter within CT_TWIN_TOL x its largest entry; (c) SIGTERM
+# sent when fit CT_PREEMPT_AFTER of CT_PREEMPT_FITS TBPTT fits ends; (e) one
+# binary predict within SERVE_RTOL / SERVE_ATOL of ``output``; (f)
+# CT_PROFILE_STEPS profiled fits of the first CHAR_BATCH sequences cut to
+# CT_PROFILE_LEN characters (the profiler's cost grows with the launches
+# it records: 2 fits of 1000 characters took 50 s on an H100). The phase
+# is meant to take at most CT_MAX_SECONDS.
+CT_TWIN_TOL, CT_PREEMPT_AFTER, CT_PREEMPT_FITS = 1e-6, 1, 2
+CT_PROFILE_STEPS, CT_PROFILE_LEN = 1, 5 * CHAR_TBPTT
+CT_MAX_SECONDS = 60.0
+
+
+def ct_data(tmp):
+    """The pipeline's two ``.npz`` files (true labels; streamed labels
+    permuted), the profile's, and the host arrays: features and labels
+    [CT_SEQS, CHAR_LEN, 77] one-hot f32."""
+    v = len(CHARS)
+    ids = char_corpus(CT_SEQS, CT_CORPUS)
+    eye = np.eye(v, dtype=np.float32)
+    x, y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+    n_eval = max(1, int(CT_SEQS * CT_EVAL_FRACTION))
+    perm = np.random.default_rng(CT_PERM_SEED).permutation(v)
+    y_bad = y.copy()
+    y_bad[:-n_eval] = y[:-n_eval][..., perm]
+    paths = tuple(os.path.join(tmp, f) for f in ("chars.npz", "chars_permuted.npz",
+                                                "chars_profile.npz"))
+    np.savez(paths[0], features=x, labels=y)
+    np.savez(paths[1], features=x, labels=y_bad)
+    np.savez(paths[2], features=x[:CHAR_BATCH, :CT_PROFILE_LEN],
+             labels=y[:CHAR_BATCH, :CT_PROFILE_LEN])
+    return paths, x, y, n_eval
+
+
+class CtStages:
+    """Wraps the pipeline's stages, the trainer's mini-epochs and the
+    registry's predict while it is entered: each stage's and mini-epoch's
+    seconds and launches (synchronised at both ends), and the predicts."""
+
+    def __init__(self, ck):
+        from deeplearning4j_tpu_torch.pipeline import runner, trainer
+        from deeplearning4j_tpu_torch.serving import registry
+
+        self.ck, self.log, self.predicts, self._saved = ck, [], 0, []
+        for owner, name, kind in ((runner.ContinuousPipeline, "_stage_train", "TRAIN"),
+                                  (runner.ContinuousPipeline, "_stage_eval", "EVAL"),
+                                  (runner.ContinuousPipeline, "_stage_canary", "CANARY"),
+                                  (trainer.ContinuousTrainer, "train_mini_epoch", "fit")):
+            self._wrap(owner, name, kind)
+        predict = registry.ModelRegistry.predict
+
+        def counted(reg, *a, **k):
+            self.predicts += 1
+            return predict(reg, *a, **k)
+
+        self._saved.append((registry.ModelRegistry, "predict", predict))
+        registry.ModelRegistry.predict = counted
+
+    def _wrap(self, owner, name, kind):
+        orig = getattr(owner, name)
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            before, t0 = read_launches(self.ck), time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                after = read_launches(self.ck)
+                self.log.append({"kind": kind, "s": time.perf_counter() - t0,
+                                 "launches": {n: after[n] - before[n] for n in after
+                                              if after[n] != before[n]}})
+
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, run)
+
+    def restore(self):
+        for owner, name, orig in self._saved:
+            setattr(owner, name, orig)
+
+    def take(self):
+        """The log since the last take, and the predicts."""
+        log, predicts = self.log, self.predicts
+        self.log, self.predicts = [], 0
+        return log, predicts
+
+
+def ct_run_summary(log, predicts, chunks, n_lstm, n_tensors, examples):
+    """A pipeline run's stage seconds, TRAIN's characters/s and the
+    canary's requests from the stage log, and its failed checks."""
+    bad, fits = [], [e for e in log if e["kind"] == "fit"]
+    stages = [e for e in log if e["kind"] != "fit"]
+    fit_s = sum(e["s"] for e in fits)
+    k1 = sum(e["launches"].get("lstm_sequence", 0) for e in fits)
+    k2 = sum(e["launches"].get("fused_adam", 0) for e in fits)
+    if (k1, k2) != (n_lstm * chunks, n_tensors * chunks):
+        bad.append(f"TRAIN: {k1} K1 and {k2} K2 in {chunks} chunks, expected "
+                   f"{n_lstm} and {n_tensors} a chunk")
+    row = {"stages_s": {e["kind"]: e["s"] for e in stages},
+           "stage_launches": {e["kind"]: e["launches"] for e in stages},
+           "fit_s": fit_s, "train_chunks": chunks, "train_k1": k1, "train_k2": k2,
+           "train_chars_per_s": examples * CHAR_LEN / fit_s if fit_s else None,
+           "canary_requests": predicts}
+    return row, bad
+
+
+def ct_pipeline(ck, tmp, paths, baseline_zip, x, n_eval, net):
+    """(a): the ``pipeline`` subcommand twice on one state directory."""
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.pipeline import PipelineJournal
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    cfg = json.load(open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "examples", "pipeline_config.json")))
+    for section, values in CT_CONFIG.items():
+        if isinstance(values, dict):
+            cfg[section].update(values)
+        else:
+            cfg[section] = values
+    cfg_path, state = os.path.join(tmp, "pipeline.json"), os.path.join(tmp, "state")
+    json.dump(cfg, open(cfg_path, "w"))
+    out_zip = os.path.join(tmp, "served.zip")
+    train = cfg["train"]
+    chunks = train["mini_epochs"] * train["batches_per_mini_epoch"] * CHAR_LEN // CHAR_TBPTT
+    examples = train["mini_epochs"] * train["batches_per_mini_epoch"] * train["batch_size"]
+    n_lstm = sum(1 for l in net.layers if type(l).__name__ == "LSTMLayer")
+    n_tensors = tensors_of(net)
+    bad, rows, counts, by_plan = [], {}, {}, {}
+    stages = CtStages(ck)
+    try:
+        for run, data in ((1, paths[0]), (2, paths[1])):
+            zero_launches(ck)
+            t0 = time.perf_counter()
+            rc = cli.main(["pipeline", "--modelPath", baseline_zip, "--dataPath", data,
+                           "--config", cfg_path, "--state-dir", state,
+                           "--eval-fraction", str(CT_EVAL_FRACTION),
+                           "--modelOutputPath", out_zip])
+            torch.cuda.synchronize()
+            counts[f"continuous_training_pipeline_run{run}"] = read_launches(ck)
+            by_plan[f"continuous_training_pipeline_run{run}"] = dict(
+                ck.lstm_sequence.launches_by_plan)
+            log, predicts = stages.take()
+            row, run_bad = ct_run_summary(log, predicts, chunks, n_lstm, n_tensors, examples)
+            row.update(rc=rc, s=time.perf_counter() - t0)
+            bad += [f"run {run}: {b}" for b in run_bad] + ([f"run {run}: rc {rc}"] if rc else [])
+            rows[f"run{run}"] = row
+    finally:
+        stages.restore()
+    records = PipelineJournal(state).records()
+    terminals = [(r["run"], r["stage"]) for r in records
+                 if r.get("event") == "commit" and r.get("stage") in ("PROMOTE", "ROLLBACK")]
+    if terminals != [(1, "PROMOTE"), (2, "ROLLBACK")]:
+        bad.append(f"journal terminal commits {terminals}")
+    gates = {r["run"]: r["data"] for r in records
+             if (r.get("event"), r.get("stage")) == ("commit", "EVAL")}
+    canary = {r["run"]: r["data"] for r in records
+              if (r.get("event"), r.get("stage")) == ("commit", "CANARY")}
+    g1, g2 = gates.get(1, {}), gates.get(2, {})
+    if not (g1.get("passed") and g1["candidate"] < g1["baseline"]):
+        bad.append(f"run 1 gate {g1}")
+    if not (g2 and not g2["passed"] and g2["candidate"] > g2["threshold"]):
+        bad.append(f"run 2 gate {g2}")
+    for run in (1, 2):
+        c = counts[f"continuous_training_pipeline_run{run}"]
+        k1_out = c["lstm_sequence"] - rows[f"run{run}"]["train_k1"]
+        rows[f"run{run}"]["output_k1"] = k1_out
+        k3 = {k: n for k, n in c.items() if k.startswith("flash") and n}
+        if k1_out <= 0 or k3 or c["lstm_sequence_bf16"]:
+            bad.append(f"run {run}: output-path K1 {k1_out}, K3 {k3}, K1-bf16 "
+                       f"{c['lstm_sequence_bf16']}")
+    # the served zip against the promoted candidate's, on the card and the CPU
+    xs = x[-n_eval:][:4]
+    served = model_serializer.restore_model(out_zip)
+    promoted = model_serializer.restore_model(os.path.join(state, "candidate_run0001.zip"))
+    a, b = served.output(xs), promoted.output(xs)
+    cpu_out = model_serializer.restore_model(out_zip, device="cpu").output(xs)
+    cpu_diff = (a.cpu() - cpu_out).abs().max().item()
+    if not torch.equal(a, b) or cpu_diff > CHAR_OUT_ATOL:
+        bad.append(f"served zip: equal to the promoted candidate {torch.equal(a, b)}, "
+                   f"CPU {cpu_diff}")
+    row = {**rows, "journal_records": len(records), "terminals": terminals,
+           "gate": {run: {k: g.get(k) for k in ("candidate", "baseline", "threshold", "passed")}
+                    for run, g in gates.items()},
+           "canary_shadow": {run: c.get("shadow") for run, c in canary.items()},
+           "served_zip_cpu_max_abs_diff": cpu_diff}
+    del served, promoted
+    return row, bad, counts, by_plan
+
+
+def ct_broker(ck, baseline_zip, x, y):
+    """(b): the streamed batches as codec frames through an EmbeddedBroker
+    topic, a Route onto a SocketPublisher, a SocketConsumer and a Route
+    into a StreamBuffer; two mini-epochs of a ContinuousTrainer on a clone
+    of the baseline against a twin fed the same batches from a list."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.pipeline import ContinuousTrainer, StreamBuffer
+    from deeplearning4j_tpu_torch.streaming import (EmbeddedBroker, Route, SocketConsumer,
+                                                    SocketPublisher, StreamingDataSetIterator,
+                                                    deserialize_dataset, serialize_dataset)
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    n = 4 * CHAR_BATCH
+    batches = [DataSet(x[i:i + CHAR_BATCH], y[i:i + CHAR_BATCH]) for i in range(0, n, CHAR_BATCH)]
+    frames = [serialize_dataset(b) for b in batches]
+    deserialize_dataset(frames[0])  # warm
+    decode_ms = []
+    for f in frames:
+        t0 = time.perf_counter()
+        deserialize_dataset(f)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    base = model_serializer.restore_model(baseline_zip)
+    net, twin = base.clone(), base.clone()
+    del base
+    broker, consumer, buffer = EmbeddedBroker(), SocketConsumer(port=0), StreamBuffer()
+    publisher = SocketPublisher("127.0.0.1", consumer.port)
+    bad = []
+    try:
+        t0 = time.perf_counter()
+        for f in frames:
+            broker.publish("chars", f)
+        out = Route().from_source(broker.poll("chars", timeout=30.0) for _ in frames) \
+            .to_callable(publisher.publish).start()
+        into = Route().from_source(StreamingDataSetIterator(
+            consumer, num_batches=len(frames), poll_timeout=30.0)).to_callable(buffer.put).start()
+        sent, got = out.join(timeout=60), into.join(timeout=60)
+        stream_s = time.perf_counter() - t0
+        if (sent, got) != (len(frames), len(frames)) or out.error or into.error:
+            bad.append(f"routes delivered {sent}, {got} ({out.error!r}, {into.error!r})")
+        trainer = ContinuousTrainer(net, buffer, batch_size=CHAR_BATCH,
+                                    batches_per_mini_epoch=2, take_timeout_s=5.0,
+                                    model_name="char-broker")
+        zero_launches(ck)
+        t0 = time.perf_counter()
+        stats = [trainer.train_mini_epoch() for _ in range(2)]
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = read_launches(ck)
+    finally:
+        publisher.close()
+        consumer.close()
+    for k in range(2):
+        twin.fit(batches[2 * k:2 * k + 2], epochs=1)
+    worst = max((d.abs().max() / max(t.abs().max(), 1e-30)).item()
+                for d, t in ((net.params[i][p] - twin.params[i][p], twin.params[i][p])
+                             for i in twin.params for p in twin.params[i]))
+    if worst > CT_TWIN_TOL:
+        bad.append(f"broker-fed trainer {worst} from the list-fed twin")
+    if [s["examples"] for s in stats] != [2 * CHAR_BATCH] * 2:
+        bad.append(f"mini-epochs {stats}")
+    row = {"frame_bytes": [len(f) for f in frames], "stream_s": stream_s,
+           "examples_per_s_through_broker": n / stream_s,
+           "decode_host_ms_per_frame": float(np.median(decode_ms)),
+           "train_s": train_s, "mini_epochs": stats, "twin_worst_rel": worst,
+           "launches": {k: v for k, v in counts.items() if v}}
+    del net, twin
+    return row, bad, {"continuous_training_broker": counts}
+
+
+def ct_preemption(ck, tmp, baseline_zip, x, y):
+    """(c): SIGTERM at a fixed iteration of the char LSTM's fit under an
+    armed PreemptionHandler; the saved zip resumed against the parameters
+    at that step boundary."""
+    import signal
+
+    from deeplearning4j_tpu_torch.util import model_serializer
+    from deeplearning4j_tpu_torch.util.preemption import PreemptionHandler
+
+    net = model_serializer.restore_model(baseline_zip)
+    at = CT_PREEMPT_AFTER * math.ceil(CHAR_LEN / CHAR_TBPTT)  # an iteration a chunk
+    path = os.path.join(tmp, "preempt.zip")
+    handler = PreemptionHandler(net, path, exit_after_save=False)
+    save, saves = handler.save, []
+
+    def timed_save():
+        t0 = time.perf_counter()
+        got = save()
+        saves.append(time.perf_counter() - t0)
+        return got
+
+    handler.save = timed_save
+    boundaries = {}
+
+    class Signaller:
+        def iteration_done(self, model, iteration, epoch):
+            boundaries[iteration] = (epoch, {(k, n): t.clone() for k, named in model.params.items()
+                                             for n, t in named.items()})
+            if iteration == at:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    net.listeners.append(Signaller())
+    zero_launches(ck)
+    handler.arm()
+    try:
+        for i in range(CT_PREEMPT_FITS):
+            net.fit(x[i * CHAR_BATCH:(i + 1) * CHAR_BATCH], y[i * CHAR_BATCH:(i + 1) * CHAR_BATCH])
+        torch.cuda.synchronize()
+    finally:
+        handler.disarm()
+    counts = read_launches(ck)
+    bad = []
+    resumed, state = PreemptionHandler.resume(path)
+    epoch, params = boundaries.get(at, (None, {}))
+    same = all(torch.equal(resumed.params[k][n], t) for (k, n), t in params.items())
+    if not (handler.preempted.is_set() and handler.saved.is_set() and len(saves) == 1
+            and state == {"iteration": at, "epoch": epoch}
+            and resumed.iteration == at and params and same):
+        bad.append(f"preemption: saved {handler.saved.is_set()} ({len(saves)}), state {state}, "
+                   f"boundary epoch {epoch}, parameters equal {same}")
+    row = {"signal_at_iteration": at, "state": state, "save_s": saves,
+           "zip_bytes": os.path.getsize(path), "params_bit_equal": same,
+           "final_iteration": net.iteration}
+    del net, resumed
+    return row, bad, {"continuous_training_preemption": counts}
+
+
+def ct_evaluate(ck, tmp):
+    """(d): ``evaluate`` over a CSV of lenet_data()'s rows on a LeNet of
+    InputType.convolutional_flat(28, 28, 1), against an Evaluation of the
+    same network's ``output`` on the same batches."""
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.train_step import to_host
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    x, y = lenet_data()
+    flat = x.reshape(len(x), -1)
+    net = MultiLayerNetwork(lenet_conf(flat_input=True)).init()
+    net.fit(flat[:LENET_BATCH], y[:LENET_BATCH])
+    zip_path, csv = os.path.join(tmp, "lenet.zip"), os.path.join(tmp, "lenet.csv")
+    model_serializer.write_model(net, zip_path)
+    np.savetxt(csv, np.concatenate([flat, y.argmax(1)[:, None]], axis=1), fmt="%.9g",
+               delimiter=",")
+    zero_launches(ck)
+    t0 = time.perf_counter()
+    got = cli.evaluate_main(["--model", zip_path, "--csv", csv, "--classes", "10"])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = read_launches(ck)
+    want = Evaluation(top_n=1)
+    for i in range(0, len(flat), 64):
+        want.eval(y[i:i + 64], to_host(net.output(flat[i:i + 64])))
+    bad = [] if got.stats() == want.stats() else ["evaluate: stats differ from Evaluation"]
+    row = {"rows": len(flat), "s": eval_s, "rows_per_s": len(flat) / eval_s,
+           "accuracy": got.accuracy()}
+    return row, bad, {"continuous_training_evaluate": counts}
+
+
+def ct_serve(ck, baseline_zip, x):
+    """(e): ``serve`` on the char LSTM zip, one binary predict."""
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.cli import serve_main
+    from deeplearning4j_tpu_torch.serving import ModelServingClient
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    zero_launches(ck)
+    t0 = time.perf_counter()
+    server = serve_main(["--model", f"char={baseline_zip}", "--port", "0",
+                         "--max-batch-size", "4"], block=False)
+    bad = []
+    try:
+        start_s = time.perf_counter() - t0
+        with urllib.request.urlopen(server.url + "/readyz", timeout=30) as r:
+            ready = r.status
+        t0 = time.perf_counter()
+        got = ModelServingClient(server.url, timeout=120.0).predict("char", x[:1], binary=True)
+        predict_s = time.perf_counter() - t0
+    finally:
+        server.stop(drain=True, shutdown_registry=True)
+    torch.cuda.synchronize()
+    counts = read_launches(ck)
+    want = model_serializer.restore_model(baseline_zip).output(x[:1]).cpu().numpy()
+    close = np.allclose(got, want, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+    if ready != 200 or got.shape != want.shape or not close:
+        bad.append(f"serve: /readyz {ready}, shape {got.shape}, within the limit {close}")
+    row = {"readyz": ready, "start_s": start_s, "predict_s": predict_s,
+           "max_abs_diff": float(np.abs(got - want).max())}
+    return row, bad, {"continuous_training_serve": counts}
+
+
+def ct_profile(ck, baseline_zip, data):
+    """(f): ``profile`` on the char LSTM zip."""
+    from deeplearning4j_tpu_torch.cli import profile_main
+
+    zero_launches(ck)
+    report = profile_main(["--modelPath", baseline_zip, "--dataPath", data,
+                           "--batchSize", str(CHAR_BATCH), "--steps", str(CT_PROFILE_STEPS)])
+    counts = read_launches(ck)
+    buckets = report["buckets"]
+    bad = []
+    if not ("K1 lstm_sequence" in buckets and "K2 fused_adam" in buckets
+            and report["device_ms_per_step"] > 0):
+        bad.append(f"profile: {report}")
+    return report, bad, {"continuous_training_profile": counts}
+
+
+def continuous_training_phase(ck, card):
+    """DL4J's char LSTM retrained and canaried through the ``pipeline``
+    subcommand, the broker, preemption, ``evaluate``, ``serve`` and
+    ``profile`` (see CT_*). Returns the launches of each path and K1's by
+    plan in the pipeline's runs."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util import model_serializer
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ct_")
+    failures, parts_s, rows, paths = [], {}, {}, {}
+
+    def report(name, t0, row, bad, counts):
+        """A part's seconds, row, failures and launches (by path)."""
+        parts_s[name] = time.perf_counter() - t0
+        rows[name] = row
+        failures.extend(bad)
+        paths.update(counts)
+        print(f"continuous_training {name} " + json.dumps({"card": card, **row}), flush=True)
+
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        t0 = time.perf_counter()
+        data, x, y, n_eval = ct_data(tmp)
+        net = MultiLayerNetwork(char_lstm_conf()).init()
+        baseline_zip = os.path.join(tmp, "char_lstm.zip")
+        model_serializer.write_model(net, baseline_zip)
+        parts_s["data"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row, bad, counts, by_plan = ct_pipeline(ck, tmp, data, baseline_zip, x, n_eval, net)
+        report("(a) pipeline", t0, row, bad, counts)
+        t0 = time.perf_counter()
+        row, bad, counts = ct_broker(ck, baseline_zip, x, y)
+        report("(b) broker", t0, row, bad, counts)
+        t0 = time.perf_counter()
+        row, bad, counts = ct_preemption(ck, tmp, baseline_zip, x, y)
+        report("(c) preemption", t0, row, bad, counts)
+        t0 = time.perf_counter()
+        row, bad, counts = ct_evaluate(ck, tmp)
+        report("(d) evaluate", t0, row, bad, counts)
+        t0 = time.perf_counter()
+        row, bad, counts = ct_serve(ck, baseline_zip, x)
+        report("(e) serve", t0, row, bad, counts)
+        t0 = time.perf_counter()
+        row, bad, counts = ct_profile(ck, baseline_zip, data[2])
+        report("(f) profile", t0, row, bad, counts)
+    finally:
+        helpers.clear_helper("updater")
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    pipe = rows["(a) pipeline"]
+    print("continuous_training summary " + json.dumps({
+        "card": card, "sequences": CT_SEQS, "held_out": n_eval,
+        "outcomes": pipe["terminals"], "gate": pipe["gate"],
+        "stages_s": {r: pipe[r]["stages_s"] for r in ("run1", "run2")},
+        "train_chars_per_s": {r: pipe[r]["train_chars_per_s"] for r in ("run1", "run2")},
+        "canary_requests": {r: pipe[r]["canary_requests"] for r in ("run1", "run2")},
+        "canary_shadow": pipe["canary_shadow"], "k1_by_plan": by_plan,
+        "phase_s": seconds, "parts_s": parts_s, "target_s": CT_MAX_SECONDS,
+        "failures": failures}), flush=True)
+    if failures:
+        raise RuntimeError(f"continuous_training: {failures}")
+    return paths, by_plan
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -9906,6 +10416,7 @@ def main() -> None:
     hs_paths = timed(http_serving_phase, ck, card)
     nlp_paths = timed(nlp_text_classification_phase, ck, card)
     gc_paths = timed(graph_clustering_phase, ck, card)
+    ct_paths, ct_by_plan = timed(continuous_training_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -9954,10 +10465,11 @@ def main() -> None:
         """The kernel's launches on each path of the samediff, transfer,
         checkpointing, zoo_facenet, keras_import, model_export,
         training_utilities, serving_registry, http_serving,
-        nlp_text_classification and graph_clustering phases."""
+        nlp_text_classification, graph_clustering and continuous_training
+        phases."""
         return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths, fn_paths,
                                                    ki_paths, me_paths, tu_paths, sr_paths,
-                                                   hs_paths, nlp_paths, gc_paths)
+                                                   hs_paths, nlp_paths, gc_paths, ct_paths)
                 for path, counts in paths.items()}
 
     def workflow_total(kernel):
@@ -10037,7 +10549,7 @@ def main() -> None:
                   **char_launches, **later_paths("lstm_sequence"),
                   **{p: c["f32"] for p, c in lstm_bf16.items()},
                   "recurrent_stack": stack["f32"]}),
-              launches_by_plan=char_by_plan,
+              launches_by_plan={**char_by_plan, **ct_by_plan},
               library="torch.nn.LSTM (cuDNN) with its input product: "
                       "compare with ms_with_input_product",
               ms_with_input_product=lstm["ms_with_input_product"],

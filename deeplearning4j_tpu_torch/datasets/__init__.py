@@ -17,6 +17,16 @@ from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
     MultipleEpochsIterator,
     SamplingDataSetIterator,
 )
+from deeplearning4j_tpu_torch.datasets.fetchers import (  # noqa: F401
+    CifarDataSetIterator,
+    EmnistDataSetIterator,
+    IrisDataSetIterator,
+    MnistDataFetcher,
+    MnistDataSetIterator,
+    SvhnDataSetIterator,
+    TinyImageNetDataSetIterator,
+    UciSequenceDataSetIterator,
+)
 from deeplearning4j_tpu_torch.datasets.normalizers import (  # noqa: F401
     ImagePreProcessingScaler,
     MultiNormalizer,

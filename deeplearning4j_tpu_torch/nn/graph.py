@@ -165,6 +165,8 @@ class ComputationGraph(NetworkApi, nn.Module):
         self._rnn_carries: Optional[Dict[str, object]] = None
         self._rnn_pos = 0
         self.listeners: List = []
+        self.step_end_hooks: List = []
+        self._step_depth = 0
 
     # ---------------------------------------------------------------- score
     @property
@@ -481,12 +483,13 @@ class ComputationGraph(NetworkApi, nn.Module):
                for vd in self.conf.layer_vertices()
                if isinstance(vd.obj, EmbeddingSequenceLayer)]
         first = self.iteration
-        with checked_window_ids(fed):
-            losses = [self._train_step({n: a[k] for n, a in inputs.items()},
-                                       [a[k] for a in labels], None, None)
-                      for k in range(len(window))]
-        self.last_batch_size = int(next(iter(inputs.values())).shape[1])
-        self._window_done(first, losses)
+        with self.training_step():
+            with checked_window_ids(fed):
+                losses = [self._train_step({n: a[k] for n, a in inputs.items()},
+                                           [a[k] for a in labels], None, None)
+                          for k in range(len(window))]
+            self.last_batch_size = int(next(iter(inputs.values())).shape[1])
+            self._window_done(first, losses)
         return self
 
     def _temporal_inputs(self, inputs) -> set:
@@ -615,7 +618,8 @@ class ComputationGraph(NetworkApi, nn.Module):
                 iterator.reset()
             for ds in iterator:
                 self.transfer_bytes += batch_nbytes(ds)
-                self._fit_batch(ds)
+                with self.training_step():
+                    self._fit_batch(ds)
             self.epoch += 1
             self._notify("on_epoch_end")
         return self

@@ -164,6 +164,8 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
         # every train-time draw (dropout, weight noise); made by init()
         self.dropout_generator: Optional[torch.Generator] = None
         self.listeners: List = []
+        self.step_end_hooks: List = []
+        self._step_depth = 0
 
     @property
     def score_(self) -> float:
@@ -371,10 +373,11 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
                for i, layer in enumerate(self.layers)
                if isinstance(layer, EmbeddingSequenceLayer)]
         first = self.iteration
-        with checked_window_ids(fed):
-            losses = [self._train_step(x, y, None, None) for x, y in zip(xs, ys)]
-        self.last_batch_size = int(xs.shape[1])
-        self._window_done(first, losses)
+        with self.training_step():
+            with checked_window_ids(fed):
+                losses = [self._train_step(x, y, None, None) for x, y in zip(xs, ys)]
+            self.last_batch_size = int(xs.shape[1])
+            self._window_done(first, losses)
         return self
 
     def _fit_tbptt(self, x, y, mask, lmask) -> None:
@@ -477,7 +480,8 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
                 iterator.reset()
             for ds in iterator:
                 self.transfer_bytes += batch_nbytes(ds)
-                self._fit_batch(ds)
+                with self.training_step():
+                    self._fit_batch(ds)
             self.epoch += 1
             self._notify("on_epoch_end")
         return self

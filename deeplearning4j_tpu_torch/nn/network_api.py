@@ -34,8 +34,9 @@ from deeplearning4j_tpu_torch.nn.train_step import as_tensor
 class NetworkApi:
     """Mixed into both networks; reads their ``conf``, ``device``,
     ``params``, ``states``, ``updater_states``, ``_updaters``,
-    ``dropout_generator``, ``listeners``, ``_named_layers()`` and
-    ``_host_outputs(iterator, masks)``."""
+    ``dropout_generator``, ``listeners``, ``step_end_hooks``,
+    ``_step_depth``, ``_named_layers()`` and ``_host_outputs(iterator,
+    masks)``."""
 
     # ------------------------------------------------------------ listeners
     def set_listeners(self, *listeners) -> None:
@@ -49,6 +50,28 @@ class NetworkApi:
         for listener in self.listeners:
             if hasattr(listener, hook):
                 getattr(listener, hook)(self, *args)
+
+    @contextlib.contextmanager
+    def training_step(self):
+        """Marks the training step that runs inside it: ``in_step`` is
+        true there, and each of ``step_end_hooks`` runs when the outermost
+        such step ends. A preemption signal that lands inside a step
+        (between two in-place updates of one batch, or before its
+        iteration is counted) is saved by such a hook at the step's end
+        (``util/preemption.py``)."""
+        depth = self._step_depth
+        self._step_depth = depth + 1
+        try:
+            yield
+        finally:
+            self._step_depth = depth
+        if not depth:
+            for hook in list(self.step_end_hooks):
+                hook()
+
+    @property
+    def in_step(self) -> bool:
+        return self._step_depth > 0
 
     def _window_done(self, first_iteration: int, losses) -> None:
         """After a window of steps (``fit_batches_on_device``): each step's

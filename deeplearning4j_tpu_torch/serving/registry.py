@@ -1218,3 +1218,7 @@ class ModelRegistry:
             self._shadow_stop = True
             self._shadow_queue.clear()
             self._shadow_cv.notify_all()
+        # joined, so that no thread is inside torch when the interpreter
+        # exits after a shutdown (that aborts the process)
+        if self._shadow_thread is not None:
+            self._shadow_thread.join(timeout=5.0)

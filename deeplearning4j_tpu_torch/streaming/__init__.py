@@ -1,9 +1,11 @@
 """Streaming of the PyTorch/CUDA port.
 
-Counterpart of the JAX package's ``streaming/``. Ported so far: ``codec``,
-the self-describing binary frame of arrays and DataSets that the model
-server's binary predict path speaks. The broker, the routes and the Kafka
-client come with ROADMAP item 7.
+Counterpart of the JAX package's ``streaming/``: ``codec`` (the
+self-describing binary frame of arrays and DataSets that the model
+server's binary predict path and the broker speak), ``broker`` (the
+in-process topic broker, the TCP publisher and consumer and the streaming
+DataSet iterator), ``kafka`` (the kafka-python client, or the embedded
+broker without it) and ``route`` (source → transforms → sink).
 """
 
 from deeplearning4j_tpu_torch.streaming.codec import (  # noqa: F401
@@ -13,3 +15,11 @@ from deeplearning4j_tpu_torch.streaming.codec import (  # noqa: F401
     serialize_array,
     serialize_dataset,
 )
+from deeplearning4j_tpu_torch.streaming.broker import (  # noqa: F401
+    EmbeddedBroker,
+    SocketConsumer,
+    SocketPublisher,
+    StreamingDataSetIterator,
+)
+from deeplearning4j_tpu_torch.streaming.kafka import NDArrayKafkaClient  # noqa: F401
+from deeplearning4j_tpu_torch.streaming.route import Route, RouteError  # noqa: F401

@@ -111,6 +111,16 @@ def test_import_leaves_jax_unloaded():
             "deeplearning4j_tpu_torch.streaming, "
             "deeplearning4j_tpu_torch.streaming.codec, "
             "deeplearning4j_tpu_torch.util.fsio, "
+            "deeplearning4j_tpu_torch.streaming.broker, "
+            "deeplearning4j_tpu_torch.streaming.kafka, "
+            "deeplearning4j_tpu_torch.streaming.route, "
+            "deeplearning4j_tpu_torch.pipeline, "
+            "deeplearning4j_tpu_torch.datasets.records, "
+            "deeplearning4j_tpu_torch.datasets.fetchers, "
+            "deeplearning4j_tpu_torch.util.preemption, "
+            "deeplearning4j_tpu_torch.sklearn_adapter, "
+            "deeplearning4j_tpu_torch.cloud, "
+            "deeplearning4j_tpu_torch.cli, "
             "deeplearning4j_tpu_torch.eval.tools; "
             "deeplearning4j_tpu_torch.SameDiff; "
             "deeplearning4j_tpu_torch.EarlyStoppingTrainer; "
