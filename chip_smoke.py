@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs thirty-seven phases:
+every kernel, and runs thirty-eight phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -418,6 +418,23 @@ every kernel, and runs thirty-seven phases:
    for bit the parameters at that step boundary; (d) ``evaluate`` over a
    CSV of LeNet rows against ``Evaluation``; (e) ``serve`` and one binary
    predict; (f) ``profile``'s buckets naming K1 and K2.
+38. data- and tensor-parallel training (``parallel/mesh.py``,
+   ``sharding.py``, ``trainer.py``) in a world of one NCCL rank: (a) the
+   world and its mesh; (b) GPT-2-small (8 x 1024, f32, seed 123) takes 3
+   ``ParallelWrapper(mode="shared_gradients")`` steps on DTensors beside a
+   twin's plain ``fit`` steps from the same weights, each loss within
+   1e-6 relative and each parameter within 1e-5 of its largest entry, 12
+   K3a, 12 K3b dq, 12 K3b dk/dv and 150 K2 launches a step through the
+   kernels' ``local_map`` seams; (c) ``mode="averaging"``,
+   ``averaging_frequency=2`` over 4 batches against 4 plain steps, the
+   same limits; (d) ``shard_model_with_rules`` with ``DEFAULT_2D_RULES`` on
+   a ``data=1, model=1`` mesh (every parameter path matches a rule), 2
+   steps, the same limits and counts; (e) ``EarlyStoppingParallelTrainer``
+   on the LeNet phase's LeNet (Adam: 8 K2 a step; the zoo LeNet's
+   AdaDelta takes no kernel), 2 epochs of seeded images, against
+   ``EarlyStoppingTrainer`` on a twin. The wrapper's median step beside
+   plain ``fit``'s (CUDA events), its busy share, the peak memory and the
+   phase's seconds are printed.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -10342,6 +10359,315 @@ def continuous_training_phase(ck, card):
     return paths, by_plan
 
 
+# Data- and tensor-parallel training in a world of one NCCL rank (phase 38).
+PT_STEPS, PT_AVG_BATCHES, PT_AVG_FREQ, PT_RULES_STEPS = 3, 4, 2, 2
+PT_LOSS_RTOL, PT_PARAM_TOL = 1e-6, 1e-5
+PT_ES_N, PT_ES_TEST, PT_ES_BATCH, PT_ES_EPOCHS = 512, 128, 64, 2
+PT_MAX_SECONDS = 60.0
+
+
+def pt_gpt2_batch(seed, vocab):
+    """A seeded [TRAIN_N, T] batch of token ids (floats, as in serving) and
+    its next-token one-hot labels, made on the card."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(0, vocab, (TRAIN_N, T))).cuda()
+    return ids.float(), F.one_hot(torch.cat([ids[:, 1:], ids[:, -1:]], 1), vocab).float()
+
+
+def pt_worst(net, twin):
+    """``(name, worst)``: the parameter whose largest difference from the
+    twin's, over its largest entry, is the largest, and that ratio."""
+    from deeplearning4j_tpu_torch.nn.dtensor import full
+
+    worst, name = 0.0, None
+    with torch.no_grad():
+        for k, named in twin.params.items():
+            for n, want in named.items():
+                got = full(net.params[k][n])
+                r = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+                if r > worst:
+                    worst, name = r, f"{k}/{n}"
+    return name, worst
+
+
+def pt_timed(fn):
+    """``fn()`` between two CUDA events; returns its device-clock ms."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def pt_gpt2_pair():
+    """GPT-2-small (f32, seed 123) and a twin holding the same weights."""
+    from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    net = TransformerLM().init()
+    twin = load_reference_params(TransformerLM().init(), export_params(net))
+    return net, twin
+
+
+def pt_total(launches):
+    """The launches of a list of steps, summed by kernel."""
+    return {k: sum(step[k] for step in launches) for k in launches[0]}
+
+
+def pt_check(part, losses, twin_losses, net, twin, launches, want, failures):
+    """Each loss against the twin's (PT_LOSS_RTOL relative), every
+    parameter (PT_PARAM_TOL of its largest entry) and the launches of each
+    step against ``want``; the findings go into ``failures``."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, twin_losses)]
+    name, worst = pt_worst(net, twin)
+    if not all(np.isfinite(losses)) or max(rel) > PT_LOSS_RTOL:
+        failures.append(f"{part}: losses {losses} against the twin's {twin_losses}")
+    if worst > PT_PARAM_TOL:
+        failures.append(f"{part}: {name} lies {worst} of its largest entry from the twin's")
+    for i, got in enumerate(launches):
+        bad = unexpected_launches(got, want)
+        if bad:
+            failures.append(f"{part}: step {i} launched {bad}, expected {want}")
+    return {"losses": losses, "twin_losses": twin_losses, "loss_rel": rel,
+            "worst_param": name, "worst_param_rel_to_max": worst,
+            "launches_per_step": launches}
+
+
+def pt_shared(ck, mesh, failures):
+    """(b) shared gradients: the wrapper's steps against plain ``fit``."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    net, twin = pt_gpt2_pair()
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    want = {"flash_attention_fwd": n_layers, "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers, "fused_adam": tensors_of(net)}
+    x, labels = pt_gpt2_batch(123, vocab)
+    pw = ParallelWrapper(net, mesh, mode="shared_gradients")
+    launches, losses, twin_losses, wrap_ms, plain_ms = [], [], [], [], []
+    for _ in range(PT_STEPS):
+        zero_launches(ck)
+        wrap_ms.append(pt_timed(lambda: pw.fit(x, labels)))
+        launches.append(read_launches(ck))
+        losses.append(net.score_)
+        plain_ms.append(pt_timed(lambda: twin.fit(x, labels)))
+        twin_losses.append(twin.score_)
+    row = pt_check("(b) shared_gradients", losses, twin_losses, net, twin, launches,
+                   want, failures)
+    placements = sorted({str(tuple(p.placements)) for named in net.params.values()
+                         for p in named.values()})
+    row.update({"wrapper_step_ms": wrap_ms, "plain_fit_step_ms": plain_ms,
+                "wrapper_median_ms": float(np.median(wrap_ms)),
+                "plain_median_ms": float(np.median(plain_ms)),
+                "param_placements": placements,
+                "busy": busy(lambda: pw.fit(x, labels), 1)})
+    del net, twin, pw, x, labels
+    torch.cuda.empty_cache()
+    return row, pt_total(launches)
+
+
+def pt_averaging(ck, mesh, failures):
+    """(c) averaging: PT_AVG_BATCHES batches, a flush every PT_AVG_FREQ,
+    against as many plain ``fit`` steps."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    net, twin = pt_gpt2_pair()
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    batches = [DataSet(*pt_gpt2_batch(1000 + i, vocab)) for i in range(PT_AVG_BATCHES)]
+    heard = []
+
+    class Flushes:
+        def iteration_done(self, model, iteration, epoch):
+            heard.append((iteration, model.score_))
+
+    net.set_listeners(Flushes())
+    pw = ParallelWrapper(net, mesh, mode="averaging", averaging_frequency=PT_AVG_FREQ)
+    zero_launches(ck)
+    # one flush a call: the first warms the fresh network, the rest are timed
+    wrap_ms = [pt_timed(lambda: pw.fit(batches[i:i + PT_AVG_FREQ], prefetch_depth=0))
+               for i in range(0, PT_AVG_BATCHES, PT_AVG_FREQ)]
+    got_launches = read_launches(ck)
+    twin_steps, plain_ms = [], []
+    for ds in batches:
+        plain_ms.append(pt_timed(lambda: twin.fit(ds)))
+        twin_steps.append(twin.score_)
+    # a flush's score is the mean of its local steps' losses
+    twin_flush = [float(np.mean(twin_steps[i:i + PT_AVG_FREQ]))
+                  for i in range(0, PT_AVG_BATCHES, PT_AVG_FREQ)]
+    want_iters = list(range(PT_AVG_FREQ, PT_AVG_BATCHES + 1, PT_AVG_FREQ))
+    if [it for it, _ in heard] != want_iters:
+        failures.append(f"(c) averaging: iteration_done at {heard}, expected {want_iters}")
+    per_step = {"flash_attention_fwd": n_layers, "flash_attention_bwd_dq": n_layers,
+                "flash_attention_bwd_dkv": n_layers, "fused_adam": tensors_of(net)}
+    want = {k: v * PT_AVG_BATCHES for k, v in per_step.items()}
+    row = pt_check("(c) averaging", [sc for _, sc in heard], twin_flush, net, twin,
+                   [got_launches], want, failures)
+    row.update({"flushes": len(heard), "flush_ms": wrap_ms, "plain_fit_step_ms": plain_ms,
+                "wrapper_ms_per_step": float(np.mean(wrap_ms[1:])) / PT_AVG_FREQ,
+                "plain_ms_per_step": float(np.mean(plain_ms[PT_AVG_FREQ:]))})
+    del net, twin, pw, batches
+    torch.cuda.empty_cache()
+    return row, got_launches
+
+
+def pt_rules(ck, failures):
+    """(d) ``DEFAULT_2D_RULES`` on a data=1, model=1 mesh: every parameter
+    path matches a rule, then PT_RULES_STEPS of the network's own ``fit``
+    on DTensors against plain ``fit``."""
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+    from deeplearning4j_tpu_torch.parallel.sharding import (
+        DEFAULT_2D_RULES, lint_partition_rules, match_partition_rules,
+        shard_model_with_rules)
+
+    net, twin = pt_gpt2_pair()
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    unmatched = [w for w in lint_partition_rules(DEFAULT_2D_RULES, net.params)
+                 if "matches no rule" in w]
+    if unmatched:
+        failures.append(f"(d) rules: {unmatched}")
+    specs = match_partition_rules(DEFAULT_2D_RULES, net.params)
+    shard_model_with_rules(net, make_mesh({"data": 1, "model": 1}))
+    x, labels = pt_gpt2_batch(7, vocab)
+    want = {"flash_attention_fwd": n_layers, "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers, "fused_adam": tensors_of(net)}
+    launches, losses, twin_losses, wrap_ms = [], [], [], []
+    for _ in range(PT_RULES_STEPS):
+        zero_launches(ck)
+        wrap_ms.append(pt_timed(lambda: net.fit(x, labels)))
+        launches.append(read_launches(ck))
+        losses.append(net.score_)
+        twin.fit(x, labels)
+        twin_losses.append(twin.score_)
+    row = pt_check("(d) rules", losses, twin_losses, net, twin, launches, want, failures)
+    row.update({"sharded_specs": sorted({f"{n}: {tuple(sp)}" for named in specs.values()
+                                         for n, sp in named.items() if tuple(sp)}),
+                "step_ms": wrap_ms,
+                "placements": {k: str(tuple(net.params[k]["W"].placements))
+                               for k in ("embed", "out")}})
+    del net, twin, x, labels
+    torch.cuda.empty_cache()
+    return row, pt_total(launches)
+
+
+def pt_early_stopping(ck, mesh, failures):
+    """(e) ``EarlyStoppingParallelTrainer`` on LeNet (Adam, K2 on its 8
+    tensors) against ``EarlyStoppingTrainer`` on a twin."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import earlystopping as es
+    from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
+
+    rng = np.random.default_rng(11)
+    n = PT_ES_N + PT_ES_TEST
+    y_idx = rng.integers(0, 10, n)
+    x = rng.normal(0, 0.3, size=(n, 28, 28, 1)).astype(np.float32)
+    x[np.arange(n), 2 + y_idx, :, 0] += 2.0
+    y = np.eye(10, dtype=np.float32)[y_idx]
+
+    def run(trainer_cls, net, **kw):
+        cfg = es.EarlyStoppingConfiguration(
+            score_calculator=es.DataSetLossCalculator(ListDataSetIterator(
+                DataSet(x[PT_ES_N:], y[PT_ES_N:]), PT_ES_BATCH), average=True),
+            epoch_termination_conditions=[es.MaxEpochsTerminationCondition(PT_ES_EPOCHS)])
+        train = ListDataSetIterator(DataSet(x[:PT_ES_N], y[:PT_ES_N]), PT_ES_BATCH)
+        return trainer_cls(cfg, net, train, **kw).fit()
+
+    net = MultiLayerNetwork(lenet_conf()).init()
+    twin = load_reference_params(MultiLayerNetwork(lenet_conf()).init(), export_params(net))
+    zero_launches(ck)
+    t0 = time.perf_counter()
+    result = run(es.EarlyStoppingParallelTrainer, net, mesh=mesh)
+    torch.cuda.synchronize()
+    es_s = time.perf_counter() - t0
+    got = read_launches(ck)
+    ref = run(es.EarlyStoppingTrainer, twin)
+    steps = PT_ES_EPOCHS * (PT_ES_N // PT_ES_BATCH)
+    want = {"fused_adam": tensors_of(net) * steps}
+    if unexpected_launches(got, want):
+        failures.append(f"(e) early stopping: launched {got}, expected {want}")
+    scores = [result.score_vs_epoch[e] for e in sorted(result.score_vs_epoch)]
+    twin_scores = [ref.score_vs_epoch[e] for e in sorted(ref.score_vs_epoch)]
+    if (result.total_epochs != ref.total_epochs or len(scores) != PT_ES_EPOCHS
+            or max(abs(a - b) / abs(b) for a, b in zip(scores, twin_scores)) > PT_LOSS_RTOL
+            or not scores[-1] < scores[0]):
+        failures.append(f"(e) early stopping: scores {scores} against {twin_scores}")
+    name, worst = pt_worst(net, twin)
+    if worst > PT_PARAM_TOL:
+        failures.append(f"(e) early stopping: {name} lies {worst} of its largest entry off")
+    row = {"epochs": result.total_epochs, "reason": result.termination_reason,
+           "scores": scores, "twin_scores": twin_scores, "best_epoch": result.best_model_epoch,
+           "worst_param": name, "worst_param_rel_to_max": worst, "launches": got,
+           "fused_adam_per_step": got["fused_adam"] / steps, "seconds": es_s}
+    del net, twin
+    return row, got
+
+
+def parallel_training_phase(ck, card):
+    """Phase 38 (see the module's docstring). Returns each path's launches
+    (all its steps)."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh, mesh_axes
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    failures, rows, parts_s, paths = [], {}, {}, {}
+
+    def report(name, t0, row):
+        parts_s[name] = time.perf_counter() - t0
+        rows[name] = row
+        print(f"parallel_training {name} " + json.dumps({"card": card, **row}), flush=True)
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    helpers.set_helper("updater", ck.FusedUpdaterHelper())
+    try:
+        mesh = make_mesh({"data": 1})  # on cuda: the world's backend
+        report("(a) world", t0, {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                                 "mesh": mesh_axes(mesh), "device_type": mesh.device_type})
+        t0 = time.perf_counter()
+        row, paths["parallel_shared_gradients_train"] = pt_shared(ck, mesh, failures)
+        report("(b) shared_gradients", t0, row)
+        t0 = time.perf_counter()
+        row, paths["parallel_averaging_train"] = pt_averaging(ck, mesh, failures)
+        report("(c) averaging", t0, row)
+        t0 = time.perf_counter()
+        row, paths["parallel_rules_train"] = pt_rules(ck, failures)
+        report("(d) rules", t0, row)
+        t0 = time.perf_counter()
+        row, paths["parallel_early_stopping_lenet_train"] = pt_early_stopping(ck, mesh, failures)
+        report("(e) early_stopping", t0, row)
+    finally:
+        helpers.clear_helper("updater")
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    shared = rows["(b) shared_gradients"]
+    if seconds > PT_MAX_SECONDS:
+        failures.append(f"the phase took {seconds:.1f} s, more than {PT_MAX_SECONDS}")
+    print("parallel_training summary " + json.dumps({
+        "card": card, "batch": [TRAIN_N, T],
+        "wrapper_median_step_ms": shared["wrapper_median_ms"],
+        "plain_fit_median_step_ms": shared["plain_median_ms"],
+        "wrapper_over_plain": shared["wrapper_median_ms"] / shared["plain_median_ms"],
+        "averaging_ms_per_step": rows["(c) averaging"]["wrapper_ms_per_step"],
+        "averaging_plain_ms_per_step": rows["(c) averaging"]["plain_ms_per_step"],
+        "busy": shared["busy"], "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": paths, "phase_s": seconds, "parts_s": parts_s,
+        "target_s": PT_MAX_SECONDS, "failures": failures}), flush=True)
+    if failures:
+        raise RuntimeError(f"parallel_training: {failures}")
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -10417,6 +10743,7 @@ def main() -> None:
     nlp_paths = timed(nlp_text_classification_phase, ck, card)
     gc_paths = timed(graph_clustering_phase, ck, card)
     ct_paths, ct_by_plan = timed(continuous_training_phase, ck, card)
+    pt_paths = timed(parallel_training_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -10465,11 +10792,12 @@ def main() -> None:
         """The kernel's launches on each path of the samediff, transfer,
         checkpointing, zoo_facenet, keras_import, model_export,
         training_utilities, serving_registry, http_serving,
-        nlp_text_classification, graph_clustering and continuous_training
-        phases."""
+        nlp_text_classification, graph_clustering, continuous_training
+        and parallel_training phases."""
         return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths, fn_paths,
                                                    ki_paths, me_paths, tu_paths, sr_paths,
-                                                   hs_paths, nlp_paths, gc_paths, ct_paths)
+                                                   hs_paths, nlp_paths, gc_paths, ct_paths,
+                                                   pt_paths)
                 for path, counts in paths.items()}
 
     def workflow_total(kernel):

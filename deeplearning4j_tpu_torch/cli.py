@@ -7,13 +7,13 @@ modelOutputPath, uiUrl) and serving via ``NearestNeighborsServer``
 (`NearestNeighborsServer.java:3-10`). This module provides both:
 
 - ``python -m deeplearning4j_tpu_torch.cli train ...`` — data-parallel training
-  over a mesh; in the port it waits for the multi-device slice.
+  over a mesh; in the port it waits for ROADMAP §A 8c.
 - ``python -m deeplearning4j_tpu_torch.cli nn-server ...`` — serve k-NN queries
   (delegates to :meth:`NearestNeighborsServer.main`).
 
 The port's counterpart of the JAX package's ``cli.py``: every subcommand
-takes ``--device`` (the card by default); ``train`` waits for the multi-
-device slice, and ``profile`` reads torch.profiler (ROADMAP §C).
+takes ``--device`` (the card by default); ``train`` waits for ROADMAP
+§A 8c, and ``profile`` reads torch.profiler (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -26,17 +26,17 @@ import numpy as np
 
 
 TRAIN_WAITS = (
-    "train: data-parallel training over a mesh (--workers, --mesh, "
-    "--elastic) comes with parallel/trainer.py, parallel/mesh.py and "
-    "parallel/sharding.py, which the port brings with the multi-device "
-    "slice (ROADMAP §A 8); train a network with its fit() meanwhile")
+    "train: the command (--workers, --mesh, --elastic) comes with the "
+    "elastic supervisor and the checkpointer (ROADMAP §A 8c); meanwhile "
+    "train through parallel/trainer.py's ParallelWrapper over "
+    "parallel/mesh.py's make_mesh, or with a network's fit()")
 
 
 def parallel_wrapper_main(argv: Optional[List[str]] = None):
     """ParallelWrapperMain's flags (``--modelPath``, ``--workers``,
-    ``--mesh``, ``--elastic``, ...) wait for ``ParallelWrapper``, the mesh
-    and the sharding rules of the multi-device slice: the command exits
-    with status 2 and says so, whatever its arguments."""
+    ``--mesh``, ``--elastic``, ...) wait for the elastic supervisor and
+    the checkpointer (ROADMAP §A 8c): the command exits with status 2 and
+    says so, whatever its arguments."""
     print(TRAIN_WAITS, file=sys.stderr)
     raise SystemExit(2)
 

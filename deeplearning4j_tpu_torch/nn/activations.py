@@ -26,6 +26,8 @@ from typing import Callable, Union
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.nn import dtensor as _dt
+
 ActivationFn = Callable[[torch.Tensor], torch.Tensor]
 
 _SELU_ALPHA = 1.6732632423543772
@@ -119,11 +121,11 @@ def rectifiedtanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:
-    return torch.softmax(x, dim=-1)
+    return _dt.softmax(x)  # torch.softmax over the last dim
 
 
 def logsoftmax(x: torch.Tensor) -> torch.Tensor:
-    return torch.log_softmax(x, dim=-1)
+    return _dt.log_softmax(x)  # torch.log_softmax over the last dim
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -47,6 +47,19 @@ wrapper launches its kernel for CUDA tensors (or raises: nothing falls
 back) and computes the plain version for CPU tensors, which is what the
 CPU tests run. Each wrapper's ``launches`` attribute counts its kernel
 launches.
+
+A network placed on a device mesh (``parallel/sharding.py``) hands the
+wrappers DTensors. Each wrapper then runs on every rank's local shards
+through ``local_map``, with the placements it admits stated: attention
+(K3a, K3b) a batch ``Shard(0)`` or a heads ``Shard(1)`` on each mesh
+dimension (or ``Replicate``), the same for q, k, v and what goes with
+them; K1 a batch-sharded ``xw`` (``Shard(1)`` of [T,N,4H]) with its
+carries beside it and ``rw`` replicated; K2 (elementwise) any ``Shard`` or
+``Replicate``, one placement for the parameter, its gradient and its
+moments, and it updates each local shard in place. A DTensor that no
+admitted placement describes (a ``Partial``, a sequence or head-size
+shard, a mix of placements or of DTensors and plain tensors) raises:
+nothing gathers it and nothing takes a plain path for it.
 """
 
 from __future__ import annotations
@@ -65,6 +78,8 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from deeplearning4j_tpu_torch.nn.helpers import (
     AttentionHelper,
@@ -237,6 +252,62 @@ def _on_device(index: int):
     return torch.cuda.device(index)
 
 
+# ------------------------------------------------------ DTensor placements
+def _is_dt(*tensors) -> bool:
+    return any(isinstance(t, DTensor) for t in tensors)
+
+
+def _shard_layout(name: str, t, dims) -> dict:
+    """``{mesh dim: tensor dim}`` of a DTensor whose every placement is
+    ``Replicate`` or ``Shard(d)`` with ``d`` in ``dims``; raises on any
+    other (a ``Partial``, a shard of another dimension) and on a plain
+    tensor among DTensors."""
+    if not isinstance(t, DTensor):
+        raise ValueError(f"{name}: DTensors and plain tensors mixed; place every "
+                         "input on the mesh")
+    out = {}
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Replicate):
+            continue
+        if isinstance(p, Shard) and p.dim % t.ndim in dims:
+            out[i] = p.dim % t.ndim
+            continue
+        raise ValueError(f"{name}: no placement it admits describes {tuple(t.placements)} "
+                         f"on a {t.ndim}-d tensor (it takes Replicate or Shard of "
+                         f"dims {tuple(dims)})")
+    return out
+
+
+def _placed(mesh, layout: dict) -> list:
+    return [Shard(layout[i]) if i in layout else Replicate() for i in range(mesh.ndim)]
+
+
+def _one_layout(name: str, tensors, dims) -> tuple:
+    """The mesh and the one placement list that every DTensor of
+    ``tensors`` (None skipped) has, each admitted by ``dims``."""
+    ts = [t for t in tensors if t is not None]
+    layout = _shard_layout(name, ts[0], dims)
+    mesh = ts[0].device_mesh
+    for t in ts[1:]:
+        if _shard_layout(name, t, dims) != layout or t.device_mesh != mesh:
+            raise ValueError(f"{name}: inputs must share one mesh and one placement; got "
+                             f"{[tuple(x.placements) for x in ts]}")
+    return mesh, _placed(mesh, layout)
+
+
+def _replicated(t, mesh):
+    """A plain tensor (the full value on every rank) as a replicated
+    DTensor on ``mesh``; a DTensor unchanged."""
+    if t is None or isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+#: attention's admitted shards: the batch (0) and the heads (1), the same
+#: on [N,H,T,Dh] heads and on [N,H,T] row statistics
+_ATTENTION_DIMS = (0, 1)
+
+
 # --------------------------------------------------- K3: flash attention
 _FWD_SRC = "flash_attention_fwd.cu"
 _BWD_SRC = "flash_attention_bwd.cu"
@@ -369,7 +440,13 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
 
     CUDA tensors launch the kernel of their type (T % 64 == 0, Dh in
     {64, 128, 256}) and anything it does not take raises; CPU tensors get
-    :func:`flash_attention_plain`."""
+    :func:`flash_attention_plain`. DTensors run on each rank's shards
+    (batch or heads sharded; see the module's docstring)."""
+    if _is_dt(q, k, v):
+        mesh, pl = _one_layout("flash_attention_fwd", (q, k, v), _ATTENTION_DIMS)
+        return local_map(lambda a, b, c: flash_attention_fwd(a, b, c, causal, return_lse),
+                         out_placements=(pl, pl) if return_lse else pl,
+                         in_placements=(pl, pl, pl), device_mesh=mesh)(q, k, v)
     if _on_cpu("flash_attention_fwd", q, k, v):
         return flash_attention_plain(q, k, v, causal, return_lse)
     _check_attention("flash_attention_fwd", (q, k, v))
@@ -458,7 +535,14 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = False):
     """The dq kernel: ``(dQ, D)``, with D = rowsum(dO·O) [N,H,T] (f32) for
     :func:`flash_attention_bwd_dkv`; f32 or bf16 heads, each type on its
     kernel. Runs on CUDA tensors (or raises); CPU tensors get
-    :func:`flash_attention_bwd_dq_plain`."""
+    :func:`flash_attention_bwd_dq_plain`. DTensors run on each rank's
+    shards."""
+    if _is_dt(q, k, v, o, lse, do):
+        mesh, pl = _one_layout("flash_attention_bwd_dq", (q, k, v, o, lse, do),
+                               _ATTENTION_DIMS)
+        return local_map(lambda *a: flash_attention_bwd_dq(*a, causal),
+                         out_placements=(pl, pl), in_placements=(pl,) * 6,
+                         device_mesh=mesh)(q, k, v, o, lse, do)
     if _on_cpu("flash_attention_bwd_dq", q, k, v, o, lse, do):
         return flash_attention_bwd_dq_plain(q, k, v, o, lse, do, causal)
     _check_attention("flash_attention_bwd_dq", (q, k, v, o, do), (lse,))
@@ -481,7 +565,14 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, d, causal: bool = False):
     """The dk/dv kernel: ``(dK, dV)`` from the LSE of the forward and the
     ``D`` that :func:`flash_attention_bwd_dq` returned. Runs on CUDA
     tensors (or raises); CPU tensors get
-    :func:`flash_attention_bwd_dkv_plain`."""
+    :func:`flash_attention_bwd_dkv_plain`. DTensors run on each rank's
+    shards."""
+    if _is_dt(q, k, v, lse, do, d):
+        mesh, pl = _one_layout("flash_attention_bwd_dkv", (q, k, v, lse, do, d),
+                               _ATTENTION_DIMS)
+        return local_map(lambda *a: flash_attention_bwd_dkv(*a, causal),
+                         out_placements=(pl, pl), in_placements=(pl,) * 6,
+                         device_mesh=mesh)(q, k, v, lse, do, d)
     if _on_cpu("flash_attention_bwd_dkv", q, k, v, lse, do, d):
         return flash_attention_bwd_dkv_plain(q, k, v, lse, do, d, causal)
     _check_attention("flash_attention_bwd_dkv", (q, k, v, do), (lse, d))
@@ -530,6 +621,18 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def flash_attention(q, k, v, causal: bool = False):
+    """Differentiable flash attention (:class:`FlashAttentionFunction`);
+    DTensor heads run it on each rank's shards, their gradients coming
+    back with the heads' placements."""
+    if _is_dt(q, k, v):
+        mesh, pl = _one_layout("flash_attention", (q, k, v), _ATTENTION_DIMS)
+        return local_map(lambda a, b, c: FlashAttentionFunction.apply(a, b, c, causal),
+                         out_placements=pl, in_placements=(pl, pl, pl),
+                         in_grad_placements=(pl, pl, pl), device_mesh=mesh)(q, k, v)
+    return FlashAttentionFunction.apply(q, k, v, causal)
+
+
 class FlashAttentionHelper(AttentionHelper):
     """The "attention" seam's flash kernel, counterpart of
     ``PallasFlashAttentionHelper``. ``supports`` is the reference's gate
@@ -560,7 +663,7 @@ class FlashAttentionHelper(AttentionHelper):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return FlashAttentionFunction.apply(q, k, v, self.causal)
+            return flash_attention(q, k, v, self.causal)
         return flash_attention_fwd(q, k, v, causal=self.causal)
 
 
@@ -611,11 +714,17 @@ def fused_adam(kind: int, p, m, v, v_hat, g, coef) -> None:
     the contiguous f32 tensors ``p``, ``m``, ``v`` (and ``v_hat`` for
     AMSGrad, else None) with gradient ``g``; ``coef`` from
     :func:`adam_coefficients`. CUDA tensors launch the kernel (or raise);
-    CPU tensors get :func:`fused_adam_plain`."""
+    CPU tensors get :func:`fused_adam_plain`. DTensors of one placement
+    (any ``Shard`` or ``Replicate``) update each rank's local shard in
+    place: the update is elementwise."""
     if kind not in (ADAM, AMSGRAD, NADAM):
         raise ValueError(f"fused_adam: unknown kind {kind!r}")
     if (v_hat is None) != (kind != AMSGRAD):
         raise ValueError("fused_adam: v_hat is AMSGrad's state, and only its")
+    if _is_dt(p, m, v, v_hat, g):
+        _one_layout("fused_adam", (p, m, v, v_hat, g), range(p.ndim))
+        return fused_adam(kind, *(None if t is None else t.to_local()
+                                  for t in (p, m, v, v_hat, g)), coef)
     ts = (p, m, v, g) if v_hat is None else (p, m, v, g, v_hat)
     if _on_cpu("fused_adam", *ts):
         return fused_adam_plain(kind, p, m, v, v_hat, g, coef)
@@ -873,7 +982,12 @@ def lstm_sequence(xw, rw, h0, c0, units_per_block: int = 0, plan: str = "auto",
     contiguous memory first. CPU tensors get :func:`lstm_sequence_plain`.
     ``lstm_sequence.launches`` counts launches,
     ``lstm_sequence.launches_by_plan`` the same by plan and
-    ``lstm_sequence.launches_by_dtype`` by dtype ("f32", "bf16")."""
+    ``lstm_sequence.launches_by_dtype`` by dtype ("f32", "bf16"). A
+    DTensor ``xw`` runs on each rank's shards (see the module's docstring);
+    a plain ``rw``, ``h0`` or ``c0`` beside it is taken as replicated."""
+    if _is_dt(xw, rw, h0, c0):
+        f = lambda a, b, c, d: lstm_sequence(a, b, c, d, units_per_block, plan, cluster_size)
+        return _lstm_on_shards("lstm_sequence", f, (xw, rw, h0, c0), grads=False)
     if _on_cpu("lstm_sequence", xw, rw, h0, c0):
         return lstm_sequence_plain(xw, rw, h0, c0)
     # checks that cost little: a sampling step launches this for T = 1
@@ -970,6 +1084,45 @@ def lstm_chain_floor(t: int, plan: dict, n: int, h: int, device=None) -> torch.T
     return out
 
 
+def _lstm_on_shards(name, fn, args, grads: bool):
+    """``fn(xw, rw, h0, c0)`` through ``local_map``: ``xw`` [T,N,4H]
+    sharded on its batch (dim 1) or replicated on each mesh dimension,
+    ``h0`` and ``c0`` [N,H] likewise on dim 0 (a replicated carry is cut
+    to the batch's shards), ``rw`` replicated; the outputs ``(ys, hN,
+    cN)`` are placed as ``xw`` and the carries. With ``grads``, ``rw``'s
+    gradient is a ``Partial`` sum over the batch's shards."""
+    xw, rw, h0, c0 = args
+    if not isinstance(xw, DTensor):
+        raise ValueError(f"{name}: DTensors and plain tensors mixed; place xw on the mesh")
+    mesh = xw.device_mesh
+    layout = _shard_layout(name, xw, (1,))
+    rw, h0, c0 = (_replicated(t, mesh) for t in (rw, h0, c0))
+    if _shard_layout(name, rw, ()) != {}:
+        raise ValueError(f"{name}: rw must be replicated; got {tuple(rw.placements)}")
+    for t in (h0, c0):
+        extra = set(_shard_layout(name, t, (0,))) - set(layout)
+        if extra:
+            raise ValueError(f"{name}: a carry sharded where xw is not: "
+                             f"{tuple(t.placements)} against {tuple(xw.placements)}")
+    pl_x = _placed(mesh, layout)
+    pl_h = _placed(mesh, {i: 0 for i in layout})
+    pl_r = [Replicate()] * mesh.ndim
+    grad_r = [Partial() if i in layout else Replicate() for i in range(mesh.ndim)]
+    return local_map(fn, out_placements=(pl_x, pl_h, pl_h),
+                     in_placements=(pl_x, pl_r, pl_h, pl_h),
+                     in_grad_placements=(pl_x, grad_r, pl_h, pl_h) if grads else None,
+                     device_mesh=mesh, redistribute_inputs=True)(xw, rw, h0, c0)
+
+
+def lstm_sequence_fn(xw, rw, h0, c0):
+    """Differentiable :func:`lstm_sequence` (:class:`LSTMSequenceFunction`);
+    a DTensor ``xw`` runs it on each rank's shards."""
+    if _is_dt(xw, rw, h0, c0):
+        return _lstm_on_shards("lstm_sequence", LSTMSequenceFunction.apply,
+                               (xw, rw, h0, c0), grads=True)
+    return LSTMSequenceFunction.apply(xw, rw, h0, c0)
+
+
 class LSTMSequenceFunction(torch.autograd.Function):
     """Differentiable :func:`lstm_sequence`: the kernel forward; the
     backward recomputes :func:`lstm_sequence_plain` from the saved inputs
@@ -1026,7 +1179,7 @@ class FusedLSTMHelper(LSTMHelper):
         rw = params["RW"][:, :4 * layer.n_out]
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (xw, rw, h0, c0)):
-            ys, hn, cn = LSTMSequenceFunction.apply(xw, rw, h0, c0)
+            ys, hn, cn = lstm_sequence_fn(xw, rw, h0, c0)
         else:
             ys, hn, cn = lstm_sequence(xw, rw, h0, c0)
         return ys.transpose(0, 1), (hn, cn)

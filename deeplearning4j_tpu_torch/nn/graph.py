@@ -98,6 +98,7 @@ from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.eval.regression import RegressionEvaluation
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.network import normalize_backprop_type
+from deeplearning4j_tpu_torch.nn.dtensor import full, inference, mesh_scope, place_input
 from deeplearning4j_tpu_torch.nn.layers.core import EmbeddingSequenceLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer,
@@ -165,6 +166,8 @@ class ComputationGraph(NetworkApi, nn.Module):
         self._rnn_carries: Optional[Dict[str, object]] = None
         self._rnn_pos = 0
         self.listeners: List = []
+        # the device mesh the network is placed on (parallel/sharding.py)
+        self._mesh = None
         self.step_end_hooks: List = []
         self._step_depth = 0
 
@@ -173,7 +176,7 @@ class ComputationGraph(NetworkApi, nn.Module):
     def score_(self) -> float:
         """The last fit step's loss (NaN before the first). Reading it
         syncs with the device; the train loop never blocks on it."""
-        return float("nan") if self._score is None else float(self._score)
+        return float("nan") if self._score is None else float(full(self._score))
 
     @score_.setter
     def score_(self, v) -> None:
@@ -322,7 +325,7 @@ class ComputationGraph(NetworkApi, nn.Module):
         return [acts[n] for n in self.conf.outputs]
 
     def _as_tensor(self, x, cast_float: bool = True) -> torch.Tensor:
-        return as_tensor(x, self.dtype, self.device, cast_float)
+        return place_input(self, as_tensor(x, self.dtype, self.device, cast_float))
 
     def output(self, *xs, masks=None) -> Union[torch.Tensor, List[torch.Tensor]]:
         """Inference over numpy arrays or tensors (floating inputs are cast
@@ -332,13 +335,13 @@ class ComputationGraph(NetworkApi, nn.Module):
             raise RuntimeError("call init() (or load parameters) first")
         if len(xs) == 1 and isinstance(xs[0], (list, tuple)):
             xs = tuple(xs[0])
-        with torch.inference_mode():
+        with inference(self), mesh_scope(self):
             inputs = {n: self._as_tensor(x) for n, x in zip(self.conf.inputs, xs)}
             mask_d = None
             if masks is not None:
                 mask_d = {n: (None if mk is None else self._as_tensor(mk, False))
                           for n, mk in zip(self.conf.inputs, masks)}
-            outs = self.forward(inputs, mask_d)
+            outs = [full(o) for o in self.forward(inputs, mask_d)]
         return outs[0] if len(outs) == 1 else outs
 
     def output_single(self, *xs) -> torch.Tensor:
@@ -645,8 +648,8 @@ class ComputationGraph(NetworkApi, nn.Module):
             return self.score_
         # as the reference: the score of a DataSet ignores its masks
         inputs, labels, _, _ = self._batch(self._to_mds(ds))
-        with torch.no_grad():
-            return float(self._loss_fn(self.params, inputs, labels, None, None))
+        with torch.no_grad(), mesh_scope(self):
+            return float(full(self._loss_fn(self.params, inputs, labels, None, None)))
 
     def compute_gradient_and_score(self, features, labels):
         """``({vertex: {param: grad}}, loss)`` on one batch, no update

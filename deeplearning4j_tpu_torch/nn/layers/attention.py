@@ -36,7 +36,7 @@ from deeplearning4j_tpu_torch.nn import dropout as _dropout
 from deeplearning4j_tpu_torch.nn import helpers as _helpers
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.cuda_kernels import FlashAttentionHelper
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, matmul, register_layer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
 
 _AUTO_FLASH = FlashAttentionHelper(causal=True)
@@ -144,7 +144,7 @@ class SelfAttentionLayer(Layer):
     def forward(self, params, x, *, mask=None, train=False, gen=None):
         n, t, _ = x.shape
         h, dh = self.n_heads, self._dh()
-        qkv = x @ params["Wqkv"] + params["bqkv"]                  # [N,T,H*3*Dh]
+        qkv = matmul(x, params["Wqkv"]) + params["bqkv"]           # [N,T,H*3*Dh]
         qkv = qkv.reshape(n, t, h, 3, dh).permute(3, 0, 2, 1, 4)  # [3,N,H,T,Dh]
         out = dot_product_attention(qkv[0], qkv[1], qkv[2], mask=mask,
                                     causal=self.causal,
@@ -152,7 +152,8 @@ class SelfAttentionLayer(Layer):
                                     train=train)
         y = out.transpose(1, 2).reshape(n, t, h * dh)
         if self.project_input:
-            y = y @ params["Wo"] + params["bo"]
+            # head-sharded Wo: one all-reduce (matmul)
+            y = matmul(y, params["Wo"]) + params["bo"]
         return self.act_fn()(y)
 
 

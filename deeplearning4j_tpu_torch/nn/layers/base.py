@@ -46,6 +46,7 @@ from deeplearning4j_tpu_torch.nn.constraints import (
     constraints_from_config,
 )
 from deeplearning4j_tpu_torch.nn.dropout import IDropout, resolve_dropout
+from deeplearning4j_tpu_torch.nn.dtensor import column_input, reduce_partial
 from deeplearning4j_tpu_torch.nn.updaters import Schedule, Updater
 from deeplearning4j_tpu_torch.nn.weightnoise import IWeightNoise
 from deeplearning4j_tpu_torch.nn.weights import Distribution, init_weight
@@ -58,11 +59,15 @@ LAYER_REGISTRY: Dict[str, type] = {}
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with JAX's type promotion: two float types meet in the
     wider one (an f32 recurrent carry against a bf16 weight under mixed
-    precision, as ``jnp.matmul`` promotes), one type multiplies as is."""
+    precision, as ``jnp.matmul`` promotes), one type multiplies as is. A
+    product of DTensors that comes out ``Partial`` (a row-parallel split)
+    is reduced to ``Replicate``."""
     if a.dtype != b.dtype:
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
-    return a @ b
+    # a row-parallel product (DTensors) is reduced here: one all-reduce,
+    # and what follows sees it replicated over the model axis
+    return reduce_partial(column_input(a, b) @ b)
 
 
 def register_layer(cls):

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.dtensor import batch_local
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 
 
@@ -94,14 +95,18 @@ def conv2d_nhwc(x, w, stride, dilation, padding, mode, groups=1):
     (a depthwise ``w`` of ``[kh, kw, 1, groups·dm]``) output channel
     ``g·dm + m`` reads input channel ``g``, as XLA's
     ``feature_group_count`` orders them."""
-    xc = x.permute(0, 3, 1, 2)
-    pad = 0
-    if mode == "same":
-        xc = nchw_pad(xc, (w.shape[0], w.shape[1]), stride, dilation, padding, "same")
-    else:
-        pad = padding
-    return F.conv2d(xc, w.permute(3, 2, 0, 1), None, stride, pad,
-                    dilation, groups).permute(0, 2, 3, 1)
+    def conv(x, w):
+        xc = x.permute(0, 3, 1, 2)
+        pad = 0
+        if mode == "same":
+            xc = nchw_pad(xc, (w.shape[0], w.shape[1]), stride, dilation, padding, "same")
+        else:
+            pad = padding
+        return F.conv2d(xc, w.permute(3, 2, 0, 1), None, stride, pad,
+                        dilation, groups).permute(0, 2, 3, 1)
+
+    # on a DTensor batch: each rank's examples (nn/dtensor.py)
+    return batch_local(conv, x, w)
 
 
 def _first(v) -> int:

@@ -21,8 +21,10 @@ import threading
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.dtensor import full, reduce_partial, spread
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, matmul, register_layer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
 
@@ -234,7 +236,7 @@ class EmbeddingSequenceLayer(Layer):
         Reads the ids' range on the host, so it waits for the device."""
         idx = x.to(torch.int64)
         if idx.numel():
-            lo, hi = torch.aminmax(idx)
+            lo, hi = (full(t) for t in torch.aminmax(idx))  # over every shard
             if int(lo) < -self.n_in or int(hi) >= self.n_in:
                 raise ValueError(f"token ids must lie in [-{self.n_in}, "
                                  f"{self.n_in}); got [{int(lo)}, {int(hi)}]")
@@ -247,7 +249,13 @@ class EmbeddingSequenceLayer(Layer):
             self.check_ids(idx)
         # ids in [-n_in, 0) count from the end, as jnp.take wraps them
         idx = torch.where(idx < 0, idx + self.n_in, idx)
-        y = params["W"][idx]  # [N,T,n_out]
+        w = params["W"]
+        if spread(w):
+            # a vocab-row-sharded table: masked local lookups, one
+            # all-reduce, never a gather of the table
+            y = reduce_partial(F.embedding(idx, w))
+        else:
+            y = w[idx]  # [N,T,n_out]
         if self.has_bias:
             y = y + params["b"]
         return self.act_fn()(y)

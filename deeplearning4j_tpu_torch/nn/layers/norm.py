@@ -40,6 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.nn import dtensor as _dt
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 
@@ -140,9 +141,10 @@ class BatchNormalizationLayer(Layer):
                 d = x - mean.to(x.dtype)
                 var = var32.to(x.dtype)
             else:
-                mean = x.mean(dim=axes)
+                mean = _dt.mean(x, axes)
                 d = x - mean
-                var = var32 = torch.square(d).mean(dim=axes)  # two passes, biased
+                # two passes, biased
+                var = var32 = _dt.mean(torch.square(d), axes)
             new_state = {
                 "mean": (self.decay * state["mean"]
                          + (1 - self.decay) * mean.detach().float()),

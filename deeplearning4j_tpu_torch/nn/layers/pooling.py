@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.dtensor import batch_local
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.layers.conv import (_first, _pair, conv_out_size,
                                                     nchw_pad)
@@ -65,19 +66,24 @@ class SubsamplingLayer(Layer):
         if pt not in ("max", "avg", "sum", "pnorm"):
             raise ValueError(f"Unknown pooling type {self.pooling_type!r}")
         k, s = self.kernel_size, self.stride
-        xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC input
-        if pt == "pnorm":
-            xc = xc.abs() ** float(self.pnorm)
-        xc = nchw_pad(xc, k, s, (1, 1), self.padding, self.convolution_mode,
-                      value=float("-inf") if pt == "max" else 0.0)
-        if pt == "max":
-            y = F.max_pool2d(xc, k, s)
-        else:
-            y = F.avg_pool2d(xc, k, s, divisor_override=(
-                k[0] * k[1] if pt == "avg" else 1))
-        if pt == "pnorm":
-            y = y ** (1.0 / float(self.pnorm))
-        return y.permute(0, 2, 3, 1)  # back to NHWC
+
+        def pool(x):
+            xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC input
+            if pt == "pnorm":
+                xc = xc.abs() ** float(self.pnorm)
+            xc = nchw_pad(xc, k, s, (1, 1), self.padding, self.convolution_mode,
+                          value=float("-inf") if pt == "max" else 0.0)
+            if pt == "max":
+                y = F.max_pool2d(xc, k, s)
+            else:
+                y = F.avg_pool2d(xc, k, s, divisor_override=(
+                    k[0] * k[1] if pt == "avg" else 1))
+            if pt == "pnorm":
+                y = y ** (1.0 / float(self.pnorm))
+            return y.permute(0, 2, 3, 1)  # back to NHWC
+
+        # on a DTensor batch: each rank's examples (nn/dtensor.py)
+        return batch_local(pool, x)
 
 
 @register_layer

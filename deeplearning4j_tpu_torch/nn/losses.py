@@ -17,6 +17,8 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.dtensor import log_softmax, mean
+
 _EPS = 1e-7
 
 
@@ -25,7 +27,7 @@ def _apply_mask_mean(per_elem: torch.Tensor, mask) -> torch.Tensor:
     broadcastable mask: the masked sum over the number of unmasked
     entries (BaseOutputLayer.computeScore)."""
     if mask is None:
-        return torch.mean(per_elem)
+        return mean(per_elem)
     mask = torch.broadcast_to(mask.to(per_elem.dtype), per_elem.shape)
     total = torch.sum(per_elem * mask)
     denom = torch.clamp(torch.sum(mask), min=1.0)
@@ -77,8 +79,9 @@ def msle(labels, preds, mask=None, weights=None):
 
 
 def mcxent_logits(labels, logits, mask=None, weights=None):
-    """Multi-class cross entropy fused with softmax (stable)."""
-    logp = torch.log_softmax(logits, dim=-1)
+    """Multi-class cross entropy fused with softmax (stable); column-
+    parallel logits keep their classes sharded (``nn/dtensor.py``)."""
+    logp = log_softmax(logits)
     per = -_featurewise(labels * logp, weights)
     return _apply_mask_mean(per, mask)
 
@@ -91,7 +94,7 @@ def mcxent_probs(labels, probs, mask=None, weights=None):
 
 def sparse_mcxent_logits(labels, logits, mask=None, weights=None):
     """Labels are integer class indices, not one-hot."""
-    logp = torch.log_softmax(logits, dim=-1)
+    logp = log_softmax(logits)
     idx = labels.to(torch.int64)
     per = -torch.take_along_dim(logp, idx[..., None], dim=-1)[..., 0]
     if weights is not None:

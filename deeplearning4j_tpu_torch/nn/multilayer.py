@@ -99,6 +99,7 @@ from deeplearning4j_tpu_torch.nn.conf.network import (
     MultiLayerConfiguration,
     normalize_backprop_type,
 )
+from deeplearning4j_tpu_torch.nn.dtensor import full, inference, mesh_scope, place_input
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.layers.core import EmbeddingSequenceLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
@@ -164,6 +165,8 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
         # every train-time draw (dropout, weight noise); made by init()
         self.dropout_generator: Optional[torch.Generator] = None
         self.listeners: List = []
+        # the device mesh the network is placed on (parallel/sharding.py)
+        self._mesh = None
         self.step_end_hooks: List = []
         self._step_depth = 0
 
@@ -171,7 +174,7 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
     def score_(self) -> float:
         """The last fit iteration's loss (NaN before the first). Reading it
         syncs with the device; the train loop never blocks on it."""
-        return float("nan") if self._score is None else float(self._score)
+        return float("nan") if self._score is None else float(full(self._score))
 
     @score_.setter
     def score_(self, v) -> None:
@@ -201,7 +204,7 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
         return list(enumerate(self.layers))
 
     def _as_tensor(self, x, cast_float: bool = True) -> torch.Tensor:
-        return as_tensor(x, self.dtype, self.device, cast_float)
+        return place_input(self, as_tensor(x, self.dtype, self.device, cast_float))
 
     def _require_params(self) -> None:
         if self.params is None:
@@ -501,11 +504,11 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
                 it.reset()
             return torch.cat([self.output(ds.features, mask=ds.features_mask)
                               for ds in it], dim=0)
-        with torch.inference_mode():
+        with inference(self), mesh_scope(self):
             x = self._as_tensor(x)
             mask = None if mask is None else self._as_tensor(mask, False)
             h, _, _ = self._forward_all(self.params, x, mask)
-        return h
+            return full(h)
 
     def predict(self, x) -> np.ndarray:
         return self.output(x).argmax(dim=-1).cpu().numpy()
@@ -759,9 +762,9 @@ class MultiLayerNetwork(NetworkApi, nn.Module):
             return self.score_
         self._require_params()
         x, y, mask, lmask = self._batch(ds)
-        with torch.no_grad():
+        with torch.no_grad(), mesh_scope(self):
             loss, _ = self._loss_fn(self.params, x, y, mask, lmask)
-        return float(loss)
+            return float(full(loss))
 
     def compute_gradient_and_score(self, x, y, features_mask=None,
                                    labels_mask=None):

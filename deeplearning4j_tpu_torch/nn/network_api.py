@@ -28,6 +28,7 @@ from deeplearning4j_tpu_torch.nn.layers.core import (
     EmbeddingSequenceLayer,
     unchecked_token_ids,
 )
+from deeplearning4j_tpu_torch.nn.dtensor import full, mesh_scope
 from deeplearning4j_tpu_torch.nn.train_step import as_tensor
 
 
@@ -62,7 +63,8 @@ class NetworkApi:
         depth = self._step_depth
         self._step_depth = depth + 1
         try:
-            yield
+            with mesh_scope(self):
+                yield
         finally:
             self._step_depth = depth
         if not depth:
@@ -155,7 +157,7 @@ def _copy_tree(dst: dict, src: dict) -> None:
         if isinstance(v, dict):
             _copy_tree(dst[n], v)
         elif isinstance(v, torch.Tensor):
-            dst[n].copy_(v)
+            dst[n].copy_(full(v))  # a network on a mesh: the full value
         else:
             dst[n] = v
 

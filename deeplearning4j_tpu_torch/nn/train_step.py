@@ -31,6 +31,11 @@ after its update, writing them into the same tensors. The train-time
 noise (dropout, weight noise, attention dropout) draws from a network's
 own generator, :func:`dropout_generator`, on the network's device.
 
+On a network placed on a device mesh (``parallel/sharding.py``) the
+trees hold DTensors: :func:`gradients` returns a replicated parameter's
+gradient as a ``Partial`` sum over the batch's shards, and
+:func:`apply_updates` reduces it onto the parameter's placements first.
+
 Gradient checkpointing (the configuration's ``gradient_checkpointing``):
 :func:`checkpointed_forward` runs a layer's train forward under
 ``torch.utils.checkpoint`` (non-reentrant, so that parameters get their
@@ -49,10 +54,12 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from deeplearning4j_tpu_torch.nn import helpers as _helpers
 from deeplearning4j_tpu_torch.nn.activations import signed_abs
 from deeplearning4j_tpu_torch.nn.constraints import apply_constraints
+from deeplearning4j_tpu_torch.nn.dtensor import full, match_placements
 from deeplearning4j_tpu_torch.nn.updaters import Sgd, normalize_gradients
 
 Tree = Dict[object, Dict[str, torch.Tensor]]
@@ -64,6 +71,8 @@ def as_tensor(x, dtype: torch.dtype, device, cast_float: bool = True) -> torch.T
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     if cast_float and t.is_floating_point() and t.dtype != dtype:
         t = t.to(dtype)
+    if isinstance(t, DTensor):  # placed on a mesh: its device is the mesh's
+        return t
     return t.to(device)
 
 
@@ -91,7 +100,7 @@ def to_host(a) -> np.ndarray:
     """A numpy array of ``a`` (a numpy array or a tensor on any device;
     bf16 as f32)."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu()
+        a = full(a).detach().cpu()
         # numpy has no bf16: a mixed-precision answer comes back as f32
         return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
     return np.asarray(a)
@@ -241,12 +250,18 @@ def apply_updates(params: Tree, grads: Tree, updaters, states,
         for key, named in grads.items():
             layer = layers.get(key)
             if layer is not None and layer.gradient_normalization:
+                # on DTensors the norms are the whole tensors'
+                named = {n: match_placements(g, params[key][n])
+                         for n, g in named.items()}
                 named = normalize_gradients(
                     named, layer.gradient_normalization,
                     layer.gradient_normalization_threshold)
             for n, g in named.items():
                 u = updaters[key][n]
                 p = params[key][n]
+                # on a mesh, a Partial gradient (summed over the batch's
+                # shards) is reduced onto the parameter's own placements
+                g = match_placements(g, p)
                 lr = u.lr_at(it, ep)
                 if uhelper is not None and uhelper.supports(u, p, g):
                     p_new, states[key][n] = uhelper.apply(u, p, g, states[key][n],

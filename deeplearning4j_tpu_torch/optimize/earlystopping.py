@@ -510,14 +510,19 @@ class EarlyStoppingTrainer:
 
 class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
     """Early stopping with data-parallel epochs
-    (``EarlyStoppingParallelTrainer.java:51``). Not ported: it needs the
-    port's ``parallel/trainer.py`` (ParallelWrapper), which does not exist
-    yet."""
+    (``EarlyStoppingParallelTrainer.java:51``): each epoch runs the
+    network's step through a ``ParallelWrapper`` over the mesh
+    (``parallel/trainer.py``; a mesh over every rank of the world when
+    none is given)."""
 
     def __init__(self, config: EarlyStoppingConfiguration, model,
                  train_iterator, mesh=None, mode: str = "shared_gradients",
                  averaging_frequency: int = 5):
-        raise NotImplementedError(
-            "EarlyStoppingParallelTrainer needs parallel/trainer.py "
-            "(ParallelWrapper), which the port has not ported yet (ROADMAP "
-            "§A7); use EarlyStoppingTrainer")
+        super().__init__(config, model, train_iterator)
+        from deeplearning4j_tpu_torch.parallel.trainer import ParallelWrapper
+        self._pw = ParallelWrapper(model, mesh, mode=mode,
+                                   averaging_frequency=averaging_frequency)
+
+    def _fit_epoch(self) -> None:
+        # epochs run sharded over the mesh
+        self._pw.fit(self.iterator, epochs=1)

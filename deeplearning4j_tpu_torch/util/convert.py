@@ -3,7 +3,8 @@
 ``load_reference_params(net, params)`` fills a port network from the JAX
 network's parameters as numpy arrays (what ``tree_map(np.asarray,
 jax_net.params)`` gives); the layouts are the same, so this is a checked
-copy. ``export_params(net)`` is the inverse.
+copy. ``export_params(net)`` is the inverse; on a network placed on a device
+mesh the exports are the full arrays (each DTensor's ``full_tensor()``).
 ``load_reference_updater_state`` / ``export_updater_state`` do the same for
 the updater state (e.g. Adam's ``m`` and ``v``), so that both sides can
 resume from one optimizer state, and ``load_reference_states`` /
@@ -21,6 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.nn.dtensor import full
 
 
 def _mismatches(mine: dict, theirs: dict, path: str, depth: int) -> list:
@@ -68,7 +71,7 @@ def _checked_copy(mine: dict, theirs, depth: int, what: str) -> None:
 
 def _export(tree: dict, depth: int) -> dict:
     if depth == 1:
-        return {k: t.detach().cpu().numpy().copy() for k, t in tree.items()}
+        return {k: full(t).detach().cpu().numpy().copy() for k, t in tree.items()}
     return {k: _export(v, depth - 1) for k, v in tree.items()}
 
 

@@ -413,9 +413,39 @@ def test_trainer_matches_the_reference_in_float64(case, kind, tmp_path):
 
 
 def test_parallel_trainer_refuses_with_the_missing_module():
-    cfg = tes.EarlyStoppingConfiguration(score_calculator=tes.DataSetLossCalculator([]))
-    with pytest.raises(NotImplementedError, match="parallel/trainer.py"):
-        tes.EarlyStoppingParallelTrainer(cfg, None, [])
+    """The parallel trainer refused while ``parallel/trainer.py`` was
+    missing; now it trains through the ParallelWrapper. On a world of one
+    CPU rank (``make_mesh`` opens it) its epochs, scores and parameters are
+    EarlyStoppingTrainer's, the same step on DTensors of the mesh; the
+    4-rank world against the reference is
+    ``tests/test_torch_parallel_trainer.py``."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(48, N_IN)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 48)]
+
+    def run(trainer, net, **kw):
+        cfg = tes.EarlyStoppingConfiguration(
+            score_calculator=tes.DataSetLossCalculator(
+                ListDataSetIterator(DataSet(x[32:], y[32:]), 8)),
+            epoch_termination_conditions=[tes.MaxEpochsTerminationCondition(2)])
+        return trainer(cfg, net, ListDataSetIterator(DataSet(x[:32], y[:32]), 8), **kw).fit()
+
+    _, net = pair(clf_conf)
+    twin = load_reference_params(PORT.mln(clf_conf(PORT)).init(), export_params(net))
+    try:
+        got = run(tes.EarlyStoppingParallelTrainer, net, mesh=make_mesh(device_type="cpu"))
+    finally:
+        dist.destroy_process_group()
+    want = run(tes.EarlyStoppingTrainer, twin)
+    assert got.total_epochs == want.total_epochs == 2
+    assert got.score_vs_epoch == pytest.approx(want.score_vs_epoch, rel=TRAIN_TOL)
+    for k, named in enumerate(export_params(net)):
+        for n, v in named.items():
+            np.testing.assert_allclose(v, export_params(twin)[k][n], rtol=1e-7, atol=1e-9)
 
 
 def test_trainer_propagates_an_exception_from_an_epoch():

@@ -62,6 +62,10 @@ def test_import_leaves_jax_unloaded():
             "deeplearning4j_tpu_torch.nn.conf.network, "
             "deeplearning4j_tpu_torch.zoo.models, "
             "deeplearning4j_tpu_torch.parallel.inference, "
+            "deeplearning4j_tpu_torch.parallel.mesh, "
+            "deeplearning4j_tpu_torch.parallel.sharding, "
+            "deeplearning4j_tpu_torch.parallel.trainer, "
+            "deeplearning4j_tpu_torch.nn.dtensor, "
             "deeplearning4j_tpu_torch.util.convert, "
             "deeplearning4j_tpu_torch.util.model_serializer, "
             "deeplearning4j_tpu_torch.eval.evaluation, "
