@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
 started together), prints the compiler's report (registers, spills) of
-every kernel, and runs thirty-eight phases:
+every kernel, and runs thirty-nine phases:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and a few more, timed (CUDA events)
@@ -435,6 +435,39 @@ every kernel, and runs thirty-eight phases:
    ``EarlyStoppingTrainer`` on a twin. The wrapper's median step beside
    plain ``fit``'s (CUDA events), its busy share, the peak memory and the
    phase's seconds are printed.
+39. sharded serving in lockstep and the training masters
+   (``parallel/lockstep.py``, ``inference.py``'s mesh paths,
+   ``serving/registry.py``'s ``mesh=``, ``cli.py serve --mesh``,
+   ``parallel/master.py``, ``compression.py``, ``dcn.py``) in a world of
+   one NCCL rank: (a) the registry's GPT-2-small (T 256) placed by
+   ``DEFAULT_2D_RULES`` on a ``data=1, model=1`` mesh, 8 client threads
+   sending 48 one-row requests through the lockstep stream, v2 registered
+   (placed, warmed, activated) under load: every answer within the
+   served-answer limit of its version's own unplaced ``output``, 12 K3a a
+   forward, ``describe()``'s mesh, no client error, no ``kernel_build``
+   span after the warm-up, requests/s and p50; (b) ``cli.py serve --mesh
+   data=1,model=1`` on a saved GPT-2-small cut to one block (its zip is
+   written and read deflated), one binary answer within the same limit,
+   ``--mesh`` with ``--dtype-policy`` exiting 2; (c)
+   ``SharedTrainingMaster`` on GPT-2-small (8 x 1024, threshold 1e-4
+   against Adam's 3e-4 step) for 3 steps against a twin written out in
+   the phase (its gradient, the fused Adam kernel on a copy, quantization
+   with a residual): losses within 1e-6 relative, parameters and
+   residuals within 1e-5 of their largest entry, the threshold as
+   ``_adapt_threshold`` moves it, each step's sparsity, 12 / 12 / 12 /
+   150 launches a step; (d) ``ParameterAveragingTrainingMaster``
+   (``averaging_frequency=2``, 4 batches) through
+   ``DistributedMultiLayerNetwork`` against 4 plain ``fit`` steps, phase
+   38's limits and counts; (e) ``threshold_encode`` / ``threshold_decode``
+   on (c)'s flattened Adam update (~124 M entries) equal to the same call
+   on a CPU copy; (f) ``CrossSliceGradientBridge`` between two Adam LeNets
+   on the card through an ``EmbeddedBroker``, each on its own half of the
+   LeNet data, exchanging after every step (8 K2 a step): the replicas
+   within 4 thresholds of each other and apart by exactly their residuals,
+   the bytes of each frame, and the last frame applied on a CPU copy
+   equal to the card's. The shared master's median step beside plain
+   ``fit``'s, its busy share, the peak memory and the phase's seconds are
+   printed.
 
 Any failure raises (exit code != 0). The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
@@ -10668,6 +10701,545 @@ def parallel_training_phase(ck, card):
     return paths
 
 
+# Sharded serving and the training masters in a world of one NCCL rank (phase 39).
+MS_REQUESTS, MS_CLIENTS, MS_SWAP_AT, MS_AFTER, MS_BUCKETS = 48, 8, 16, 16, (1, 2, 4, 8)
+MS_STEPS, MS_THRESHOLD, MS_THRESHOLD_STEP = 3, 1e-4, 1e-5
+MS_TIMED_STEPS = 4  # warm master steps and plain fits timed after the checked steps
+MS_AVG_BATCHES, MS_AVG_FREQ = 4, 2
+MS_BRIDGE_THRESHOLD, MS_BRIDGE_EPOCHS, MS_BRIDGE_BATCH, MS_BRIDGE_SPREAD = 1e-3, 2, 128, 4.0
+MS_MAX_SECONDS = 60.0
+# (b)'s zip: GPT-2-small at its full width cut to one block (the zip is
+# written and read deflated: with all 12 blocks, 605 MB, (b) took 50 s of
+# the phase on the host of an NVIDIA H100 80GB HBM3, 700.00 W)
+MS_CLI_LAYERS = 1
+
+
+def ms_serving(ck, card, failures):
+    """(a) The registry serving GPT-2-small (T SR_T) placed by
+    ``DEFAULT_2D_RULES`` on a ``data=1, model=1`` mesh, through the
+    lockstep stream: MS_CLIENTS client threads send MS_REQUESTS one-row
+    requests, v2 registers (placed, warmed, activated) after the
+    MS_SWAP_AT-th answer while the others are in flight, and the last
+    MS_AFTER requests wait for the swap; every answer against its
+    version's own ``output`` on the same row, taken before the version
+    was placed."""
+    from deeplearning4j_tpu_torch.observe import trace
+    from deeplearning4j_tpu_torch.parallel import lockstep
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh, mesh_axes
+    from deeplearning4j_tpu_torch.parallel.sharding import DEFAULT_2D_RULES
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    mesh = make_mesh({"data": 1, "model": 1})
+    nets = {v: TransformerLM(seed=s).init() for v, s in zip((1, 2), SR_SEEDS)}
+    vocab = nets[1].conf.vertices["embed"].obj.n_in
+    layers = sum(1 for n in nets[1].conf.topo_order if n.endswith("-att"))
+    reqs = np.random.default_rng(39).integers(0, vocab, (MS_REQUESTS, 1, SR_T)).astype(np.float32)
+    # each version's own answer to every row, unplaced, kept on the card
+    with torch.no_grad():
+        refs = {v: torch.cat([net.output(r) for r in reqs]) for v, net in nets.items()}
+    tracer = trace.enable_tracing()
+    reg = ModelRegistry(max_batch_size=8, buckets=MS_BUCKETS)
+    row = {}
+    try:
+        t0 = time.perf_counter()
+        reg.register("gpt2", nets[1], mesh=mesh, sharding_rules=DEFAULT_2D_RULES,
+                     input_shape=(SR_T,))
+        row["register_s"] = time.perf_counter() - t0
+        served = reg.get("gpt2")
+        row["describe_mesh"] = served.describe()["versions"][0]["mesh"]
+        if row["describe_mesh"] != mesh_axes(mesh):
+            failures.append(f"(a) describe gives {row['describe_mesh']}")
+        answers, errors, done = [None] * MS_REQUESTS, [], [0]
+        lock, swap_now, swapped = threading.Lock(), threading.Event(), threading.Event()
+
+        def client(c):
+            try:
+                for j in range(c, MS_REQUESTS, MS_CLIENTS):
+                    if j >= MS_REQUESTS - MS_AFTER:
+                        swapped.wait(timeout=300)
+                    t_req = time.perf_counter()
+                    out, v = reg.predict_versioned("gpt2", reqs[j])
+                    answers[j] = (out, v, time.perf_counter() - t_req)
+                    with lock:
+                        done[0] += 1
+                        if done[0] == MS_SWAP_AT:
+                            swap_now.set()
+            except Exception as e:  # noqa: BLE001 - reported and failed below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(MS_CLIENTS)]
+        builds0, batches0 = tracer.compile_count, served.inference.batches_dispatched
+        ops0 = lockstep.stream().ops_sent
+        zero_launches(ck)
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        swap_now.wait(timeout=300)
+        t_swap = time.perf_counter()
+        try:
+            reg.register("gpt2", nets[2], mesh=mesh, sharding_rules=DEFAULT_2D_RULES,
+                         input_shape=(SR_T,))
+        finally:
+            swapped.set()
+        swap_s = time.perf_counter() - t_swap
+        for th in threads:
+            th.join(timeout=300)
+        wall = time.perf_counter() - t0
+        got = read_launches(ck)
+        batches = served.inference.batches_dispatched - batches0
+        forwards = batches + len(MS_BUCKETS)  # the dispatches and v2's warm-ups
+        want = {"flash_attention_fwd": layers * forwards}
+        if errors or any(th.is_alive() for th in threads):
+            failures.append(f"(a) clients: {errors or 'hung'}")
+        if unexpected_launches(got, want):
+            failures.append(f"(a) launched {got}, expected {want}")
+        builds = tracer.compile_count - builds0
+        if builds:
+            failures.append(f"(a) {builds} kernel_build spans after the warm-up")
+        worst, lat = {}, {}
+        for j, a in enumerate(answers):
+            if a is None:
+                continue
+            out, v, sec = a
+            ref = refs[v][j:j + 1]
+            got_j = torch.from_numpy(out).to(ref.device)
+            reading = float(((got_j - ref).abs() - SERVE_RTOL * ref.abs()).max())
+            worst[v] = max(worst.get(v, -math.inf), reading)
+            lat.setdefault(v, []).append(sec * 1e3)
+            if not reading <= SERVE_ATOL:
+                failures.append(f"(a) request {j} on v{v}: {reading} > {SERVE_ATOL}")
+        all_ms = [ms for v in lat for ms in lat[v]]
+        if sorted(lat) != [1, 2] or served.current_version != 2:
+            failures.append(f"(a) versions served {sorted(lat)}, live v{served.current_version}")
+        row.update({
+            "requests": MS_REQUESTS, "clients": MS_CLIENTS, "wall_s": wall,
+            "requests_per_s": MS_REQUESTS / wall, "p50_ms": float(np.percentile(all_ms, 50)),
+            "p99_ms": float(np.percentile(all_ms, 99)),
+            "by_version": {v: {"requests": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+                               "worst_reading": worst[v]} for v, ms in sorted(lat.items())},
+            "hot_swap_s": swap_s, "batches_dispatched": batches, "launches": got,
+            "k3a_per_forward": got["flash_attention_fwd"] / forwards,
+            "stream_ops": lockstep.stream().ops_sent - ops0, "kernel_builds": builds,
+            "answer_limit": {"rtol": SERVE_RTOL, "atol": SERVE_ATOL}})
+    finally:
+        reg.shutdown()
+        trace.disable_tracing()
+    del nets, refs
+    torch.cuda.empty_cache()
+    return row, got
+
+
+def ms_cli(ck, failures, tmp):
+    """(b) ``cli.py serve --mesh data=1,model=1`` on a saved GPT-2-small
+    (MS_CLI_LAYERS blocks): one binary answer against the unplaced
+    network's; ``--mesh`` with ``--dtype-policy`` exits 2."""
+    from deeplearning4j_tpu_torch.cli import serve_main
+    from deeplearning4j_tpu_torch.nn.train_step import to_host
+    from deeplearning4j_tpu_torch.serving import ModelServingClient
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+    from deeplearning4j_tpu_torch.zoo.models import TransformerLM
+
+    net = TransformerLM(n_layers=MS_CLI_LAYERS).init()
+    layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    vocab = net.conf.vertices["embed"].obj.n_in
+    path = os.path.join(tmp, "gpt2.zip")
+    t0 = time.perf_counter()
+    write_model(net, path, save_updater=False)  # a served model needs no Adam state
+    save_s = time.perf_counter() - t0
+    x = np.random.default_rng(40).integers(0, vocab, (1, SR_T)).astype(np.float32)
+    argv = ["--model", f"gpt2={path}", "--port", "0", "--max-batch-size", "1",
+            "--input-shape", f"gpt2={SR_T}", "--mesh", "data=1,model=1"]
+    zero_launches(ck)
+    t0 = time.perf_counter()
+    server = serve_main(argv, block=False)
+    try:
+        start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = ModelServingClient(server.url, timeout=120.0).predict("gpt2", x, binary=True)
+        predict_s = time.perf_counter() - t0
+        mesh = server.registry.get("gpt2").describe()["versions"][0].get("mesh")
+    finally:
+        server.stop(drain=True, shutdown_registry=True)
+    launches = read_launches(ck)
+    want = {"flash_attention_fwd": 2 * layers}  # the warm-up and the request
+    ref = to_host(net.output(x))
+    reading = float((np.abs(got - ref) - SERVE_RTOL * np.abs(ref)).max())
+    if got.shape != ref.shape or not reading <= SERVE_ATOL:
+        failures.append(f"(b) serve answer {got.shape}, reading {reading}")
+    if unexpected_launches(launches, want):
+        failures.append(f"(b) launched {launches}, expected {want}")
+    try:
+        serve_main(argv + ["--dtype-policy", "gpt2=int8"], block=False)
+        refused = None
+    except SystemExit as e:
+        refused = e.code
+    if refused != 2 or mesh != {"data": 1, "model": 1}:
+        failures.append(f"(b) --mesh with --dtype-policy exited {refused}; mesh {mesh}")
+    del net
+    torch.cuda.empty_cache()
+    return {"reduced": f"depth only: {layers} of GPT-2-small's 12 blocks at full width "
+                       "(the zip is written and read deflated on the host)",
+            "save_s": save_s, "zip_bytes": os.path.getsize(path), "start_s": start_s,
+            "predict_s": predict_s, "reading": reading,
+            "answer_bytes": int(got.nbytes), "mesh": mesh, "launches": launches,
+            "int8_with_mesh_exit": refused}, launches
+
+
+def ms_twin_step(twin, helper, batch, residual, thr, it, ep):
+    """The shared step written out on the twin: its gradient, Adam (the
+    fused kernel) on a copy of each parameter, the update added to the
+    residual and quantized to ±thr, the parameter less the quantized
+    update. Returns the loss, the sparsity and the flat Adam update."""
+    loss, grads, _ = twin._gradients(*batch, train=True)
+    nz, total, updates = 0, 0, []
+    lr_it, lr_ep = np.float32(it), np.float32(ep)
+    with torch.no_grad():
+        for k, named in twin.params.items():
+            for n, p in named.items():
+                u = twin._updaters[k][n]
+                stepped = p.clone()
+                helper.apply(u, stepped, grads[k][n], twin.updater_states[k][n],
+                             u.lr_at(lr_it, lr_ep), float(it) + 1.0)
+                update = p - stepped
+                acc = residual[k][n] + update
+                quant = torch.where(acc.abs() >= thr, torch.sign(acc) * thr,
+                                    torch.zeros((), dtype=acc.dtype, device=acc.device))
+                residual[k][n] = acc - quant
+                p.sub_(quant)
+                nz += int((quant != 0).sum())
+                total += quant.numel()
+                updates.append(update.reshape(-1))
+    return float(loss), nz / total, torch.cat(updates)
+
+
+def ms_adapt(thr, sparsity):
+    """``SharedTrainingMaster._adapt_threshold`` at step_delay 0, written out."""
+    if sparsity < 1e-4:
+        return max(1e-5, thr - MS_THRESHOLD_STEP)
+    if sparsity > 0.05:
+        return thr + MS_THRESHOLD_STEP
+    return thr
+
+
+def ms_shared(ck, mesh, failures):
+    """(c) ``SharedTrainingMaster`` through ``DistributedMultiLayerNetwork``
+    on GPT-2-small, MS_STEPS steps against the written-out twin; then
+    plain ``fit`` timed on the twin and one profiled master step."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import (DistributedMultiLayerNetwork,
+                                                   SharedTrainingMaster)
+
+    net, twin = pt_gpt2_pair()
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    want = {"flash_attention_fwd": n_layers, "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers, "fused_adam": tensors_of(net)}
+    x, labels = pt_gpt2_batch(123, vocab)
+    ds = DataSet(x, labels)
+    master = SharedTrainingMaster(batch_size_per_worker=TRAIN_N, threshold=MS_THRESHOLD,
+                                  step_delay=0, threshold_step=MS_THRESHOLD_STEP, mesh=mesh)
+    front = DistributedMultiLayerNetwork(net, master)
+    helper = ck.FusedUpdaterHelper()
+    batch = twin._batch(twin._to_mds(ds))
+    residual = {k: {n: torch.zeros_like(p) for n, p in named.items()}
+                for k, named in twin.params.items()}
+    launches, losses, twin_losses, step_ms, sparsity, twin_sparsity = [], [], [], [], [], []
+    thresholds, twin_thresholds, thr = [], [], MS_THRESHOLD
+    update = None
+    for step in range(MS_STEPS):
+        zero_launches(ck)
+        step_ms.append(pt_timed(lambda: front.fit([ds])))
+        launches.append(read_launches(ck))
+        losses.append(net.score_)
+        thresholds.append(master.threshold)
+        sparsity.append(master.last_sparsity)
+        loss, sp, update = ms_twin_step(twin, helper, batch, residual, np.float32(thr),
+                                        step, step)
+        twin_losses.append(loss)
+        twin_sparsity.append(sp)
+        thr = ms_adapt(thr, sp)
+        twin_thresholds.append(thr)
+    if max(abs(a - b) for a, b in zip(sparsity, twin_sparsity)) > 1e-6:
+        failures.append(f"(c) sparsity {sparsity} against the twin's {twin_sparsity}")
+    row = pt_check("(c) shared", losses, twin_losses, net, twin, launches, want, failures)
+    worst_res, worst_name = 0.0, None
+    for k, named in residual.items():
+        for n, want_r in named.items():
+            got_r = master._residual[k][n][0]
+            r = float((got_r - want_r).abs().max()) / max(float(want_r.abs().max()), 1e-30)
+            if r > worst_res:
+                worst_res, worst_name = r, f"{k}/{n}"
+    if worst_res > PT_PARAM_TOL:
+        failures.append(f"(c) residual {worst_name} lies {worst_res} of its largest entry off")
+    if thresholds != twin_thresholds:
+        failures.append(f"(c) thresholds {thresholds} against {twin_thresholds}")
+    if not any(0.0 < s < 1.0 for s in sparsity):
+        failures.append(f"(c) sparsity {sparsity}: no step between 0 and 1")
+    # timed apart from the checked steps, whose first is cold
+    warm_ms = [pt_timed(lambda: front.fit([ds])) for _ in range(MS_TIMED_STEPS)]
+    plain_ms = [pt_timed(lambda: twin.fit(x, labels)) for _ in range(MS_TIMED_STEPS)]
+    prof = busy(lambda: front.fit([ds]), 1)
+    row.update({"threshold_start": MS_THRESHOLD, "thresholds": thresholds,
+                "sparsity": sparsity, "twin_sparsity": twin_sparsity,
+                "worst_residual": worst_name,
+                "worst_residual_rel_to_max": worst_res, "checked_step_ms": step_ms,
+                "master_step_ms": warm_ms, "master_median_ms": float(np.median(warm_ms)),
+                "plain_fit_step_ms": plain_ms, "plain_median_ms": float(np.median(plain_ms)),
+                "busy": prof, "stats": master.get_training_stats().as_dict()})
+    flat = update.detach().clone()
+    del net, twin, master, front, residual, x, labels, ds, batch, update
+    torch.cuda.empty_cache()
+    return row, pt_total(launches), flat
+
+
+def ms_averaging(ck, mesh, failures):
+    """(d) ``ParameterAveragingTrainingMaster`` (averaging_frequency
+    MS_AVG_FREQ) through ``DistributedMultiLayerNetwork`` on MS_AVG_BATCHES
+    GPT-2-small batches against as many plain ``fit`` steps on a twin."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.parallel import (DistributedMultiLayerNetwork,
+                                                   ParameterAveragingTrainingMaster)
+
+    net, twin = pt_gpt2_pair()
+    vocab = net.conf.vertices["embed"].obj.n_in
+    n_layers = sum(1 for n in net.conf.topo_order if n.endswith("-att"))
+    batches = [DataSet(*pt_gpt2_batch(2000 + i, vocab)) for i in range(MS_AVG_BATCHES)]
+    heard = []
+
+    class Flushes:
+        def iteration_done(self, model, iteration, epoch):
+            heard.append((iteration, model.score_))
+
+    net.set_listeners(Flushes())
+    master = ParameterAveragingTrainingMaster(batch_size_per_worker=TRAIN_N,
+                                              averaging_frequency=MS_AVG_FREQ, mesh=mesh)
+    zero_launches(ck)
+    fit_ms = pt_timed(lambda: DistributedMultiLayerNetwork(net, master).fit(batches))
+    got = read_launches(ck)
+    twin_steps = []
+    for b in batches:
+        twin.fit(b)
+        twin_steps.append(twin.score_)
+    twin_flush = [float(np.mean(twin_steps[i:i + MS_AVG_FREQ]))
+                  for i in range(0, MS_AVG_BATCHES, MS_AVG_FREQ)]
+    want_iters = list(range(MS_AVG_FREQ, MS_AVG_BATCHES + 1, MS_AVG_FREQ))
+    if [it for it, _ in heard] != want_iters or net.epoch != 1:
+        failures.append(f"(d) iteration_done at {heard}, epoch {net.epoch}")
+    per_step = {"flash_attention_fwd": n_layers, "flash_attention_bwd_dq": n_layers,
+                "flash_attention_bwd_dkv": n_layers, "fused_adam": tensors_of(net)}
+    want = {k: v * MS_AVG_BATCHES for k, v in per_step.items()}
+    row = pt_check("(d) averaging", [sc for _, sc in heard], twin_flush, net, twin, [got],
+                   want, failures)
+    row.update({"splits": len(master._repartition(batches)), "fit_ms": fit_ms,
+                "stats": master.get_training_stats().as_dict()})
+    del net, twin, batches, master
+    torch.cuda.empty_cache()
+    return row, got
+
+
+def ms_encode(update, failures):
+    """(e) ``threshold_encode`` / ``threshold_decode`` on GPT-2-small's
+    flattened Adam update on the card and on a CPU copy."""
+    from deeplearning4j_tpu_torch.parallel.compression import (optimal_capacity,
+                                                               threshold_decode,
+                                                               threshold_encode)
+
+    thr = 0.5 * 3e-4  # half GPT-2's Adam step: a share of the entries reaches it
+    cpu = update.cpu()
+    msg, res = threshold_encode(update, thr)  # the first call: launches warm
+    ms = pt_timed(lambda: threshold_encode(update, thr))
+    dec = threshold_decode(msg, update.numel())
+    t0 = time.perf_counter()
+    cmsg, cres = threshold_encode(cpu, thr)
+    cpu_s = time.perf_counter() - t0
+    cdec = threshold_decode(cmsg, cpu.numel())
+    same = {"indices": bool(torch.equal(msg.indices.cpu(), cmsg.indices)),
+            "signs": bool(torch.equal(msg.signs.cpu(), cmsg.signs)),
+            "count": int(msg.count) == int(cmsg.count),
+            "residual": bool(torch.equal(res.cpu().view(torch.int32), cres.view(torch.int32))),
+            "decoded": bool(torch.equal(dec.cpu(), cdec))}
+    if not all(same.values()):
+        failures.append(f"(e) the card's encode differs from the CPU's: {same}")
+    passing = int((cpu.abs() >= thr).sum())
+    return {"entries": int(update.numel()), "threshold": thr,
+            "capacity": optimal_capacity(update.numel()), "count": int(msg.count),
+            "passing": passing, "equal_to_cpu": same, "encode_ms": ms,
+            "cpu_encode_ms": cpu_s * 1e3, "device": str(update.device)}
+
+
+class MsEndpoint:
+    """publish/poll over one EmbeddedBroker topic, keeping what it sent."""
+
+    def __init__(self, broker, topic, group):
+        self.broker, self.topic, self.group, self.sent = broker, topic, group, []
+        broker.subscribe(topic, group)
+
+    def publish(self, payload):
+        self.sent.append(payload)
+        self.broker.publish(self.topic, payload)
+
+    def poll(self, timeout=0.0):
+        return self.broker.poll(self.topic, self.group, timeout=timeout or 0.01)
+
+
+class MsFrames:
+    """A consumer handing out given frames."""
+
+    def __init__(self, frames):
+        self.frames = list(frames)
+
+    def poll(self, timeout=0.0):
+        return self.frames.pop(0) if self.frames else None
+
+
+def ms_bridge(ck, failures):
+    """(f) ``CrossSliceGradientBridge`` between two Adam LeNets on the card
+    through an ``EmbeddedBroker``: each trains on its own half of the
+    LeNet data, both publish and poll after every step; the last frame of
+    A also applied to a CPU copy of B."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import CrossSliceGradientBridge
+    from deeplearning4j_tpu_torch.streaming import EmbeddedBroker
+    from deeplearning4j_tpu_torch.util.convert import export_params, load_reference_params
+
+    x, y = lenet_data()
+    half = len(x) // 2
+    net_a = MultiLayerNetwork(lenet_conf()).init()
+    net_b = load_reference_params(MultiLayerNetwork(lenet_conf()).init(), export_params(net_a))
+    broker = EmbeddedBroker()
+    end_a, end_b = MsEndpoint(broker, "grads", "a"), MsEndpoint(broker, "grads", "b")
+    bridge_a = CrossSliceGradientBridge(end_a, end_a, threshold=MS_BRIDGE_THRESHOLD,
+                                        slice_id="A")
+    bridge_b = CrossSliceGradientBridge(end_b, end_b, threshold=MS_BRIDGE_THRESHOLD,
+                                        slice_id="B")
+    bridge_a.publish_update(net_a.params)  # the baseline: nothing moved yet
+    bridge_b.publish_update(net_b.params)
+    want = {"fused_adam": 2 * tensors_of(net_a)}
+    frame_bytes, applied, launches, t0 = [], [], [], time.perf_counter()
+    rounds = [(e, s) for e in range(MS_BRIDGE_EPOCHS) for s in range(0, half, MS_BRIDGE_BATCH)]
+    cpu_b = cpu_frame = None
+    for i, (_, s) in enumerate(rounds):
+        zero_launches(ck)
+        net_a.fit(DataSet(x[s:s + MS_BRIDGE_BATCH], y[s:s + MS_BRIDGE_BATCH]))
+        net_b.fit(DataSet(x[half + s:half + s + MS_BRIDGE_BATCH],
+                          y[half + s:half + s + MS_BRIDGE_BATCH]))
+        launches.append(read_launches(ck))
+        frame_bytes.append([bridge_a.publish_update(net_a.params),
+                            bridge_b.publish_update(net_b.params)])
+        if i == len(rounds) - 1:
+            cpu_b = {k: {n: t.detach().cpu().clone() for n, t in named.items()}
+                     for k, named in net_b.params.items()}
+            cpu_frame = end_a.sent[-1]
+        applied.append([bridge_a.poll_and_apply(net_a.params)[1],
+                        bridge_b.poll_and_apply(net_b.params)[1]])
+    exchange_s = time.perf_counter() - t0
+    for i, got in enumerate(launches):
+        if unexpected_launches(got, want):
+            failures.append(f"(f) round {i} launched {got}, expected {want}")
+    # each applies the other's frame of the round, where it sent one
+    sent = [[int(b > 0), int(a > 0)] for a, b in frame_bytes]
+    if applied != sent or not frame_bytes[-1][0]:
+        failures.append(f"(f) frames applied each round: {applied}, sent {sent}")
+    # A - B is what each still holds back: its residual less the other's
+    a, b = export_params(net_a), export_params(net_b)
+    spread = max(float(np.abs(a[k][n] - b[k][n]).max()) for k in range(len(a)) for n in a[k])
+    identity = max(float(np.abs((a[k][n] - b[k][n]).ravel()
+                                - (bridge_a._residual[k][n] - bridge_b._residual[k][n])).max())
+                   for k in range(len(a)) for n in a[k])
+    if spread > MS_BRIDGE_SPREAD * MS_BRIDGE_THRESHOLD or identity > 1e-5:
+        failures.append(f"(f) replicas {spread} apart (limit {MS_BRIDGE_SPREAD} x "
+                        f"{MS_BRIDGE_THRESHOLD}); A - B off the residuals by {identity}")
+    CrossSliceGradientBridge(MsFrames([]), MsFrames([cpu_frame]), threshold=MS_BRIDGE_THRESHOLD,
+                             slice_id="B-cpu").poll_and_apply(cpu_b)
+    cpu_diff = max(float((net_b.params[k][n].detach().cpu() - cpu_b[k][n]).abs().max())
+                   for k in cpu_b for n in cpu_b[k])
+    if cpu_diff > 1e-6:
+        failures.append(f"(f) A's last frame on a CPU copy of B lies {cpu_diff} from the card's")
+    sizes = [n for pair in frame_bytes for n in pair if n]
+    del net_a, net_b
+    return {"rounds": len(rounds), "threshold": MS_BRIDGE_THRESHOLD,
+            "frames": len(sizes), "bytes_per_frame": {"mean": float(np.mean(sizes)),
+                                                      "min": min(sizes), "max": max(sizes)},
+            "bytes_by_round": frame_bytes,
+            "params": int(sum(np.asarray(v).size for layer in a for v in layer.values())),
+            "spread": spread, "spread_over_threshold": spread / MS_BRIDGE_THRESHOLD,
+            "residual_identity_err": identity, "cpu_copy_max_diff": cpu_diff,
+            "fused_adam_per_step": launches[-1]["fused_adam"] / 2,
+            "exchange_s": exchange_s}, pt_total(launches)
+
+
+def mesh_serving_and_masters_phase(ck, card):
+    """Phase 39 (see the module's docstring). Returns each path's launches."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nn import helpers
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    failures, rows, parts_s, paths = [], {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="ms_")
+
+    def report(name, t0, row):
+        parts_s[name] = time.perf_counter() - t0
+        rows[name] = row
+        print(f"mesh_serving_and_masters {name} " + json.dumps({"card": card, **row}),
+              flush=True)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"data": 1})
+        t0 = time.perf_counter()
+        row, paths["mesh_serving_registry"] = ms_serving(ck, card, failures)
+        report("(a) sharded serving", t0, row)
+        t0 = time.perf_counter()
+        row, paths["mesh_serving_cli"] = ms_cli(ck, failures, tmp)
+        report("(b) serve --mesh", t0, row)
+        helpers.set_helper("updater", ck.FusedUpdaterHelper())
+        t0 = time.perf_counter()
+        row, paths["masters_shared_train"], update = ms_shared(ck, mesh, failures)
+        report("(c) SharedTrainingMaster", t0, row)
+        t0 = time.perf_counter()
+        row, paths["masters_averaging_train"] = ms_averaging(ck, mesh, failures)
+        report("(d) ParameterAveragingTrainingMaster", t0, row)
+        t0 = time.perf_counter()
+        row = ms_encode(update, failures)
+        del update
+        report("(e) threshold codec", t0, row)
+        t0 = time.perf_counter()
+        row, paths["masters_bridge_lenet_train"] = ms_bridge(ck, failures)
+        report("(f) CrossSliceGradientBridge", t0, row)
+    finally:
+        helpers.clear_helper("updater")
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    if seconds > MS_MAX_SECONDS:
+        failures.append(f"the phase took {seconds:.1f} s, more than {MS_MAX_SECONDS}")
+    shared, serving = rows["(c) SharedTrainingMaster"], rows["(a) sharded serving"]
+    print("mesh_serving_and_masters summary " + json.dumps({
+        "card": card, "batch": [TRAIN_N, T],
+        "serving_requests_per_s": serving["requests_per_s"], "serving_p50_ms": serving["p50_ms"],
+        "shared_master_median_step_ms": shared["master_median_ms"],
+        "plain_fit_median_step_ms": shared["plain_median_ms"],
+        "master_over_plain": shared["master_median_ms"] / shared["plain_median_ms"],
+        "sparsity": shared["sparsity"], "busy": shared["busy"],
+        "reduced": {"(b)": rows["(b) serve --mesh"]["reduced"]},
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": paths, "phase_s": seconds, "parts_s": parts_s,
+        "target_s": MS_MAX_SECONDS, "failures": failures}), flush=True)
+    if failures:
+        raise RuntimeError(f"mesh_serving_and_masters: {failures}")
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -10744,6 +11316,7 @@ def main() -> None:
     gc_paths = timed(graph_clustering_phase, ck, card)
     ct_paths, ct_by_plan = timed(continuous_training_phase, ck, card)
     pt_paths = timed(parallel_training_phase, ck, card)
+    ms_paths = timed(mesh_serving_and_masters_phase, ck, card)
     print("phase_seconds " + json.dumps(seconds), flush=True)
 
     vit = zoo.pop("VisionTransformer")
@@ -10792,12 +11365,12 @@ def main() -> None:
         """The kernel's launches on each path of the samediff, transfer,
         checkpointing, zoo_facenet, keras_import, model_export,
         training_utilities, serving_registry, http_serving,
-        nlp_text_classification, graph_clustering, continuous_training
-        and parallel_training phases."""
+        nlp_text_classification, graph_clustering, continuous_training,
+        parallel_training and mesh_serving_and_masters phases."""
         return {path: counts[kernel] for paths in (sd_paths, tr_paths, ck_paths, fn_paths,
                                                    ki_paths, me_paths, tu_paths, sr_paths,
                                                    hs_paths, nlp_paths, gc_paths, ct_paths,
-                                                   pt_paths)
+                                                   pt_paths, ms_paths)
                 for path, counts in paths.items()}
 
     def workflow_total(kernel):

@@ -247,7 +247,12 @@ def serve_main(argv: Optional[List[str]] = None, block: bool = True):
     """``serve`` subcommand: stand up the production serving tier from the
     shell — register one or more model artifacts (ModelGuesser chain:
     own/DL4J zips, Keras h5) under names and serve them over HTTP with
-    admission control and ``/metrics``."""
+    admission control and ``/metrics``. With ``--mesh`` every rank of the
+    ``torch.distributed`` world runs the command (the world is opened by
+    the launcher, e.g. ``parallel.master.init_distributed``; with none,
+    ``make_mesh`` opens a world of one rank): rank 0 returns the server,
+    a follower rank follows rank 0's forwards (``block=False`` returns
+    its registry, whose ``follow()`` the caller runs)."""
     p = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch serve")
     p.add_argument("--model", action="append", required=True,
                    metavar="NAME=PATH",
@@ -260,11 +265,13 @@ def serve_main(argv: Optional[List[str]] = None, block: bool = True):
     p.add_argument("--wait-ms", type=float, default=2.0,
                    help="batching window measured from the oldest request")
     p.add_argument("--mesh", default=None, metavar="AXES",
-                   help="serve every --model GSPMD-sharded over this 2-D "
-                        "mesh, e.g. data=4,model=2 (-1 infers one axis): "
-                        "params placed by --sharding-rules, request "
-                        "batches sharded over data, buckets rounded to "
-                        "the data-axis size")
+                   help="serve every --model sharded over this 2-D mesh "
+                        "of the torch.distributed world's ranks, e.g. "
+                        "data=4,model=2 (-1 infers one axis): params placed "
+                        "by --sharding-rules, request batches sharded over "
+                        "data, buckets rounded to the data-axis size. Every "
+                        "rank runs the command; rank 0 serves HTTP and the "
+                        "others follow its forwards in lockstep")
     p.add_argument("--sharding-rules", default=None, dest="sharding_rules",
                    metavar="RULES.json",
                    help="partition rule file for --mesh (default: the "
@@ -386,9 +393,34 @@ def serve_main(argv: Optional[List[str]] = None, block: bool = True):
         print(f"alerting on {len(alert_mgr.rules)} rule(s) from "
               f"{args.alerts or args.slo} (state at /alerts)")
 
+    serve_mesh = None
+    serve_rules = None
     if args.sharding_rules and not args.mesh:
         p.error("--sharding-rules needs --mesh (the rules place params "
                 "over the mesh's model axes)")
+    if args.mesh:
+        if args.dtype_policy:
+            p.error("--dtype-policy cannot combine with --mesh (sharded "
+                    "serving is float32-only)")
+        from deeplearning4j_tpu_torch.parallel.mesh import (make_mesh,
+                                                            parse_mesh_axes)
+        try:
+            axes = parse_mesh_axes(args.mesh)
+        except ValueError as e:
+            p.error(f"--mesh: {e}")
+        if args.sharding_rules:
+            from deeplearning4j_tpu_torch.parallel.sharding import (
+                load_sharding_rules)
+            try:
+                serve_rules = load_sharding_rules(args.sharding_rules)
+            except (OSError, ValueError) as e:
+                p.error(f"--sharding-rules: {e}")
+        import torch
+        try:
+            serve_mesh = make_mesh(axes, device_type=None if args.device is None
+                                   else torch.device(args.device).type)
+        except (ValueError, RuntimeError) as e:
+            p.error(f"--mesh: {e}")
 
     buckets = None
     if args.buckets:
@@ -447,9 +479,7 @@ def serve_main(argv: Optional[List[str]] = None, block: bool = True):
                        window_s=args.breaker_window,
                        cooldown_s=args.breaker_cooldown,
                        half_open_probes=args.breaker_probes)
-    # --mesh raises here as the registry's mesh= does, until the
-    # multi-device slice (ROADMAP §A 8)
-    registry = ModelRegistry(metrics=default_registry(), mesh=args.mesh,
+    registry = ModelRegistry(metrics=default_registry(),
                              device=args.device,
                              max_batch_size=args.max_batch_size,
                              wait_ms=args.wait_ms, buckets=buckets,
@@ -478,8 +508,10 @@ def serve_main(argv: Optional[List[str]] = None, block: bool = True):
     for name, path in models:
         version = registry.register(
             name, path=path, dtype_policy=policies.get(name, "float32"),
-            input_shape=shapes.get(name))
+            input_shape=shapes.get(name),
+            mesh=serve_mesh, sharding_rules=serve_rules)
         state = registry.warmup_state(name, version)
+        mesh_tag = "" if serve_mesh is None else f" [mesh {args.mesh}]"
         extra = ""
         if state["status"] == "warm":
             extra = (f" (warmed {len(state['warm'])} bucket(s) in "
@@ -490,13 +522,27 @@ def serve_main(argv: Optional[List[str]] = None, block: bool = True):
             extra = f" (warmup skipped: {state['reason']})"
         elif state["status"] == "error":
             extra = f" (warmup FAILED: {state['reason']})"
-        print(f"registered {name!r} v{version} from {path}{extra}")
+        print(f"registered {name!r} v{version} from {path}{mesh_tag}{extra}")
     for name, chain in fallbacks.items():
         try:
             registry.set_fallback(name, chain)
         except (KeyError, ValueError) as e:
             p.error(f"--fallback {name}: {e}")
         print(f"fallback chain for {name!r}: {chain}")
+    if serve_mesh is not None:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            # a follower rank: no HTTP; it runs rank 0's forwards until
+            # rank 0 stops (block=False hands the registry to the caller,
+            # who calls follow())
+            print(f"rank {dist.get_rank()} follows rank 0's forwards on the "
+                  f"mesh {args.mesh}")
+            if block:
+                try:
+                    registry.follow()
+                finally:
+                    registry.shutdown()
+            return registry
     brownout = None
     if args.brownout:
         brownout = dict(saturation=args.brownout_saturation)

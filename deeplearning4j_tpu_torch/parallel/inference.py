@@ -43,9 +43,21 @@ closes after the answer is copied to the host, so on the card its wall
 time covers the device work (what the cost ledger apportions).
 
 The dispatcher thread enters ``torch.inference_mode()`` itself (the mode
-is thread-local), and so does every restarted one. ``mesh=`` and
-``set_mesh`` take one device only; multi-device serving comes with the
-multi-device slice (ROADMAP item 8).
+is thread-local), and so does every restarted one.
+
+Sharded serving (``mesh=``, a ``DeviceMesh`` over the whole
+``torch.distributed`` world): the declared buckets are rounded up to the
+mesh's ``data`` axis, a model placed on a mesh (``shard_model`` /
+``shard_model_with_rules``; a network given unplaced with ``mesh=`` is
+placed replicated on it) is served through the world's lockstep stream
+(``parallel/lockstep.py``, C35): the padded batch goes from rank 0 to
+every rank, is placed ``Shard(0)`` on the data axis by
+``sharding.place_batch``, and every rank runs the same forward, whose
+full answer (C33) rank 0 returns. Every rank binds the same models under
+the same tags (:meth:`bind_model`; ``update_model`` and the registry's
+``register`` do it) and the followers call :meth:`follow`. The forward
+of a placed network runs under ``torch.no_grad()`` instead of inference
+mode (DTensor's views cannot be made of inference tensors).
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.train_step import to_host
 from deeplearning4j_tpu_torch.observe import trace as _trace
+from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
 from deeplearning4j_tpu_torch.streaming.codec import mark_bfloat16
 from deeplearning4j_tpu_torch.util import faultinject as _faultinject
 
@@ -194,15 +207,28 @@ def _model_device(model) -> Optional[torch.device]:
     return None if dev is None else torch.device(dev)
 
 
-def _single_device(mesh):
-    """``mesh`` (a ``torch.distributed`` ``DeviceMesh``) when it spans one
-    device, or None (the model's own device); the multi-device dispatch
-    comes with the multi-device slice."""
-    if mesh is not None and mesh.size() != 1:
-        raise ValueError(
-            f"a mesh of {mesh.size()} devices: the port serves on one device "
-            "until the multi-device slice (ROADMAP item 8)")
+def _model_mesh(model):
+    """The mesh a network is placed on, or None."""
+    return getattr(model, "_mesh", None)
+
+
+def _world_mesh(mesh):
+    """``mesh`` (None, or a ``DeviceMesh``), checked to span the whole
+    world: every follower of the lockstep stream runs every forward."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"a serving mesh spans the whole world: {mesh.size()} of "
+                             f"{dist.get_world_size()} ranks")
     return mesh
+
+
+def _round_up(buckets, mesh) -> Tuple[int, ...]:
+    """Each bucket rounded up to a multiple of the mesh's data-axis size,
+    so that the padded batch always shards evenly."""
+    d = axis_size(mesh, DATA_AXIS)
+    return tuple(sorted({-(-int(b) // d) * d for b in buckets}))
 
 
 class ParallelInference:
@@ -239,7 +265,7 @@ class ParallelInference:
         self.mode = mode
         self.max_batch_size = int(max_batch_size)
         self.wait_s = wait_ms / 1e3
-        self.mesh = _single_device(mesh)
+        self.mesh = _world_mesh(mesh)
         if buckets is None:
             raw = []
             b = 1
@@ -251,7 +277,7 @@ class ParallelInference:
             raw = [int(b) for b in buckets]
             if not raw or min(raw) < 1:
                 raise ValueError("buckets must be positive batch sizes")
-        self.buckets: Tuple[int, ...] = tuple(sorted(set(raw)))
+        self.buckets: Tuple[int, ...] = _round_up(raw, self.mesh)
         # bounded: clients choose the row shape and dtype
         self._pad_buffers: Dict[tuple, _PadBuffer] = {}
         self._max_pad_buffers = max(16, 2 * len(self.buckets))
@@ -304,6 +330,15 @@ class ParallelInference:
                 "serving_dispatcher_restarts_total",
                 "Supervised in-place restarts of a crashed batching "
                 "dispatcher thread", ("model",))
+        # sharded serving: the world's lockstep stream once a model on a
+        # mesh is bound, and the models every rank binds under one tag
+        self._lockstep = None
+        self._bound: Dict[object, object] = {}   # tag -> model
+        self._tags: Dict[int, object] = {}       # id(model) -> tag
+        self._bind_cv = threading.Condition()
+        self._next_tag = 0
+        if self.mesh is not None:
+            self.bind_model(model)
         if mode == "batched":
             self._start_worker()
 
@@ -335,14 +370,14 @@ class ParallelInference:
             raise ValueError("request must be at least 1-d (a batch of rows)")
         if self._shutdown:
             raise RuntimeError("ParallelInference is shut down")
+        self._require_leader()
         if self.mode in ("sequential", "inplace"):
             model = self._model()
             with _trace.span("inference_request", category="serve",
                              attrs={"model": self._metrics_name,
                                     "rows": int(x.shape[0]),
                                     "mode": self.mode}):
-                with torch.inference_mode():
-                    res = host_answer(model.output(x))
+                res = self.forward_now(model, x)
             return (res, model) if return_model else res
         if self.dispatcher_error is not None:
             self._ensure_dispatcher()
@@ -391,7 +426,14 @@ class ParallelInference:
 
     def update_model(self, model) -> None:
         """Atomically swap the served model (``ParallelInference.updateModel``).
-        In-flight batches finish on the old model."""
+        In-flight batches finish on the old model. On a mesh every rank
+        makes the call (it binds the model under the next tag); rank 0's
+        activation then reaches the followers through the stream."""
+        tag = self._tag_for(model)
+        if tag is None and (self.mesh is not None or _model_mesh(model) is not None):
+            tag = self.bind_model(model)
+        if tag is not None and self._lockstep.leader:
+            self._lockstep.submit(self._metrics_name, "activate", tag)
         with self._model_lock:
             self.model = model
 
@@ -459,11 +501,12 @@ class ParallelInference:
     # ------------------------------------------------------------ fast path
     def _bucket_for(self, n: int) -> Tuple[int, bool]:
         """Smallest declared bucket holding ``n`` rows, or (cold) the next
-        power of two. Returns ``(target_rows, declared)``."""
+        power of two, rounded up to the mesh's data axis. Returns
+        ``(target_rows, declared)``."""
         for b in self.buckets:
             if b >= n:
                 return b, True
-        return _pow2(n), False
+        return _round_up([_pow2(n)], self.mesh)[0], False
 
     def _to_device(self, x: np.ndarray, model, buf: Optional[_PadBuffer] = None):
         """Host batch → what the model's ``output`` is given, exactly as the
@@ -481,9 +524,147 @@ class ParallelInference:
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     def set_mesh(self, mesh) -> None:
-        """Repoint the dispatch at ``mesh`` (None: the model's own device).
-        One device only until the multi-device slice."""
-        self.mesh = _single_device(mesh)
+        """Repoint the dispatch at ``mesh`` (None: the model's own device)
+        and round the declared buckets up to its data-axis size. A model
+        placed on a mesh is still served on its own placement."""
+        self.mesh = _world_mesh(mesh)
+        self.buckets = _round_up(self.buckets, self.mesh)
+        if self.mesh is not None:
+            self._attach()
+
+    # ------------------------------------------------------ sharded serving
+    def _attach(self):
+        if self._lockstep is None:
+            from deeplearning4j_tpu_torch.parallel.lockstep import stream
+
+            self._lockstep = stream()
+            self._lockstep.attach(self._metrics_name, self)
+        return self._lockstep
+
+    def _require_leader(self) -> None:
+        if self._lockstep is not None and not self._lockstep.leader:
+            raise RuntimeError(
+                f"rank {self._lockstep.rank} follows rank 0 on the mesh: requests "
+                "go to rank 0; call follow() here")
+
+    def bind_model(self, model, tag=None):
+        """Bind ``model`` for sharded serving under ``tag`` (the next
+        integer by default); every rank binds the same models under the
+        same tags, in the same order. A network not placed on a mesh is
+        placed replicated on this dispatcher's mesh. Returns the tag, or
+        None for a model served on one device."""
+        if _model_mesh(model) is None:
+            if self.mesh is None:
+                return None
+            if hasattr(model, "_mesh"):  # a network of this package
+                from deeplearning4j_tpu_torch.parallel.sharding import shard_model
+
+                shard_model(model, self.mesh)
+        self._attach()
+        with self._bind_cv:
+            if tag is None:
+                tag = self._next_tag
+            if isinstance(tag, int):
+                self._next_tag = max(self._next_tag, tag + 1)
+            self._bound[tag] = model
+            self._tags[id(model)] = tag
+            self._bind_cv.notify_all()
+        return tag
+
+    def unbind_model(self, model) -> None:
+        """Drop a retired model from sharded serving: on rank 0 through the
+        stream, so that every rank drops it after the operations that
+        named it."""
+        tag = self._tag_for(model)
+        if tag is None:
+            return
+        if self._lockstep.leader:
+            self._lockstep.submit(self._metrics_name, "unbind", tag)
+            self._drop_tag(tag)
+
+    def _drop_tag(self, tag) -> None:
+        with self._bind_cv:
+            model = self._bound.pop(tag, None)
+            if model is not None and self._tags.get(id(model)) == tag:
+                del self._tags[id(model)]
+
+    def _tag_for(self, model):
+        with self._bind_cv:
+            tag = self._tags.get(id(model))
+            return tag if tag is not None and self._bound.get(tag) is model else None
+
+    def _bound_model(self, tag):
+        """The model bound under ``tag``, waiting for the bind."""
+        from deeplearning4j_tpu_torch.parallel.lockstep import BIND_TIMEOUT_S
+
+        deadline = time.monotonic() + BIND_TIMEOUT_S
+        with self._bind_cv:
+            while tag not in self._bound:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise RuntimeError(f"{self._metrics_name}: no model bound under "
+                                       f"tag {tag!r}")
+                self._bind_cv.wait(remaining)
+            return self._bound[tag]
+
+    @staticmethod
+    def _mesh_forward(model, x: torch.Tensor):
+        """The forward every rank runs: the batch placed ``Shard(0)`` on
+        the model's data axis, the full answer back."""
+        mesh = _model_mesh(model)
+        if mesh is not None:
+            from deeplearning4j_tpu_torch.parallel.sharding import place_batch
+
+            x = place_batch(x, mesh)
+        with torch.inference_mode(False), torch.no_grad():
+            return model.output(x)
+
+    def _lockstep_forward(self, model, tag, x: np.ndarray,
+                          buf: Optional[_PadBuffer] = None, op: str = "forward"):
+        """Rank 0's forward through the stream: the batch on this rank's
+        device, sent to the followers, the same forward on every rank;
+        the answer on the host."""
+        with torch.inference_mode(False):
+            dev = _model_device(model)
+            if dev is None or dev.type == "cpu":
+                xd = torch.from_numpy(np.array(x))
+            else:
+                xd = self._to_device(x, model, buf)
+            return self._lockstep.submit(
+                self._metrics_name, op, tag, xd,
+                lambda batch: host_answer(self._mesh_forward(model, batch)))
+
+    def _follow_op(self, header: dict, batch) -> None:
+        """A follower's share of one operation of rank 0's."""
+        op, tag = header["op"], header.get("tag")
+        if op in ("forward", "warmup"):
+            self._mesh_forward(self._bound_model(tag), batch)
+        elif op == "activate":
+            model = self._bound_model(tag)
+            with self._model_lock:
+                self.model = model
+        elif op == "unbind":
+            self._drop_tag(tag)
+        else:
+            raise ValueError(f"unknown lockstep operation {op!r}")
+
+    def follow(self) -> int:
+        """On a follower rank: run rank 0's mesh operations until it stops
+        (its ``shutdown``); returns how many ran. Returns 0 at once on
+        rank 0 or a world of one (C35)."""
+        if self._lockstep is None:
+            return 0
+        return self._lockstep.follow()
+
+    def forward_now(self, model, x) -> np.ndarray:
+        """One synchronous forward of ``model`` on the calling thread (the
+        registry's pinned, canary, fallback and shadow paths): through the
+        stream when the model is bound for sharded serving."""
+        tag = self._tag_for(model)
+        if tag is not None:
+            return self._lockstep_forward(model, tag, np.asarray(x))
+        with torch.inference_mode():
+            return host_answer(model.output(np.asarray(x)))
 
     def warmup(self, row_shape: Sequence[int], *, dtype=np.float32,
                model=None, buckets: Optional[Sequence[int]] = None,
@@ -493,16 +674,30 @@ class ParallelInference:
         own transfer path: kernel builds, allocator growth and library
         autotuning happen here, never under a live request. ``model``
         defaults to the live model; a version not yet activated can be
-        warmed before its hot swap. Returns ``{bucket: seconds}``."""
-        _single_device(mesh)
+        warmed before its hot swap. A bound model warms through the
+        stream on its own placement (``mesh`` is the reference's
+        override, which the placement already gives). Returns ``{bucket:
+        seconds}``; a follower runs rank 0's warm-ups in ``follow()`` and
+        returns ``{}`` here."""
+        if mesh is not None:
+            _world_mesh(mesh)
+        if self._lockstep is not None and not self._lockstep.leader:
+            return {}
         model = self._model() if model is None else model
+        tag = self._tag_for(model)
+        if tag is None and _model_mesh(model) is not None:
+            raise ValueError("warmup of a model placed on a mesh that no rank bound: "
+                             "bind_model() (or register()) it on every rank first")
         report = {}
         with torch.inference_mode():
             for b in (self.buckets if buckets is None else
                       [self._bucket_for(int(x))[0] for x in buckets]):
                 x = np.zeros((b,) + tuple(row_shape), dtype)
                 t0 = time.perf_counter()
-                to_host(model.output(self._to_device(x, model)))
+                if tag is not None:
+                    self._lockstep_forward(model, tag, x, op="warmup")
+                else:
+                    to_host(model.output(self._to_device(x, model)))
                 report[b] = time.perf_counter() - t0
                 try:
                     self._warmed_keys.setdefault(model, set()).add(
@@ -519,6 +714,9 @@ class ParallelInference:
         self._fail_queued(RuntimeError("ParallelInference shut down"))
         if self._m_up is not None:
             self._m_up.set(0, model=self._metrics_name)
+        if self._lockstep is not None:
+            # rank 0's last endpoint sends stop: every follow() returns
+            self._lockstep.detach(self._metrics_name, self)
 
     def _fail_queued(self, error: Exception) -> None:
         while True:
@@ -713,7 +911,11 @@ class ParallelInference:
             seq = self._forward_seq
             self._forward_seq += 1
             _faultinject.on_forward(self._metrics_name, seq)
-            out = host_answer(model.output(self._to_device(x, model, buf)))
+            tag = self._tag_for(model)
+            if tag is not None:
+                out = self._lockstep_forward(model, tag, x, buf)
+            else:
+                out = host_answer(model.output(self._to_device(x, model, buf)))
             if buf is not None and np.may_share_memory(out, buf.array):
                 out = out.copy()  # an answer must outlive the reused buffer
             self.batches_dispatched += 1

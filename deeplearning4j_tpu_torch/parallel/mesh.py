@@ -132,7 +132,8 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
 
     At most one axis size may be -1 (inferred, like a reshape). Default is a
     pure data-parallel mesh over all ranks. Every rank of the world calls
-    it with the same arguments."""
+    it with the same arguments; a layout asked for again in the same world
+    gives the same mesh object."""
     device_type = ensure_world(device_type)
     ranks = list(range(dist.get_world_size()) if devices is None else devices)
     n = len(ranks)
@@ -152,7 +153,22 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     if total > n:
         raise ValueError(f"mesh wants {total} devices, only {n} available")
     layout = torch.tensor(ranks[:total], dtype=torch.int64).reshape(sizes)
-    return DeviceMesh(device_type, layout, mesh_dim_names=tuple(names))
+    # one mesh object per layout and world: DTensor takes two meshes of one
+    # layout for equal and caches sharding decisions per thread, so a
+    # second mesh object would let threads (and so ranks) disagree on
+    # whose process groups a collective runs on
+    pg = dist.distributed_c10d._get_default_group()
+    key = (device_type, tuple(names), tuple(sizes), tuple(ranks[:total]))
+    have = _MESHES.get(key)
+    if have is not None and have[0] is pg:
+        return have[1]
+    mesh = DeviceMesh(device_type, layout, mesh_dim_names=tuple(names))
+    _MESHES[key] = (pg, mesh)
+    return mesh
+
+
+#: the meshes made in this process, by layout, with the world they were made in
+_MESHES: Dict[tuple, tuple] = {}
 
 
 def mesh_axes(mesh: DeviceMesh) -> Dict[str, int]:

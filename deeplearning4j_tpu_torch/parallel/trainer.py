@@ -216,17 +216,9 @@ class ParallelWrapper:
 
     # ----------------------------------------------------- averaging mode
     def _rank_generator(self) -> torch.Generator:
-        """This rank's generator for a flush's train-time draws: seeded
-        from a draw of the network's generator (which every rank makes
-        alike) and the rank's index on the data axis."""
-        net = self.model
-        gen = net.dropout_generator
-        base = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
-                                 device=gen.device).item())
-        rank = int(self.mesh.get_local_rank(self.data_axis))
-        mine = torch.Generator(device=gen.device)
-        mine.manual_seed((base + _RANK_SEED_STEP * (rank + 1)) % 2 ** 63)
-        return mine
+        """This rank's generator for a flush's train-time draws
+        (:func:`rank_generator`)."""
+        return rank_generator(self.model, self.mesh, self.data_axis)
 
     def _local_step(self, x, y, fm, lm) -> torch.Tensor:
         """The network's own step on this rank's block (plain tensors)."""
@@ -329,6 +321,20 @@ class ParallelWrapper:
             if len(pending) == k:
                 flush()
         flush()
+
+
+def rank_generator(net, mesh, data_axis: str = DATA_AXIS) -> torch.Generator:
+    """This rank's generator for a step's train-time draws: seeded from a
+    draw of the network's generator (which every rank makes alike) and
+    the rank's index on the data axis (the reference's ``fold_in(rng,
+    axis_index)``)."""
+    gen = net.dropout_generator
+    base = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                             device=gen.device).item())
+    rank = int(mesh.get_local_rank(data_axis))
+    mine = torch.Generator(device=gen.device)
+    mine.manual_seed((base + _RANK_SEED_STEP * (rank + 1)) % 2 ** 63)
+    return mine
 
 
 def _first(out):

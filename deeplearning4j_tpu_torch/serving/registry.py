@@ -81,9 +81,14 @@ Serving resilience (round 13): the data plane self-heals —
   503, when a chain is designated — the acceptance bar for the chaos
   tests is *zero client-visible 5xx after the breaker trips*.
 
-Counterpart of the JAX package's ``serving/registry.py``, ported whole
-but for GSPMD-sharded serving: ``mesh=`` and ``sharding_rules=`` raise a
-``ValueError`` until the multi-device slice (ROADMAP item 8). Path loads
+Counterpart of the JAX package's ``serving/registry.py``. Sharded serving
+(``register(mesh=, sharding_rules=)``, ``ModelRegistry(mesh=)``) places the
+version by the rules (``DEFAULT_2D_RULES`` by default) and serves it
+through the world's lockstep stream (``parallel/lockstep.py``, C35): every
+rank makes the same ``register`` calls in the same order (the SPMD
+program; no parameters are sent), rank 0 takes the requests, activations
+and retirements, and the other ranks call :meth:`ModelRegistry.follow`,
+which returns when rank 0's ``shutdown`` sends stop. Path loads
 (``register(path=...)``, :meth:`ModelRegistry.load`) place the network on
 ``cuda`` unless ``device="cpu"`` is asked for (the registry's own
 ``device=`` or the call's). Every forward the registry runs itself (the
@@ -103,24 +108,11 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.train_step import to_host
+from deeplearning4j_tpu_torch.parallel.mesh import mesh_axes
 from deeplearning4j_tpu_torch.parallel.inference import (
-    DispatcherCrashed, InferenceDeadlineExceeded, ParallelInference, host_answer)
+    DispatcherCrashed, InferenceDeadlineExceeded, ParallelInference)
 from deeplearning4j_tpu_torch.serving import breaker as _breaker
 from deeplearning4j_tpu_torch.serving import quantize as _quantize
-
-
-def _no_mesh(what: str, value) -> None:
-    if value is not None:
-        raise ValueError(
-            f"{what}: GSPMD-sharded serving comes with the multi-device "
-            "slice (ROADMAP item 8); the port serves each version on one "
-            "device")
-
-
-def _predict_host(model, x) -> np.ndarray:
-    """One synchronous forward, answered on the host."""
-    with torch.inference_mode():
-        return host_answer(model.output(np.asarray(x)))
 
 
 class ModelNotFound(KeyError):
@@ -144,17 +136,20 @@ class ModelVersion:
     provided at registration."""
 
     __slots__ = ("version", "model", "source", "registered_at",
-                 "dtype_policy", "quant_error")
+                 "dtype_policy", "quant_error", "mesh")
 
     def __init__(self, version: int, model, source: str,
                  dtype_policy: str = "float32",
-                 quant_error: Optional[dict] = None):
+                 quant_error: Optional[dict] = None, mesh=None):
         self.version = version
         self.model = model
         self.source = source
         self.registered_at = time.time()
         self.dtype_policy = dtype_policy
         self.quant_error = quant_error
+        # the mesh the version is placed on (None: one device); its
+        # activation repoints the dispatcher at it
+        self.mesh = mesh
 
 
 class ServedModel:
@@ -216,6 +211,8 @@ class ServedModel:
                  "dtype_policy": v.dtype_policy}
             if v.quant_error is not None:
                 d["quant_error"] = v.quant_error
+            if v.mesh is not None:  # the placement is operator-visible
+                d["mesh"] = mesh_axes(v.mesh)
             w = self.warmup_state.get(v.version)
             if w is not None:
                 d["warmup"] = dict(w)
@@ -275,10 +272,10 @@ class ModelRegistry:
         ``parallel.time_source.TimeSource``) drives breaker cooldowns AND
         restart backoff so chaos tests run on a manual clock. ``device``
         places the networks that path registrations load (None: ``cuda``,
-        raising without one)."""
+        raising without one). ``mesh`` is every dispatcher's default mesh:
+        a version registered without its own is placed replicated on it."""
         if warmup not in ("sync", "async", "off"):
             raise ValueError(f"warmup must be sync|async|off, got {warmup!r}")
-        _no_mesh("ModelRegistry(mesh=)", mesh)
         self.device = device
         if compile_cache_dir is not None:
             from deeplearning4j_tpu_torch.util.compile_cache import (
@@ -297,7 +294,7 @@ class ModelRegistry:
         self.cost = cost
         self._pi_kw = dict(max_batch_size=max_batch_size,
                            queue_limit=queue_limit, wait_ms=wait_ms,
-                           buckets=buckets,
+                           buckets=buckets, mesh=mesh,
                            max_restarts=int(max_dispatcher_restarts),
                            restart_clock=restart_clock, cost=cost)
         if restart_backoff is not None:
@@ -397,21 +394,33 @@ class ModelRegistry:
         spec (duck-typed stubs) skips warmup and is treated as warm.
 
         ``device`` places a ``path`` load (None: the registry's
-        ``device``, else ``cuda``). ``mesh`` / ``sharding_rules`` (GSPMD-
-        sharded serving) raise until the multi-device slice.
+        ``device``, else ``cuda``).
+
+        ``mesh`` serves this version sharded: it is placed by
+        ``sharding_rules`` (default: ``DEFAULT_2D_RULES``), warm-up batches
+        run on its placement, and its activation repoints the dispatcher
+        at this mesh. ``float32`` only. Every rank makes the same call;
+        on a follower rank the version is placed and bound, and rank 0's
+        warm-ups and activation reach it through :meth:`follow`.
         """
         if (model is None) == (path is None):
             raise ValueError("register() needs exactly one of model=/path=")
         if dtype_policy not in _quantize.DTYPE_POLICIES:
             raise ValueError(f"unknown dtype_policy {dtype_policy!r} "
                              f"(one of {_quantize.DTYPE_POLICIES})")
-        _no_mesh("register(mesh=)", mesh)
-        _no_mesh("register(sharding_rules=)", sharding_rules)
+        if mesh is not None and dtype_policy != "float32":
+            raise ValueError(
+                "mesh= (sharded serving) is float32-only: it requires "
+                f"dtype_policy='float32', got {dtype_policy!r}")
         source = "object"
         if path is not None:
             model = self.load(path, device=self.device if device is None
                               else device)
             source = str(path)
+        if mesh is not None:
+            from deeplearning4j_tpu_torch.parallel.sharding import (
+                shard_model_with_rules)
+            shard_model_with_rules(model, mesh, sharding_rules)
         quant_error = None
         served_obj = model
         if dtype_policy != "float32":
@@ -431,6 +440,10 @@ class ModelRegistry:
             if served is None:
                 first = True
                 pi_kw = dict(self._pi_kw)
+                if mesh is not None:
+                    # the dispatcher is born on the version's mesh, so its
+                    # buckets round to that data axis from the start
+                    pi_kw["mesh"] = mesh
                 served = ServedModel(
                     name, ParallelInference(
                         served_obj, mode="batched", metrics=self._metrics,
@@ -440,7 +453,10 @@ class ModelRegistry:
             served.next_version += 1
             served.versions[version] = ModelVersion(
                 version, served_obj, source, dtype_policy=dtype_policy,
-                quant_error=quant_error)
+                quant_error=quant_error, mesh=mesh)
+            if mesh is not None or self._pi_kw.get("mesh") is not None:
+                # every rank binds the version under its number
+                served.inference.bind_model(served_obj, tag=version)
             if self._breaker_kw is not None:
                 served.breakers[version] = _breaker.CircuitBreaker(
                     time_source=self._time_source,
@@ -535,12 +551,15 @@ class ModelRegistry:
         row_shape, dtype = spec
         state = served.warmup_state[version]
         model = served.versions[version].model
+        # a version on its own mesh warms on it, not on the dispatcher's
+        # current one (they differ until its activation)
+        vmesh = served.versions[version].mesh
         state["status"] = "warming"
         t0 = time.perf_counter()
         try:
             for b in state["buckets"]:
                 served.inference.warmup(row_shape, dtype=dtype, model=model,
-                                        buckets=[b])
+                                        buckets=[b], mesh=vmesh)
                 with self._lock:
                     state["warm"].append(b)
                     self._update_warm_gauge(served)
@@ -659,6 +678,7 @@ class ModelRegistry:
                 served.shadow = None
             if served.previous_version == version:
                 served.previous_version = None
+            served.inference.unbind_model(served.versions[version].model)
             del served.versions[version]
             served.warmup_state.pop(version, None)
             served.warmup_spec.pop(version, None)
@@ -779,7 +799,7 @@ class ModelRegistry:
                 retry_after_s=br.retry_after_s() if br is not None
                 else None)
         t0 = time.perf_counter()
-        out = _predict_host(model, x)
+        out = served.inference.forward_now(model, x)
         if deadline_s is not None \
                 and time.perf_counter() - t0 > deadline_s:
             raise InferenceDeadlineExceeded(
@@ -959,7 +979,7 @@ class ModelRegistry:
                 return  # experiment ended while queued
             model = served.versions[version].model
         try:
-            shadow_out = to_host(model.output(x))
+            shadow_out = to_host(served.inference.forward_now(model, x))
             diff = float(np.max(np.abs(
                 shadow_out.astype(np.float64)
                 - np.asarray(live_out).astype(np.float64))))
@@ -1013,7 +1033,15 @@ class ModelRegistry:
             try:
                 # the swap itself is atomic inside ParallelInference; the
                 # _swapping counter only widens the readiness signal around it
-                served.inference.update_model(served.versions[version].model)
+                incoming = served.versions[version]
+                vmesh = incoming.mesh if incoming.mesh is not None \
+                    else self._pi_kw.get("mesh")
+                if vmesh is not served.inference.mesh:
+                    # batches round to the incoming version's data axis;
+                    # in-flight batches finish on the old model, which
+                    # keeps its own placement
+                    served.inference.set_mesh(vmesh)
+                served.inference.update_model(incoming.model)
                 with self._lock:
                     served.previous_version = served.current_version
                     served.current_version = version
@@ -1153,7 +1181,7 @@ class ModelRegistry:
             # 504, never an arbitrarily-late 200. (The forward itself is
             # not preemptible, so the check is after the fact.)
             t0 = time.perf_counter()
-            out = _predict_host(pinned, x)
+            out = served.inference.forward_now(pinned, x)
             if deadline_s is not None \
                     and time.perf_counter() - t0 > deadline_s:
                 raise InferenceDeadlineExceeded(
@@ -1206,6 +1234,18 @@ class ModelRegistry:
         return out, ver
 
     # ----------------------------------------------------------- lifecycle
+    def follow(self) -> int:
+        """On a follower rank of sharded serving: run rank 0's mesh
+        operations (dispatches, warm-ups, activations) until rank 0's
+        ``shutdown`` sends stop; returns how many ran. 0 at once on rank 0
+        or with no ``torch.distributed`` world (C35)."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            return 0
+        from deeplearning4j_tpu_torch.parallel.lockstep import stream
+        return stream().follow()
+
     def shutdown(self) -> None:
         """Stop every dispatcher (flushes in-flight batches first) and
         the shadow worker (a parked daemon thread would otherwise keep

@@ -150,10 +150,27 @@ def test_serve_flag_errors_carry_the_reference_s_messages(case, files, capsys):
     assert same_text(*errs)
 
 
-def test_serve_mesh_waits_for_the_multi_device_slice(files):
-    with pytest.raises(ValueError, match="multi-device slice"):
-        p_cli.serve_main(["--model", f"m={files['model']}", "--port", "0", "--device", "cpu",
-                          "--mesh", "data=2"], block=False)
+def test_serve_mesh_waits_for_the_multi_device_slice(files, capsys):
+    """``serve --mesh`` serves since the sharded-serving slice: with no
+    world it opens one of one rank (gloo for ``--device cpu``), where a
+    mesh wanting two ranks is reported by ``p.error`` (exit 2) and
+    ``data=1`` answers over HTTP as the reference's one-device mesh."""
+    import torch.distributed as dist
+
+    argv = ["--model", f"m={files['model']}", "--port", "0", "--device", "cpu"]
+    try:
+        with pytest.raises(SystemExit) as e:
+            p_cli.serve_main(argv + ["--mesh", "data=2"], block=False)
+        assert e.value.code == 2
+        assert "--mesh: mesh wants 2 devices, only 1 available" in capsys.readouterr().err
+        server = p_cli.serve_main(argv + ["--mesh", "data=1"], block=False)
+        try:
+            assert server.registry.get("m").describe()["versions"][0]["mesh"] == {"data": 1}
+        finally:
+            server.stop(drain=True, shutdown_registry=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 PIPELINE_ERRORS = {

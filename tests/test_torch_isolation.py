@@ -65,6 +65,10 @@ def test_import_leaves_jax_unloaded():
             "deeplearning4j_tpu_torch.parallel.mesh, "
             "deeplearning4j_tpu_torch.parallel.sharding, "
             "deeplearning4j_tpu_torch.parallel.trainer, "
+            "deeplearning4j_tpu_torch.parallel.compression, "
+            "deeplearning4j_tpu_torch.parallel.master, "
+            "deeplearning4j_tpu_torch.parallel.dcn, "
+            "deeplearning4j_tpu_torch.parallel.lockstep, "
             "deeplearning4j_tpu_torch.nn.dtensor, "
             "deeplearning4j_tpu_torch.util.convert, "
             "deeplearning4j_tpu_torch.util.model_serializer, "

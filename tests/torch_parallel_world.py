@@ -674,15 +674,30 @@ def early_stopping(inp):
 
 
 # ------------------------------------------------------------------- ranks
-def rank_main(rank: int, world: int, store: str, inputs: str, outputs: str) -> None:
-    """One rank of the world: every scenario in turn; rank 0 writes the
-    results (an ``{"error": traceback}`` entry for a scenario that
-    raised)."""
+def rank_main(rank: int, world: int, store: str, inputs: str, outputs: str,
+              modules: tuple = ()) -> None:
+    """One rank of the world: every scenario that has inputs in turn,
+    after importing ``modules`` (test helper modules that add scenarios
+    of their own); rank 0 writes the results (an ``{"error": traceback}``
+    entry for a scenario that raised). ``store`` is an ``init_method``
+    URL, or ``host:port``: then the ranks join as a launcher joins them,
+    through ``parallel.master.init_distributed``, rank 0 serving the TCP
+    store on the loopback address."""
+    import importlib
+
+    for m in modules:
+        importlib.import_module(m)
     torch.set_num_threads(1)
     # a rank that fails alone leaves the others waiting in a collective:
     # they give up after the timeout instead of holding the test run
-    dist.init_process_group("gloo", init_method=store, rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=120))
+    if "://" in store:
+        dist.init_process_group("gloo", init_method=store, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+    else:
+        from deeplearning4j_tpu_torch.parallel.master import init_distributed
+
+        init_distributed(store, num_processes=world, process_id=rank,
+                         coordinator_bind_address="127.0.0.1", device_type="cpu")
     try:
         with open(inputs, "rb") as fh:
             inp = pickle.load(fh)
@@ -703,12 +718,17 @@ def rank_main(rank: int, world: int, store: str, inputs: str, outputs: str) -> N
 
 
 def run_world(inputs: str, outputs: str, store: str, world: int = WORLD,
-              deadline_s: float = 600.0) -> None:
+              deadline_s: float = 600.0, modules: tuple = ()) -> None:
     """Start ``world`` ranks of :func:`rank_main` and wait for them, at
-    most ``deadline_s`` seconds (then every rank is killed and it raises)."""
+    most ``deadline_s`` seconds (then every rank is killed and it raises).
+    ``modules`` are imported in every rank before the scenarios run (the
+    scenarios they add join :data:`SCENARIOS`); a world runs only the
+    scenarios that ``inputs`` holds, so each test file's world runs its
+    own."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(rank_main, args=(world, store, inputs, outputs),
+    ctx = mp.start_processes(rank_main, args=(world, store, inputs, outputs,
+                                              tuple(modules)),
                              nprocs=world, start_method="spawn", join=False)
     end = time.monotonic() + deadline_s
     try:
